@@ -1,0 +1,85 @@
+"""Weight bridge from the reference package's pytrees to the port's trees.
+
+The reference stacks every layer leaf on a leading period axis (params
+``blocks/b<j>/...`` of shape ``(n_periods, ...)``; adapter banks
+``(n_periods, C, d_in, r)``).  The port keeps one dict per layer.  These
+functions take the reference trees AS NUMPY ARRAYS (``np.asarray`` on each
+leaf; bfloat16 arrays are accepted) and return torch trees, so both
+packages compute on the same weights.  Nothing here imports the reference
+package: the trees are plain nested dicts.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def to_torch(x, device="cpu") -> torch.Tensor:
+    """One numpy leaf -> tensor (bfloat16 goes through float32, exactly)."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _unstack_blocks(blocks: Params, n_layers: int, device) -> list:
+    """``{"b0": tree, "b1": tree, ...}`` with leaves (n_periods, ...) ->
+    per-layer trees: layer ``p * period + j`` is period p of block j."""
+    names = sorted(blocks, key=lambda n: int(n[1:]))
+    period = len(names)
+    layers = []
+    for i in range(n_layers):
+        p, j = divmod(i, period)
+        layers.append(_map(lambda leaf: to_torch(np.asarray(leaf)[p], device),
+                           blocks[names[j]]))
+    return layers
+
+
+def _n_layers(blocks: Params) -> int:
+    def first_leaf(t):
+        while isinstance(t, dict):
+            t = next(iter(t.values()))
+        return t
+    return len(blocks) * int(np.asarray(first_leaf(blocks)).shape[0])
+
+
+def params_from_jax(tree: Params, device="cpu") -> Params:
+    """Reference ``init_params`` tree (numpy leaves) -> port params."""
+    out = {"embed": to_torch(tree["embed"], device),
+           "final_norm": _map(lambda l: to_torch(l, device),
+                              tree["final_norm"]),
+           "layers": _unstack_blocks(tree["blocks"],
+                                     _n_layers(tree["blocks"]), device)}
+    if "lm_head" in tree:
+        out["lm_head"] = to_torch(tree["lm_head"], device)
+    return out
+
+
+def adapters_from_jax(tree: Params, device="cpu") -> Params:
+    """Reference adapter tree or registry bank (numpy leaves, stacked on the
+    period axis) -> port tree ``{"layers": [...]}``."""
+    blocks = tree["blocks"]
+    return {"layers": _unstack_blocks(blocks, _n_layers(blocks), device)}
+
+
+def config_from_jax(cfg, **overrides):
+    """The port's ``ModelConfig`` with the fields of a reference config
+    (read by attribute; the backend switch is the port's own)."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)
+          if f.name != "paged_backend" and hasattr(cfg, f.name)}
+    kw.update(overrides)
+    return ModelConfig(**kw)

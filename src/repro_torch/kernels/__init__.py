@@ -1,0 +1,28 @@
+"""The port's hand-written Hopper kernels and their plain versions.
+
+Importing this package builds nothing and needs no card: the CUDA sources
+under ``csrc/`` are compiled on first launch (``kernels/build.py``).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels.batched_lora import batched_lora_matmul
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_prefill import paged_prefill_attention
+
+# every kernel wrapper, by the name its launch counter reports under
+WRAPPERS = {
+    "paged_attention": paged_attention,
+    "paged_prefill_attention": paged_prefill_attention,
+    "batched_lora_matmul": batched_lora_matmul,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,84 @@
+"""Model-layout adapters over the kernel wrappers.
+
+Port of ``repro/kernels/ops.py`` (the three entry points this slice
+serves).  The reference padded head dims and ranks to 128 lanes for the
+TPU; the CUDA kernels take any width, so nothing is padded here.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels.batched_lora import batched_lora_matmul
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_prefill import (paged_prefill_attention,
+                                               paged_scatter,
+                                               paged_scatter_quant)
+
+
+def batched_lora_dense(x: torch.Tensor, w: torch.Tensor,
+                       bank: Dict[str, torch.Tensor],
+                       adapter_ids: torch.Tensor, scale: float) -> torch.Tensor:
+    """Multi-tenant dense: x (B, ..., K) @ w (K, N) with per-request routing
+    into ``bank`` = {"a": (C, K, r), "b": (C, r, N)} (int8 banks add
+    ``a_scale``/``b_scale`` (C,)).  ``adapter_ids`` (B,) broadcasts over the
+    trailing axes of ``x``."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    rows_per_item = 1
+    for s in lead[1:]:
+        rows_per_item *= s
+    g = torch.repeat_interleave(adapter_ids.to(torch.int32), rows_per_item)
+    y = batched_lora_matmul(x.reshape(-1, K).contiguous(), w, bank["a"],
+                            bank["b"], g, scale, a_scale=bank.get("a_scale"),
+                            b_scale=bank.get("b_scale"))
+    return y.reshape(*lead, w.shape[1])
+
+
+def paged_gqa_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, block_tables: torch.Tensor,
+                        lengths: torch.Tensor, *,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Decode attention in model layout: q (B, 1, H, hd) or (B, H, hd).
+    ``lengths`` is exclusive: in the serving decode step pass the pre-write
+    position + 1, AFTER scattering the step's K/V, so the token being
+    decoded attends itself.  Returns q's shape."""
+    squeeze = q.dim() == 4
+    if squeeze:
+        q = q[:, 0]
+    o = paged_attention(q.contiguous(), k_pool, v_pool,
+                        block_tables.to(torch.int32).contiguous(),
+                        lengths.to(torch.int32).contiguous(),
+                        k_scale=k_scale, v_scale=v_scale)
+    return o[:, None] if squeeze else o
+
+
+def paged_prefill_gqa_attention(q: torch.Tensor, k_new: torch.Tensor,
+                                v_new: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                lengths: torch.Tensor, n_new: torch.Tensor, *,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None):
+    """Chunk attention in model layout: scatter the chunk's K/V (B, T, Kv,
+    hd) through the tables (ragged tails ``t >= n_new[b]`` to scratch block
+    0), then run the prefill kernel over the updated pools.  Returns
+    (out (B, T, H, hd), k_pool, v_pool[, k_scale, v_scale]); pools are
+    updated in place."""
+    bt = block_tables.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    quantized = k_scale is not None
+    if quantized:
+        kp, vp, ks, vs = paged_scatter_quant(k_pool, v_pool, k_scale, v_scale,
+                                             k_new, v_new, bt, lens, n_new)
+    else:
+        kp, vp = paged_scatter(k_pool, v_pool, k_new, v_new, bt, lens, n_new)
+        ks = vs = None
+    o = paged_prefill_attention(q.contiguous(), kp, vp, bt, lens,
+                                k_scale=ks, v_scale=vs)
+    if quantized:
+        return o, kp, vp, ks, vs
+    return o, kp, vp

@@ -1,0 +1,94 @@
+"""Plain PyTorch versions of the port's kernels (the allclose targets).
+
+Each is the port of the reference package's oracle of the same name
+(``repro/kernels/ref.py``).  The kernel wrappers run these for tensors on
+the CPU; on a card they are only ever called to check a kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def batched_lora_matmul_ref(x, w, a, b, adapter_ids, scale: float, *,
+                            a_scale=None, b_scale=None, ranks=None):
+    """Multi-tenant LoRA: ``y[i] = x[i]@w + scale*(x[i]@a[g[i]])@b[g[i]]``.
+
+    x: (M, K), w: (K, N), a: (C, K, r), b: (C, r, N), adapter_ids: (M,).
+    int8 banks pass ``a_scale``/``b_scale`` ((C,) fp32); ragged banks pass
+    ``ranks`` ((C,) int32) and rank columns at or past a row's rank are
+    zeroed between the two products.  One rounding to ``x.dtype`` at the
+    end."""
+    ids = adapter_ids.long()
+    base = torch.matmul(x.float(), w.float())
+    ag = a[ids].float()                                     # (M, K, r)
+    bg = b[ids].float()                                     # (M, r, N)
+    if a_scale is not None:
+        ag = ag * a_scale[ids].float()[:, None, None]
+        bg = bg * b_scale[ids].float()[:, None, None]
+    z = torch.einsum("mk,mkr->mr", x.float(), ag)
+    if ranks is not None:
+        rk = ranks.long()[ids]
+        col = torch.arange(z.shape[-1], device=z.device)[None, :]
+        z = torch.where(col < rk[:, None], z, torch.zeros_like(z))
+    z = torch.einsum("mr,mrn->mn", z, bg)
+    return (base + scale * z).to(x.dtype)
+
+
+def _gather_pool(pool, pool_scale, block_tables, rep: int):
+    """The padded per-row block gather (B, MB*bs, Kv*rep, hd) in fp32,
+    dequantizing int8 pools with their (NB, bs, Kv) scales."""
+    B, MB = block_tables.shape
+    bs, Kv, hd = pool.shape[1:]
+    bt = block_tables.long()
+    g = pool[bt].reshape(B, MB * bs, Kv, hd).float()
+    if pool_scale is not None:
+        g = g * pool_scale[bt].reshape(B, MB * bs, Kv)[..., None].float()
+    return torch.repeat_interleave(g, rep, dim=2)
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
+                        k_scale=None, v_scale=None,
+                        scale: Optional[float] = None):
+    """Paged decode attention.  q: (B, H, hd); pools (NB, bs, Kv, hd);
+    block_tables (B, MB); lengths (B,) exclusive: row b attends
+    ``[0, lengths[b])``.  Empty rows give zeros."""
+    B, H, hd = q.shape
+    bs, Kv = k_pool.shape[1], k_pool.shape[2]
+    MB = block_tables.shape[1]
+    scale = scale if scale is not None else hd ** -0.5
+    k = _gather_pool(k_pool, k_scale, block_tables, H // Kv)
+    v = _gather_pool(v_pool, v_scale, block_tables, H // Kv)
+    logits = torch.einsum("bhd,bkhd->bhk", q.float(), k) * scale
+    mask = (torch.arange(MB * bs, device=q.device)[None, :]
+            < lengths.long()[:, None])                      # (B, L)
+    logits = torch.where(mask[:, None, :], logits,
+                         torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(mask[:, None, :], probs, torch.zeros_like(probs))
+    return torch.einsum("bhk,bkhd->bhd", probs, v).to(q.dtype)
+
+
+def paged_prefill_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
+                                k_scale=None, v_scale=None,
+                                scale: Optional[float] = None):
+    """Chunked paged prefill.  q: (B, T, H, hd) at positions
+    ``lengths[b] + t``; pools already hold the chunk's K/V.  Query t of row
+    b attends ``[0, lengths[b] + t]``."""
+    B, T, H, hd = q.shape
+    bs, Kv = k_pool.shape[1], k_pool.shape[2]
+    MB = block_tables.shape[1]
+    scale = scale if scale is not None else hd ** -0.5
+    k = _gather_pool(k_pool, k_scale, block_tables, H // Kv)
+    v = _gather_pool(v_pool, v_scale, block_tables, H // Kv)
+    logits = torch.einsum("bthd,bkhd->bhtk", q.float(), k) * scale
+    q_pos = (lengths.long()[:, None]
+             + torch.arange(T, device=q.device)[None, :])   # (B, T)
+    k_pos = torch.arange(MB * bs, device=q.device)
+    mask = k_pos[None, None, :] <= q_pos[:, :, None]        # (B, T, L)
+    logits = torch.where(mask[:, None], logits,
+                         torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(mask[:, None], probs, torch.zeros_like(probs))
+    return torch.einsum("bhtk,bkhd->bthd", probs, v).to(q.dtype)

@@ -1,0 +1,283 @@
+"""Neural-net primitives of the dense decoder (plain functions on tensors).
+
+Port of the dense subset of ``repro/models/layers.py``.  Weights keep the
+reference's ``(d_in, d_out)`` layout (``y = x @ w``).  Linear layers take an
+optional LoRA pair; the adapter path computes in fp32 and is added to the
+frozen base output.  ``cfg.paged_backend`` (resolved by the model before
+it gets here) picks the paged-attention path: ``"torch"`` gathers the
+row's blocks and attends one chunk position at a time (the reference's
+jnp path, bitwise-stable across chunk sizes), ``"cuda"`` runs the
+hand-written kernels — and routes every banked projection through the
+batched-LoRA kernel.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.paged_prefill import paged_scatter
+
+Params = Dict[str, Any]
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """x @ w with fp32 accumulation, rounded to ``out_dtype`` (x's dtype by
+    default).  An fp32 result from bf16 inputs multiplies in fp32."""
+    out_dtype = out_dtype or x.dtype
+    if out_dtype == torch.float32 and x.dtype != torch.float32:
+        return torch.matmul(x.float(), w.float())
+    return torch.matmul(x, w.to(x.dtype)).to(out_dtype)
+
+
+def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               adapter_ids: Optional[torch.Tensor] = None,
+               a_scale: Optional[torch.Tensor] = None,
+               b_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """fp32 LoRA update (x·A)·B.  Single-tenant: a (d_in, r), b (r, d_out).
+    Banked: a (C, d_in, r), b (C, r, d_out) with ``adapter_ids`` (B,)
+    routing each batch row of x (B, S, d_in) to its client."""
+    xf = x.float()
+    if a.dim() == 3:
+        if adapter_ids is None:
+            raise ValueError("banked LoRA leaves need adapter_ids")
+        ids = adapter_ids.long()
+        ag, bg = a[ids].float(), b[ids].float()          # (B, d, r), (B, r, n)
+        if a_scale is not None:
+            ag = ag * a_scale[ids].float()[:, None, None]
+            bg = bg * b_scale[ids].float()[:, None, None]
+        lead = xf.shape
+        z = torch.bmm(xf.reshape(lead[0], -1, lead[-1]), ag)
+        return torch.bmm(z, bg).reshape(*lead[:-1], bg.shape[-1])
+    af, bf = a.float(), b.float()
+    if a_scale is not None:
+        af, bf = af * a_scale, bf * b_scale
+    return torch.matmul(torch.matmul(xf, af), bf)
+
+
+def lora_pair(adapters: Optional[Params], name: str):
+    """The LoRA tuple :func:`dense` takes for one target, or None."""
+    if adapters is None or name not in adapters:
+        return None
+    ad = adapters[name]
+    if "a_scale" in ad:
+        return (ad["a"], ad["b"], ad["a_scale"], ad["b_scale"])
+    return (ad["a"], ad["b"])
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          lora: Optional[Tuple[torch.Tensor, ...]] = None,
+          lora_scale: float = 1.0,
+          adapter_ids: Optional[torch.Tensor] = None,
+          backend: Optional[str] = None) -> torch.Tensor:
+    """Linear layer with optional LoRA.  With ``backend == "cuda"`` and a
+    banked adapter, the batched-LoRA kernel computes base and update in one
+    pass (rounding once); otherwise the base product is rounded to x's
+    dtype before the fp32 update is added, as in the reference."""
+    if (backend == "cuda" and lora is not None and lora[0].dim() == 3):
+        bank = {"a": lora[0], "b": lora[1]}
+        if len(lora) == 4:
+            bank["a_scale"], bank["b_scale"] = lora[2], lora[3]
+        return kernel_ops.batched_lora_dense(x, w, bank, adapter_ids,
+                                             lora_scale)
+    y = matmul(x, w)
+    if lora is not None:
+        a, b, *scales = lora
+        z = lora_delta(x, a, b, adapter_ids, *scales)
+        y = (y.float() + lora_scale * z).to(y.dtype)
+    return y
+
+
+def apply_norm(params: Params, x: torch.Tensor, norm_type: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if norm_type == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * params["scale"].float()
+    else:
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean((xf - mean) ** 2, dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + eps)
+        if norm_type == "layernorm":
+            y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, n_heads, hd); positions (B, S) or (S,).  Split-half
+    convention: the first and second halves of the head dim rotate as
+    pairs."""
+    hd = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                          device=x.device) / hd))
+    angles = positions[..., :, None].float() * freqs          # (..., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Kv, hd) -> (B, S, Kv*n_rep, hd)."""
+    if n_rep == 1:
+        return x
+    return torch.repeat_interleave(x, n_rep, dim=2)
+
+
+def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+               sliding_window: int) -> torch.Tensor:
+    """Boolean (Sq, Sk) mask, True = attend."""
+    causal = k_pos[None, :] <= q_pos[:, None]
+    if sliding_window > 0:
+        causal = causal & (k_pos[None, :] > (q_pos[:, None] - sliding_window))
+    return causal
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
+          mask: Optional[torch.Tensor], out_dtype) -> torch.Tensor:
+    """Masked softmax attention: q (B, Sq, H, hd), k/v (B, Sk, Kv, hd) ->
+    (B, Sq, H*hd).  ``mask``: (Sq, Sk) shared, (B, Sq, Sk) per row, or
+    None.  Logits and softmax in fp32."""
+    B, Sq, H, hd = q.shape
+    rep = H // k.shape[2]
+    k, v = repeat_kv(k, rep), repeat_kv(v, rep)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    if cfg.attn_logit_softcap > 0:
+        c = cfg.attn_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    if mask is not None:
+        shaped = mask[:, None] if mask.dim() == 3 else mask[None, None]
+        logits = torch.where(shaped, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(out_dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+    return out.to(out_dtype).reshape(B, Sq, H * hd)
+
+
+def _paged_attention_cuda(params, q, k, v, x, cfg, kv_cache, block_tables,
+                          lengths, n_new, dn, la):
+    """The paged branch through the CUDA kernels: decode steps (2-tuple
+    ``paged``, S == 1) scatter then attend with exclusive ``lengths + 1``;
+    prefill chunks go through ``paged_prefill_gqa_attention``, which owns
+    the scatter."""
+    B, S, H, hd = q.shape
+    if cfg.sliding_window > 0 or cfg.attn_logit_softcap > 0:
+        raise NotImplementedError(
+            "paged_backend='cuda' supports full attention only (no sliding "
+            "window / logit softcap); use paged_backend='torch'")
+    kp, vp = kv_cache["k_pool"], kv_cache["v_pool"]
+    if n_new is None and S == 1:
+        paged_scatter(kp, vp, k, v, block_tables, lengths, None)
+        o = kernel_ops.paged_gqa_attention(q, kp, vp, block_tables,
+                                           lengths + 1)
+    else:
+        nn = (n_new if n_new is not None
+              else torch.full((B,), S, dtype=torch.int32, device=q.device))
+        o, kp, vp = kernel_ops.paged_prefill_gqa_attention(
+            q, k, v, kp, vp, block_tables, lengths, nn)
+    out = dn(o.to(x.dtype).reshape(B, S, H * hd), params["wo"], la("wo"))
+    return out, {"k_pool": kp, "v_pool": vp}
+
+
+def multihead_attention(params: Params, x: torch.Tensor, cfg,
+                        positions: torch.Tensor,
+                        adapters: Optional[Params] = None,
+                        lora_scale: float = 1.0,
+                        kv_cache: Optional[Params] = None,
+                        adapter_ids: Optional[torch.Tensor] = None,
+                        paged: Optional[Tuple] = None):
+    """Attention over x (B, S, d).
+
+    * no cache: causal (+ window) attention over the S positions;
+    * paged (continuous batching): ``kv_cache`` = {"k_pool", "v_pool":
+      (NB, bs, Kv, hd)} shared by all slots, ``paged = (block_tables (B,
+      MB), lengths (B,)[, n_new (B,)])``.  The S new tokens scatter to
+      positions ``lengths[b] + t`` (with n_new, tails go to scratch block
+      0) and query t attends ``[0, lengths[b] + t]``.  The pools are
+      updated in place.
+
+    Returns (out (B, S, d), new cache or None)."""
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, S, _ = x.shape
+    backend = cfg.paged_backend
+
+    def la(name):
+        return lora_pair(adapters, name)
+
+    def dn(inp, w, lora):
+        return dense(inp, w, lora, lora_scale, adapter_ids, backend)
+
+    q = dn(x, params["wq"], la("wq")).reshape(B, S, H, hd)
+    k = dn(x, params["wk"], la("wk")).reshape(B, S, Kv, hd)
+    v = dn(x, params["wv"], la("wv")).reshape(B, S, Kv, hd)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is None:
+        mask = _attn_mask(positions, positions, cfg.sliding_window)
+        out = _sdpa(q, k, v, cfg, mask, x.dtype)
+        return dn(out, params["wo"], la("wo")), None
+
+    if paged is None:
+        raise NotImplementedError("the port's decode path is paged only")
+    if len(paged) == 3:
+        block_tables, lengths, n_new = paged
+    else:
+        (block_tables, lengths), n_new = paged, None
+    if backend == "cuda":
+        return _paged_attention_cuda(params, q, k, v, x, cfg, kv_cache,
+                                     block_tables, lengths, n_new, dn, la)
+    kp, vp = paged_scatter(kv_cache["k_pool"], kv_cache["v_pool"], k, v,
+                           block_tables, lengths, n_new)
+    bs_blk = kp.shape[1]
+    pos = (lengths.long()[:, None]
+           + torch.arange(S, device=x.device)[None, :])    # write positions
+    L = block_tables.shape[1] * bs_blk
+    bt = block_tables.long()
+    kg = kp[bt].reshape(B, L, Kv, hd).to(x.dtype)
+    vg = vp[bt].reshape(B, L, Kv, hd).to(x.dtype)
+    k_pos = torch.arange(L, device=x.device)
+    # one attend per chunk position with the exact decode-step shapes, so a
+    # T-token chunk is bitwise-equal to T decode steps
+    outs = [_sdpa(q[:, t:t + 1], kg, vg, cfg,
+                  _attn_mask(pos[:, t], k_pos, cfg.sliding_window)[:, None, :],
+                  x.dtype)
+            for t in range(S)]
+    out = outs[0] if S == 1 else torch.cat(outs, dim=1)
+    return dn(out, params["wo"], la("wo")), {"k_pool": kp, "v_pool": vp}
+
+
+def init_paged_kv_cache(cfg, num_blocks: int, block_size: int, dtype,
+                        device, kv_dtype: str = "f32") -> Params:
+    """One K/V pool per layer, shared by every serving slot."""
+    if kv_dtype != "f32":
+        raise NotImplementedError(
+            f"kv_dtype={kv_dtype!r}: int8 K/V pools in the model path are a "
+            "later slice of the port (the kernels already take them)")
+    shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k_pool": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pool": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def apply_mlp(params: Params, x: torch.Tensor, mlp_type: str,
+              adapters: Optional[Params] = None, lora_scale: float = 1.0,
+              adapter_ids: Optional[torch.Tensor] = None,
+              backend: Optional[str] = None) -> torch.Tensor:
+    def dn(inp, name):
+        return dense(inp, params[name], lora_pair(adapters, name),
+                     lora_scale, adapter_ids, backend)
+
+    if mlp_type in ("swiglu", "geglu"):
+        g = dn(x, "w_gate")
+        u = dn(x, "w_up")
+        act = (F.silu(g.float()) if mlp_type == "swiglu"
+               else F.gelu(g.float(), approximate="tanh"))
+        h = act.to(x.dtype) * u
+    else:
+        h = F.gelu(dn(x, "w_up").float(), approximate="tanh").to(x.dtype)
+    return dn(h, "w_out")
+

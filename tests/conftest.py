@@ -52,3 +52,8 @@ def rand_batch(cfg, B=2, S=16, seed=3):
     k = jax.random.PRNGKey(seed)
     toks = jax.random.randint(k, (B, S), 0, cfg.vocab_size)
     return {"tokens": toks, "loss_mask": jnp.ones((B, S), jnp.int32)}
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where there is none")
