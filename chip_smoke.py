@@ -4,21 +4,32 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases (each prints one JSON line per result):
-  1. build   — compile every CUDA kernel of the serving path from
+  1. build   — compile every CUDA kernel of the port from
                src/repro_torch/kernels/csrc (one nvcc per source, in parallel);
   2. kernels — hold each kernel against its plain PyTorch version on the card
-               at the main path's shapes and variants (bf16 and int8 K/V,
+               at its path's shapes and variants (serving: bf16 and int8 K/V,
                GQA groups 1 and 4, ragged lengths with an empty row, rank
-               mask, int8 bank); time kernel, plain version and one library
-               call computing the same function (a yardstick the port never
-               calls);
+               mask, int8 bank; training: the LoRA and dual-LoRA products of
+               a 2048-row batch, flash attention at B=8, S=256 with a window,
+               Sq < Sk and GQA variants, and the two autograd backwards
+               against plain autograd); time kernel, plain version and one
+               library call computing the same function (a yardstick the
+               port never calls);
   3. serve   — llama2-7b at full width, 32 layers, bf16, random weights from
                --seed, 8 tenants with non-zero rank-16 adapters: 8 ragged
                requests (prompts 128-1024 tokens, 32 new tokens) through
                MultiTenantEngine.generate with paged_backend="cuda", counting
                kernel launches; then the same requests with "torch", holding
-               first-chunk logits and greedy tokens to stated tolerances;
-  4. the card's name and power limit, the kernel summary line, and last the
+               first-chunk logits and greedy tokens to stated tolerances; one
+               traced run;
+  4. train   — FDLoRA Algorithm 1 on the same llama2-7b weights (32 layers,
+               full width, bf16), rank-16 adapters on all 7 targets, 2
+               clients of 8 x 256-token SFT batches: one train step and one
+               fused evaluation through "cuda" and "torch" held to stated
+               bounds, then FDLoRATrainer.fit through the kernels (12 train
+               steps, 18 fused evaluations), publish into an AdapterRegistry
+               and generate from it; one traced train step;
+  5. the card's name and power limit, the kernel summary line, and last the
      result line.
 
 Needs a CUDA device and the repository's src/ beside this file; exits
@@ -257,6 +268,187 @@ def check_lora(gen, device, M, K, N, C, r, variant, reps):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _lora_inputs(gen, device, M, K, N, r):
+    import torch
+    x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device=device)
+         * K ** -0.5).to(torch.bfloat16)
+    a = torch.randn((K, r), generator=gen, device=device) / r
+    b = torch.randn((r, N), generator=gen, device=device) * 0.02
+    return x, w, a, b
+
+
+def _check_close(name, out, ref, tol):
+    import torch
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    require(bool(torch.isfinite(out.float()).all()), f"{name} output not finite")
+    require(err <= tol, f"{name}: err {err} > {tol}")
+    return err
+
+
+def check_single_lora(gen, device, M, K, N, r, reps):
+    """lora_matmul at a training projection's shape.  Tolerance: two bf16
+    roundings of the largest output (both sides compute in fp32 and round
+    once, in another summation order)."""
+    import torch
+    from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
+    x, w, a, b = _lora_inputs(gen, device, M, K, N, r)
+    scale = 2.0
+    ref = lora_matmul_ref(x, w, a, b, scale)
+    tol = _bf16_tol(ref)
+    err = _check_close("lora_matmul", lora_matmul(x, w, a, b, scale), ref, tol)
+    ms = time_ms(lambda: lora_matmul(x, w, a, b, scale), reps)
+    plain_ms = time_ms(lambda: lora_matmul_ref(x, w, a, b, scale),
+                       max(1, reps // 4), 1)
+    ab, bb = a.to(x.dtype), b.to(x.dtype)
+    library_ms = time_ms(lambda: torch.matmul(x, w) + (x @ ab) @ bb, reps)
+    # x, W in; A, B fp32 in; y out (bf16) and z = x·A out (fp32)
+    nbytes = 2 * M * K + 2 * K * N + 4 * r * (K + N) + 2 * M * N + 4 * M * r
+    flops = 2 * M * K * N + 2 * M * r * (K + N)
+    b_ms, b_by = bound(nbytes, flops)
+    return {"name": "lora_matmul", "M": M, "K": K, "N": N, "r": r,
+            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_dual_lora(gen, device, M, K, N, r, reps):
+    """dual_lora_matmul at a fused evaluation's shape, fusion weights
+    (0.6, 0.6).  Tolerance as for lora_matmul."""
+    import torch
+    from repro_torch.kernels.dual_lora import (dual_lora_matmul,
+                                               dual_lora_matmul_ref)
+    x, w, a1, b1 = _lora_inputs(gen, device, M, K, N, r)
+    a2 = torch.randn((K, r), generator=gen, device=device) / r
+    b2 = torch.randn((r, N), generator=gen, device=device) * 0.02
+    fw = torch.tensor([0.6, 0.6], device=device)
+    scale = 2.0
+    ref = dual_lora_matmul_ref(x, w, a1, b1, a2, b2, fw[0], fw[1], scale)
+    tol = _bf16_tol(ref)
+    err = _check_close("dual_lora_matmul",
+                       dual_lora_matmul(x, w, a1, b1, a2, b2, fw, scale), ref,
+                       tol)
+    ms = time_ms(lambda: dual_lora_matmul(x, w, a1, b1, a2, b2, fw, scale),
+                 reps)
+    plain_ms = time_ms(lambda: dual_lora_matmul_ref(
+        x, w, a1, b1, a2, b2, fw[0], fw[1], scale), max(1, reps // 4), 1)
+    am = (0.6 * a1 + 0.6 * a2).to(x.dtype)     # merged outside the timing
+    bm = (0.6 * b1 + 0.6 * b2).to(x.dtype)
+    library_ms = time_ms(lambda: torch.matmul(x, w) + (x @ am) @ bm, reps)
+    nbytes = (2 * M * K + 2 * K * N + 8 * r * (K + N) + 8 + 2 * M * N)
+    flops = 2 * M * K * N + 2 * M * r * (K + N) + 3 * r * (K + N)
+    b_ms, b_by = bound(nbytes, flops)
+    return {"name": "dual_lora_matmul", "M": M, "K": K, "N": N, "r": r,
+            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps):
+    """flash_attention on model-layout (B, S, heads, d) tensors read through
+    strided views, as the training forward calls it.  Tolerance: two bf16
+    roundings of the largest output, plus one bf16 rounding of the largest
+    |v| (the plain version rounds the probabilities to bf16 before the value
+    product, the kernel keeps them in fp32)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    q = torch.randn((B, Sq, H, d), generator=gen, device=device).to(
+        torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((B, Sk, Kv, d), generator=gen, device=device).to(
+        torch.bfloat16).transpose(1, 2) for _ in range(2))
+    ref = flash_attention_ref(q, k, v, sliding_window=window)
+    tol = _bf16_tol(ref) + float(v.float().abs().max()) * 2.0 ** -8
+    err = _check_close("flash_attention",
+                       flash_attention(q, k, v, sliding_window=window), ref,
+                       tol)
+    ms = time_ms(lambda: flash_attention(q, k, v, sliding_window=window), reps)
+    plain_ms = time_ms(lambda: flash_attention_ref(
+        q, k, v, sliding_window=window), max(1, reps // 4), 1)
+    # yardstick: SDPA on contiguous (B, H, S, d) with kv heads repeated and
+    # the end-aligned mask built outside the timing
+    qc = q.contiguous()
+    kc, vc = (torch.repeat_interleave(t, H // Kv, dim=1).contiguous()
+              for t in (k, v))
+    q_pos = torch.arange(Sq, device=device) + (Sk - Sq)
+    k_pos = torch.arange(Sk, device=device)
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    if Sq == Sk and window == 0:
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True), reps)
+    else:
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=mask), reps)
+    pairs = int(mask.sum())
+    nbytes = 2 * (2 * B * H * Sq * d + 2 * B * Kv * Sk * d)
+    flops = 4 * d * pairs * B * H
+    b_ms, b_by = bound(nbytes, flops)
+    return {"name": "flash_attention", "B": B, "H": H, "Kv": Kv, "Sq": Sq,
+            "Sk": Sk, "d": d, "window": window, "max_abs_err": err,
+            "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_backwards(gen, device):
+    """The two autograd functions against plain autograd through the plain
+    versions, fp32, on a small shape: the forwards differ in summation order
+    only and the backwards are plain PyTorch, so gradients agree to 1e-4."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
+    out = {"phase": "backward", "tol": 1e-4}
+    M, K, N, r = 256, 512, 384, 16
+    w = torch.randn((K, N), generator=gen, device=device) * K ** -0.5
+    leaves = [torch.randn(s, generator=gen, device=device) * sd
+              for s, sd in (((M, K), 1.0), ((K, r), 1.0 / r), ((r, N), 0.02))]
+    dy = torch.randn((M, N), generator=gen, device=device)
+    qkv = [torch.randn((2, h, 128, 64), generator=gen, device=device)
+           for h in (8, 2, 2)]
+    do = torch.randn((2, 8, 128, 64), generator=gen, device=device)
+    for name, fns, inputs, g_out in (
+            ("lora_matmul", (lambda x, a, b: lora_matmul(x, w, a, b, 2.0),
+                             lambda x, a, b: lora_matmul_ref(x, w, a, b, 2.0)),
+             leaves, dy),
+            ("flash_attention", (
+                lambda q, k, v: flash_attention(q, k, v, sliding_window=40),
+                lambda q, k, v: flash_attention_ref(q, k, v,
+                                                    sliding_window=40)),
+             qkv, do)):
+        grads = []
+        for fn in fns:
+            ts = [t.clone().requires_grad_(True) for t in inputs]
+            grads.append(torch.autograd.grad(fn(*ts), ts, g_out))
+        err = max(float((g - gr).abs().max() / gr.abs().max().clamp(min=1e-30))
+                  for g, gr in zip(*grads))
+        out[f"{name}_max_rel_grad_err"] = err
+        require(err <= 1e-4, f"{name} backward: rel err {err} > 1e-4")
+    emit(out)
+
+
+def training_kernels(device, seed: int, reps: int):
+    """The training path's kernels; returns {name: main-shape result}."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    main = {}
+    for K, N in ((4096, 11008), (4096, 4096)):
+        res = check_single_lora(gen, device, 2048, K, N, 16, reps)
+        emit(res)
+        main.setdefault("lora_matmul", res)
+        res = check_dual_lora(gen, device, 2048, K, N, 16, reps)
+        emit(res)
+        main.setdefault("dual_lora_matmul", res)
+    for H, Kv, Sq, Sk, window in ((32, 32, 256, 256, 0), (32, 32, 256, 256, 64),
+                                  (32, 32, 128, 256, 0), (32, 8, 256, 256, 0)):
+        res = check_flash(gen, device, 8, H, Kv, Sq, Sk, 128, window, reps)
+        emit(res)
+        main.setdefault("flash_attention", res)
+    check_backwards(gen, device)
+    return main
+
+
 def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
     """Every kernel in every variant; returns {name: main-shape result}."""
     import torch
@@ -426,8 +618,9 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
                                                  for t in o),
                     f"{backend}: a stream is malformed")
     cuda_counts = results["cuda"][1]
-    for name, n in cuda_counts.items():
-        require(n > 0, f"kernel {name} was never launched on the main path")
+    for name in kernels.SERVING:
+        require(cuda_counts[name] > 0,
+                f"kernel {name} was never launched on the serving path")
     require(all(n == 0 for n in results["torch"][1].values()),
             "the torch backend launched a CUDA kernel")
 
@@ -456,32 +649,34 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
                               eng.registry)
     compare_first_chunk(eng32, reqs, sc, "float32", rel_tol=1e-2)
     profile_phase(eng, reqs, sc)
-    return cuda_counts
+    return cuda_counts, eng.params
 
 
 KERNEL_FAMILIES = (("paged_decode_kernel", "paged_attention"),
                    ("paged_prefill_kernel", "paged_prefill_attention"),
                    ("lora_matmul_kernel", "batched_lora_matmul (x.W + epilogue)"),
                    ("lora_shrink_kernel", "batched_lora_matmul (shrink)"))
+TRAIN_FAMILIES = (("single_lora_xw_kernel", "lora_matmul (x.W + epilogue)"),
+                  ("single_lora_xa_kernel", "lora_matmul (shrink)"),
+                  ("flash_attn_fwd_kernel", "flash_attention"),
+                  ("dual_lora_", "dual_lora_matmul"),
+                  *((k, "cuBLAS matmuls (plain backward, lm_head)")
+                    for k in ("gemm", "nvjet", "xmma", "cutlass")))
 
 
-def profile_phase(eng, reqs, sc, new_tokens: int = 8):
-    """One traced serving run (``torch.profiler``, CPU + CUDA activity):
-    device time by kernel family and the device's idle share of the traced
-    wall time.  Tracing slows the host, so the idle share is an upper
-    bound; the untraced runs above give the end-to-end numbers."""
-    import dataclasses
-
+def traced(fn, families, other: str):
+    """Run ``fn`` once under ``torch.profiler`` (CPU + CUDA activity);
+    returns (wall ms, {family: device ms}) with kernels sorted into
+    ``families`` by name.  Tracing slows the host, so the idle share it
+    gives is an upper bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    sc2 = dataclasses.replace(sc, max_new_tokens=new_tokens,
-                              paged_backend="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(reqs, sc2)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     fam = {}
@@ -490,18 +685,265 @@ def profile_phase(eng, reqs, sc, new_tokens: int = 8):
             continue
         us = (getattr(ev, "self_device_time_total", None)
               or getattr(ev, "self_cuda_time_total", 0))
-        name = next((f for k, f in KERNEL_FAMILIES if k in ev.key),
-                    "other device work (torch: lm_head, norms, rope, "
-                    "scatter, sampling, copies)")
+        name = next((f for k, f in families if k in ev.key), other)
         fam[name] = fam.get(name, 0.0) + us / 1e3
+    return wall * 1e3, fam
+
+
+def _profile_line(fam, wall_ms, **extra):
     busy_ms = sum(fam.values())
-    emit({"phase": "profile", "requests": len(reqs), "new_tokens": new_tokens,
-          "traced_wall_ms": wall * 1e3,
-          "device_busy_ms": busy_ms if fam else "not measured",
-          "device_idle_share": (1 - busy_ms / (wall * 1e3)) if fam
-          else "not measured",
-          "device_ms_by_kernel": dict(sorted(fam.items(),
-                                             key=lambda kv: -kv[1]))})
+    return {**extra, "traced_wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if fam else "not measured",
+            "device_idle_share": (1 - busy_ms / wall_ms) if fam
+            else "not measured",
+            "device_ms_by_kernel": dict(sorted(fam.items(),
+                                               key=lambda kv: -kv[1]))}
+
+
+def profile_phase(eng, reqs, sc, new_tokens: int = 8):
+    """One traced serving run: device time by kernel family and the
+    device's idle share of the traced wall time; the untraced runs above
+    give the end-to-end numbers."""
+    import dataclasses
+    sc2 = dataclasses.replace(sc, max_new_tokens=new_tokens,
+                              paged_backend="cuda")
+    wall_ms, fam = traced(lambda: eng.generate(reqs, sc2), KERNEL_FAMILIES,
+                          "other device work (torch: lm_head, norms, rope, "
+                          "scatter, sampling, copies)")
+    emit(_profile_line(fam, wall_ms, phase="profile", requests=len(reqs),
+                       new_tokens=new_tokens))
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the training path (FDLoRA Algorithm 1)
+# ---------------------------------------------------------------------------
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| in fp32."""
+    import torch
+    return float(torch.linalg.vector_norm((a - b).float())
+                 / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
+
+
+def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
+                       loss_tol, grad_tol):
+    """One train step's loss and every adapter gradient through "cuda" and
+    "torch" from the same adapters and batch.  The "torch" step must launch
+    no kernel.  Bounds are relative: ``|Δloss| <= loss_tol·|loss|`` and, per
+    adapter leaf, ``||Δg|| <= grad_tol·||g||``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.lora import tree_leaves
+    from repro_torch.training.train_step import lora_value_and_grad
+    out = {}
+    for backend in ("cuda", "torch"):
+        kernels.reset_launch_counts()
+        loss, _, grads = lora_value_and_grad(model, cfg, backend)(
+            params, adapters, batch)
+        torch.cuda.synchronize()
+        out[backend] = (loss, dict(tree_leaves(grads)),
+                        kernels.launch_counts())
+        del grads
+    (lc, gc, nc), (lt, gt, nt) = out["cuda"], out["torch"]
+    loss_err = abs(float(lc) - float(lt)) / abs(float(lt))
+    grad_errs = {p: _rel(gc[p], gt[p]) for p in gt}
+    worst = max(grad_errs, key=grad_errs.get)
+    emit({"phase": "compare_train_step", "activations": dtype_name,
+          "rows": int(batch["tokens"].numel()), "loss_cuda": float(lc),
+          "loss_torch": float(lt), "loss_rel_err": loss_err,
+          "loss_tol": loss_tol, "grad_leaves": len(grad_errs),
+          "max_grad_rel_err": grad_errs[worst], "worst_leaf": worst,
+          "median_grad_rel_err": sorted(grad_errs.values())[
+              len(grad_errs) // 2], "grad_tol": grad_tol,
+          "launches_cuda": nc})
+    require(all(torch.isfinite(g).all() for g in gc.values()),
+            f"{dtype_name}: a cuda gradient is not finite")
+    require(loss_err <= loss_tol,
+            f"{dtype_name} train-step loss rel err {loss_err} > {loss_tol}")
+    require(grad_errs[worst] <= grad_tol,
+            f"{dtype_name} gradient {worst} rel err {grad_errs[worst]} > "
+            f"{grad_tol}")
+    require(nc["lora_matmul"] > 0 and nc["flash_attention"] > 0,
+            "the cuda train step did not launch its kernels")
+    require(all(n == 0 for n in nt.values()),
+            "the torch train step launched a CUDA kernel")
+
+
+def compare_fused_eval(model, cfg, params, ad_p, ad_s, batch, dtype_name,
+                       tol):
+    """The AdaFusion objective at w = (0.6, 0.6) through "cuda" (the
+    dual-LoRA kernel merges on the chip) and "torch" (merge, then the plain
+    forward): ``|Δloss| <= tol·|loss|``."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.training.train_step import make_fused_eval_fn
+    w = np.asarray([0.6, 0.6], np.float32)
+    losses, counts = {}, {}
+    for backend in ("cuda", "torch"):
+        kernels.reset_launch_counts()
+        loss, _ = make_fused_eval_fn(model, cfg, backend)(params, ad_p, ad_s,
+                                                          w, batch)
+        losses[backend], counts[backend] = float(loss), kernels.launch_counts()
+    err = abs(losses["cuda"] - losses["torch"]) / abs(losses["torch"])
+    emit({"phase": "compare_fused_eval", "activations": dtype_name,
+          "w": w.tolist(), "loss_cuda": losses["cuda"],
+          "loss_torch": losses["torch"], "loss_rel_err": err, "tol": tol,
+          "launches_cuda": counts["cuda"]})
+    require(err <= tol, f"{dtype_name} fused-eval loss rel err {err} > {tol}")
+    require(counts["cuda"]["dual_lora_matmul"] > 0,
+            "the cuda fused evaluation did not launch dual_lora_matmul")
+    require(all(n == 0 for n in counts["torch"].values()),
+            "the torch fused evaluation launched a CUDA kernel")
+
+
+def train_phase(device, seed: int, params, cfg):
+    """FDLoRA on llama2-7b: the cuda/torch comparisons, then the fit through
+    the kernels, publish and serve, and one traced train step.  Returns the
+    launch counts of the fit."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.fdlora import FDLoRAConfig, FDLoRATrainer
+    from repro_torch.core.lora import init_adapters, tree_leaves
+    from repro_torch.data.pipeline import SFTBatcher
+    from repro_torch.data.synthetic import gen_log_dataset
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models.api import Model
+    from repro_torch.serving.engine import (MultiTenantEngine, Request,
+                                            ServeConfig)
+    from repro_torch.serving.registry import AdapterRegistry
+    from repro_torch.training.train_step import make_lora_train_step
+    from repro_torch.training.optimizers import adamw
+
+    model = Model(cfg, device)
+    tok = ByteTokenizer()
+    S, B, n_clients = 256, 8, 2
+    rng = np.random.default_rng(seed)
+    batchers = [SFTBatcher(gen_log_dataset(rng, 64, i), tok, S, B, seed=i)
+                for i in range(n_clients)]
+
+    def dev_batch(raw, rows=None):
+        return {k: torch.as_tensor(v[:rows]).to(device)
+                for k, v in raw.items()}
+
+    # 1-2: "cuda" against "torch" from the same adapters (B non-zero) and
+    # the same batch.  bf16: the paths round at other places (the LoRA
+    # kernels round once where the plain dense rounds twice, the attention
+    # kernel keeps probabilities in fp32) through 32 layers, forward and
+    # backward; the serve phase's logits differ by 3.7% of their largest
+    # value for that reason alone.  A lost LoRA term, a wrong mask or a
+    # wrong backward term moves a gradient by O(its size), so the bounds
+    # are 2% on the loss and 25% per gradient leaf.  fp32 activations over
+    # the same bf16 weights: summation order only, so 1e-3 and 1e-2.
+    ad = init_adapters(cfg, seed=seed + 100, device=device, b_std=0.02)
+    ad_s = init_adapters(cfg, seed=seed + 101, device=device, b_std=0.02)
+    raw = batchers[0].sample()
+    t0 = time.perf_counter()
+    compare_train_step(model, cfg, params, ad, dev_batch(raw), "bfloat16",
+                       loss_tol=2e-2, grad_tol=0.25)
+    compare_fused_eval(model, cfg, params, ad, ad_s, dev_batch(raw),
+                       "bfloat16", tol=2e-2)
+    cfg32 = cfg.with_overrides(dtype="float32")
+    model32 = Model(cfg32, device)
+    # half the batch: the plain fp32 path keeps an fp32 copy of every
+    # weight it multiplies for its backward (26 GB at full depth)
+    compare_train_step(model32, cfg32, params, ad, dev_batch(raw, B // 2),
+                       "float32", loss_tol=1e-3, grad_tol=1e-2)
+    compare_fused_eval(model32, cfg32, params, ad, ad_s, dev_batch(raw),
+                       "float32", tol=1e-3)
+    del ad, ad_s, model32
+    torch.cuda.empty_cache()
+    compare_s = time.perf_counter() - t0
+
+    # 3-4: the whole of Algorithm 1 through the kernels
+    fed = FDLoRAConfig(n_clients=n_clients, stage1_steps=2, rounds=2,
+                       inner_steps=2, sync_every=1, fusion_steps=1,
+                       few_shot_k=8, batch_size=B, seed=seed)
+    tr = FDLoRATrainer(model, cfg, fed, params, device=device)
+    require(tr.paged_backend == "cuda", "the trainer did not pick 'cuda'")
+    step_s = []
+    inner_step = tr._step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner_step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+    tr._step = timed_step
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clients = tr.stage1(batchers)
+    tr.stage2(clients, batchers)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tr.stage3(clients, batchers)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = kernels.launch_counts()
+    losses = [h["loss"] for h in tr.history]
+    weights = [c.fusion_weights.tolist() for c in clients]
+    med = float(np.median(step_s))
+    emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "rank": cfg.lora_rank,
+          "alpha": cfg.lora_alpha, "targets": list(cfg.lora_targets),
+          "clients": n_clients, "batch": B, "seq": S,
+          "train_steps": len(step_s),
+          "fused_evals": n_clients * (1 + 8 * fed.fusion_steps),
+          "step_s": step_s, "median_step_s": med,
+          "train_tokens_per_s": B * S / med,
+          "stage1_2_s": t1 - t0, "stage3_s": t2 - t1,
+          "round_losses": losses, "fusion_weights": weights,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": counts, "compare_s": compare_s})
+    require(len(step_s) == 12, f"{len(step_s)} train steps, not 12")
+    require(all(math.isfinite(x) for x in losses), "a round loss is not finite")
+    require(all(math.isfinite(x) for w in weights for x in w),
+            "a fusion weight is not finite")
+    require(all(bool(torch.isfinite(t).all())
+                for c in clients for _, t in tree_leaves(c.personalized)),
+            "a personalized adapter is not finite")
+    for name in kernels.TRAINING:
+        require(counts[name] > 0,
+                f"kernel {name} was never launched on the training path")
+
+    # 5: publish into the serving slice and generate from it
+    registry = AdapterRegistry(cfg, capacity=n_clients, device=device)
+    slots = tr.publish(registry, clients)
+    eng = MultiTenantEngine(model, cfg, params, registry)
+    prompts = [gen_log_dataset(np.random.default_rng(seed + 7), 1, i)[0]
+               for i in range(n_clients)]
+    reqs = [Request(f"client{i}", np.asarray(tok.encode(ex.prompt), np.int32))
+            for i, ex in enumerate(prompts)]
+    outs = eng.generate(reqs, ServeConfig(batch_size=n_clients,
+                                          max_new_tokens=8, prefill_chunk=64,
+                                          block_size=16, paged_backend="cuda"))
+    emit({"phase": "publish_and_serve", "slots": slots,
+          "versions": {c: registry.version(c) for c in slots},
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "tokens": [[int(t) for t in o] for o in outs]})
+    require(all(len(o) == 8 and all(0 <= t < cfg.vocab_size for t in o)
+                for o in outs), "a stream from the published adapters is "
+            "malformed")
+    del eng, registry
+
+    # one traced train step
+    step = make_lora_train_step(model, cfg, adamw(), paged_backend="cuda")
+    ad = clients[0].personalized
+    st = adamw().init(ad)
+    batch = dev_batch(batchers[0].sample())
+    wall_ms, fam = traced(lambda: step(params, ad, st, batch),
+                          TRAIN_FAMILIES,
+                          "other device work (norms, rope, softmax, "
+                          "elementwise, optimizer)")
+    emit(_profile_line(fam, wall_ms, phase="profile_train_step",
+                       rows=B * S))
+    return counts
 
 
 def card_identity():
@@ -518,6 +960,12 @@ KERNEL_ROWS = {
                                 "src/repro/kernels/paged_prefill.py:166"),
     "batched_lora_matmul": ("src/repro_torch/kernels/csrc/batched_lora.cu",
                             "src/repro/kernels/batched_lora.py:153"),
+    "lora_matmul": ("src/repro_torch/kernels/csrc/lora_matmul.cu",
+                    "src/repro/kernels/lora_matmul.py:52"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:81"),
+    "dual_lora_matmul": ("src/repro_torch/kernels/csrc/dual_lora.cu",
+                         "src/repro/kernels/dual_lora.py:51"),
 }
 
 
@@ -556,7 +1004,17 @@ def main(argv=None) -> int:
     n_requests, T = 8, 256
     prompt_lens = sorted(int(n) for n in rng.integers(128, 1025, n_requests))
     main_shapes = kernel_phase(device, args.seed, args.reps, prompt_lens, T)
-    counts = serve_phase(device, args.seed, n_requests, 32, 128, 1024, T)
+    main_shapes.update(training_kernels(device, args.seed, args.reps))
+    serve_counts, params = serve_phase(device, args.seed, n_requests, 32, 128,
+                                       1024, T)
+    torch.cuda.empty_cache()            # the serving pools are gone
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    train_counts = train_phase(device, args.seed, params, get_config(ARCH))
+    # each kernel's launches on its own path's run
+    counts = {**{n: serve_counts[n] for n in kernels.SERVING},
+              **{n: train_counts[n] for n in kernels.TRAINING}}
+    emit({"phase": "total", "seconds": time.perf_counter() - t0})
 
     print(card_identity(), flush=True)
     rows = []

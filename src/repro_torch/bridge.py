@@ -36,15 +36,22 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def _unstack_blocks(blocks: Params, n_layers: int, device) -> list:
-    """``{"b0": tree, "b1": tree, ...}`` with leaves (n_periods, ...) ->
-    per-layer trees: layer ``p * period + j`` is period p of block j."""
+def _period_slice(leaf, p: int, device) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf[p].to(device).clone()
+    return to_torch(np.asarray(leaf)[p], device)
+
+
+def unstack_blocks(blocks: Params, device="cpu") -> list:
+    """``{"b0": tree, "b1": tree, ...}`` with leaves (n_periods, ...) (numpy
+    or torch) -> per-layer trees: layer ``p * period + j`` is period p of
+    block j."""
     names = sorted(blocks, key=lambda n: int(n[1:]))
     period = len(names)
     layers = []
-    for i in range(n_layers):
+    for i in range(_n_layers(blocks)):
         p, j = divmod(i, period)
-        layers.append(_map(lambda leaf: to_torch(np.asarray(leaf)[p], device),
+        layers.append(_map(lambda leaf: _period_slice(leaf, p, device),
                            blocks[names[j]]))
     return layers
 
@@ -54,7 +61,7 @@ def _n_layers(blocks: Params) -> int:
         while isinstance(t, dict):
             t = next(iter(t.values()))
         return t
-    return len(blocks) * int(np.asarray(first_leaf(blocks)).shape[0])
+    return len(blocks) * int(first_leaf(blocks).shape[0])
 
 
 def params_from_jax(tree: Params, device="cpu") -> Params:
@@ -62,8 +69,7 @@ def params_from_jax(tree: Params, device="cpu") -> Params:
     out = {"embed": to_torch(tree["embed"], device),
            "final_norm": _map(lambda l: to_torch(l, device),
                               tree["final_norm"]),
-           "layers": _unstack_blocks(tree["blocks"],
-                                     _n_layers(tree["blocks"]), device)}
+           "layers": unstack_blocks(tree["blocks"], device)}
     if "lm_head" in tree:
         out["lm_head"] = to_torch(tree["lm_head"], device)
     return out
@@ -72,8 +78,7 @@ def params_from_jax(tree: Params, device="cpu") -> Params:
 def adapters_from_jax(tree: Params, device="cpu") -> Params:
     """Reference adapter tree or registry bank (numpy leaves, stacked on the
     period axis) -> port tree ``{"layers": [...]}``."""
-    blocks = tree["blocks"]
-    return {"layers": _unstack_blocks(blocks, _n_layers(blocks), device)}
+    return {"layers": unstack_blocks(tree["blocks"], device)}
 
 
 def config_from_jax(cfg, **overrides):

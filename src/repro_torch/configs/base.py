@@ -1,11 +1,14 @@
 """Model configuration of the PyTorch port (dense decoder family).
 
 The port keeps its own copy of the reference package's ``ModelConfig``,
-trimmed to the fields the dense family reads.  The paged-attention backend
-switch takes the port's values: ``"torch"`` (the plain gather path, the
-only one the CPU allows) or ``"cuda"`` (the hand-written Hopper kernels,
-also used for every banked LoRA projection).  ``None`` picks by device:
-``"cuda"`` for tensors on a card, ``"torch"`` on the CPU.
+trimmed to the fields the dense family reads.  ``paged_backend`` (named
+for the paged attention it first switched) routes EVERY kernel of the
+port, serving and training alike: ``"cuda"`` runs the hand-written Hopper
+kernels (paged decode and prefill attention, flash attention, and the
+batched, single-tenant and dual LoRA matmuls); ``"torch"`` runs the plain
+version of each, the only choice the CPU allows.  ``None`` picks by
+device: ``"cuda"`` for tensors on a card, ``"torch"`` on the CPU
+(``models/model.py::resolve_backend``).
 """
 from __future__ import annotations
 

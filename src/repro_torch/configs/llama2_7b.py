@@ -10,6 +10,9 @@ CONFIG = ModelConfig(
     citation="arXiv:2307.09288",
 )
 
+# max_seq_len 160 (the reference's smoke config has 64) so that a
+# ``launch.train --smoke`` batch holds the answer tokens of the synthetic
+# log prompts (about 90 bytes) and its loss is not empty
 SMOKE_CONFIG = CONFIG.with_overrides(
     name="llama2-smoke", n_layers=2, d_model=256, n_heads=8, n_kv_heads=8,
-    head_dim=32, d_ff=512, vocab_size=512, max_seq_len=64)
+    head_dim=32, d_ff=512, vocab_size=512, max_seq_len=160)

@@ -12,7 +12,9 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-from repro_torch.core.lora import tree_map
+import torch
+
+from repro_torch.core.lora import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
@@ -47,3 +49,23 @@ def merge(personalized: Params, global_: Params, w) -> Params:
     """Eq. 7: leafwise ``w1 * θ_p + w2 * θ_s`` with ``w = [w1, w2]``."""
     w1, w2 = float(w[0]), float(w[1])
     return tree_map(lambda p, g: w1 * p + w2 * g, personalized, global_)
+
+
+def dual_tree(personalized: Params, global_: Params, w) -> Params:
+    """Both trees and the fusion weights, unmerged, for the fused-kernel
+    path: every ``{"a", "b"}`` target becomes ``{"a": A1, "b": B1, "a2": A2,
+    "b2": B2, "w": w}`` with ``w`` (2,) fp32 on the adapters' device, so a
+    projection computes Eq. 7 itself (``layers.DualPair``) and the merged
+    factors are never stored."""
+    check_rank_agreement(personalized, global_)
+    dev = tree_leaves(personalized)[0][1].device
+    wt = torch.as_tensor(w, dtype=torch.float32).to(dev)
+
+    def walk(p, g):
+        if _is_pair(p):
+            return {"a": p["a"], "b": p["b"], "a2": g["a"], "b2": g["b"],
+                    "w": wt}
+        if isinstance(p, dict):
+            return {k: walk(p[k], g[k]) for k in p}
+        return [walk(pi, gi) for pi, gi in zip(p, g)]
+    return walk(personalized, global_)

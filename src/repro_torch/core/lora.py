@@ -17,6 +17,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 Params = Dict[str, Any]
 
 
@@ -40,11 +42,13 @@ def block_target_shapes(cfg) -> Dict[str, Dict[str, Tuple[int, int]]]:
 
 
 def init_adapters(cfg, rank: Optional[int] = None, seed: int = 0,
-                  device="cpu", b_std: float = 0.0) -> Params:
-    """A fresh adapter tree: ``A ~ N(0, 1) / r`` from a numpy generator
-    seeded with ``seed``; ``B`` is zero (standard LoRA init) unless
-    ``b_std > 0`` draws it ``N(0, b_std²)`` — the serving checks want a
-    non-zero update so a fault in the LoRA path cannot hide."""
+                  device="cuda", b_std: float = 0.0) -> Params:
+    """A fresh adapter tree on ``device`` (the card unless the caller asks
+    for the CPU): ``A ~ N(0, 1) / r`` from a numpy generator seeded with
+    ``seed``; ``B`` is zero (standard LoRA init) unless ``b_std > 0`` draws
+    it ``N(0, b_std²)``: the serving and training checks want a non-zero
+    update so a fault in the LoRA path cannot hide."""
+    device = resolve_device(device)
     r = rank or cfg.lora_rank
     rng = np.random.default_rng(seed)
     shapes = block_target_shapes(cfg)
@@ -87,3 +91,43 @@ def tree_leaves(tree, path: str = ""):
         return [x for i, v in enumerate(tree) for x in
                 tree_leaves(v, f"{path}[{i}]")]
     return [(path, tree)]
+
+
+# ---------------------------------------------------------------------------
+# Tree arithmetic (used by the optimizers, the federated outer step and
+# fusion)
+# ---------------------------------------------------------------------------
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a, s):
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_mean(trees):
+    acc = trees[0]
+    for t in trees[1:]:
+        acc = tree_add(acc, t)
+    return tree_scale(acc, 1.0 / len(trees))
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_dot(a, b):
+    """Sum over leaves of ``<a_leaf, b_leaf>``: a 0-d tensor."""
+    return sum(torch.vdot(x.reshape(-1), y.reshape(-1))
+               for (_, x), (_, y) in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_norm(a):
+    """Global L2 norm over every leaf, in fp32: a 0-d tensor."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for _, x in tree_leaves(a)))

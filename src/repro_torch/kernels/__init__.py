@@ -8,6 +8,9 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels.batched_lora import batched_lora_matmul
+from repro_torch.kernels.dual_lora import dual_lora_matmul
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.lora_matmul import lora_matmul
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 
@@ -16,7 +19,14 @@ WRAPPERS = {
     "paged_attention": paged_attention,
     "paged_prefill_attention": paged_prefill_attention,
     "batched_lora_matmul": batched_lora_matmul,
+    "lora_matmul": lora_matmul,
+    "flash_attention": flash_attention,
+    "dual_lora_matmul": dual_lora_matmul,
 }
+
+# the kernels of each path of the port
+SERVING = ("paged_attention", "paged_prefill_attention", "batched_lora_matmul")
+TRAINING = ("lora_matmul", "flash_attention", "dual_lora_matmul")
 
 
 def launch_counts() -> Dict[str, int]:

@@ -15,6 +15,7 @@
 //   2. the base product x·W, tiled through shared memory with fp32
 //      accumulation, whose epilogue adds alpha · s · z[i]·B[g[i]] and
 //      rounds ONCE to the output type.
+// Both pieces are the shared tile code of lora_common.cuh.
 // The reference dense layer rounds x·W to the working type before adding
 // the fp32 LoRA term; this epilogue does not, so the two differ by at most
 // one rounding of the output type.
@@ -26,64 +27,37 @@
 // simple and exact in fp32, far from either bound.  Tensor-core tiles
 // (wgmma fed by TMA) for the prefill shapes and split-K for the decode
 // shapes (few output tiles leave SMs idle) are the known next steps.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lora_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+using lora::from_f;
+using lora::to_f;
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-constexpr int kShrinkThreads = 128;
-
-// z[i, :r] = x[i] · A[g[i]]; one CTA per row.  Thread (kg, j) sums
-// k = kg, kg + nkg, ... for rank column j (adjacent threads read adjacent
-// A elements), then the nkg partial sums reduce through shared memory.
+// z[i, :r] = x[i] · A[g[i]]; one CTA per row (lora::shrink_row), rank
+// columns at or past ranks[g] zeroed.
 template <typename XT, typename BT>
-__global__ void __launch_bounds__(kShrinkThreads)
+__global__ void __launch_bounds__(lora::kShrinkThreads)
     lora_shrink_kernel(const XT* __restrict__ x, const BT* __restrict__ a,
                        const int* __restrict__ ids,
                        const int* __restrict__ ranks, float* __restrict__ z,
                        int K, int C, int r) {
-  __shared__ float part[kShrinkThreads];
+  __shared__ float part[lora::kShrinkThreads];
   const int m = blockIdx.x, tid = threadIdx.x;
   const int g = ids[m];
-  const int nkg = kShrinkThreads / r;
-  const int j = tid % r, kg = tid / r;
-  float s = 0.f;
-  if (g >= 0 && g < C && kg < nkg) {
-    const XT* xr = x + (size_t)m * K;
-    const BT* ag = a + (size_t)g * K * r;
-    for (int k = kg; k < K; k += nkg) s = fmaf(to_f(xr[k]), to_f(ag[(size_t)k * r + j]), s);
-  }
-  part[tid] = s;
-  __syncthreads();
+  const bool live = g >= 0 && g < C;
+  const BT* ag = a + (size_t)(live ? g : 0) * K * r;
+  const float tot = lora::shrink_row(
+      x + (size_t)m * K, K, r, live,
+      [&](int k, int j) { return to_f(ag[(size_t)k * r + j]); }, part);
   if (tid < r) {
-    float tot = 0.f;
-    for (int q = 0; q < nkg; ++q) tot += part[q * r + tid];
-    const bool live = g >= 0 && g < C && (ranks == nullptr || tid < ranks[g]);
-    z[(size_t)m * r + tid] = live ? tot : 0.f;
+    const bool on = live && (ranks == nullptr || tid < ranks[g]);
+    z[(size_t)m * r + tid] = on ? tot : 0.f;
   }
 }
 
-constexpr int kBM = 64, kBN = 64, kBK = 16;
-constexpr int kTX = 16, kTY = 16;  // 256 threads, 4x4 outputs each
-
 template <typename XT, typename WT, typename BT>
-__global__ void __launch_bounds__(kTX * kTY)
+__global__ void __launch_bounds__(lora::kTX * lora::kTY)
     lora_matmul_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
                        const BT* __restrict__ b,
                        const float* __restrict__ a_scale,
@@ -91,54 +65,15 @@ __global__ void __launch_bounds__(kTX * kTY)
                        const int* __restrict__ ids,
                        const float* __restrict__ z, XT* __restrict__ y, int M,
                        int K, int N, int C, int r, float alpha) {
-  __shared__ float Xs[kBK][kBM + 1];
-  __shared__ float Ws[kBK][kBN];
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTX + tx;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * lora::kBM, n0 = blockIdx.x * lora::kBN;
   float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // x tile (kBM x kBK), k fastest in memory; stored transposed
-#pragma unroll
-    for (int e = 0; e < (kBM * kBK) / (kTX * kTY); ++e) {
-      const int i = tid + e * kTX * kTY;
-      const int row = i / kBK, kk = i % kBK;
-      const int m = m0 + row, k = k0 + kk;
-      Xs[kk][row] = (m < M && k < K) ? to_f(x[(size_t)m * K + k]) : 0.f;
-    }
-    // W tile (kBK x kBN), n fastest
-#pragma unroll
-    for (int e = 0; e < (kBK * kBN) / (kTX * kTY); ++e) {
-      const int i = tid + e * kTX * kTY;
-      const int kk = i / kBN, col = i % kBN;
-      const int k = k0 + kk, n = n0 + col;
-      Ws[kk][col] = (k < K && n < N) ? to_f(w[(size_t)k * N + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = Xs[kk][ty + kTY * i];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) bv[jj] = Ws[kk][tx + kTX * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
-    }
-    __syncthreads();
-  }
+  lora::base_tile(x, w, M, K, N, m0, n0, acc);
 
   // epilogue: + alpha · s[g] · z[m]·B[g], one rounding to the output type
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + kTY * i;
+    const int m = m0 + ty + lora::kTY * i;
     if (m >= M) continue;
     const int g = ids[m];
     const bool live = g >= 0 && g < C;
@@ -147,12 +82,12 @@ __global__ void __launch_bounds__(kTX * kTY)
     const BT* bg = b + (size_t)(live ? g : 0) * r * N;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
-      const int n = n0 + tx + kTX * jj;
+      const int n = n0 + tx + lora::kTX * jj;
       if (n >= N) continue;
-      float lora = 0.f;
+      float delta = 0.f;
       if (live)
-        for (int q = 0; q < r; ++q) lora = fmaf(zm[q], to_f(bg[(size_t)q * N + n]), lora);
-      y[(size_t)m * N + n] = from_f<XT>(acc[i][jj] + alpha * rs * lora);
+        for (int q = 0; q < r; ++q) delta = fmaf(zm[q], to_f(bg[(size_t)q * N + n]), delta);
+      y[(size_t)m * N + n] = from_f<XT>(acc[i][jj] + alpha * rs * delta);
     }
   }
 }
@@ -162,13 +97,12 @@ int launch(const void* x, const void* w, const void* a, const void* b,
            const float* a_scale, const float* b_scale, const int* ranks,
            const int* ids, float* z, void* y, int M, int K, int N, int C,
            int r, float alpha, cudaStream_t stream) {
-  lora_shrink_kernel<XT, BT><<<M, kShrinkThreads, 0, stream>>>(
+  lora_shrink_kernel<XT, BT><<<M, lora::kShrinkThreads, 0, stream>>>(
       (const XT*)x, (const BT*)a, ids, ranks, z, K, C, r);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  dim3 block(kTX, kTY);
-  lora_matmul_kernel<XT, WT, BT><<<grid, block, 0, stream>>>(
+  lora_matmul_kernel<XT, WT, BT><<<lora::base_grid(M, N), lora::base_block(),
+                                   0, stream>>>(
       (const XT*)x, (const WT*)w, (const BT*)b, a_scale, b_scale, ids, z,
       (XT*)y, M, K, N, C, r, alpha);
   return (int)cudaGetLastError();

@@ -1,0 +1,92 @@
+"""Fused dual-LoRA (Eq. 7) matmul: the wrapper of ``csrc/dual_lora.cu``.
+
+Port of the Pallas kernel ``repro/kernels/dual_lora.py::dual_lora_matmul``:
+``y = x·W + α·x·(w1·A1 + w2·A2)·(w1·B1 + w2·B2)`` with two fp32 fusion
+weights, fp32 accumulation and one rounding to x's dtype.  The merged
+factors are never written to memory.  It carries every projection of a
+stage-3 AdaFusion evaluation, which takes no gradient: the kernel is
+forward only and the wrapper raises if a gradient is asked of it.
+
+CPU tensors run the plain version (:func:`dual_lora_matmul_ref`); CUDA
+tensors launch the kernel or raise.  ``dual_lora_matmul.launches`` counts
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.batched_lora import MAX_RANK, _check
+from repro_torch.kernels.ref import dual_lora_matmul_ref
+
+__all__ = ["dual_lora_matmul", "dual_lora_matmul_ref"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib():
+    lib = build.load("dual_lora")
+    fn = lib.dual_lora_matmul
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 9 + [_I] * 6 + [_F, _P]
+        fn.restype = _I
+    return fn
+
+
+def dual_lora_matmul(x: torch.Tensor, w: torch.Tensor, a1: torch.Tensor,
+                     b1: torch.Tensor, a2: torch.Tensor, b2: torch.Tensor,
+                     fusion_w: torch.Tensor, scale: float = 1.0
+                     ) -> torch.Tensor:
+    """x: (M, K), w: (K, N), a1/a2: (K, r) fp32, b1/b2: (r, N) fp32,
+    fusion_w: (2,) fp32 = [w1 (personalized), w2 (global)] -> (M, N) in
+    x's dtype."""
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError("x (M, K), w (K, N)")
+    M, K = x.shape
+    N, r = w.shape[1], a1.shape[-1]
+    if (w.shape[0] != K or tuple(a1.shape) != (K, r)
+            or tuple(a2.shape) != (K, r) or tuple(b1.shape) != (r, N)
+            or tuple(b2.shape) != (r, N) or tuple(fusion_w.shape) != (2,)):
+        raise ValueError(f"shapes do not agree: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, a1 {tuple(a1.shape)}, b1 "
+                         f"{tuple(b1.shape)}, a2 {tuple(a2.shape)}, b2 "
+                         f"{tuple(b2.shape)}, fusion_w "
+                         f"{tuple(fusion_w.shape)}")
+    if x.device.type == "cpu":
+        return dual_lora_matmul_ref(x, w, a1, b1, a2, b2, fusion_w[0],
+                                    fusion_w[1], scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"no dual_lora_matmul kernel for {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, a1, b1, a2, b2, fusion_w)):
+        raise RuntimeError("dual_lora_matmul is forward only (the AdaFusion "
+                           "search takes no gradient); call it under "
+                           "torch.no_grad()")
+    dev = x.device
+    fl = (torch.float32, torch.bfloat16)
+    f32 = (torch.float32,)
+    _check("x", x, fl, (M, K), dev)
+    _check("w", w, fl, (K, N), dev)
+    for name, t, shape in (("a1", a1, (K, r)), ("b1", b1, (r, N)),
+                           ("a2", a2, (K, r)), ("b2", b2, (r, N)),
+                           ("fusion_w", fusion_w, (2,))):
+        _check(name, t, f32, shape, dev)
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"rank {r} outside [1, {MAX_RANK}]")
+    y = torch.empty((M, N), dtype=x.dtype, device=dev)
+    if M == 0:
+        return y
+    z = torch.empty((M, r), dtype=torch.float32, device=dev)
+    err = _lib()(x.data_ptr(), w.data_ptr(), a1.data_ptr(), b1.data_ptr(),
+                 a2.data_ptr(), b2.data_ptr(), fusion_w.data_ptr(),
+                 z.data_ptr(), y.data_ptr(), M, K, N, r,
+                 int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+                 float(scale), build.stream_ptr(dev))
+    build.check(err, "dual_lora_matmul")
+    dual_lora_matmul.launches += 1
+    return y
+
+
+dual_lora_matmul.launches = 0

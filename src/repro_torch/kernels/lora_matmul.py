@@ -1,0 +1,125 @@
+"""Fused single-tenant LoRA matmul: the wrapper of ``csrc/lora_matmul.cu``.
+
+Port of the Pallas kernel ``repro/kernels/lora_matmul.py::lora_matmul``:
+``y = x·W + α·(x·A)·B`` with fp32 accumulation and one rounding to x's
+dtype.  It carries every LoRA projection of a training forward, so it is
+differentiable: :class:`LoRAMatmul` runs the kernel forward and a plain
+PyTorch backward, :func:`lora_matmul_backward` (the reference has no
+backward kernel either; its gradients come from autodiff outside the
+Pallas call).  ``W`` is frozen and gets no gradient.
+
+CPU tensors run the plain version (:func:`lora_matmul_ref`, differentiated
+by autograd); CUDA tensors launch the kernel or raise.
+``lora_matmul.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.batched_lora import MAX_RANK, _check
+from repro_torch.kernels.ref import lora_matmul_ref
+
+__all__ = ["lora_matmul", "lora_matmul_ref", "lora_matmul_backward",
+           "LoRAMatmul"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib():
+    lib = build.load("lora_matmul")
+    fn = lib.lora_matmul
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 6 + [_I] * 6 + [_F, _P]
+        fn.restype = _I
+    return fn
+
+
+def _launch(x, w, a, b, scale: float):
+    """One launch on the card: returns (y (M, N) in x's dtype, z = x·A
+    (M, r) fp32)."""
+    M, K = x.shape
+    N, r = w.shape[1], a.shape[1]
+    dev = x.device
+    fl = (torch.float32, torch.bfloat16)
+    _check("x", x, fl, (M, K), dev)
+    _check("w", w, fl, (K, N), dev)
+    _check("a", a, (torch.float32,), (K, r), dev)
+    _check("b", b, (torch.float32,), (r, N), dev)
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"rank {r} outside [1, {MAX_RANK}]")
+    y = torch.empty((M, N), dtype=x.dtype, device=dev)
+    z = torch.empty((M, r), dtype=torch.float32, device=dev)
+    if M == 0:
+        return y, z
+    err = _lib()(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                 z.data_ptr(), y.data_ptr(), M, K, N, r,
+                 int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+                 float(scale), build.stream_ptr(dev))
+    build.check(err, "lora_matmul")
+    lora_matmul.launches += 1
+    return y, z
+
+
+def lora_matmul_backward(x, w, a, b, z, dy, scale: float,
+                         needs=(True, True, True)):
+    """Gradients (dx, dA, dB) of ``y = x·W + s·z·B`` with ``z = x·A``, for
+    the output gradient ``dy``; ``needs`` says which of the three to
+    compute (the others are None).  Plain PyTorch, reusing the forward's
+    fp32 ``z``: dB = s·zᵀ·dy, dz = s·dy·Bᵀ, dA = xᵀ·dz (fp32, as the
+    reference's fp32 LoRA branch gives them) and dx = dy·Wᵀ + dz·Aᵀ (the
+    base term in dy's dtype, as the plain dense layer's autograd computes
+    it).  ``W`` is frozen and gets no gradient."""
+    need_x, need_a, need_b = needs
+    dyf = dy.float()
+    dz = scale * torch.matmul(dyf, b.t()) if (need_x or need_a) else None
+    db = scale * torch.matmul(z.t(), dyf) if need_b else None
+    da = torch.matmul(x.float().t(), dz) if need_a else None
+    dx = (torch.matmul(dy, w.t().to(dy.dtype))
+          + torch.matmul(dz, a.t()).to(dy.dtype)) if need_x else None
+    return dx, da, db
+
+
+class LoRAMatmul(torch.autograd.Function):
+    """The kernel forward, :func:`lora_matmul_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, scale):
+        y, z = _launch(x, w, a, b, scale)
+        ctx.save_for_backward(x, w, a, b, z)
+        ctx.scale = scale
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, a, b, z = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            raise RuntimeError("lora_matmul: the base weight W is frozen "
+                               "and gets no gradient")
+        need = ctx.needs_input_grad
+        dx, da, db = lora_matmul_backward(x, w, a, b, z, dy, ctx.scale,
+                                          (need[0], need[2], need[3]))
+        return dx, None, da, db, None
+
+
+def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """x: (M, K), w: (K, N), a: (K, r) fp32, b: (r, N) fp32 -> (M, N) in
+    x's dtype; differentiable in x, a and b."""
+    if x.dim() != 2 or w.dim() != 2 or a.dim() != 2 or b.dim() != 2:
+        raise ValueError("x (M, K), w (K, N), a (K, r), b (r, N)")
+    if (w.shape[0] != x.shape[1] or a.shape[0] != x.shape[1]
+            or b.shape != (a.shape[1], w.shape[1])):
+        raise ValueError(f"shapes do not agree: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}")
+    if x.device.type == "cpu":
+        return lora_matmul_ref(x, w, a, b, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"no lora_matmul kernel for {x.device}")
+    return LoRAMatmul.apply(x, w, a, b, float(scale))
+
+
+lora_matmul.launches = 0

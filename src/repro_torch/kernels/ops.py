@@ -1,8 +1,8 @@
 """Model-layout adapters over the kernel wrappers.
 
-Port of ``repro/kernels/ops.py`` (the three entry points this slice
-serves).  The reference padded head dims and ranks to 128 lanes for the
-TPU; the CUDA kernels take any width, so nothing is padded here.
+Port of ``repro/kernels/ops.py``.  The reference padded head dims, ranks
+and matrix edges to its TPU tiles; the CUDA kernels take any width, so
+nothing is padded here.
 """
 from __future__ import annotations
 
@@ -11,10 +11,37 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.batched_lora import batched_lora_matmul
+from repro_torch.kernels.dual_lora import dual_lora_matmul
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.lora_matmul import lora_matmul
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import (paged_prefill_attention,
                                                paged_scatter,
                                                paged_scatter_quant)
+
+
+def lora_dense(x: torch.Tensor, w: torch.Tensor,
+               adapter: Dict[str, torch.Tensor], scale: float) -> torch.Tensor:
+    """(..., K) @ (K, N) plus the LoRA update of ``adapter`` = {"a": (K, r),
+    "b": (r, N)}, through the fused kernel (differentiable)."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    y = lora_matmul(x.reshape(-1, K).contiguous(), w, adapter["a"].contiguous(),
+                    adapter["b"].contiguous(), scale)
+    return y.reshape(*lead, w.shape[1])
+
+
+def fused_dual_lora_dense(x: torch.Tensor, w: torch.Tensor,
+                          ad_p: Dict[str, torch.Tensor],
+                          ad_s: Dict[str, torch.Tensor],
+                          fusion_w: torch.Tensor, scale: float) -> torch.Tensor:
+    """Base plus the Eq. 7 merge of a personalized (``ad_p``) and a global
+    (``ad_s``) pair at ``fusion_w`` (2,) fp32, in one kernel."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    y = dual_lora_matmul(x.reshape(-1, K).contiguous(), w,
+                         ad_p["a"].contiguous(), ad_p["b"].contiguous(),
+                         ad_s["a"].contiguous(), ad_s["b"].contiguous(),
+                         fusion_w, scale)
+    return y.reshape(*lead, w.shape[1])
 
 
 def batched_lora_dense(x: torch.Tensor, w: torch.Tensor,
@@ -82,3 +109,17 @@ def paged_prefill_gqa_attention(q: torch.Tensor, k_new: torch.Tensor,
     if quantized:
         return o, kp, vp, ks, vs
     return o, kp, vp
+
+
+def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        sliding_window: int = 0) -> torch.Tensor:
+    """Model layout: q (B, Sq, H, d), k/v (B, Sk, Kv, d) -> (B, Sq, H, d).
+    The kernel reads the (B, S, heads, d) tensors through strides and kv
+    head ``h // (H // Kv)``, so nothing is transposed or repeated in memory;
+    on the CPU the plain version repeats kv heads, as the reference's
+    wrapper does."""
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal,
+                        sliding_window=sliding_window)
+    return o.transpose(1, 2)

@@ -11,6 +11,24 @@ from typing import Optional
 import torch
 
 
+def lora_matmul_ref(x, w, a, b, scale: float):
+    """``y = x @ w + scale * (x @ a) @ b``, fp32 accumulation, one rounding
+    to ``x.dtype`` at the end."""
+    base = torch.matmul(x.float(), w.float())
+    z = torch.matmul(torch.matmul(x.float(), a.float()), b.float())
+    return (base + scale * z).to(x.dtype)
+
+
+def dual_lora_matmul_ref(x, w, a1, b1, a2, b2, w1, w2, scale: float):
+    """Eq. 7 fused: ``y = x@w + scale·x@[(w1A1+w2A2)(w1B1+w2B2)]``, the
+    merged factors in fp32, one rounding to ``x.dtype``."""
+    am = (w1 * a1 + w2 * a2).float()
+    bm = (w1 * b1 + w2 * b2).float()
+    base = torch.matmul(x.float(), w.float())
+    z = torch.matmul(torch.matmul(x.float(), am), bm)
+    return (base + scale * z).to(x.dtype)
+
+
 def batched_lora_matmul_ref(x, w, a, b, adapter_ids, scale: float, *,
                             a_scale=None, b_scale=None, ranks=None):
     """Multi-tenant LoRA: ``y[i] = x[i]@w + scale*(x[i]@a[g[i]])@b[g[i]]``.
@@ -92,3 +110,35 @@ def paged_prefill_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(mask[:, None], probs, torch.zeros_like(probs))
     return torch.einsum("bhtk,bkhd->bthd", probs, v).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        sliding_window: int = 0,
+                        scale: Optional[float] = None):
+    """q: (B, H, Sq, d), k/v: (B, Kv, Sk, d) with ``H % Kv == 0`` (kv heads
+    repeated, as the reference's GQA wrapper does) -> (B, H, Sq, d).
+
+    Positions are aligned at the end: query i sits at ``Sk - Sq + i``.
+    Logits and softmax in fp32; the probabilities round to v's dtype before
+    the value product, as in the reference."""
+    H, Sq, d = q.shape[1], q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    rep = H // k.shape[1]
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    q_pos = torch.arange(Sq, device=q.device) + (Sk - Sq)
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if sliding_window > 0:
+        mask &= k_pos[None, :] > (q_pos[:, None] - sliding_window)
+    logits = torch.where(mask[None, None], logits,
+                         torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)

@@ -4,15 +4,17 @@ Port of the dense subset of ``repro/models/layers.py``.  Weights keep the
 reference's ``(d_in, d_out)`` layout (``y = x @ w``).  Linear layers take an
 optional LoRA pair; the adapter path computes in fp32 and is added to the
 frozen base output.  ``cfg.paged_backend`` (resolved by the model before
-it gets here) picks the paged-attention path: ``"torch"`` gathers the
-row's blocks and attends one chunk position at a time (the reference's
-jnp path, bitwise-stable across chunk sizes), ``"cuda"`` runs the
-hand-written kernels — and routes every banked projection through the
-batched-LoRA kernel.
+it gets here) picks the path of every kernel: ``"torch"`` is the plain
+version of each (the paged branch gathers the row's blocks and attends one
+chunk position at a time, the reference's jnp path, bitwise-stable across
+chunk sizes); ``"cuda"`` runs the hand-written kernels: paged decode and
+prefill attention, flash attention for the no-cache branch, and the LoRA
+kernels for every adapted projection (batched for banks, single-tenant
+for a pair, dual for an Eq. 7 pair of pairs).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,11 +59,28 @@ def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return torch.matmul(torch.matmul(xf, af), bf)
 
 
+class DualPair(NamedTuple):
+    """One target's two pairs and their fusion weights (2,) fp32: the
+    projection computes the Eq. 7 merge ``(w1·A1 + w2·A2)·(w1·B1 + w2·B2)``
+    (``core/dual_lora.dual_tree`` builds such trees)."""
+    a1: torch.Tensor
+    b1: torch.Tensor
+    a2: torch.Tensor
+    b2: torch.Tensor
+    w: torch.Tensor
+
+    def merged(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        w1, w2 = self.w[0], self.w[1]
+        return (w1 * self.a1 + w2 * self.a2, w1 * self.b1 + w2 * self.b2)
+
+
 def lora_pair(adapters: Optional[Params], name: str):
     """The LoRA tuple :func:`dense` takes for one target, or None."""
     if adapters is None or name not in adapters:
         return None
     ad = adapters[name]
+    if "a2" in ad:
+        return DualPair(ad["a"], ad["b"], ad["a2"], ad["b2"], ad["w"])
     if "a_scale" in ad:
         return (ad["a"], ad["b"], ad["a_scale"], ad["b_scale"])
     return (ad["a"], ad["b"])
@@ -72,16 +91,31 @@ def dense(x: torch.Tensor, w: torch.Tensor,
           lora_scale: float = 1.0,
           adapter_ids: Optional[torch.Tensor] = None,
           backend: Optional[str] = None) -> torch.Tensor:
-    """Linear layer with optional LoRA.  With ``backend == "cuda"`` and a
-    banked adapter, the batched-LoRA kernel computes base and update in one
-    pass (rounding once); otherwise the base product is rounded to x's
-    dtype before the fp32 update is added, as in the reference."""
-    if (backend == "cuda" and lora is not None and lora[0].dim() == 3):
-        bank = {"a": lora[0], "b": lora[1]}
-        if len(lora) == 4:
-            bank["a_scale"], bank["b_scale"] = lora[2], lora[3]
-        return kernel_ops.batched_lora_dense(x, w, bank, adapter_ids,
-                                             lora_scale)
+    """Linear layer with optional LoRA.  With ``backend == "cuda"`` a LoRA
+    kernel computes base and update in one pass (rounding once): the
+    batched kernel for a bank, the single-tenant kernel for a pair, the
+    dual kernel for a :class:`DualPair`.  Otherwise the base product is
+    rounded to x's dtype before the fp32 update is added, as in the
+    reference."""
+    if backend == "cuda" and lora is not None:
+        if isinstance(lora, DualPair):
+            return kernel_ops.fused_dual_lora_dense(
+                x, w, {"a": lora.a1, "b": lora.b1},
+                {"a": lora.a2, "b": lora.b2}, lora.w, lora_scale)
+        if lora[0].dim() == 3:
+            bank = {"a": lora[0], "b": lora[1]}
+            if len(lora) == 4:
+                bank["a_scale"], bank["b_scale"] = lora[2], lora[3]
+            return kernel_ops.batched_lora_dense(x, w, bank, adapter_ids,
+                                                 lora_scale)
+        if len(lora) != 2:
+            raise NotImplementedError(
+                "paged_backend='cuda' has no kernel for a single int8 "
+                "adapter pair; use paged_backend='torch'")
+        return kernel_ops.lora_dense(x, w, {"a": lora[0], "b": lora[1]},
+                                     lora_scale)
+    if isinstance(lora, DualPair):
+        lora = lora.merged()
     y = matmul(x, w)
     if lora is not None:
         a, b, *scales = lora
@@ -191,7 +225,8 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
                         paged: Optional[Tuple] = None):
     """Attention over x (B, S, d).
 
-    * no cache: causal (+ window) attention over the S positions;
+    * no cache (training, evaluation): causal (+ window) attention over
+      the S positions, through the flash-attention kernel on ``"cuda"``;
     * paged (continuous batching): ``kv_cache`` = {"k_pool", "v_pool":
       (NB, bs, Kv, hd)} shared by all slots, ``paged = (block_tables (B,
       MB), lengths (B,)[, n_new (B,)])``.  The S new tokens scatter to
@@ -218,8 +253,17 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
-        mask = _attn_mask(positions, positions, cfg.sliding_window)
-        out = _sdpa(q, k, v, cfg, mask, x.dtype)
+        if backend == "cuda":
+            if cfg.attn_logit_softcap > 0:
+                raise NotImplementedError(
+                    "paged_backend='cuda' has no logit softcap in its flash "
+                    "attention kernel; use paged_backend='torch'")
+            out = kernel_ops.gqa_flash_attention(
+                q, k, v, causal=True, sliding_window=cfg.sliding_window)
+            out = out.reshape(B, S, H * hd)
+        else:
+            mask = _attn_mask(positions, positions, cfg.sliding_window)
+            out = _sdpa(q, k, v, cfg, mask, x.dtype)
         return dn(out, params["wo"], la("wo")), None
 
     if paged is None:

@@ -13,17 +13,19 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import PAGED_BACKENDS, torch_dtype
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 
 
-def init_params(cfg, seed: int = 0, device="cpu") -> Params:
+def init_params(cfg, seed: int = 0, device="cuda") -> Params:
     """Random weights from ``seed``: the reference's init scales (normal ×
     d^-0.5 for projections, × d_ff^-0.5 for w_out, × 0.02 for embeddings),
-    drawn by a ``torch.Generator`` on ``device``."""
-    dev = torch.device(device)
+    drawn by a ``torch.Generator`` on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg.param_dtype)
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
@@ -64,7 +66,7 @@ def init_params(cfg, seed: int = 0, device="cpu") -> Params:
 def resolve_backend(cfg, paged_backend: Optional[str], device):
     """``cfg`` with ``paged_backend`` settled: the call's override, else the
     config's, else ``"cuda"`` on a card and ``"torch"`` on the CPU.  The CPU
-    allows only ``"torch"``."""
+    allows only ``"torch"``, for serving and training alike."""
     backend = paged_backend or cfg.paged_backend or (
         "cuda" if torch.device(device).type == "cuda" else "torch")
     if backend not in PAGED_BACKENDS:
@@ -131,11 +133,13 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
 
 
 def init_paged_decode_cache(cfg, num_blocks: int, block_size: int,
-                            device="cpu", kv_dtype: str = "f32") -> Params:
+                            device="cuda", kv_dtype: str = "f32") -> Params:
     """Serving cache: one bf16 K/V block pool per layer (bf16 even when the
-    model computes in fp32, as in the reference)."""
+    model computes in fp32, as in the reference), on the card unless the
+    caller asks for the CPU."""
+    dev = resolve_device(device)
     return {"layers": [L.init_paged_kv_cache(cfg, num_blocks, block_size,
-                                             torch.bfloat16, device,
+                                             torch.bfloat16, dev,
                                              kv_dtype=kv_dtype)
                        for _ in range(cfg.n_layers)]}
 

@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain version,
-and one serving step through the ``"cuda"`` backend.
+the two autograd backwards against plain autograd, one serving run and one
+``launch/train.py --smoke`` run through the ``"cuda"`` backend.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is False.  This file imports neither JAX nor the reference package, so on a
@@ -72,9 +73,9 @@ def test_paged_kernels_match_plain(dev, H, Kv, int8):
     y32 = paged_attention(q32, kp, vp, bt, lens, **sc)
     yr32 = ref.paged_attention_ref(q32, kp, vp, bt, lens, **sc)
     torch.testing.assert_close(y32, yr32, atol=2e-5, rtol=1e-5)
-    assert kernels.launch_counts() == {"paged_attention": 2,
-                                       "paged_prefill_attention": 1,
-                                       "batched_lora_matmul": 0}
+    assert kernels.launch_counts() == dict(
+        dict.fromkeys(kernels.WRAPPERS, 0), paged_attention=2,
+        paged_prefill_attention=1)
 
 
 @pytest.mark.parametrize("variant", ["f32_bank", "rank_mask", "int8_bank"])
@@ -135,8 +136,114 @@ def test_smoke_engine_serves_through_the_kernels(dev):
                      block_size=4, num_blocks=20)
     kernels.reset_launch_counts()
     out = eng.generate(reqs, sc)
-    assert all(n > 0 for n in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert all(counts[name] > 0 for name in kernels.SERVING)
     assert [len(o) for o in out] == [5] * 4
     ref_out = eng.generate(reqs, dataclasses.replace(sc,
                                                      paged_backend="torch"))
     assert [o[0] for o in out] == [o[0] for o in ref_out]
+
+
+# ---------------------------------------------------------------------------
+# the training path's kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lora_and_dual_lora_match_plain(dev, dtype):
+    from repro_torch.kernels.dual_lora import dual_lora_matmul
+    from repro_torch.kernels.lora_matmul import lora_matmul
+    gen = torch.Generator(device=dev).manual_seed(2)
+    M, K, N, r = 70, 256, 200, 16
+    x = _randn(gen, (M, K), dev, dtype)
+    w = _randn(gen, (K, N), dev, dtype, 0.05)
+    a1, a2 = (_randn(gen, (K, r), dev, std=0.05) for _ in range(2))
+    b1, b2 = (_randn(gen, (r, N), dev, std=0.05) for _ in range(2))
+    fw = torch.tensor([0.6, 0.7], device=dev)
+    kernels.reset_launch_counts()
+    y = lora_matmul(x, w, a1, b1, 2.0)
+    yr = ref.lora_matmul_ref(x, w, a1, b1, 2.0)
+    yd = dual_lora_matmul(x, w, a1, b1, a2, b2, fw, 2.0)
+    ydr = ref.dual_lora_matmul_ref(x, w, a1, b1, a2, b2, fw[0], fw[1], 2.0)
+    if dtype == torch.bfloat16:
+        assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+        assert float((yd.float() - ydr.float()).abs().max()) <= _bf16_tol(ydr)
+    else:         # the same function in fp32, summation order only
+        torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(yd, ydr, atol=1e-4, rtol=1e-4)
+    counts = kernels.launch_counts()
+    assert counts["lora_matmul"] == 1 and counts["dual_lora_matmul"] == 1
+    with pytest.raises(RuntimeError, match="forward only"):
+        dual_lora_matmul(x, w, a1.requires_grad_(True), b1, a2, b2, fw, 2.0)
+
+
+@pytest.mark.parametrize("H,Kv,Sq,Sk,window", [
+    (4, 4, 100, 100, 0), (4, 4, 96, 96, 17), (4, 4, 40, 130, 0),
+    (8, 2, 64, 64, 0)])
+def test_flash_attention_matches_plain(dev, H, Kv, Sq, Sk, window):
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, d = 2, 64
+    q = _randn(gen, (B, H, Sq, d), dev, torch.bfloat16)
+    k = _randn(gen, (B, Kv, Sk, d), dev, torch.bfloat16)
+    v = _randn(gen, (B, Kv, Sk, d), dev, torch.bfloat16)
+    o = flash_attention(q, k, v, sliding_window=window)
+    orf = ref.flash_attention_ref(q, k, v, sliding_window=window)
+    # the kernel keeps the probabilities in fp32 where the plain version
+    # rounds them to bf16 before the value product: that adds up to one
+    # bf16 rounding of the largest |v| to the two output roundings
+    tol = _bf16_tol(orf) + float(v.float().abs().max()) * 2.0 ** -8
+    assert float((o.float() - orf.float()).abs().max()) <= tol
+    o32 = flash_attention(q.float(), k.float(), v.float(),
+                          sliding_window=window)
+    orf32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                    sliding_window=window)
+    torch.testing.assert_close(o32, orf32, atol=2e-5, rtol=1e-5)
+
+
+def test_autograd_backwards_match_plain_autograd(dev):
+    """Gradients through the kernels' autograd functions equal those of
+    plain autograd through the plain versions (fp32: the forwards differ
+    by summation order only, and the backwards are plain PyTorch)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lora_matmul import lora_matmul
+    gen = torch.Generator(device=dev).manual_seed(4)
+    M, K, N, r = 48, 96, 80, 8
+    w = _randn(gen, (K, N), dev, std=0.05)
+    leaves = [_randn(gen, s, dev, std=sd) for s, sd in
+              (((M, K), 1.0), ((K, r), 0.05), ((r, N), 0.05))]
+    dy = _randn(gen, (M, N), dev)
+    grads = []
+    for fn in (lora_matmul, ref.lora_matmul_ref):
+        x, a, b = (t.clone().requires_grad_(True) for t in leaves)
+        grads.append(torch.autograd.grad(fn(x, w, a, b, 2.0), (x, a, b), dy))
+    for g, gr in zip(*grads):
+        torch.testing.assert_close(g, gr, atol=1e-4, rtol=1e-4)
+    qkv = [_randn(gen, (2, h, 64, 32), dev) for h in (4, 2, 2)]
+    do = _randn(gen, (2, 4, 64, 32), dev)
+    grads = []
+    for fn in (flash_attention, ref.flash_attention_ref):
+        q, k, v = (t.clone().requires_grad_(True) for t in qkv)
+        grads.append(torch.autograd.grad(fn(q, k, v, sliding_window=20),
+                                         (q, k, v), do))
+    for g, gr in zip(*grads):
+        torch.testing.assert_close(g, gr, atol=1e-4, rtol=1e-4)
+
+
+def test_train_cli_smoke_runs_through_the_kernels(dev, tmp_path):
+    """``launch/train.py --smoke`` on the card: every step runs the LoRA and
+    flash-attention kernels and the loss stays finite."""
+    import math
+
+    from repro_torch.launch.train import main
+    from repro_torch.training.checkpoint import load_checkpoint
+    kernels.reset_launch_counts()
+    ad = main(["--smoke", "--steps", "3", "--batch", "2", "--seq", "128",
+               "--ckpt", str(tmp_path / "ad.npz")])
+    counts = kernels.launch_counts()
+    assert counts["lora_matmul"] > 0 and counts["flash_attention"] > 0
+    back = load_checkpoint(str(tmp_path / "ad.npz"))
+    leaf = back["layers"][0]["mlp"]["w_up"]["b"]
+    assert leaf.device.type == "cuda"
+    assert torch.equal(leaf, ad["layers"][0]["mlp"]["w_up"]["b"])
+    assert all(math.isfinite(float(t.abs().sum()))
+               for t in (leaf, ad["layers"][1]["mixer"]["wq"]["a"]))

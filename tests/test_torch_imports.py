@@ -21,8 +21,30 @@ def _imported(tree):
             yield node.module or ""
 
 
+# the modules of each slice of the port; every one is scanned below
+SLICE_MODULES = [
+    # serving
+    "bridge.py", "configs/base.py", "core/lora.py", "core/dual_lora.py",
+    "kernels/batched_lora.py", "kernels/paged_attention.py",
+    "kernels/paged_prefill.py", "kernels/ops.py", "kernels/ref.py",
+    "models/layers.py", "models/model.py", "models/api.py",
+    "serving/engine.py", "serving/registry.py", "launch/serve.py",
+    # training
+    "kernels/lora_matmul.py", "kernels/dual_lora.py",
+    "kernels/flash_attention.py", "core/outer_opt.py", "core/fusion.py",
+    "core/fdlora.py", "training/optimizers.py", "training/train_step.py",
+    "training/checkpoint.py", "data/tokenizer.py", "data/synthetic.py",
+    "data/pipeline.py", "data/partition.py", "launch/train.py",
+]
+
+
 def test_the_port_has_files():
     assert len(FILES) > 20
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_is_scanned(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

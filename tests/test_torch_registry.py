@@ -93,8 +93,8 @@ def test_register_dual_bank_matches_reference_eq7():
         assert reg.default_priority(cid) == jreg.default_priority(cid)
     _assert_banks_equal(jreg, reg)
     # the merge itself, leafwise: w1 * p + w2 * g
-    p = init_adapters(pcfg, seed=1, b_std=0.1)
-    g = init_adapters(pcfg, seed=2, b_std=0.1)
+    p = init_adapters(pcfg, seed=1, device="cpu", b_std=0.1)
+    g = init_adapters(pcfg, seed=2, device="cpu", b_std=0.1)
     m = merge(p, g, w)
     a = m["layers"][1]["mlp"]["w_up"]["a"]
     torch.testing.assert_close(a, 0.7 * p["layers"][1]["mlp"]["w_up"]["a"]
