@@ -9,12 +9,13 @@ Phases (each prints one JSON line per result):
   2. kernels — hold each kernel against its plain PyTorch version on the card
                at its path's shapes and variants (serving: bf16 and int8 K/V,
                GQA groups 1 and 4, ragged lengths with an empty row, rank
-               mask, int8 bank; training: the LoRA and dual-LoRA products of
-               a 2048-row batch, flash attention at B=8, S=256 with a window,
-               Sq < Sk and GQA variants, and the two autograd backwards
-               against plain autograd); time kernel, plain version and one
-               library call computing the same function (a yardstick the
-               port never calls);
+               mask, int8 bank, and the per-row Eq. 7 batched dual-LoRA
+               product at its entry point; training: the LoRA and dual-LoRA
+               products of a 2048-row batch, flash attention at B=8, S=256
+               with a window, Sq < Sk and GQA variants, and the two
+               autograd backwards against plain autograd); time kernel,
+               plain version and one library call computing the same
+               function (a yardstick the port never calls);
   3. serve   — llama2-7b at full width, 32 layers, bf16, random weights from
                --seed, 8 tenants with non-zero rank-16 adapters: 8 ragged
                requests (prompts 128-1024 tokens, 32 new tokens) through
@@ -22,15 +23,29 @@ Phases (each prints one JSON line per result):
                kernel launches; then the same requests with "torch", holding
                first-chunk logits and greedy tokens to stated tolerances; one
                traced run;
-  4. train   — FDLoRA Algorithm 1 on the same llama2-7b weights (32 layers,
+  4. serve_options — the same llama2-7b weights, 32 layers: a ragged int8
+               adapter bank (buckets 4, 8, 16; 6 tenants by register_dual),
+               12 requests of byte-tokenized log text sharing a 512-token
+               prefix per tenant, int8 K/V, prefix caching over a pool
+               pinned at about 3/4 of residency: a cold run (prefix hits, preemption), a warm run (the pool
+               reused across calls) and a speculative run, with the
+               "cuda"/"torch" first-chunk logits, the first suffix chunk
+               after a prefix hit against the same positions prefilled
+               cold, and the streams held to stated tolerances; one traced
+               warm run;
+  5. train   — FDLoRA Algorithm 1 on the same llama2-7b weights (32 layers,
                full width, bf16), rank-16 adapters on all 7 targets, 2
                clients of 8 x 256-token SFT batches: one train step and one
                fused evaluation through "cuda" and "torch" held to stated
                bounds, then FDLoRATrainer.fit through the kernels (12 train
                steps, 18 fused evaluations), publish into an AdapterRegistry
                and generate from it; one traced train step;
-  5. the card's name and power limit, the kernel summary line, and last the
+  6. the card's name and power limit, the kernel summary line, and last the
      result line.
+
+batched_dual_lora_matmul, which no path of the port (or of the reference
+package) calls, is driven at its own entry point in the kernels phase, at
+the serving shapes, and held against its plain version there.
 
 Needs a CUDA device and the repository's src/ beside this file; exits
 non-zero otherwise, and on any failed check.
@@ -268,6 +283,97 @@ def check_lora(gen, device, M, K, N, C, r, variant, reps):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def dual_inputs(gen, device, M, K, N, C, r):
+    """Serving-shape inputs of batched_dual_lora_matmul: bf16 x and W, an
+    fp32 personalized bank and global pair, per-row clients and fusion
+    weights drawn in [-0.2, 1.2] (the reference test's range)."""
+    import torch
+    x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device=device)
+         * K ** -0.5).to(torch.bfloat16)
+    a1 = torch.randn((C, K, r), generator=gen, device=device) / r
+    b1 = torch.randn((C, r, N), generator=gen, device=device) * 0.02
+    a2 = torch.randn((K, r), generator=gen, device=device) / r
+    b2 = torch.randn((r, N), generator=gen, device=device) * 0.02
+    ids = torch.randint(0, C, (M,), generator=gen, device=device,
+                        dtype=torch.int32)
+    fw = torch.rand((M, 2), generator=gen, device=device) * 1.4 - 0.2
+    return x, w, a1, b1, a2, b2, ids, fw
+
+
+def check_dual_batched(inputs, out, reps):
+    """batched_dual_lora_matmul's output ``out`` (from the entry-point run)
+    against its plain version, and rows sharing one (w1, w2) against
+    batched_lora_matmul on the pre-merged bank; both to two bf16 roundings
+    of the largest output."""
+    import torch
+    from repro_torch.kernels.batched_lora import (
+        batched_dual_lora_matmul, batched_dual_lora_matmul_ref,
+        batched_lora_matmul)
+    x, w, a1, b1, a2, b2, ids, fw = inputs
+    M, K = x.shape
+    N, (C, _, r) = w.shape[1], a1.shape
+    scale = 2.0
+    ref = batched_dual_lora_matmul_ref(x, w, a1, b1, a2, b2, ids, fw, scale)
+    tol = _bf16_tol(ref)
+    err = _check_close("batched_dual_lora_matmul", out, ref, tol)
+    # one shared (w1, w2): the Eq. 7 pre-merged bank through the plain
+    # batched kernel
+    w1, w2 = 0.7, 0.4
+    fw1 = torch.tensor([[w1, w2]], device=x.device).expand(M, 2).contiguous()
+    merged = batched_lora_matmul(x, w, (w1 * a1 + w2 * a2).contiguous(),
+                                 (w1 * b1 + w2 * b2).contiguous(), ids, scale)
+    shared_err = _check_close(
+        "batched_dual_lora_matmul vs pre-merged batched_lora_matmul",
+        batched_dual_lora_matmul(x, w, a1, b1, a2, b2, ids, fw1, scale),
+        merged, _bf16_tol(merged))
+    ms = time_ms(lambda: batched_dual_lora_matmul(x, w, a1, b1, a2, b2, ids,
+                                                  fw, scale), reps)
+    plain_ms = time_ms(lambda: batched_dual_lora_matmul_ref(
+        x, w, a1, b1, a2, b2, ids, fw, scale), max(1, reps // 4), 1)
+    library_ms = time_ms(lambda: torch.matmul(x, w), reps)
+    active = int(torch.unique(ids).numel())
+    # x, W, the active clients' A1/B1 and the global pair read once, ids and
+    # weights, y written
+    nbytes = (2 * M * K + 2 * K * N + 4 * (active + 1) * r * (K + N)
+              + 12 * M + 2 * M * N)
+    # the base product plus both pairs' shrink and expand per row
+    flops = 2 * M * K * N + 4 * M * r * (K + N)
+    b_ms, b_by = bound(nbytes, flops)
+    return {"name": "batched_dual_lora_matmul", "M": M, "K": K, "N": N,
+            "C": C, "r": r, "max_abs_err": err, "tol": tol,
+            "shared_weights_vs_merged_err": shared_err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def dual_entry_point(device, seed: int, reps: int, B: int, T: int):
+    """batched_dual_lora_matmul at its own entry point (no path calls it):
+    one call at the decode shape (B x 4096 x 4096) and one at the prefill
+    shape (B*T x 4096 x 11008), C = 8, r = 16, with the launch counts set to
+    0 just before and read just after; then each output is checked and the
+    kernel timed.  Returns (prefill-shape result, launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.batched_lora import batched_dual_lora_matmul
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    shapes = ((B, 4096, 4096), (B * T, 4096, 11008))
+    inputs = [dual_inputs(gen, device, M, K, N, 8, 16) for M, K, N in shapes]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs = [batched_dual_lora_matmul(*inp, 2.0) for inp in inputs]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["batched_dual_lora_matmul"]
+    require(launches == len(shapes),
+            f"batched_dual_lora_matmul launched {launches} times, not "
+            f"{len(shapes)}")
+    results = [check_dual_batched(inp, out, reps)
+               for inp, out in zip(inputs, outs)]
+    for res in results:
+        emit(res)
+    return results[-1], launches
+
+
 def _lora_inputs(gen, device, M, K, N, r):
     import torch
     x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
@@ -486,7 +592,9 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
 
 def first_chunk_logits(eng, reqs, sc, backend):
     """Logits of the first prefill dispatch the engine would make for
-    ``reqs`` (all slots admitted, fresh pool), through ``backend``."""
+    ``reqs`` (all slots admitted, fresh pool of ``sc.kv_dtype``, the
+    registry's bank in ``backend``'s layout), through ``backend``."""
+    import dataclasses
     import torch
     from repro_torch.serving.kv_cache import PagedKVCache, blocks_needed
     B = len(reqs)
@@ -506,10 +614,12 @@ def first_chunk_logits(eng, reqs, sc, backend):
     bt, lens = kv.device_tables(dev)
     ids = torch.tensor([eng.registry.acquire(r.client_id) for r in reqs],
                        dtype=torch.int32, device=dev)
-    cache = eng.model.init_paged_decode_cache(1 + B * per, sc.block_size)
+    cache = eng.model.init_paged_decode_cache(1 + B * per, sc.block_size,
+                                              kv_dtype=sc.kv_dtype)
+    bank = eng.bank_for(dataclasses.replace(sc, paged_backend=backend))
     logits, _ = eng.model.prefill_step(
         eng.params, cache, tokens.to(dev), lens, n_new.to(dev),
-        adapters=eng.registry.bank(), lora_scale=eng.scale, adapter_ids=ids,
+        adapters=bank, lora_scale=eng.scale, adapter_ids=ids,
         block_tables=bt, paged_backend=backend)
     return logits, n_new
 
@@ -541,6 +651,7 @@ def compare_first_chunk(eng, reqs, sc, dtype_name, rel_tol, extra=None):
     require(err <= tol, f"{dtype_name} first-chunk logit error {err} > {tol}")
     require(bool(agree[decisive].all()),
             "greedy token differs on a row whose margin exceeds the error")
+    return err
 
 
 def timed_generate(eng, reqs, sc):
@@ -715,7 +826,322 @@ def profile_phase(eng, reqs, sc, new_tokens: int = 8):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the training path (FDLoRA Algorithm 1)
+# phase 4: the serving options (int8 K/V, ragged int8 bank, prefix cache,
+# speculative decoding)
+# ---------------------------------------------------------------------------
+
+def feed_chunks(eng, kv, cache, slot, seq, sc, backend):
+    """Feed ``seq[lengths[slot]:]`` to ``slot`` of ``kv`` as a batch of one,
+    in ``sc.prefill_chunk``-token prefill dispatches through ``backend``
+    (blocks sealed as they fill, as the engine does).  Returns ([(first
+    position, logits (n, V))], cache)."""
+    import dataclasses
+
+    import torch
+    dev = eng.device
+    T = sc.prefill_chunk
+    bank = eng.bank_for(dataclasses.replace(sc, paged_backend=backend))
+    ids = torch.tensor([eng.registry.acquire(seq.client_id)],
+                       dtype=torch.int32, device=dev)
+    toks = [int(t) for t in seq.prompt]
+    out, pos = [], int(kv.lengths[slot])
+    while pos < len(toks):
+        n = min(T, len(toks) - pos)
+        require(kv.ensure(slot, pos + n), "teacher-forcing pool too small")
+        bt, lens = kv.device_tables(dev)
+        chunk = torch.zeros((1, T), dtype=torch.int32)
+        chunk[0, :n] = torch.tensor(toks[pos:pos + n])
+        logits, cache = eng.model.prefill_step(
+            eng.params, cache, chunk.to(dev), lens[slot:slot + 1],
+            torch.tensor([n], dtype=torch.int32, device=dev), adapters=bank,
+            lora_scale=eng.scale, adapter_ids=ids,
+            block_tables=bt[slot:slot + 1], paged_backend=backend)
+        kv.advance(slot, n, tokens=toks[pos:pos + n])
+        out.append((pos, logits[0, :n]))
+        pos += n
+    return out, cache
+
+
+def _fresh_pool(eng, sc, n_tokens, slots=1):
+    from repro_torch.serving.kv_cache import PagedKVCache, blocks_needed
+    per = blocks_needed(n_tokens, sc.block_size)
+    kv = PagedKVCache(slots, sc.block_size, 1 + slots * per, per,
+                      prefix_cache=True)
+    return kv, eng.model.init_paged_decode_cache(1 + slots * per,
+                                                 sc.block_size,
+                                                 kv_dtype=sc.kv_dtype)
+
+
+def next_token_margin(eng, req, tokens, sc, backend="cuda"):
+    """Top-2 margin of the logits after ``req.prompt + tokens`` (fresh
+    pool, prefill chunks): the margin of the stream's next greedy
+    decision."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    seq = dataclasses.replace(req, prompt=np.concatenate(
+        [np.asarray(req.prompt, np.int32), np.asarray(tokens, np.int32)]))
+    kv, cache = _fresh_pool(eng, sc, len(seq.prompt))
+    kv.admit(0)
+    out, _ = feed_chunks(eng, kv, cache, 0, seq, sc, backend)
+    top2 = torch.topk(out[-1][1][-1], 2).values
+    return float(top2[0] - top2[1])
+
+
+def streams_by_margin(eng, reqs, sc, got, want, err, what):
+    """Streams ``got`` against ``want``: equal wherever the top-2 margin
+    exceeds twice ``err``.  At each stream's first difference the margin
+    of that decision (teacher-forced on ``want``'s history) must be at most
+    2 err.  Returns each stream's matched-prefix length."""
+    matched = []
+    for req, g, w in zip(reqs, got, want):
+        t = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        matched.append(t)
+        if t < min(len(g), len(w)):
+            m = next_token_margin(eng, req, w[:t], sc)
+            require(m <= 2 * err,
+                    f"{what}: {req.client_id} differs at token {t} where the "
+                    f"margin {m} exceeds 2 x {err}")
+    return matched
+
+
+def warm_chunk_check(eng32, req_a, req_b, prefix_len, sc):
+    """The first suffix chunk of ``req_b`` after a prefix hit on blocks that
+    ``req_a`` (same tenant, same prefix) sealed, against the same positions
+    of ``req_b`` prefilled cold, fp32 activations, through "cuda": the max
+    logit difference must stay within 1% of the largest logit."""
+    import torch
+    kv, cache = _fresh_pool(eng32, sc, len(req_a.prompt) + len(req_b.prompt),
+                            slots=2)
+    scope = (req_a.client_id, eng32.registry.version(req_a.client_id))
+    kv.admit(0, scope, req_a.prompt)
+    _, cache = feed_chunks(eng32, kv, cache, 0, req_a, sc, "cuda")
+    kv.release(0)
+    hit = kv.admit(1, scope, req_b.prompt)
+    require(hit >= prefix_len, f"warm-chunk check: hit {hit} tokens, under "
+            f"the {prefix_len}-token prefix")
+    warm, _ = feed_chunks(eng32, kv, cache, 1, req_b, sc, "cuda")
+    kv2, cache2 = _fresh_pool(eng32, sc, len(req_b.prompt))
+    kv2.admit(0)
+    cold, _ = feed_chunks(eng32, kv2, cache2, 0, req_b, sc, "cuda")
+    cold_all = torch.cat([lg for _, lg in cold])       # every position
+    pos0, lw = warm[0]
+    lc = cold_all[pos0:pos0 + lw.shape[0]]
+    err = float((lw - lc).abs().max())
+    top = float(lc.abs().max())
+    emit({"phase": "warm_chunk", "activations": "float32",
+          "prefix_hit_tokens": hit, "first_suffix_position": pos0,
+          "positions": int(lw.shape[0]), "max_abs_logit_err": err,
+          "max_abs_logit": top, "tol": 1e-2 * top})
+    require(err <= 1e-2 * top, f"warm suffix chunk logit error {err} > "
+            f"{1e-2 * top}")
+
+
+def bank_bytes(registry):
+    """(ragged int8 bank, its kernel view, a uniform rank-16 fp32 bank of
+    the same capacity) in bytes."""
+    from repro_torch.core.lora import block_target_shapes, tree_leaves
+    own = sum(t.numel() * t.element_size()
+              for _, t in tree_leaves(registry.bank()))
+    view = sum(t.numel() * t.element_size()
+               for _, t in tree_leaves(registry.kernel_bank()))
+    cfg = registry._cfg
+    per_layer = sum(din * 16 + 16 * dout
+                    for tmap in block_target_shapes(cfg).values()
+                    for din, dout in tmap.values())
+    uniform = 4 * registry.capacity * cfg.n_layers * per_layer
+    return own, view, uniform
+
+
+def tenant_text(rng, tenant: int, n_tokens: int):
+    """``n_tokens`` byte-tokenized log-anomaly examples (prompt, answer) of
+    ``tenant``'s log source: the repo's FDLoRA data, templated text of the
+    kind a tenant sends, in the byte tokenizer's ids."""
+    import numpy as np
+    from repro_torch.data.synthetic import gen_log_dataset
+    from repro_torch.data.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    ids = []
+    while len(ids) < n_tokens:
+        for ex in gen_log_dataset(rng, 8, tenant):
+            ids += tok.encode(ex.prompt + ex.answer + "\n", add_bos=False)
+    return np.asarray(ids[:n_tokens], np.int32)
+
+
+def serve_options_phase(device, seed: int, params, cfg, T: int = 256,
+                        prefix_len: int = 512, new_tokens: int = 32):
+    """llama2-7b, 32 layers, bf16: int8 K/V, a ragged int8 bank, prefix
+    caching on a pool pinned below residency, then speculative decoding.
+    Returns the cold run's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.lora import init_adapters
+    from repro_torch.models.api import Model
+    from repro_torch.serving.engine import (MultiTenantEngine, Request,
+                                            ServeConfig)
+    from repro_torch.serving.kv_cache import blocks_needed, kv_bytes_per_block
+    from repro_torch.serving.registry import AdapterRegistry
+
+    registry = AdapterRegistry(cfg, capacity=8, ranks=[4, 8, 16],
+                               bank_dtype="int8", device=device)
+    tenant_ranks = [4, 4, 8, 8, 16, 16]
+    for i, rank in enumerate(tenant_ranks):
+        # A ~ N(0, 1) / r, so x·A·B grows like 1 / sqrt(r) at a fixed B
+        # spread; B ~ N(0, (0.02 sqrt(r / 16))^2) gives every tenant the
+        # update size of the serve phase's rank-16 adapters (a lower-rank
+        # adapter is not a larger one)
+        b_std = 0.02 * (rank / 16) ** 0.5
+        ad_p = init_adapters(cfg, rank, seed=seed + 200 + 2 * i,
+                             device=device, b_std=b_std)
+        ad_s = init_adapters(cfg, rank, seed=seed + 201 + 2 * i,
+                             device=device, b_std=b_std)
+        registry.register_dual(f"tenant{i}", ad_p, ad_s, [0.6, 0.6])
+        del ad_p, ad_s
+    eng = MultiTenantEngine(Model(cfg, device), cfg, params, registry)
+    own, view, uniform = bank_bytes(registry)
+    emit({"phase": "bank_bytes", "capacity": registry.capacity,
+          "bucket_ranks": registry.bucket_ranks,
+          "bucket_sizes": registry.bucket_sizes,
+          "slot_ranks": registry.slot_ranks().tolist(),
+          "ragged_int8_bank_bytes": own,
+          "kernel_view_bytes": view,
+          "uniform_rank16_fp32_bank_bytes": uniform,
+          "uniform_over_ragged": uniform / own})
+
+    # two requests per tenant: the tenant's 512-token prefix (a few-shot
+    # context of its own log source) plus a seeded suffix of 64-256 tokens
+    # of further log examples; every tenant's first request, then the
+    # seconds
+    rng = np.random.default_rng(seed + 300)
+    prefixes = [tenant_text(rng, i, prefix_len)
+                for i in range(len(tenant_ranks))]
+    reqs = []
+    for _ in range(2):
+        for i, pre in enumerate(prefixes):
+            suf = tenant_text(rng, i, int(rng.integers(64, 257)))
+            reqs.append(Request(f"tenant{i}", np.concatenate([pre, suf])))
+    spans = [blocks_needed(len(r.prompt) + new_tokens, 16) for r in reqs]
+    resident = sum(sorted(spans)[-8:])          # 8 slots of the longest
+    num_blocks = 1 + (3 * resident) // 4
+    sc = ServeConfig(batch_size=8, max_new_tokens=new_tokens,
+                     prefill_chunk=T, block_size=16, num_blocks=num_blocks,
+                     kv_dtype="int8", prefix_cache=True,
+                     paged_backend="cuda")
+    emit({"phase": "serve_options_config", "requests": len(reqs),
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "prefix_len": prefix_len, "new_tokens": new_tokens,
+          "tenant_ranks": tenant_ranks, "batch": sc.batch_size,
+          "prefill_chunk": T, "block_size": 16,
+          "blocks_for_8_resident": resident, "num_blocks": num_blocks,
+          "pool_gb": num_blocks * kv_bytes_per_block(
+              16, cfg.n_kv_heads, cfg.resolved_head_dim, "int8")
+          * cfg.n_layers / 1e9})
+
+    def run(name, reqs_, sc_):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs_, sc_)
+        counts = kernels.launch_counts()
+        st = eng.last_stats
+        line = {"phase": "serve_options", "run": name,
+                "requests": len(reqs_), "tokens": sum(len(o) for o in outs),
+                "ttft_ms_p50": float(np.percentile(ttft, 50)) * 1e3,
+                "ttft_ms_max": max(ttft) * 1e3,
+                "decode_tokens": dec_tok, "decode_s": dec_s,
+                "decode_tok_per_s": dec_tok / dec_s if dec_s > 0 else None,
+                "total_s": total_s,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": counts,
+                **{k: st[k] for k in (
+                    "prefill_dispatches", "decode_dispatches",
+                    "verify_dispatches", "preemptions", "prompt_tokens",
+                    "prefix_hit_tokens", "prefix_hit_rate",
+                    "prefix_pool_reused", "prefix_evictions",
+                    "drafted_tokens", "accepted_tokens", "acceptance_rate",
+                    "rollback_tokens", "kv_dtype")}}
+        emit(line)
+        for o in outs:
+            require(len(o) == sc_.max_new_tokens and all(
+                0 <= t < cfg.vocab_size for t in o),
+                f"serve_options {name}: a stream is malformed")
+        return outs, st, counts
+
+    # 1. cold: prefix hits inside the call, preemption, every serving kernel
+    eng.release_prefix_cache()
+    cold, st_cold, counts = run("cold", reqs, sc)
+    require(st_cold["prefix_hit_tokens"] > 0, "cold run: no prefix hit")
+    require(st_cold["preemptions"] > 0, "cold run: no preemption")
+    for name in kernels.SERVING:
+        require(counts[name] > 0,
+                f"kernel {name} was never launched on the options path")
+    # 2. warm: the same requests against the pool kept by the cold run
+    warm, st_warm, _ = run("warm", reqs, sc)
+    require(st_warm["prefix_pool_reused"], "warm run: pool not reused")
+    require(st_warm["prefix_hit_rate"] > st_cold["prefix_hit_rate"],
+            "warm run: hit rate not above the cold run's")
+    # 3. speculative: each prompt extended by its own first 16 greedy tokens
+    # from the cold run, so the drafter finds runs to copy
+    spec_reqs = [dataclasses.replace(r, prompt=np.concatenate(
+        [r.prompt, np.asarray(o[:16], np.int32)])) for r, o in zip(reqs, cold)]
+    sc_spec = dataclasses.replace(sc, spec_decode=True, spec_k=4)
+    spec, st_spec, _ = run("spec", spec_reqs, sc_spec)
+    require(st_spec["verify_dispatches"] > 0, "spec run: no verify dispatch")
+    require(st_spec["accepted_tokens"] > 0, "spec run: no draft accepted")
+
+    # 4. the properties, to stated tolerances.  First-chunk logits "cuda"
+    # vs "torch" with int8 K/V and the ragged int8 bank (compare_first_chunk's
+    # bounds); the first 8 requests, as one dispatch would hold them.
+    first = reqs[:8]
+    err_bf16 = compare_first_chunk(eng, first, sc, "bfloat16", rel_tol=0.1,
+                                   extra={"kv_dtype": "int8",
+                                          "bank": "ragged int8"})
+    # fp32 activations: with bf16 pools (the serve phase's) the paths differ
+    # by summation order, and that noise flips a pool rounding by one bf16
+    # ulp now and then: 1%.  int8 pools turn the same noise into flips of
+    # one int8 step, amax/127 of a (position, kv-head) row, about 3x a bf16
+    # ulp of a typical element (|x| ~ amax/3), so flips move logits about
+    # 3x as far: 3%.  A wrong scale, mask or bucket moves them by O(10%).
+    cfg32 = cfg.with_overrides(dtype="float32")
+    eng32 = MultiTenantEngine(Model(cfg32, device), cfg32, params, registry)
+    compare_first_chunk(eng32, first, dataclasses.replace(sc, kv_dtype="f32"),
+                        "float32", rel_tol=1e-2,
+                        extra={"kv_dtype": "f32", "bank": "ragged int8"})
+    compare_first_chunk(eng32, first, sc, "float32", rel_tol=3e-2,
+                        extra={"kv_dtype": "int8", "bank": "ragged int8"})
+    warm_chunk_check(eng32, reqs[0], reqs[6], prefix_len, sc)
+    del eng32
+    # streams: warm vs cold and spec vs cold (the spec stream's first 16
+    # tokens continue where the cold stream's first 16 ended), equal
+    # wherever the margin exceeds twice the bf16 cuda-vs-torch error
+    m_warm = streams_by_margin(eng, reqs, sc, warm, cold, err_bf16,
+                               "warm vs cold")
+    m_spec = streams_by_margin(eng, spec_reqs, sc,
+                               [o[:16] for o in spec],
+                               [o[16:32] for o in cold], err_bf16,
+                               "spec vs cold")
+    emit({"phase": "serve_options_streams", "err_bound": 2 * err_bf16,
+          "warm_vs_cold_matched": m_warm,
+          "spec_vs_cold_matched_of_16": m_spec})
+    # one traced warm run, 8 new tokens: device time by kernel family
+    sc8 = dataclasses.replace(sc, max_new_tokens=8)
+    wall_ms, fam = traced(lambda: eng.generate(reqs, sc8), KERNEL_FAMILIES,
+                          "other device work (torch: lm_head, norms, rope, "
+                          "scatter-quantize, sampling, copies)")
+    emit(_profile_line(fam, wall_ms, phase="profile_serve_options",
+                       requests=len(reqs), new_tokens=8,
+                       prefix_pool_reused=eng.last_stats[
+                           "prefix_pool_reused"]))
+    eng.release_prefix_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the training path (FDLoRA Algorithm 1)
 # ---------------------------------------------------------------------------
 
 def _rel(a, b) -> float:
@@ -966,6 +1392,9 @@ KERNEL_ROWS = {
                         "src/repro/kernels/flash_attention.py:81"),
     "dual_lora_matmul": ("src/repro_torch/kernels/csrc/dual_lora.cu",
                          "src/repro/kernels/dual_lora.py:51"),
+    "batched_dual_lora_matmul": (
+        "src/repro_torch/kernels/csrc/batched_dual_lora.cu",
+        "src/repro/kernels/batched_lora.py:224"),
 }
 
 
@@ -1004,16 +1433,22 @@ def main(argv=None) -> int:
     n_requests, T = 8, 256
     prompt_lens = sorted(int(n) for n in rng.integers(128, 1025, n_requests))
     main_shapes = kernel_phase(device, args.seed, args.reps, prompt_lens, T)
+    main_shapes["batched_dual_lora_matmul"], dual_launches = \
+        dual_entry_point(device, args.seed, args.reps, n_requests, T)
     main_shapes.update(training_kernels(device, args.seed, args.reps))
     serve_counts, params = serve_phase(device, args.seed, n_requests, 32, 128,
                                        1024, T)
     torch.cuda.empty_cache()            # the serving pools are gone
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    serve_options_phase(device, args.seed, params, get_config(ARCH), T)
+    torch.cuda.empty_cache()
     train_counts = train_phase(device, args.seed, params, get_config(ARCH))
-    # each kernel's launches on its own path's run
+    # each kernel's launches on its own path's run; the standalone kernel's
+    # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
-              **{n: train_counts[n] for n in kernels.TRAINING}}
+              **{n: train_counts[n] for n in kernels.TRAINING},
+              "batched_dual_lora_matmul": dual_launches}
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
 
     print(card_identity(), flush=True)

@@ -6,7 +6,9 @@ The reference stacks every layer leaf on a leading period axis (params
 functions take the reference trees AS NUMPY ARRAYS (``np.asarray`` on each
 leaf; bfloat16 arrays are accepted) and return torch trees, so both
 packages compute on the same weights.  Nothing here imports the reference
-package: the trees are plain nested dicts.
+package: the trees are plain nested dicts.  Like every entry point of the
+port they put their tensors on the card unless the caller asks for the
+CPU.
 """
 from __future__ import annotations
 
@@ -16,13 +18,15 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
 Params = Dict[str, Any]
 
 
-def to_torch(x, device="cpu") -> torch.Tensor:
+def to_torch(x, device="cuda") -> torch.Tensor:
     """One numpy leaf -> tensor (bfloat16 goes through float32, exactly)."""
+    device = resolve_device(device)
     arr = np.asarray(x)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(
@@ -42,10 +46,11 @@ def _period_slice(leaf, p: int, device) -> torch.Tensor:
     return to_torch(np.asarray(leaf)[p], device)
 
 
-def unstack_blocks(blocks: Params, device="cpu") -> list:
+def unstack_blocks(blocks: Params, device="cuda") -> list:
     """``{"b0": tree, "b1": tree, ...}`` with leaves (n_periods, ...) (numpy
     or torch) -> per-layer trees: layer ``p * period + j`` is period p of
     block j."""
+    device = resolve_device(device)
     names = sorted(blocks, key=lambda n: int(n[1:]))
     period = len(names)
     layers = []
@@ -64,7 +69,7 @@ def _n_layers(blocks: Params) -> int:
     return len(blocks) * int(first_leaf(blocks).shape[0])
 
 
-def params_from_jax(tree: Params, device="cpu") -> Params:
+def params_from_jax(tree: Params, device="cuda") -> Params:
     """Reference ``init_params`` tree (numpy leaves) -> port params."""
     out = {"embed": to_torch(tree["embed"], device),
            "final_norm": _map(lambda l: to_torch(l, device),
@@ -75,7 +80,7 @@ def params_from_jax(tree: Params, device="cpu") -> Params:
     return out
 
 
-def adapters_from_jax(tree: Params, device="cpu") -> Params:
+def adapters_from_jax(tree: Params, device="cuda") -> Params:
     """Reference adapter tree or registry bank (numpy leaves, stacked on the
     period axis) -> port tree ``{"layers": [...]}``."""
     return {"layers": unstack_blocks(tree["blocks"], device)}

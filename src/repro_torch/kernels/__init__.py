@@ -7,7 +7,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels.batched_lora import batched_lora_matmul
+from repro_torch.kernels.batched_lora import (batched_dual_lora_matmul,
+                                              batched_lora_matmul)
 from repro_torch.kernels.dual_lora import dual_lora_matmul
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lora_matmul import lora_matmul
@@ -22,11 +23,15 @@ WRAPPERS = {
     "lora_matmul": lora_matmul,
     "flash_attention": flash_attention,
     "dual_lora_matmul": dual_lora_matmul,
+    "batched_dual_lora_matmul": batched_dual_lora_matmul,
 }
 
 # the kernels of each path of the port
 SERVING = ("paged_attention", "paged_prefill_attention", "batched_lora_matmul")
 TRAINING = ("lora_matmul", "flash_attention", "dual_lora_matmul")
+# kernels no path of the port launches: their entry point is their only
+# caller, as in the reference package
+STANDALONE = ("batched_dual_lora_matmul",)
 
 
 def launch_counts() -> Dict[str, int]:

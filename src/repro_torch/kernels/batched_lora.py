@@ -1,4 +1,5 @@
-"""Batched multi-tenant LoRA matmul: the wrapper of ``csrc/batched_lora.cu``.
+"""Batched multi-tenant LoRA matmuls: the wrappers of ``csrc/batched_lora.cu``
+and ``csrc/batched_dual_lora.cu``.
 
 Port of the Pallas kernel ``repro/kernels/batched_lora.py::
 batched_lora_matmul``: ``y[i] = x[i]·W + α·x[i]·A[g[i]]·B[g[i]]`` with
@@ -8,6 +9,12 @@ kernel computes the base product itself (fp32 accumulation) and rounds
 once in its epilogue.  CPU tensors run the plain version
 (:func:`batched_lora_matmul_ref`); CUDA tensors launch the kernel or
 raise.  ``batched_lora_matmul.launches`` counts launches.
+
+:func:`batched_dual_lora_matmul` is the port of the Pallas kernel of the
+same name: per-row Eq. 7 over a personalized bank and one global pair,
+each row with its own fusion weights.  No path of the reference package
+calls it (its registry merges Eq. 7 at ``register_dual`` and serves the
+merged bank), so it runs at its own entry point only.
 """
 from __future__ import annotations
 
@@ -17,9 +24,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import batched_lora_matmul_ref
+from repro_torch.kernels.ref import (batched_dual_lora_matmul_ref,
+                                     batched_lora_matmul_ref)
 
-__all__ = ["batched_lora_matmul", "batched_lora_matmul_ref"]
+__all__ = ["batched_lora_matmul", "batched_lora_matmul_ref",
+           "batched_dual_lora_matmul", "batched_dual_lora_matmul_ref"]
 
 MAX_RANK = 128
 
@@ -31,6 +40,15 @@ def _lib():
     fn = lib.batched_lora_matmul
     if fn.argtypes is None:
         fn.argtypes = [_P] * 10 + [_I] * 8 + [_F, _P]
+        fn.restype = _I
+    return fn
+
+
+def _dual_lib():
+    lib = build.load("batched_dual_lora")
+    fn = lib.batched_dual_lora_matmul
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 10 + [_I] * 7 + [_F, _P]
         fn.restype = _I
     return fn
 
@@ -105,3 +123,67 @@ def batched_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 
 batched_lora_matmul.launches = 0
+
+
+def batched_dual_lora_matmul(x: torch.Tensor, w: torch.Tensor,
+                             a1: torch.Tensor, b1: torch.Tensor,
+                             a2: torch.Tensor, b2: torch.Tensor,
+                             adapter_ids: torch.Tensor,
+                             fusion_w: torch.Tensor,
+                             scale: float = 1.0) -> torch.Tensor:
+    """x: (M, K), w: (K, N), a1: (C, K, r) and b1: (C, r, N) fp32 (the
+    personalized bank), a2: (K, r) and b2: (r, N) fp32 (the global pair),
+    adapter_ids: (M,) int32, fusion_w: (M, 2) fp32 per-row ``[w1, w2]`` ->
+    (M, N) in x's dtype.  Forward only."""
+    if x.dim() != 2 or w.dim() != 2 or a1.dim() != 3 or b1.dim() != 3:
+        raise ValueError("x (M, K), w (K, N), a1 (C, K, r), b1 (C, r, N)")
+    M, K = x.shape
+    N = w.shape[1]
+    C, _, r = a1.shape
+    if (w.shape[0] != K or tuple(a1.shape) != (C, K, r)
+            or tuple(b1.shape) != (C, r, N) or tuple(a2.shape) != (K, r)
+            or tuple(b2.shape) != (r, N)
+            or tuple(fusion_w.shape) != (M, 2)):
+        raise ValueError(f"shapes do not agree: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, a1 {tuple(a1.shape)}, b1 "
+                         f"{tuple(b1.shape)}, a2 {tuple(a2.shape)}, b2 "
+                         f"{tuple(b2.shape)}, fusion_w "
+                         f"{tuple(fusion_w.shape)}")
+    if x.device.type == "cpu":
+        return batched_dual_lora_matmul_ref(x, w, a1, b1, a2, b2, adapter_ids,
+                                            fusion_w, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"no batched_dual_lora_matmul kernel for {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, a1, b1, a2, b2, fusion_w)):
+        raise RuntimeError("batched_dual_lora_matmul is forward only; call "
+                           "it under torch.no_grad()")
+    dev = x.device
+    fl = (torch.float32, torch.bfloat16)
+    f32 = (torch.float32,)
+    _check("x", x, fl, (M, K), dev)
+    _check("w", w, fl, (K, N), dev)
+    for name, t, shape in (("a1", a1, (C, K, r)), ("b1", b1, (C, r, N)),
+                           ("a2", a2, (K, r)), ("b2", b2, (r, N)),
+                           ("fusion_w", fusion_w, (M, 2))):
+        _check(name, t, f32, shape, dev)
+    _check("adapter_ids", adapter_ids, (torch.int32,), (M,), dev)
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"rank {r} outside [1, {MAX_RANK}]")
+    y = torch.empty((M, N), dtype=x.dtype, device=dev)
+    if M == 0:
+        return y
+    z = torch.empty((M, r), dtype=torch.float32, device=dev)
+    err = _dual_lib()(x.data_ptr(), w.data_ptr(), a1.data_ptr(),
+                      b1.data_ptr(), a2.data_ptr(), b2.data_ptr(),
+                      adapter_ids.data_ptr(), fusion_w.data_ptr(),
+                      z.data_ptr(), y.data_ptr(), M, K, N, C, r,
+                      int(x.dtype == torch.bfloat16),
+                      int(w.dtype == torch.bfloat16), float(scale),
+                      build.stream_ptr(dev))
+    build.check(err, "batched_dual_lora_matmul")
+    batched_dual_lora_matmul.launches += 1
+    return y
+
+
+batched_dual_lora_matmul.launches = 0

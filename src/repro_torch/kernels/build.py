@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_attention", "paged_prefill", "batched_lora", "lora_matmul",
-           "dual_lora", "flash_attention")
+           "dual_lora", "flash_attention", "batched_dual_lora")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -44,13 +44,39 @@ def fused_dual_lora_dense(x: torch.Tensor, w: torch.Tensor,
     return y.reshape(*lead, w.shape[1])
 
 
-def batched_lora_dense(x: torch.Tensor, w: torch.Tensor,
-                       bank: Dict[str, torch.Tensor],
+def concat_buckets(bank: Dict) -> Dict[str, torch.Tensor]:
+    """A ragged bank's per-bucket lists concatenated on the client axis at
+    the largest bucket rank (small buckets zero-padded), with ``ranks``
+    (C,) int32: each slot's bucket rank, which the kernel's rank mask
+    reads.  The reference's wrapper does this in every projection; the
+    port's registry does it once per bank snapshot
+    (``AdapterRegistry.kernel_bank``)."""
+    pad = torch.nn.functional.pad
+    r_max = max(a.shape[-1] for a in bank["a"])
+    out = {"a": torch.cat([pad(a, (0, r_max - a.shape[-1]))
+                           for a in bank["a"]]),
+           "b": torch.cat([pad(b, (0, 0, 0, r_max - b.shape[1]))
+                           for b in bank["b"]]),
+           "ranks": torch.cat([torch.full((a.shape[0],), a.shape[-1],
+                                          dtype=torch.int32,
+                                          device=a.device)
+                               for a in bank["a"]])}
+    if bank.get("a_scale") is not None:
+        out["a_scale"] = torch.cat(list(bank["a_scale"]))
+        out["b_scale"] = torch.cat(list(bank["b_scale"]))
+    return out
+
+
+def batched_lora_dense(x: torch.Tensor, w: torch.Tensor, bank: Dict,
                        adapter_ids: torch.Tensor, scale: float) -> torch.Tensor:
     """Multi-tenant dense: x (B, ..., K) @ w (K, N) with per-request routing
     into ``bank`` = {"a": (C, K, r), "b": (C, r, N)} (int8 banks add
-    ``a_scale``/``b_scale`` (C,)).  ``adapter_ids`` (B,) broadcasts over the
+    ``a_scale``/``b_scale`` (C,); a per-slot ``ranks`` (C,) int32 masks rank
+    columns).  A ragged bank's per-bucket lists are concatenated first
+    (:func:`concat_buckets`).  ``adapter_ids`` (B,) broadcasts over the
     trailing axes of ``x``."""
+    if isinstance(bank["a"], (list, tuple)):
+        bank = concat_buckets(bank)
     lead = x.shape[:-1]
     K = x.shape[-1]
     rows_per_item = 1
@@ -59,7 +85,8 @@ def batched_lora_dense(x: torch.Tensor, w: torch.Tensor,
     g = torch.repeat_interleave(adapter_ids.to(torch.int32), rows_per_item)
     y = batched_lora_matmul(x.reshape(-1, K).contiguous(), w, bank["a"],
                             bank["b"], g, scale, a_scale=bank.get("a_scale"),
-                            b_scale=bank.get("b_scale"))
+                            b_scale=bank.get("b_scale"),
+                            ranks=bank.get("ranks"))
     return y.reshape(*lead, w.shape[1])
 
 

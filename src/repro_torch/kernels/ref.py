@@ -54,6 +54,25 @@ def batched_lora_matmul_ref(x, w, a, b, adapter_ids, scale: float, *,
     return (base + scale * z).to(x.dtype)
 
 
+def batched_dual_lora_matmul_ref(x, w, a1, b1, a2, b2, adapter_ids, fusion_w,
+                                 scale: float):
+    """Per-row Eq. 7 over a personalized bank and a shared global pair:
+    ``y[i] = x[i]@w + scale·x[i]@[(w1ᵢA1[gᵢ]+w2ᵢA2)(w1ᵢB1[gᵢ]+w2ᵢB2)]``.
+
+    a1: (C, K, r), b1: (C, r, N), a2: (K, r), b2: (r, N), adapter_ids: (M,),
+    fusion_w: (M, 2) fp32 ``[w1, w2]`` per row.  The merged factors are
+    built per row in fp32; one rounding to ``x.dtype`` at the end."""
+    ids = adapter_ids.long()
+    w1 = fusion_w[:, 0, None, None].float()
+    w2 = fusion_w[:, 1, None, None].float()
+    am = w1 * a1[ids].float() + w2 * a2[None].float()          # (M, K, r)
+    bm = w1 * b1[ids].float() + w2 * b2[None].float()          # (M, r, N)
+    base = torch.matmul(x.float(), w.float())
+    z = torch.einsum("mk,mkr->mr", x.float(), am)
+    z = torch.einsum("mr,mrn->mn", z, bm)
+    return (base + scale * z).to(x.dtype)
+
+
 def _gather_pool(pool, pool_scale, block_tables, rep: int):
     """The padded per-row block gather (B, MB*bs, Kv*rep, hd) in fp32,
     dequantizing int8 pools with their (NB, bs, Kv) scales."""

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.paged_prefill import paged_scatter
+from repro_torch.kernels.paged_prefill import (paged_scatter,
+                                               paged_scatter_quant)
 
 Params = Dict[str, Any]
 
@@ -34,13 +35,32 @@ def matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype)).to(out_dtype)
 
 
-def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+def lora_delta(x: torch.Tensor, a, b,
                adapter_ids: Optional[torch.Tensor] = None,
-               a_scale: Optional[torch.Tensor] = None,
-               b_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+               a_scale=None, b_scale=None) -> torch.Tensor:
     """fp32 LoRA update (x·A)·B.  Single-tenant: a (d_in, r), b (r, d_out).
     Banked: a (C, d_in, r), b (C, r, d_out) with ``adapter_ids`` (B,)
-    routing each batch row of x (B, S, d_in) to its client."""
+    routing each batch row of x (B, S, d_in) to its client; int8 banks pass
+    ``a_scale``/``b_scale`` (C,), dequantized after the gather.
+
+    Ragged banks (``AdapterRegistry(ranks=[...])``) arrive as per-bucket
+    LISTS: rows route to the bucket holding their global slot, each bucket
+    at its own rank, as in the reference."""
+    if isinstance(a, (list, tuple)):
+        if adapter_ids is None:
+            raise ValueError("banked LoRA leaves need adapter_ids")
+        out, off = None, 0
+        for i, (ab, bb) in enumerate(zip(a, b)):
+            cb = ab.shape[0]
+            local = torch.clamp(adapter_ids - off, 0, cb - 1)
+            d = lora_delta(x, ab, bb, local,
+                           a_scale[i] if a_scale is not None else None,
+                           b_scale[i] if b_scale is not None else None)
+            in_bucket = (adapter_ids >= off) & (adapter_ids < off + cb)
+            mask = in_bucket.reshape((-1,) + (1,) * (d.dim() - 1))
+            out = d if out is None else torch.where(mask, d, out)
+            off += cb
+        return out
     xf = x.float()
     if a.dim() == 3:
         if adapter_ids is None:
@@ -59,6 +79,18 @@ def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return torch.matmul(torch.matmul(xf, af), bf)
 
 
+class LoRA(NamedTuple):
+    """One target's adapter as :func:`dense` takes it: a pair, or a bank
+    (stacked or per-bucket lists) with its optional int8 scales and, in the
+    registry's kernel view, per-slot ranks for the batched kernel's mask
+    (the plain path needs none: padded rank columns hold zeros)."""
+    a: Any
+    b: Any
+    a_scale: Any = None
+    b_scale: Any = None
+    ranks: Optional[torch.Tensor] = None
+
+
 class DualPair(NamedTuple):
     """One target's two pairs and their fusion weights (2,) fp32: the
     projection computes the Eq. 7 merge ``(w1·A1 + w2·A2)·(w1·B1 + w2·B2)``
@@ -69,32 +101,32 @@ class DualPair(NamedTuple):
     b2: torch.Tensor
     w: torch.Tensor
 
-    def merged(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def merged(self) -> LoRA:
         w1, w2 = self.w[0], self.w[1]
-        return (w1 * self.a1 + w2 * self.a2, w1 * self.b1 + w2 * self.b2)
+        return LoRA(w1 * self.a1 + w2 * self.a2, w1 * self.b1 + w2 * self.b2)
 
 
 def lora_pair(adapters: Optional[Params], name: str):
-    """The LoRA tuple :func:`dense` takes for one target, or None."""
+    """The :class:`LoRA` (or :class:`DualPair`) :func:`dense` takes for one
+    target, or None."""
     if adapters is None or name not in adapters:
         return None
     ad = adapters[name]
     if "a2" in ad:
         return DualPair(ad["a"], ad["b"], ad["a2"], ad["b2"], ad["w"])
-    if "a_scale" in ad:
-        return (ad["a"], ad["b"], ad["a_scale"], ad["b_scale"])
-    return (ad["a"], ad["b"])
+    return LoRA(ad["a"], ad["b"], ad.get("a_scale"), ad.get("b_scale"),
+                ad.get("ranks"))
 
 
-def dense(x: torch.Tensor, w: torch.Tensor,
-          lora: Optional[Tuple[torch.Tensor, ...]] = None,
+def dense(x: torch.Tensor, w: torch.Tensor, lora=None,
           lora_scale: float = 1.0,
           adapter_ids: Optional[torch.Tensor] = None,
           backend: Optional[str] = None) -> torch.Tensor:
-    """Linear layer with optional LoRA.  With ``backend == "cuda"`` a LoRA
-    kernel computes base and update in one pass (rounding once): the
-    batched kernel for a bank, the single-tenant kernel for a pair, the
-    dual kernel for a :class:`DualPair`.  Otherwise the base product is
+    """Linear layer with an optional :class:`LoRA` or :class:`DualPair`.
+    With ``backend == "cuda"`` a LoRA kernel computes base and update in
+    one pass (rounding once): the batched kernel for a bank (its int8
+    scales and rank mask included), the single-tenant kernel for a pair,
+    the dual kernel for a :class:`DualPair`.  Otherwise the base product is
     rounded to x's dtype before the fp32 update is added, as in the
     reference."""
     if backend == "cuda" and lora is not None:
@@ -102,24 +134,21 @@ def dense(x: torch.Tensor, w: torch.Tensor,
             return kernel_ops.fused_dual_lora_dense(
                 x, w, {"a": lora.a1, "b": lora.b1},
                 {"a": lora.a2, "b": lora.b2}, lora.w, lora_scale)
-        if lora[0].dim() == 3:
-            bank = {"a": lora[0], "b": lora[1]}
-            if len(lora) == 4:
-                bank["a_scale"], bank["b_scale"] = lora[2], lora[3]
-            return kernel_ops.batched_lora_dense(x, w, bank, adapter_ids,
-                                                 lora_scale)
-        if len(lora) != 2:
+        if isinstance(lora.a, (list, tuple)) or lora.a.dim() == 3:
+            return kernel_ops.batched_lora_dense(x, w, lora._asdict(),
+                                                 adapter_ids, lora_scale)
+        if lora.a_scale is not None:
             raise NotImplementedError(
                 "paged_backend='cuda' has no kernel for a single int8 "
                 "adapter pair; use paged_backend='torch'")
-        return kernel_ops.lora_dense(x, w, {"a": lora[0], "b": lora[1]},
+        return kernel_ops.lora_dense(x, w, {"a": lora.a, "b": lora.b},
                                      lora_scale)
     if isinstance(lora, DualPair):
         lora = lora.merged()
     y = matmul(x, w)
     if lora is not None:
-        a, b, *scales = lora
-        z = lora_delta(x, a, b, adapter_ids, *scales)
+        z = lora_delta(x, lora.a, lora.b, adapter_ids, lora.a_scale,
+                       lora.b_scale)
         y = (y.float() + lora_scale * z).to(y.dtype)
     return y
 
@@ -203,17 +232,24 @@ def _paged_attention_cuda(params, q, k, v, x, cfg, kv_cache, block_tables,
             "paged_backend='cuda' supports full attention only (no sliding "
             "window / logit softcap); use paged_backend='torch'")
     kp, vp = kv_cache["k_pool"], kv_cache["v_pool"]
+    ks, vs = kv_cache.get("k_scale"), kv_cache.get("v_scale")
     if n_new is None and S == 1:
-        paged_scatter(kp, vp, k, v, block_tables, lengths, None)
+        if ks is not None:
+            paged_scatter_quant(kp, vp, ks, vs, k, v, block_tables, lengths,
+                                None)
+        else:
+            paged_scatter(kp, vp, k, v, block_tables, lengths, None)
         o = kernel_ops.paged_gqa_attention(q, kp, vp, block_tables,
-                                           lengths + 1)
+                                           lengths + 1, k_scale=ks,
+                                           v_scale=vs)
     else:
         nn = (n_new if n_new is not None
               else torch.full((B,), S, dtype=torch.int32, device=q.device))
-        o, kp, vp = kernel_ops.paged_prefill_gqa_attention(
-            q, k, v, kp, vp, block_tables, lengths, nn)
+        o, *_ = kernel_ops.paged_prefill_gqa_attention(
+            q, k, v, kp, vp, block_tables, lengths, nn, k_scale=ks,
+            v_scale=vs)
     out = dn(o.to(x.dtype).reshape(B, S, H * hd), params["wo"], la("wo"))
-    return out, {"k_pool": kp, "v_pool": vp}
+    return out, kv_cache
 
 
 def multihead_attention(params: Params, x: torch.Tensor, cfg,
@@ -228,11 +264,12 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
     * no cache (training, evaluation): causal (+ window) attention over
       the S positions, through the flash-attention kernel on ``"cuda"``;
     * paged (continuous batching): ``kv_cache`` = {"k_pool", "v_pool":
-      (NB, bs, Kv, hd)} shared by all slots, ``paged = (block_tables (B,
-      MB), lengths (B,)[, n_new (B,)])``.  The S new tokens scatter to
-      positions ``lengths[b] + t`` (with n_new, tails go to scratch block
-      0) and query t attends ``[0, lengths[b] + t]``.  The pools are
-      updated in place.
+      (NB, bs, Kv, hd)} shared by all slots (int8 pools add "k_scale",
+      "v_scale" (NB, bs, Kv); the scatter quantizes, the reads dequantize),
+      ``paged = (block_tables (B, MB), lengths (B,)[, n_new (B,)])``.  The
+      S new tokens scatter to positions ``lengths[b] + t`` (with n_new,
+      tails go to scratch block 0) and query t attends ``[0, lengths[b] +
+      t]``.  The pools are updated in place.
 
     Returns (out (B, S, d), new cache or None)."""
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -275,15 +312,26 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
     if backend == "cuda":
         return _paged_attention_cuda(params, q, k, v, x, cfg, kv_cache,
                                      block_tables, lengths, n_new, dn, la)
-    kp, vp = paged_scatter(kv_cache["k_pool"], kv_cache["v_pool"], k, v,
-                           block_tables, lengths, n_new)
+    kp, vp = kv_cache["k_pool"], kv_cache["v_pool"]
     bs_blk = kp.shape[1]
     pos = (lengths.long()[:, None]
            + torch.arange(S, device=x.device)[None, :])    # write positions
     L = block_tables.shape[1] * bs_blk
     bt = block_tables.long()
-    kg = kp[bt].reshape(B, L, Kv, hd).to(x.dtype)
-    vg = vp[bt].reshape(B, L, Kv, hd).to(x.dtype)
+    if "k_scale" in kv_cache:                 # int8 pools: dequant the gather
+        ks, vs = kv_cache["k_scale"], kv_cache["v_scale"]
+        paged_scatter_quant(kp, vp, ks, vs, k, v, block_tables, lengths,
+                            n_new)
+        # the reference's order: fp32 values times fp32 scales, then one
+        # cast to the working type
+        kg = (kp[bt].reshape(B, L, Kv, hd).float()
+              * ks[bt].reshape(B, L, Kv)[..., None]).to(x.dtype)
+        vg = (vp[bt].reshape(B, L, Kv, hd).float()
+              * vs[bt].reshape(B, L, Kv)[..., None]).to(x.dtype)
+    else:
+        paged_scatter(kp, vp, k, v, block_tables, lengths, n_new)
+        kg = kp[bt].reshape(B, L, Kv, hd).to(x.dtype)
+        vg = vp[bt].reshape(B, L, Kv, hd).to(x.dtype)
     k_pos = torch.arange(L, device=x.device)
     # one attend per chunk position with the exact decode-step shapes, so a
     # T-token chunk is bitwise-equal to T decode steps
@@ -292,17 +340,23 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
                   x.dtype)
             for t in range(S)]
     out = outs[0] if S == 1 else torch.cat(outs, dim=1)
-    return dn(out, params["wo"], la("wo")), {"k_pool": kp, "v_pool": vp}
+    return dn(out, params["wo"], la("wo")), kv_cache
 
 
 def init_paged_kv_cache(cfg, num_blocks: int, block_size: int, dtype,
                         device, kv_dtype: str = "f32") -> Params:
-    """One K/V pool per layer, shared by every serving slot."""
-    if kv_dtype != "f32":
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: int8 K/V pools in the model path are a "
-            "later slice of the port (the kernels already take them)")
+    """One K/V pool per layer, shared by every serving slot.  ``"int8"``
+    stores the pools as int8 with one fp32 scale per (block, position,
+    kv-head) in ``k_scale``/``v_scale`` (NB, bs, Kv) leaves; ``"f32"`` keeps
+    unquantized pools in ``dtype``."""
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if kv_dtype == "int8":
+        return {"k_pool": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_pool": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], device=device),
+                "v_scale": torch.zeros(shape[:3], device=device)}
+    if kv_dtype != "f32":
+        raise ValueError(f"kv_dtype must be 'f32' or 'int8', got {kv_dtype!r}")
     return {"k_pool": torch.zeros(shape, dtype=dtype, device=device),
             "v_pool": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -11,6 +11,13 @@ decode runs in chunks of up to ``scan_chunk`` steps back to back on the
 device between host observations.  The scheduler and block allocator are
 the port's own copies of the reference's (numpy only), so both packages
 plan the same chunks.
+
+The options of the reference engine served here: int8 K/V pools
+(``kv_dtype``), prefix caching within and across calls (``prefix_cache``:
+a warm pool persists between streams of one geometry), and greedy
+speculative decoding (``spec_decode``: prompt-lookup drafts verified in one
+chunk dispatch, rejected positions rolled back).  ``overlap`` and
+``num_shards > 1`` are later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.lora import lora_scale
+from repro_torch.models.model import resolve_backend
 from repro_torch.serving.kv_cache import PagedKVCache, blocks_needed, reset_slot
 from repro_torch.serving.registry import AdapterRegistry
 from repro_torch.serving.scheduler import PRIORITY_CLASSES, Scheduler
@@ -43,13 +51,18 @@ class ServeConfig:
     sched_policy: str = "sla"        # "sla" | "fcfs" (see scheduler.py)
     sched_aging: int = 16
     paged_backend: Optional[str] = None  # "cuda" | "torch"; None: by device
+    kv_dtype: str = "f32"            # "int8": int8 K/V pools + fp32 scales
+    prefix_cache: bool = False       # content-addressed shared blocks,
+    #                                  within and across generate calls
+    #                                  (greedy warm == cold, bitwise)
+    spec_decode: bool = False        # greedy-only prompt-lookup drafts of
+    #                                  up to spec_k tokens, verified in one
+    #                                  chunk dispatch (== sequential greedy)
+    spec_k: int = 4
     # Options of the reference engine that later slices of the port serve
     # (ROADMAP.md).  Each raises NotImplementedError when set.
-    prefix_cache: bool = False
-    spec_decode: bool = False
     num_shards: int = 1
     overlap: bool = False
-    kv_dtype: str = "f32"
 
 
 @dataclasses.dataclass
@@ -66,19 +79,24 @@ class Request:
 
 
 def _check_supported(sc: ServeConfig) -> None:
-    later = [("prefix_cache", sc.prefix_cache, "prefix-cache warm reuse"),
-             ("spec_decode", sc.spec_decode, "spec decode"),
-             ("num_shards > 1", sc.num_shards > 1,
+    later = [("num_shards > 1", sc.num_shards > 1,
               "sharded serving and hot-swap"),
-             ("overlap=True", sc.overlap, "overlap/deferred observation"),
-             ("kv_dtype='int8'", sc.kv_dtype == "int8",
-              "int8 KV in the engine path")]
+             ("overlap=True", sc.overlap, "overlap/deferred observation")]
     for name, on, item in later:
         if on:
             raise NotImplementedError(
                 f"ServeConfig {name} is not served by this slice of the "
                 f"port (ROADMAP: {item})")
-    if sc.kv_dtype != "f32":
+    if sc.spec_decode:
+        if sc.temperature > 0:
+            raise ValueError(
+                "spec_decode is greedy-only (temperature must be 0): "
+                "acceptance compares drafts against argmax tokens, which is "
+                "what makes the stream equal to non-speculative decoding")
+        if sc.spec_k < 1:
+            raise ValueError(f"spec_decode needs spec_k >= 1, got "
+                             f"{sc.spec_k}")
+    if sc.kv_dtype not in ("f32", "int8"):
         raise ValueError(f"kv_dtype must be 'f32' or 'int8', got "
                          f"{sc.kv_dtype!r}")
     if sc.num_shards < 1:
@@ -95,8 +113,48 @@ class MultiTenantEngine:
         self.model, self.cfg = model, cfg
         self.params, self.registry = params, registry
         self.device = model.device
-        self.scale = lora_scale(cfg, registry.rank)
+        # alpha / cfg.lora_rank whatever the registry's ranks, as in the
+        # reference: a client's rank is the shape of its factors, and the
+        # scale is the model's
+        self.scale = lora_scale(cfg)
         self.last_stats: Optional[dict] = None
+        # cross-call prefix-cache state: (pool key, PagedKVCache, device
+        # cache) kept at stream drain so the next stream's admission can
+        # match blocks sealed by this one (the device pools stay resident
+        # until release_prefix_cache or a stream of another geometry)
+        self._warm: Optional[Tuple[tuple, PagedKVCache, Any]] = None
+
+    def release_prefix_cache(self) -> None:
+        """Drop the warm prefix-cache pool (host allocator and device K/V);
+        the next ``prefix_cache=True`` stream starts cold."""
+        self._warm = None
+
+    def _paged_pool(self, key: tuple, sc: ServeConfig
+                    ) -> Tuple[PagedKVCache, Any, bool]:
+        """(host allocator, device cache, reused) for one stream of pool
+        geometry ``key`` = (slots, block size, blocks, table width,
+        kv_dtype).  With ``sc.prefix_cache`` the pair kept by the last
+        drained stream is reused when its key matches and it is idle;
+        otherwise the stream starts cold."""
+        num_slots, _, num_blocks, blocks_per, _ = key
+        if sc.prefix_cache:
+            warm, self._warm = self._warm, None   # taken; restored at drain
+            if warm is not None and warm[0] == key and warm[1].idle:
+                return warm[1], warm[2], True
+        kv = PagedKVCache(num_slots, sc.block_size, num_blocks, blocks_per,
+                          prefix_cache=sc.prefix_cache)
+        cache = self.model.init_paged_decode_cache(
+            num_blocks, sc.block_size, kv_dtype=sc.kv_dtype)
+        return kv, cache, False
+
+    def bank_for(self, sc: ServeConfig):
+        """The registry's bank in the layout the stream's backend reads:
+        the kernel view on ``"cuda"`` (ragged buckets concatenated once per
+        bank epoch), the per-bucket lists on ``"torch"``."""
+        backend = resolve_backend(self.cfg, sc.paged_backend,
+                                  self.device).paged_backend
+        return (self.registry.kernel_bank() if backend == "cuda"
+                else self.registry.bank())
 
     # -- device steps --------------------------------------------------------
     @staticmethod
@@ -122,6 +180,17 @@ class MultiTenantEngine:
         rows = torch.arange(K, device=logits.device)
         last = torch.clamp(n_new.long() - 1, 0, T - 1)
         return self._sample(logits[rows, last], gen, temperature), cache
+
+    def _verify_chunk(self, bank, ids, cache, tokens, lengths, n_new,
+                      block_tables, backend):
+        """One draft-verify dispatch: the prefill dataflow, with the greedy
+        sample read at EVERY chunk position.  Returns ((K, T) int32,
+        cache)."""
+        logits, cache = self.model.verify_step(
+            self.params, cache, tokens, lengths, n_new, adapters=bank,
+            lora_scale=self.scale, adapter_ids=ids,
+            block_tables=block_tables, paged_backend=backend)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     def _decode_chunk(self, bank, ids, cache, last, active, lengths,
                       block_tables, n_steps, gen, temperature, backend):
@@ -197,29 +266,45 @@ class StreamSession:
             budgets = [sc.max_new_tokens if r.max_new_tokens is None
                        else r.max_new_tokens for r in requests]
             max_span = max(p.size + b for p, b in zip(prompts, budgets))
-            num_slots = max(1, min(sc.batch_size, len(requests)))
-            blocks_per = (sc.max_blocks_per_slot
-                          or blocks_needed(max_span, sc.block_size))
-            num_blocks = sc.num_blocks or (1 + num_slots * blocks_per)
+            if sc.prefix_cache and sc.num_blocks is not None:
+                # stable geometry, so the warm pool survives batches of
+                # other sizes: slots follow batch_size and the table spans
+                # the whole pool unless pinned tighter
+                num_slots = max(1, sc.batch_size)
+                num_blocks = sc.num_blocks
+                blocks_per = sc.max_blocks_per_slot or (num_blocks - 1)
+            else:
+                num_slots = max(1, min(sc.batch_size, len(requests)))
+                blocks_per = (sc.max_blocks_per_slot
+                              or blocks_needed(max_span, sc.block_size))
+                num_blocks = sc.num_blocks or (1 + num_slots * blocks_per)
             # preemption replays prompt+emitted, so the chunk width must fit
             # the longest possible replay; fixed per run
             T = max(1, min(sc.prefill_chunk, max_span - 1))
         dev = engine.device
-        self.kv = PagedKVCache(num_slots, sc.block_size, num_blocks,
-                               blocks_per)
-        self.cache = engine.model.init_paged_decode_cache(
-            num_blocks, sc.block_size, kv_dtype=sc.kv_dtype)
+        self._geom_key = (num_slots, sc.block_size, num_blocks, blocks_per,
+                          sc.kv_dtype)
+        self.kv, self.cache, self._reused = engine._paged_pool(
+            self._geom_key, sc)
+        self._evicted0 = self.kv.evicted_cached   # pool-lifetime counter
         self.sched = Scheduler(self.kv, policy=sc.sched_policy,
-                               aging_ticks=sc.sched_aging)
+                               aging_ticks=sc.sched_aging,
+                               spec_k=sc.spec_k if sc.spec_decode else 0)
         self._next_rid = 0
         if not self.open_loop:
             for r in requests:
                 self.submit(r)
-        self.bank = engine.registry.bank()
+        self.bank = engine.bank_for(sc)
+        # a registration moves bank_epoch; step() re-snapshots the bank at
+        # its next round (the ragged kernel view is rebuilt per epoch)
+        self._bank_epoch = engine.registry.bank_epoch
+        self.bank_refreshes = 0
         self.ids = np.zeros((num_slots,), np.int32)
         self.gen = torch.Generator(device=dev).manual_seed(sc.seed)
         engine.last_stats = None
         self.T = T
+        # verify chunks have their own fixed width: the drafts + feedback
+        self.Tv = 1 + sc.spec_k
         # EOS can end a row long before its budget; keep chunks short so
         # its slot frees (and admits the queue head) at the next boundary
         self.cap = (min(sc.scan_chunk, 8) if sc.eos_id is not None
@@ -252,6 +337,10 @@ class StreamSession:
         ``RuntimeError`` if queued work cannot make progress."""
         eng, sc, sched = self.engine, self.sc, self.sched
         dev = eng.device
+        if eng.registry.bank_epoch != self._bank_epoch:
+            self.bank = eng.bank_for(sc)
+            self._bank_epoch = eng.registry.bank_epoch
+            self.bank_refreshes += 1
         for slot, cid in sched.admit():
             self.ids[slot] = eng.registry.acquire(cid)
             self.cache = reset_slot(self.cache, slot)
@@ -271,6 +360,14 @@ class StreamSession:
                 self.gen, sc.temperature, sc.paged_backend)
             return sched.observe_prefill(arrs["n_new"], sampled.cpu().numpy(),
                                          eos_id=sc.eos_id)
+        if plan[0] == "verify":
+            arrs = sched.verify_arrays(self.Tv)
+            greedy, self.cache = eng._verify_chunk(
+                self.bank, ids, self.cache,
+                torch.tensor(arrs["tokens"], device=dev), lens,
+                torch.tensor(arrs["n_new"], device=dev), bt, sc.paged_backend)
+            return sched.observe_verify(arrs["n_new"], greedy.cpu().numpy(),
+                                        eos_id=sc.eos_id)
         n = plan[1]
         st = sched.chunk_arrays()
         out, self.cache = eng._decode_chunk(
@@ -286,7 +383,7 @@ class StreamSession:
         if self._finalized:
             return self.engine.last_stats
         self._finalized = True
-        sc, sched = self.sc, self.sched
+        sc, sched, kv = self.sc, self.sched, self.kv
         classes = {}
         for cname in PRIORITY_CLASSES:
             waits = sched.wait_ticks.get(cname, [])
@@ -300,9 +397,27 @@ class StreamSession:
         stats = {"prefill_dispatches": sched.prefill_dispatches,
                  "decode_dispatches": sched.decode_dispatches,
                  "decode_steps": sched.steps,
+                 "spec_decode": sc.spec_decode,
+                 "verify_dispatches": sched.verify_dispatches,
+                 "drafted_tokens": sched.drafted_tokens,
+                 "accepted_tokens": sched.accepted_tokens,
+                 "acceptance_rate": (sched.accepted_tokens
+                                     / max(1, sched.drafted_tokens)),
+                 "rollback_tokens": sched.rollback_tokens,
+                 "rollback_blocks": sched.rollback_blocks,
                  "preemptions": sched.preemptions,
                  "prompt_tokens": sched.prompt_tokens,
+                 "prefix_hit_tokens": sched.prefix_hit_tokens,
+                 "prefix_hit_rate": (sched.prefix_hit_tokens
+                                     / max(1, sched.prompt_tokens)),
+                 "prefix_cached_blocks": kv.cached_blocks,
+                 "prefix_evictions": kv.evicted_cached - self._evicted0,
+                 "prefix_pool_reused": self._reused,
+                 "adapter_bank_refreshes": self.bank_refreshes,
                  "sched_policy": sc.sched_policy,
+                 "num_shards": sc.num_shards,
+                 "kv_dtype": sc.kv_dtype,
+                 "overlap": sc.overlap,
                  "paged_backend": sc.paged_backend,
                  "open_loop": self.open_loop,
                  "classes": classes,
@@ -310,4 +425,6 @@ class StreamSession:
                      float(np.mean(sched.victim_sealed_fractions))
                      if sched.victim_sealed_fractions else 0.0)}
         self.engine.last_stats = stats
+        if sc.prefix_cache:
+            self.engine._warm = (self._geom_key, self.kv, self.cache)
         return stats

@@ -62,6 +62,19 @@ import numpy as np
 import torch
 
 
+def kv_bytes_per_block(block_size: int, n_kv_heads: int, head_dim: int,
+                       kv_dtype: str = "f32") -> int:
+    """Device bytes one K+V block pair costs per attention layer: bf16
+    pools for ``"f32"``; for ``"int8"`` 1-byte values plus one fp32 scale
+    per (position, kv-head) and factor."""
+    positions = block_size * n_kv_heads
+    if kv_dtype == "int8":
+        return 2 * positions * (head_dim * 1 + 4)     # K+V values + scales
+    if kv_dtype != "f32":
+        raise ValueError(f"kv_dtype must be 'f32' or 'int8', got {kv_dtype!r}")
+    return 2 * positions * head_dim * 2               # bf16 K+V
+
+
 def blocks_needed(n_tokens: int, block_size: int) -> int:
     return -(-max(n_tokens, 1) // block_size)
 

@@ -1,5 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain version,
-the two autograd backwards against plain autograd, one serving run and one
+the two autograd backwards against plain autograd, serving runs (plain and
+with int8 K/V, a ragged int8 bank, prefix caching and speculative
+decoding), ``launch/serve.py`` with those options and one
 ``launch/train.py --smoke`` run through the ``"cuda"`` backend.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
@@ -10,12 +12,14 @@ machine with a card and no JAX it runs alone:
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import ref
-from repro_torch.kernels.batched_lora import batched_lora_matmul
+from repro_torch.kernels.batched_lora import (batched_dual_lora_matmul,
+                                              batched_lora_matmul)
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.kernels.quant import quantize_int8
@@ -106,6 +110,43 @@ def test_batched_lora_matches_plain(dev, variant):
     torch.testing.assert_close(y32, yr32, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batched_dual_lora_matches_plain(dev, dtype):
+    """Per-row Eq. 7 over a personalized bank and a global pair, fusion
+    weights in [-0.2, 1.2]; one row with an id outside the bank gets the
+    global term only, as the TPU kernel's zero one-hot row does."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    M, K, N, C, r = 70, 256, 200, 4, 16
+    x = _randn(gen, (M, K), dev, dtype)
+    w = _randn(gen, (K, N), dev, dtype, 0.05)
+    a1 = _randn(gen, (C, K, r), dev, std=0.05)
+    b1 = _randn(gen, (C, r, N), dev, std=0.05)
+    a2 = _randn(gen, (K, r), dev, std=0.05)
+    b2 = _randn(gen, (r, N), dev, std=0.05)
+    ids = torch.randint(0, C, (M,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    fw = (torch.rand((M, 2), generator=gen, device=dev) * 1.4 - 0.2)
+    kernels.reset_launch_counts()
+    y = batched_dual_lora_matmul(x, w, a1, b1, a2, b2, ids, fw, 2.0)
+    yr = ref.batched_dual_lora_matmul_ref(x, w, a1, b1, a2, b2, ids, fw, 2.0)
+    if dtype == torch.bfloat16:
+        assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+    else:
+        torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+    assert kernels.launch_counts()["batched_dual_lora_matmul"] == 1
+    ids_out = ids.clone()
+    ids_out[3] = C
+    y_out = batched_dual_lora_matmul(x, w, a1, b1, a2, b2, ids_out, fw, 2.0)
+    fw_g = fw[3:4] * torch.tensor([0.0, 1.0], device=dev)
+    y_g = ref.batched_dual_lora_matmul_ref(x[3:4], w, a1, b1, a2, b2,
+                                           ids[3:4], fw_g, 2.0)
+    assert float((y_out[3:4].float() - y_g.float()).abs().max()) <= \
+        _bf16_tol(y_g) + 1e-4
+    with pytest.raises(RuntimeError, match="forward only"):
+        batched_dual_lora_matmul(x, w, a1.requires_grad_(True), b1, a2, b2,
+                                 ids, fw, 2.0)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((2, 4, 16), device=dev)
     pool = torch.zeros((5, 4, 2, 16), device=dev)          # fp32 pool
@@ -142,6 +183,103 @@ def test_smoke_engine_serves_through_the_kernels(dev):
     ref_out = eng.generate(reqs, dataclasses.replace(sc,
                                                      paged_backend="torch"))
     assert [o[0] for o in out] == [o[0] for o in ref_out]
+
+
+def _next_logits(eng, req, tokens, sc, backend):
+    """(V,) fp32 logits after feeding ``req.prompt + tokens`` through a
+    fresh pool in prefill chunks on ``backend``: what the stream's next
+    greedy decision saw."""
+    from repro_torch.serving.kv_cache import PagedKVCache, blocks_needed
+    seq = np.concatenate([np.asarray(req.prompt, np.int32),
+                          np.asarray(tokens, np.int32)])
+    per = blocks_needed(len(seq), sc.block_size)
+    kv = PagedKVCache(1, sc.block_size, 1 + per, per)
+    kv.admit(0)
+    assert kv.ensure(0, len(seq))
+    dev = eng.device
+    cache = eng.model.init_paged_decode_cache(1 + per, sc.block_size,
+                                              kv_dtype=sc.kv_dtype)
+    ids = torch.tensor([eng.registry.acquire(req.client_id)],
+                       dtype=torch.int32, device=dev)
+    bank = eng.bank_for(dataclasses.replace(sc, paged_backend=backend))
+    pos, T = 0, sc.prefill_chunk
+    while pos < len(seq):
+        n = min(T, len(seq) - pos)
+        chunk = torch.zeros((1, T), dtype=torch.int32)
+        chunk[0, :n] = torch.from_numpy(seq[pos:pos + n])
+        bt, _ = kv.device_tables(dev)
+        logits, cache = eng.model.prefill_step(
+            eng.params, cache, chunk.to(dev),
+            torch.tensor([pos], dtype=torch.int32, device=dev),
+            torch.tensor([n], dtype=torch.int32, device=dev), adapters=bank,
+            lora_scale=eng.scale, adapter_ids=ids, block_tables=bt,
+            paged_backend=backend)
+        pos += n
+    return logits[0, n - 1]
+
+
+def assert_streams_agree_by_margin(eng, reqs, sc, got, want, err, backend):
+    """Streams ``got`` equal ``want`` (``backend``'s) up to their first
+    difference, and there the decision was within the error: its top-2
+    margin on ``backend`` is at most twice ``err``."""
+    for req, g, w in zip(reqs, got, want):
+        t = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if t is not None:
+            top2 = torch.topk(_next_logits(eng, req, w[:t], sc, backend),
+                              2).values
+            m = float(top2[0] - top2[1])
+            assert m <= 2 * err, (req.client_id, t, m, err)
+
+
+def test_smoke_engine_serves_options_through_the_kernels(dev):
+    """int8 K/V, a ragged int8 bank, prefix caching (cold, then warm) and
+    speculative decoding through the kernels: every serving kernel
+    launches, and the streams agree with the "torch" backend's by the
+    margin rule (fp32 activations, two layers: the paths differ in
+    summation order, and an int8 K/V value may round to the other step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine, ragged_requests
+    from repro_torch.serving.engine import ServeConfig
+    cfg = get_config("llama2-7b", smoke=True).with_overrides(dtype="float32")
+    eng = build_engine(cfg, 4, dev, seed=0, ranks=[4, 8, 16],
+                       bank_dtype="int8")
+    reqs = ragged_requests(6, 4, cfg.vocab_size, 10, 40, seed=0)
+    for r in reqs:                      # repetition: drafts get accepted
+        r.prompt = np.concatenate([r.prompt, r.prompt[:12]])
+    sc = ServeConfig(batch_size=3, max_new_tokens=8, prefill_chunk=16,
+                     block_size=4, num_blocks=40, kv_dtype="int8",
+                     prefix_cache=True, spec_decode=True, spec_k=3)
+    kernels.reset_launch_counts()
+    cold = eng.generate(reqs, sc)
+    warm = eng.generate(reqs, sc)
+    st = eng.last_stats
+    counts = kernels.launch_counts()
+    assert all(counts[name] > 0 for name in kernels.SERVING)
+    assert st["prefix_pool_reused"] and st["prefix_hit_tokens"] > 0
+    assert st["verify_dispatches"] > 0
+    eng.release_prefix_cache()
+    tsc = dataclasses.replace(sc, paged_backend="torch")
+    want = eng.generate(reqs, tsc)
+    assert kernels.launch_counts() == counts       # "torch" launches none
+    # the error the margins are held against: the largest difference of the
+    # prompts' last logits, cuda vs torch
+    err = max(float((_next_logits(eng, r, [], sc, "cuda")
+                     - _next_logits(eng, r, [], sc, "torch")).abs().max())
+              for r in reqs)
+    for got in (cold, warm):
+        assert_streams_agree_by_margin(eng, reqs, tsc, got, want, err,
+                                       "torch")
+
+
+def test_serve_cli_with_options_on_the_card(dev, capsys):
+    from repro_torch.launch.serve import main
+    kernels.reset_launch_counts()
+    main(["--smoke", "--kv-dtype", "int8", "--ranks", "4,8", "--bank-dtype",
+          "int8", "--prefix-cache", "--spec-decode", "--tenants", "3",
+          "--batch", "2"])
+    out = capsys.readouterr().out
+    assert "kv=int8, bank=int8" in out and "pool reused True" in out
+    assert all(kernels.launch_counts()[n] > 0 for n in kernels.SERVING)
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,9 @@ SLICE_MODULES = [
     "core/fdlora.py", "training/optimizers.py", "training/train_step.py",
     "training/checkpoint.py", "data/tokenizer.py", "data/synthetic.py",
     "data/pipeline.py", "data/partition.py", "launch/train.py",
+    # serving options and the last kernel
+    "kernels/quant.py", "kernels/build.py", "kernels/__init__.py",
+    "serving/kv_cache.py", "serving/scheduler.py", "serving/spec_decode.py",
 ]
 
 

@@ -13,13 +13,16 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.batched_lora import \
+    batched_dual_lora_matmul as j_batched_dual
 from repro.kernels.batched_lora import batched_lora_matmul as j_batched_lora
 from repro.kernels.paged_prefill import paged_scatter as j_scatter
 from repro.kernels.paged_prefill import paged_scatter_quant as j_scatter_quant
 from repro.kernels.quant import quantize_int8 as j_quantize
 from repro_torch import kernels
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.batched_lora import batched_lora_matmul
+from repro_torch.kernels.batched_lora import (batched_dual_lora_matmul,
+                                              batched_lora_matmul)
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import (paged_prefill_attention,
                                                paged_scatter,
@@ -262,3 +265,145 @@ def test_wrappers_reject_bad_shapes():
         batched_lora_matmul(torch.zeros((3, 8)), torch.zeros((7, 5)),
                             torch.zeros((2, 8, 2)), torch.zeros((2, 2, 5)),
                             torch.zeros((3,), dtype=torch.int32))
+
+
+def _dual_inputs(rng, M, K, N, C, r):
+    """The reference test's inputs (``tests/test_multitenant.py``): per-row
+    clients and fusion weights drawn in [-0.2, 1.2]."""
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * 0.05).astype(np.float32)
+    a1 = (rng.standard_normal((C, K, r)) * 0.05).astype(np.float32)
+    b1 = (rng.standard_normal((C, r, N)) * 0.05).astype(np.float32)
+    a2 = (rng.standard_normal((K, r)) * 0.05).astype(np.float32)
+    b2 = (rng.standard_normal((r, N)) * 0.05).astype(np.float32)
+    g = rng.integers(0, C, M).astype(np.int32)
+    fw = rng.uniform(-0.2, 1.2, (M, 2)).astype(np.float32)
+    return x, w, a1, b1, a2, b2, g, fw
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r", [8, 16])
+def test_batched_dual_lora_plain_matches_pallas(r, dtype):
+    """The plain version against the reference oracle and the Pallas kernel
+    in interpret mode, every row with its own client and (w1, w2).  fp32:
+    within 1e-5 of the largest output.  bf16 inputs: the Pallas kernel
+    rounds the factors and the shrunk rows to bf16 before its products
+    (the plain version keeps fp32 and rounds once), so within two bf16
+    roundings of the largest output."""
+    rng = np.random.default_rng(40 + r)
+    M, K, N, C = 64, 128, 128, 4
+    x, w, a1, b1, a2, b2, g, fw = _dual_inputs(rng, M, K, N, C, r)
+    jdt = jnp.dtype(dtype)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jx, jw = _j(x).astype(jdt), _j(w).astype(jdt)
+    tx, tw = _t(x).to(tdt), _t(w).to(tdt)
+    y = ref.batched_dual_lora_matmul_ref(tx, tw, _t(a1), _t(b1), _t(a2),
+                                         _t(b2), _t(g), _t(fw), 2.0)
+    assert y.dtype == tdt and tuple(y.shape) == (M, N)
+    yr = jref.batched_dual_lora_matmul_ref(jx, jw, _j(a1), _j(b1), _j(a2),
+                                           _j(b2), _j(g), _j(fw), 2.0)
+    yp = j_batched_dual(jx, jw, _j(a1), _j(b1), _j(a2), _j(b2), _j(g),
+                        _j(fw), 2.0, bm=32, bn=64, bk=64)
+    yf = y.float().numpy()
+    top = float(np.abs(np.asarray(yr, np.float32)).max())
+    if dtype == "float32":
+        tol = 1e-5 * top
+        np.testing.assert_allclose(yf, np.asarray(yr), atol=tol)
+    else:
+        tol = top * 2.0 ** -7
+        # the two oracles compute the same fp32 chain and round once each
+        np.testing.assert_allclose(yf, np.asarray(yr, np.float32), atol=tol)
+    np.testing.assert_allclose(yf, np.asarray(yp, np.float32), atol=tol)
+    # the wrapper runs the plain version on CPU tensors and launches nothing
+    kernels.reset_launch_counts()
+    yw = batched_dual_lora_matmul(tx, tw, _t(a1), _t(b1), _t(a2), _t(b2),
+                                  _t(g), _t(fw), 2.0)
+    np.testing.assert_array_equal(yw.float().numpy(), yf)
+    assert kernels.launch_counts()["batched_dual_lora_matmul"] == 0
+
+
+def test_batched_dual_row_reduces_to_merged_single():
+    """Rows sharing one (w1, w2) equal the pre-merged Eq. 7 bank through
+    ``batched_lora_matmul``, in the port and in the Pallas kernel."""
+    rng = np.random.default_rng(9)
+    M, K, N, C, r = 32, 64, 48, 2, 8
+    x, w, a1, b1, a2, b2, g, _ = _dual_inputs(rng, M, K, N, C, r)
+    w1, w2 = 0.7, 0.4
+    fw = np.tile(np.asarray([[w1, w2]], np.float32), (M, 1))
+    y = batched_dual_lora_matmul(_t(x), _t(w), _t(a1), _t(b1), _t(a2),
+                                 _t(b2), _t(g), _t(fw), 2.0)
+    am = w1 * a1 + w2 * a2[None]
+    bm = w1 * b1 + w2 * b2[None]
+    ym = batched_lora_matmul(_t(x), _t(w), _t(am), _t(bm), _t(g), 2.0)
+    top = float(ym.abs().max())
+    np.testing.assert_allclose(y.numpy(), ym.numpy(), atol=1e-5 * top)
+    yp = j_batched_dual(_j(x), _j(w), _j(a1), _j(b1), _j(a2), _j(b2), _j(g),
+                        _j(fw), 2.0, bm=32, bn=16, bk=16)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yp), atol=1e-5 * top)
+
+
+def test_batched_dual_wrapper_rejects_bad_shapes():
+    x, w = torch.zeros((3, 8)), torch.zeros((8, 5))
+    a1, b1 = torch.zeros((2, 8, 4)), torch.zeros((2, 4, 5))
+    a2, b2 = torch.zeros((8, 4)), torch.zeros((4, 5))
+    ids = torch.zeros((3,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="fusion_w"):
+        batched_dual_lora_matmul(x, w, a1, b1, a2, b2, ids,
+                                 torch.zeros((3, 3)))
+    with pytest.raises(ValueError, match="a2"):
+        batched_dual_lora_matmul(x, w, a1, b1, torch.zeros((8, 3)), b2, ids,
+                                 torch.zeros((3, 2)))
+
+
+def _ragged_bank(rng, K, N, sizes, ranks, int8):
+    """Per-bucket lists of (C_b, K, r_b) / (C_b, r_b, N) factors (int8 plus
+    per-client scales when ``int8``), as a ragged registry holds them."""
+    bank = {"a": [], "b": []}
+    if int8:
+        bank["a_scale"], bank["b_scale"] = [], []
+    for cb, rb in zip(sizes, ranks):
+        a = (rng.standard_normal((cb, K, rb)) * 0.1).astype(np.float32)
+        b = (rng.standard_normal((cb, rb, N)) * 0.1).astype(np.float32)
+        if int8:
+            a, sa = (np.asarray(t) for t in j_quantize(_j(a), axis=(1, 2)))
+            b, sb = (np.asarray(t) for t in j_quantize(_j(b), axis=(1, 2)))
+            bank["a_scale"].append(sa)
+            bank["b_scale"].append(sb)
+        bank["a"].append(a)
+        bank["b"].append(b)
+    return bank
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_batched_lora_dense_on_list_banks_matches_reference(int8):
+    """``ops.batched_lora_dense`` on a ragged bank's per-bucket lists equals
+    the reference wrapper (Pallas kernel in interpret mode) and the model's
+    plain ``lora_delta`` path; the registry-style concatenated view with
+    its ``ranks`` vector gives the same output."""
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(11)
+    B, S, K, N = 4, 3, 64, 64
+    bank = _ragged_bank(rng, K, N, [2, 2, 1], [2, 4, 8], int8)
+    x = rng.standard_normal((B, S, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * 0.1).astype(np.float32)
+    ids = np.asarray([4, 0, 3, 2], np.int32)
+    tbank = {k: [_t(v) for v in vs] for k, vs in bank.items()}
+    y = ops.batched_lora_dense(_t(x), _t(w), tbank, _t(ids), 2.0)
+    yj = jops.batched_lora_dense(_j(x), _j(w),
+                                 {k: [_j(v) for v in vs]
+                                  for k, vs in bank.items()},
+                                 _j(ids), 2.0, block=64)
+    # the reference wrapper feeds its kernel bf16 activations
+    top = float(np.abs(np.asarray(yj, np.float32)).max())
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj, np.float32),
+                               atol=top * 2.0 ** -7)
+    cat = ops.concat_buckets(tbank)
+    assert cat["ranks"].tolist() == [2, 2, 4, 4, 8]
+    yc = ops.batched_lora_dense(_t(x), _t(w), cat, _t(ids), 2.0)
+    np.testing.assert_allclose(yc.numpy(), y.numpy(), atol=1e-5 * top)
+    # the model's dense layer on the torch path routes rows by bucket
+    yd = L.dense(_t(x), _t(w), L.LoRA(tbank["a"], tbank["b"],
+                                      tbank.get("a_scale"),
+                                      tbank.get("b_scale")),
+                 2.0, _t(ids), backend="torch")
+    np.testing.assert_allclose(yd.numpy(), y.numpy(), atol=1e-5 * top)

@@ -27,7 +27,7 @@ def _setup(**cfg_kw):
     jm = get_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     pm = Model(bridge.config_from_jax(jcfg), device="cpu")
-    pp = bridge.params_from_jax(jax.tree.map(np.asarray, jp))
+    pp = bridge.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, jm, jp, pm, pp
 
 
@@ -55,7 +55,7 @@ def test_forward_logits_match_reference(tied, banked):
                        jax.tree.map(jnp.asarray, ad), 2.0,
                        adapter_ids=None if ids is None else jnp.asarray(ids))
     lp, aux = pm.forward(pp, {"tokens": torch.from_numpy(toks)},
-                         bridge.adapters_from_jax(ad), 2.0,
+                         bridge.adapters_from_jax(ad, device="cpu"), 2.0,
                          adapter_ids=None if ids is None else
                          torch.from_numpy(ids))
     assert lp.shape == (3, 10, jcfg.vocab_size) and lp.dtype == torch.float32
@@ -78,7 +78,7 @@ def test_prefill_then_decode_logits_and_pools_match_reference(jax_backend):
     C, B, T, bs, NB, MB = 3, 3, 5, 4, 16, 4
     bank = _adapters(jcfg, 3, clients=C)
     jbank = jax.tree.map(jnp.asarray, bank)
-    pbank = bridge.adapters_from_jax(bank)
+    pbank = bridge.adapters_from_jax(bank, device="cpu")
     rng = np.random.default_rng(4)
     toks = rng.integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
     ids = np.asarray([1, 2, 0], np.int32)
@@ -174,6 +174,94 @@ def test_cuda_backend_and_device_are_refused_on_the_cpu():
 
 
 def test_int8_kv_pools_are_a_later_slice():
-    _, _, _, pm, _ = _setup()
-    with pytest.raises(NotImplementedError):
-        pm.init_paged_decode_cache(4, 4, kv_dtype="int8")
+    """The int8 pool layout equals the reference's: int8 pools and fp32
+    (NB, bs, Kv) scale leaves; an unknown dtype is refused."""
+    jcfg, jm, _, pm, _ = _setup()
+    jc = jm.init_paged_decode_cache(2, 5, 4, kv_dtype="int8")["blocks"]["b0"]
+    pc = pm.init_paged_decode_cache(5, 4, kv_dtype="int8")["layers"]
+    assert len(pc) == jcfg.n_layers
+    for name, leaf in jc.items():
+        assert pc[0][name].dtype == (torch.int8 if leaf.dtype == jnp.int8
+                                     else torch.float32)
+        assert tuple(pc[0][name].shape) == tuple(leaf.shape[1:])
+    with pytest.raises(ValueError, match="kv_dtype"):
+        pm.init_paged_decode_cache(4, 4, kv_dtype="fp8")
+
+
+@pytest.mark.parametrize("jax_backend", ["jnp", "pallas"])
+def test_int8_prefill_then_decode_matches_reference(jax_backend):
+    """int8 K/V through a ragged prefill chunk and one decode step, banked
+    adapters: logits against the reference's int8 path on both of its
+    paged backends, and the int8 pools and scales it wrote."""
+    jcfg, jm, jp, pm, pp = _setup()
+    C, B, T, bs, NB, MB = 3, 3, 5, 4, 16, 4
+    bank = _adapters(jcfg, 5, clients=C)
+    jbank = jax.tree.map(jnp.asarray, bank)
+    pbank = bridge.adapters_from_jax(bank, device="cpu")
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
+    ids = np.asarray([1, 2, 0], np.int32)
+    bt = np.asarray([[3, 7, 1, 9], [2, 5, 0, 0], [0, 0, 0, 0]], np.int32)
+    lens = np.asarray([0, 0, 0], np.int32)
+    n_new = np.asarray([5, 3, 0], np.int32)
+    jc = jm.init_paged_decode_cache(B, NB, bs, kv_dtype="int8")
+    pc = pm.init_paged_decode_cache(NB, bs, kv_dtype="int8")
+    common = dict(lora_scale=2.0)
+    lj, jc = jm.prefill_step(jp, jc, jnp.asarray(toks), jnp.asarray(lens),
+                             jnp.asarray(n_new), adapters=jbank,
+                             adapter_ids=jnp.asarray(ids),
+                             block_tables=jnp.asarray(bt),
+                             paged_backend=jax_backend, **common)
+    lp, pc = pm.prefill_step(pp, pc, torch.from_numpy(toks),
+                             torch.from_numpy(lens), torch.from_numpy(n_new),
+                             adapters=pbank, adapter_ids=torch.from_numpy(ids),
+                             block_tables=torch.from_numpy(bt), **common)
+    valid = np.arange(T)[None, :] < n_new[:, None]
+    # the Pallas kernels round attention probabilities before the value
+    # product; the jnp path keeps fp32
+    tol = LOGIT_TOL if jax_backend == "jnp" else 2e-3
+    np.testing.assert_allclose(lp.numpy()[valid], np.asarray(lj)[valid],
+                               atol=tol)
+    for name in ("k_scale", "v_scale", "k_pool", "v_pool"):
+        want = np.asarray(jc["blocks"]["b0"][name], np.float32)
+        for i, layer in enumerate(pc["layers"]):
+            got = layer[name].float().numpy()[1:]
+            # scales agree to fp32 noise; an int8 value may sit on the other
+            # side of a rounding boundary, one step away
+            atol = 1e-5 if "scale" in name else 1.0
+            np.testing.assert_allclose(got, want[i][1:], atol=atol)
+    lens2 = lens + n_new
+    step = np.asarray([[7], [11], [0]], np.int32)
+    lj2, jc = jm.decode_step(jp, jc, jnp.asarray(step), jnp.asarray(lens2),
+                             adapters=jbank, adapter_ids=jnp.asarray(ids),
+                             block_tables=jnp.asarray(bt),
+                             paged_backend=jax_backend, **common)
+    lp2, pc = pm.decode_step(pp, pc, torch.from_numpy(step),
+                             torch.from_numpy(lens2), adapters=pbank,
+                             adapter_ids=torch.from_numpy(ids),
+                             block_tables=torch.from_numpy(bt), **common)
+    np.testing.assert_allclose(lp2.numpy()[:2], np.asarray(lj2)[:2], atol=tol)
+
+
+@pytest.mark.parametrize("fn", ["to_torch", "unstack_blocks",
+                                "params_from_jax", "adapters_from_jax"])
+def test_bridge_defaults_to_the_card(fn):
+    """The bridge puts its tensors on the card unless asked for the CPU,
+    like every entry point of the port: without a card the default raises,
+    and ``device="cpu"`` works."""
+    jcfg, jm, jp, pm, pp = _setup()
+    tree = jax.tree.map(np.asarray, jp)
+    arg = {"to_torch": tree["embed"], "unstack_blocks": tree["blocks"],
+           "params_from_jax": tree,
+           "adapters_from_jax": _adapters(jcfg, 1)}[fn]
+    out = getattr(bridge, fn)(arg, device="cpu")
+    first = out if fn == "to_torch" else (
+        out[0] if fn == "unstack_blocks" else out["layers"][0])
+    leaf = first if fn == "to_torch" else next(
+        iter(next(iter(first.values())).values()))
+    if isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    assert leaf.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            getattr(bridge, fn)(arg)

@@ -42,11 +42,11 @@ def engines():
         tree = jax.tree.map(lambda l: (rng.standard_normal(l.shape) * 0.1)
                             .astype(np.float32), tmpl)
         jreg.register(f"c{i}", jax.tree.map(jnp.asarray, tree))
-        reg.register(f"c{i}", bridge.adapters_from_jax(tree))
+        reg.register(f"c{i}", bridge.adapters_from_jax(tree, device="cpu"))
     jeng = JEngine(jm, jcfg, jp, jreg)
     peng = MultiTenantEngine(Model(pcfg, device="cpu"), pcfg,
                              bridge.params_from_jax(jax.tree.map(np.asarray,
-                                                                 jp)), reg)
+                                                                 jp), device="cpu"), reg)
     return jcfg, jeng, peng
 
 
@@ -141,11 +141,8 @@ def test_open_loop_session(engines):
     assert ses.finalize()["open_loop"] is True
 
 
-@pytest.mark.parametrize("kw", [{"prefix_cache": True},
-                                {"spec_decode": True},
-                                {"num_shards": 2},
-                                {"overlap": True},
-                                {"kv_dtype": "int8"}])
+@pytest.mark.parametrize("kw", [{"num_shards": 2},
+                                {"overlap": True}])
 def test_later_slice_serve_options_raise(engines, kw):
     _, _, peng = engines
     reqs = [Request("c0", np.arange(6, dtype=np.int32))]

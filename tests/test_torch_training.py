@@ -80,7 +80,7 @@ def _assert_adapters_close(port, jtree, atol, rtol=1e-4):
     """Port adapters ({"layers": [...]}) against a reference tree stacked
     on the period axis."""
     _assert_trees_close(port, bridge.adapters_from_jax(
-        jax.tree.map(np.asarray, jtree)), atol, rtol)
+        jax.tree.map(np.asarray, jtree), device="cpu"), atol, rtol)
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +181,7 @@ def setup():
     jp = jm.init(jax.random.PRNGKey(0))
     pcfg = bridge.config_from_jax(jcfg)
     pm = Model(pcfg, device="cpu")
-    pp = bridge.params_from_jax(jax.tree.map(np.asarray, jp))
+    pp = bridge.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, jm, jp, pcfg, pm, pp
 
 
@@ -211,7 +211,7 @@ def test_train_step_loss_and_gradients_match_reference(setup):
         jax.tree.map(jnp.asarray, ad), jp,
         jax.tree.map(jnp.asarray, batch))
     loss, met, grads = lora_value_and_grad(pm, pcfg)(
-        pp, bridge.adapters_from_jax(ad),
+        pp, bridge.adapters_from_jax(ad, device="cpu"),
         {k: torch.from_numpy(v) for k, v in batch.items()})
     assert float(loss) == pytest.approx(float(jl), abs=LOSS_TOL)
     assert float(met["accuracy"]) == pytest.approx(float(jmet["accuracy"]))
@@ -229,7 +229,7 @@ def test_three_train_steps_match_reference(setup):
     jstep = jax.jit(j_ts.make_lora_train_step(jm, jcfg, jo))
     pstep = make_lora_train_step(pm, pcfg, po)
     jad = jax.tree.map(jnp.asarray, ad)
-    pad = bridge.adapters_from_jax(ad)
+    pad = bridge.adapters_from_jax(ad, device="cpu")
     js, ps = jo.init(jad), po.init(pad)
     for i in range(3):
         batch = _batch(10 + i)
@@ -246,7 +246,7 @@ def test_eval_fn_matches_reference(setup):
     ad, batch = _adapters(jcfg, 8), _batch(9)
     jmet = j_ts.make_eval_fn(jm, jcfg)(jp, jax.tree.map(jnp.asarray, ad),
                                        jax.tree.map(jnp.asarray, batch))
-    pmet = make_eval_fn(pm, pcfg)(pp, bridge.adapters_from_jax(ad),
+    pmet = make_eval_fn(pm, pcfg)(pp, bridge.adapters_from_jax(ad, device="cpu"),
                                   {k: torch.from_numpy(v)
                                    for k, v in batch.items()})
     assert float(pmet["loss"]) == pytest.approx(float(jmet["loss"]),
@@ -264,7 +264,7 @@ def test_fused_eval_matches_reference(setup):
         jp, jax.tree.map(jnp.asarray, ad_p), jax.tree.map(jnp.asarray, ad_s),
         jnp.asarray(w), jax.tree.map(jnp.asarray, batch))
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    tp, ts = bridge.adapters_from_jax(ad_p), bridge.adapters_from_jax(ad_s)
+    tp, ts = bridge.adapters_from_jax(ad_p, device="cpu"), bridge.adapters_from_jax(ad_s, device="cpu")
     loss, _ = make_fused_eval_fn(pm, pcfg)(pp, tp, ts, w, tbatch)
     assert float(loss) == pytest.approx(float(jl), abs=LOSS_TOL)
     # the unmerged dual tree (what the "cuda" path hands the dual kernel)
@@ -286,7 +286,7 @@ def test_cuda_backend_refused_on_cpu_for_training(setup):
         make_fused_eval_fn(pm, pcfg, paged_backend="cuda")
     step = make_lora_train_step(pm, pcfg, optimizers.adamw(),
                                 paged_backend="cuda")
-    ad = bridge.adapters_from_jax(_adapters(jcfg, 0))
+    ad = bridge.adapters_from_jax(_adapters(jcfg, 0), device="cpu")
     with pytest.raises(ValueError, match="cuda"):
         step(pp, ad, optimizers.adamw().init(ad),
              {k: torch.from_numpy(v) for k, v in _batch(0).items()})
@@ -348,12 +348,12 @@ def test_checkpoints_cross_between_the_packages(setup, tmp_path):
     jpb = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jp)
     j_ckpt.save_checkpoint(str(tmp_path / "p.npz"), jpb)
     gotp = checkpoint.load_checkpoint(str(tmp_path / "p.npz"), device="cpu")
-    want = bridge.params_from_jax(jax.tree.map(np.asarray, jpb))
+    want = bridge.params_from_jax(jax.tree.map(np.asarray, jpb), device="cpu")
     assert gotp["layers"][1]["mixer"]["wq"].dtype == torch.bfloat16
     for (pa, a), (pb, b) in zip(tree_leaves(gotp), tree_leaves(want)):
         assert pa == pb and torch.equal(a, b)
     # written by the port, read by the reference
-    port_ad = bridge.adapters_from_jax(ad)
+    port_ad = bridge.adapters_from_jax(ad, device="cpu")
     checkpoint.save_checkpoint(str(tmp_path / "t.npz"), port_ad,
                                {"arch": "tiny"})
     back = j_ckpt.load_checkpoint(str(tmp_path / "t.npz"))
