@@ -13,9 +13,12 @@ Phases (each prints one JSON line per result):
                product at its entry point; training: the LoRA and dual-LoRA
                products of a 2048-row batch, flash attention at B=8, S=256
                with a window, Sq < Sk and GQA variants, and the two
-               autograd backwards against plain autograd); time kernel,
-               plain version and one library call computing the same
-               function (a yardstick the port never calls);
+               autograd backwards against plain autograd); the two
+               attention kernels also with fp32 queries, which run their
+               fp32 CUDA-core tile (bf16 runs the tensor-core tile), held
+               tight; time kernel, plain version and one library call
+               computing the same function (a yardstick the port never
+               calls);
   3. serve   — llama2-7b at full width, 32 layers, bf16, random weights from
                --seed, 8 tenants with non-zero rank-16 adapters: 8 ragged
                requests (prompts 128-1024 tokens, 32 new tokens) through
@@ -62,6 +65,7 @@ from pathlib import Path
 # published H100 SXM peaks (data sheet, dense), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 ROOT = Path(__file__).resolve().parent
 ARCH = "llama2-7b"
@@ -82,24 +86,40 @@ def require(ok: bool, what: str) -> None:
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back runs (CUDA
-    events around the run, after ``warmup`` runs)."""
+    events around the run, after ``warmup`` runs).  The runs are enqueued
+    behind a spin of the device, so they execute back to back whatever the
+    host's cost per call (a wrapper's Python and launch overhead, tens of
+    microseconds, would otherwise be timed for kernels shorter than it);
+    the spin doubles until the host has enqueued every run before the
+    device reaches the start event."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    spin = 1 << 24                      # device cycles, ~10 ms
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()       # the device is still spinning
+        end.synchronize()
+        if ahead or spin >= 1 << 28:
+            require(ahead, "time_ms: the host could not enqueue the runs "
+                    "ahead of the device")
+            return start.elapsed_time(end) / reps
+        spin *= 2
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, fp32: bool = False):
+    """(least ms, what sets it): bytes over the memory rate against
+    operations over the bf16 tensor-core peak (``fp32``: the fp32 peak
+    outside the tensor cores)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / (FP32_FLOPS if fp32 else BF16_FLOPS) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -130,6 +150,37 @@ def _bf16_tol(ref) -> float:
     """Two bf16 roundings of the largest output: both sides compute in
     fp32 from the same inputs and round once, in another summation order."""
     return float(ref.float().abs().max()) * 2.0 ** -7 + 1e-5
+
+
+def _attn_tol(ref, v) -> float:
+    """An attention kernel against its plain version.  bf16: two bf16
+    roundings of the largest output, plus one bf16 rounding of the largest
+    |v| (dequantized): the tensor-core tile rounds P (or P·v_scale) to bf16
+    as its mma operand, as the TPU kernel does, where the plain version
+    keeps P in fp32 (or rounds it after normalising); each output is a
+    convex sum of v, so that rounding moves it by at most 2^-8·max|v|.
+    fp32: the fp32 tile, summation order only, tight."""
+    import torch
+    top = float(ref.float().abs().max())
+    if ref.dtype == torch.float32:
+        return 2e-5 + 1e-5 * top
+    return _bf16_tol(ref) + float(v.float().abs().max()) * 2.0 ** -8
+
+
+def _one_tile(name, fn, dtype):
+    """Run ``fn`` once with the counts at 0 and require that kernel
+    ``name`` launched the tile its dtype picks: mma for bf16, f32 for
+    fp32.  Returns fn's result."""
+    import torch
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    out = fn()
+    tiles = kernels.tile_counts()[name]
+    want = ({"mma": 1, "f32": 0} if dtype == torch.bfloat16
+            else {"mma": 0, "f32": 1})
+    require(tiles == want, f"{name} {dtype}: tiles launched {tiles}, not "
+            f"{want}")
+    return out
 
 
 def _gathered(k_pool, v_pool, ks, vs, bt, H):
@@ -190,33 +241,37 @@ def check_decode(gen, device, lengths, G, int8, reps, H=32, hd=128, bs=16):
 
 
 def check_prefill(gen, device, lengths, T, G, int8, reps, H=32, hd=128,
-                  bs=16):
+                  bs=16, dtype=None):
+    """Tolerance: ``_attn_tol`` (bf16 queries: the tensor-core tile; fp32:
+    the fp32 tile, tight)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_prefill import (paged_prefill_attention,
                                                    paged_prefill_attention_ref)
+    dtype = dtype or torch.bfloat16
     B = len(lengths)
     Kv = H // G
     MB = -(-(max(lengths) + T) // bs)
     kp, vp, ks, vs = _pools(gen, 1 + B * MB, bs, Kv, hd, device, int8)
     bt = _tables(gen, B, MB, device)
     lens = torch.tensor(lengths, dtype=torch.int32, device=device)
-    q = torch.randn((B, T, H, hd), generator=gen,
-                    device=device).to(torch.bfloat16)
-    out = paged_prefill_attention(q, kp, vp, bt, lens, k_scale=ks, v_scale=vs)
+    q = torch.randn((B, T, H, hd), generator=gen, device=device).to(dtype)
+    out = _one_tile("paged_prefill_attention", lambda: paged_prefill_attention(
+        q, kp, vp, bt, lens, k_scale=ks, v_scale=vs), dtype)
     ref = paged_prefill_attention_ref(q, kp, vp, bt, lens, k_scale=ks,
                                       v_scale=vs)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
-    tol = _bf16_tol(ref)
+    tol = _attn_tol(ref, vp.float() * vs[..., None] if int8 else vp)
     require(bool(torch.isfinite(out.float()).all()), "prefill output not finite")
-    require(err <= tol, f"paged_prefill G={G} int8={int8}: err {err} > {tol}")
+    require(err <= tol, f"paged_prefill G={G} int8={int8} {dtype}: err "
+            f"{err} > {tol}")
     ms = time_ms(lambda: paged_prefill_attention(q, kp, vp, bt, lens,
                                                  k_scale=ks, v_scale=vs), reps)
     plain_ms = time_ms(lambda: paged_prefill_attention_ref(
         q, kp, vp, bt, lens, k_scale=ks, v_scale=vs), max(1, reps // 4), 1)
     kg, vg = _gathered(kp, vp, ks, vs, bt, H)
-    kg, vg = kg.to(torch.bfloat16), vg.to(torch.bfloat16)
+    kg, vg = kg.to(dtype), vg.to(dtype)
     L = kg.shape[2]
     q_pos = lens[:, None] + torch.arange(T, device=device)[None, :]
     mask = (torch.arange(L, device=device)[None, None, :]
@@ -228,11 +283,15 @@ def check_prefill(gen, device, lengths, T, G, int8, reps, H=32, hd=128,
     pairs = sum((n + 1) * T + T * (T - 1) // 2 for n in lengths)
     kv_bytes = (1 if int8 else 2) * 2 * ctx * Kv * hd + (8 * ctx * Kv if int8
                                                           else 0)
-    nbytes = kv_bytes + 2 * 2 * B * T * H * hd + 4 * B * (MB + 1)
+    q_el = q.element_size()
+    nbytes = kv_bytes + 2 * q_el * B * T * H * hd + 4 * B * (MB + 1)
     flops = 4 * hd * H * pairs
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, fp32=dtype == torch.float32)
     return {"name": "paged_prefill_attention", "G": G,
-            "kv": "int8" if int8 else "bf16", "B": B, "T": T, "H": H,
+            "kv": "int8" if int8 else "bf16",
+            "q": "bf16" if dtype == torch.bfloat16 else "fp32",
+            "tile": "mma" if dtype == torch.bfloat16 else "f32",
+            "B": B, "T": T, "H": H,
             "hd": hd, "bs": bs, "lengths": lengths, "max_abs_err": err,
             "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
@@ -449,25 +508,25 @@ def check_dual_lora(gen, device, M, K, N, r, reps):
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps):
+def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
     """flash_attention on model-layout (B, S, heads, d) tensors read through
-    strided views, as the training forward calls it.  Tolerance: two bf16
-    roundings of the largest output, plus one bf16 rounding of the largest
-    |v| (the plain version rounds the probabilities to bf16 before the value
-    product, the kernel keeps them in fp32)."""
+    strided views, as the training forward calls it.  Tolerance:
+    ``_attn_tol`` (bf16: the tensor-core tile and the plain version each
+    round the probabilities to bf16, at other points; fp32: tight)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
+    dtype = dtype or torch.bfloat16
     q = torch.randn((B, Sq, H, d), generator=gen, device=device).to(
-        torch.bfloat16).transpose(1, 2)
+        dtype).transpose(1, 2)
     k, v = (torch.randn((B, Sk, Kv, d), generator=gen, device=device).to(
-        torch.bfloat16).transpose(1, 2) for _ in range(2))
+        dtype).transpose(1, 2) for _ in range(2))
     ref = flash_attention_ref(q, k, v, sliding_window=window)
-    tol = _bf16_tol(ref) + float(v.float().abs().max()) * 2.0 ** -8
-    err = _check_close("flash_attention",
-                       flash_attention(q, k, v, sliding_window=window), ref,
-                       tol)
+    tol = _attn_tol(ref, v)
+    out = _one_tile("flash_attention", lambda: flash_attention(
+        q, k, v, sliding_window=window), dtype)
+    err = _check_close(f"flash_attention {dtype}", out, ref, tol)
     ms = time_ms(lambda: flash_attention(q, k, v, sliding_window=window), reps)
     plain_ms = time_ms(lambda: flash_attention_ref(
         q, k, v, sliding_window=window), max(1, reps // 4), 1)
@@ -488,10 +547,13 @@ def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps):
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qc, kc, vc, attn_mask=mask), reps)
     pairs = int(mask.sum())
-    nbytes = 2 * (2 * B * H * Sq * d + 2 * B * Kv * Sk * d)
+    nbytes = q.element_size() * (2 * B * H * Sq * d + 2 * B * Kv * Sk * d)
     flops = 4 * d * pairs * B * H
-    b_ms, b_by = bound(nbytes, flops)
-    return {"name": "flash_attention", "B": B, "H": H, "Kv": Kv, "Sq": Sq,
+    b_ms, b_by = bound(nbytes, flops, fp32=dtype == torch.float32)
+    return {"name": "flash_attention",
+            "dtype": "bf16" if dtype == torch.bfloat16 else "fp32",
+            "tile": "mma" if dtype == torch.bfloat16 else "f32",
+            "B": B, "H": H, "Kv": Kv, "Sq": Sq,
             "Sk": Sk, "d": d, "window": window, "max_abs_err": err,
             "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
@@ -551,6 +613,9 @@ def training_kernels(device, seed: int, reps: int):
         res = check_flash(gen, device, 8, H, Kv, Sq, Sk, 128, window, reps)
         emit(res)
         main.setdefault("flash_attention", res)
+    # fp32 at the main shape: the fp32 tile, held tight
+    emit(check_flash(gen, device, 8, 32, 32, 256, 256, 128, 0, reps,
+                     dtype=torch.float32))
     check_backwards(gen, device)
     return main
 
@@ -576,6 +641,10 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
             emit(res)
             if G == 1 and not int8:
                 main["paged_prefill_attention"] = res
+    # fp32 queries (the fp32 tile, held tight) over both pool types
+    for int8 in (False, True):
+        emit(check_prefill(gen, device, pre_lengths, T, 1, int8, reps,
+                           dtype=torch.float32))
     B = len(main_lengths)
     for M, K, N in ((B, 4096, 4096), (B * T, 4096, 11008)):
         for variant in ("f32_bank", "rank_mask", "int8_bank"):
@@ -654,6 +723,15 @@ def compare_first_chunk(eng, reqs, sc, dtype_name, rel_tol, extra=None):
     return err
 
 
+def require_mma_tile(tiles, name, what):
+    """A bf16 run: kernel ``name`` ran its tensor-core tile, never its fp32
+    tile."""
+    t = tiles[name]
+    require(t["mma"] > 0 and t["f32"] == 0,
+            f"{what}: {name} tiles {t}; a bf16 run must launch the "
+            "tensor-core tile and not the fp32 one")
+
+
 def timed_generate(eng, reqs, sc):
     """Run ``generate_stream``; returns (streams, TTFT per request in s,
     seconds of the decode phase, tokens emitted in it, total seconds).  The
@@ -709,8 +787,9 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
         torch.cuda.reset_peak_memory_stats()
         outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs, sc)
         counts = kernels.launch_counts()
+        tiles = kernels.tile_counts()
         st = eng.last_stats
-        results[backend] = (outs, counts)
+        results[backend] = (outs, counts, tiles)
         emit({"phase": "serve", "backend": backend, "requests": len(reqs),
               "prompt_lens": [len(r.prompt) for r in reqs],
               "new_tokens": new_tokens, "prefill_chunk": T,
@@ -723,6 +802,7 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
               "prefill_dispatches": st["prefill_dispatches"],
               "decode_dispatches": st["decode_dispatches"],
               "preemptions": st["preemptions"], "launches": counts,
+              "tile_launches": tiles,
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
         for o in outs:
             require(len(o) == new_tokens and all(0 <= t < cfg.vocab_size
@@ -732,6 +812,7 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
     for name in kernels.SERVING:
         require(cuda_counts[name] > 0,
                 f"kernel {name} was never launched on the serving path")
+    require_mma_tile(results["cuda"][2], "paged_prefill_attention", "serve")
     require(all(n == 0 for n in results["torch"][1].values()),
             "the torch backend launched a CUDA kernel")
 
@@ -739,10 +820,11 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
     matched = [next((i for i, (a, b) in enumerate(zip(c, t)) if a != b),
                     len(c)) for c, t in zip(streams_c, streams_t)]
     # bf16: the two paths round activations at different places (the LoRA
-    # epilogue rounds once where the torch path rounds twice; attention
-    # probabilities stay fp32 in the kernels), 224 projections deep.  The
-    # bound is a sanity bound: a wrong mask or a lost LoRA term moves logits
-    # by O(their largest value).
+    # epilogue rounds once where the torch path rounds twice; the attention
+    # tile rounds unnormalised probabilities where the torch path rounds
+    # normalised ones), 224 projections deep.  The bound is a sanity bound:
+    # a wrong mask or a lost LoRA term moves logits by O(their largest
+    # value).
     compare_first_chunk(eng, reqs, sc, "bfloat16", rel_tol=0.1,
                         extra={"stream_prefix_matched": matched,
                                "stream_tokens_agree_fraction":
@@ -764,12 +846,17 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
 
 
 KERNEL_FAMILIES = (("paged_decode_kernel", "paged_attention"),
-                   ("paged_prefill_kernel", "paged_prefill_attention"),
+                   ("paged_prefill_mma_kernel",
+                    "paged_prefill_attention (tensor-core tile)"),
+                   ("paged_prefill_kernel",
+                    "paged_prefill_attention (fp32 tile)"),
                    ("lora_matmul_kernel", "batched_lora_matmul (x.W + epilogue)"),
                    ("lora_shrink_kernel", "batched_lora_matmul (shrink)"))
 TRAIN_FAMILIES = (("single_lora_xw_kernel", "lora_matmul (x.W + epilogue)"),
                   ("single_lora_xa_kernel", "lora_matmul (shrink)"),
-                  ("flash_attn_fwd_kernel", "flash_attention"),
+                  ("flash_attn_mma_kernel",
+                   "flash_attention (tensor-core tile)"),
+                  ("flash_attn_fwd_kernel", "flash_attention (fp32 tile)"),
                   ("dual_lora_", "dual_lora_matmul"),
                   *((k, "cuBLAS matmuls (plain backward, lm_head)")
                     for k in ("gemm", "nvjet", "xmma", "cutlass")))
@@ -1047,6 +1134,7 @@ def serve_options_phase(device, seed: int, params, cfg, T: int = 256,
         torch.cuda.reset_peak_memory_stats()
         outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs_, sc_)
         counts = kernels.launch_counts()
+        tiles = kernels.tile_counts()
         st = eng.last_stats
         line = {"phase": "serve_options", "run": name,
                 "requests": len(reqs_), "tokens": sum(len(o) for o in outs),
@@ -1056,7 +1144,7 @@ def serve_options_phase(device, seed: int, params, cfg, T: int = 256,
                 "decode_tok_per_s": dec_tok / dec_s if dec_s > 0 else None,
                 "total_s": total_s,
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "launches": counts,
+                "launches": counts, "tile_launches": tiles,
                 **{k: st[k] for k in (
                     "prefill_dispatches", "decode_dispatches",
                     "verify_dispatches", "preemptions", "prompt_tokens",
@@ -1069,6 +1157,8 @@ def serve_options_phase(device, seed: int, params, cfg, T: int = 256,
             require(len(o) == sc_.max_new_tokens and all(
                 0 <= t < cfg.vocab_size for t in o),
                 f"serve_options {name}: a stream is malformed")
+        require_mma_tile(tiles, "paged_prefill_attention",
+                         f"serve_options {name}")
         return outs, st, counts
 
     # 1. cold: prefix hits inside the call, preemption, every serving kernel
@@ -1132,10 +1222,12 @@ def serve_options_phase(device, seed: int, params, cfg, T: int = 256,
     wall_ms, fam = traced(lambda: eng.generate(reqs, sc8), KERNEL_FAMILIES,
                           "other device work (torch: lm_head, norms, rope, "
                           "scatter-quantize, sampling, copies)")
+    st = eng.last_stats
     emit(_profile_line(fam, wall_ms, phase="profile_serve_options",
                        requests=len(reqs), new_tokens=8,
-                       prefix_pool_reused=eng.last_stats[
-                           "prefix_pool_reused"]))
+                       **{k: st[k] for k in (
+                           "prefix_pool_reused", "prefix_hit_rate",
+                           "prefill_dispatches", "decode_dispatches")}))
     eng.release_prefix_cache()
     return counts
 
@@ -1168,9 +1260,10 @@ def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
             params, adapters, batch)
         torch.cuda.synchronize()
         out[backend] = (loss, dict(tree_leaves(grads)),
-                        kernels.launch_counts())
+                        kernels.launch_counts(),
+                        kernels.tile_counts()["flash_attention"])
         del grads
-    (lc, gc, nc), (lt, gt, nt) = out["cuda"], out["torch"]
+    (lc, gc, nc, tiles), (lt, gt, nt, _) = out["cuda"], out["torch"]
     loss_err = abs(float(lc) - float(lt)) / abs(float(lt))
     grad_errs = {p: _rel(gc[p], gt[p]) for p in gt}
     worst = max(grad_errs, key=grad_errs.get)
@@ -1181,7 +1274,7 @@ def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
           "max_grad_rel_err": grad_errs[worst], "worst_leaf": worst,
           "median_grad_rel_err": sorted(grad_errs.values())[
               len(grad_errs) // 2], "grad_tol": grad_tol,
-          "launches_cuda": nc})
+          "launches_cuda": nc, "flash_tiles_cuda": tiles})
     require(all(torch.isfinite(g).all() for g in gc.values()),
             f"{dtype_name}: a cuda gradient is not finite")
     require(loss_err <= loss_tol,
@@ -1191,6 +1284,10 @@ def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
             f"{grad_tol}")
     require(nc["lora_matmul"] > 0 and nc["flash_attention"] > 0,
             "the cuda train step did not launch its kernels")
+    want = "mma" if dtype_name == "bfloat16" else "f32"
+    require(tiles[want] == nc["flash_attention"],
+            f"{dtype_name} train step: flash_attention tiles {tiles}, not "
+            f"all {want}")
     require(all(n == 0 for n in nt.values()),
             "the torch train step launched a CUDA kernel")
 
@@ -1257,7 +1354,7 @@ def train_phase(device, seed: int, params, cfg):
     # 1-2: "cuda" against "torch" from the same adapters (B non-zero) and
     # the same batch.  bf16: the paths round at other places (the LoRA
     # kernels round once where the plain dense rounds twice, the attention
-    # kernel keeps probabilities in fp32) through 32 layers, forward and
+    # tile rounds unnormalised probabilities) through 32 layers, forward and
     # backward; the serve phase's logits differ by 3.7% of their largest
     # value for that reason alone.  A lost LoRA term, a wrong mask or a
     # wrong backward term moves a gradient by O(its size), so the bounds
@@ -1312,6 +1409,7 @@ def train_phase(device, seed: int, params, cfg):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = kernels.launch_counts()
+    tiles = kernels.tile_counts()
     losses = [h["loss"] for h in tr.history]
     weights = [c.fusion_weights.tolist() for c in clients]
     med = float(np.median(step_s))
@@ -1326,7 +1424,8 @@ def train_phase(device, seed: int, params, cfg):
           "stage1_2_s": t1 - t0, "stage3_s": t2 - t1,
           "round_losses": losses, "fusion_weights": weights,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "launches": counts, "compare_s": compare_s})
+          "launches": counts, "tile_launches": tiles,
+          "compare_s": compare_s})
     require(len(step_s) == 12, f"{len(step_s)} train steps, not 12")
     require(all(math.isfinite(x) for x in losses), "a round loss is not finite")
     require(all(math.isfinite(x) for w in weights for x in w),
@@ -1337,6 +1436,7 @@ def train_phase(device, seed: int, params, cfg):
     for name in kernels.TRAINING:
         require(counts[name] > 0,
                 f"kernel {name} was never launched on the training path")
+    require_mma_tile(tiles, "flash_attention", "train")
 
     # 5: publish into the serving slice and generate from it
     registry = AdapterRegistry(cfg, capacity=n_clients, device=device)
@@ -1370,6 +1470,35 @@ def train_phase(device, seed: int, params, cfg):
     emit(_profile_line(fam, wall_ms, phase="profile_train_step",
                        rows=B * S))
     return counts
+
+
+def ptxas_entries(report: str):
+    """``{kernel: {registers, spill_stores, spill_loads}}`` from ``nvcc
+    -Xptxas=-v`` output.  The tensor-core tiles are named
+    ``<kernel><hd[, int8]>`` from their mangled names; others keep theirs."""
+    import re
+    out, name = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            t = re.search(r"\d+([a-z][a-z_]*_mma_kernel)ILi(\d+)E(a?)", name)
+            if t:
+                name = f"{t.group(1)}<{t.group(2)}" + (
+                    ", int8>" if t.group(3) else ">")
+            out[name] = {"registers": None, "spill_stores": 0,
+                         "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def card_identity():
@@ -1422,11 +1551,20 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     reports = build.build()
-    ptxas = {n: [ln.strip() for ln in rep.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, rep in reports.items()}
+    ptxas = {n: ptxas_entries(rep) for n, rep in reports.items()}
+    mma = {k: v for ent in ptxas.values() for k, v in ent.items()
+           if "_mma_kernel" in k}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(reports), "ptxas": ptxas})
+          "built": sorted(reports), "ptxas": ptxas,
+          "tensor_core_tiles": mma})
+    for src in ("paged_prefill", "flash_attention"):
+        if src in reports:
+            require(any(k.startswith(("paged_prefill_mma", "flash_attn_mma"))
+                        for k in ptxas[src]),
+                    f"no tensor-core tile in the ptxas report of {src}.cu")
+    spilled = {k: v for k, v in mma.items()
+               if v["spill_stores"] or v["spill_loads"]}
+    require(not spilled, f"tensor-core tiles spill registers: {spilled}")
 
     import numpy as np
     rng = np.random.default_rng(args.seed)

@@ -34,10 +34,23 @@ TRAINING = ("lora_matmul", "flash_attention", "dual_lora_matmul")
 STANDALONE = ("batched_dual_lora_matmul",)
 
 
+# kernels with two tiles, picked by dtype: the tensor-core tile for bf16,
+# the CUDA-core tile for fp32
+TILES = ("paged_prefill_attention", "flash_attention")
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def tile_counts() -> Dict[str, Dict[str, int]]:
+    """Launches of each two-tile kernel split by tile."""
+    return {name: {"mma": WRAPPERS[name].launches_mma,
+                   "f32": WRAPPERS[name].launches_f32} for name in TILES}
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for name in TILES:
+        WRAPPERS[name].launches_mma = WRAPPERS[name].launches_f32 = 0

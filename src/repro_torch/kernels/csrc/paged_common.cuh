@@ -1,5 +1,6 @@
-// Shared tile routine of the two paged-attention kernels (decode and
-// chunked prefill).
+// CUDA-core tile routine of the paged-attention kernels: every decode
+// step, and chunked prefill with fp32 queries (bf16 prefill runs the
+// tensor-core tile of attn_mma.cuh).
 //
 // One CTA attends a tile of folded query rows of ONE batch row against ONE
 // kv head.  Folded row f = t * G + g holds chunk position t and query head

@@ -15,8 +15,11 @@ plain PyTorch backward that recomputes the probabilities in fp32 from the
 saved q, k, v (the reference has no backward kernel either).
 
 CPU tensors run the plain version (:func:`flash_attention_ref`); CUDA
-tensors launch the kernel or raise.  ``flash_attention.launches`` counts
-launches.
+tensors launch the kernel or raise.  The kernel has two tiles, picked by
+dtype: bf16 runs the tensor-core tile (``csrc/attn_mma.cuh``, head dims
+32, 64 and 128, every row start 16-byte aligned), fp32 the fp32 CUDA-core
+tile.  ``flash_attention.launches`` counts launches, and
+``launches_mma`` / ``launches_f32`` split them by tile.
 """
 from __future__ import annotations
 
@@ -26,10 +29,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.paged_prefill import check_mma_tile
 from repro_torch.kernels.ref import flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_ref", "FlashAttention"]
 
+# the fp32 tile
 THREADS = 128
 MAX_ACC = 32          # accumulators per thread: rows * d <= THREADS * MAX_ACC
 TILE_ROWS = 32        # query rows per CTA (fewer when d is wide)
@@ -72,22 +77,35 @@ def _launch(q, k, v, causal: bool, sliding_window: int, scale: float):
         if t.device != dev or t.stride(-1) != 1:
             raise ValueError(f"{name} must lie on {dev} with a contiguous "
                              f"last axis")
+    mma = q.dtype == torch.bfloat16
     rows = tile_rows(d)
-    if d > THREADS * MAX_ACC or smem_bytes(rows, d) > MAX_SMEM:
-        raise ValueError(f"head_dim {d} exceeds the kernel's tile")
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=dev)
     o = out.transpose(1, 2)
+    if mma:
+        # every row start aligned: the pointer and each stride in bytes
+        check_mma_tile(d, False, (("q", q), ("k", k), ("v", v),
+                                  ("out", out)))
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if any(st * t.element_size() % 16 for st in t.stride()[:3]):
+                raise ValueError(f"{name}'s strides {t.stride()} do not keep "
+                                 "every row 16-byte aligned, as the bf16 "
+                                 "attention tile's copies need")
+    elif d > THREADS * MAX_ACC or smem_bytes(rows, d) > MAX_SMEM:
+        raise ValueError(f"head_dim {d} exceeds the kernel's tile")
     if out.numel() == 0:
         return o
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  ctypes.cast(strides, ctypes.c_void_p), B, H, Kv, Sq, Sk, d,
-                 rows, int(causal), int(sliding_window),
-                 int(q.dtype == torch.bfloat16), float(scale),
-                 build.stream_ptr(dev))
+                 rows, int(causal), int(sliding_window), int(mma),
+                 float(scale), build.stream_ptr(dev))
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    if mma:
+        flash_attention.launches_mma += 1
+    else:
+        flash_attention.launches_f32 += 1
     return o
 
 
@@ -141,3 +159,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.launches_mma = 0
+flash_attention.launches_f32 = 0

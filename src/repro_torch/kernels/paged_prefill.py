@@ -10,8 +10,11 @@ PLACE — a serving pool is gigabytes — and return them.
 :func:`paged_prefill_attention` attends T chunk queries per row against
 pools that already hold the chunk: query t of row b attends
 ``[0, lengths[b] + t]``.  CPU tensors run the plain version; CUDA tensors
-launch the kernel or raise.  ``paged_prefill_attention.launches`` counts
-kernel launches.
+launch the kernel or raise.  The kernel has two tiles, picked by q's
+dtype: bf16 queries run the tensor-core tile (``csrc/attn_mma.cuh``, head
+dims 32, 64 and 128), fp32 queries the fp32 CUDA-core tile.
+``paged_prefill_attention.launches`` counts kernel launches, and
+``launches_mma`` / ``launches_f32`` split them by tile.
 """
 from __future__ import annotations
 
@@ -30,8 +33,38 @@ from repro_torch.kernels.ref import paged_prefill_attention_ref
 __all__ = ["paged_scatter", "paged_scatter_quant", "paged_prefill_attention",
            "paged_prefill_attention_ref"]
 
-# folded query rows per CTA (fewer when head_dim is wide)
+# folded query rows per CTA of the fp32 tile (fewer when head_dim is wide)
 TILE_ROWS = 16
+# the tensor-core tile: head dims it is built for, and its shared memory
+# (csrc/attn_mma.cuh: 64 query rows, 64-key tiles, rows padded by 8 bf16)
+MMA_HEAD_DIMS = (32, 64, 128)
+MMA_ROWS = MMA_KEYS = 64
+
+
+def mma_smem_bytes(hd: int, int8: bool) -> int:
+    """Shared memory of one CTA of the tensor-core tile (``smem_bytes``)."""
+    tile = 2 * MMA_KEYS * (hd + 8)
+    q = 2 * MMA_ROWS * (hd + 8)
+    if int8:
+        return q + 2 * tile + 4 * MMA_KEYS * hd + 16 * MMA_KEYS
+    return q + 4 * tile
+
+
+def check_mma_tile(hd: int, int8: bool, tensors) -> None:
+    """Raise ValueError for what the tensor-core tile does not take: a head
+    dim outside ``MMA_HEAD_DIMS``, a tensor whose data pointer is not
+    16-byte aligned (its 16-byte copies), more shared memory than a CTA
+    has."""
+    if hd not in MMA_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the bf16 attention tile takes head "
+                         f"dims {MMA_HEAD_DIMS}")
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned, as the bf16 "
+                             "attention tile's copies need")
+    if mma_smem_bytes(hd, int8) > MAX_SMEM:
+        raise ValueError(f"head_dim {hd}: the bf16 attention tile exceeds "
+                         "the shared memory of a CTA")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -125,22 +158,31 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     check_pools(k_pool, v_pool, k_scale, v_scale, q.device)
     check_tables(block_tables, lengths, B, q.device)
     bs = k_pool.shape[1]
+    quant = k_scale is not None
+    mma = q.dtype == torch.bfloat16
+    out = torch.empty_like(q)
     rows = tile_rows(T, H // Kv, hd)
-    if hd > THREADS * MAX_ACC or smem_bytes(rows, bs, hd) > MAX_SMEM:
+    if mma:
+        check_mma_tile(hd, quant, (("q", q), ("k_pool", k_pool),
+                                   ("v_pool", v_pool), ("out", out)))
+    elif hd > THREADS * MAX_ACC or smem_bytes(rows, bs, hd) > MAX_SMEM:
         raise ValueError(f"head_dim {hd} (block {bs}) exceeds the kernel's "
                          "tile")
-    out = torch.empty_like(q)
-    quant = k_scale is not None
     err = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  k_scale.data_ptr() if quant else None,
                  v_scale.data_ptr() if quant else None,
                  block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 B, T, H, Kv, hd, bs, block_tables.shape[1], rows,
-                 int(q.dtype == torch.bfloat16), int(quant), scale,
-                 build.stream_ptr(q.device))
+                 B, T, H, Kv, hd, bs, block_tables.shape[1], rows, int(mma),
+                 int(quant), scale, build.stream_ptr(q.device))
     build.check(err, "paged_prefill_attention")
     paged_prefill_attention.launches += 1
+    if mma:
+        paged_prefill_attention.launches_mma += 1
+    else:
+        paged_prefill_attention.launches_f32 += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.launches_mma = 0
+paged_prefill_attention.launches_f32 = 0

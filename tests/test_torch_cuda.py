@@ -1,5 +1,8 @@
-"""Card-only tests of the port: each CUDA kernel against its plain version,
-the two autograd backwards against plain autograd, serving runs (plain and
+"""Card-only tests of the port: each CUDA kernel against its plain version
+(the two attention kernels through both their tiles: the tensor-core tile
+for bf16 at head dims 32, 64 and 128 over ragged, poisoned and misaligned
+inputs, the fp32 tile held tight), the two autograd backwards against
+plain autograd, serving runs (plain and
 with int8 K/V, a ragged int8 bank, prefix caching and speculative
 decoding), ``launch/serve.py`` with those options and one
 ``launch/train.py --smoke`` run through the ``"cuda"`` backend.
@@ -41,6 +44,14 @@ def _bf16_tol(ref_out):
     return float(ref_out.float().abs().max()) * 2.0 ** -7 + 1e-5
 
 
+def _attn_tol(ref_out, v):
+    # the bf16 attention tile rounds P (or P·v_scale) to bf16 as its mma
+    # operand, as the TPU kernel does, where the plain version keeps P in
+    # fp32 (or rounds it normalised): each output is a convex sum of v, so
+    # that adds one bf16 rounding of the largest |v| (dequantized)
+    return _bf16_tol(ref_out) + float(v.float().abs().max()) * 2.0 ** -8
+
+
 def _randn(gen, shape, dev, dtype=torch.float32, std=1.0):
     return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
@@ -71,7 +82,8 @@ def test_paged_kernels_match_plain(dev, H, Kv, int8):
     q4 = _randn(gen, (B, T, H, hd), dev, torch.bfloat16)
     y4 = paged_prefill_attention(q4, kp, vp, bt, lens, **sc)
     yr4 = ref.paged_prefill_attention_ref(q4, kp, vp, bt, lens, **sc)
-    assert float((y4.float() - yr4.float()).abs().max()) <= _bf16_tol(yr4)
+    assert float((y4.float() - yr4.float()).abs().max()) <= _attn_tol(
+        yr4, vp.float() * sc["v_scale"][..., None] if int8 else vp)
     # fp32 queries: fp32 output, tight
     q32 = q.float()
     y32 = paged_attention(q32, kp, vp, bt, lens, **sc)
@@ -80,6 +92,152 @@ def test_paged_kernels_match_plain(dev, H, Kv, int8):
     assert kernels.launch_counts() == dict(
         dict.fromkeys(kernels.WRAPPERS, 0), paged_attention=2,
         paged_prefill_attention=1)
+    assert kernels.tile_counts()["paged_prefill_attention"] == {"mma": 1,
+                                                                "f32": 0}
+
+
+def _prefill_case(gen, dev, T, G, bs, hd, int8, lengths, H=None):
+    """Pools, tables and bf16 queries for a prefill call.  The table width
+    MB is one block short of the longest row's chunk end, so that row's
+    chunk tail runs past its table (ragged tail)."""
+    H = H or 2 * G
+    Kv = H // G
+    B = len(lengths)
+    MB = max(1, -(-(max(lengths) + T) // bs) - 1)
+    NB = 1 + B * MB + 3                    # 3 blocks no table points at
+    kf = _randn(gen, (NB, bs, Kv, hd), dev)
+    vf = _randn(gen, (NB, bs, Kv, hd), dev)
+    if int8:
+        kp, ks = quantize_int8(kf, -1)
+        vp, vs = quantize_int8(vf, -1)
+        sc = {"k_scale": ks, "v_scale": vs}
+        vdq = vp.float() * vs[..., None]
+    else:
+        kp, vp, sc = kf.to(torch.bfloat16), vf.to(torch.bfloat16), {}
+        vdq = vp
+    bt = (torch.randperm(B * MB, generator=gen, device=dev) + 1).reshape(
+        B, MB).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = _randn(gen, (B, T, H, hd), dev, torch.bfloat16)
+    return q, kp, vp, sc, vdq, bt, lens
+
+
+# (T, G, bs, hd): T not a multiple of 64; G = 4 with folded rows crossing
+# a 64-row tile edge (T = 20: rows 60-67 hold t = 15, 16); blocks of 16
+# and 32; head dims 32, 64 and 128
+PREFILL_CASES = [(1, 1, 16, 128), (8, 1, 16, 128), (100, 1, 16, 128),
+                 (256, 1, 16, 128), (20, 4, 16, 128), (100, 4, 32, 64),
+                 (8, 1, 32, 32), (100, 2, 16, 32), (256, 4, 32, 64)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("T,G,bs,hd", PREFILL_CASES)
+def test_prefill_tiles_match_plain(dev, T, G, bs, hd, int8):
+    """Rows: an empty context, chunks starting mid-block, and one whose
+    chunk tail runs past its table."""
+    gen = torch.Generator(device=dev).manual_seed(10 + hd + T)
+    lengths = [0, 5, 37, 130]
+    q, kp, vp, sc, vdq, bt, lens = _prefill_case(gen, dev, T, G, bs, hd,
+                                                 int8, lengths)
+    kernels.reset_launch_counts()
+    y = paged_prefill_attention(q, kp, vp, bt, lens, **sc)
+    yr = ref.paged_prefill_attention_ref(q, kp, vp, bt, lens, **sc)
+    assert bool(torch.isfinite(y.float()).all())
+    assert float((y.float() - yr.float()).abs().max()) <= _attn_tol(yr, vdq)
+    # fp32 queries: the fp32 tile, tight
+    y32 = paged_prefill_attention(q.float(), kp, vp, bt, lens, **sc)
+    yr32 = ref.paged_prefill_attention_ref(q.float(), kp, vp, bt, lens, **sc)
+    torch.testing.assert_close(y32, yr32, atol=2e-5, rtol=1e-5)
+    assert kernels.tile_counts()["paged_prefill_attention"] == {"mma": 1,
+                                                                "f32": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("int8", [False, True])
+def test_prefill_ignores_pool_slots_past_the_last_query(dev, int8, dtype):
+    """NaN in every block no table points at and at every position >=
+    lengths[b] + T of each row's blocks (int8 pools: in the scales): the
+    output is finite and equal to the clean pool's."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    T, G, bs, hd = 100, 4, 16, 64
+    q, kp, vp, sc, _, bt, lens = _prefill_case(gen, dev, T, G, bs, hd, int8,
+                                               [0, 5, 37, 130])
+    q = q.to(dtype)
+    clean = paged_prefill_attention(q, kp, vp, bt, lens, **sc)
+    pos = torch.arange(bs, device=dev)
+    poison = torch.ones(kp.shape[:2], dtype=torch.bool, device=dev)
+    for b in range(bt.shape[0]):
+        for i, blk in enumerate(bt[b].tolist()):
+            poison[blk] = i * bs + pos >= int(lens[b]) + T
+    if int8:
+        sc = {k: torch.where(poison[..., None], float("nan"), v)
+              for k, v in sc.items()}
+    else:
+        kp, vp = (torch.where(poison[..., None, None],
+                              torch.tensor(float("nan"), device=dev,
+                                           dtype=t.dtype), t)
+                  for t in (kp, vp))
+    y = paged_prefill_attention(q, kp, vp, bt, lens, **sc)
+    assert bool(torch.isfinite(y.float()).all())
+    assert torch.equal(y, clean)
+
+
+# (H, Kv, Sq, Sk, window, d, causal): window, Sq < Sk and GQA at head dims
+# 32, 64 and 128, and one non-causal window
+FLASH_CASES = [(4, 4, 100, 100, 17, 32, True), (4, 1, 40, 130, 0, 32, True),
+               (8, 2, 200, 300, 50, 64, True), (4, 4, 96, 96, 0, 64, False),
+               (8, 2, 64, 64, 0, 128, True), (4, 4, 70, 250, 33, 128, True),
+               (4, 2, 130, 130, 20, 128, False)]
+
+
+@pytest.mark.parametrize("H,Kv,Sq,Sk,window,d,causal", FLASH_CASES)
+def test_flash_tiles_match_plain(dev, H, Kv, Sq, Sk, window, d, causal):
+    """Model-layout (B, S, heads, d) views, as the training forward passes
+    them; bf16 through the tensor-core tile, fp32 through the fp32 tile,
+    tight."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(30 + d)
+    B = 2
+    q = _randn(gen, (B, Sq, H, d), dev, torch.bfloat16).transpose(1, 2)
+    k = _randn(gen, (B, Sk, Kv, d), dev, torch.bfloat16).transpose(1, 2)
+    v = _randn(gen, (B, Sk, Kv, d), dev, torch.bfloat16).transpose(1, 2)
+    kw = {"causal": causal, "sliding_window": window}
+    kernels.reset_launch_counts()
+    o = flash_attention(q, k, v, **kw)
+    orf = ref.flash_attention_ref(q, k, v, **kw)
+    assert float((o.float() - orf.float()).abs().max()) <= _attn_tol(orf, v)
+    o32 = flash_attention(q.float(), k.float(), v.float(), **kw)
+    orf32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(o32, orf32, atol=2e-5, rtol=1e-5)
+    assert kernels.tile_counts()["flash_attention"] == {"mma": 1, "f32": 1}
+
+
+def test_attention_tiles_refuse_what_they_do_not_take(dev):
+    from repro_torch.kernels.flash_attention import flash_attention
+    z = torch.zeros
+    bf = torch.bfloat16
+    pool = z((5, 4, 2, 96), dtype=bf, device=dev)
+    bt = z((2, 2), dtype=torch.int32, device=dev)
+    lens = z((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dims"):       # hd 96
+        paged_prefill_attention(z((2, 3, 4, 96), dtype=bf, device=dev),
+                                pool, pool, bt, lens)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(*(z((1, 2, 8, 48), dtype=bf, device=dev)
+                          for _ in range(3)))
+    # a contiguous q one element off 16-byte alignment
+    pool = z((5, 4, 2, 64), dtype=bf, device=dev)
+    flat = z(2 * 3 * 4 * 64 + 1, dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_prefill_attention(flat[1:].view(2, 3, 4, 64), pool, pool, bt,
+                                lens)
+    # strided views: a pointer off alignment, then a row stride off it
+    base = z((1, 2, 8, 65), dtype=bf, device=dev)
+    ok = z((1, 2, 8, 64), dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(base[..., 1:], ok, ok)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(base[..., :64], ok, ok)
 
 
 @pytest.mark.parametrize("variant", ["f32_bank", "rank_mask", "int8_bank"])
@@ -326,10 +484,10 @@ def test_flash_attention_matches_plain(dev, H, Kv, Sq, Sk, window):
     v = _randn(gen, (B, Kv, Sk, d), dev, torch.bfloat16)
     o = flash_attention(q, k, v, sliding_window=window)
     orf = ref.flash_attention_ref(q, k, v, sliding_window=window)
-    # the kernel keeps the probabilities in fp32 where the plain version
-    # rounds them to bf16 before the value product: that adds up to one
-    # bf16 rounding of the largest |v| to the two output roundings
-    tol = _bf16_tol(orf) + float(v.float().abs().max()) * 2.0 ** -8
+    # the tile and the plain version round the probabilities to bf16 at
+    # other points before the value product: that adds up to one bf16
+    # rounding of the largest |v| to the two output roundings
+    tol = _attn_tol(orf, v)
     assert float((o.float() - orf.float()).abs().max()) <= tol
     o32 = flash_attention(q.float(), k.float(), v.float(),
                           sliding_window=window)
