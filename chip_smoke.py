@@ -16,7 +16,8 @@ Phases (each prints one JSON line per result):
                autograd backwards against plain autograd); the two
                attention kernels also with fp32 queries, which run their
                fp32 CUDA-core tile (bf16 runs the tensor-core tile), held
-               tight; time kernel, plain version and one library call
+               tight, and bf16 held per row to the tile's own arithmetic
+               (kernels/attn_tile.py); time kernel, plain version and one library call
                computing the same function (a yardstick the port never
                calls);
   3. serve   — llama2-7b at full width, 32 layers, bf16, random weights from
@@ -86,32 +87,19 @@ def require(ok: bool, what: str) -> None:
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back runs (CUDA
-    events around the run, after ``warmup`` runs).  The runs are enqueued
-    behind a spin of the device, so they execute back to back whatever the
-    host's cost per call (a wrapper's Python and launch overhead, tens of
-    microseconds, would otherwise be timed for kernels shorter than it);
-    the spin doubles until the host has enqueued every run before the
-    device reaches the start event."""
+    events around the run, after ``warmup`` runs)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    spin = 1 << 24                      # device cycles, ~10 ms
-    while True:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        ahead = not start.query()       # the device is still spinning
-        end.synchronize()
-        if ahead or spin >= 1 << 28:
-            require(ahead, "time_ms: the host could not enqueue the runs "
-                    "ahead of the device")
-            return start.elapsed_time(end) / reps
-        spin *= 2
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(bytes_moved: float, flops: float, fp32: bool = False):
@@ -165,6 +153,21 @@ def _attn_tol(ref, v) -> float:
     if ref.dtype == torch.float32:
         return 2e-5 + 1e-5 * top
     return _bf16_tol(ref) + float(v.float().abs().max()) * 2.0 ** -8
+
+
+def _tile_check(what, out, tile_ref):
+    """A bf16 output of the tensor-core tile against its tile reference
+    (``kernels/attn_tile.py``: the plain arithmetic rounding P where and as
+    the tile does): every row within two bf16 ulps of its own largest
+    output.  A fault confined to long rows (a dropped or stale key tile)
+    moves those rows' small outputs far past that, where ``_attn_tol``,
+    set by the largest output of the whole tensor, may not see it.
+    Returns {"tile_max_abs_err", "tile_err_ratio"} (ratio <= 1 holds)."""
+    from repro_torch.kernels.attn_tile import tile_errors
+    err, ratio = tile_errors(out, tile_ref)
+    require(ratio <= 1.0, f"{what}: a row is {ratio:.3g}x its bound of two "
+            f"bf16 ulps off the tile reference (max abs err {err})")
+    return {"tile_max_abs_err": err, "tile_err_ratio": ratio}
 
 
 def _one_tile(name, fn, dtype):
@@ -242,10 +245,12 @@ def check_decode(gen, device, lengths, G, int8, reps, H=32, hd=128, bs=16):
 
 def check_prefill(gen, device, lengths, T, G, int8, reps, H=32, hd=128,
                   bs=16, dtype=None):
-    """Tolerance: ``_attn_tol`` (bf16 queries: the tensor-core tile; fp32:
-    the fp32 tile, tight)."""
+    """Tolerance: ``_attn_tol`` against the plain version (bf16 queries:
+    the tensor-core tile, also held per row to its tile reference by
+    ``_tile_check``; fp32: the fp32 tile, tight)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.attn_tile import paged_prefill_tile_ref
     from repro_torch.kernels.paged_prefill import (paged_prefill_attention,
                                                    paged_prefill_attention_ref)
     dtype = dtype or torch.bfloat16
@@ -266,6 +271,11 @@ def check_prefill(gen, device, lengths, T, G, int8, reps, H=32, hd=128,
     require(bool(torch.isfinite(out.float()).all()), "prefill output not finite")
     require(err <= tol, f"paged_prefill G={G} int8={int8} {dtype}: err "
             f"{err} > {tol}")
+    tile = {}
+    if dtype == torch.bfloat16:
+        tile = _tile_check(f"paged_prefill G={G} int8={int8}", out,
+                           paged_prefill_tile_ref(q, kp, vp, bt, lens,
+                                                  k_scale=ks, v_scale=vs))
     ms = time_ms(lambda: paged_prefill_attention(q, kp, vp, bt, lens,
                                                  k_scale=ks, v_scale=vs), reps)
     plain_ms = time_ms(lambda: paged_prefill_attention_ref(
@@ -293,7 +303,7 @@ def check_prefill(gen, device, lengths, T, G, int8, reps, H=32, hd=128,
             "tile": "mma" if dtype == torch.bfloat16 else "f32",
             "B": B, "T": T, "H": H,
             "hd": hd, "bs": bs, "lengths": lengths, "max_abs_err": err,
-            "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "tol": tol, **tile, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -511,10 +521,13 @@ def check_dual_lora(gen, device, M, K, N, r, reps):
 def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
     """flash_attention on model-layout (B, S, heads, d) tensors read through
     strided views, as the training forward calls it.  Tolerance:
-    ``_attn_tol`` (bf16: the tensor-core tile and the plain version each
-    round the probabilities to bf16, at other points; fp32: tight)."""
+    ``_attn_tol`` against the plain version (bf16: the tensor-core tile
+    and the plain version each round the probabilities to bf16, at other
+    points, and ``_tile_check`` holds each row to the tile reference;
+    fp32: tight)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.attn_tile import flash_attention_tile_ref
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     dtype = dtype or torch.bfloat16
@@ -527,6 +540,11 @@ def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
     out = _one_tile("flash_attention", lambda: flash_attention(
         q, k, v, sliding_window=window), dtype)
     err = _check_close(f"flash_attention {dtype}", out, ref, tol)
+    tile = {}
+    if dtype == torch.bfloat16:
+        tile = _tile_check(f"flash_attention window={window} Sq={Sq} "
+                           f"Kv={Kv}", out, flash_attention_tile_ref(
+                               q, k, v, sliding_window=window))
     ms = time_ms(lambda: flash_attention(q, k, v, sliding_window=window), reps)
     plain_ms = time_ms(lambda: flash_attention_ref(
         q, k, v, sliding_window=window), max(1, reps // 4), 1)
@@ -555,7 +573,7 @@ def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
             "tile": "mma" if dtype == torch.bfloat16 else "f32",
             "B": B, "H": H, "Kv": Kv, "Sq": Sq,
             "Sk": Sk, "d": d, "window": window, "max_abs_err": err,
-            "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "tol": tol, **tile, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 

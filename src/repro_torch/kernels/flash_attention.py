@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_prefill import check_mma_tile
+from repro_torch.kernels.attn_tile import check_mma_tile
 from repro_torch.kernels.ref import flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_ref", "FlashAttention"]
@@ -82,14 +82,7 @@ def _launch(q, k, v, causal: bool, sliding_window: int, scale: float):
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=dev)
     o = out.transpose(1, 2)
     if mma:
-        # every row start aligned: the pointer and each stride in bytes
-        check_mma_tile(d, False, (("q", q), ("k", k), ("v", v),
-                                  ("out", out)))
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if any(st * t.element_size() % 16 for st in t.stride()[:3]):
-                raise ValueError(f"{name}'s strides {t.stride()} do not keep "
-                                 "every row 16-byte aligned, as the bf16 "
-                                 "attention tile's copies need")
+        check_mma_tile(d, (("q", q), ("k", k), ("v", v), ("out", out)))
     elif d > THREADS * MAX_ACC or smem_bytes(rows, d) > MAX_SMEM:
         raise ValueError(f"head_dim {d} exceeds the kernel's tile")
     if out.numel() == 0:

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.attn_tile import check_mma_tile
 from repro_torch.kernels.paged_attention import (MAX_ACC, MAX_SMEM, THREADS,
                                                  check_pools, check_tables,
                                                  smem_bytes)
@@ -35,36 +36,6 @@ __all__ = ["paged_scatter", "paged_scatter_quant", "paged_prefill_attention",
 
 # folded query rows per CTA of the fp32 tile (fewer when head_dim is wide)
 TILE_ROWS = 16
-# the tensor-core tile: head dims it is built for, and its shared memory
-# (csrc/attn_mma.cuh: 64 query rows, 64-key tiles, rows padded by 8 bf16)
-MMA_HEAD_DIMS = (32, 64, 128)
-MMA_ROWS = MMA_KEYS = 64
-
-
-def mma_smem_bytes(hd: int, int8: bool) -> int:
-    """Shared memory of one CTA of the tensor-core tile (``smem_bytes``)."""
-    tile = 2 * MMA_KEYS * (hd + 8)
-    q = 2 * MMA_ROWS * (hd + 8)
-    if int8:
-        return q + 2 * tile + 4 * MMA_KEYS * hd + 16 * MMA_KEYS
-    return q + 4 * tile
-
-
-def check_mma_tile(hd: int, int8: bool, tensors) -> None:
-    """Raise ValueError for what the tensor-core tile does not take: a head
-    dim outside ``MMA_HEAD_DIMS``, a tensor whose data pointer is not
-    16-byte aligned (its 16-byte copies), more shared memory than a CTA
-    has."""
-    if hd not in MMA_HEAD_DIMS:
-        raise ValueError(f"head_dim {hd}: the bf16 attention tile takes head "
-                         f"dims {MMA_HEAD_DIMS}")
-    for name, t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned, as the bf16 "
-                             "attention tile's copies need")
-    if mma_smem_bytes(hd, int8) > MAX_SMEM:
-        raise ValueError(f"head_dim {hd}: the bf16 attention tile exceeds "
-                         "the shared memory of a CTA")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -163,8 +134,8 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     rows = tile_rows(T, H // Kv, hd)
     if mma:
-        check_mma_tile(hd, quant, (("q", q), ("k_pool", k_pool),
-                                   ("v_pool", v_pool), ("out", out)))
+        check_mma_tile(hd, (("q", q), ("k_pool", k_pool),
+                            ("v_pool", v_pool), ("out", out)))
     elif hd > THREADS * MAX_ACC or smem_bytes(rows, bs, hd) > MAX_SMEM:
         raise ValueError(f"head_dim {hd} (block {bs}) exceeds the kernel's "
                          "tile")

@@ -8,11 +8,17 @@ is a convex sum of rows of V, so that one rounding moves it by at most
 ``2^-8·max|v|``.  The card checks therefore hold bf16 queries to two bf16
 roundings of the largest output plus that term.
 
-Here the tile's arithmetic is emulated in torch (64-key tiles, exp2 with
-log2(e) folded into the scale, a running max, bf16 P, fp32 accumulators,
-one rounding of the output) and held to that bound against the plain
-versions at small shapes, for bf16 and int8 pools; the Pallas prefill
-kernel in interpret mode, which rounds P the same way, is held to it too.
+Here the tile's arithmetic is emulated in torch one CTA at a time (64-key
+tiles, exp2 with log2(e) folded into the scale, a running max, bf16 P,
+fp32 accumulators, one rounding of the output) and held to that bound
+against the plain versions at small shapes, for bf16 and int8 pools; the
+Pallas prefill kernel in interpret mode, which rounds P the same way, is
+held to it too.
+
+The card checks also hold every row of the tile's output to two bf16 ulps
+of the tile references in ``repro_torch/kernels/attn_tile.py``, which
+batch the CTAs; here those references are held to the per-CTA emulation,
+and to the pool slots the kernel never reads.
 """
 import math
 
@@ -23,7 +29,7 @@ import torch
 
 from repro.kernels.paged_prefill import \
     paged_prefill_attention as j_paged_prefill
-from repro_torch.kernels import ref
+from repro_torch.kernels import attn_tile, ref
 from repro_torch.kernels.quant import quantize_int8
 
 KEYS = 64       # keys per tile
@@ -190,3 +196,90 @@ def test_pallas_prefill_rounds_p_within_the_same_bound():
                          interpret=True)
     yj = torch.from_numpy(np.asarray(yj, np.float32))
     assert float((yj - yr.float()).abs().max()) <= attn_tol(yr, vp)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("T,H,Kv,bs", [(70, 2, 2, 16), (40, 4, 2, 8),
+                                       (9, 1, 1, 16)])
+def test_prefill_tile_ref_matches_the_per_cta_emulation(T, H, Kv, bs, int8):
+    """The batched reference walks every CTA's tiles to the longest row's
+    end; the per-CTA emulation stops at each CTA's last query."""
+    q, kp, vp, bt, lens, sc, _ = _prefill_inputs(
+        3, 3, T, H, Kv, 32, bs, [0, 5, 140], int8)
+    y = emulate_prefill(q, kp, vp, bt, lens, **sc)
+    yt = attn_tile.paged_prefill_tile_ref(q, kp, vp, bt, lens, **sc)
+    assert attn_tile.tile_errors(yt, y)[1] <= 1.0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_prefill_tile_ref_ignores_slots_the_kernel_never_reads(int8):
+    """NaN at every pool slot at or past lengths[b] + T and in the blocks no
+    table points at: the reference is unchanged."""
+    T, bs = 20, 8
+    q, kp, vp, bt, lens, sc, _ = _prefill_inputs(
+        4, 2, T, 4, 2, 32, bs, [3, 30], int8)
+    # disjoint tables (``_prefill_inputs`` may share a block between rows)
+    MB = bt.shape[1]
+    bt = torch.randperm(2 * MB, generator=torch.Generator().manual_seed(4)
+                        ).reshape(2, MB).to(torch.int32) + 1
+    NB = kp.shape[0] + 2                       # 2 blocks no table points at
+    pad = lambda t: torch.cat([t, torch.zeros((2,) + t.shape[1:],
+                                              dtype=t.dtype)])
+    kp, vp = pad(kp), pad(vp)
+    sc = {k: pad(v) for k, v in sc.items()}
+    clean = attn_tile.paged_prefill_tile_ref(q, kp, vp, bt, lens, **sc)
+    poison = torch.ones((NB, bs), dtype=torch.bool)
+    for b in range(bt.shape[0]):
+        for i, blk in enumerate(bt[b].tolist()):
+            poison[blk] = i * bs + torch.arange(bs) >= int(lens[b]) + T
+    if int8:
+        sc = {k: torch.where(poison[..., None], float("nan"), v)
+              for k, v in sc.items()}
+    else:
+        nan = torch.tensor(float("nan"), dtype=kp.dtype)
+        kp, vp = (torch.where(poison[..., None, None], nan, t)
+                  for t in (kp, vp))
+    y = attn_tile.paged_prefill_tile_ref(q, kp, vp, bt, lens, **sc)
+    assert torch.equal(y, clean)
+
+
+@pytest.mark.parametrize("Sq,Sk,H,Kv,window,causal",
+                         [(100, 100, 2, 2, 0, True), (80, 80, 2, 1, 30, True),
+                          (40, 150, 4, 2, 0, True),
+                          (130, 130, 2, 2, 20, False)])
+def test_flash_tile_ref_matches_the_per_cta_emulation(Sq, Sk, H, Kv, window,
+                                                      causal):
+    rng = np.random.default_rng(5)
+    B, d = 2, 32
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, h, S, d))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for h, S in ((H, Sq), (Kv, Sk), (Kv, Sk)))
+    o = emulate_flash(q, k, v, causal=causal, window=window)
+    ot = attn_tile.flash_attention_tile_ref(q, k, v, causal=causal,
+                                            sliding_window=window)
+    assert attn_tile.tile_errors(ot, o)[1] <= 1.0
+
+
+def test_row_tol_is_two_bf16_ulps_of_each_row():
+    out = torch.tensor([[1.0, -0.5], [0.0, 0.0], [3.0, 0.01]])
+    assert attn_tile.row_tol(out).tolist() == [2 ** -6, 0.0, 2 ** -5]
+    # a row of zeros holds only when it is matched exactly
+    assert attn_tile.tile_errors(out, out) == (0.0, 0.0)
+    off = out.clone()
+    off[1, 0] = 1e-9
+    assert attn_tile.tile_errors(off, out)[1] == float("inf")
+
+
+def test_check_mma_tile_refuses_what_the_tile_does_not_take():
+    x = torch.zeros((2, 3, 4, 64), dtype=torch.bfloat16)
+    attn_tile.check_mma_tile(64, (("q", x), ("k", x.transpose(1, 2))))
+    with pytest.raises(ValueError, match="head dims"):
+        attn_tile.check_mma_tile(96, (("q", x),))
+    flat = torch.zeros(2 * 3 * 4 * 64 + 8, dtype=torch.bfloat16)
+    off = (-flat.data_ptr() // 2) % 8 + 1     # one element past 16 bytes
+    with pytest.raises(ValueError, match="aligned"):
+        attn_tile.check_mma_tile(64, (("q", flat[off:off + x.numel()]
+                                       .view(x.shape)),))
+    wide = torch.zeros((1, 2, 8, 65), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):    # row stride 130 B
+        attn_tile.check_mma_tile(64, (("q", wide[..., :64]),))

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
 (the two attention kernels through both their tiles: the tensor-core tile
 for bf16 at head dims 32, 64 and 128 over ragged, poisoned and misaligned
-inputs, the fp32 tile held tight), the two autograd backwards against
+inputs, each row also held to the tile's own arithmetic, the fp32 tile
+held tight), the two autograd backwards against
 plain autograd, serving runs (plain and
 with int8 K/V, a ragged int8 bank, prefix caching and speculative
 decoding), ``launch/serve.py`` with those options and one
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import ref
+from repro_torch.kernels import attn_tile, ref
 from repro_torch.kernels.batched_lora import (batched_dual_lora_matmul,
                                               batched_lora_matmul)
 from repro_torch.kernels.paged_attention import paged_attention
@@ -144,6 +145,10 @@ def test_prefill_tiles_match_plain(dev, T, G, bs, hd, int8):
     yr = ref.paged_prefill_attention_ref(q, kp, vp, bt, lens, **sc)
     assert bool(torch.isfinite(y.float()).all())
     assert float((y.float() - yr.float()).abs().max()) <= _attn_tol(yr, vdq)
+    # every row within two bf16 ulps of the tile's own arithmetic
+    _, ratio = attn_tile.tile_errors(y, attn_tile.paged_prefill_tile_ref(
+        q, kp, vp, bt, lens, **sc))
+    assert ratio <= 1.0
     # fp32 queries: the fp32 tile, tight
     y32 = paged_prefill_attention(q.float(), kp, vp, bt, lens, **sc)
     yr32 = ref.paged_prefill_attention_ref(q.float(), kp, vp, bt, lens, **sc)
@@ -206,6 +211,9 @@ def test_flash_tiles_match_plain(dev, H, Kv, Sq, Sk, window, d, causal):
     o = flash_attention(q, k, v, **kw)
     orf = ref.flash_attention_ref(q, k, v, **kw)
     assert float((o.float() - orf.float()).abs().max()) <= _attn_tol(orf, v)
+    _, ratio = attn_tile.tile_errors(o, attn_tile.flash_attention_tile_ref(
+        q, k, v, **kw))
+    assert ratio <= 1.0
     o32 = flash_attention(q.float(), k.float(), v.float(), **kw)
     orf32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
     torch.testing.assert_close(o32, orf32, atol=2e-5, rtol=1e-5)
