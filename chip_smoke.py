@@ -14,12 +14,16 @@ Phases (each prints one JSON line per result):
                products of a 2048-row batch, flash attention at B=8, S=256
                with a window, Sq < Sk and GQA variants, and the two
                autograd backwards against plain autograd); the two
-               attention kernels also with fp32 queries, which run their
-               fp32 CUDA-core tile (bf16 runs the tensor-core tile), held
-               tight, and bf16 held per row to the tile's own arithmetic
-               (kernels/attn_tile.py); time kernel, plain version and one library call
-               computing the same function (a yardstick the port never
-               calls);
+               attention kernels and the two single-pass LoRA kernels also
+               with fp32 activations, which run their fp32 CUDA-core tile
+               (bf16 runs the tensor-core tile), held tight, and bf16
+               attention held per row to the tile's own arithmetic
+               (kernels/attn_tile.py); time kernel (CUDA events around
+               back-to-back calls, and ``device_ms``: its own device time
+               per call from a torch.profiler trace), plain version and one
+               library call computing the same function (a yardstick the
+               port never calls); at the prefill shape, the LoRA shrink's
+               and epilogue's share of the call's device time;
   3. serve   — llama2-7b at full width, 32 layers, bf16, random weights from
                --seed, 8 tenants with non-zero rank-16 adapters: 8 ragged
                requests (prompts 128-1024 tokens, 32 new tokens) through
@@ -100,6 +104,49 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# kernels of the two single-pass LoRA kernels, by the part of the call
+# they compute (their tile's name says which: lora_mma_* the tensor-core
+# tile, the others the fp32 tile)
+LORA_PARTS = (("lora_mma_shrink_kernel", "shrink"),
+              ("lora_mma_zprep_kernel", "z_prep"),
+              ("lora_mma_bprep_kernel", "b_prep"),
+              ("lora_mma_reduce_kernel", "split_k_reduce"),
+              ("lora_mma_kernel", "tile"),
+              ("lora_shrink_kernel", "shrink"),
+              ("lora_matmul_kernel", "tile"),
+              ("single_lora_xa_kernel", "shrink"),
+              ("single_lora_xw_kernel", "tile"))
+
+
+def device_ms(fn, reps: int, parts=()):
+    """The kernel's own device time per call: every CUDA kernel's device
+    time in a ``torch.profiler`` trace of ``reps`` back-to-back calls of
+    ``fn``, over ``reps`` (the wrapper's host cost, which CUDA events
+    around short calls read instead, is left out).  ``parts`` ((name
+    substring, part), ...) splits it by kernel.  Returns (ms, {part: ms})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, split = 0.0, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = (getattr(ev, "self_device_time_total", None)
+              or getattr(ev, "self_cuda_time_total", 0)) / 1e3 / reps
+        total += ms
+        part = next((p for k, p in parts if k in ev.key), None)
+        if part is not None:
+            split[part] = split.get(part, 0.0) + ms
+    require(total > 0, "the profiler saw no device time")
+    return total, split
 
 
 def bound(bytes_moved: float, flops: float, fp32: bool = False):
@@ -221,6 +268,9 @@ def check_decode(gen, device, lengths, G, int8, reps, H=32, hd=128, bs=16):
             "an empty decode row is not zero")
     ms = time_ms(lambda: paged_attention(q, kp, vp, bt, lens, k_scale=ks,
                                          v_scale=vs), reps)
+    dev_ms, _ = device_ms(lambda: paged_attention(q, kp, vp, bt, lens,
+                                                  k_scale=ks, v_scale=vs),
+                          reps)
     plain_ms = time_ms(lambda: paged_attention_ref(
         q, kp, vp, bt, lens, k_scale=ks, v_scale=vs), max(1, reps // 4), 1)
     kg, vg = _gathered(kp, vp, ks, vs, bt, H)
@@ -239,8 +289,9 @@ def check_decode(gen, device, lengths, G, int8, reps, H=32, hd=128, bs=16):
     b_ms, b_by = bound(nbytes, flops)
     return {"name": "paged_attention", "G": G, "kv": "int8" if int8 else "bf16",
             "B": B, "H": H, "hd": hd, "bs": bs, "lengths": lengths,
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def check_prefill(gen, device, lengths, T, G, int8, reps, H=32, hd=128,
@@ -278,6 +329,8 @@ def check_prefill(gen, device, lengths, T, G, int8, reps, H=32, hd=128,
                                                   k_scale=ks, v_scale=vs))
     ms = time_ms(lambda: paged_prefill_attention(q, kp, vp, bt, lens,
                                                  k_scale=ks, v_scale=vs), reps)
+    dev_ms, _ = device_ms(lambda: paged_prefill_attention(
+        q, kp, vp, bt, lens, k_scale=ks, v_scale=vs), reps)
     plain_ms = time_ms(lambda: paged_prefill_attention_ref(
         q, kp, vp, bt, lens, k_scale=ks, v_scale=vs), max(1, reps // 4), 1)
     kg, vg = _gathered(kp, vp, ks, vs, bt, H)
@@ -303,22 +356,60 @@ def check_prefill(gen, device, lengths, T, G, int8, reps, H=32, hd=128,
             "tile": "mma" if dtype == torch.bfloat16 else "f32",
             "B": B, "T": T, "H": H,
             "hd": hd, "bs": bs, "lengths": lengths, "max_abs_err": err,
-            "tol": tol, **tile, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "tol": tol, **tile, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
-def check_lora(gen, device, M, K, N, C, r, variant, reps):
+def _lora_tol(ref) -> float:
+    """A LoRA kernel against its plain version: bf16, two bf16 roundings
+    of the largest output (both compute in fp32 and round once, in another
+    order); fp32 (the fp32 tile), 1e-4 + 1e-4·max|out|, the card tests'
+    tolerance."""
+    import torch
+    if ref.dtype == torch.float32:
+        return 1e-4 + 1e-4 * float(ref.abs().max())
+    return _bf16_tol(ref)
+
+
+def _lora_share(parts, dead_parts, total):
+    """The shrink's and the epilogue's device ms and share of a call: the
+    shrink, the LoRA operands' preparation, any split-K reduction, and the
+    tile's time beyond the same tile with no live row (which then runs no
+    LoRA stage): the expand z·B, the epilogue of the LoRA product."""
+    epi = parts["tile"] - dead_parts["tile"]
+    lora = epi + sum(parts.get(k, 0.0) for k in ("shrink", "z_prep", "b_prep",
+                                                  "split_k_reduce"))
+    return {"tile_without_lora_ms": dead_parts["tile"], "epilogue_ms": epi,
+            "shrink_and_epilogue_ms": lora,
+            "shrink_and_epilogue_share": lora / total}
+
+
+def check_lora(gen, device, M, K, N, C, r, variant, reps, dtype=None,
+               by_request=False, share=False):
+    """batched_lora_matmul against its plain version (``_lora_tol``): bf16
+    activations run the tensor-core tile, fp32 ones (over the same bf16 W)
+    the fp32 tile.  Every row draws its own client, so every tile mixes
+    clients, unless ``by_request``: rows in runs of 256 per client, as a
+    prefill dispatch lays them out.  ``share``: also the shrink's and the
+    epilogue's share of the call's device time (``_lora_share``)."""
     import torch
     from repro_torch.kernels.batched_lora import (batched_lora_matmul,
                                                   batched_lora_matmul_ref)
     from repro_torch.kernels.quant import quantize_int8
-    x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    x = torch.randn((M, K), generator=gen, device=device).to(dtype)
     w = (torch.randn((K, N), generator=gen, device=device)
          * K ** -0.5).to(torch.bfloat16)
     a = torch.randn((C, K, r), generator=gen, device=device) / r
     b = torch.randn((C, r, N), generator=gen, device=device) * 0.02
-    ids = torch.randint(0, C, (M,), generator=gen, device=device,
-                        dtype=torch.int32)
+    if by_request:
+        ids = torch.randint(0, C, (-(-M // 256),), generator=gen,
+                            device=device, dtype=torch.int32)
+        ids = torch.repeat_interleave(ids, 256)[:M].contiguous()
+    else:
+        ids = torch.randint(0, C, (M,), generator=gen, device=device,
+                            dtype=torch.int32)
     kw = {}
     if variant == "rank_mask":
         kw["ranks"] = torch.randint(1, r + 1, (C,), generator=gen,
@@ -328,27 +419,38 @@ def check_lora(gen, device, M, K, N, C, r, variant, reps):
         b, sb = quantize_int8(b, dim=(1, 2))
         kw.update(a_scale=sa.contiguous(), b_scale=sb.contiguous())
     scale = 2.0
-    out = batched_lora_matmul(x, w, a, b, ids, scale, **kw)
+
+    def call():
+        return batched_lora_matmul(x, w, a, b, ids, scale, **kw)
+    out = _one_tile("batched_lora_matmul", call, dtype)
     ref = batched_lora_matmul_ref(x, w, a, b, ids, scale, **kw)
-    torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
-    tol = _bf16_tol(ref)
-    require(bool(torch.isfinite(out.float()).all()), "lora output not finite")
-    require(err <= tol, f"batched_lora {variant} M={M}: err {err} > {tol}")
-    ms = time_ms(lambda: batched_lora_matmul(x, w, a, b, ids, scale, **kw),
-                 reps)
+    tol = _lora_tol(ref)
+    err = _check_close(f"batched_lora {variant} M={M} {dtype}", out, ref, tol)
+    ms = time_ms(call, reps)
+    dev_ms, parts = device_ms(call, reps, LORA_PARTS)
+    extra = {}
+    if share:
+        dead = torch.full_like(ids, -1)
+        _, dead_parts = device_ms(lambda: batched_lora_matmul(
+            x, w, a, b, dead, scale, **kw), reps, LORA_PARTS)
+        extra = _lora_share(parts, dead_parts, dev_ms)
     plain_ms = time_ms(lambda: batched_lora_matmul_ref(
         x, w, a, b, ids, scale, **kw), max(1, reps // 4), 1)
-    library_ms = time_ms(lambda: torch.matmul(x, w), reps)
+    library_ms = time_ms(lambda: torch.matmul(x, w.to(dtype)), reps)
     active = int(torch.unique(ids).numel())
     bank_el = 1 if variant == "int8_bank" else 4
-    nbytes = (2 * M * K + 2 * K * N + 2 * M * N + 4 * M
+    x_el = x.element_size()
+    nbytes = (x_el * M * K + 2 * K * N + x_el * M * N + 4 * M
               + active * bank_el * r * (K + N))
     flops = 2 * M * K * N + 2 * M * r * (K + N)
-    b_ms, b_by = bound(nbytes, flops)
-    return {"name": "batched_lora_matmul", "variant": variant, "M": M,
+    b_ms, b_by = bound(nbytes, flops, fp32=dtype == torch.float32)
+    return {"name": "batched_lora_matmul", "variant": variant,
+            "activations": "bf16" if dtype == torch.bfloat16 else "fp32",
+            "tile": "mma" if dtype == torch.bfloat16 else "f32",
+            "ids": "by_request" if by_request else "per_row", "M": M,
             "K": K, "N": N, "C": C, "r": r, "max_abs_err": err, "tol": tol,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms, "device_ms": dev_ms, "device_ms_by_part": parts,
+            **extra, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -398,6 +500,8 @@ def check_dual_batched(inputs, out, reps):
         merged, _bf16_tol(merged))
     ms = time_ms(lambda: batched_dual_lora_matmul(x, w, a1, b1, a2, b2, ids,
                                                   fw, scale), reps)
+    dev_ms, _ = device_ms(lambda: batched_dual_lora_matmul(
+        x, w, a1, b1, a2, b2, ids, fw, scale), reps)
     plain_ms = time_ms(lambda: batched_dual_lora_matmul_ref(
         x, w, a1, b1, a2, b2, ids, fw, scale), max(1, reps // 4), 1)
     library_ms = time_ms(lambda: torch.matmul(x, w), reps)
@@ -412,7 +516,7 @@ def check_dual_batched(inputs, out, reps):
     return {"name": "batched_dual_lora_matmul", "M": M, "K": K, "N": N,
             "C": C, "r": r, "max_abs_err": err, "tol": tol,
             "shared_weights_vs_merged_err": shared_err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -462,28 +566,54 @@ def _check_close(name, out, ref, tol):
     return err
 
 
-def check_single_lora(gen, device, M, K, N, r, reps):
-    """lora_matmul at a training projection's shape.  Tolerance: two bf16
-    roundings of the largest output (both sides compute in fp32 and round
-    once, in another summation order)."""
+def check_single_lora(gen, device, M, K, N, r, reps, dtype=None,
+                      share=False):
+    """lora_matmul at a training projection's shape, against its plain
+    version (``_lora_tol``): bf16 activations run the tensor-core tile,
+    fp32 ones (over the same bf16 W) the fp32 tile.  ``share``: the
+    shrink's and the epilogue's share of the call's device time, the
+    epilogue timed through batched_lora_matmul with one client, which runs
+    the same tile code (ids 0 against ids -1)."""
     import torch
+    from repro_torch.kernels.batched_lora import batched_lora_matmul
     from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
+    dtype = dtype or torch.bfloat16
     x, w, a, b = _lora_inputs(gen, device, M, K, N, r)
+    x = x.to(dtype)
     scale = 2.0
     ref = lora_matmul_ref(x, w, a, b, scale)
-    tol = _bf16_tol(ref)
-    err = _check_close("lora_matmul", lora_matmul(x, w, a, b, scale), ref, tol)
+    tol = _lora_tol(ref)
+    out = _one_tile("lora_matmul", lambda: lora_matmul(x, w, a, b, scale),
+                    dtype)
+    err = _check_close(f"lora_matmul {dtype}", out, ref, tol)
     ms = time_ms(lambda: lora_matmul(x, w, a, b, scale), reps)
+    dev_ms, parts = device_ms(lambda: lora_matmul(x, w, a, b, scale), reps,
+                              LORA_PARTS)
+    extra = {}
+    if share:
+        one = torch.zeros((M,), dtype=torch.int32, device=device)
+        _, live = device_ms(lambda: batched_lora_matmul(
+            x, w, a[None], b[None], one, scale), reps, LORA_PARTS)
+        _, dead = device_ms(lambda: batched_lora_matmul(
+            x, w, a[None], b[None], one - 1, scale), reps, LORA_PARTS)
+        extra = _lora_share(parts, {"tile": parts["tile"] - live["tile"]
+                                    + dead["tile"]}, dev_ms)
     plain_ms = time_ms(lambda: lora_matmul_ref(x, w, a, b, scale),
                        max(1, reps // 4), 1)
-    ab, bb = a.to(x.dtype), b.to(x.dtype)
-    library_ms = time_ms(lambda: torch.matmul(x, w) + (x @ ab) @ bb, reps)
-    # x, W in; A, B fp32 in; y out (bf16) and z = x·A out (fp32)
-    nbytes = 2 * M * K + 2 * K * N + 4 * r * (K + N) + 2 * M * N + 4 * M * r
+    ab, bb, wd = a.to(x.dtype), b.to(x.dtype), w.to(x.dtype)
+    library_ms = time_ms(lambda: torch.matmul(x, wd) + (x @ ab) @ bb, reps)
+    # x, W in; A, B fp32 in; y out and z = x·A out (fp32)
+    x_el = x.element_size()
+    nbytes = (x_el * M * K + 2 * K * N + 4 * r * (K + N) + x_el * M * N
+              + 4 * M * r)
     flops = 2 * M * K * N + 2 * M * r * (K + N)
-    b_ms, b_by = bound(nbytes, flops)
-    return {"name": "lora_matmul", "M": M, "K": K, "N": N, "r": r,
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+    b_ms, b_by = bound(nbytes, flops, fp32=dtype == torch.float32)
+    return {"name": "lora_matmul",
+            "activations": "bf16" if dtype == torch.bfloat16 else "fp32",
+            "tile": "mma" if dtype == torch.bfloat16 else "f32",
+            "M": M, "K": K, "N": N, "r": r,
+            "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": dev_ms,
+            "device_ms_by_part": parts, **extra, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -505,6 +635,8 @@ def check_dual_lora(gen, device, M, K, N, r, reps):
                        tol)
     ms = time_ms(lambda: dual_lora_matmul(x, w, a1, b1, a2, b2, fw, scale),
                  reps)
+    dev_ms, _ = device_ms(lambda: dual_lora_matmul(x, w, a1, b1, a2, b2, fw,
+                                                   scale), reps)
     plain_ms = time_ms(lambda: dual_lora_matmul_ref(
         x, w, a1, b1, a2, b2, fw[0], fw[1], scale), max(1, reps // 4), 1)
     am = (0.6 * a1 + 0.6 * a2).to(x.dtype)     # merged outside the timing
@@ -514,7 +646,8 @@ def check_dual_lora(gen, device, M, K, N, r, reps):
     flops = 2 * M * K * N + 2 * M * r * (K + N) + 3 * r * (K + N)
     b_ms, b_by = bound(nbytes, flops)
     return {"name": "dual_lora_matmul", "M": M, "K": K, "N": N, "r": r,
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -546,6 +679,9 @@ def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
                            f"Kv={Kv}", out, flash_attention_tile_ref(
                                q, k, v, sliding_window=window))
     ms = time_ms(lambda: flash_attention(q, k, v, sliding_window=window), reps)
+    dev_ms, _ = device_ms(lambda: flash_attention(q, k, v,
+                                                  sliding_window=window),
+                          reps)
     plain_ms = time_ms(lambda: flash_attention_ref(
         q, k, v, sliding_window=window), max(1, reps // 4), 1)
     # yardstick: SDPA on contiguous (B, H, S, d) with kv heads repeated and
@@ -573,7 +709,8 @@ def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
             "tile": "mma" if dtype == torch.bfloat16 else "f32",
             "B": B, "H": H, "Kv": Kv, "Sq": Sq,
             "Sk": Sk, "d": d, "window": window, "max_abs_err": err,
-            "tol": tol, **tile, "ms": ms, "plain_ms": plain_ms,
+            "tol": tol, **tile, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -620,7 +757,8 @@ def training_kernels(device, seed: int, reps: int):
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     main = {}
     for K, N in ((4096, 11008), (4096, 4096)):
-        res = check_single_lora(gen, device, 2048, K, N, 16, reps)
+        res = check_single_lora(gen, device, 2048, K, N, 16, reps,
+                                share=(K, N) == (4096, 11008))
         emit(res)
         main.setdefault("lora_matmul", res)
         res = check_dual_lora(gen, device, 2048, K, N, 16, reps)
@@ -635,6 +773,9 @@ def training_kernels(device, seed: int, reps: int):
     emit(check_flash(gen, device, 8, 32, 32, 256, 256, 128, 0, reps,
                      dtype=torch.float32))
     check_backwards(gen, device)
+    # fp32 activations through lora_matmul: the fp32 tile, held tight
+    emit(check_single_lora(gen, device, 2048, 4096, 11008, 16, reps,
+                           dtype=torch.float32))
     return main
 
 
@@ -666,10 +807,18 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
     B = len(main_lengths)
     for M, K, N in ((B, 4096, 4096), (B * T, 4096, 11008)):
         for variant in ("f32_bank", "rank_mask", "int8_bank"):
-            res = check_lora(gen, device, M, K, N, 8, 16, variant, reps)
+            main_row = M == B * T and variant == "f32_bank"
+            res = check_lora(gen, device, M, K, N, 8, 16, variant, reps,
+                             share=main_row)
             emit(res)
-            if M == B * T and variant == "f32_bank":
+            if main_row:
                 main["batched_lora_matmul"] = res
+    # the prefill shape with rows in runs of one client per request, as a
+    # dispatch lays them out; fp32 activations (the fp32 tile, held tight)
+    emit(check_lora(gen, device, B * T, 4096, 11008, 8, 16, "f32_bank", reps,
+                    by_request=True, share=True))
+    emit(check_lora(gen, device, B * T, 4096, 11008, 8, 16, "f32_bank", reps,
+                    dtype=torch.float32))
     return main
 
 
@@ -715,9 +864,14 @@ def compare_first_chunk(eng, reqs, sc, dtype_name, rel_tol, extra=None):
     """First prefill chunk through "cuda" and "torch" on fresh pools: the
     max logit error must stay within ``rel_tol`` of the largest logit, and
     each row's greedy token must agree wherever the torch path's top-2
-    margin exceeds twice that error."""
+    margin exceeds twice that error.  The "cuda" chunk must run
+    batched_lora_matmul on the tile its activations pick: the tensor-core
+    tile for bf16, the fp32 tile for fp32."""
     import torch
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
     lc, n_new = first_chunk_logits(eng, reqs, sc, "cuda")
+    lora_tiles = kernels.tile_counts()["batched_lora_matmul"]
     lt, _ = first_chunk_logits(eng, reqs, sc, "torch")
     valid = (torch.arange(lc.shape[1], device=lc.device)[None, :]
              < n_new.to(lc.device)[:, None])
@@ -733,7 +887,12 @@ def compare_first_chunk(eng, reqs, sc, dtype_name, rel_tol, extra=None):
           "first_chunk_max_abs_logit_err": err, "max_abs_logit": scale,
           "tol": tol, "first_token_agree": int(agree.sum()),
           "rows": int(rows.numel()), "decisive_rows": int(decisive.sum()),
-          **(extra or {})})
+          "lora_tiles_cuda": lora_tiles, **(extra or {})})
+    want, other = (("mma", "f32") if dtype_name == "bfloat16"
+                   else ("f32", "mma"))
+    require(lora_tiles[want] > 0 and lora_tiles[other] == 0,
+            f"{dtype_name} first chunk: batched_lora_matmul tiles "
+            f"{lora_tiles}, not only {want}")
     require(bool(torch.isfinite(lc).all()), "cuda logits not finite")
     require(err <= tol, f"{dtype_name} first-chunk logit error {err} > {tol}")
     require(bool(agree[decisive].all()),
@@ -830,7 +989,8 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
     for name in kernels.SERVING:
         require(cuda_counts[name] > 0,
                 f"kernel {name} was never launched on the serving path")
-    require_mma_tile(results["cuda"][2], "paged_prefill_attention", "serve")
+    for name in ("paged_prefill_attention", "batched_lora_matmul"):
+        require_mma_tile(results["cuda"][2], name, "serve")
     require(all(n == 0 for n in results["torch"][1].values()),
             "the torch backend launched a CUDA kernel")
 
@@ -868,10 +1028,27 @@ KERNEL_FAMILIES = (("paged_decode_kernel", "paged_attention"),
                     "paged_prefill_attention (tensor-core tile)"),
                    ("paged_prefill_kernel",
                     "paged_prefill_attention (fp32 tile)"),
-                   ("lora_matmul_kernel", "batched_lora_matmul (x.W + epilogue)"),
-                   ("lora_shrink_kernel", "batched_lora_matmul (shrink)"))
-TRAIN_FAMILIES = (("single_lora_xw_kernel", "lora_matmul (x.W + epilogue)"),
-                  ("single_lora_xa_kernel", "lora_matmul (shrink)"),
+                   ("lora_mma_shrink_kernel", "batched_lora_matmul (shrink)"),
+                   ("lora_mma_zprep_kernel",
+                    "batched_lora_matmul (z operand prep)"),
+                   ("lora_mma_bprep_kernel",
+                    "batched_lora_matmul (B operand prep)"),
+                   ("lora_mma_reduce_kernel",
+                    "batched_lora_matmul (split-K reduction + epilogue)"),
+                   ("lora_mma_kernel",
+                    "batched_lora_matmul (tensor-core tile + LoRA stages)"),
+                   ("lora_matmul_kernel",
+                    "batched_lora_matmul (fp32 tile + epilogue)"),
+                   ("lora_shrink_kernel", "batched_lora_matmul (fp32 shrink)"))
+TRAIN_FAMILIES = (("lora_mma_shrink_kernel", "lora_matmul (shrink)"),
+                  ("lora_mma_zprep_kernel", "lora_matmul (z operand prep)"),
+                  ("lora_mma_bprep_kernel", "lora_matmul (B operand prep)"),
+                  ("lora_mma_reduce_kernel",
+                   "lora_matmul (split-K reduction + epilogue)"),
+                  ("lora_mma_kernel",
+                   "lora_matmul (tensor-core tile + LoRA stages)"),
+                  ("single_lora_xw_kernel", "lora_matmul (fp32 tile + epilogue)"),
+                  ("single_lora_xa_kernel", "lora_matmul (fp32 shrink)"),
                   ("flash_attn_mma_kernel",
                    "flash_attention (tensor-core tile)"),
                   ("flash_attn_fwd_kernel", "flash_attention (fp32 tile)"),
@@ -883,8 +1060,10 @@ TRAIN_FAMILIES = (("single_lora_xw_kernel", "lora_matmul (x.W + epilogue)"),
 def traced(fn, families, other: str):
     """Run ``fn`` once under ``torch.profiler`` (CPU + CUDA activity);
     returns (wall ms, {family: device ms}) with kernels sorted into
-    ``families`` by name.  Tracing slows the host, so the idle share it
-    gives is an upper bound."""
+    ``families`` by name.  A kernel of the port's own (a name with
+    ``lora``, ``attn`` or ``paged``) that no family claims is a fault.
+    Tracing slows the host, so the idle share it gives is an upper
+    bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -901,7 +1080,11 @@ def traced(fn, families, other: str):
             continue
         us = (getattr(ev, "self_device_time_total", None)
               or getattr(ev, "self_cuda_time_total", 0))
-        name = next((f for k, f in families if k in ev.key), other)
+        name = next((f for k, f in families if k in ev.key), None)
+        require(name is not None or not any(
+            k in ev.key for k in ("lora", "attn", "paged")),
+            f"traced kernel {ev.key[:120]} belongs to no family")
+        name = name or other
         fam[name] = fam.get(name, 0.0) + us / 1e3
     return wall * 1e3, fam
 
@@ -1175,8 +1358,8 @@ def serve_options_phase(device, seed: int, params, cfg, T: int = 256,
             require(len(o) == sc_.max_new_tokens and all(
                 0 <= t < cfg.vocab_size for t in o),
                 f"serve_options {name}: a stream is malformed")
-        require_mma_tile(tiles, "paged_prefill_attention",
-                         f"serve_options {name}")
+        for kernel in ("paged_prefill_attention", "batched_lora_matmul"):
+            require_mma_tile(tiles, kernel, f"serve_options {name}")
         return outs, st, counts
 
     # 1. cold: prefix hits inside the call, preemption, every serving kernel
@@ -1277,9 +1460,11 @@ def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
         loss, _, grads = lora_value_and_grad(model, cfg, backend)(
             params, adapters, batch)
         torch.cuda.synchronize()
+        tiles = kernels.tile_counts()
         out[backend] = (loss, dict(tree_leaves(grads)),
                         kernels.launch_counts(),
-                        kernels.tile_counts()["flash_attention"])
+                        {k: tiles[k] for k in ("flash_attention",
+                                               "lora_matmul")})
         del grads
     (lc, gc, nc, tiles), (lt, gt, nt, _) = out["cuda"], out["torch"]
     loss_err = abs(float(lc) - float(lt)) / abs(float(lt))
@@ -1292,7 +1477,7 @@ def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
           "max_grad_rel_err": grad_errs[worst], "worst_leaf": worst,
           "median_grad_rel_err": sorted(grad_errs.values())[
               len(grad_errs) // 2], "grad_tol": grad_tol,
-          "launches_cuda": nc, "flash_tiles_cuda": tiles})
+          "launches_cuda": nc, "tiles_cuda": tiles})
     require(all(torch.isfinite(g).all() for g in gc.values()),
             f"{dtype_name}: a cuda gradient is not finite")
     require(loss_err <= loss_tol,
@@ -1303,9 +1488,10 @@ def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
     require(nc["lora_matmul"] > 0 and nc["flash_attention"] > 0,
             "the cuda train step did not launch its kernels")
     want = "mma" if dtype_name == "bfloat16" else "f32"
-    require(tiles[want] == nc["flash_attention"],
-            f"{dtype_name} train step: flash_attention tiles {tiles}, not "
-            f"all {want}")
+    for name in ("flash_attention", "lora_matmul"):
+        require(tiles[name][want] == nc[name],
+                f"{dtype_name} train step: {name} tiles {tiles[name]}, not "
+                f"all {want}")
     require(all(n == 0 for n in nt.values()),
             "the torch train step launched a CUDA kernel")
 
@@ -1454,12 +1640,14 @@ def train_phase(device, seed: int, params, cfg):
     for name in kernels.TRAINING:
         require(counts[name] > 0,
                 f"kernel {name} was never launched on the training path")
-    require_mma_tile(tiles, "flash_attention", "train")
+    for name in ("flash_attention", "lora_matmul"):
+        require_mma_tile(tiles, name, "train")
 
     # 5: publish into the serving slice and generate from it
     registry = AdapterRegistry(cfg, capacity=n_clients, device=device)
     slots = tr.publish(registry, clients)
     eng = MultiTenantEngine(model, cfg, params, registry)
+    kernels.reset_launch_counts()
     prompts = [gen_log_dataset(np.random.default_rng(seed + 7), 1, i)[0]
                for i in range(n_clients)]
     reqs = [Request(f"client{i}", np.asarray(tok.encode(ex.prompt), np.int32))
@@ -1474,6 +1662,8 @@ def train_phase(device, seed: int, params, cfg):
     require(all(len(o) == 8 and all(0 <= t < cfg.vocab_size for t in o)
                 for o in outs), "a stream from the published adapters is "
             "malformed")
+    require_mma_tile(kernels.tile_counts(), "batched_lora_matmul",
+                     "publish_and_serve")
     del eng, registry
 
     # one traced train step
@@ -1493,7 +1683,8 @@ def train_phase(device, seed: int, params, cfg):
 def ptxas_entries(report: str):
     """``{kernel: {registers, spill_stores, spill_loads}}`` from ``nvcc
     -Xptxas=-v`` output.  The tensor-core tiles are named
-    ``<kernel><hd[, int8]>`` from their mangled names; others keep theirs."""
+    ``<kernel><hd or LoRA tile kind[, int8]>`` from their mangled names;
+    others keep theirs."""
     import re
     out, name = {}, None
     for ln in report.splitlines():
@@ -1501,9 +1692,13 @@ def ptxas_entries(report: str):
         if m:
             name = m.group(1)
             t = re.search(r"\d+([a-z][a-z_]*_mma_kernel)ILi(\d+)E(a?)", name)
+            u = re.search(r"\d+(lora_mma_[a-z]+_kernel)(?:I([af])E)?", name)
             if t:
                 name = f"{t.group(1)}<{t.group(2)}" + (
                     ", int8>" if t.group(3) else ">")
+            elif u:
+                name = u.group(1) + {"a": "<int8>", "f": "<fp32>"}.get(
+                    u.group(2), "")
             out[name] = {"registers": None, "spill_stores": 0,
                          "spill_loads": 0}
             continue
@@ -1570,15 +1765,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     reports = build.build()
     ptxas = {n: ptxas_entries(rep) for n, rep in reports.items()}
-    mma = {k: v for ent in ptxas.values() for k, v in ent.items()
-           if "_mma_kernel" in k}
+    mma = {f"{src}: {k}": v for src, ent in ptxas.items()
+           for k, v in ent.items() if "_mma_" in k or "lmma" in k}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(reports), "ptxas": ptxas,
           "tensor_core_tiles": mma})
-    for src in ("paged_prefill", "flash_attention"):
+    for src in ("paged_prefill", "flash_attention", "batched_lora",
+                "lora_matmul"):
         if src in reports:
-            require(any(k.startswith(("paged_prefill_mma", "flash_attn_mma"))
-                        for k in ptxas[src]),
+            require(any("_mma_kernel" in k for k in ptxas[src]),
                     f"no tensor-core tile in the ptxas report of {src}.cu")
     spilled = {k: v for k, v in mma.items()
                if v["spill_stores"] or v["spill_loads"]}
@@ -1614,6 +1809,7 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": counts[name],
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                     "device_ms": res["device_ms"],
                      "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"],
                      "library_ms": res["library_ms"]})

@@ -8,7 +8,12 @@ per-row client ids over stacked banks, an optional per-client rank mask
 kernel computes the base product itself (fp32 accumulation) and rounds
 once in its epilogue.  CPU tensors run the plain version
 (:func:`batched_lora_matmul_ref`); CUDA tensors launch the kernel or
-raise.  ``batched_lora_matmul.launches`` counts launches.
+raise.  The kernel has two tiles, picked by dtype
+(``kernels/lora_tile.py``): bf16 x with bf16 W runs the tensor-core tile
+(``csrc/lora_mma.cuh``, K and N multiples of 8, 16-byte aligned x and W)
+under a launch plan chosen from the shape, anything else the fp32
+CUDA-core tile.  ``batched_lora_matmul.launches`` counts launches, and
+``launches_mma`` / ``launches_f32`` split them by tile.
 
 :func:`batched_dual_lora_matmul` is the port of the Pallas kernel of the
 same name: per-row Eq. 7 over a personalized bank and one global pair,
@@ -23,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, lora_tile
 from repro_torch.kernels.ref import (batched_dual_lora_matmul_ref,
                                      batched_lora_matmul_ref)
 
@@ -39,7 +44,7 @@ def _lib():
     lib = build.load("batched_lora")
     fn = lib.batched_lora_matmul
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 10 + [_I] * 8 + [_F, _P]
+        fn.argtypes = [_P] * 14 + [_I] * 11 + [_F, _P]
         fn.restype = _I
     return fn
 
@@ -60,6 +65,35 @@ def _check(name, t, dtypes, shape, device):
             f"{name} must be a contiguous {'/'.join(map(str, dtypes))} "
             f"tensor of shape {tuple(shape)} on {device}; got {t.dtype} "
             f"{tuple(t.shape)} on {t.device}")
+
+
+def tile_scratch(p: lora_tile.Plan, tile: str, M: int, N: int, C: int,
+                 r: int, device, z: Optional[torch.Tensor] = None) -> tuple:
+    """One allocation for the tensor-core tile's scratch (``lmma::run`` in
+    ``csrc/lora_mma.cuh``) and for z (M, r) fp32 unless ``z`` is given:
+    returns (z, zpart, ypart, zl, bl), the last four as pointers or None
+    where the plan needs none: the shrink's fp32 partials (zsplit, M, r),
+    the base product's fp32 partials (split, M, N), and the LoRA term's
+    bf16 operand rows zl (M, nq, 64) and bl (C, nq, 32, N), nq =
+    ceil(r / 16).  The fp32 tile needs z only."""
+    mma = tile == "mma"
+    nq = -(-r // 16)
+    sizes = [0 if z is not None else M * r,                   # z
+             p.zsplit * M * r if mma and p.zsplit > 1 else 0,   # zpart
+             p.split * M * N if mma and p.split > 1 else 0,     # ypart
+             M * nq * 32 if mma and p.split == 1 else 0,        # zl (bf16)
+             C * nq * 16 * N if mma and p.split == 1 else 0]    # bl (bf16)
+    sizes = [-(-n // 4) * 4 for n in sizes]       # each part 16-byte aligned
+    if sum(sizes) == 0:
+        return (z, None, None, None, None)
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    if z is None:
+        z = buf[:M * r].view(M, r)
+    ptrs, off = [], sizes[0]
+    for n in sizes[1:]:
+        ptrs.append(buf.data_ptr() + 4 * off if n else None)
+        off += n
+    return (z, *ptrs)
 
 
 def batched_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -105,24 +139,34 @@ def batched_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         _check("ranks", ranks, (torch.int32,), (C,), dev)
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"rank {r} outside [1, {MAX_RANK}]")
+    tile = lora_tile.lora_tile(x.dtype, w.dtype)
+    if tile == "mma":
+        lora_tile.check_mma_tile(x, w)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0:
         return y
-    z = torch.empty((M, r), dtype=torch.float32, device=dev)
+    p = lora_tile.plan(M, N, K)
+    z, zpart, ypart, zl, bl = tile_scratch(p, tile, M, N, C, r, dev)
     err = _lib()(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                  a_scale.data_ptr() if quant else None,
                  b_scale.data_ptr() if quant else None,
                  ranks.data_ptr() if ranks is not None else None,
-                 adapter_ids.data_ptr(), z.data_ptr(), y.data_ptr(),
-                 M, K, N, C, r, int(x.dtype == torch.bfloat16),
-                 int(w.dtype == torch.bfloat16), int(quant), float(scale),
-                 build.stream_ptr(dev))
+                 adapter_ids.data_ptr(), z.data_ptr(), zpart, ypart, zl, bl,
+                 y.data_ptr(), M, K, N, C, r, int(x.dtype == torch.bfloat16),
+                 int(w.dtype == torch.bfloat16), int(quant), p.kind, p.split,
+                 p.zsplit, float(scale), build.stream_ptr(dev))
     build.check(err, "batched_lora_matmul")
     batched_lora_matmul.launches += 1
+    if tile == "mma":
+        batched_lora_matmul.launches_mma += 1
+    else:
+        batched_lora_matmul.launches_f32 += 1
     return y
 
 
 batched_lora_matmul.launches = 0
+batched_lora_matmul.launches_mma = 0
+batched_lora_matmul.launches_f32 = 0
 
 
 def batched_dual_lora_matmul(x: torch.Tensor, w: torch.Tensor,

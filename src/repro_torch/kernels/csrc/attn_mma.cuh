@@ -21,7 +21,8 @@
 //   groups (no conflicts, for ldmatrix and ldmatrix.trans alike).  At hd
 //   128 that is 17 KB for Q plus 2 stages x (K + V) x 17 KB = 85 KB, so two
 //   CTAs fit on an SM.
-// - S = Q·Kᵀ and O += P·V run on mma.sync.m16n8k16 bf16 -> fp32; S and O
+// - S = Q·Kᵀ and O += P·V run on mma.sync.m16n8k16 bf16 -> fp32 (the
+//   primitives are mma_common.cuh's, shared with the LoRA tile); S and O
 //   stay in registers.  The softmax works on the accumulator fragments:
 //   each row lives in a quad of lanes, so its max needs two shuffles, and
 //   the denominator is summed per lane and reduced once at the end.
@@ -67,6 +68,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace attn {
 
 typedef __nv_bfloat16 bf16;
@@ -95,68 +98,16 @@ constexpr size_t smem_bytes() {
                : (size_t)Tile<HD>::kQBytes + 4 * Tile<HD>::kBytes;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte asynchronous copy; with full == false it writes 16 zero bytes
-// and reads nothing (src may be any valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
-                                              uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// d += a (16 x 16, row) · b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using tc::cp_async16;
+using tc::cp_async4;
+using tc::cp_async_commit;
+using tc::cp_async_wait_all;
+using tc::ldsm_x4;
+using tc::ldsm_x4_trans;
+using tc::mma_bf16;
+using tc::pack_bf16;
+using tc::smem_addr;
+using tc::allow_smem;
 
 // Widen one int8 tile (row stride HD) into a bf16 tile (row stride kStride).
 template <int HD>
@@ -373,14 +324,6 @@ __device__ __forceinline__ void run(const Loader& ld, int k_begin, int k_end,
     ld.store(r0, 8 * n + 2 * t, o[n][0] * inv0, o[n][1] * inv0);
     ld.store(r1, 8 * n + 2 * t, o[n][2] * inv1, o[n][3] * inv1);
   }
-}
-
-// Raise a kernel's dynamic shared-memory cap (above the default 48 KB).
-template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 }  // namespace attn

@@ -9,25 +9,28 @@
 //
 // The TPU kernel routes rows with a one-hot over ALL clients so the MXU
 // can do the gather as a dense product; here rows gather their own
-// client's factors instead, in two kernels:
-//   1. shrink: z[i] = x[i]·A[g[i]] (fp32, rank mask applied), one CTA per
-//      row reading only that row's client's A;
-//   2. the base product x·W, tiled through shared memory with fp32
-//      accumulation, whose epilogue adds alpha · s · z[i]·B[g[i]] and
-//      rounds ONCE to the output type.
-// Both pieces are the shared tile code of lora_common.cuh.
-// The reference dense layer rounds x·W to the working type before adding
-// the fp32 LoRA term; this epilogue does not, so the two differ by at most
-// one rounding of the output type.
+// client's factors instead.  Two tiles, picked by dtype:
+// - bf16 x with bf16 W: the tensor-core tile of lora_mma.cuh (a shrink
+//   over 64-row tiles staging each client's A once per K chunk, x·W on
+//   mma.sync fed by a 4-stage cp.async ring, the LoRA term added to the
+//   fp32 fragments, split-K with a fixed-order reduction at decode
+//   shapes), launched as the wrapper's plan says
+//   (kernels/lora_tile.py::plan);
+// - fp32 activations (or fp32 W): the CUDA-core tile of lora_common.cuh,
+//   exact in fp32, which the tight checks hold at 1e-4:
+//     1. shrink: z[i] = x[i]·A[g[i]] (fp32, rank mask applied), one CTA
+//        per row reading only that row's client's A;
+//     2. the base product x·W in fp32 FMAs (64x64 tiles), whose epilogue
+//        adds alpha · s · z[i]·B[g[i]] and rounds ONCE to the output type.
+// Both round once: the reference dense layer rounds x·W to the working
+// type before adding the fp32 LoRA term, so the two differ by at most one
+// rounding of the output type.
 //
 // Bound on this card: at decode batch sizes the bytes of W plus the
-// active clients' A and B (the product is a matrix-vector stream); at
-// prefill chunk sizes the operations of x·W.  This first version computes
-// on the CUDA cores with fp32 FMAs (64x64 output tiles, 4x4 per thread):
-// simple and exact in fp32, far from either bound.  Tensor-core tiles
-// (wgmma fed by TMA) for the prefill shapes and split-K for the decode
-// shapes (few output tiles leave SMs idle) are the known next steps.
+// active clients' A and B (a matrix-vector stream); at prefill chunk
+// sizes the operations of x·W on the tensor cores.
 #include "lora_common.cuh"
+#include "lora_mma.cuh"
 
 namespace {
 
@@ -126,24 +129,38 @@ int launch_bank(int bank_int8, const void* x, const void* w, const void* a,
 // bfloat16; a (C, K, r), b (C, r, N): float32, or int8 with a_scale and
 // b_scale (C,) float32; ranks (C,) int32 or null; ids (M,) int32 (an id
 // outside [0, C) gets no LoRA term); z: (M, r) float32 scratch.  r <= 128.
-// Returns the CUDA error code of the launches.
+// bf16 x with bf16 W runs the tensor-core tile with the plan (kind, split,
+// zsplit) and the scratch of lmma::run (zpart, ypart, zl, bl, each used
+// only where its plan needs it); the fp32 tile ignores them.  Returns the
+// CUDA error code of the launches.
 extern "C" int batched_lora_matmul(const void* x, const void* w, const void* a,
                                    const void* b, const float* a_scale,
                                    const float* b_scale, const int* ranks,
-                                   const int* ids, float* z, void* y, int M,
-                                   int K, int N, int C, int r, int x_bf16,
-                                   int w_bf16, int bank_int8, float alpha,
-                                   void* stream) {
+                                   const int* ids, float* z, float* zpart,
+                                   float* ypart, void* zl, void* bl, void* y,
+                                   int M, int K, int N, int C, int r,
+                                   int x_bf16, int w_bf16, int bank_int8,
+                                   int kind, int split, int zsplit,
+                                   float alpha, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (x_bf16) {
-    if (w_bf16)
-      return launch_bank<__nv_bfloat16, __nv_bfloat16>(
-          bank_int8, x, w, a, b, a_scale, b_scale, ranks, ids, z, y, M, K, N,
-          C, r, alpha, s);
+  if (x_bf16 && w_bf16) {
+    const lmma::bf16* xb = (const lmma::bf16*)x;
+    const lmma::bf16* wb = (const lmma::bf16*)w;
+    lmma::bf16 *zlb = (lmma::bf16*)zl, *blb = (lmma::bf16*)bl,
+               *yb = (lmma::bf16*)y;
+    if (bank_int8)
+      return lmma::run<int8_t>(xb, wb, (const int8_t*)a, (const int8_t*)b,
+                               a_scale, b_scale, ranks, ids, z, zpart, ypart,
+                               zlb, blb, yb, M, K, N, C, r, alpha, kind,
+                               split, zsplit, s);
+    return lmma::run<float>(xb, wb, (const float*)a, (const float*)b, a_scale,
+                            b_scale, ranks, ids, z, zpart, ypart, zlb, blb,
+                            yb, M, K, N, C, r, alpha, kind, split, zsplit, s);
+  }
+  if (x_bf16)
     return launch_bank<__nv_bfloat16, float>(bank_int8, x, w, a, b, a_scale,
                                              b_scale, ranks, ids, z, y, M, K,
                                              N, C, r, alpha, s);
-  }
   if (w_bf16)
     return launch_bank<float, __nv_bfloat16>(bank_int8, x, w, a, b, a_scale,
                                              b_scale, ranks, ids, z, y, M, K,

@@ -1,7 +1,10 @@
-// Shared tile code of the three LoRA kernels (batched, single-tenant and
-// dual / Eq. 7).
+// The fp32 CUDA-core tile of the LoRA kernels: shared code of
+// batched_lora_matmul and lora_matmul for fp32 activations (or fp32 W),
+// and of the dual kernels (dual_lora_matmul, batched_dual_lora_matmul) for
+// every dtype.  bf16 x with bf16 W in the first two runs the tensor-core
+// tile of lora_mma.cuh instead.
 //
-// Every LoRA kernel of the port computes y = x·W + alpha·(x·A)·B in two
+// Every kernel on this tile computes y = x·W + alpha·(x·A)·B in two
 // launches:
 //   1. shrink: z[m] = x[m]·A, one CTA per row, fp32 (shrink_row);
 //   2. the base product x·W, tiled through shared memory with fp32
@@ -13,8 +16,8 @@
 // epilogue loop.
 //
 // The base product runs on the CUDA cores with fp32 FMAs (64x64 output
-// tiles, 4x4 outputs per thread): exact in fp32, far from the tensor-core
-// bound at large M.  wgmma tiles fed by TMA are the known next step.
+// tiles, 4x4 outputs per thread): exact in fp32, which the tight fp32
+// checks need, and far from the tensor-core bound at large M.
 #pragma once
 
 #include <cuda_bf16.h>

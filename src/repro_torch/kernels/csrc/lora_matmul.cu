@@ -6,21 +6,28 @@
 // runs every LoRA projection of a training forward.
 //
 // The TPU kernel accumulates x·W and x·A in one VMEM pass and applies ·B
-// on its last K step.  Here the same function is two launches of the
-// shared tile code (lora_common.cuh):
-//   1. shrink: z = x·A in fp32, one CTA per row; z is written out (M x r
-//      floats) because the backward reuses it (dB = alpha·zᵀ·dy);
-//   2. the base product x·W with fp32 accumulation, whose epilogue adds
-//      alpha·z[m]·B and rounds ONCE to the output type.
-// The TPU kernel rounds z and B to the input type before its last dot; the
-// plain version (lora_matmul_ref) keeps them in fp32, and so does this
-// kernel.
+// on its last K step.  Here z = x·A is written out (M x r fp32) because
+// the backward reuses it (dB = alpha·zᵀ·dy).  The TPU kernel rounds z and
+// B to the input type before its last dot; the plain version
+// (lora_matmul_ref) keeps them in fp32, and so do both tiles here.  Two
+// tiles, picked by dtype:
+// - bf16 x with bf16 W: the tensor-core tile of lora_mma.cuh, as one
+//   client with no rank mask (a shrink over 64-row tiles, x·W on mma.sync
+//   fed by a 4-stage cp.async ring with the LoRA term added to the fp32
+//   fragments, split-K with a fixed-order reduction when the output has
+//   few tiles), launched as the wrapper's plan says
+//   (kernels/lora_tile.py::plan);
+// - fp32 activations (or fp32 W): the CUDA-core tile of lora_common.cuh,
+//   exact in fp32, which the fp32 train-step comparison and the 1e-4
+//   backward checks need:
+//     1. shrink: z = x·A in fp32, one CTA per row;
+//     2. the base product x·W in fp32 FMAs, whose epilogue adds
+//        alpha·z[m]·B and rounds ONCE to the output type.
 //
 // Bound on this card: the operations of x·W at training shapes (M = 2048
-// rows, K and N in the thousands).  This first version computes on the
-// CUDA cores in fp32, far from that bound; tensor-core tiles are the next
-// step.
+// rows, K and N in the thousands), on the tensor cores.
 #include "lora_common.cuh"
+#include "lora_mma.cuh"
 
 namespace {
 
@@ -83,19 +90,26 @@ int launch(const void* x, const void* w, const float* a, const float* b,
 
 // x (M, K) and y (M, N): float32 or bfloat16; w (K, N): float32 or
 // bfloat16; a (K, r), b (r, N): float32; z: (M, r) float32 output (x·A).
-// r <= 128.  Returns the CUDA error code of the launches.
+// r <= 128.  bf16 x with bf16 W runs the tensor-core tile with the plan
+// (kind, split, zsplit) and the scratch of lmma::run (zpart, ypart, zl,
+// bl, each used only where its plan needs it); the fp32 tile ignores
+// them.  Returns the CUDA error code of the launches.
 extern "C" int lora_matmul(const void* x, const void* w, const float* a,
-                           const float* b, float* z, void* y, int M, int K,
-                           int N, int r, int x_bf16, int w_bf16, float alpha,
+                           const float* b, float* z, float* zpart,
+                           float* ypart, void* zl, void* bl, void* y, int M,
+                           int K, int N, int r, int x_bf16, int w_bf16,
+                           int kind, int split, int zsplit, float alpha,
                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (x_bf16) {
-    if (w_bf16)
-      return launch<__nv_bfloat16, __nv_bfloat16>(x, w, a, b, z, y, M, K, N,
-                                                  r, alpha, s);
+  if (x_bf16 && w_bf16)
+    return lmma::run<float>((const lmma::bf16*)x, (const lmma::bf16*)w, a, b,
+                            nullptr, nullptr, nullptr, nullptr, z, zpart,
+                            ypart, (lmma::bf16*)zl, (lmma::bf16*)bl,
+                            (lmma::bf16*)y, M, K, N, 1, r, alpha, kind, split,
+                            zsplit, s);
+  if (x_bf16)
     return launch<__nv_bfloat16, float>(x, w, a, b, z, y, M, K, N, r, alpha,
                                         s);
-  }
   if (w_bf16)
     return launch<float, __nv_bfloat16>(x, w, a, b, z, y, M, K, N, r, alpha,
                                         s);

@@ -9,8 +9,13 @@ backward kernel either; its gradients come from autodiff outside the
 Pallas call).  ``W`` is frozen and gets no gradient.
 
 CPU tensors run the plain version (:func:`lora_matmul_ref`, differentiated
-by autograd); CUDA tensors launch the kernel or raise.
-``lora_matmul.launches`` counts launches.
+by autograd); CUDA tensors launch the kernel or raise.  The kernel has two
+tiles, picked by dtype (``kernels/lora_tile.py``): bf16 x with bf16 W runs
+the tensor-core tile (``csrc/lora_mma.cuh``, K and N multiples of 8,
+16-byte aligned x and W) under a launch plan chosen from the shape,
+anything else the fp32 CUDA-core tile.  Both keep z = x·A in fp32.
+``lora_matmul.launches`` counts launches, and ``launches_mma`` /
+``launches_f32`` split them by tile.
 """
 from __future__ import annotations
 
@@ -18,8 +23,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.batched_lora import MAX_RANK, _check
+from repro_torch.kernels import build, lora_tile
+from repro_torch.kernels.batched_lora import MAX_RANK, _check, tile_scratch
 from repro_torch.kernels.ref import lora_matmul_ref
 
 __all__ = ["lora_matmul", "lora_matmul_ref", "lora_matmul_backward",
@@ -32,7 +37,7 @@ def _lib():
     lib = build.load("lora_matmul")
     fn = lib.lora_matmul
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 6 + [_F, _P]
+        fn.argtypes = [_P] * 10 + [_I] * 9 + [_F, _P]
         fn.restype = _I
     return fn
 
@@ -50,16 +55,27 @@ def _launch(x, w, a, b, scale: float):
     _check("b", b, (torch.float32,), (r, N), dev)
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"rank {r} outside [1, {MAX_RANK}]")
+    tile = lora_tile.lora_tile(x.dtype, w.dtype)
+    if tile == "mma":
+        lora_tile.check_mma_tile(x, w)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     z = torch.empty((M, r), dtype=torch.float32, device=dev)
     if M == 0:
         return y, z
+    p = lora_tile.plan(M, N, K)
+    # z is saved for the backward: the scratch gets its own buffer
+    _, zpart, ypart, zl, bl = tile_scratch(p, tile, M, N, 1, r, dev, z=z)
     err = _lib()(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 z.data_ptr(), y.data_ptr(), M, K, N, r,
+                 z.data_ptr(), zpart, ypart, zl, bl, y.data_ptr(), M, K, N, r,
                  int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-                 float(scale), build.stream_ptr(dev))
+                 p.kind, p.split, p.zsplit, float(scale),
+                 build.stream_ptr(dev))
     build.check(err, "lora_matmul")
     lora_matmul.launches += 1
+    if tile == "mma":
+        lora_matmul.launches_mma += 1
+    else:
+        lora_matmul.launches_f32 += 1
     return y, z
 
 
@@ -123,3 +139,5 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 
 lora_matmul.launches = 0
+lora_matmul.launches_mma = 0
+lora_matmul.launches_f32 = 0

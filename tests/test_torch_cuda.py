@@ -2,7 +2,9 @@
 (the two attention kernels through both their tiles: the tensor-core tile
 for bf16 at head dims 32, 64 and 128 over ragged, poisoned and misaligned
 inputs, each row also held to the tile's own arithmetic, the fp32 tile
-held tight), the two autograd backwards against
+held tight; the two single-pass LoRA kernels through both their tiles at
+edge shapes under every launch plan, with split-K held bitwise stable),
+the two autograd backwards against
 plain autograd, serving runs (plain and
 with int8 K/V, a ragged int8 bank, prefix caching and speculative
 decoding), ``launch/serve.py`` with those options and one
@@ -326,6 +328,155 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                             torch.zeros((2, 8, 200), device=dev),
                             torch.zeros((2, 200, 5), device=dev),
                             torch.zeros((3,), dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the LoRA tiles: tensor-core (bf16 x and W) and fp32, by plan
+# ---------------------------------------------------------------------------
+
+# (M, K, N) and the plan they are meant to take: (tile kind, K split above
+# 1).  K and N are multiples of 8 but not of the 32-deep K stage or of the
+# tiles' columns; together they run every tile with and without split-K.
+LORA_SHAPES = [
+    ((1, 8, 8), (0, False)),
+    ((8, 104, 200), (0, False)),
+    ((8, 1032, 200), (0, True)),
+    ((40, 96, 136), (1, False)),
+    ((40, 520, 136), (1, True)),
+    ((70, 520, 200), (2, False)),
+    ((300, 4104, 264), (2, False)),
+    ((2048, 264, 1032), (2, False)),
+]
+
+
+def _lora_case(gen, dev, M, K, N, C, r, variant):
+    """bf16 x and W; a bank of C clients; ids in runs of 1-40 rows (rows of
+    a request share a client, so some tiles mix clients), a few outside
+    [0, C)."""
+    rng = np.random.default_rng(M * 7 + K)
+    x = _randn(gen, (M, K), dev, torch.bfloat16)
+    w = _randn(gen, (K, N), dev, torch.bfloat16, K ** -0.5)
+    a = _randn(gen, (C, K, r), dev, std=1.0 / r)
+    b = _randn(gen, (C, r, N), dev, std=0.05)
+    runs = rng.integers(1, 41, M)
+    ids = np.repeat(rng.integers(-1, C + 1, M), runs)[:M].astype(np.int32)
+    kw = {}
+    if variant == "rank_mask":
+        kw["ranks"] = torch.as_tensor(rng.integers(1, r + 1, C),
+                                      dtype=torch.int32, device=dev)
+    if variant == "int8_bank":
+        a, sa = quantize_int8(a, (1, 2))
+        b, sb = quantize_int8(b, (1, 2))
+        kw.update(a_scale=sa, b_scale=sb)
+    return x, w, a, b, torch.as_tensor(ids, device=dev), kw
+
+
+def _lora_plain(x, w, a, b, ids, **kw):
+    """The plain version with the kernels' rule for ids outside [0, C) (no
+    LoRA term, as the TPU kernel's zero one-hot row gives): such rows get
+    x·W alone; the plain version itself only ever sees ids in range."""
+    C = a.shape[0]
+    dead = (ids < 0) | (ids >= C)
+    yr = ref.batched_lora_matmul_ref(x, w, a, b,
+                                     torch.where(dead, 0, ids), 2.0, **kw)
+    base = (x.float() @ w.float()).to(x.dtype)
+    return torch.where(dead[:, None], base, yr)
+
+
+@pytest.mark.parametrize("variant", ["f32_bank", "rank_mask", "int8_bank"])
+@pytest.mark.parametrize("shape,want", LORA_SHAPES)
+def test_batched_lora_tiles_match_plain(dev, shape, want, variant):
+    """The tensor-core tile against the plain version (two bf16 roundings
+    of the largest output: both compute in fp32 and round once) and
+    against the plan's own arithmetic (``lora_tile.split_plan_ref``) at
+    edge shapes, mixed-client tiles and dead ids; the fp32 tile on the
+    same inputs at 1e-4; each launch counted on the tile it ran."""
+    from repro_torch.kernels import lora_tile
+    M, K, N = shape
+    p = lora_tile.plan(M, N, K)
+    assert (p.kind, p.split > 1) == want
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, w, a, b, ids, kw = _lora_case(gen, dev, M, K, N, 5, 16, variant)
+    kernels.reset_launch_counts()
+    y = batched_lora_matmul(x, w, a, b, ids, 2.0, **kw)
+    assert kernels.tile_counts()["batched_lora_matmul"] == {"mma": 1,
+                                                             "f32": 0}
+    yr = _lora_plain(x, w, a, b, ids, **kw)
+    assert bool(torch.isfinite(y.float()).all())
+    assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+    yp, _ = lora_tile.split_plan_ref(x, w, a, b, ids, 2.0, **kw)
+    assert float((y.float() - yp.float()).abs().max()) <= _bf16_tol(yp)
+    y32 = batched_lora_matmul(x.float(), w.float(), a, b, ids, 2.0, **kw)
+    torch.testing.assert_close(
+        y32, _lora_plain(x.float(), w.float(), a, b, ids, **kw),
+        atol=1e-4, rtol=1e-4)
+    assert kernels.tile_counts()["batched_lora_matmul"] == {"mma": 1,
+                                                             "f32": 1}
+    assert kernels.launch_counts()["batched_lora_matmul"] == 2
+
+
+@pytest.mark.parametrize("shape,want", LORA_SHAPES)
+def test_lora_matmul_tiles_match_plain(dev, shape, want):
+    """lora_matmul through both tiles at the same shapes: y to two bf16
+    roundings (tensor-core tile) or 1e-4 (fp32 tile), and the z it keeps
+    for the backward equal to fp32 x·A within fp32 summation order."""
+    from repro_torch.kernels import lora_tile
+    from repro_torch.kernels.lora_matmul import _launch, lora_matmul
+    M, K, N = shape
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = _randn(gen, (M, K), dev, torch.bfloat16)
+    w = _randn(gen, (K, N), dev, torch.bfloat16, K ** -0.5)
+    a = _randn(gen, (K, 16), dev, std=1.0 / 16)
+    b = _randn(gen, (16, N), dev, std=0.05)
+    kernels.reset_launch_counts()
+    y, z = _launch(x, w, a, b, 2.0)
+    yr = ref.lora_matmul_ref(x, w, a, b, 2.0)
+    assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+    torch.testing.assert_close(z, x.float() @ a, atol=1e-4, rtol=1e-4)
+    yp, _ = lora_tile.split_plan_ref(x, w, a[None], b[None], None, 2.0)
+    assert float((y.float() - yp.float()).abs().max()) <= _bf16_tol(yp)
+    y32 = lora_matmul(x.float(), w.float(), a, b, 2.0)
+    torch.testing.assert_close(y32, ref.lora_matmul_ref(x.float(), w.float(),
+                                                        a, b, 2.0),
+                               atol=1e-4, rtol=1e-4)
+    assert kernels.tile_counts()["lora_matmul"] == {"mma": 1, "f32": 1}
+
+
+def test_lora_split_k_is_deterministic(dev):
+    """The decode plan splits K and reduces the partials in a fixed order:
+    the same call gives the same bits every time."""
+    from repro_torch.kernels import lora_tile
+    M, K, N = 8, 4096, 4096
+    assert lora_tile.plan(M, N, K).split > 1
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x, w, a, b, ids, _ = _lora_case(gen, dev, M, K, N, 8, 16, "f32_bank")
+    y0 = batched_lora_matmul(x, w, a, b, ids, 2.0)
+    for _ in range(5):
+        assert torch.equal(batched_lora_matmul(x, w, a, b, ids, 2.0), y0)
+    yr = _lora_plain(x, w, a, b, ids)
+    assert float((y0.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+
+
+def test_lora_tiles_refuse_misaligned_bf16(dev):
+    from repro_torch.kernels.lora_matmul import lora_matmul
+    bf = torch.bfloat16
+    a = torch.zeros((2, 20, 4), device=dev)
+    b = torch.zeros((2, 4, 16), device=dev)
+    ids = torch.zeros((3,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiples of 8"):     # K = 20
+        batched_lora_matmul(torch.zeros((3, 20), dtype=bf, device=dev),
+                            torch.zeros((20, 16), dtype=bf, device=dev),
+                            a, b, ids)
+    flat = torch.zeros(3 * 16 + 1, dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        lora_matmul(flat[1:].view(3, 16), torch.zeros((16, 8), dtype=bf,
+                                                      device=dev),
+                    torch.zeros((16, 4), device=dev),
+                    torch.zeros((4, 8), device=dev))
+    # the fp32 tile takes any width
+    y = batched_lora_matmul(torch.zeros((3, 20), device=dev),
+                            torch.zeros((20, 16), device=dev), a, b, ids)
+    assert y.shape == (3, 16)
 
 
 def test_smoke_engine_serves_through_the_kernels(dev):
