@@ -14,12 +14,13 @@ Phases (each prints one JSON line per result):
                products of a 2048-row batch, flash attention at B=8, S=256
                with a window, Sq < Sk and GQA variants, and the two
                autograd backwards against plain autograd); the two
-               attention kernels and the two single-pass LoRA kernels also
-               with fp32 activations, which run their fp32 CUDA-core tile
-               (bf16 runs the tensor-core tile), held tight, and bf16
-               attention held per row to the tile's own arithmetic
-               (kernels/attn_tile.py); time kernel (CUDA events around
-               back-to-back calls, and ``device_ms``: its own device time
+               attention kernels and the four LoRA kernels also with fp32
+               activations, which run their fp32 CUDA-core tile (bf16 runs
+               the tensor-core tile), held tight, and bf16 attention and
+               dual-LoRA outputs held per row to the tile's own arithmetic
+               (kernels/attn_tile.py, kernels/lora_tile.py); time kernel
+               (CUDA events around back-to-back calls, and
+               ``device_ms``: its own device time
                per call from a torch.profiler trace), plain version and one
                library call computing the same function (a yardstick the
                port never calls); at the prefill shape, the LoRA shrink's
@@ -47,7 +48,8 @@ Phases (each prints one JSON line per result):
                fused evaluation through "cuda" and "torch" held to stated
                bounds, then FDLoRATrainer.fit through the kernels (12 train
                steps, 18 fused evaluations), publish into an AdapterRegistry
-               and generate from it; one traced train step;
+               and generate from it; one traced train step and one traced
+               fused evaluation;
   6. the card's name and power limit, the kernel summary line, and last the
      result line.
 
@@ -106,10 +108,18 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-# kernels of the two single-pass LoRA kernels, by the part of the call
-# they compute (their tile's name says which: lora_mma_* the tensor-core
-# tile, the others the fp32 tile)
-LORA_PARTS = (("lora_mma_shrink_kernel", "shrink"),
+# kernels of the four LoRA kernels, by the part of the call they compute
+# (their tile's name says which: lora_mma_* and the dual merge the
+# tensor-core tile, the others the fp32 tile)
+LORA_PARTS = (("lora_mma_dual_zprep_kernel", "z_prep"),
+              ("lora_mma_dual_bprep_kernel", "b_prep"),
+              ("lora_mma_dual_reduce_kernel", "split_k_reduce"),
+              ("dual_lora_merge_kernel", "merge"),
+              ("dual_lora_xa_kernel", "shrink"),
+              ("dual_lora_xw_kernel", "tile"),
+              ("batched_dual_xa_kernel", "shrink"),
+              ("batched_dual_xw_kernel", "tile"),
+              ("lora_mma_shrink_kernel", "shrink"),
               ("lora_mma_zprep_kernel", "z_prep"),
               ("lora_mma_bprep_kernel", "b_prep"),
               ("lora_mma_reduce_kernel", "split_k_reduce"),
@@ -473,14 +483,16 @@ def dual_inputs(gen, device, M, K, N, C, r):
 
 
 def check_dual_batched(inputs, out, reps):
-    """batched_dual_lora_matmul's output ``out`` (from the entry-point run)
-    against its plain version, and rows sharing one (w1, w2) against
+    """batched_dual_lora_matmul's output ``out`` (from the entry-point run,
+    bf16: the tensor-core tile) against its plain version, each row against
+    the tile model (``_tile_check``), and rows sharing one (w1, w2) against
     batched_lora_matmul on the pre-merged bank; both to two bf16 roundings
     of the largest output."""
     import torch
     from repro_torch.kernels.batched_lora import (
         batched_dual_lora_matmul, batched_dual_lora_matmul_ref,
         batched_lora_matmul)
+    from repro_torch.kernels.lora_tile import dual_split_plan_ref
     x, w, a1, b1, a2, b2, ids, fw = inputs
     M, K = x.shape
     N, (C, _, r) = w.shape[1], a1.shape
@@ -488,6 +500,9 @@ def check_dual_batched(inputs, out, reps):
     ref = batched_dual_lora_matmul_ref(x, w, a1, b1, a2, b2, ids, fw, scale)
     tol = _bf16_tol(ref)
     err = _check_close("batched_dual_lora_matmul", out, ref, tol)
+    tile = _tile_check(f"batched_dual_lora_matmul M={M}", out,
+                       dual_split_plan_ref(x, w, a1, b1, a2, b2, ids, fw,
+                                           scale))
     # one shared (w1, w2): the Eq. 7 pre-merged bank through the plain
     # batched kernel
     w1, w2 = 0.7, 0.4
@@ -498,10 +513,11 @@ def check_dual_batched(inputs, out, reps):
         "batched_dual_lora_matmul vs pre-merged batched_lora_matmul",
         batched_dual_lora_matmul(x, w, a1, b1, a2, b2, ids, fw1, scale),
         merged, _bf16_tol(merged))
-    ms = time_ms(lambda: batched_dual_lora_matmul(x, w, a1, b1, a2, b2, ids,
-                                                  fw, scale), reps)
-    dev_ms, _ = device_ms(lambda: batched_dual_lora_matmul(
-        x, w, a1, b1, a2, b2, ids, fw, scale), reps)
+
+    def call():
+        return batched_dual_lora_matmul(x, w, a1, b1, a2, b2, ids, fw, scale)
+    ms = time_ms(call, reps)
+    dev_ms, parts = device_ms(call, reps, LORA_PARTS)
     plain_ms = time_ms(lambda: batched_dual_lora_matmul_ref(
         x, w, a1, b1, a2, b2, ids, fw, scale), max(1, reps // 4), 1)
     library_ms = time_ms(lambda: torch.matmul(x, w), reps)
@@ -513,11 +529,43 @@ def check_dual_batched(inputs, out, reps):
     # the base product plus both pairs' shrink and expand per row
     flops = 2 * M * K * N + 4 * M * r * (K + N)
     b_ms, b_by = bound(nbytes, flops)
-    return {"name": "batched_dual_lora_matmul", "M": M, "K": K, "N": N,
-            "C": C, "r": r, "max_abs_err": err, "tol": tol,
+    return {"name": "batched_dual_lora_matmul", "activations": "bf16",
+            "tile": "mma", "M": M, "K": K, "N": N, "C": C, "r": r,
+            "max_abs_err": err, "tol": tol, **tile,
             "shared_weights_vs_merged_err": shared_err, "ms": ms,
-            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "device_ms": dev_ms, "device_ms_by_part": parts,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_dual_batched_fp32(inputs, reps):
+    """batched_dual_lora_matmul with fp32 activations over the same bf16
+    W: the fp32 tile, held at 1e-4 + 1e-4·max|out| (``_lora_tol``)."""
+    import torch
+    from repro_torch.kernels.batched_lora import (
+        batched_dual_lora_matmul, batched_dual_lora_matmul_ref)
+    x, w, a1, b1, a2, b2, ids, fw = inputs
+    x = x.float()
+    M, K = x.shape
+    N, r = w.shape[1], a1.shape[2]
+
+    def call():
+        return batched_dual_lora_matmul(x, w, a1, b1, a2, b2, ids, fw, 2.0)
+    out = _one_tile("batched_dual_lora_matmul", call, torch.float32)
+    ref = batched_dual_lora_matmul_ref(x, w, a1, b1, a2, b2, ids, fw, 2.0)
+    tol = _lora_tol(ref)
+    err = _check_close("batched_dual_lora_matmul fp32", out, ref, tol)
+    ms = time_ms(call, reps)
+    dev_ms, parts = device_ms(call, reps, LORA_PARTS)
+    active = int(torch.unique(ids).numel())
+    nbytes = (4 * M * K + 2 * K * N + 4 * (active + 1) * r * (K + N)
+              + 12 * M + 4 * M * N)
+    b_ms, b_by = bound(nbytes, 2 * M * K * N + 4 * M * r * (K + N),
+                       fp32=True)
+    return {"name": "batched_dual_lora_matmul", "activations": "fp32",
+            "tile": "f32", "M": M, "K": K, "N": N, "r": r,
+            "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": dev_ms,
+            "device_ms_by_part": parts, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def dual_entry_point(device, seed: int, reps: int, B: int, T: int):
@@ -540,10 +588,13 @@ def dual_entry_point(device, seed: int, reps: int, B: int, T: int):
     require(launches == len(shapes),
             f"batched_dual_lora_matmul launched {launches} times, not "
             f"{len(shapes)}")
+    require_mma_tile(kernels.tile_counts(), "batched_dual_lora_matmul",
+                     "the batched dual-LoRA entry point")
     results = [check_dual_batched(inp, out, reps)
                for inp, out in zip(inputs, outs)]
     for res in results:
         emit(res)
+    emit(check_dual_batched_fp32(inputs[-1], reps))
     return results[-1], launches
 
 
@@ -617,36 +668,54 @@ def check_single_lora(gen, device, M, K, N, r, reps, dtype=None,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_dual_lora(gen, device, M, K, N, r, reps):
+def check_dual_lora(gen, device, M, K, N, r, reps, dtype=None):
     """dual_lora_matmul at a fused evaluation's shape, fusion weights
-    (0.6, 0.6).  Tolerance as for lora_matmul."""
+    (0.6, 0.6), against its plain version (``_lora_tol``): bf16
+    activations run the tensor-core tile and each row is also held to the
+    tile model (``_tile_check``), fp32 ones (over the same bf16 W) the fp32
+    tile."""
     import torch
     from repro_torch.kernels.dual_lora import (dual_lora_matmul,
                                                dual_lora_matmul_ref)
+    from repro_torch.kernels.lora_tile import dual_split_plan_ref
+    dtype = dtype or torch.bfloat16
     x, w, a1, b1 = _lora_inputs(gen, device, M, K, N, r)
+    x = x.to(dtype)
     a2 = torch.randn((K, r), generator=gen, device=device) / r
     b2 = torch.randn((r, N), generator=gen, device=device) * 0.02
     fw = torch.tensor([0.6, 0.6], device=device)
     scale = 2.0
+
+    def call():
+        return dual_lora_matmul(x, w, a1, b1, a2, b2, fw, scale)
     ref = dual_lora_matmul_ref(x, w, a1, b1, a2, b2, fw[0], fw[1], scale)
-    tol = _bf16_tol(ref)
-    err = _check_close("dual_lora_matmul",
-                       dual_lora_matmul(x, w, a1, b1, a2, b2, fw, scale), ref,
-                       tol)
-    ms = time_ms(lambda: dual_lora_matmul(x, w, a1, b1, a2, b2, fw, scale),
-                 reps)
-    dev_ms, _ = device_ms(lambda: dual_lora_matmul(x, w, a1, b1, a2, b2, fw,
-                                                   scale), reps)
+    tol = _lora_tol(ref)
+    out = _one_tile("dual_lora_matmul", call, dtype)
+    err = _check_close(f"dual_lora_matmul {dtype}", out, ref, tol)
+    tile = {}
+    if dtype == torch.bfloat16:
+        tile = _tile_check(f"dual_lora_matmul {M}x{K}x{N}", out,
+                           dual_split_plan_ref(x, w, a1, b1, a2, b2, None,
+                                               fw, scale))
+    ms = time_ms(call, reps)
+    dev_ms, parts = device_ms(call, reps, LORA_PARTS)
     plain_ms = time_ms(lambda: dual_lora_matmul_ref(
         x, w, a1, b1, a2, b2, fw[0], fw[1], scale), max(1, reps // 4), 1)
     am = (0.6 * a1 + 0.6 * a2).to(x.dtype)     # merged outside the timing
     bm = (0.6 * b1 + 0.6 * b2).to(x.dtype)
-    library_ms = time_ms(lambda: torch.matmul(x, w) + (x @ am) @ bm, reps)
-    nbytes = (2 * M * K + 2 * K * N + 8 * r * (K + N) + 8 + 2 * M * N)
+    wd = w.to(x.dtype)
+    library_ms = time_ms(lambda: torch.matmul(x, wd) + (x @ am) @ bm, reps)
+    x_el = x.element_size()
+    nbytes = (x_el * M * K + 2 * K * N + 8 * r * (K + N) + 8
+              + x_el * M * N)
     flops = 2 * M * K * N + 2 * M * r * (K + N) + 3 * r * (K + N)
-    b_ms, b_by = bound(nbytes, flops)
-    return {"name": "dual_lora_matmul", "M": M, "K": K, "N": N, "r": r,
-            "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": dev_ms,
+    b_ms, b_by = bound(nbytes, flops, fp32=dtype == torch.float32)
+    return {"name": "dual_lora_matmul",
+            "activations": "bf16" if dtype == torch.bfloat16 else "fp32",
+            "tile": "mma" if dtype == torch.bfloat16 else "f32",
+            "M": M, "K": K, "N": N, "r": r,
+            "max_abs_err": err, "tol": tol, **tile, "ms": ms,
+            "device_ms": dev_ms, "device_ms_by_part": parts,
             "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
@@ -773,9 +842,12 @@ def training_kernels(device, seed: int, reps: int):
     emit(check_flash(gen, device, 8, 32, 32, 256, 256, 128, 0, reps,
                      dtype=torch.float32))
     check_backwards(gen, device)
-    # fp32 activations through lora_matmul: the fp32 tile, held tight
+    # fp32 activations through lora_matmul and dual_lora_matmul: the fp32
+    # tile, held tight
     emit(check_single_lora(gen, device, 2048, 4096, 11008, 16, reps,
                            dtype=torch.float32))
+    emit(check_dual_lora(gen, device, 2048, 4096, 11008, 16, reps,
+                         dtype=torch.float32))
     return main
 
 
@@ -1055,6 +1127,23 @@ TRAIN_FAMILIES = (("lora_mma_shrink_kernel", "lora_matmul (shrink)"),
                   ("dual_lora_", "dual_lora_matmul"),
                   *((k, "cuBLAS matmuls (plain backward, lm_head)")
                     for k in ("gemm", "nvjet", "xmma", "cutlass")))
+# a bf16 fused evaluation runs dual_lora_matmul for every projection, so
+# the LoRA tile's kernels there are its parts
+FUSED_EVAL_FAMILIES = (("dual_lora_merge_kernel",
+                        "dual_lora_matmul (pair merge)"),
+                       ("lora_mma_shrink_kernel", "dual_lora_matmul (shrink)"),
+                       ("lora_mma_zprep_kernel",
+                        "dual_lora_matmul (z operand prep)"),
+                       ("lora_mma_bprep_kernel",
+                        "dual_lora_matmul (B operand prep)"),
+                       ("lora_mma_reduce_kernel",
+                        "dual_lora_matmul (split-K reduction + epilogue)"),
+                       ("lora_mma_kernel",
+                        "dual_lora_matmul (tensor-core tile + LoRA stages)"),
+                       ("flash_attn_mma_kernel",
+                        "flash_attention (tensor-core tile)"),
+                       *((k, "cuBLAS matmuls (lm_head)")
+                         for k in ("gemm", "nvjet", "xmma", "cutlass")))
 
 
 def traced(fn, families, other: str):
@@ -1511,14 +1600,20 @@ def compare_fused_eval(model, cfg, params, ad_p, ad_s, batch, dtype_name,
         loss, _ = make_fused_eval_fn(model, cfg, backend)(params, ad_p, ad_s,
                                                           w, batch)
         losses[backend], counts[backend] = float(loss), kernels.launch_counts()
+        if backend == "cuda":
+            tiles = kernels.tile_counts()["dual_lora_matmul"]
     err = abs(losses["cuda"] - losses["torch"]) / abs(losses["torch"])
     emit({"phase": "compare_fused_eval", "activations": dtype_name,
           "w": w.tolist(), "loss_cuda": losses["cuda"],
           "loss_torch": losses["torch"], "loss_rel_err": err, "tol": tol,
-          "launches_cuda": counts["cuda"]})
+          "launches_cuda": counts["cuda"], "dual_lora_tiles_cuda": tiles})
     require(err <= tol, f"{dtype_name} fused-eval loss rel err {err} > {tol}")
     require(counts["cuda"]["dual_lora_matmul"] > 0,
             "the cuda fused evaluation did not launch dual_lora_matmul")
+    want = "mma" if dtype_name == "bfloat16" else "f32"
+    require(tiles[want] == counts["cuda"]["dual_lora_matmul"],
+            f"{dtype_name} fused evaluation: dual_lora_matmul tiles {tiles}, "
+            f"not all {want}")
     require(all(n == 0 for n in counts["torch"].values()),
             "the torch fused evaluation launched a CUDA kernel")
 
@@ -1640,7 +1735,7 @@ def train_phase(device, seed: int, params, cfg):
     for name in kernels.TRAINING:
         require(counts[name] > 0,
                 f"kernel {name} was never launched on the training path")
-    for name in ("flash_attention", "lora_matmul"):
+    for name in ("flash_attention", "lora_matmul", "dual_lora_matmul"):
         require_mma_tile(tiles, name, "train")
 
     # 5: publish into the serving slice and generate from it
@@ -1677,6 +1772,17 @@ def train_phase(device, seed: int, params, cfg):
                           "elementwise, optimizer)")
     emit(_profile_line(fam, wall_ms, phase="profile_train_step",
                        rows=B * S))
+    # one traced fused evaluation, stage 3's unit of work, as the trainer
+    # runs it (client 0's personalized adapter and the global one)
+    wall_ms, fam = traced(lambda: tr.fused_eval_loss(
+        clients[0], [0.6, 0.6], batchers[0].sample()), FUSED_EVAL_FAMILIES,
+        "other device work (norms, rope, softmax, elementwise, lm_head, "
+        "loss, copies)")
+    dual = sum(v for k, v in fam.items() if k.startswith("dual_lora_matmul"))
+    emit(_profile_line(fam, wall_ms, phase="profile_fused_eval", rows=B * S,
+                       dual_lora_matmul_ms=dual,
+                       dual_lora_matmul_share_of_busy=dual / max(
+                           sum(fam.values()), 1e-30)))
     return counts
 
 
@@ -1692,7 +1798,8 @@ def ptxas_entries(report: str):
         if m:
             name = m.group(1)
             t = re.search(r"\d+([a-z][a-z_]*_mma_kernel)ILi(\d+)E(a?)", name)
-            u = re.search(r"\d+(lora_mma_[a-z]+_kernel)(?:I([af])E)?", name)
+            u = re.search(r"\d+(lora_mma_[a-z_]+?_kernel)(?:I([af])E)?",
+                          name)
             if t:
                 name = f"{t.group(1)}<{t.group(2)}" + (
                     ", int8>" if t.group(3) else ">")
@@ -1771,7 +1878,7 @@ def main(argv=None) -> int:
           "built": sorted(reports), "ptxas": ptxas,
           "tensor_core_tiles": mma})
     for src in ("paged_prefill", "flash_attention", "batched_lora",
-                "lora_matmul"):
+                "lora_matmul", "dual_lora", "batched_dual_lora"):
         if src in reports:
             require(any("_mma_kernel" in k for k in ptxas[src]),
                     f"no tensor-core tile in the ptxas report of {src}.cu")

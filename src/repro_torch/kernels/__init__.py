@@ -37,7 +37,7 @@ STANDALONE = ("batched_dual_lora_matmul",)
 # kernels with two tiles, picked by dtype: the tensor-core tile for bf16,
 # the CUDA-core tile for fp32 (the LoRA kernels: for bf16 x with bf16 W)
 TILES = ("paged_prefill_attention", "flash_attention", "batched_lora_matmul",
-         "lora_matmul")
+         "lora_matmul", "dual_lora_matmul", "batched_dual_lora_matmul")
 
 
 def launch_counts() -> Dict[str, int]:

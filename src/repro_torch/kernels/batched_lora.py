@@ -17,14 +17,18 @@ CUDA-core tile.  ``batched_lora_matmul.launches`` counts launches, and
 
 :func:`batched_dual_lora_matmul` is the port of the Pallas kernel of the
 same name: per-row Eq. 7 over a personalized bank and one global pair,
-each row with its own fusion weights.  No path of the reference package
-calls it (its registry merges Eq. 7 at ``register_dual`` and serves the
-merged bank), so it runs at its own entry point only.
+each row with its own fusion weights.  It takes its tile by the same rule:
+on the tensor-core tile the two pairs run as two shrinks and one
+concatenated LoRA operand of rank 2·16·ceil(r/16), per row
+``[α·w1·z | α·w2·z]`` against ``[B1[g]; B2]`` (``csrc/batched_dual_lora.cu``).
+No path of the reference package calls it (its registry merges Eq. 7 at
+``register_dual`` and serves the merged bank), so it runs at its own entry
+point only.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -53,7 +57,7 @@ def _dual_lib():
     lib = build.load("batched_dual_lora")
     fn = lib.batched_dual_lora_matmul
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 10 + [_I] * 7 + [_F, _P]
+        fn.argtypes = [_P] * 15 + [_I] * 10 + [_F, _P]
         fn.restype = _I
     return fn
 
@@ -68,27 +72,36 @@ def _check(name, t, dtypes, shape, device):
 
 
 def tile_scratch(p: lora_tile.Plan, tile: str, M: int, N: int, C: int,
-                 r: int, device, z: Optional[torch.Tensor] = None) -> tuple:
+                 r: int, device, z: Optional[torch.Tensor] = None, *,
+                 pairs: int = 1, extra: Sequence[int] = ()) -> tuple:
     """One allocation for the tensor-core tile's scratch (``lmma::run`` in
     ``csrc/lora_mma.cuh``) and for z (M, r) fp32 unless ``z`` is given:
     returns (z, zpart, ypart, zl, bl), the last four as pointers or None
     where the plan needs none: the shrink's fp32 partials (zsplit, M, r),
     the base product's fp32 partials (split, M, N), and the LoRA term's
     bf16 operand rows zl (M, nq, 64) and bl (C, nq, 32, N), nq =
-    ceil(r / 16).  The fp32 tile needs z only."""
+    ceil(r / 16).  The fp32 tile needs z only.
+
+    ``pairs`` = 2 (``batched_dual_lora_matmul``): z is (2, M, r) and the
+    partials (2, zsplit, M, r), one per shrink (personalized, global), and
+    the LoRA operand is the pair's concatenation of 2·nq rank chunks (zl
+    (M, 2nq, 64), bl (C, 2nq, 32, N), C counting any extra slot).
+    ``extra``: fp32 element counts of further parts the tensor-core tile's
+    caller needs; their pointers (None on the fp32 tile) follow bl."""
     mma = tile == "mma"
-    nq = -(-r // 16)
-    sizes = [0 if z is not None else M * r,                   # z
-             p.zsplit * M * r if mma and p.zsplit > 1 else 0,   # zpart
+    nq = pairs * -(-r // 16)
+    sizes = [0 if z is not None else pairs * M * r,                # z
+             pairs * p.zsplit * M * r if mma and p.zsplit > 1 else 0,
              p.split * M * N if mma and p.split > 1 else 0,     # ypart
              M * nq * 32 if mma and p.split == 1 else 0,        # zl (bf16)
-             C * nq * 16 * N if mma and p.split == 1 else 0]    # bl (bf16)
+             C * nq * 16 * N if mma and p.split == 1 else 0,    # bl (bf16)
+             *(n if mma else 0 for n in extra)]
     sizes = [-(-n // 4) * 4 for n in sizes]       # each part 16-byte aligned
     if sum(sizes) == 0:
-        return (z, None, None, None, None)
+        return (z, *[None] * (len(sizes) - 1))
     buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
     if z is None:
-        z = buf[:M * r].view(M, r)
+        z = buf[:pairs * M * r].view((pairs, M, r) if pairs > 1 else (M, r))
     ptrs, off = [], sizes[0]
     for n in sizes[1:]:
         ptrs.append(buf.data_ptr() + 4 * off if n else None)
@@ -214,20 +227,34 @@ def batched_dual_lora_matmul(x: torch.Tensor, w: torch.Tensor,
     _check("adapter_ids", adapter_ids, (torch.int32,), (M,), dev)
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"rank {r} outside [1, {MAX_RANK}]")
+    tile = lora_tile.lora_tile(x.dtype, w.dtype)
+    if tile == "mma":
+        lora_tile.check_mma_tile(x, w)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0:
         return y
-    z = torch.empty((M, r), dtype=torch.float32, device=dev)
+    p = lora_tile.plan(M, N, K)
+    # slot C of bl holds the global pair alone, for rows outside the bank;
+    # the extra part is each row's slot (int32)
+    z, zpart, ypart, zl, bl, slot = tile_scratch(
+        p, tile, M, N, C + 1, r, dev, pairs=2, extra=(M,))
     err = _dual_lib()(x.data_ptr(), w.data_ptr(), a1.data_ptr(),
                       b1.data_ptr(), a2.data_ptr(), b2.data_ptr(),
                       adapter_ids.data_ptr(), fusion_w.data_ptr(),
-                      z.data_ptr(), y.data_ptr(), M, K, N, C, r,
+                      z.data_ptr(), zpart, ypart, zl, bl, slot,
+                      y.data_ptr(), M, K, N, C, r,
                       int(x.dtype == torch.bfloat16),
-                      int(w.dtype == torch.bfloat16), float(scale),
-                      build.stream_ptr(dev))
+                      int(w.dtype == torch.bfloat16), p.kind, p.split,
+                      p.zsplit, float(scale), build.stream_ptr(dev))
     build.check(err, "batched_dual_lora_matmul")
     batched_dual_lora_matmul.launches += 1
+    if tile == "mma":
+        batched_dual_lora_matmul.launches_mma += 1
+    else:
+        batched_dual_lora_matmul.launches_f32 += 1
     return y
 
 
 batched_dual_lora_matmul.launches = 0
+batched_dual_lora_matmul.launches_mma = 0
+batched_dual_lora_matmul.launches_f32 = 0

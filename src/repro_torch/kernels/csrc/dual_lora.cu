@@ -8,17 +8,28 @@
 // SMEM) and fp32 accumulation.  It runs every projection of a stage-3
 // AdaFusion evaluation: one client, scalar weights.
 //
-// The TPU kernel's point is that the merged factors never reach device
-// memory.  Here too: the shrink reads A1 and A2 and merges them in
-// registers as it multiplies (z = x·(w1·A1 + w2·A2), fp32, one CTA per
-// row), and the epilogue of the base product reads B1 and B2 and merges
-// them the same way before adding alpha·z[m]·B and rounding ONCE to the
-// output type.  Both are the shared tile code of lora_common.cuh.
+// Two tiles, picked by dtype:
+// - bf16 x with bf16 W: dual_lora_merge_kernel merges the pair in fp32
+//   (w1·A1 + w2·A2 and w1·B1 + w2·B2, each product and the sum rounded
+//   once, as the plain version merges them) into scratch, and the merged
+//   pair runs lora_matmul's tensor-core tile (lora_mma.cuh: shrink, the
+//   LoRA operands' prep, the mma.sync or wgmma tile, split-K reduction at
+//   decode shapes) as one client.  The TPU kernel merges in VMEM so that
+//   no merged factor reaches HBM; here the merged pair is (K + N)·r fp32,
+//   under 1% of the bytes of x·W at evaluation shapes, and merging once
+//   per call spares the shrink and the LoRA stages a second pair.
+// - fp32 activations (or fp32 W): the CUDA-core tile of lora_common.cuh,
+//   exact in fp32, which the tight fp32 checks need: the shrink reads A1
+//   and A2 and merges them in registers as it multiplies (z = x·(w1·A1 +
+//   w2·A2), fp32, one CTA per row), and the epilogue of the base product
+//   merges B1 and B2 the same way before adding alpha·z[m]·B and rounding
+//   ONCE to the output type.
 //
-// Bound on this card: the operations of x·W at evaluation shapes.  This
-// first version computes on the CUDA cores in fp32, far from that bound.
+// Bound on this card: the operations of x·W at evaluation shapes (M =
+// 2048 rows, K and N in the thousands), on the tensor cores.
 // Forward only: the evaluation takes no gradient.
 #include "lora_common.cuh"
+#include "lora_mma.cuh"
 
 namespace {
 
@@ -76,6 +87,26 @@ __global__ void __launch_bounds__(lora::kTX * lora::kTY)
   }
 }
 
+// am = w1·A1 + w2·A2 (na = K·r values), bm = w1·B1 + w2·B2 (nb = r·N):
+// one thread per value, no contraction into an fma.
+__global__ void dual_lora_merge_kernel(const float* __restrict__ a1,
+                                       const float* __restrict__ a2,
+                                       const float* __restrict__ b1,
+                                       const float* __restrict__ b2,
+                                       const float* __restrict__ fw,
+                                       float* __restrict__ am,
+                                       float* __restrict__ bm, int na,
+                                       int nb) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float w1 = fw[0], w2 = fw[1];
+  if (i < na) {
+    am[i] = __fadd_rn(__fmul_rn(w1, a1[i]), __fmul_rn(w2, a2[i]));
+  } else if (i < na + nb) {
+    const int j = i - na;
+    bm[j] = __fadd_rn(__fmul_rn(w1, b1[j]), __fmul_rn(w2, b2[j]));
+  }
+}
+
 template <typename XT, typename WT>
 int launch(const void* x, const void* w, const float* a1, const float* b1,
            const float* a2, const float* b2, const float* fw, float* z,
@@ -95,22 +126,36 @@ int launch(const void* x, const void* w, const float* a1, const float* b1,
 
 // x (M, K) and y (M, N): float32 or bfloat16; w (K, N): float32 or
 // bfloat16; a1/a2 (K, r), b1/b2 (r, N), fusion weights fw (2,): float32;
-// z: (M, r) float32 scratch.  r <= 128.  Returns the CUDA error code of
-// the launches.
+// z: (M, r) float32 scratch.  r <= 128.  bf16 x with bf16 W runs the
+// tensor-core tile with the plan (kind, split, zsplit) and the scratch of
+// lmma::run (zpart, ypart, zl, bl, each used only where its plan needs
+// it), plus am (K, r) and bm (r, N) float32 for the merged pair; the fp32
+// tile ignores them.  Returns the CUDA error code of the launches.
 extern "C" int dual_lora_matmul(const void* x, const void* w, const float* a1,
                                 const float* b1, const float* a2,
                                 const float* b2, const float* fw, float* z,
-                                void* y, int M, int K, int N, int r,
-                                int x_bf16, int w_bf16, float alpha,
-                                void* stream) {
+                                float* zpart, float* ypart, void* zl,
+                                void* bl, float* am, float* bm, void* y,
+                                int M, int K, int N, int r, int x_bf16,
+                                int w_bf16, int kind, int split, int zsplit,
+                                float alpha, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (x_bf16) {
-    if (w_bf16)
-      return launch<__nv_bfloat16, __nv_bfloat16>(x, w, a1, b1, a2, b2, fw, z,
-                                                  y, M, K, N, r, alpha, s);
+  if (x_bf16 && w_bf16) {
+    if (am == nullptr || bm == nullptr) return (int)cudaErrorInvalidValue;
+    const int n = K * r + r * N;
+    dual_lora_merge_kernel<<<(n + 255) / 256, 256, 0, s>>>(
+        a1, a2, b1, b2, fw, am, bm, K * r, r * N);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return lmma::run<float>((const lmma::bf16*)x, (const lmma::bf16*)w, am,
+                            bm, nullptr, nullptr, nullptr, nullptr, z, zpart,
+                            ypart, (lmma::bf16*)zl, (lmma::bf16*)bl,
+                            (lmma::bf16*)y, M, K, N, 1, r, alpha, kind, split,
+                            zsplit, s);
+  }
+  if (x_bf16)
     return launch<__nv_bfloat16, float>(x, w, a1, b1, a2, b2, fw, z, y, M, K,
                                         N, r, alpha, s);
-  }
   if (w_bf16)
     return launch<float, __nv_bfloat16>(x, w, a1, b1, a2, b2, fw, z, y, M, K,
                                         N, r, alpha, s);

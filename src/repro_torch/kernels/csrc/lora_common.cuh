@@ -1,8 +1,7 @@
 // The fp32 CUDA-core tile of the LoRA kernels: shared code of
-// batched_lora_matmul and lora_matmul for fp32 activations (or fp32 W),
-// and of the dual kernels (dual_lora_matmul, batched_dual_lora_matmul) for
-// every dtype.  bf16 x with bf16 W in the first two runs the tensor-core
-// tile of lora_mma.cuh instead.
+// batched_lora_matmul, lora_matmul, dual_lora_matmul and
+// batched_dual_lora_matmul for fp32 activations (or fp32 W).  bf16 x with
+// bf16 W runs the tensor-core tile of lora_mma.cuh instead.
 //
 // Every kernel on this tile computes y = x·W + alpha·(x·A)·B in two
 // launches:

@@ -1,5 +1,9 @@
 // Tensor-core LoRA tile for Hopper (sm_90a): the bf16 path of
-// batched_lora_matmul (batched_lora.cu) and lora_matmul (lora_matmul.cu).
+// batched_lora_matmul (batched_lora.cu) and lora_matmul (lora_matmul.cu),
+// and of the two dual-LoRA kernels, which feed it their own operands
+// (dual_lora.cu: the merged pair through run(); batched_dual_lora.cu: the
+// two pairs as one bank of concatenated rank, with their own preps and
+// split-K reduction around this file's shrink and tile).
 //
 // It computes what the Pallas kernels repro/kernels/batched_lora.py::
 // batched_lora_matmul and repro/kernels/lora_matmul.py::lora_matmul
@@ -76,9 +80,10 @@
 
 #include "mma_common.cuh"
 
-// Everything has internal linkage: batched_lora.cu and lora_matmul.cu are
-// built into two libraries loaded into one process, and template statics
-// (the shared-memory attribute below) must not be unified across them.
+// Everything has internal linkage: the four LoRA sources that include it
+// are built into four libraries loaded into one process, and template
+// statics (the shared-memory attribute below) must not be unified across
+// them.
 namespace lmma {
 namespace {
 

@@ -8,8 +8,13 @@ stage-3 AdaFusion evaluation, which takes no gradient: the kernel is
 forward only and the wrapper raises if a gradient is asked of it.
 
 CPU tensors run the plain version (:func:`dual_lora_matmul_ref`); CUDA
-tensors launch the kernel or raise.  ``dual_lora_matmul.launches`` counts
-launches.
+tensors launch the kernel or raise.  The kernel has two tiles, picked by
+dtype as the LoRA kernels' are (``kernels/lora_tile.py``): bf16 x with bf16
+W merges the two pairs in fp32 on the card and runs ``lora_matmul``'s
+tensor-core tile on the merged pair (``csrc/lora_mma.cuh``: K and N
+multiples of 8, 16-byte aligned x and W); anything else the fp32
+CUDA-core tile.  ``dual_lora_matmul.launches`` counts launches, and
+``launches_mma`` / ``launches_f32`` split them by tile.
 """
 from __future__ import annotations
 
@@ -17,8 +22,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.batched_lora import MAX_RANK, _check
+from repro_torch.kernels import build, lora_tile
+from repro_torch.kernels.batched_lora import MAX_RANK, _check, tile_scratch
 from repro_torch.kernels.ref import dual_lora_matmul_ref
 
 __all__ = ["dual_lora_matmul", "dual_lora_matmul_ref"]
@@ -30,7 +35,7 @@ def _lib():
     lib = build.load("dual_lora")
     fn = lib.dual_lora_matmul
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 9 + [_I] * 6 + [_F, _P]
+        fn.argtypes = [_P] * 15 + [_I] * 9 + [_F, _P]
         fn.restype = _I
     return fn
 
@@ -75,18 +80,31 @@ def dual_lora_matmul(x: torch.Tensor, w: torch.Tensor, a1: torch.Tensor,
         _check(name, t, f32, shape, dev)
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"rank {r} outside [1, {MAX_RANK}]")
+    tile = lora_tile.lora_tile(x.dtype, w.dtype)
+    if tile == "mma":
+        lora_tile.check_mma_tile(x, w)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0:
         return y
-    z = torch.empty((M, r), dtype=torch.float32, device=dev)
+    p = lora_tile.plan(M, N, K)
+    # the extra parts: the merged pair, w1·A1 + w2·A2 and w1·B1 + w2·B2
+    z, zpart, ypart, zl, bl, am, bm = tile_scratch(
+        p, tile, M, N, 1, r, dev, extra=(K * r, r * N))
     err = _lib()(x.data_ptr(), w.data_ptr(), a1.data_ptr(), b1.data_ptr(),
                  a2.data_ptr(), b2.data_ptr(), fusion_w.data_ptr(),
-                 z.data_ptr(), y.data_ptr(), M, K, N, r,
-                 int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+                 z.data_ptr(), zpart, ypart, zl, bl, am, bm, y.data_ptr(),
+                 M, K, N, r, int(x.dtype == torch.bfloat16),
+                 int(w.dtype == torch.bfloat16), p.kind, p.split, p.zsplit,
                  float(scale), build.stream_ptr(dev))
     build.check(err, "dual_lora_matmul")
     dual_lora_matmul.launches += 1
+    if tile == "mma":
+        dual_lora_matmul.launches_mma += 1
+    else:
+        dual_lora_matmul.launches_f32 += 1
     return y
 
 
 dual_lora_matmul.launches = 0
+dual_lora_matmul.launches_mma = 0
+dual_lora_matmul.launches_f32 = 0

@@ -1,9 +1,10 @@
 """The tensor-core LoRA tile (``csrc/lora_mma.cuh``) seen from Python: which
 tile a call takes, what the tensor-core tile needs, and its launch plan.
 
-``batched_lora_matmul`` and ``lora_matmul`` have two tiles each, picked by
-dtype (:func:`lora_tile`): bf16 activations with bf16 weights run the
-tensor-core tile, anything else the fp32 CUDA-core tile of
+The four LoRA kernels (``batched_lora_matmul``, ``lora_matmul``,
+``dual_lora_matmul``, ``batched_dual_lora_matmul``) have two tiles each,
+picked by dtype (:func:`lora_tile`): bf16 activations with bf16 weights
+run the tensor-core tile, anything else the fp32 CUDA-core tile of
 ``csrc/lora_common.cuh``.  :func:`check_mma_tile` raises for what the
 tensor-core tile does not take.  :func:`plan` picks, from the shape
 alone, the CTA tile of the base product and how many ranges of K the base
@@ -11,7 +12,8 @@ product and the shrink are split into; :func:`split_ranges` is the kernels'
 own split of K tiles, and :func:`split_plan_ref` the whole call's
 arithmetic in plain PyTorch, in the kernels' order wherever that order
 decides a sum: partial products over each K range summed in split order,
-then the LoRA term, then one rounding.
+then the LoRA term, then one rounding.  :func:`dual_split_plan_ref` is the
+same for the two dual-LoRA kernels, in the order of their routes.
 """
 from __future__ import annotations
 
@@ -152,3 +154,64 @@ def split_plan_ref(x, w, a, b, adapter_ids: Optional[torch.Tensor],
     else:
         lora = torch.einsum("mr,mrn->mn", zs, bg)
     return (base + lora).to(x.dtype), z
+
+
+def dual_split_plan_ref(x, w, a1, b1, a2, b2, adapter_ids, fusion_w,
+                        scale: float, *, p: Optional[Plan] = None
+                        ) -> torch.Tensor:
+    """The tensor-core tile's dual-LoRA (Eq. 7) calls in plain PyTorch, in
+    the order of each kernel's route; returns y (M, N) in x's dtype.
+
+    ``fusion_w`` (2,) (``dual_lora_matmul``: a1, a2 (K, r), b1, b2 (r, N),
+    ``adapter_ids`` None): the factors are merged first, in fp32 as the
+    plain version merges them, and the call is :func:`split_plan_ref` of
+    the merged pair.
+
+    ``fusion_w`` (M, 2) (``batched_dual_lora_matmul``: a1 (C, K, r), b1
+    (C, r, N), a2 (K, r), b2 (r, N), ids (M,)): by linearity, z1 = x·A1[g]
+    and z2 = x·A2 from two shrinks (A as hi + lo, over the shrink's K
+    ranges), z = w1·z1 + w2·z2 per row, and the LoRA term is
+    (α·w1·z)·B1[g] + (α·w2·z)·B2, as hi/lo products where the tile runs it
+    on the tensor cores (no split of K), in fp32 as z·(w1·B1[g] + w2·B2)
+    where the split-K reduction does.  A row whose id lies outside [0, C)
+    has w1 taken as 0: the global term only."""
+    if fusion_w.dim() == 1:
+        w1, w2 = fusion_w[0].float(), fusion_w[1].float()
+        am = w1 * a1.float() + w2 * a2.float()
+        bm = w1 * b1.float() + w2 * b2.float()
+        return split_plan_ref(x, w, am[None], bm[None], None, scale, p=p)[0]
+    M, K = x.shape
+    N = w.shape[1]
+    C, _, r = a1.shape
+    p = p or plan(M, N, K)
+    xf, wf = x.float(), w.float()
+    ids = adapter_ids.long()
+    live = (ids >= 0) & (ids < C)
+    g = torch.where(live, ids, torch.zeros_like(ids))
+    w1 = torch.where(live, fusion_w[:, 0].float(),
+                     torch.zeros_like(fusion_w[:, 0].float()))
+    w2 = fusion_w[:, 1].float()
+    a1g, a2s = sum(hi_lo(a1))[g], sum(hi_lo(a2))
+    z1 = torch.zeros((M, r), dtype=torch.float32, device=x.device)
+    z2 = torch.zeros_like(z1)
+    for lo, hi in split_ranges(_cdiv(K, SHRINK_K), p.zsplit):
+        k0, k1 = lo * SHRINK_K, min(hi * SHRINK_K, K)
+        z1 = z1 + torch.einsum("mk,mkr->mr", xf[:, k0:k1], a1g[:, k0:k1])
+        z2 = z2 + xf[:, k0:k1] @ a2s[k0:k1]
+    z1 = torch.where(live[:, None], z1, torch.zeros_like(z1))
+    z = w1[:, None] * z1 + w2[:, None] * z2
+    base = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    for lo, hi in split_ranges(_cdiv(K, BK), p.split):
+        k0, k1 = lo * BK, min(hi * BK, K)
+        base = base + xf[:, k0:k1] @ wf[k0:k1]
+    b1g = b1[g].float()                                    # (M, r, N)
+    if p.split == 1:
+        lora = 0
+        for ws, bb in ((w1, b1g), (w2, b2.float()[None].expand(M, r, N))):
+            (zh, zl), (bh, bl) = hi_lo((scale * ws)[:, None] * z), hi_lo(bb)
+            lora = lora + sum(torch.einsum("mr,mrn->mn", u, v)
+                              for u, v in ((zh, bh), (zh, bl), (zl, bh)))
+    else:
+        bm = w1[:, None, None] * b1g + w2[:, None, None] * b2.float()[None]
+        lora = torch.einsum("mr,mrn->mn", scale * z, bm)
+    return (base + lora).to(x.dtype)

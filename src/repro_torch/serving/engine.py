@@ -59,6 +59,8 @@ class ServeConfig:
     #                                  up to spec_k tokens, verified in one
     #                                  chunk dispatch (== sequential greedy)
     spec_k: int = 4
+    spec_ngram: int = 3              # longest history n-gram the drafter
+    #                                  matches (see serving/spec_decode.py)
     # Options of the reference engine that later slices of the port serve
     # (ROADMAP.md).  Each raises NotImplementedError when set.
     num_shards: int = 1
@@ -289,7 +291,8 @@ class StreamSession:
         self._evicted0 = self.kv.evicted_cached   # pool-lifetime counter
         self.sched = Scheduler(self.kv, policy=sc.sched_policy,
                                aging_ticks=sc.sched_aging,
-                               spec_k=sc.spec_k if sc.spec_decode else 0)
+                               spec_k=sc.spec_k if sc.spec_decode else 0,
+                               spec_ngram=sc.spec_ngram)
         self._next_rid = 0
         if not self.open_loop:
             for r in requests:

@@ -2,8 +2,11 @@
 (the two attention kernels through both their tiles: the tensor-core tile
 for bf16 at head dims 32, 64 and 128 over ragged, poisoned and misaligned
 inputs, each row also held to the tile's own arithmetic, the fp32 tile
-held tight; the two single-pass LoRA kernels through both their tiles at
-edge shapes under every launch plan, with split-K held bitwise stable),
+held tight; the four LoRA kernels through both their tiles at edge
+shapes under every launch plan, with split-K held bitwise stable, the
+dual kernels at ranks 1 to 128 with rows outside the bank and negative
+fusion weights, bf16 rows held to the tile model, and the four LoRA
+libraries loaded together in one process),
 the two autograd backwards against
 plain autograd, serving runs (plain and
 with int8 K/V, a ragged int8 bank, prefix caching and speculative
@@ -457,6 +460,120 @@ def test_lora_split_k_is_deterministic(dev):
     assert float((y0.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
 
 
+def _dual_plain(x, w, a1, b1, a2, b2, ids, fw):
+    """The plain per-row dual version with the kernels' rule for ids
+    outside [0, C): no personalized term (w1 taken as 0), as the TPU
+    kernel's zero one-hot row gives."""
+    C = a1.shape[0]
+    dead = (ids < 0) | (ids >= C)
+    fw = torch.where(dead[:, None] & (torch.arange(2, device=ids.device)
+                                      == 0)[None], torch.zeros_like(fw), fw)
+    return ref.batched_dual_lora_matmul_ref(
+        x, w, a1, b1, a2, b2, torch.where(dead, 0, ids), fw, 2.0)
+
+
+@pytest.mark.parametrize("r", [1, 64, 128])
+@pytest.mark.parametrize("shape,want", LORA_SHAPES)
+def test_dual_lora_tiles_match_plain(dev, shape, want, r):
+    """Both dual kernels through both tiles at the LoRA edge shapes (every
+    plan: split-K decode tiles, the 64 x 128 tile, the wgmma tile; ragged
+    M, N and K), ranks 1, 64 and 128 (the batched kernel's concatenated
+    operand up to 256), ids in runs with some outside [0, C), fusion
+    weights in [-0.2, 1.2] and a negative scalar weight.  bf16 outputs
+    (the tensor-core tile): within two bf16 roundings of the largest
+    output of the plain version, and every row within two bf16 ulps of its
+    largest output of the tile model (``lora_tile.dual_split_plan_ref``),
+    which a dropped or doubled stage of either pair breaks; fp32
+    activations (the CUDA-core tile) at 1e-4.  Each launch is counted on
+    the tile it ran."""
+    from repro_torch.kernels import attn_tile, lora_tile
+    from repro_torch.kernels.dual_lora import dual_lora_matmul
+    M, K, N = shape
+    p = lora_tile.plan(M, N, K)
+    assert (p.kind, p.split > 1) == want
+    gen = torch.Generator(device=dev).manual_seed(14)
+    C = 5
+    x, w, a1, b1, ids, _ = _lora_case(gen, dev, M, K, N, C, r, "f32_bank")
+    a2 = _randn(gen, (K, r), dev, std=1.0 / r)
+    b2 = _randn(gen, (r, N), dev, std=0.05)
+    fw = torch.rand((M, 2), generator=gen, device=dev) * 1.4 - 0.2
+    fs = torch.tensor([1.1, -0.2], device=dev)
+    kernels.reset_launch_counts()
+    y = batched_dual_lora_matmul(x, w, a1, b1, a2, b2, ids, fw, 2.0)
+    ys = dual_lora_matmul(x, w, a1[1], b1[1], a2, b2, fs, 2.0)
+    tiles = kernels.tile_counts()
+    assert tiles["batched_dual_lora_matmul"] == {"mma": 1, "f32": 0}
+    assert tiles["dual_lora_matmul"] == {"mma": 1, "f32": 0}
+    for out, plain, model in (
+            (y, _dual_plain(x, w, a1, b1, a2, b2, ids, fw),
+             lora_tile.dual_split_plan_ref(x, w, a1, b1, a2, b2, ids, fw,
+                                           2.0)),
+            (ys, ref.dual_lora_matmul_ref(x, w, a1[1], b1[1], a2, b2, fs[0],
+                                          fs[1], 2.0),
+             lora_tile.dual_split_plan_ref(x, w, a1[1], b1[1], a2, b2, None,
+                                           fs, 2.0))):
+        assert bool(torch.isfinite(out.float()).all())
+        assert float((out.float() - plain.float()).abs().max()) <= \
+            _bf16_tol(plain)
+        assert attn_tile.tile_errors(out, model)[1] <= 1.0
+    xf, wf = x.float(), w.float()
+    torch.testing.assert_close(
+        batched_dual_lora_matmul(xf, wf, a1, b1, a2, b2, ids, fw, 2.0),
+        _dual_plain(xf, wf, a1, b1, a2, b2, ids, fw), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(
+        dual_lora_matmul(xf, wf, a1[1], b1[1], a2, b2, fs, 2.0),
+        ref.dual_lora_matmul_ref(xf, wf, a1[1], b1[1], a2, b2, fs[0], fs[1],
+                                 2.0), atol=1e-4, rtol=1e-4)
+    tiles = kernels.tile_counts()
+    assert tiles["batched_dual_lora_matmul"] == {"mma": 1, "f32": 1}
+    assert tiles["dual_lora_matmul"] == {"mma": 1, "f32": 1}
+    counts = kernels.launch_counts()
+    assert counts["batched_dual_lora_matmul"] == counts["dual_lora_matmul"] \
+        == 2
+
+
+def test_four_lora_libraries_load_together(dev):
+    """The four LoRA sources each instantiate ``lora_mma.cuh``'s tile in
+    their own library; loaded into one process, each still launches its
+    tensor-core tile with its own shared-memory attribute (the header's
+    internal linkage), in either order of first use."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dual_lora import dual_lora_matmul
+    from repro_torch.kernels.lora_matmul import lora_matmul
+    gen = torch.Generator(device=dev).manual_seed(15)
+    M, K, N, C, r = 300, 520, 264, 3, 16     # the wgmma tile (largest smem)
+    x, w, a, b, ids, _ = _lora_case(gen, dev, M, K, N, C, r, "f32_bank")
+    fw = torch.rand((M, 2), generator=gen, device=dev)
+    fs = fw[0].contiguous()
+    calls = {
+        "batched_lora_matmul": (
+            lambda: batched_lora_matmul(x, w, a, b, ids, 2.0),
+            lambda: _lora_plain(x, w, a, b, ids)),
+        "lora_matmul": (lambda: lora_matmul(x, w, a[0], b[0], 2.0),
+                        lambda: ref.lora_matmul_ref(x, w, a[0], b[0], 2.0)),
+        "dual_lora_matmul": (
+            lambda: dual_lora_matmul(x, w, a[0], b[0], a[1], b[1], fs, 2.0),
+            lambda: ref.dual_lora_matmul_ref(x, w, a[0], b[0], a[1], b[1],
+                                             fs[0], fs[1], 2.0)),
+        "batched_dual_lora_matmul": (
+            lambda: batched_dual_lora_matmul(x, w, a, b, a[2], b[2], ids, fw,
+                                             2.0),
+            lambda: _dual_plain(x, w, a, b, a[2], b[2], ids, fw)),
+    }
+    for order in (list(calls), list(reversed(calls))):
+        kernels.reset_launch_counts()
+        for name in order:
+            run, plain = calls[name]
+            out, want = run(), plain()
+            torch.cuda.synchronize()
+            assert float((out.float() - want.float()).abs().max()) <= \
+                _bf16_tol(want), name
+        assert all(kernels.tile_counts()[n] == {"mma": 1, "f32": 0}
+                   for n in calls)
+    assert {"batched_lora", "lora_matmul", "dual_lora",
+            "batched_dual_lora"} <= set(build._LIBS)
+
+
 def test_lora_tiles_refuse_misaligned_bf16(dev):
     from repro_torch.kernels.lora_matmul import lora_matmul
     bf = torch.bfloat16
@@ -476,6 +593,25 @@ def test_lora_tiles_refuse_misaligned_bf16(dev):
     # the fp32 tile takes any width
     y = batched_lora_matmul(torch.zeros((3, 20), device=dev),
                             torch.zeros((20, 16), device=dev), a, b, ids)
+    assert y.shape == (3, 16)
+
+
+def test_dual_tiles_refuse_misaligned_bf16(dev):
+    """The dual kernels take the tensor-core tile by the same rule, so
+    they refuse what it does not take; the fp32 tile takes any width."""
+    from repro_torch.kernels.dual_lora import dual_lora_matmul
+    bf = torch.bfloat16
+    a, b = torch.zeros((20, 4), device=dev), torch.zeros((4, 16), device=dev)
+    ids = torch.zeros((3,), dtype=torch.int32, device=dev)
+    fw = torch.ones((3, 2), device=dev)
+    x = torch.zeros((3, 20), dtype=bf, device=dev)
+    w = torch.zeros((20, 16), dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="multiples of 8"):     # K = 20
+        dual_lora_matmul(x, w, a, b, a, b, fw[0], 2.0)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        batched_dual_lora_matmul(x, w, a[None], b[None], a, b, ids, fw, 2.0)
+    y = batched_dual_lora_matmul(x.float(), w.float(), a[None], b[None], a,
+                                 b, ids, fw, 2.0)
     assert y.shape == (3, 16)
 
 

@@ -10,9 +10,12 @@ The tile runs only on a card; what surrounds it is plain Python, held here:
 - the tile's arithmetic in plain PyTorch (``split_plan_ref``: K split as
   the plan splits it, A, z and B as two bf16 terms each where the tile
   uses the tensor cores), against the plain versions (``ref.py``) and
-  against the Pallas kernels in interpret mode, on the same numpy inputs.
-The card tests (``test_torch_cuda.py``) hold the kernel itself to the
-plain version and to ``split_plan_ref``.
+  against the Pallas kernels in interpret mode, on the same numpy inputs;
+- the same for the two dual-LoRA kernels (``dual_split_plan_ref``: the
+  merged pair for ``dual_lora_matmul``, two shrinks and the concatenated
+  pair for ``batched_dual_lora_matmul``).
+The card tests (``test_torch_cuda.py``) hold the kernels themselves to the
+plain versions and to the tile models.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,12 +23,16 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.batched_lora import batched_dual_lora_matmul as j_batched_dual
 from repro.kernels.batched_lora import batched_lora_matmul as j_batched_lora
+from repro.kernels.dual_lora import dual_lora_matmul as j_dual_lora
 from repro.kernels.lora_matmul import lora_matmul as j_lora_matmul
 from repro.kernels.quant import quantize_int8 as j_quantize
 from repro_torch import kernels
 from repro_torch.kernels import lora_tile, ref
-from repro_torch.kernels.batched_lora import batched_lora_matmul, tile_scratch
+from repro_torch.kernels.batched_lora import (batched_dual_lora_matmul,
+                                              batched_lora_matmul, tile_scratch)
+from repro_torch.kernels.dual_lora import dual_lora_matmul
 from repro_torch.kernels.lora_matmul import lora_matmul
 
 BF = torch.bfloat16
@@ -60,6 +67,23 @@ def test_lora_kernels_count_launches_by_tile():
     counts = kernels.tile_counts()
     assert counts["batched_lora_matmul"] == {"mma": 0, "f32": 0}
     assert counts["lora_matmul"] == {"mma": 0, "f32": 0}
+
+
+def test_dual_kernels_count_launches_by_tile():
+    assert {"dual_lora_matmul", "batched_dual_lora_matmul"} <= set(
+        kernels.TILES)
+    kernels.reset_launch_counts()
+    x = torch.zeros((3, 8), dtype=BF)
+    w = torch.zeros((8, 8), dtype=BF)
+    a, b = torch.zeros((8, 4)), torch.zeros((4, 8))
+    dual_lora_matmul(x, w, a, b, a, b, torch.ones(2))
+    batched_dual_lora_matmul(x, w, a[None], b[None], a, b,
+                             torch.zeros((3,), dtype=torch.int32),
+                             torch.ones((3, 2)))
+    # CPU tensors run the plain versions: no launch on either tile
+    counts = kernels.tile_counts()
+    assert counts["dual_lora_matmul"] == {"mma": 0, "f32": 0}
+    assert counts["batched_dual_lora_matmul"] == {"mma": 0, "f32": 0}
 
 
 def test_check_mma_tile_refuses_unaligned_rows():
@@ -143,6 +167,52 @@ def test_tile_scratch_is_aligned_and_disjoint(M, K, N):
     # the fp32 tile needs z only
     z32, *rest = tile_scratch(p, "f32", M, N, C, r, "cpu")
     assert z32.shape == (M, r) and rest == [None] * 4
+
+
+@pytest.mark.parametrize("r", [1, 16, 128])
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 4096), (40, 520, 136),
+                                   (2048, 4096, 11008), (70, 520, 200)])
+def test_tile_scratch_dual_layout(M, K, N, r):
+    """batched_dual_lora_matmul's scratch (``pairs=2``, C + 1 slots, the
+    slots of its rows as an extra part) and dual_lora_matmul's (the merged
+    pair as two extra parts): every part 16-byte aligned, disjoint, sized
+    for the concatenated rank 2·16·ceil(r/16), where its plan needs it."""
+    C = 5
+    p = lora_tile.plan(M, N, K)
+    nq2 = 2 * -(-r // 16)
+    z, zpart, ypart, zl, bl, slot = tile_scratch(
+        p, "mma", M, N, C + 1, r, "cpu", pairs=2, extra=(M,))
+    assert z.shape == (2, M, r) and z.dtype == F32 and z.is_contiguous()
+    parts = {"zpart": (zpart, 4 * 2 * p.zsplit * M * r, p.zsplit > 1),
+             "ypart": (ypart, 4 * p.split * M * N, p.split > 1),
+             "zl": (zl, 2 * M * nq2 * 64, p.split == 1),
+             "bl": (bl, 2 * (C + 1) * nq2 * 32 * N, p.split == 1),
+             "slot": (slot, 4 * M, True)}
+    spans = [(z.data_ptr(), z.data_ptr() + 4 * 2 * M * r)]
+    for name, (ptr, nbytes, needed) in parts.items():
+        assert (ptr is not None) == needed, name
+        if ptr is not None:
+            assert ptr % 16 == 0, name
+            spans.append((ptr, ptr + nbytes))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    # the fp32 tile: z only (it uses z[0]), no extra part
+    z32, *rest = tile_scratch(p, "f32", M, N, C + 1, r, "cpu", pairs=2,
+                              extra=(M,))
+    assert z32.shape == (2, M, r) and rest == [None] * 5
+    # dual_lora_matmul: lmma::run's scratch for one client, then the merged
+    # pair (K, r) and (r, N) fp32
+    z, zpart, ypart, zl, bl, am, bm = tile_scratch(
+        p, "mma", M, N, 1, r, "cpu", extra=(K * r, r * N))
+    assert z.shape == (M, r)
+    spans = [(z.data_ptr(), z.data_ptr() + 4 * M * r),
+             (am, am + 4 * K * r), (bm, bm + 4 * r * N)]
+    spans += [(q, q + 1) for q in (zpart, ypart, zl, bl) if q is not None]
+    assert all(q % 16 == 0 for q in (am, bm))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert tile_scratch(p, "f32", M, N, 1, r, "cpu",
+                        extra=(K * r, r * N))[1:] == (None,) * 6
 
 
 def test_hi_lo_is_within_2_to_the_minus_16():
@@ -255,3 +325,97 @@ def test_split_plan_ref_one_client_matches_lora_matmul_kernel():
         atol=tol)
     # z, which the backward reuses, within fp32 noise of x·A
     np.testing.assert_allclose(z.numpy(), x @ a, rtol=1e-4, atol=1e-5)
+
+
+def _dual_bank(rng, M, K, N, C, r):
+    """The reference test's dual inputs: fusion weights in [-0.2, 1.2],
+    ids in [0, C) with one row at C and, for M > 2, one at -1 (outside the
+    bank: the global term only)."""
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * K ** -0.5).astype(np.float32)
+    a1 = (rng.standard_normal((C, K, r)) / r).astype(np.float32)
+    b1 = (rng.standard_normal((C, r, N)) * 0.05).astype(np.float32)
+    a2 = (rng.standard_normal((K, r)) / r).astype(np.float32)
+    b2 = (rng.standard_normal((r, N)) * 0.05).astype(np.float32)
+    ids = rng.integers(0, C, M).astype(np.int32)
+    ids[M // 2] = C
+    if M > 2:
+        ids[-1] = -1
+    fw = rng.uniform(-0.2, 1.2, (M, 2)).astype(np.float32)
+    return x, w, a1, b1, a2, b2, ids, fw
+
+
+def _dual_plain(x, w, a1, b1, a2, b2, ids, fw):
+    """The plain per-row version with the kernels' rule for ids outside
+    [0, C): no personalized term (w1 taken as 0)."""
+    C = a1.shape[0]
+    dead = (ids < 0) | (ids >= C)
+    fw = torch.where(dead[:, None] & (torch.arange(2) == 0)[None],
+                     torch.zeros_like(fw), fw)
+    return ref.batched_dual_lora_matmul_ref(
+        x, w, a1, b1, a2, b2, torch.where(dead, 0, ids), fw, 2.0)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF])
+@pytest.mark.parametrize("r", [1, 16, 128])
+@pytest.mark.parametrize("M", [8, 40, 300])
+def test_dual_split_plan_ref_matches_the_plain_versions(M, r, dtype):
+    """The dual tile model under every plan kind (M = 8: the 16 x 64 tile,
+    split-K; 40: the 64 x 128 tile, split-K; 300: the wgmma tile, the LoRA
+    term as hi/lo stages) against the plain versions: per-row weights with
+    rows outside the bank (batched_dual_lora_matmul's route), and scalar
+    weights (dual_lora_matmul's merged pair).  Tolerance: bf16, two bf16
+    roundings of the largest output (both round once from fp32); fp32, the
+    hi/lo terms and the linearity route's other order are a few times
+    2^-16 of the largest output, under 1e-4 of it."""
+    K, N, C = 520, 136, 3
+    p = lora_tile.plan(M, N, K)
+    assert p.kind == (0 if M <= 16 else 1 if M <= 64 else 2)
+    assert (p.split > 1) == (M <= 64)
+    rng = np.random.default_rng(M * 1000 + r)
+    x, w, a1, b1, a2, b2, ids, fw = (_t(v) for v in
+                                     _dual_bank(rng, M, K, N, C, r))
+    x, w = x.to(dtype), w.to(dtype)
+    y = lora_tile.dual_split_plan_ref(x, w, a1, b1, a2, b2, ids, fw, 2.0)
+    yr = _dual_plain(x, w, a1, b1, a2, b2, ids.long(), fw)
+    assert y.dtype == dtype and y.shape == (M, N)
+    assert float((y.float() - yr.float()).abs().max()) <= _tol(yr)
+    fs = _t(rng.uniform(-0.2, 1.2, 2).astype(np.float32))
+    ys = lora_tile.dual_split_plan_ref(x, w, a1[0], b1[0], a2, b2, None, fs,
+                                       2.0)
+    ysr = ref.dual_lora_matmul_ref(x, w, a1[0], b1[0], a2, b2, fs[0], fs[1],
+                                   2.0)
+    assert ys.dtype == dtype and ys.shape == (M, N)
+    assert float((ys.float() - ysr.float()).abs().max()) <= _tol(ysr)
+
+
+@pytest.mark.parametrize("r", [1, 16, 128])
+def test_dual_split_plan_ref_matches_the_pallas_kernels(r):
+    """fp32 inputs through the Pallas dual kernels in interpret mode (fp32
+    throughout; the batched kernel's zero one-hot row gives a row outside
+    the bank the global term only) and through the dual tile model under a
+    split plan and an unsplit one: within 1e-4 of the largest output (the
+    model's hi/lo terms are within 2^-16 each)."""
+    rng = np.random.default_rng(21 + r)
+    M, K, N, C = 32, 512, 48, 3
+    x, w, a1, b1, a2, b2, ids, fw = _dual_bank(rng, M, K, N, C, r)
+    yp = np.asarray(j_batched_dual(_j(x), _j(w), _j(a1), _j(b1), _j(a2),
+                                   _j(b2), _j(ids), _j(fw), 2.0, bm=32,
+                                   bn=16, bk=128))
+    fs = rng.uniform(-0.2, 1.2, 2).astype(np.float32)
+    ysp = np.asarray(j_dual_lora(_j(x), _j(w), _j(a1[1]), _j(b1[1]), _j(a2),
+                                 _j(b2), _j(fs), scale=2.0, bm=32, bn=16,
+                                 bk=128))
+    for M_plan, split in ((8, True), (2048, False)):
+        p = lora_tile.plan(M_plan, N, K)
+        assert (p.split > 1) == split and p.zsplit > 1
+        y = lora_tile.dual_split_plan_ref(
+            _t(x), _t(w), _t(a1), _t(b1), _t(a2), _t(b2), _t(ids), _t(fw),
+            2.0, p=p)
+        np.testing.assert_allclose(y.numpy(), yp,
+                                   atol=1e-4 * np.abs(yp).max())
+        ys = lora_tile.dual_split_plan_ref(
+            _t(x), _t(w), _t(a1[1]), _t(b1[1]), _t(a2), _t(b2), None, _t(fs),
+            2.0, p=p)
+        np.testing.assert_allclose(ys.numpy(), ysp,
+                                   atol=1e-4 * np.abs(ysp).max())

@@ -250,6 +250,24 @@ def test_spec_decode_matches_reference_and_sequential(base, case):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("spec_ngram", [1, 2])
+def test_spec_ngram_reaches_the_drafter(base, spec_ngram):
+    """``ServeConfig.spec_ngram`` (the longest history n-gram the drafter
+    matches) reaches the port's scheduler as it does the reference's: on
+    the preemption workload above, streams and the verify, acceptance and
+    rollback counters equal the reference engine's at each value."""
+    jcfg = base[0]
+    engines = _engines(base, [None] * 3, capacity=3)
+    reqs = _repetitive_requests(jcfg.vocab_size, 6, 3, seed=5)
+    kw = dict(batch_size=3, block_size=4, num_blocks=14, prefill_chunk=6,
+              spec_decode=True, spec_k=3)
+    jout, pout, jst, pst = _run(engines, reqs, spec_ngram=spec_ngram, **kw)
+    _assert_same(jout, pout, jst, pst, reqs)
+    assert pst["verify_dispatches"] > 0
+    assert engines[1].session(ServeConfig(spec_ngram=spec_ngram, **kw)
+                              ).sched.spec_ngram == spec_ngram
+
+
 def test_spec_decode_option_checks(base):
     engines = _engines(base, [None], capacity=1)
     reqs = [Request("c0", np.arange(6, dtype=np.int32))]
