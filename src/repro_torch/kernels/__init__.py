@@ -55,3 +55,4 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for name in TILES:
         WRAPPERS[name].launches_mma = WRAPPERS[name].launches_f32 = 0
+    paged_attention.launches_split = paged_attention.launches_combine = 0

@@ -1,11 +1,11 @@
-// CUDA-core tile routine of the paged-attention kernels: every decode
-// step, and chunked prefill with fp32 queries (bf16 prefill runs the
-// tensor-core tile of attn_mma.cuh).
+// CUDA-core tile routine of chunked paged prefill with fp32 queries
+// (paged_prefill.cu; bf16 prefill runs the tensor-core tile of
+// attn_mma.cuh, and decode its own split-K kernel, paged_attention.cu).
 //
 // One CTA attends a tile of folded query rows of ONE batch row against ONE
 // kv head.  Folded row f = t * G + g holds chunk position t and query head
 // kv * G + g; it sits at absolute position base + t and attends
-// k_pos <= base + t (decode is the T == 1 case with base = lengths - 1).
+// k_pos <= base + t.
 // The CTA walks the row's block table only up to the block holding the
 // tile's last query position (and never past its MB entries), so table
 // entries past the row's context are never read.  Per block it stages the (bs, hd) K and V tiles in shared
@@ -173,8 +173,8 @@ __device__ void attend_tile(const QT* __restrict__ q,
   }
 }
 
-// Launch helper shared by both kernels: raise the dynamic shared-memory
-// cap when a tile needs more than the default 48 KB.
+// Launch helper of the tile's kernel: raise the dynamic shared-memory cap
+// when a tile needs more than the default 48 KB.
 template <typename K>
 inline cudaError_t prepare_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

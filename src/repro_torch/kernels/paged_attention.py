@@ -6,7 +6,16 @@ shared pool through its block table, never gathered into a padded tensor.
 ``lengths`` is exclusive (row b attends ``[0, lengths[b])``); empty rows
 give zeros.  For tensors on the CPU the wrapper runs the plain version
 (:func:`paged_attention_ref`); for CUDA tensors it launches the kernel or
-raises.  ``paged_attention.launches`` counts kernel launches.
+raises.
+
+The kernel is split-K flash decoding: each row's context is cut into
+splits of :data:`SPLIT` positions, one CTA per (split, kv head, row).  A
+row of one split is written by its CTA; longer rows leave each split's
+(m, l, acc) in a scratch buffer and a second launch merges them in split
+order.  :func:`paged_attention_split_ref` is that arithmetic in plain
+PyTorch.  Counters: ``paged_attention.launches`` counts calls that launch
+the kernel, ``.launches_combine`` those that also launch the merge, and
+``.launches_split`` the splits per (row, kv head) launched.
 """
 from __future__ import annotations
 
@@ -16,27 +25,24 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels.ref import _gather_pool, paged_attention_ref
 
-__all__ = ["paged_attention", "paged_attention_ref", "smem_bytes"]
+__all__ = ["paged_attention", "paged_attention_ref",
+           "paged_attention_split_ref", "SPLIT", "HEAD_DIMS"]
 
-# per-thread accumulators of the tile routine (csrc/paged_common.cuh)
-THREADS, MAX_ACC = 128, 32
-MAX_SMEM = 227 * 1024
+# positions of a split (kSplit in csrc/paged_attention.cu)
+SPLIT = 128
+# head dims the kernel is built for
+HEAD_DIMS = (32, 64, 128, 256)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def smem_bytes(rows: int, bs: int, hd: int) -> int:
-    """Shared memory of one attention tile (``tile_smem_floats``)."""
-    return 4 * (rows * hd + bs * (hd + 1) + bs * hd + rows * bs + 3 * rows)
 
 
 def _lib():
     lib = build.load("paged_attention")
     fn = lib.paged_attention_decode
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 8 + [_F, _P]
+        fn.argtypes = [_P] * 9 + [_I] * 9 + [_F, _P]
         fn.restype = _I
     return fn
 
@@ -69,6 +75,62 @@ def check_tables(block_tables, lengths, B: int, device) -> None:
                              f"{B} rows on {device}")
 
 
+def paged_attention_split_ref(q, k_pool, v_pool, block_tables, lengths, *,
+                              k_scale=None, v_scale=None,
+                              scale: Optional[float] = None,
+                              split_len: int = SPLIT) -> torch.Tensor:
+    """The kernel's split arithmetic in plain PyTorch, fp32 throughout.
+
+    Row b's context ``[0, n)``, ``n = min(lengths[b], MB * bs)``, is cut at
+    multiples of ``split_len``.  Split s gives ``m_s`` (its largest score),
+    ``l_s = sum exp(score - m_s)`` and ``acc_s = sum exp(score - m_s) v``.
+    A row of one split returns ``acc_0 / l_0``; a longer row merges its
+    splits in split order, ``sum acc_s c_s / sum l_s c_s`` with ``c_s =
+    exp(m_s - max m)``; splits past the row's end contribute nothing and an
+    empty row gives zeros.  Every sum runs over a dimension whose length
+    is fixed by ``split_len`` and the head dim, so a row's output does not
+    depend on the other rows.  Returns (B, H, hd) in q's dtype."""
+    B, H, hd = q.shape
+    bs, Kv = k_pool.shape[1], k_pool.shape[2]
+    MB = block_tables.shape[1]
+    scale = scale if scale is not None else hd ** -0.5
+    cap = MB * bs
+    NS = max(1, -(-cap // split_len))
+    pad = NS * split_len - cap
+    k = _gather_pool(k_pool, k_scale, block_tables, H // Kv)   # (B, cap, H, hd)
+    v = _gather_pool(v_pool, v_scale, block_tables, H // Kv)
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    # (B, NS, H, split_len, hd): every reduction below runs over the last dim
+    k = k.reshape(B, NS, split_len, H, hd).transpose(2, 3)
+    v = v.reshape(B, NS, split_len, H, hd).permute(0, 1, 3, 4, 2)
+    n = lengths.long().clamp(0, cap)
+    pos = torch.arange(NS * split_len, device=q.device).reshape(NS, split_len)
+    valid = (pos[None] < n[:, None, None])[:, :, None, :]     # (B, NS, 1, S)
+    s = (q.float()[:, None, :, None, :] * k).sum(-1) * scale   # (B, NS, H, S)
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    m = s.amax(-1)                                             # (B, NS, H)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(-1)
+    v = torch.where(valid[:, :, :, None, :], v, torch.zeros_like(v))
+    acc = (p[:, :, :, None, :] * v).sum(-1)                    # (B, NS, H, hd)
+    nsplit = (n + split_len - 1) // split_len                  # (B,)
+    mx = m.amax(1)                                             # (B, H)
+    num = torch.zeros_like(acc[:, 0])
+    den = torch.zeros_like(l[:, 0])
+    for i in range(NS):
+        live = (nsplit > i)[:, None]
+        c = torch.where(live, torch.exp(m[:, i] - mx), torch.zeros_like(mx))
+        num = num + acc[:, i] * c[..., None]
+        den = den + l[:, i] * c
+    one = acc[:, 0] / torch.where(l[:, 0] > 0, l[:, 0],
+                                  torch.ones_like(l[:, 0]))[..., None]
+    many = num / torch.where(den > 0, den, torch.ones_like(den))[..., None]
+    out = torch.where((nsplit > 1)[:, None, None], many, one)
+    out = torch.where((nsplit > 0)[:, None, None], out, torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor, *,
@@ -77,7 +139,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, hd); k_pool/v_pool: (NB, bs, Kv, hd) bf16, or int8 with
     ``k_scale``/``v_scale`` (NB, bs, Kv) fp32; block_tables: (B, MB) int32;
-    lengths: (B,) int32 exclusive.  Returns (B, H, hd) in q's dtype."""
+    lengths: (B,) int32 exclusive.  Returns (B, H, hd) in q's dtype.  The
+    kernel takes head dims :data:`HEAD_DIMS` and 16-byte aligned pools."""
     if q.dim() != 3:
         raise ValueError(f"q must be (B, H, hd); got {tuple(q.shape)}")
     B, H, hd = q.shape
@@ -96,23 +159,33 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("q must be contiguous float32 or bfloat16")
     check_pools(k_pool, v_pool, k_scale, v_scale, q.device)
     check_tables(block_tables, lengths, B, q.device)
-    NB, bs = k_pool.shape[:2]
-    G = H // Kv
-    if G * hd > THREADS * MAX_ACC or smem_bytes(G, bs, hd) > MAX_SMEM:
-        raise ValueError(f"group {G} x head_dim {hd} (block {bs}) exceeds "
-                         "the kernel's tile")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd}: the decode kernel takes head dims "
+                         f"{HEAD_DIMS}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("k_pool and v_pool must be 16-byte aligned")
+    bs, MB = k_pool.shape[1], block_tables.shape[1]
+    NS = max(1, -(-(MB * bs) // SPLIT))
     out = torch.empty_like(q)
+    # (m, l, acc) of every split, only when a row can need more than one
+    part = (torch.empty(B * H * NS * (hd + 2), dtype=torch.float32,
+                        device=q.device) if NS > 1 else None)
     quant = k_scale is not None
     err = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  k_scale.data_ptr() if quant else None,
                  v_scale.data_ptr() if quant else None,
                  block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 B, H, Kv, hd, bs, block_tables.shape[1],
+                 part.data_ptr() if part is not None else None,
+                 B, H, Kv, hd, bs, MB, SPLIT,
                  int(q.dtype == torch.bfloat16), int(quant), scale,
                  build.stream_ptr(q.device))
     build.check(err, "paged_attention")
     paged_attention.launches += 1
+    paged_attention.launches_split += NS
+    paged_attention.launches_combine += int(NS > 1)
     return out
 
 
 paged_attention.launches = 0
+paged_attention.launches_split = 0
+paged_attention.launches_combine = 0

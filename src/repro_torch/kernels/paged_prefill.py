@@ -25,9 +25,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.attn_tile import check_mma_tile
-from repro_torch.kernels.paged_attention import (MAX_ACC, MAX_SMEM, THREADS,
-                                                 check_pools, check_tables,
-                                                 smem_bytes)
+from repro_torch.kernels.paged_attention import check_pools, check_tables
 from repro_torch.kernels.quant import quantize_int8
 from repro_torch.kernels.ref import paged_prefill_attention_ref
 
@@ -36,6 +34,9 @@ __all__ = ["paged_scatter", "paged_scatter_quant", "paged_prefill_attention",
 
 # folded query rows per CTA of the fp32 tile (fewer when head_dim is wide)
 TILE_ROWS = 16
+# per-thread accumulators of the fp32 tile (csrc/paged_common.cuh)
+THREADS, MAX_ACC = 128, 32
+MAX_SMEM = 227 * 1024
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -85,6 +86,11 @@ def paged_scatter_quant(k_pool, v_pool, k_scale, v_scale, k, v,
     k_scale[blk, off] = sk
     v_scale[blk, off] = sv
     return k_pool, v_pool, k_scale, v_scale
+
+
+def smem_bytes(rows: int, bs: int, hd: int) -> int:
+    """Shared memory of one fp32 tile (``tile_smem_floats``)."""
+    return 4 * (rows * hd + bs * (hd + 1) + bs * hd + rows * bs + 3 * rows)
 
 
 def tile_rows(T: int, G: int, hd: int) -> int:

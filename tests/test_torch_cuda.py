@@ -1,7 +1,10 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
-(the two attention kernels through both their tiles: the tensor-core tile
-for bf16 at head dims 32, 64 and 128 over ragged, poisoned and misaligned
-inputs, each row also held to the tile's own arithmetic, the fp32 tile
+(the split-K decode kernel at GQA groups 1 to 12, head dims 32 to 256,
+blocks of 8 to 32, bf16 and int8 pools and fp32 and bf16 queries over
+contexts of 0 to 4 splits + 3, with bitwise repeatability, row isolation,
+its refusals and its launch counts; the two other attention kernels
+through both their tiles: the tensor-core tile for bf16 at head dims 32,
+64 and 128 over ragged, poisoned and misaligned inputs, each row also held to the tile's own arithmetic, the fp32 tile
 held tight; the four LoRA kernels through both their tiles at edge
 shapes under every launch plan, with split-K held bitwise stable, the
 dual kernels at ranks 1 to 128 with rows outside the bank and negative
@@ -29,7 +32,7 @@ from repro_torch import kernels
 from repro_torch.kernels import attn_tile, ref
 from repro_torch.kernels.batched_lora import (batched_dual_lora_matmul,
                                               batched_lora_matmul)
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import SPLIT, paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.kernels.quant import quantize_int8
 
@@ -100,6 +103,109 @@ def test_paged_kernels_match_plain(dev, H, Kv, int8):
         paged_prefill_attention=1)
     assert kernels.tile_counts()["paged_prefill_attention"] == {"mma": 1,
                                                                 "f32": 0}
+
+
+# ---------------------------------------------------------------------------
+# decode: the split-K kernel
+# ---------------------------------------------------------------------------
+
+def _decode_case(gen, dev, G, hd, bs, int8, lengths, Kv=2, MB=None):
+    """Pools, disjoint tables, lengths and bf16 queries for one decode
+    call; returns (q, kp, vp, bt, lens, scales)."""
+    B = len(lengths)
+    MB = MB or max(1, -(-max(lengths) // bs))
+    NB = 1 + B * MB
+    kf = _randn(gen, (NB, bs, Kv, hd), dev)
+    vf = _randn(gen, (NB, bs, Kv, hd), dev)
+    if int8:
+        kp, ks = quantize_int8(kf, -1)
+        vp, vs = quantize_int8(vf, -1)
+        sc = {"k_scale": ks, "v_scale": vs}
+    else:
+        kp, vp, sc = kf.to(torch.bfloat16), vf.to(torch.bfloat16), {}
+    bt = (torch.randperm(B * MB, generator=gen, device=dev) + 1).reshape(
+        B, MB).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = _randn(gen, (B, G * Kv, hd), dev, torch.bfloat16)
+    return q, kp, vp, bt, lens, sc
+
+
+# contexts around the split boundaries, up to 4 splits + 3, one empty row
+DECODE_LENGTHS = [0, 1, 7, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT + 9,
+                  4 * SPLIT + 3]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 8, 12])
+def test_paged_decode_split_matches_plain(dev, G, hd, bs, int8):
+    gen = torch.Generator(device=dev).manual_seed(G * 1000 + hd + bs)
+    q, kp, vp, bt, lens, sc = _decode_case(gen, dev, G, hd, bs, int8,
+                                           DECODE_LENGTHS)
+    y = paged_attention(q, kp, vp, bt, lens, **sc)
+    yr = ref.paged_attention_ref(q, kp, vp, bt, lens, **sc)
+    assert y.dtype == torch.bfloat16
+    assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+    assert float(y[0].float().abs().max()) == 0.0      # empty row
+    q32 = q.float()
+    y32 = paged_attention(q32, kp, vp, bt, lens, **sc)
+    yr32 = ref.paged_attention_ref(q32, kp, vp, bt, lens, **sc)
+    torch.testing.assert_close(y32, yr32, atol=2e-5, rtol=1e-5)
+    assert float(y32[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G", [1, 4])
+def test_paged_decode_split_is_bitwise_stable(dev, G, int8):
+    """Three calls agree bitwise, and each row alone (its own table row, the
+    same table width) equals that row inside the batch of 8."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, kp, vp, bt, lens, sc = _decode_case(gen, dev, G, 128, 16, int8,
+                                           DECODE_LENGTHS)
+    ys = [paged_attention(q, kp, vp, bt, lens, **sc) for _ in range(3)]
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+    for b in range(len(DECODE_LENGTHS)):
+        alone = paged_attention(q[b:b + 1].contiguous(), kp, vp,
+                                bt[b:b + 1].contiguous(),
+                                lens[b:b + 1].contiguous(), **sc)
+        assert torch.equal(alone[0], ys[0][b]), b
+    # a wider table adds splits past every row's end: nothing changes
+    wide = torch.cat([bt, bt[:, :9]], dim=1).contiguous()
+    assert torch.equal(paged_attention(q, kp, vp, wide, lens, **sc), ys[0])
+
+
+def test_paged_decode_split_launch_counts(dev):
+    """One launch while the table spans one split, two past it."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for MB, want_split, want_combine in ((SPLIT // 16, 1, 0),
+                                         (SPLIT // 16 + 1, 2, 1)):
+        q, kp, vp, bt, lens, sc = _decode_case(gen, dev, 1, 128, 16, False,
+                                               [0, 5, MB * 16], MB=MB)
+        kernels.reset_launch_counts()
+        y = paged_attention(q, kp, vp, bt, lens)
+        yr = ref.paged_attention_ref(q, kp, vp, bt, lens)
+        assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+        f = paged_attention
+        assert (f.launches, f.launches_split, f.launches_combine) == (
+            1, want_split, want_combine)
+
+
+def test_paged_decode_split_refuses_what_it_does_not_take(dev):
+    z = torch.zeros
+    bf = torch.bfloat16
+    bt = z((2, 2), dtype=torch.int32, device=dev)
+    lens = z((2,), dtype=torch.int32, device=dev)
+    for hd in (36, 48):                     # not a multiple of 8; not built
+        pool = z((5, 4, 2, hd), dtype=bf, device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            paged_attention(z((2, 4, hd), dtype=bf, device=dev), pool, pool,
+                            bt, lens)
+    flat = z(5 * 4 * 2 * 64 + 1, dtype=bf, device=dev)
+    pool = flat[1:].view(5, 4, 2, 64)       # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        paged_attention(z((2, 4, 64), dtype=bf, device=dev), pool, pool, bt,
+                        lens)
 
 
 def _prefill_case(gen, dev, T, G, bs, hd, int8, lengths, H=None):
