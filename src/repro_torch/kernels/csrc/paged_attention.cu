@@ -464,11 +464,11 @@ int launch_split(const DecodeArgs& a, cudaStream_t stream) {
 // heads a CTA holds at most: VEC = 4 past 8 heads needs HD / 4 <= 32 lanes
 constexpr int max_heads(int hd) { return hd <= 128 ? 12 : 8; }
 
-// the instantiation for head dim HD and per heads a CTA
+// the instantiation for head dim HD and per heads a CTA (a CTA may hold
+// fewer heads than its instantiation: 2 or 3 run on the 4-head one)
 template <bool QUANT, int HD>
 int launch_hd(int per, const DecodeArgs& a, cudaStream_t s) {
   if (per <= 1) return launch_split<QUANT, HD, 1>(a, s);
-  if (per <= 2) return launch_split<QUANT, HD, 2>(a, s);
   if (per <= 4) return launch_split<QUANT, HD, 4>(a, s);
   if (per <= 8) return launch_split<QUANT, HD, 8>(a, s);
   if constexpr (max_heads(HD) >= 12) {

@@ -138,7 +138,7 @@ DECODE_LENGTHS = [0, 1, 7, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT + 9,
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("bs", [8, 16, 32])
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
-@pytest.mark.parametrize("G", [1, 4, 8, 12])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 12])
 def test_paged_decode_split_matches_plain(dev, G, hd, bs, int8):
     gen = torch.Generator(device=dev).manual_seed(G * 1000 + hd + bs)
     q, kp, vp, bt, lens, sc = _decode_case(gen, dev, G, hd, bs, int8,
