@@ -33,8 +33,19 @@ Phases (each prints one JSON line per result):
                requests (prompts 128-1024 tokens, 32 new tokens) through
                MultiTenantEngine.generate with paged_backend="cuda", counting
                kernel launches; then the same requests with "torch", holding
-               first-chunk logits and greedy tokens to stated tolerances; one
-               traced run;
+               first-chunk logits and greedy tokens to stated tolerances; the
+               "cuda" run four times, in turns with overlapped dispatch (the
+               default) and without (on, off, off, on), streams bitwise
+               equal; four traced runs in the same turns;
+  3b. serve_trace — the same engine under an open-loop Poisson trace
+               (serving/trace.py: 16 requests at 2/s, prompts 1-1024 and
+               outputs 1-64 tokens, lognormal, over the 8 tenants; 8 slots
+               of 1088 tokens): logical mode (arrivals mapped to rounds)
+               with overlap on and off, streams bitwise equal, some decode
+               chunks deferred; realtime mode in the same four turns, with
+               TTFT from the scheduled arrival, TPOT, goodput and
+               wall-clock queue waits, streams held to the logical ones by
+               the margin rule; one traced realtime run;
   4. serve_options — the same llama2-7b weights, 32 layers: a ragged int8
                adapter bank (buckets 4, 8, 16; 6 tenants by register_dual),
                12 requests of byte-tokenized log text sharing a 512-token
@@ -1063,7 +1074,7 @@ def timed_generate(eng, reqs, sc):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for rid, toks, _ in eng.generate_stream(reqs, sc):
-        now = time.perf_counter()             # events come after a sync
+        now = time.perf_counter()             # events follow a readback
         if first[rid] is None:
             first[rid] = now - t0
         outs[rid].extend(toks)
@@ -1077,6 +1088,10 @@ def timed_generate(eng, reqs, sc):
 def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
                 prompt_min: int, prompt_max: int, T: int, cfg=None,
                 tenants: int = 8, rank: int = 16):
+    """Returns (launch counts of the overlapped "cuda" run, the engine,
+    the bf16 first-chunk logit error "cuda" vs "torch")."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1101,16 +1116,25 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
                  ServeConfig(batch_size=2, max_new_tokens=2, prefill_chunk=8,
                              paged_backend="cuda"))
     results = {}
-    for backend in ("cuda", "torch"):
-        sc.paged_backend = backend
+    # the "cuda" path with overlapped dispatch (the default) and with the
+    # synchronous loop, in turns (on, off, off, on: neither side always runs
+    # first), then the plain "torch" path
+    runs = [("cuda", True), ("cuda", False), ("cuda", False), ("cuda", True),
+            ("torch", True)]
+    for i, (backend, overlap) in enumerate(runs):
+        sc.paged_backend, sc.overlap = backend, overlap
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs, sc)
         counts = kernels.launch_counts()
         tiles = kernels.tile_counts()
         st = eng.last_stats
-        results[backend] = (outs, counts, tiles)
-        emit({"phase": "serve", "backend": backend, "requests": len(reqs),
+        results.setdefault((backend, overlap), (outs, counts, tiles))
+        require(outs == results[backend, overlap][0],
+                f"serve: two {backend} runs with overlap={overlap} differ")
+        emit({"phase": "serve", "backend": backend, "overlap": overlap,
+              "turn": runs[:i + 1].count((backend, overlap)),
+              "requests": len(reqs),
               "prompt_lens": [len(r.prompt) for r in reqs],
               "new_tokens": new_tokens, "prefill_chunk": T,
               "tokens": sum(len(o) for o in outs),
@@ -1121,6 +1145,7 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
               "total_s": total_s,
               "prefill_dispatches": st["prefill_dispatches"],
               "decode_dispatches": st["decode_dispatches"],
+              "deferred_chunks": st["deferred_chunks"],
               "preemptions": st["preemptions"], "launches": counts,
               "tile_launches": tiles,
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -1128,16 +1153,21 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
             require(len(o) == new_tokens and all(0 <= t < cfg.vocab_size
                                                  for t in o),
                     f"{backend}: a stream is malformed")
-    cuda_counts = results["cuda"][1]
+    cuda_counts = results["cuda", True][1]
     for name in kernels.SERVING:
         require(cuda_counts[name] > 0,
                 f"kernel {name} was never launched on the serving path")
-    for name in ("paged_prefill_attention", "batched_lora_matmul"):
-        require_mma_tile(results["cuda"][2], name, "serve")
-    require(all(n == 0 for n in results["torch"][1].values()),
+    for overlap in (True, False):
+        for name in ("paged_prefill_attention", "batched_lora_matmul"):
+            require_mma_tile(results["cuda", overlap][2], name,
+                             f"serve overlap={overlap}")
+    require(all(n == 0 for n in results["torch", True][1].values()),
             "the torch backend launched a CUDA kernel")
+    # the same dispatches on the same inputs: bitwise equal streams
+    require(results["cuda", True][0] == results["cuda", False][0],
+            "serve: streams with overlap on and off differ")
 
-    streams_c, streams_t = results["cuda"][0], results["torch"][0]
+    streams_c, streams_t = results["cuda", True][0], results["torch", True][0]
     matched = [next((i for i, (a, b) in enumerate(zip(c, t)) if a != b),
                     len(c)) for c, t in zip(streams_c, streams_t)]
     # bf16: the two paths round activations at different places (the LoRA
@@ -1146,11 +1176,11 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
     # normalised ones), 224 projections deep.  The bound is a sanity bound:
     # a wrong mask or a lost LoRA term moves logits by O(their largest
     # value).
-    compare_first_chunk(eng, reqs, sc, "bfloat16", rel_tol=0.1,
-                        extra={"stream_prefix_matched": matched,
-                               "stream_tokens_agree_fraction":
-                                   sum(matched) / sum(len(c)
-                                                      for c in streams_c)})
+    err_bf16 = compare_first_chunk(
+        eng, reqs, sc, "bfloat16", rel_tol=0.1,
+        extra={"stream_prefix_matched": matched,
+               "stream_tokens_agree_fraction":
+                   sum(matched) / sum(len(c) for c in streams_c)})
     # fp32 activations over the same bf16 weights: the paths differ in
     # summation order only, except that K/V are stored in bf16 pools, where
     # that order noise now and then flips a rounding by one bf16 ulp; 32
@@ -1162,8 +1192,10 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
     eng32 = MultiTenantEngine(Model(cfg32, device), cfg32, eng.params,
                               eng.registry)
     compare_first_chunk(eng32, reqs, sc, "float32", rel_tol=1e-2)
-    profile_phase(eng, reqs, sc)
-    return cuda_counts, eng.params
+    for i, overlap in enumerate((True, False, False, True)):
+        profile_phase(eng, reqs, dataclasses.replace(sc, overlap=overlap),
+                      check=i == 0)
+    return cuda_counts, eng, err_bf16
 
 
 KERNEL_FAMILIES = (("paged_decode_split_kernel", "paged_attention (split)"),
@@ -1219,13 +1251,17 @@ FUSED_EVAL_FAMILIES = (("dual_lora_merge_kernel",
                          for k in ("gemm", "nvjet", "xmma", "cutlass")))
 
 
-def traced(fn, families, other: str):
+def traced(fn, families, other: str, check: bool = False):
     """Run ``fn`` once under ``torch.profiler`` (CPU + CUDA activity);
     returns (wall ms, {family: device ms}) with kernels sorted into
     ``families`` by name.  A kernel of the port's own (a name with
     ``lora``, ``attn`` or ``paged``) that no family claims is a fault.
     Tracing slows the host, so the idle share it gives is an upper
-    bound."""
+    bound.  The device events are read from the profiler's raw results:
+    ``key_averages()`` builds a Python event per CPU op as well, minutes
+    for a trace of some seconds of serving.  With ``check`` the busy time
+    is also read through ``key_averages()``, the two must agree within
+    0.1%, and that reading comes back as a third value."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1237,17 +1273,25 @@ def traced(fn, families, other: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     fam = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
             continue
-        us = (getattr(ev, "self_device_time_total", None)
-              or getattr(ev, "self_cuda_time_total", 0))
-        name = next((f for k, f in families if k in ev.key), None)
+        key = ev.name()
+        name = next((f for k, f in families if k in key), None)
         require(name is not None or not any(
-            k in ev.key for k in ("lora", "attn", "paged")),
-            f"traced kernel {ev.key[:120]} belongs to no family")
+            k in key for k in ("lora", "attn", "paged")),
+            f"traced kernel {key[:120]} belongs to no family")
         name = name or other
-        fam[name] = fam.get(name, 0.0) + us / 1e3
+        fam[name] = fam.get(name, 0.0) + ev.duration_ns() / 1e6
+    if check:
+        busy = sum(fam.values())
+        ka = sum((getattr(ev, "self_device_time_total", None)
+                  or getattr(ev, "self_cuda_time_total", 0))
+                 for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA) / 1e3
+        require(abs(ka - busy) <= 1e-3 * busy, f"device busy ms from the "
+                f"raw events {busy} differs from key_averages' {ka}")
+        return wall * 1e3, fam, ka
     return wall * 1e3, fam
 
 
@@ -1270,18 +1314,139 @@ def _decode_share(fam):
             "paged_attention_share_of_busy": ms / sum(fam.values())}
 
 
-def profile_phase(eng, reqs, sc, new_tokens: int = 8):
+def profile_phase(eng, reqs, sc, new_tokens: int = 8, check: bool = False):
     """One traced serving run: device time by kernel family and the
     device's idle share of the traced wall time; the untraced runs above
-    give the end-to-end numbers."""
+    give the end-to-end numbers.  ``check``: also read the busy time
+    through ``key_averages()`` (see ``traced``)."""
     import dataclasses
     sc2 = dataclasses.replace(sc, max_new_tokens=new_tokens,
                               paged_backend="cuda")
-    wall_ms, fam = traced(lambda: eng.generate(reqs, sc2), KERNEL_FAMILIES,
-                          "other device work (torch: lm_head, norms, rope, "
-                          "scatter, sampling, copies)")
-    emit(_profile_line(fam, wall_ms, phase="profile", requests=len(reqs),
-                       new_tokens=new_tokens, **_decode_share(fam)))
+    wall_ms, fam, *ka = traced(
+        lambda: eng.generate(reqs, sc2), KERNEL_FAMILIES,
+        "other device work (torch: lm_head, norms, rope, scatter, "
+        "sampling, copies)", check=check)
+    emit(_profile_line(fam, wall_ms, phase="profile", overlap=sc.overlap,
+                       requests=len(reqs), new_tokens=new_tokens,
+                       **({"key_averages_busy_ms": ka[0]} if ka else {}),
+                       **_decode_share(fam)))
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: an open-loop trace through the serve phase's engine
+# ---------------------------------------------------------------------------
+
+def _trace_line(rep, **extra):
+    st = rep["last_stats"]
+    return {**extra, "mode": rep["mode"], "unit": rep["unit"],
+            "completed": rep["completed"],
+            "emitted_tokens": rep["emitted_tokens"],
+            "elapsed": rep["elapsed"],
+            "goodput_tok_per_unit": rep["goodput_tok_per_unit"],
+            "ttft": rep["ttft"], "tpot": rep["tpot"],
+            "per_class": rep["per_class"],
+            "queue_waits": st["classes"],
+            **{k: st[k] for k in ("prefill_dispatches", "decode_dispatches",
+                                  "deferred_chunks", "preemptions")}}
+
+
+def serve_trace_phase(eng, seed: int, err_bf16: float, n_requests: int = 16):
+    """An open-loop Poisson trace (``serving/trace.py``) through the serve
+    phase's engine: logical mode (arrivals mapped to rounds) with overlap
+    on and off, streams bitwise equal; realtime mode with overlap on and
+    off, TTFT from each scheduled arrival, TPOT, goodput and wall-clock
+    queue waits, streams held to the logical ones by the margin rule (the
+    batch make-up differs); one traced realtime run."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serving.engine import ServeConfig
+    from repro_torch.serving.kv_cache import kv_bytes_per_block
+    from repro_torch.serving.trace import run_trace, synth_trace
+    cfg = eng.cfg
+    trace = synth_trace(seed, n_requests, arrival="poisson", rate=2.0,
+                        prompt_mean=256, prompt_sigma=0.6, prompt_max=1024,
+                        out_mean=32, out_sigma=0.6, out_max=64,
+                        clients=tuple(f"client{i}" for i in range(8)),
+                        vocab_size=cfg.vocab_size)
+    # 8 slots of 68 blocks of 16 tokens (1088, the longest span)
+    sc = ServeConfig(batch_size=8, block_size=16, prefill_chunk=256,
+                     num_blocks=545, max_blocks_per_slot=68,
+                     paged_backend="cuda")
+    emit({"phase": "serve_trace_config", "requests": n_requests,
+          "arrival": "poisson", "rate_per_s": 2.0,
+          "arrivals_s": [e.arrival_s for e in trace],
+          "prompt_lens": [len(e.prompt) for e in trace],
+          "max_new_tokens": [e.max_new_tokens for e in trace],
+          "priorities": [e.priority for e in trace],
+          "clients": [e.client_id for e in trace],
+          "batch": 8, "block_size": 16, "prefill_chunk": 256,
+          "num_blocks": 545, "max_blocks_per_slot": 68,
+          "scan_chunk": sc.scan_chunk, "rounds_per_s": 8.0,
+          "pool_gb": 545 * kv_bytes_per_block(
+              16, cfg.n_kv_heads, cfg.resolved_head_dim, "f32")
+          * cfg.n_layers / 1e9})
+
+    def check(rep, what):
+        require(rep["completed"] == n_requests,
+                f"{what}: {rep['completed']} of {n_requests} completed")
+        for rid, e in enumerate(trace):
+            got = rep["streams"].get(rid, [])
+            require(len(got) == e.max_new_tokens and all(
+                0 <= t < cfg.vocab_size for t in got),
+                f"{what}: stream {rid} is malformed")
+
+    logical = {}
+    for overlap in (True, False):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = run_trace(eng, dataclasses.replace(sc, overlap=overlap), trace,
+                        rounds_per_s=8.0)
+        wall_s = time.perf_counter() - t0
+        counts, tiles = kernels.launch_counts(), kernels.tile_counts()
+        emit(_trace_line(rep, phase="serve_trace", overlap=overlap,
+                         wall_s=wall_s, launches=counts,
+                         tile_launches=tiles))
+        check(rep, f"serve_trace logical overlap={overlap}")
+        for name in ("paged_prefill_attention", "batched_lora_matmul"):
+            require_mma_tile(tiles, name, f"serve_trace overlap={overlap}")
+        if overlap:
+            for name in kernels.SERVING:
+                require(counts[name] > 0, f"serve_trace: kernel {name} was "
+                        "never launched in the overlapped run")
+        logical[overlap] = rep
+    require(logical[True]["streams"] == logical[False]["streams"],
+            "serve_trace: logical streams with overlap on and off differ")
+    require(logical[True]["last_stats"]["deferred_chunks"] > 0,
+            "serve_trace: no decode chunk was deferred")
+
+    reqs = [e.request() for e in trace]
+    want = [logical[True]["streams"][rid] for rid in range(n_requests)]
+    for overlap in (True, False, False, True):      # in turns
+        rep = run_trace(eng, dataclasses.replace(sc, overlap=overlap), trace,
+                        realtime=True, time_scale=1.0)
+        check(rep, f"serve_trace realtime overlap={overlap}")
+        got = [rep["streams"][rid] for rid in range(n_requests)]
+        t0 = time.perf_counter()
+        matched = streams_by_margin(
+            eng, reqs, sc, got, want, err_bf16,
+            f"serve_trace realtime overlap={overlap} vs logical")
+        emit(_trace_line(rep, phase="serve_trace", overlap=overlap,
+                         matched_logical_prefix=matched,
+                         streams_equal_logical=got == want,
+                         margin_check_s=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    wall_ms, fam = traced(
+        lambda: run_trace(eng, sc, trace, realtime=True, time_scale=1.0),
+        KERNEL_FAMILIES, "other device work (torch: lm_head, norms, rope, "
+        "scatter, sampling, copies)")
+    # the profiler's own cost after the run: reading its events back
+    emit(_profile_line(fam, wall_ms, phase="profile_serve_trace",
+                       overlap=True, mode="realtime", requests=n_requests,
+                       trace_processing_s=time.perf_counter() - t0
+                       - wall_ms / 1e3, **_decode_share(fam)))
 
 
 # ---------------------------------------------------------------------------
@@ -1990,24 +2155,42 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     n_requests, T = 8, 256
     prompt_lens = sorted(int(n) for n in rng.integers(128, 1025, n_requests))
+    seconds = {}                       # wall seconds by phase
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    t_kernels = time.perf_counter()
     main_shapes = kernel_phase(device, args.seed, args.reps, prompt_lens, T)
     main_shapes["batched_dual_lora_matmul"], dual_launches = \
         dual_entry_point(device, args.seed, args.reps, n_requests, T)
     main_shapes.update(training_kernels(device, args.seed, args.reps))
-    serve_counts, params = serve_phase(device, args.seed, n_requests, 32, 128,
-                                       1024, T)
+    seconds["kernels"] = time.perf_counter() - t_kernels
+    serve_counts, eng, err_bf16 = timed("serve", serve_phase, device,
+                                        args.seed, n_requests, 32, 128,
+                                        1024, T)
     torch.cuda.empty_cache()            # the serving pools are gone
+    timed("serve_trace", serve_trace_phase, eng, args.seed, err_bf16)
+    params = eng.params
+    del eng
+    torch.cuda.empty_cache()
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    serve_options_phase(device, args.seed, params, get_config(ARCH), T)
+    timed("serve_options", serve_options_phase, device, args.seed, params,
+          get_config(ARCH), T)
     torch.cuda.empty_cache()
-    train_counts = train_phase(device, args.seed, params, get_config(ARCH))
+    train_counts = timed("train", train_phase, device, args.seed, params,
+                         get_config(ARCH))
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
               **{n: train_counts[n] for n in kernels.TRAINING},
               "batched_dual_lora_matmul": dual_launches}
-    emit({"phase": "total", "seconds": time.perf_counter() - t0})
+    emit({"phase": "total", "seconds": time.perf_counter() - t0,
+          "by_phase": seconds})
 
     print(card_identity(), flush=True)
     rows = []

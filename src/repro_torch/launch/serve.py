@@ -11,6 +11,14 @@
         --kv-dtype int8 --ranks 4,8 --bank-dtype int8 --prefix-cache \
         --spec-decode
 
+Open-loop asyncio serving (requests arrive on a synthetic trace at
+wall-clock times, tokens stream back per request, graceful drain; see
+``serving/trace.py`` for the workload generator):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+        --device cpu --tenants 2 --batch 4 --serve --trace-requests 8 \
+        --trace-rate 20 --time-scale 0.05
+
 Weights and adapters are random from ``--seed`` (the repo holds no trained
 weights); each tenant registers one Eq. 7-fused adapter with a non-zero B.
 Flag names are the reference CLI's (``repro.launch.serve``) for the subset
@@ -20,7 +28,10 @@ requests run twice, the second time against the warm pool.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import time
+from collections import deque
+from typing import AsyncIterator, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +40,171 @@ from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.lora import init_adapters
 from repro_torch.models.api import Model
 from repro_torch.serving.engine import MultiTenantEngine, Request, ServeConfig
+from repro_torch.serving.kv_cache import blocks_needed
 from repro_torch.serving.registry import AdapterRegistry
+from repro_torch.serving.trace import synth_trace
+
+
+class AsyncServer:
+    """Asyncio front end over an open-loop :class:`StreamSession`.
+
+    Callers ``await submit(request)`` at any time, also while other
+    requests are mid-flight, and consume their tokens via ``async for toks
+    in stream(rid)``.  One pump coroutine owns the session: it drains
+    staged submissions between engine rounds (so scheduler state is only
+    touched from the event loop's thread) and runs each blocking
+    :meth:`StreamSession.step` in the default executor, on the CUDA stream
+    that was current when the server started (a thread's current stream is
+    its own), so the event loop stays responsive while the card computes.
+
+    ``await drain()`` shuts down gracefully: accepted requests run to
+    completion, later ``submit`` calls are rejected, and the session's
+    ``last_stats`` (wall-clock queue waits per class) come back.  ``async
+    with AsyncServer(...)`` drains on exit.
+    """
+
+    def __init__(self, engine: MultiTenantEngine, sc: ServeConfig):
+        self._engine = engine
+        self._ses = engine.session(sc)          # open loop: starts empty
+        self._staged: deque = deque()           # (Request, arrival, Future)
+        self._queues: Dict[int, asyncio.Queue] = {}
+        self._wake: Optional[asyncio.Event] = None
+        self._pump_task: Optional[asyncio.Task] = None
+        self._stream = None
+        self._closing = False
+        self.stats: Optional[dict] = None
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self) -> "AsyncServer":
+        if self._pump_task is None:
+            if self._engine.device.type == "cuda":
+                self._stream = torch.cuda.current_stream(self._engine.device)
+            self._wake = asyncio.Event()
+            self._pump_task = asyncio.ensure_future(self._pump())
+        return self
+
+    async def drain(self) -> dict:
+        """Stop accepting; run accepted requests to completion; return the
+        session's ``last_stats``."""
+        self._closing = True
+        if self._pump_task is not None:
+            self._wake.set()
+            await self._pump_task
+        else:
+            self.stats = self._ses.finalize()
+        return self.stats
+
+    async def __aenter__(self) -> "AsyncServer":
+        return self.start()
+
+    async def __aexit__(self, *exc) -> None:
+        await self.drain()
+
+    # -- client API ----------------------------------------------------------
+    async def submit(self, request: Request) -> int:
+        """Stage ``request`` and return its rid once the pump accepts it.
+        The submission's wall-clock time is the request's arrival, so the
+        queue waits in ``last_stats`` are end to end."""
+        if self._closing:
+            raise RuntimeError("AsyncServer is draining; submit rejected")
+        if self._pump_task is None:
+            raise RuntimeError("AsyncServer not started (use 'async with' "
+                               "or call start())")
+        fut = asyncio.get_running_loop().create_future()
+        self._staged.append((request, time.monotonic(), fut))
+        self._wake.set()
+        return await fut
+
+    async def stream(self, rid: int) -> AsyncIterator[List[int]]:
+        """Token increments of one request, ending after its final chunk
+        (budget reached or EOS)."""
+        q = self._queues[rid]
+        while True:
+            toks, fin = await q.get()
+            if toks:
+                yield toks
+            if fin:
+                return
+
+    # -- engine pump ---------------------------------------------------------
+    def _step(self):
+        if self._stream is None:
+            return self._ses.step()
+        with torch.cuda.stream(self._stream):
+            return self._ses.step()
+
+    async def _pump(self) -> None:
+        loop = asyncio.get_running_loop()
+        ses = self._ses
+        while True:
+            while self._staged:                 # intake between rounds
+                req, arrival, fut = self._staged.popleft()
+                rid = ses.submit(req, arrival_time=arrival)
+                self._queues[rid] = asyncio.Queue()
+                fut.set_result(rid)
+            if not ses.has_work:
+                if self._closing:
+                    break
+                self._wake.clear()              # idle: park until a submit
+                await self._wake.wait()
+                continue
+            events = await loop.run_in_executor(None, self._step)
+            for rid, toks, fin in events:
+                q = self._queues.get(rid)
+                if q is not None:
+                    q.put_nowait((list(toks), fin))
+                    if fin:
+                        self._queues.pop(rid, None)
+        self.stats = ses.finalize()
+
+
+def print_class_stats(stats: dict) -> None:
+    """Per-class queue waits: wall-clock percentiles for a session driven
+    with arrival times, admission rounds otherwise."""
+    for cname, cs in stats["classes"].items():
+        if "wait_wall_ms_p50" in cs:
+            print(f"  class {cname}: {cs['admitted']} admitted, "
+                  f"queue wait p50 {cs['wait_wall_ms_p50']:.1f} / "
+                  f"p99 {cs['wait_wall_ms_p99']:.1f} ms wall, "
+                  f"{cs['preemptions']} preemptions")
+        else:
+            print(f"  class {cname}: {cs['admitted']} admitted, "
+                  f"queue wait p50 {cs['wait_p50']:.0f} / "
+                  f"p99 {cs['wait_p99']:.0f} rounds, "
+                  f"{cs['preemptions']} preemptions")
+
+
+async def serve_demo(eng: MultiTenantEngine, sc: ServeConfig, trace,
+                     time_scale: float) -> dict:
+    """Drive an open-loop trace through :class:`AsyncServer`: one client
+    coroutine per entry sleeps until its scheduled arrival, submits and
+    consumes its stream; the server drains once every request finished."""
+    t0 = time.monotonic()
+    lat: Dict[int, Tuple[float, int]] = {}          # entry -> (ttft, tokens)
+    async with AsyncServer(eng, sc) as srv:
+        async def client(i, e):
+            sched = e.arrival_s * time_scale
+            await asyncio.sleep(max(0.0, sched - (time.monotonic() - t0)))
+            rid = await srv.submit(e.request())
+            first, n = None, 0
+            async for toks in srv.stream(rid):
+                if first is None:
+                    first = time.monotonic() - t0
+                n += len(toks)
+            lat[i] = (first - sched, n)
+
+        await asyncio.gather(*(client(i, e) for i, e in enumerate(trace)))
+        elapsed = time.monotonic() - t0
+    ttfts = [v[0] for v in lat.values()]
+    total = sum(v[1] for v in lat.values())
+    print(f"open-loop serve on {eng.device}: {len(trace)} requests, {total} "
+          f"tokens in {elapsed:.2f}s ({total / elapsed:.1f} tok/s goodput); "
+          f"TTFT p50 {1e3 * float(np.percentile(ttfts, 50)):.1f} / p99 "
+          f"{1e3 * float(np.percentile(ttfts, 99)):.1f} ms "
+          f"[overlap={'on' if sc.overlap else 'off'}, "
+          f"{srv.stats['deferred_chunks']} deferred decode chunks]")
+    print_class_stats(srv.stats)
+    return srv.stats
 
 
 def build_engine(cfg, tenants: int, device, seed: int = 0, rank=None,
@@ -103,6 +278,26 @@ def main(argv=None):
     ap.add_argument("--spec-k", type=int, default=4,
                     help="with --spec-decode: max drafted tokens per slot "
                          "per verify round")
+    ap.add_argument("--serve", action="store_true",
+                    help="open-loop asyncio serving: requests arrive on a "
+                         "synthetic trace at wall-clock times, tokens "
+                         "stream back per request, graceful drain; reports "
+                         "TTFT percentiles and wall-clock queue waits")
+    ap.add_argument("--trace-requests", type=int, default=24,
+                    help="--serve: trace length (requests)")
+    ap.add_argument("--trace-arrival", default="bursty",
+                    choices=["poisson", "bursty"],
+                    help="--serve: arrival process (same long-run rate)")
+    ap.add_argument("--trace-rate", type=float, default=20.0,
+                    help="--serve: mean arrival rate, requests/second")
+    ap.add_argument("--trace-seed", type=int, default=0,
+                    help="--serve: workload generator seed")
+    ap.add_argument("--time-scale", type=float, default=1.0,
+                    help="--serve: multiply trace arrival times (<1 "
+                         "compresses the trace: higher load)")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="run the synchronous loop instead of overlapped "
+                         "dispatch (tokens are equal either way)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -118,7 +313,21 @@ def main(argv=None):
                      sched_policy=args.sched_policy,
                      paged_backend=args.paged_backend,
                      kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
-                     spec_decode=args.spec_decode, spec_k=args.spec_k)
+                     spec_decode=args.spec_decode, spec_k=args.spec_k,
+                     overlap=not args.no_overlap)
+    if args.serve:
+        # an open-loop session needs its pool pinned: batch_size slots of
+        # the worst-case span (prompt_max + out_max)
+        bp = blocks_needed(args.prompt_max + args.new_tokens, sc.block_size)
+        sc.num_blocks, sc.max_blocks_per_slot = 1 + args.batch * bp, bp
+        trace = synth_trace(
+            args.trace_seed, args.trace_requests, arrival=args.trace_arrival,
+            rate=args.trace_rate, prompt_max=args.prompt_max,
+            out_max=args.new_tokens,
+            clients=tuple(f"client{i}" for i in range(args.tenants)),
+            vocab_size=cfg.vocab_size)
+        asyncio.run(serve_demo(eng, sc, trace, args.time_scale))
+        return
     reqs = ragged_requests(args.requests or 2 * args.batch, args.tenants,
                            cfg.vocab_size, args.prompt_min, args.prompt_max,
                            args.seed)

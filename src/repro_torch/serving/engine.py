@@ -1,7 +1,7 @@
 """Multi-tenant serving engine: continuous batching over a paged KV pool.
 
 Port of ``repro/serving/engine.py`` (``MultiTenantEngine`` and
-``StreamSession``, the synchronous loop).  Requests carry a ``client_id``;
+``StreamSession``, with overlapped dispatch).  Requests carry a ``client_id``;
 each batch row is routed to its client's slot of the
 :class:`~repro_torch.serving.registry.AdapterRegistry` bank through
 per-row ``adapter_ids``.  Ragged prompts are fed by CHUNKED prefill
@@ -16,8 +16,9 @@ The options of the reference engine served here: int8 K/V pools
 (``kv_dtype``), prefix caching within and across calls (``prefix_cache``:
 a warm pool persists between streams of one geometry), and greedy
 speculative decoding (``spec_decode``: prompt-lookup drafts verified in one
-chunk dispatch, rejected positions rolled back).  ``overlap`` and
-``num_shards > 1`` are later slices (ROADMAP.md).
+chunk dispatch, rejected positions rolled back) and overlapped dispatch
+(``overlap``, the default: see :class:`StreamSession`).  ``num_shards >
+1`` is a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ import torch
 
 from repro_torch.core.lora import lora_scale
 from repro_torch.models.model import resolve_backend
-from repro_torch.serving.kv_cache import PagedKVCache, blocks_needed, reset_slot
+from repro_torch.serving.kv_cache import (PagedKVCache, blocks_needed,
+                                          reset_slot, to_device)
 from repro_torch.serving.registry import AdapterRegistry
 from repro_torch.serving.scheduler import PRIORITY_CLASSES, Scheduler
 
@@ -61,10 +63,16 @@ class ServeConfig:
     spec_k: int = 4
     spec_ngram: int = 3              # longest history n-gram the drafter
     #                                  matches (see serving/spec_decode.py)
-    # Options of the reference engine that later slices of the port serve
-    # (ROADMAP.md).  Each raises NotImplementedError when set.
+    overlap: bool = True             # plan and enqueue chunk N+1 while
+    #                                  the card runs chunk N; samples are
+    #                                  read back only when the next plan
+    #                                  needs them (StreamSession).  False:
+    #                                  the synchronous loop.  Both run the
+    #                                  same dispatches on the same inputs,
+    #                                  so streams are bitwise equal
+    # sharded serving is a later slice of the port (ROADMAP.md): > 1 raises
+    # NotImplementedError
     num_shards: int = 1
-    overlap: bool = False
 
 
 @dataclasses.dataclass
@@ -81,14 +89,10 @@ class Request:
 
 
 def _check_supported(sc: ServeConfig) -> None:
-    later = [("num_shards > 1", sc.num_shards > 1,
-              "sharded serving and hot-swap"),
-             ("overlap=True", sc.overlap, "overlap/deferred observation")]
-    for name, on, item in later:
-        if on:
-            raise NotImplementedError(
-                f"ServeConfig {name} is not served by this slice of the "
-                f"port (ROADMAP: {item})")
+    if sc.num_shards > 1:
+        raise NotImplementedError(
+            "ServeConfig num_shards > 1 is not served by this slice of the "
+            "port (ROADMAP: sharded serving and hot-swap)")
     if sc.spec_decode:
         if sc.temperature > 0:
             raise ValueError(
@@ -163,17 +167,21 @@ class MultiTenantEngine:
     def _sample(logits: torch.Tensor, gen: torch.Generator,
                 temperature: float) -> torch.Tensor:
         """(K, V) fp32 logits -> (K,) int32: argmax (first maximum on ties)
-        at temperature 0, else a draw from softmax(logits / temperature)."""
+        at temperature 0, else a draw from softmax(logits / temperature):
+        argmax(p / E) with E ~ Exp(1), which is ``torch.multinomial``'s own
+        one-sample path (same draws from ``gen``) without its host-side
+        checks of ``p``, each of which waits for the card."""
         if temperature <= 0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         probs = torch.softmax(logits / max(temperature, 1e-6), dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(
-            torch.int32)
+        noise = torch.empty_like(probs).exponential_(1, generator=gen)
+        return torch.argmax(probs / noise, dim=-1).to(torch.int32)
 
     def _prefill_chunk(self, bank, ids, cache, tokens, lengths, n_new,
                        block_tables, gen, temperature, backend):
         """One chunked-prefill dispatch; samples each row at its LAST valid
-        position.  Returns ((K,) sampled, cache)."""
+        position.  Returns ((K,) sampled, cache, lengths + n_new): the
+        lengths on the card, as the host pool's ``advance`` leaves them."""
         logits, cache = self.model.prefill_step(
             self.params, cache, tokens, lengths, n_new, adapters=bank,
             lora_scale=self.scale, adapter_ids=ids,
@@ -181,7 +189,8 @@ class MultiTenantEngine:
         K, T, _ = logits.shape
         rows = torch.arange(K, device=logits.device)
         last = torch.clamp(n_new.long() - 1, 0, T - 1)
-        return self._sample(logits[rows, last], gen, temperature), cache
+        return (self._sample(logits[rows, last], gen, temperature), cache,
+                lengths + n_new)
 
     def _verify_chunk(self, bank, ids, cache, tokens, lengths, n_new,
                       block_tables, backend):
@@ -197,7 +206,11 @@ class MultiTenantEngine:
     def _decode_chunk(self, bank, ids, cache, last, active, lengths,
                       block_tables, n_steps, gen, temperature, backend):
         """``n_steps`` decode steps, each slot feeding its last sample.
-        Returns ((n_steps, K) sampled, cache)."""
+        Returns ((n_steps, K) sampled, cache, each slot's final length
+        ``lengths + n_steps * active``, each slot's final sample): the last
+        two on the card, the feed of a next chunk that is dispatched before
+        this one is read back (garbage for inactive rows, whose writes sink
+        into scratch block 0)."""
         out = []
         for _ in range(n_steps):
             logits, cache = self.model.decode_step(
@@ -207,7 +220,7 @@ class MultiTenantEngine:
             last = self._sample(logits[:, 0], gen, temperature)
             out.append(last)
             lengths = lengths + active
-        return torch.stack(out), cache
+        return torch.stack(out), cache, lengths, last
 
     # -- continuous batching -------------------------------------------------
     def session(self, sc: ServeConfig,
@@ -240,12 +253,58 @@ class MultiTenantEngine:
         return [np.asarray(o, np.int32) for o in outs]
 
 
+class _Readback:
+    """A device tensor's values on their way to the host.  On a card the
+    copy goes into pinned memory with ``non_blocking=True`` and an event is
+    recorded behind it, so :meth:`numpy` waits for this copy (and the
+    kernels before it) only, never for chunks enqueued after it: a plain
+    ``.cpu()`` issued after chunk N+1 was enqueued would wait for N+1 too.
+    On the CPU the tensor is already computed."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+            t = host
+        self._host = t
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
 class StreamSession:
     """One continuous-batching session over a paged KV pool: ``submit`` a
     request at any time, ``step`` runs one round (admission -> chunk
     planning -> device dispatch -> observation) and returns its events,
-    ``finalize`` builds ``engine.last_stats``.  Each round materialises its
-    samples before the next is planned (the synchronous reference loop)."""
+    ``finalize`` builds ``engine.last_stats``.
+
+    **Overlapped dispatch** (``ServeConfig.overlap``, the default), as in
+    the reference: the host reads a chunk's samples back only when the
+    next plan can depend on them.  A prefill chunk that feeds prompt tokens
+    only emits nothing (``Scheduler.chunk_emits``) and is never read back,
+    so the host plans and enqueues the next chunk while the card runs this
+    one.  A decode chunk after which no slot can finish
+    (``Scheduler.chunk_defer_safe``; no EOS, spec decode or prefix cache
+    configured) advances its counts at once (``observe_chunk_counts``);
+    the next round dispatches the next chunk from state chained on the
+    card (final samples, lengths, cached tables and ids) and only then
+    reads this one back (``observe_chunk_values``): one-round-deferred
+    observation, its events one round late.  Host arrays reach the card
+    through pinned snapshots (:func:`to_device`) and samples come back
+    through :class:`_Readback`, so no round waits for the stream but at
+    the readbacks it needs.  Both settings run the same dispatches on the
+    same inputs and draw from the generator in the same order, so streams
+    are bitwise equal; ``overlap=False`` is the synchronous loop (one
+    readback per chunk, tables and lengths sent every round).
+
+    Everything runs on PyTorch's current stream, in order: a registration
+    that rewrites bank slots in place between a deferred chunk's dispatch
+    and its readback is ordered behind that chunk."""
 
     def __init__(self, engine: MultiTenantEngine, sc: ServeConfig,
                  requests: Optional[Sequence[Request]] = None):
@@ -312,11 +371,36 @@ class StreamSession:
         # its slot frees (and admits the queue head) at the next boundary
         self.cap = (min(sc.scan_chunk, 8) if sc.eos_id is not None
                     else sc.scan_chunk)
+        # plan state on the card.  Tables are sent again only when
+        # ``kv.table_version`` moves (admission, growth, rollback,
+        # release); lengths chain from the previous dispatch's output and
+        # are sent again after a verify round, whose advance and rollback
+        # the host decides; ids are sent again after an admission
+        self._tables_ver = -1
+        self._bt_dev = self._lens_dev = self._ids_dev = None
+        self._lens_ok = False
+        # decode chaining: the next decode chunk feeds this one's final
+        # samples and active mask, valid while the tables stand
+        self._last_dev = self._act_dev = None
+        self._last_ok = False
+        # the deferred decode chunk: (readback, steps, slots)
+        self._pending: Optional[Tuple[_Readback, int, List[int]]] = None
+        # deferral reads no token value before the next plan: EOS and the
+        # drafter read values to stop or draft, and prefix sealing hashes
+        # them in ``advance``
+        self._defer_cfg_ok = (sc.overlap and sc.eos_id is None
+                              and not sc.spec_decode
+                              and not sc.prefix_cache)
+        self.deferred_chunks = 0          # decode chunks observed late
         self._finalized = False
 
     # -- intake --------------------------------------------------------------
-    def submit(self, request: Request) -> int:
-        """Enqueue ``request``; returns its rid (submission order)."""
+    def submit(self, request: Request,
+               arrival_time: Optional[float] = None) -> int:
+        """Enqueue ``request``; returns its rid (submission order).
+        Open-loop drivers pass ``arrival_time`` (``time.monotonic()``
+        seconds), so admission also records wall-clock queue waits
+        (``last_stats["classes"][cls]["wait_wall_ms_*"]``)."""
         rid, self._next_rid = self._next_rid, self._next_rid + 1
         reg = self.engine.registry
         p = np.asarray(request.prompt, np.int32).reshape(-1)
@@ -327,7 +411,8 @@ class StreamSession:
                     or reg.default_priority(request.client_id)
                     or "batch")
         self.sched.submit(rid, request.client_id, p, b, scope=scope,
-                          priority=priority, deadline=request.deadline)
+                          priority=priority, deadline=request.deadline,
+                          arrival_time=arrival_time)
         return rid
 
     @property
@@ -341,44 +426,101 @@ class StreamSession:
         eng, sc, sched = self.engine, self.sc, self.sched
         dev = eng.device
         if eng.registry.bank_epoch != self._bank_epoch:
+            # a deferred chunk was dispatched with the old snapshot, and
+            # in-place slot writes are ordered behind it on the stream
             self.bank = eng.bank_for(sc)
             self._bank_epoch = eng.registry.bank_epoch
             self.bank_refreshes += 1
+        flushed: List[Tuple[int, List[int], bool]] = []
+        if self._pending is not None and (
+                sched.queued or sched.prefill_pending
+                or self._growth_possible()):
+            # admission or planning may preempt a slot, whose replay
+            # (prompt + emitted) must hold the deferred chunk's tokens
+            flushed = self._flush_pending()
         for slot, cid in sched.admit():
             self.ids[slot] = eng.registry.acquire(cid)
             self.cache = reset_slot(self.cache, slot)
+            self._ids_dev = None
         plan = sched.prepare_chunk(self.T, self.cap)
         if plan is None:
             if sched.has_work:
                 raise RuntimeError("scheduler stalled with queued work")
-            return []
-        bt, lens = self.kv.device_tables(dev)
-        ids = torch.tensor(self.ids, dtype=torch.int32, device=dev)
+            return flushed
+        ver = self.kv.table_version
+        if not sc.overlap or ver != self._tables_ver:
+            self._bt_dev, self._lens_dev = self.kv.device_tables(dev)
+            self._tables_ver, self._lens_ok = ver, True
+            # a table move can change the active set or a slot's feed
+            self._last_ok, self._act_dev = False, None
+        elif not self._lens_ok:
+            self._lens_dev = to_device(self.kv.lengths, dev)
+            self._lens_ok = True
+        if self._ids_dev is None:
+            self._ids_dev = to_device(self.ids, dev)
+        bt, lens, ids = self._bt_dev, self._lens_dev, self._ids_dev
         if plan[0] == "prefill":
             arrs = sched.prefill_arrays(self.T)
-            n_new = torch.tensor(arrs["n_new"], device=dev)
-            sampled, self.cache = eng._prefill_chunk(
-                self.bank, ids, self.cache,
-                torch.tensor(arrs["tokens"], device=dev), lens, n_new, bt,
-                self.gen, sc.temperature, sc.paged_backend)
-            return sched.observe_prefill(arrs["n_new"], sampled.cpu().numpy(),
-                                         eos_id=sc.eos_id)
+            sampled, self.cache, self._lens_dev = eng._prefill_chunk(
+                self.bank, ids, self.cache, to_device(arrs["tokens"], dev),
+                lens, to_device(arrs["n_new"], dev), bt, self.gen,
+                sc.temperature, sc.paged_backend)
+            self._last_ok = False         # completing prompts seed the feed
+            # a chunk that emits no token is never read back
+            # (observe_prefill reads samples of emitting rows only)
+            emits = not sc.overlap or sched.chunk_emits(arrs["n_new"])
+            return flushed + sched.observe_prefill(
+                arrs["n_new"], _Readback(sampled).numpy() if emits else None,
+                eos_id=sc.eos_id)
         if plan[0] == "verify":
             arrs = sched.verify_arrays(self.Tv)
             greedy, self.cache = eng._verify_chunk(
-                self.bank, ids, self.cache,
-                torch.tensor(arrs["tokens"], device=dev), lens,
-                torch.tensor(arrs["n_new"], device=dev), bt, sc.paged_backend)
-            return sched.observe_verify(arrs["n_new"], greedy.cpu().numpy(),
-                                        eos_id=sc.eos_id)
+                self.bank, ids, self.cache, to_device(arrs["tokens"], dev),
+                lens, to_device(arrs["n_new"], dev), bt, sc.paged_backend)
+            # acceptance decides the advance and rollback on the host
+            self._lens_ok, self._last_ok = False, False
+            return flushed + sched.observe_verify(
+                arrs["n_new"], _Readback(greedy).numpy(), eos_id=sc.eos_id)
         n = plan[1]
-        st = sched.chunk_arrays()
-        out, self.cache = eng._decode_chunk(
-            self.bank, ids, self.cache,
-            torch.tensor(st["last"], device=dev),
-            torch.tensor(st["active"], device=dev), lens, bt, n, self.gen,
+        defer = self._defer_cfg_ok and sched.chunk_defer_safe(n)
+        if sc.overlap and self._last_ok:
+            last, act = self._last_dev, self._act_dev
+        else:
+            st = sched.chunk_arrays()
+            last, act = (to_device(st["last"], dev),
+                         to_device(st["active"], dev))
+        out, self.cache, self._lens_dev, self._last_dev = eng._decode_chunk(
+            self.bank, ids, self.cache, last, act, lens, bt, n, self.gen,
             sc.temperature, sc.paged_backend)
-        return sched.observe_chunk(out.cpu().numpy(), eos_id=sc.eos_id)
+        self._act_dev, self._last_ok = act, sc.overlap
+        got = _Readback(out)              # enqueued before the next chunk
+        if self._pending is not None:
+            # the chunk just dispatched runs while the host waits for the
+            # deferred one
+            flushed = self._flush_pending()
+        if defer:
+            self._pending = (got, n, sched.observe_chunk_counts(n))
+            self.deferred_chunks += 1
+            return flushed
+        return flushed + sched.observe_chunk(got.numpy(), eos_id=sc.eos_id)
+
+    # -- deferred observation ------------------------------------------------
+    def _growth_possible(self) -> bool:
+        """Whether any active slot's next decode chunk (at most ``cap``
+        steps) could outgrow its blocks: growth is the only way a pure
+        decode round preempts, so while this is False the next plan keeps
+        the slot set and a deferred chunk may stay unread through it."""
+        kv = self.kv
+        return any(int(kv.lengths[slot]) + self.cap
+                   > kv.owned_blocks(slot) * kv.block_size
+                   for slot in self.sched.active_slots)
+
+    def _flush_pending(self) -> List[Tuple[int, List[int], bool]]:
+        """Read the deferred decode chunk back (waiting for it alone) and
+        fold its values into the scheduler: its events, one round late."""
+        got, n, slots = self._pending
+        self._pending = None
+        return self.sched.observe_chunk_values(slots, got.numpy()[:n])
 
     # -- drain ---------------------------------------------------------------
     def finalize(self) -> dict:
@@ -386,20 +528,30 @@ class StreamSession:
         if self._finalized:
             return self.engine.last_stats
         self._finalized = True
+        if self._pending is not None:     # stream abandoned mid-pipeline
+            self._flush_pending()
         sc, sched, kv = self.sc, self.sched, self.kv
         classes = {}
         for cname in PRIORITY_CLASSES:
             waits = sched.wait_ticks.get(cname, [])
+            walls = sched.wait_wall.get(cname, [])
             if not waits and cname not in sched.preemptions_by_class:
                 continue
-            classes[cname] = {
+            entry = {
                 "admitted": len(waits),
                 "wait_p50": float(np.percentile(waits, 50)) if waits else 0.0,
                 "wait_p99": float(np.percentile(waits, 99)) if waits else 0.0,
                 "preemptions": sched.preemptions_by_class.get(cname, 0)}
+            if walls:          # only when driven with arrival times
+                entry["wait_wall_ms_p50"] = float(
+                    np.percentile(walls, 50) * 1e3)
+                entry["wait_wall_ms_p99"] = float(
+                    np.percentile(walls, 99) * 1e3)
+            classes[cname] = entry
         stats = {"prefill_dispatches": sched.prefill_dispatches,
                  "decode_dispatches": sched.decode_dispatches,
                  "decode_steps": sched.steps,
+                 "deferred_chunks": self.deferred_chunks,
                  "spec_decode": sc.spec_decode,
                  "verify_dispatches": sched.verify_dispatches,
                  "drafted_tokens": sched.drafted_tokens,
@@ -423,6 +575,8 @@ class StreamSession:
                  "overlap": sc.overlap,
                  "paged_backend": sc.paged_backend,
                  "open_loop": self.open_loop,
+                 # queue waits by class: wait_p50/p99 in admission rounds;
+                 # wait_wall_ms_* when driven with arrival times
                  "classes": classes,
                  "victim_sealed_fraction_mean": (
                      float(np.mean(sched.victim_sealed_fractions))

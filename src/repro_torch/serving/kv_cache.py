@@ -62,6 +62,21 @@ import numpy as np
 import torch
 
 
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A SNAPSHOT of host array ``arr`` on ``device`` that never waits for
+    the stream.  On a card the values are copied into pinned memory owned by
+    the copy (PyTorch's caching host allocator keeps the block until the
+    copy has run) and sent with ``non_blocking=True``: a copy from pageable
+    memory would wait for the stream to drain.  On the CPU a plain copy
+    (``torch.from_numpy`` would alias ``arr``, which the host mutates in
+    place while a dispatched chunk may still read the tensor)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def kv_bytes_per_block(block_size: int, n_kv_heads: int, head_dim: int,
                        kv_dtype: str = "f32") -> int:
     """Device bytes one K+V block pair costs per attention layer: bf16
@@ -558,13 +573,12 @@ class PagedKVCache:
 
     # ---- device views -----------------------------------------------------
     def device_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Block tables and lengths as int32 tensors on ``device``.  Always
-        COPIES: ``torch.from_numpy`` would alias these buffers on the CPU,
-        and they are mutated in place (admit/growth/rollback/release) while
-        a dispatched chunk may still read the tensors handed to it."""
-        return (torch.tensor(self.block_tables, dtype=torch.int32,
-                             device=device),
-                torch.tensor(self.lengths, dtype=torch.int32, device=device))
+        """Block tables and lengths as int32 tensors on ``device``:
+        snapshots (:func:`to_device`), since these buffers are mutated in
+        place (admit/growth/rollback/release) while a dispatched chunk may
+        still read the tensors handed to it."""
+        return to_device(self.block_tables, device), to_device(self.lengths,
+                                                               device)
 
     @property
     def idle(self) -> bool:

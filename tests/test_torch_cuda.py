@@ -13,8 +13,11 @@ libraries loaded together in one process),
 the two autograd backwards against
 plain autograd, serving runs (plain and
 with int8 K/V, a ragged int8 bank, prefix caching and speculative
-decoding), ``launch/serve.py`` with those options and one
-``launch/train.py --smoke`` run through the ``"cuda"`` backend.
+decoding), overlapped dispatch (streams with overlap on and off bitwise
+equal, greedy and sampled; no round of ``StreamSession.step`` waits for
+the stream, checked under ``torch.cuda.set_sync_debug_mode("error")``),
+``launch/serve.py`` with those options and one ``launch/train.py
+--smoke`` run through the ``"cuda"`` backend.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is False.  This file imports neither JAX nor the reference package, so on a
@@ -839,6 +842,127 @@ def test_serve_cli_with_options_on_the_card(dev, capsys):
     out = capsys.readouterr().out
     assert "kv=int8, bank=int8" in out and "pool reused True" in out
     assert all(kernels.launch_counts()[n] > 0 for n in kernels.SERVING)
+
+
+# ---------------------------------------------------------------------------
+# overlapped dispatch on the card
+# ---------------------------------------------------------------------------
+
+def _overlap_engine(dev, tenants=3):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+    return build_engine(get_config("llama2-7b", smoke=True), tenants, dev,
+                        seed=0, rank=8)
+
+
+def _overlap_trace(eng, n=10, seed=0):
+    from repro_torch.serving.trace import synth_trace
+    return synth_trace(seed, n, arrival="bursty", rate=40.0,
+                       prompt_mean=24.0, prompt_max=64, out_mean=12.0,
+                       out_max=24, clients=("client0", "client1", "client2"),
+                       vocab_size=eng.cfg.vocab_size)
+
+
+def _overlap_sc(**kw):
+    # 16-token blocks and 4-step decode chunks: a slot often has the slack
+    # for its next chunk, so a deferred chunk stays unread through a round
+    from repro_torch.serving.engine import ServeConfig
+    base = dict(batch_size=4, max_new_tokens=24, block_size=16,
+                num_blocks=1 + 4 * 6, max_blocks_per_slot=6, prefill_chunk=16,
+                scan_chunk=4)
+    base.update(kw)
+    return ServeConfig(**base)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_overlap_streams_equal_the_synchronous_loop_on_the_card(
+        dev, temperature):
+    """Logical mode, bf16, every serving kernel: the same dispatches with
+    overlap on and off give bitwise equal streams, greedy and sampled."""
+    from repro_torch.serving.trace import run_trace
+    eng = _overlap_engine(dev)
+    tr = _overlap_trace(eng)
+    kernels.reset_launch_counts()
+    on = run_trace(eng, _overlap_sc(temperature=temperature, seed=5), tr)
+    counts = kernels.launch_counts()
+    off = run_trace(eng, _overlap_sc(temperature=temperature, seed=5,
+                                     overlap=False), tr)
+    assert on["completed"] == off["completed"] == len(tr)
+    assert on["streams"] == off["streams"]
+    assert on["last_stats"]["deferred_chunks"] > 0
+    assert off["last_stats"]["deferred_chunks"] == 0
+    assert all(counts[name] > 0 for name in kernels.SERVING)
+
+
+def _rounds_without_sync(ses):
+    """Step ``ses`` to its end with CUDA's sync debug mode set to raise on
+    any call that waits for the stream (a blocking copy, ``.item()``,
+    ``.cpu()``, a stream synchronize); the readbacks wait on their own
+    events, which that mode does not flag.  Returns the rounds as (prefill
+    dispatched, events, pipelined) triples: a pipelined round found a
+    deferred chunk it kept unread through planning and deferred its own."""
+    rounds = []
+    sched = ses.sched
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while ses.has_work:
+            pre = (sched.prefill_dispatches, ses.deferred_chunks)
+            kept = ses._pending is not None and not (
+                sched.queued or sched.prefill_pending
+                or ses._growth_possible())
+            events = ses.step()
+            rounds.append((sched.prefill_dispatches > pre[0], events,
+                           kept and ses.deferred_chunks > pre[1]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ses.finalize()
+    return rounds
+
+
+def test_pipelined_rounds_do_not_wait_for_the_card(dev):
+    """The rounds overlap pipelines (a prompt-only prefill round, a decode
+    round whose predecessor was deferred) and every other round of the
+    session run without a call that waits for the stream, sampling at
+    temperature > 0 included."""
+    from repro_torch.serving.engine import Request
+    eng = _overlap_engine(dev)
+    eng.generate([Request("client0", np.arange(1, 20, dtype=np.int32))],
+                 _overlap_sc())                 # builds and warms up
+    ses = eng.session(_overlap_sc(temperature=0.7))
+    for i in range(3):                          # prompts of 3-4 chunks
+        ses.submit(Request(f"client{i}",
+                           (np.arange(40 + 9 * i) * (i + 3)) % 500 + 1,
+                           max_new_tokens=20))
+    rounds = _rounds_without_sync(ses)
+    assert any(pre and not events for pre, events, _ in rounds), \
+        "no prompt-only prefill round"
+    assert any(pipelined for _, _, pipelined in rounds), \
+        "no deferred decode round after a deferred one"
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_step_makes_no_blocking_copy(dev, overlap):
+    """No round of ``step`` copies to or from the card in a way that waits
+    for the stream, with int8 K/V, prefix caching and speculative decoding
+    on (verify rounds, admissions with prefix hits): a ``torch.tensor(...,
+    device=...)`` from host memory or a ``.cpu()`` put back into the step
+    fails this test."""
+    from repro_torch.serving.engine import Request
+    eng = _overlap_engine(dev)
+    sc = _overlap_sc(kv_dtype="int8", prefix_cache=True, spec_decode=True,
+                     spec_k=3, overlap=overlap)
+    motif = np.arange(7, 19, dtype=np.int32)
+    reqs = [Request(f"client{i % 3}", np.concatenate(
+        [np.tile(motif, 3), np.arange(i + 1, 2 * i + 9, dtype=np.int32)]),
+        max_new_tokens=12) for i in range(5)]
+    eng.generate(reqs[:1], sc)                  # builds and warms up
+    ses = eng.session(sc)
+    for r in reqs:
+        ses.submit(r)
+    rounds = _rounds_without_sync(ses)
+    st = eng.last_stats
+    assert st["verify_dispatches"] > 0 and st["prefix_hit_tokens"] > 0
+    assert sum(len(t) for _, ev, _ in rounds for _, t, _ in ev) == 5 * 12
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,8 @@ SLICE_MODULES = [
     # serving options and the last kernel
     "kernels/quant.py", "kernels/build.py", "kernels/__init__.py",
     "serving/kv_cache.py", "serving/scheduler.py", "serving/spec_decode.py",
+    # overlapped dispatch and the open-loop drivers
+    "serving/trace.py",
 ]
 
 

@@ -141,8 +141,7 @@ def test_open_loop_session(engines):
     assert ses.finalize()["open_loop"] is True
 
 
-@pytest.mark.parametrize("kw", [{"num_shards": 2},
-                                {"overlap": True}])
+@pytest.mark.parametrize("kw", [{"num_shards": 2}])
 def test_later_slice_serve_options_raise(engines, kw):
     _, _, peng = engines
     reqs = [Request("c0", np.arange(6, dtype=np.int32))]
