@@ -10,11 +10,18 @@ Phases (each prints one JSON line per result):
                at its path's shapes and variants (serving: bf16 and int8 K/V,
                GQA groups 1 and 4, ragged lengths with an empty row, the
                split-K decode kernel also at gemma-2b's and starcoder2's
-               decode shapes, with its splits and launches, rank
+               decode shapes, with its splits and launches, prefill at
+               gemma-2b's head dim 256 (bf16 and int8 pools), decode and
+               prefill at starcoder2-15b's shape under its 4096-token
+               sliding window with contexts to 6144, decode and prefill at
+               yi-6b's G 8, batched LoRA at every other dense arch's
+               projection shapes and rows, rank
                mask, int8 bank, and the per-row Eq. 7 batched dual-LoRA
                product at its entry point; training: the LoRA and dual-LoRA
                products of a 2048-row batch, flash attention at B=8, S=256
-               with a window, Sq < Sk and GQA variants, and the two
+               with a window, Sq < Sk and GQA variants and at gemma-2b's
+               head dim 256, the LoRA product at gemma-2b's train-step
+               projections, and the two
                autograd backwards against plain autograd); the two
                attention kernels and the four LoRA kernels also with fp32
                activations, which run their fp32 CUDA-core tile (bf16 runs
@@ -64,7 +71,20 @@ Phases (each prints one JSON line per result):
                steps, 18 fused evaluations), publish into an AdapterRegistry
                and generate from it; one traced train step and one traced
                fused evaluation;
-  6. the card's name and power limit, the kernel summary line, and last the
+  6. dense_family — with llama2-7b's weights freed, gemma-2b, olmo-1b,
+               yi-6b and starcoder2-15b in turn at their published width
+               and depth, bf16, random weights from --seed, 4 tenants with
+               rank-16 fused adapters: 4 requests (prompts 128-1024 tokens;
+               starcoder2-15b one more of 4,608 tokens, past its window),
+               16 new tokens, through "cuda" with overlap on and off
+               (streams bitwise equal, every serving kernel launched,
+               prefill attention and batched LoRA on their tensor-core
+               tiles), the first chunk held to "torch" (bf16 and fp32
+               activations); gemma-2b also a train step held to "torch"
+               (flash attention at head dim 256), starcoder2-15b the long
+               prompt's last chunk, where the window binds, held to
+               "torch", and "torch" without the window shown to miss it;
+  7. the card's name and power limit, the kernel summary line, and last the
      result line.
 
 batched_dual_lora_matmul, which no path of the port (or of the reference
@@ -298,11 +318,13 @@ DECODE_PARTS = (("paged_decode_split_kernel", "split"),
                 ("paged_decode_combine_kernel", "combine"))
 
 
-def check_decode(gen, device, lengths, G, int8, reps, H=32, hd=128, bs=16):
+def check_decode(gen, device, lengths, G, int8, reps, H=32, hd=128, bs=16,
+                 window=0):
     """The split-K decode kernel against its plain version (bf16 q: two
     bf16 roundings of the largest output); its time (events and device),
-    its device time by part (split, combine) and SPLIT with the splits of
-    each row; SDPA over K/V gathered outside its timing, by events and by
+    its device time by part (split, combine) and SPLIT with the live
+    splits of each row (with a ``window``, whole splits below it drop
+    out); SDPA over K/V gathered outside its timing, by events and by
     device time, as the library yardstick."""
     import torch
     import torch.nn.functional as F
@@ -318,25 +340,29 @@ def check_decode(gen, device, lengths, G, int8, reps, H=32, hd=128, bs=16):
     q = torch.randn((B, H, hd), generator=gen, device=device).to(torch.bfloat16)
 
     def call():
-        return paged_attention(q, kp, vp, bt, lens, k_scale=ks, v_scale=vs)
+        return paged_attention(q, kp, vp, bt, lens, k_scale=ks, v_scale=vs,
+                               sliding_window=window)
 
     kernels.reset_launch_counts()
     out = call()
     f = paged_attention
     launched = {"calls": f.launches, "splits_per_row": f.launches_split,
                 "combine": f.launches_combine}
-    ref = paged_attention_ref(q, kp, vp, bt, lens, k_scale=ks, v_scale=vs)
+    ref = paged_attention_ref(q, kp, vp, bt, lens, k_scale=ks, v_scale=vs,
+                              sliding_window=window)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     tol = _bf16_tol(ref)
-    what = f"paged_attention G={G} hd={hd} int8={int8}"
+    what = f"paged_attention G={G} hd={hd} int8={int8} window={window}"
     require(bool(torch.isfinite(out.float()).all()), f"{what}: not finite")
     require(err <= tol, f"{what}: err {err} > {tol}")
     zero_rows = [i for i, n in enumerate(lengths) if n == 0]
     require(all(float(out[i].float().abs().max()) == 0.0 for i in zero_rows),
             f"{what}: an empty decode row is not zero")
-    # each row's live splits, worked out from its length (not measured)
-    row_splits = [-(-n // SPLIT) for n in lengths]
+    # each row's live splits, worked out from its length and the window
+    # (not measured)
+    row_splits = [-(-n // SPLIT) - (max(0, n - window) // SPLIT if window
+                                    else 0) for n in lengths]
     want = {"calls": 1, "splits_per_row": -(-MB * bs // SPLIT),
             "combine": int(MB * bs > SPLIT)}
     require(launched == want, f"{what}: launched {launched}, not {want}")
@@ -346,12 +372,16 @@ def check_decode(gen, device, lengths, G, int8, reps, H=32, hd=128, bs=16):
                            else {"split"}),
             f"{what}: device parts {sorted(parts)}")
     plain_ms = time_ms(lambda: paged_attention_ref(
-        q, kp, vp, bt, lens, k_scale=ks, v_scale=vs), max(1, reps // 4), 1)
+        q, kp, vp, bt, lens, k_scale=ks, v_scale=vs, sliding_window=window),
+        max(1, reps // 4), 1)
     kg, vg = _gathered(kp, vp, ks, vs, bt, H)
     kg, vg = kg.to(torch.bfloat16), vg.to(torch.bfloat16)
     L = kg.shape[2]
-    mask = (torch.arange(L, device=device)[None, :]
-            < lens[:, None])[:, None, None, :]
+    k_pos = torch.arange(L, device=device)[None, :]
+    mask = k_pos < lens[:, None]
+    if window:
+        mask &= k_pos >= lens[:, None] - window
+    mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
 
     def library():
@@ -359,14 +389,16 @@ def check_decode(gen, device, lengths, G, int8, reps, H=32, hd=128, bs=16):
 
     library_ms = time_ms(library, reps)
     library_device_ms, _ = device_ms(library, reps)
-    ctx = int(sum(lengths))
+    # positions attended: the window's worth of each row
+    ctx = int(sum(min(n, window) if window else n for n in lengths))
     kv_bytes = (1 if int8 else 2) * 2 * ctx * Kv * hd + (8 * ctx * Kv if int8
                                                           else 0)
     nbytes = kv_bytes + 2 * 2 * B * H * hd + 4 * B * (MB + 1)
     flops = 4 * hd * H * ctx
     b_ms, b_by = bound(nbytes, flops)
     return {"name": "paged_attention", "G": G, "kv": "int8" if int8 else "bf16",
-            "B": B, "H": H, "hd": hd, "bs": bs, "lengths": lengths,
+            "B": B, "H": H, "hd": hd, "bs": bs, "window": window,
+            "lengths": lengths,
             "split_len": SPLIT, "row_splits_from_lengths": row_splits,
             "launched": launched,
             "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": dev_ms,
@@ -376,10 +408,12 @@ def check_decode(gen, device, lengths, G, int8, reps, H=32, hd=128, bs=16):
 
 
 def check_prefill(gen, device, lengths, T, G, int8, reps, H=32, hd=128,
-                  bs=16, dtype=None):
+                  bs=16, dtype=None, window=0):
     """Tolerance: ``_attn_tol`` against the plain version (bf16 queries:
     the tensor-core tile, also held per row to its tile reference by
-    ``_tile_check``; fp32: the fp32 tile, tight)."""
+    ``_tile_check``; fp32: the fp32 tile, tight).  SDPA over K/V gathered
+    outside its timing, by events and by device time, is the library
+    yardstick."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attn_tile import paged_prefill_tile_ref
@@ -393,38 +427,49 @@ def check_prefill(gen, device, lengths, T, G, int8, reps, H=32, hd=128,
     bt = _tables(gen, B, MB, device)
     lens = torch.tensor(lengths, dtype=torch.int32, device=device)
     q = torch.randn((B, T, H, hd), generator=gen, device=device).to(dtype)
-    out = _one_tile("paged_prefill_attention", lambda: paged_prefill_attention(
-        q, kp, vp, bt, lens, k_scale=ks, v_scale=vs), dtype)
-    ref = paged_prefill_attention_ref(q, kp, vp, bt, lens, k_scale=ks,
-                                      v_scale=vs)
+    kw = {"k_scale": ks, "v_scale": vs, "sliding_window": window}
+
+    def call():
+        return paged_prefill_attention(q, kp, vp, bt, lens, **kw)
+
+    what = f"paged_prefill G={G} hd={hd} int8={int8} window={window}"
+    out = _one_tile("paged_prefill_attention", call, dtype)
+    ref = paged_prefill_attention_ref(q, kp, vp, bt, lens, **kw)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     tol = _attn_tol(ref, vp.float() * vs[..., None] if int8 else vp)
-    require(bool(torch.isfinite(out.float()).all()), "prefill output not finite")
-    require(err <= tol, f"paged_prefill G={G} int8={int8} {dtype}: err "
-            f"{err} > {tol}")
+    require(bool(torch.isfinite(out.float()).all()),
+            f"{what}: output not finite")
+    require(err <= tol, f"{what} {dtype}: err {err} > {tol}")
     tile = {}
     if dtype == torch.bfloat16:
-        tile = _tile_check(f"paged_prefill G={G} int8={int8}", out,
-                           paged_prefill_tile_ref(q, kp, vp, bt, lens,
-                                                  k_scale=ks, v_scale=vs))
-    ms = time_ms(lambda: paged_prefill_attention(q, kp, vp, bt, lens,
-                                                 k_scale=ks, v_scale=vs), reps)
-    dev_ms, _ = device_ms(lambda: paged_prefill_attention(
-        q, kp, vp, bt, lens, k_scale=ks, v_scale=vs), reps)
+        tile = _tile_check(what, out, paged_prefill_tile_ref(
+            q, kp, vp, bt, lens, **kw))
+    ms = time_ms(call, reps)
+    dev_ms, _ = device_ms(call, reps)
     plain_ms = time_ms(lambda: paged_prefill_attention_ref(
-        q, kp, vp, bt, lens, k_scale=ks, v_scale=vs), max(1, reps // 4), 1)
+        q, kp, vp, bt, lens, **kw), max(1, reps // 4), 1)
     kg, vg = _gathered(kp, vp, ks, vs, bt, H)
     kg, vg = kg.to(dtype), vg.to(dtype)
     L = kg.shape[2]
     q_pos = lens[:, None] + torch.arange(T, device=device)[None, :]
-    mask = (torch.arange(L, device=device)[None, None, :]
-            <= q_pos[:, :, None])[:, None]
+    k_pos = torch.arange(L, device=device)[None, None, :]
+    mask = k_pos <= q_pos[:, :, None]
+    if window:
+        mask &= k_pos > q_pos[:, :, None] - window
+    mask = mask[:, None]
     qt = q.permute(0, 2, 1, 3).contiguous()
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kg, vg, attn_mask=mask), reps)
-    ctx = sum(n + T for n in lengths)                 # positions read per row
-    pairs = sum((n + 1) * T + T * (T - 1) // 2 for n in lengths)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask)
+
+    library_ms = time_ms(library, reps)
+    library_device_ms, _ = device_ms(library, reps)
+    W = window or 1 << 30
+    # positions read per row (from the first query's window start), and
+    # (query, key) pairs attended
+    ctx = sum(n + T - max(0, n - W + 1) for n in lengths)
+    pairs = sum(min(n + t + 1, W) for n in lengths for t in range(T))
     kv_bytes = (1 if int8 else 2) * 2 * ctx * Kv * hd + (8 * ctx * Kv if int8
                                                           else 0)
     q_el = q.element_size()
@@ -436,10 +481,11 @@ def check_prefill(gen, device, lengths, T, G, int8, reps, H=32, hd=128,
             "q": "bf16" if dtype == torch.bfloat16 else "fp32",
             "tile": "mma" if dtype == torch.bfloat16 else "f32",
             "B": B, "T": T, "H": H,
-            "hd": hd, "bs": bs, "lengths": lengths, "max_abs_err": err,
-            "tol": tol, **tile, "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "hd": hd, "bs": bs, "window": window, "lengths": lengths,
+            "max_abs_err": err, "tol": tol, **tile, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _lora_tol(ref) -> float:
@@ -835,11 +881,13 @@ def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
     if window > 0:
         mask &= k_pos[None, :] > q_pos[:, None] - window
     if Sq == Sk and window == 0:
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qc, kc, vc, is_causal=True), reps)
+        def library():
+            return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)
     else:
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qc, kc, vc, attn_mask=mask), reps)
+        def library():
+            return F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask)
+    library_ms = time_ms(library, reps)
+    library_device_ms, _ = device_ms(library, reps)
     pairs = int(mask.sum())
     nbytes = q.element_size() * (2 * B * H * Sq * d + 2 * B * Kv * Sk * d)
     flops = 4 * d * pairs * B * H
@@ -850,8 +898,9 @@ def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
             "B": B, "H": H, "Kv": Kv, "Sq": Sq,
             "Sk": Sk, "d": d, "window": window, "max_abs_err": err,
             "tol": tol, **tile, "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_device_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def check_backwards(gen, device):
@@ -909,6 +958,13 @@ def training_kernels(device, seed: int, reps: int):
         res = check_flash(gen, device, 8, H, Kv, Sq, Sk, 128, window, reps)
         emit(res)
         main.setdefault("flash_attention", res)
+    # gemma-2b's shape: head dim 256, 8 query heads over one kv head
+    emit(check_flash(gen, device, 8, 8, 1, 256, 256, 256, 0, reps))
+    # gemma-2b's train step (phase dense_family): a 2048-row batch through
+    # each of its projections
+    for K, N in projection_shapes("gemma-2b"):
+        emit({**check_single_lora(gen, device, 2048, K, N, 16, reps),
+              "arch": "gemma-2b"})
     # fp32 at the main shape: the fp32 tile, held tight
     emit(check_flash(gen, device, 8, 32, 32, 256, 256, 128, 0, reps,
                      dtype=torch.float32))
@@ -946,6 +1002,8 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
     # (G 12, head dim 128), at the same lengths
     emit(check_decode(gen, device, dec_lengths, 8, False, reps, H=8, hd=256))
     emit(check_decode(gen, device, dec_lengths, 12, False, reps, H=48))
+    # yi-6b's (G 8, head dim 128)
+    emit(check_decode(gen, device, dec_lengths, 8, False, reps, H=32))
     # prefill: a chunk of T behind ragged earlier context, one fresh row
     pre_lengths = [0] + [min(n, 768) for n in main_lengths[1:]]
     for G in (1, 4):
@@ -958,6 +1016,24 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
     for int8 in (False, True):
         emit(check_prefill(gen, device, pre_lengths, T, 1, int8, reps,
                            dtype=torch.float32))
+    # gemma-2b's prefill shape: head dim 256, G 8 over one kv head; yi-6b's
+    # (G 8, head dim 128)
+    for int8 in (False, True):
+        emit(check_prefill(gen, device, pre_lengths, T, 8, int8, reps, H=8,
+                           hd=256))
+    emit(check_prefill(gen, device, pre_lengths, T, 8, False, reps, H=32))
+    # starcoder2-15b's shapes (G 12, hd 128) under its 4096-token window,
+    # contexts to 6144: the window binds in the long rows, and whole
+    # decode splits below it drop out
+    win_dec = [0, 1000, 2048, 4095, 4097, 4500, 5000, 6144]
+    res = check_decode(gen, device, win_dec, 12, False, reps, H=48,
+                       window=4096)
+    require(res["launched"]["combine"] == 1,
+            "the windowed decode shape ran one split per row")
+    emit(res)
+    win_pre = [0, 1000, 3900, 4200, 5000, 6144 - T]
+    emit(check_prefill(gen, device, win_pre, T, 12, False, reps, H=48,
+                       window=4096))
     B = len(main_lengths)
     for M, K, N in ((B, 4096, 4096), (B * T, 4096, 11008)):
         for variant in ("f32_bank", "rank_mask", "int8_bank"):
@@ -973,6 +1049,25 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
                     by_request=True, share=True))
     emit(check_lora(gen, device, B * T, 4096, 11008, 8, 16, "f32_bank", reps,
                     dtype=torch.float32))
+    # the other dense archs' projections at phase dense_family's rows (a
+    # decode step: one row per request; a prefill dispatch: T per request)
+    # over its 4 tenants: every variant at gemma-2b's and starcoder2-15b's
+    # shapes, the served fp32 bank at olmo-1b's and yi-6b's shapes not held
+    # above
+    seen = {(4096, 4096), (4096, 11008)}
+    for arch in DENSE_FAMILY:
+        rows = dense_requests(arch)
+        variants = (("f32_bank", "rank_mask", "int8_bank")
+                    if arch in ("gemma-2b", "starcoder2-15b")
+                    else ("f32_bank",))
+        for K, N in projection_shapes(arch):
+            if (K, N) in seen:
+                continue
+            seen.add((K, N))
+            for M in (rows, rows * T):
+                for variant in variants:
+                    emit({**check_lora(gen, device, M, K, N, DENSE_TENANTS,
+                                       16, variant, reps), "arch": arch})
     return main
 
 
@@ -2034,6 +2129,241 @@ def train_phase(device, seed: int, params, cfg):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the rest of the dense family at full width and depth
+# ---------------------------------------------------------------------------
+
+# why each arch is here: gemma-2b runs head dim 256 (one kv head, a 256,000
+# token tied vocabulary); olmo-1b MHA with a non-parametric LayerNorm and
+# tied embeddings; yi-6b GQA 8 over 32 layers; starcoder2-15b G 12, a
+# gate-less GELU MLP (6 LoRA targets), LayerNorm with bias and a 4,096
+# token sliding window
+DENSE_FAMILY = ("gemma-2b", "olmo-1b", "yi-6b", "starcoder2-15b")
+DENSE_TENANTS = 4
+DENSE_REQUESTS = 4          # and one of LONG_PROMPT tokens under a window
+LONG_PROMPT = 4608
+
+
+def dense_requests(arch) -> int:
+    """The requests phase dense_family serves ``arch`` at once."""
+    from repro_torch.configs import get_config
+    return DENSE_REQUESTS + bool(get_config(arch).sliding_window)
+
+
+def projection_shapes(arch):
+    """The (K, N) of ``arch``'s LoRA-targeted projections, sorted."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import block_target_shapes
+    return sorted({kn for part in block_target_shapes(
+        get_config(arch)).values() for kn in part.values()})
+
+
+def window_chunk_check(eng, req, sc, dtype_name, rel_tol):
+    """``req``'s prompt (longer than the window) fed in chunks through
+    "cuda" up to its last chunk; then the last chunk, where every query's
+    window starts past position 0, through "cuda" and "torch" on copies
+    of the same pools: ``compare_first_chunk``'s rule over every position
+    of the chunk (max logit error within ``rel_tol`` of the largest logit;
+    the greedy token equal wherever the top-2 margin exceeds twice it).
+    The same chunk through "torch" with the window off must miss "torch"
+    with it by more than that limit, so the check sees the window."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models.api import Model
+    cfg = eng.model.cfg
+    no_window = copy.copy(eng)
+    no_window.model = Model(cfg.with_overrides(sliding_window=0), eng.device)
+    T, n = sc.prefill_chunk, len(req.prompt)
+    last0 = (n - 1) // T * T
+    require(last0 >= cfg.sliding_window > 0,
+            f"the last chunk (from {last0}) does not pass the window "
+            f"{cfg.sliding_window}")
+    kv, cache = _fresh_pool(eng, sc, n)
+    kv.admit(0)
+    head = dataclasses.replace(req, prompt=req.prompt[:last0])
+    _, cache = feed_chunks(eng, kv, cache, 0, head, sc, "cuda")
+    out = {}
+    for name, e, backend in (("cuda", eng, "cuda"), ("torch", eng, "torch"),
+                             ("no_window", no_window, "torch")):
+        kernels.reset_launch_counts()
+        pools = {"layers": [{k: t.clone() for k, t in layer.items()}
+                            for layer in cache["layers"]]}
+        (pos, logits), = feed_chunks(e, copy.deepcopy(kv), pools, 0, req,
+                                     sc, backend)[0]
+        out[name] = (logits, kernels.launch_counts())
+        del pools
+    (lc, nc), (lt, nt), (ln, nn) = out["cuda"], out["torch"], out["no_window"]
+    err = float((lc - lt).abs().max())
+    window_effect = float((ln - lt).abs().max())
+    top = float(lt.abs().max())
+    top2 = torch.topk(lt, 2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 2 * err
+    agree = lc.argmax(-1) == lt.argmax(-1)
+    emit({"phase": "window_chunk", "arch": cfg.name, "activations": dtype_name,
+          "window": cfg.sliding_window, "prompt_len": n,
+          "chunk_first_position": pos, "positions": int(lc.shape[0]),
+          "max_abs_logit_err": err, "max_abs_logit": top,
+          "tol": rel_tol * top, "decisive_positions": int(decisive.sum()),
+          "greedy_agree": int(agree.sum()),
+          "no_window_max_abs_logit_diff": window_effect,
+          "launches_cuda": nc})
+    require(bool(torch.isfinite(lc).all()), "window chunk: cuda logits not "
+            "finite")
+    require(err <= rel_tol * top, f"{cfg.name} {dtype_name} window chunk: "
+            f"logit error {err} > {rel_tol * top}")
+    require(bool(agree[decisive].all()), f"{cfg.name} window chunk: a greedy "
+            "token differs where the margin exceeds twice the error")
+    require(window_effect > rel_tol * top, f"{cfg.name} {dtype_name} window "
+            f"chunk: without the window the logits move {window_effect}, "
+            f"not past the limit {rel_tol * top}")
+    require(nc["paged_prefill_attention"] > 0
+            and all(v == 0 for v in (*nt.values(), *nn.values())),
+            f"window chunk launches: cuda {nc}, torch {nt}, {nn}")
+
+
+def dense_family_phase(device, seed: int, T: int = 256,
+                       tenants: int = DENSE_TENANTS, rank: int = 16,
+                       new_tokens: int = 16):
+    """Each of ``DENSE_FAMILY`` at its published width and depth, bf16,
+    seeded weights, ``tenants`` rank-16 fused adapters: 4 requests
+    (prompts from the seed in [128, 1024]; starcoder2-15b one more of
+    4,608 tokens), greedy, through "cuda" with overlap on and off (streams
+    bitwise equal, every serving kernel launched, prefill attention and
+    batched LoRA on their tensor-core tiles), the first chunk against
+    "torch" (bf16 <= 10%, fp32 activations <= 1%); gemma-2b also a train
+    step against "torch" (flash attention at head dim 256), starcoder2-15b
+    its long prompt's last chunk against "torch" with the window binding.
+    Returns {arch: launch counts of its overlapped run}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import init_adapters
+    from repro_torch.data.pipeline import SFTBatcher
+    from repro_torch.data.synthetic import gen_log_dataset
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.launch.serve import build_engine, ragged_requests
+    from repro_torch.models.api import Model
+    from repro_torch.serving.engine import (MultiTenantEngine, Request,
+                                            ServeConfig)
+    counts = {}
+    for arch in DENSE_FAMILY:
+        cfg = get_config(arch).with_overrides(lora_rank=rank)
+        t0 = time.perf_counter()
+        eng = build_engine(cfg, tenants, device, seed, rank=rank)
+        torch.cuda.synchronize()
+        emit({"phase": "model", "arch": cfg.name, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+              "n_kv_heads": cfg.n_kv_heads,
+              "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+              "vocab_size": cfg.vocab_size, "mlp_type": cfg.mlp_type,
+              "norm_type": cfg.norm_type,
+              "sliding_window": cfg.sliding_window,
+              "params": cfg.count_params(), "dtype": cfg.dtype,
+              "tenants": tenants, "rank": rank,
+              "init_s": time.perf_counter() - t0,
+              "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+        reqs = ragged_requests(DENSE_REQUESTS, tenants, cfg.vocab_size, 128,
+                               1024, seed)
+        long_req = None
+        if cfg.sliding_window:
+            rng = np.random.default_rng(seed + 3)
+            long_req = Request("client0", rng.integers(
+                0, cfg.vocab_size, LONG_PROMPT).astype(np.int32))
+        served = reqs + ([long_req] if long_req is not None else [])
+        require(len(served) == dense_requests(arch),
+                f"{arch}: {len(served)} requests, the kernel rows assume "
+                f"{dense_requests(arch)}")
+        sc = ServeConfig(batch_size=len(served), max_new_tokens=new_tokens,
+                         prefill_chunk=T, block_size=16, paged_backend="cuda")
+        eng.generate(ragged_requests(2, tenants, cfg.vocab_size, 8, 16,
+                                     seed + 1),
+                     ServeConfig(batch_size=2, max_new_tokens=2,
+                                 prefill_chunk=8, paged_backend="cuda"))
+        streams = {}
+        for overlap in (True, False):
+            sc.overlap = overlap
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, served,
+                                                                 sc)
+            launches = kernels.launch_counts()
+            tiles = kernels.tile_counts()
+            st = eng.last_stats
+            emit({"phase": "serve", "arch": cfg.name, "backend": "cuda",
+                  "overlap": overlap, "requests": len(served),
+                  "prompt_lens": [len(r.prompt) for r in served],
+                  "new_tokens": new_tokens, "prefill_chunk": T,
+                  "tokens": sum(len(o) for o in outs),
+                  "ttft_ms_p50": float(np.percentile(ttft, 50)) * 1e3,
+                  "ttft_ms_max": max(ttft) * 1e3,
+                  "decode_tokens": dec_tok, "decode_s": dec_s,
+                  "decode_tok_per_s": dec_tok / dec_s if dec_s > 0 else None,
+                  "total_s": total_s,
+                  "prefill_dispatches": st["prefill_dispatches"],
+                  "decode_dispatches": st["decode_dispatches"],
+                  "launches": launches, "tile_launches": tiles,
+                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+            for o in outs:
+                require(len(o) == new_tokens
+                        and all(0 <= t < cfg.vocab_size for t in o),
+                        f"{arch}: a stream is malformed")
+            for name in kernels.SERVING:
+                require(launches[name] > 0, f"{arch}: kernel {name} was "
+                        "never launched on the serving path")
+            for name in ("paged_prefill_attention", "batched_lora_matmul"):
+                require_mma_tile(tiles, name, f"{arch} overlap={overlap}")
+            streams[overlap] = outs
+            if overlap:
+                counts[arch] = launches
+        require(streams[True] == streams[False],
+                f"{arch}: streams with overlap on and off differ")
+        # one traced run (overlap on): device time by kernel family, idle
+        wall_ms, fam = traced(
+            lambda: eng.generate(served, dataclasses.replace(sc,
+                                                             overlap=True)),
+            KERNEL_FAMILIES, "other device work (torch: lm_head, norms, "
+            "rope, scatter, sampling, copies)")
+        emit(_profile_line(fam, wall_ms, phase="profile_dense_family",
+                           arch=cfg.name, requests=len(served),
+                           new_tokens=new_tokens, **_decode_share(fam)))
+        compare_first_chunk(eng, reqs, sc, "bfloat16", rel_tol=0.1,
+                            extra={"arch": cfg.name})
+        cfg32 = eng.cfg.with_overrides(dtype="float32")
+        eng32 = MultiTenantEngine(Model(cfg32, device), cfg32, eng.params,
+                                  eng.registry)
+        compare_first_chunk(eng32, reqs, sc, "float32", rel_tol=1e-2,
+                            extra={"arch": cfg.name})
+        if long_req is not None:
+            window_chunk_check(eng, long_req, sc, "bfloat16", 0.1)
+            window_chunk_check(eng32, long_req, sc, "float32", 1e-2)
+        del eng32
+        if arch == "gemma-2b":
+            # one client's SFT batch through a train step, "cuda" against
+            # "torch", at the train phase's bounds
+            tok = ByteTokenizer()
+            raw = SFTBatcher(gen_log_dataset(np.random.default_rng(seed), 64,
+                                             0), tok, 256, 8,
+                             seed=0).sample()
+            batch = {k: torch.as_tensor(v).to(device) for k, v in raw.items()}
+            ad = init_adapters(eng.cfg, seed=seed + 100, device=device,
+                               b_std=0.02)
+            compare_train_step(eng.model, eng.cfg, eng.params, ad, batch,
+                               "bfloat16", loss_tol=2e-2, grad_tol=0.25)
+            compare_train_step(Model(cfg32, device), cfg32, eng.params, ad,
+                               {k: v[:4] for k, v in batch.items()},
+                               "float32", loss_tol=1e-3, grad_tol=1e-2)
+            del ad, batch
+        del eng
+        torch.cuda.empty_cache()
+    return counts
+
+
 def ptxas_entries(report: str):
     """``{kernel: {registers, spill_stores, spill_loads}}`` from ``nvcc
     -Xptxas=-v`` output.  The tensor-core tiles are named
@@ -2141,6 +2471,12 @@ def main(argv=None) -> int:
     spilled = {k: v for k, v in mma.items()
                if v["spill_stores"] or v["spill_loads"]}
     require(not spilled, f"tensor-core tiles spill registers: {spilled}")
+    for src, tile in (("paged_prefill", "paged_prefill_mma_kernel<256>"),
+                      ("paged_prefill", "paged_prefill_mma_kernel<256, int8>"),
+                      ("flash_attention", "flash_attn_mma_kernel<256>")):
+        if src in reports:
+            require(tile in ptxas[src], f"no head-dim-256 tile {tile} in the "
+                    f"ptxas report of {src}.cu")
     if "paged_attention" in reports:
         dec = ptxas["paged_attention"]
         require(any(k.startswith("paged_decode_split_kernel<") for k in dec)
@@ -2184,6 +2520,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_counts = timed("train", train_phase, device, args.seed, params,
                          get_config(ARCH))
+    del params                          # llama2-7b's weights
+    torch.cuda.empty_cache()
+    timed("dense_family", dense_family_phase, device, args.seed, T)
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},

@@ -8,6 +8,10 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "llama2-7b": "repro_torch.configs.llama2_7b",
+    "gemma-2b": "repro_torch.configs.gemma_2b",
+    "olmo-1b": "repro_torch.configs.olmo_1b",
+    "yi-6b": "repro_torch.configs.yi_6b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
 }
 
 ALL_ARCHS: List[str] = list(_MODULES)

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 # head dims the tile is built for
-MMA_HEAD_DIMS = (32, 64, 128)
+MMA_HEAD_DIMS = (32, 64, 128, 256)
 KEYS = 64         # keys per K/V tile
 ROWS = 64         # query rows per CTA
 
@@ -84,13 +84,14 @@ def _tile(q, k, v, lo, hi, sl2, k_begin, k_end, ks=None, vs=None):
 
 def paged_prefill_tile_ref(q, k_pool, v_pool, block_tables, lengths, *,
                            k_scale=None, v_scale=None,
-                           scale: Optional[float] = None):
-    """``paged_prefill_attention`` as the tile computes it.  Every CTA walks
-    keys from 0 in tiles of 64, so all folded rows f = t·G + g share their
-    tiles and run as one batch; a CTA's walk ends at its last query, and
-    the tiles past it are masked for its rows, so walking on to the row's
-    last query changes nothing.  Pool slots the kernel never reads (at or
-    past ``lengths[b] + T``, or past the table) are zeroed first."""
+                           scale: Optional[float] = None,
+                           sliding_window: int = 0):
+    """``paged_prefill_attention`` as the tile computes it, CTA by CTA:
+    the CTA of batch row b and folded rows f = t·G + g in [f0, f0 + 64)
+    walks keys in tiles of 64 from its first query's window start,
+    ``lengths[b] + f0 // G - W + 1`` (0 without a window W, and at least
+    0), to its last query.  Pool slots the kernel never reads (at or past
+    ``lengths[b] + T``, or past the table) are zeroed first."""
     B, T, H, hd = q.shape
     bs, Kv = k_pool.shape[1], k_pool.shape[2]
     G = H // Kv
@@ -114,11 +115,21 @@ def paged_prefill_tile_ref(q, k_pool, v_pool, block_tables, lengths, *,
     qf = (q.float().reshape(B, T, Kv, G, hd).permute(0, 2, 1, 3, 4)
           .reshape(B * Kv, T * G, hd))
     t = torch.arange(T * G, device=q.device) // G
-    hi = torch.clamp(lens[:, None] + t[None, :], max=L - 1)   # (B, T·G)
-    hi = hi[:, None].expand(B, Kv, T * G).reshape(B * Kv, T * G)
-    k_end = min(int(lens.max()) + T, L)
-    o = _tile(qf, k, v, torch.zeros_like(hi), hi, scale * math.log2(math.e),
-              0, k_end, ks, vs)
+    pos = lens[:, None] + t[None, :]                          # (B, T·G)
+    hi = torch.clamp(pos, max=L - 1)
+    lo = (torch.clamp(pos - sliding_window + 1, min=0) if sliding_window > 0
+          else torch.zeros_like(pos))
+    sl2 = scale * math.log2(math.e)
+    o = torch.empty_like(qf)
+    for b in range(B):
+        cta = slice(b * Kv, (b + 1) * Kv)
+        for f0 in range(0, T * G, ROWS):
+            f = slice(f0, min(f0 + ROWS, T * G))
+            k_end = min(int(pos[b, f.stop - 1]) + 1, L)
+            o[cta, f] = _tile(qf[cta, f], k[cta], v[cta], lo[b, f], hi[b, f],
+                              sl2, int(lo[b, f0]), k_end,
+                              None if ks is None else ks[cta],
+                              None if vs is None else vs[cta])
     o = o.reshape(B, Kv, T, G, hd).permute(0, 2, 1, 3, 4)
     return o.reshape(B, T, H, hd).to(q.dtype)
 

@@ -11,8 +11,13 @@
 //
 // Design (FlashAttention-2 style):
 // - One CTA of 4 warps owns a tile of 64 query rows, 16 rows per warp.  The
-//   Q tile is copied once into shared memory and held in registers as
-//   mma A fragments (ldmatrix).
+//   Q tile is copied once into shared memory; up to head dim 128 it is
+//   held in registers as mma A fragments (ldmatrix).  At head dim 256 the
+//   registers go to the output: a thread's share of O is 128 fp32 values
+//   and of S 32 more, so Q's 64 fragment registers would push it past the
+//   255-register limit into spills.  There each key tile reloads Q's
+//   fragments from the shared copy, one 16-column slice at a time (4
+//   registers live), as FlashAttention-2 does at that width.
 // - K and V come in tiles of 64 keys, double-buffered in shared memory by
 //   cp.async 16-byte copies: the copy of tile i+1 is issued right after
 //   the barrier that opens tile i, so it overlaps tile i's math, and one
@@ -20,7 +25,7 @@
 //   addresses of every ldmatrix phase fall in 8 distinct 16-byte bank
 //   groups (no conflicts, for ldmatrix and ldmatrix.trans alike).  At hd
 //   128 that is 17 KB for Q plus 2 stages x (K + V) x 17 KB = 85 KB, so two
-//   CTAs fit on an SM.
+//   CTAs fit on an SM; at hd 256, 165 KB (int8: 164 KB), so one does.
 // - S = Q·Kᵀ and O += P·V run on mma.sync.m16n8k16 bf16 -> fp32 (the
 //   primitives are mma_common.cuh's, shared with the LoRA tile); S and O
 //   stay in registers.  The softmax works on the accumulator fragments:
@@ -136,7 +141,10 @@ template <int HD, bool QUANT, class Loader>
 __device__ __forceinline__ void run(const Loader& ld, int k_begin, int k_end,
                                     int full_lo, int full_hi, float scale,
                                     unsigned char* smem) {
-  static_assert(HD % 16 == 0 && HD <= 128, "head dim");
+  static_assert(HD % 16 == 0 && HD <= 256, "head dim");
+  // Q's A fragments stay in registers up to hd 128; past that they are
+  // reloaded from Qs per key tile (see the header)
+  constexpr bool kHoldQ = HD <= 128;
   typedef typename Loader::KT KT;
   constexpr int kStride = Tile<HD>::kStride;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -186,7 +194,7 @@ __device__ __forceinline__ void run(const Loader& ld, int k_begin, int k_end,
   ld.limits(r1, lo1, hi1);
 
   const float sl2 = scale * kLog2e;
-  uint32_t qf[HD / 16][4];
+  uint32_t qf[kHoldQ ? HD / 16 : 1][4];
   float o[HD / 8][4];
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n)
@@ -202,12 +210,15 @@ __device__ __forceinline__ void run(const Loader& ld, int k_begin, int k_end,
       ld.load_kv(k0 + kKeys, Kst[st ^ 1], Vst[st ^ 1], ks_s[st ^ 1],
                  vs_s[st ^ 1]);
     cp_async_commit();
-    if (it == 0) {
+    // this warp's 16 query rows in Qs, this lane's ldmatrix row
+    const uint32_t q_addr = smem_addr(
+        Qs + (warp * 16 + (lane % 16)) * kStride + (lane / 16) * 8);
+    if constexpr (kHoldQ) {
+      if (it == 0) {
 #pragma unroll
-      for (int c = 0; c < HD / 16; ++c)
-        ldsm_x4(smem_addr(Qs + (warp * 16 + (lane % 16)) * kStride + c * 16 +
-                          (lane / 16) * 8),
-                qf[c][0], qf[c][1], qf[c][2], qf[c][3]);
+        for (int c = 0; c < HD / 16; ++c)
+          ldsm_x4(q_addr + c * 32, qf[c][0], qf[c][1], qf[c][2], qf[c][3]);
+      }
     }
     if (QUANT) {
       widen<HD>(reinterpret_cast<const int8_t*>(Kst[st]), Kb[st]);
@@ -224,14 +235,21 @@ __device__ __forceinline__ void run(const Loader& ld, int k_begin, int k_end,
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int c = 0; c < HD / 16; ++c) {
+      uint32_t qa[4];
+      if constexpr (kHoldQ) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[c][e];
+      } else {
+        ldsm_x4(q_addr + c * 32, qa[0], qa[1], qa[2], qa[3]);
+      }
 #pragma unroll
       for (int jp = 0; jp < kKeys / 16; ++jp) {
         uint32_t b0, b1, b2, b3;
         const int key = 16 * jp + (lane / 16) * 8 + (lane % 8);
         ldsm_x4(smem_addr(Kt + key * kStride + c * 16 + ((lane / 8) & 1) * 8),
                 b0, b1, b2, b3);
-        mma_bf16(s[2 * jp], qf[c], b0, b1);
-        mma_bf16(s[2 * jp + 1], qf[c], b2, b3);
+        mma_bf16(s[2 * jp], qa, b0, b1);
+        mma_bf16(s[2 * jp + 1], qa, b2, b3);
       }
     }
 

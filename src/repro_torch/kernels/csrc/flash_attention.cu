@@ -41,16 +41,20 @@ struct Strides {  // element strides of (batch, head, position)
 // bf16: the tensor-core tile
 // ---------------------------------------------------------------------------
 
+// Pointers are at the tile's first query row (q, o) and at position 0 of
+// the kv head (k, v); position strides are 32-bit (a position's stride is
+// far below 2^31 elements), products 64-bit.  Few registers stay live
+// through the key walk, which the tile needs at head dim 256.
 template <int HD>
 struct StridedLoader {
   typedef bf16 KT;
-  const bf16* q;  // this (batch, head)'s rows, position stride qs
+  const bf16* q;  // this (batch, head)'s first tile row, position stride qs
   const bf16* k;  // its kv head's rows
   const bf16* v;
-  bf16* o;
-  long long qs, ks, vs, os;
-  int i0, nr;     // first query row of the tile, rows in it
-  int off;        // query i sits at position off + i
+  bf16* o;        // the output's first tile row
+  int qs, ks, vs, os;
+  int nr;         // rows in the tile
+  int p0;         // the tile's first query sits at position p0
   int causal, window, kv_hi;
 
   __device__ void load_q(bf16* Qs) const {
@@ -58,7 +62,7 @@ struct StridedLoader {
     for (int e = threadIdx.x; e < attn::kRows * kChunks; e += attn::kThreads) {
       const int r = e / kChunks, c = e % kChunks;
       const bool ok = r < nr;
-      const bf16* src = ok ? q + (i0 + r) * qs + c * 8 : q;
+      const bf16* src = ok ? q + (long long)r * qs + c * 8 : q;
       attn::cp_async16(Qs + r * attn::Tile<HD>::kStride + c * 8, src, ok);
     }
   }
@@ -70,21 +74,21 @@ struct StridedLoader {
       const int p = k0 + j;
       const bool ok = p <= kv_hi;
       const int dst = j * attn::Tile<HD>::kStride + c * 8;
-      attn::cp_async16(K + dst, ok ? k + p * ks + c * 8 : k, ok);
-      attn::cp_async16(V + dst, ok ? v + p * vs + c * 8 : v, ok);
+      attn::cp_async16(K + dst, ok ? k + (long long)p * ks + c * 8 : k, ok);
+      attn::cp_async16(V + dst, ok ? v + (long long)p * vs + c * 8 : v, ok);
     }
   }
 
   __device__ void limits(int r, int& lo, int& hi) const {
     // rows past the end: computed, not stored
-    const int qp = off + i0 + (r < nr ? r : nr - 1);
+    const int qp = p0 + (r < nr ? r : nr - 1);
     hi = causal ? min(qp, kv_hi) : kv_hi;
     lo = window > 0 ? max(qp - window + 1, 0) : 0;
   }
 
   __device__ void store(int r, int c, float x, float y) const {
     if (r < nr)
-      *reinterpret_cast<__nv_bfloat162*>(o + (i0 + r) * os + c) =
+      *reinterpret_cast<__nv_bfloat162*>(o + (long long)r * os + c) =
           __floats2bfloat162_rn(x, y);
   }
 };
@@ -103,23 +107,23 @@ __global__ void __launch_bounds__(attn::kThreads, 2)
   // query tiles last to first: under the causal mask the last tiles walk
   // the most keys, so they start in the first wave and the short ones fill
   // the tail
-  ld.i0 = (gridDim.y - 1 - blockIdx.y) * attn::kRows;
-  ld.nr = min(attn::kRows, Sq - ld.i0);
-  ld.off = Sk - Sq;
-  const int p_first = ld.off + ld.i0, p_last = p_first + ld.nr - 1;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * attn::kRows;
+  ld.nr = min(attn::kRows, Sq - i0);
+  ld.p0 = Sk - Sq + i0;
+  const int p_first = ld.p0, p_last = p_first + ld.nr - 1;
   // keys any query of the tile attends, and keys every query attends
   const int kv_lo = window > 0 ? max(0, p_first - window + 1) : 0;
   const int kv_hi = causal ? min(Sk - 1, p_last) : Sk - 1;
   const int full_lo = window > 0 ? max(0, p_last - window + 1) : 0;
   const int full_hi = causal ? min(Sk - 1, p_first) : Sk - 1;
-  ld.q = q + b * qs.b + h * qs.h;
+  ld.q = q + b * qs.b + h * qs.h + i0 * qs.s;
   ld.k = k + b * ks.b + kh * ks.h;
   ld.v = v + b * vs.b + kh * vs.h;
-  ld.o = o + b * os.b + h * os.h;
-  ld.qs = qs.s;
-  ld.ks = ks.s;
-  ld.vs = vs.s;
-  ld.os = os.s;
+  ld.o = o + b * os.b + h * os.h + i0 * os.s;
+  ld.qs = (int)qs.s;
+  ld.ks = (int)ks.s;
+  ld.vs = (int)vs.s;
+  ld.os = (int)os.s;
   ld.causal = causal;
   ld.window = window;
   ld.kv_hi = kv_hi;
@@ -300,8 +304,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 // q (B, H, Sq, d), k/v (B, Kv, Sk, d), o (B, H, Sq, d): float32 or
 // bfloat16, all one type, each given by element strides of its first three
 // axes (the last axis contiguous).  bf16 runs the tensor-core tile (d 32,
-// 64 or 128; every row start 16-byte aligned); fp32 the CUDA-core tile with
-// ``rows`` query rows per CTA, rows * d <= 4096.  window <= 0: no window.
+// 64, 128 or 256; every row start 16-byte aligned); fp32 the CUDA-core tile
+// with ``rows`` query rows per CTA, rows * d <= 4096.  window <= 0: no
+// window.
 // Returns the CUDA error code of the launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, const long long* strides, int B,
@@ -325,6 +330,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                             causal, window, scale, s);
     case 128:
       return launch_mma<128>(q, k, v, o, qs, ks, vs, os, B, H, Kv, Sq, Sk,
+                             causal, window, scale, s);
+    case 256:
+      return launch_mma<256>(q, k, v, o, qs, ks, vs, os, B, H, Kv, Sq, Sk,
                              causal, window, scale, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -4,6 +4,9 @@
 // paged_attention: one query token per serving row against that row's
 // block-table K/V, exclusive lengths (row b attends [0, lengths[b])),
 // zeros for an empty row, GQA folding G = H / Kv query heads per kv head.
+// With a sliding window W > 0 (starcoder2) row b attends only
+// [lengths[b] - W, lengths[b]), as the reference's jnp paged branch masks
+// it (its Pallas kernel takes no window).
 //
 // Bound on this card: the bytes of K/V read.  Each context position of
 // each kv head is read once per step, for G * hd multiply-adds per head
@@ -12,9 +15,12 @@
 //
 // - The context is cut by position into splits of kSplit positions.  The
 //   grid is (splits, Kv * head groups, B); a CTA whose split starts at or
-//   past its row's length exits at once.  The split boundaries depend on
-//   kSplit and the row's own length only, so a row's output is bitwise the
-//   same whatever the batch, the other rows and the table width.
+//   past its row's length exits at once, and so does one whose split ends
+//   at or below its row's window start.  The one split that holds the
+//   window start masks the positions below it (and copies none of them).
+//   The split boundaries depend on kSplit, the row's own length and the
+//   window only, so a row's output is bitwise the same whatever the batch,
+//   the other rows and the table width.
 // - A CTA holds all G query heads of its kv head (up to GH heads; past
 //   that, head groups of their own CTAs), so each K/V byte is read once.
 //   Its eight warps take interleaved chunks of the split, each through its
@@ -38,7 +44,7 @@
 //   through shared memory, in a fixed order.  A row whose context fits in
 //   one split writes its output; otherwise each split writes (m, l, acc)
 //   in fp32 to a scratch buffer and paged_decode_combine_kernel merges the
-//   splits of each (row, head) in split order.  No atomics: two launches
+//   live splits of each (row, head) in split order.  No atomics: two launches
 //   at most, and every sum in a fixed order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -149,8 +155,9 @@ __device__ __forceinline__ void store_out(void* out, size_t i, float v,
 // Arguments of both kernels.  q, out: (B, H, hd) fp32 or bf16 (q_bf16);
 // pools (NB, bs, Kv, hd), int8 with (NB, bs, Kv) scales; part: (B, H, NS,
 // hd) accumulators, then (B, H, NS, 2) (m, l); G = H / Kv query heads per
-// kv head in HG head groups.  scale2 is the softmax scale times log2(e):
-// scores and maxima are in base 2, so each exponential is one exp2f.
+// kv head in HG head groups; window <= 0: no sliding window.  scale2 is
+// the softmax scale times log2(e): scores and maxima are in base 2, so
+// each exponential is one exp2f.
 struct DecodeArgs {
   const void* q;
   const unsigned char* k_pool;
@@ -161,8 +168,20 @@ struct DecodeArgs {
   const int* lengths;
   void* out;
   float* part;
-  int B, H, Kv, G, HG, hd, bs, MB, NS, q_bf16;
+  int B, H, Kv, G, HG, hd, bs, MB, NS, q_bf16, window;
   float scale2;
+};
+
+// Row b's positions [lo, len) and its live splits [s_lo, s_hi): those
+// that hold a position it attends.
+struct RowSpan {
+  int len, lo, s_lo, s_hi;
+  __device__ RowSpan(const DecodeArgs& a, int b) {
+    len = max(0, min(a.lengths[b], a.MB * a.bs));
+    lo = a.window > 0 ? max(0, len - a.window) : 0;
+    s_lo = lo / kSplit;
+    s_hi = (len + kSplit - 1) / kSplit;
+  }
 };
 
 // One CTA: split blockIdx.x of row blockIdx.z, kv head blockIdx.y / HG,
@@ -193,7 +212,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h0 = kv * G + hg * per;              // this CTA's first head
   const int ng = min(per, G - hg * per);         // its heads (<= GH)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int len = max(0, min(a.lengths[b], MB * bs));
+  const RowSpan row(a, b);
+  const int len = row.len, lo = row.lo;
   const int s0 = split * kSplit;
   const size_t orow = (size_t)b * H;
 
@@ -203,9 +223,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         store_out(out, (orow + h0 + e / HD) * HD + e % HD, 0.f, q_bf16);
     return;
   }
-  if (s0 >= len) return;                         // split past the row's end
+  // a split past the row's end, or wholly below its window
+  if (split < row.s_lo || split >= row.s_hi) return;
   const int n = min(kSplit, len - s0);           // positions of this split
-  const int nsplit = (len + kSplit - 1) / kSplit;
+  const int nlive = row.s_hi - row.s_lo;
 
   // the split's block-table entries
   const int blk0 = s0 / bs;
@@ -230,24 +251,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = lane; j < TP * S::ROW16; j += 32) {
         const int pp = j / S::ROW16, w = j % S::ROW16;
         const int pos = s0 + p0 + pp;
-        if (p0 + pp < n) {
+        if (p0 + pp < n && pos >= lo) {
           const int phys = tbl[pos / bs - blk0];
-          const size_t row = ((size_t)phys * bs + pos % bs) * Kv + kv;
+          const size_t r = ((size_t)phys * bs + pos % bs) * Kv + kv;
           tc::cp_async16(st + pp * row_bytes + w * 16,
-                         k_pool + row * row_bytes + w * 16, true);
+                         k_pool + r * row_bytes + w * 16, true);
           tc::cp_async16(st + S::kKV + pp * row_bytes + w * 16,
-                         v_pool + row * row_bytes + w * 16, true);
+                         v_pool + r * row_bytes + w * 16, true);
         }
       }
       if constexpr (QUANT) {
         float* sc = reinterpret_cast<float*>(st + 2 * S::kKV);
         for (int pp = lane; pp < TP; pp += 32) {
           const int pos = s0 + p0 + pp;
-          if (p0 + pp < n) {
+          if (p0 + pp < n && pos >= lo) {
             const int phys = tbl[pos / bs - blk0];
-            const size_t row = ((size_t)phys * bs + pos % bs) * Kv + kv;
-            tc::cp_async4(sc + pp, k_scale + row, true);
-            tc::cp_async4(sc + TP + pp, v_scale + row, true);
+            const size_t r = ((size_t)phys * bs + pos % bs) * Kv + kv;
+            tc::cp_async4(sc + pp, k_scale + r, true);
+            tc::cp_async4(sc + TP + pp, v_scale + r, true);
           }
         }
       }
@@ -291,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int j = 0; j < S::NB; ++j) {
         const int pp = (sb * S::NB + j) * P + grp;
-        valid[j] = p0 + pp < n;
+        valid[j] = p0 + pp < n && s0 + p0 + pp >= lo;
         float kf[VEC];
         load_vec<QUANT, VEC>(st + pp * row_bytes + d0 * S::kElt, kf);
 #pragma unroll
@@ -317,7 +338,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int g = 0; g < GH; ++g) sc[j][g] *= ks;
       }
-      // softmax update: sc becomes p (0 at positions past the split)
+      // softmax update: sc becomes p (0 at positions past the split or
+      // below the window)
 #pragma unroll
       for (int g = 0; g < GH; ++g) {
         float mc = kNegBig;
@@ -409,7 +431,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       den += wb[g * (HD + 2) + HD + 1] * c;
     }
     const size_t h = orow + h0 + g;
-    if (nsplit == 1) {
+    if (nlive == 1) {
       store_out(out, h * HD + d, o / den, q_bf16);
     } else {
       const size_t slot = h * NS + split;
@@ -423,22 +445,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Merge the splits of each (row, head) of a row with more than one split,
+// Merge the live splits of each (row, head) of a row with more than one,
 // in split order, and round once to q's dtype.  Grid (H, B).
 __global__ void __launch_bounds__(kCombineThreads)
     paged_decode_combine_kernel(const DecodeArgs a) {
   const int h = blockIdx.x, b = blockIdx.y, HD = a.hd, NS = a.NS;
-  const int len = max(0, min(a.lengths[b], a.MB * a.bs));
-  const int nsplit = (len + kSplit - 1) / kSplit;
-  if (nsplit <= 1) return;                       // written by the split
+  const RowSpan row(a, b);
+  if (row.s_hi - row.s_lo <= 1) return;          // written by the split
   const size_t slot0 = ((size_t)b * a.H + h) * NS;
   const float* part = a.part;
   const float* ml = part + (size_t)a.B * a.H * NS * HD + 2 * slot0;
   float mx = kNegBig;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, ml[2 * s]);
+  for (int s = row.s_lo; s < row.s_hi; ++s) mx = fmaxf(mx, ml[2 * s]);
   for (int d = threadIdx.x; d < HD; d += blockDim.x) {
     float o = 0.f, den = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
+    for (int s = row.s_lo; s < row.s_hi; ++s) {
       const float c = exp2f(ml[2 * s] - mx);
       o += part[(slot0 + s) * HD + d] * c;
       den += ml[2 * s + 1] * c;
@@ -493,7 +514,8 @@ int launch_all(int per, const DecodeArgs& a, cudaStream_t s) {
 // q, out: (B, H, hd) float32 or bfloat16 (q_bf16); pools: (NB, bs, Kv, hd)
 // bfloat16 or int8 (kv_int8) with (NB, bs, Kv) float32 scales, 16-byte
 // aligned; block_tables (B, MB) and lengths (B,) int32.  hd is 32, 64, 128
-// or 256; split must equal the kernel's kSplit.  With NS = max(1, ceil(MB
+// or 256; split must equal the kernel's kSplit; window <= 0: no sliding
+// window.  With NS = max(1, ceil(MB
 // * bs / split)) > 1, part holds B * H * NS * (hd + 2) floats and a second
 // launch merges the splits.  Returns the CUDA error code of the launches.
 extern "C" int paged_attention_decode(const void* q, const void* k_pool,
@@ -503,8 +525,8 @@ extern "C" int paged_attention_decode(const void* q, const void* k_pool,
                                       const int* lengths, void* out,
                                       float* part, int B, int H, int Kv,
                                       int hd, int bs, int MB, int split,
-                                      int q_bf16, int kv_int8, float scale,
-                                      void* stream) {
+                                      int window, int q_bf16, int kv_int8,
+                                      float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (split != kSplit || H % Kv) return (int)cudaErrorInvalidValue;
   const int G = H / Kv;
@@ -514,7 +536,7 @@ extern "C" int paged_attention_decode(const void* q, const void* k_pool,
   const DecodeArgs a{q, (const unsigned char*)k_pool,
                      (const unsigned char*)v_pool, k_scale, v_scale,
                      block_tables, lengths, out, part, B, H, Kv, G, HG, hd,
-                     bs, MB, NS, q_bf16,
+                     bs, MB, NS, q_bf16, window,
                      scale * 1.4426950408889634f};  // times log2(e)
   const int err = kv_int8 ? launch_all<true>(per, a, s)
                           : launch_all<false>(per, a, s);

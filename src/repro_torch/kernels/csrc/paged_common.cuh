@@ -5,7 +5,8 @@
 // One CTA attends a tile of folded query rows of ONE batch row against ONE
 // kv head.  Folded row f = t * G + g holds chunk position t and query head
 // kv * G + g; it sits at absolute position base + t and attends
-// k_pos <= base + t.
+// k_pos <= base + t (and, with a sliding window W > 0, k_pos > base + t - W;
+// the walk then starts at the block holding the tile's first such key).
 // The CTA walks the row's block table only up to the block holding the
 // tile's last query position (and never past its MB entries), so table
 // entries past the row's context are never read.  Per block it stages the (bs, hd) K and V tiles in shared
@@ -59,7 +60,7 @@ __device__ void attend_tile(const QT* __restrict__ q,
                             const float* __restrict__ v_scale,
                             const int* __restrict__ table, int MB, int base,
                             int T, int H, int Kv, int hd, int bs, int G, int kv,
-                            int f0, int rows, float scale,
+                            int f0, int rows, int window, float scale,
                             QT* __restrict__ out, float* smem) {
   const int tid = threadIdx.x;
   float* Qs = smem;
@@ -74,6 +75,9 @@ __device__ void attend_tile(const QT* __restrict__ q,
   int t_last = (f0 + rows - 1) / G;
   if (t_last > T - 1) t_last = T - 1;
   const int max_pos = base + t_last;
+  // blocks wholly below the first query's window hold no key of the tile
+  const int blk_lo =
+      window > 0 ? max(0, base + f0 / G - window + 1) / bs : 0;
   int nblk = max_pos >= 0 ? (max_pos + bs) / bs : 0;
   // ragged chunk tails (t >= n_new) may sit past the table; their output
   // is discarded, so the walk never leaves the row's MB entries
@@ -93,7 +97,7 @@ __device__ void attend_tile(const QT* __restrict__ q,
 #pragma unroll
   for (int k = 0; k < kMaxAcc; ++k) acc[k] = 0.f;
 
-  for (int blk = 0; blk < nblk; ++blk) {
+  for (int blk = blk_lo; blk < nblk; ++blk) {
     const size_t phys = (size_t)table[blk];
     __syncthreads();  // previous block's tiles fully consumed
     for (int i = tid; i < bs * hd; i += kThreads) {
@@ -118,7 +122,8 @@ __device__ void attend_tile(const QT* __restrict__ q,
       const int t = (f0 + r) / G;
       const int pos = blk * bs + j;
       float s = kNegBig;
-      if (t < T && pos <= base + t) {
+      if (t < T && pos <= base + t &&
+          (window <= 0 || pos > base + t - window)) {
         float dot = 0.f;
         const float* qr = Qs + r * hd;
         const float* kr = Ks + j * (hd + 1);

@@ -5,6 +5,9 @@
 // row b at position lengths[b] + t attending [0, lengths[b] + t] (prior
 // context plus the causal mask inside the chunk), against pools that
 // already hold the chunk's K/V.  lengths is the context BEFORE the chunk.
+// With a sliding window W > 0 (starcoder2), query t attends only
+// (lengths[b] + t - W, lengths[b] + t], as the reference's jnp paged
+// branch masks it (its Pallas kernel takes no window).
 // Tail rows t >= n_new[b] stay finite; the scheduler discards them.
 //
 // Two tiles, chosen by the query dtype:
@@ -25,7 +28,9 @@
 //
 // The walk stops at the tile's last query position (lengths[b] + t_last)
 // and never leaves the row's MB table entries (ragged chunk tails may sit
-// past the table; their output is discarded).  Keys past that end are
+// past the table; their output is discarded).  With a window it starts at
+// the first key the tile's first query attends, so keys below every
+// query's window are never read.  Keys past that end are
 // zero-filled in shared memory, never read: a pool slot past a row's last
 // query may hold anything, and 0 * NaN would poison P·V.
 #include "attn_mma.cuh"
@@ -50,7 +55,7 @@ struct PagedLoader {
   const float* vs;
   const int* table;  // the row's MB entries
   bf16* out;         // the batch row's (T, H, HD) slice
-  int T, H, Kv, G, kv, bs, f0, base, kv_end;
+  int T, H, Kv, G, kv, bs, f0, base, kv_end, window;
 
   __device__ void q_row(int r, int& t, int& g) const {
     const int f = f0 + r;
@@ -103,7 +108,7 @@ struct PagedLoader {
     int t, g;
     q_row(r, t, g);
     if (t > T - 1) t = T - 1;  // rows past the chunk: computed, not stored
-    lo = 0;
+    lo = window > 0 ? max(0, base + t - window + 1) : 0;
     hi = min(base + t, kv_end - 1);
   }
 
@@ -127,7 +132,7 @@ __global__ void __launch_bounds__(attn::kThreads, 2)
                              const int* __restrict__ block_tables,
                              const int* __restrict__ lengths,
                              bf16* __restrict__ out, int T, int H, int Kv,
-                             int bs, int MB, float scale) {
+                             int bs, int MB, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int kv = blockIdx.x, b = blockIdx.y;
   const int G = H / Kv;
@@ -137,7 +142,10 @@ __global__ void __launch_bounds__(attn::kThreads, 2)
   const int base = lengths[b];
   int t_last = (f0 + attn::kRows - 1) / G;
   if (t_last > T - 1) t_last = T - 1;
-  // keys [0, kv_end): up to the tile's last query, inside the row's table
+  // keys [kv_lo, kv_end): from the first query's window start up to the
+  // tile's last query, inside the row's table
+  const int t_first = f0 / G;
+  const int kv_lo = window > 0 ? max(0, base + t_first - window + 1) : 0;
   const int kv_end = min(base + t_last + 1, MB * bs);
   PagedLoader<HD, KT> ld;
   const size_t row_off = (size_t)b * T * H * HD;
@@ -157,17 +165,20 @@ __global__ void __launch_bounds__(attn::kThreads, 2)
   ld.f0 = f0;
   ld.base = base;
   ld.kv_end = kv_end;
-  // every row of the tile attends [0, base + t_first]
-  const int full_hi = min(base + f0 / G, kv_end - 1);
-  attn::run<HD, PagedLoader<HD, KT>::kQuant>(ld, 0, kv_end, 0, full_hi, scale,
-                                             smem);
+  ld.window = window;
+  // every row of the tile attends [full_lo, full_hi]: from its last
+  // query's window start to its first query
+  const int full_lo = window > 0 ? max(0, base + t_last - window + 1) : 0;
+  const int full_hi = min(base + t_first, kv_end - 1);
+  attn::run<HD, PagedLoader<HD, KT>::kQuant>(ld, kv_lo, kv_end, full_lo,
+                                             full_hi, scale, smem);
 }
 
 template <int HD, typename KT>
 int launch_mma(const void* q, const void* kp, const void* vp, const float* ks,
                const float* vs, const int* bt, const int* lens, void* out,
-               int B, int T, int H, int Kv, int bs, int MB, float scale,
-               cudaStream_t stream) {
+               int B, int T, int H, int Kv, int bs, int MB, int window,
+               float scale, cudaStream_t stream) {
   constexpr size_t smem = attn::smem_bytes<HD, sizeof(KT) == 1>();
   auto kernel = paged_prefill_mma_kernel<HD, KT>;
   cudaError_t err = attn::allow_smem(kernel, smem);
@@ -176,7 +187,7 @@ int launch_mma(const void* q, const void* kp, const void* vp, const float* ks,
   dim3 grid(Kv, B, (T * G + attn::kRows - 1) / attn::kRows);
   kernel<<<grid, attn::kThreads, smem, stream>>>(
       (const bf16*)q, (const KT*)kp, (const KT*)vp, ks, vs, bt, lens,
-      (bf16*)out, T, H, Kv, bs, MB, scale);
+      (bf16*)out, T, H, Kv, bs, MB, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -184,17 +195,21 @@ template <typename KT>
 int launch_mma_hd(const void* q, const void* kp, const void* vp,
                   const float* ks, const float* vs, const int* bt,
                   const int* lens, void* out, int B, int T, int H, int Kv,
-                  int hd, int bs, int MB, float scale, cudaStream_t s) {
+                  int hd, int bs, int MB, int window, float scale,
+                  cudaStream_t s) {
   switch (hd) {
     case 32:
       return launch_mma<32, KT>(q, kp, vp, ks, vs, bt, lens, out, B, T, H, Kv,
-                                bs, MB, scale, s);
+                                bs, MB, window, scale, s);
     case 64:
       return launch_mma<64, KT>(q, kp, vp, ks, vs, bt, lens, out, B, T, H, Kv,
-                                bs, MB, scale, s);
+                                bs, MB, window, scale, s);
     case 128:
       return launch_mma<128, KT>(q, kp, vp, ks, vs, bt, lens, out, B, T, H,
-                                 Kv, bs, MB, scale, s);
+                                 Kv, bs, MB, window, scale, s);
+    case 256:
+      return launch_mma<256, KT>(q, kp, vp, ks, vs, bt, lens, out, B, T, H,
+                                 Kv, bs, MB, window, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -213,7 +228,7 @@ __global__ void __launch_bounds__(paged::kThreads)
                          const int* __restrict__ block_tables,
                          const int* __restrict__ lengths,
                          float* __restrict__ out, int T, int H, int Kv, int hd,
-                         int bs, int MB, int rows, float scale) {
+                         int bs, int MB, int rows, int window, float scale) {
   extern __shared__ float smem_f[];
   const int tile = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int G = H / Kv;
@@ -224,14 +239,14 @@ __global__ void __launch_bounds__(paged::kThreads)
   paged::attend_tile<float, KT, QUANT>(
       q + row_off, k_pool, v_pool, k_scale, v_scale,
       block_tables + (size_t)b * MB, MB, lengths[b], T, H, Kv, hd, bs, G, kv,
-      f0, n_rows, scale, out + row_off, smem_f);
+      f0, n_rows, window, scale, out + row_off, smem_f);
 }
 
 template <typename KT, bool QUANT>
 int launch_f32(const void* q, const void* kp, const void* vp, const float* ks,
                const float* vs, const int* bt, const int* lens, void* out,
                int B, int T, int H, int Kv, int hd, int bs, int MB, int rows,
-               float scale, cudaStream_t stream) {
+               int window, float scale, cudaStream_t stream) {
   const int G = H / Kv;
   const size_t smem = paged::tile_smem_floats(rows, bs, hd) * sizeof(float);
   auto kernel = paged_prefill_kernel<KT, QUANT>;
@@ -240,7 +255,7 @@ int launch_f32(const void* q, const void* kp, const void* vp, const float* ks,
   dim3 grid((T * G + rows - 1) / rows, Kv, B);
   kernel<<<grid, paged::kThreads, smem, stream>>>(
       (const float*)q, (const KT*)kp, (const KT*)vp, ks, vs, bt, lens,
-      (float*)out, T, H, Kv, hd, bs, MB, rows, scale);
+      (float*)out, T, H, Kv, hd, bs, MB, rows, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -249,9 +264,9 @@ int launch_f32(const void* q, const void* kp, const void* vp, const float* ks,
 // q, out: (B, T, H, hd) float32 or bfloat16; pools: (NB, bs, Kv, hd)
 // bfloat16 or int8 with (NB, bs, Kv) float32 scales; block_tables (B, MB)
 // and lengths (B,) int32.  bf16 queries run the tensor-core tile (hd 32,
-// 64 or 128; every pointer 16-byte aligned); fp32 queries the CUDA-core
-// tile with ``rows`` folded query rows per CTA.  Returns the CUDA error
-// code of the launch.
+// 64, 128 or 256; every pointer 16-byte aligned); fp32 queries the
+// CUDA-core tile with ``rows`` folded query rows per CTA.  window <= 0: no
+// sliding window.  Returns the CUDA error code of the launch.
 extern "C" int paged_prefill_attention(const void* q, const void* k_pool,
                                        const void* v_pool,
                                        const float* k_scale,
@@ -259,23 +274,24 @@ extern "C" int paged_prefill_attention(const void* q, const void* k_pool,
                                        const int* block_tables,
                                        const int* lengths, void* out, int B,
                                        int T, int H, int Kv, int hd, int bs,
-                                       int MB, int rows, int q_bf16,
-                                       int kv_int8, float scale, void* stream) {
+                                       int MB, int rows, int window,
+                                       int q_bf16, int kv_int8, float scale,
+                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (q_bf16) {
     if (kv_int8)
       return launch_mma_hd<int8_t>(q, k_pool, v_pool, k_scale, v_scale,
                                    block_tables, lengths, out, B, T, H, Kv,
-                                   hd, bs, MB, scale, s);
+                                   hd, bs, MB, window, scale, s);
     return launch_mma_hd<bf16>(q, k_pool, v_pool, k_scale, v_scale,
                                block_tables, lengths, out, B, T, H, Kv, hd,
-                               bs, MB, scale, s);
+                               bs, MB, window, scale, s);
   }
   if (kv_int8)
     return launch_f32<int8_t, true>(q, k_pool, v_pool, k_scale, v_scale,
                                     block_tables, lengths, out, B, T, H, Kv,
-                                    hd, bs, MB, rows, scale, s);
+                                    hd, bs, MB, rows, window, scale, s);
   return launch_f32<bf16, false>(q, k_pool, v_pool, k_scale, v_scale,
                                  block_tables, lengths, out, B, T, H, Kv, hd,
-                                 bs, MB, rows, scale, s);
+                                 bs, MB, rows, window, scale, s);
 }

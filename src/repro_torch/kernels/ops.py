@@ -94,19 +94,21 @@ def paged_gqa_attention(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, block_tables: torch.Tensor,
                         lengths: torch.Tensor, *,
                         k_scale: Optional[torch.Tensor] = None,
-                        v_scale: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        v_scale: Optional[torch.Tensor] = None,
+                        sliding_window: int = 0) -> torch.Tensor:
     """Decode attention in model layout: q (B, 1, H, hd) or (B, H, hd).
     ``lengths`` is exclusive: in the serving decode step pass the pre-write
     position + 1, AFTER scattering the step's K/V, so the token being
-    decoded attends itself.  Returns q's shape."""
+    decoded attends itself (and, with ``sliding_window`` W, the W - 1
+    positions before it).  Returns q's shape."""
     squeeze = q.dim() == 4
     if squeeze:
         q = q[:, 0]
     o = paged_attention(q.contiguous(), k_pool, v_pool,
                         block_tables.to(torch.int32).contiguous(),
                         lengths.to(torch.int32).contiguous(),
-                        k_scale=k_scale, v_scale=v_scale)
+                        k_scale=k_scale, v_scale=v_scale,
+                        sliding_window=sliding_window)
     return o[:, None] if squeeze else o
 
 
@@ -116,10 +118,13 @@ def paged_prefill_gqa_attention(q: torch.Tensor, k_new: torch.Tensor,
                                 block_tables: torch.Tensor,
                                 lengths: torch.Tensor, n_new: torch.Tensor, *,
                                 k_scale: Optional[torch.Tensor] = None,
-                                v_scale: Optional[torch.Tensor] = None):
+                                v_scale: Optional[torch.Tensor] = None,
+                                sliding_window: int = 0):
     """Chunk attention in model layout: scatter the chunk's K/V (B, T, Kv,
     hd) through the tables (ragged tails ``t >= n_new[b]`` to scratch block
-    0), then run the prefill kernel over the updated pools.  Returns
+    0), then run the prefill kernel over the updated pools (query t
+    attending the ``sliding_window`` positions ending at its own, if W >
+    0).  Returns
     (out (B, T, H, hd), k_pool, v_pool[, k_scale, v_scale]); pools are
     updated in place."""
     bt = block_tables.to(torch.int32).contiguous()
@@ -132,7 +137,8 @@ def paged_prefill_gqa_attention(q: torch.Tensor, k_new: torch.Tensor,
         kp, vp = paged_scatter(k_pool, v_pool, k_new, v_new, bt, lens, n_new)
         ks = vs = None
     o = paged_prefill_attention(q.contiguous(), kp, vp, bt, lens,
-                                k_scale=ks, v_scale=vs)
+                                k_scale=ks, v_scale=vs,
+                                sliding_window=sliding_window)
     if quantized:
         return o, kp, vp, ks, vs
     return o, kp, vp

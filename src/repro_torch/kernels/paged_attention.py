@@ -3,19 +3,22 @@
 Port of the Pallas kernel ``repro/kernels/paged_attention.py``: one query
 token per serving row attends that row's K/V, read block by block from the
 shared pool through its block table, never gathered into a padded tensor.
-``lengths`` is exclusive (row b attends ``[0, lengths[b])``); empty rows
-give zeros.  For tensors on the CPU the wrapper runs the plain version
+``lengths`` is exclusive (row b attends ``[0, lengths[b])``, or with a
+sliding window W only ``[lengths[b] - W, lengths[b])``); empty rows give
+zeros.  For tensors on the CPU the wrapper runs the plain version
 (:func:`paged_attention_ref`); for CUDA tensors it launches the kernel or
 raises.
 
 The kernel is split-K flash decoding: each row's context is cut into
-splits of :data:`SPLIT` positions, one CTA per (split, kv head, row).  A
-row of one split is written by its CTA; longer rows leave each split's
-(m, l, acc) in a scratch buffer and a second launch merges them in split
-order.  :func:`paged_attention_split_ref` is that arithmetic in plain
-PyTorch.  Counters: ``paged_attention.launches`` counts calls that launch
-the kernel, ``.launches_combine`` those that also launch the merge, and
-``.launches_split`` the splits per (row, kv head) launched.
+splits of :data:`SPLIT` positions, one CTA per (split, kv head, row); a
+split that holds no position the row attends (past its end, or below its
+window) exits.  A row of one live split is written by its CTA; longer
+rows leave each live split's (m, l, acc) in a scratch buffer and a second
+launch merges them in split order.  :func:`paged_attention_split_ref` is
+that arithmetic in plain PyTorch.  Counters: ``paged_attention.launches``
+counts calls that launch the kernel, ``.launches_combine`` those that also
+launch the merge, and ``.launches_split`` the splits per (row, kv head)
+launched.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ def _lib():
     lib = build.load("paged_attention")
     fn = lib.paged_attention_decode
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 9 + [_I] * 9 + [_F, _P]
+        fn.argtypes = [_P] * 9 + [_I] * 10 + [_F, _P]
         fn.restype = _I
     return fn
 
@@ -78,18 +81,22 @@ def check_tables(block_tables, lengths, B: int, device) -> None:
 def paged_attention_split_ref(q, k_pool, v_pool, block_tables, lengths, *,
                               k_scale=None, v_scale=None,
                               scale: Optional[float] = None,
-                              split_len: int = SPLIT) -> torch.Tensor:
+                              split_len: int = SPLIT,
+                              sliding_window: int = 0) -> torch.Tensor:
     """The kernel's split arithmetic in plain PyTorch, fp32 throughout.
 
-    Row b's context ``[0, n)``, ``n = min(lengths[b], MB * bs)``, is cut at
+    Row b attends ``[lo, n)``, ``n = min(lengths[b], MB * bs)``, ``lo = 0``
+    or with a sliding window W ``max(0, n - W)``; its context is cut at
     multiples of ``split_len``.  Split s gives ``m_s`` (its largest score),
-    ``l_s = sum exp(score - m_s)`` and ``acc_s = sum exp(score - m_s) v``.
-    A row of one split returns ``acc_0 / l_0``; a longer row merges its
-    splits in split order, ``sum acc_s c_s / sum l_s c_s`` with ``c_s =
-    exp(m_s - max m)``; splits past the row's end contribute nothing and an
-    empty row gives zeros.  Every sum runs over a dimension whose length
-    is fixed by ``split_len`` and the head dim, so a row's output does not
-    depend on the other rows.  Returns (B, H, hd) in q's dtype."""
+    ``l_s = sum exp(score - m_s)`` and ``acc_s = sum exp(score - m_s) v``
+    over the positions of ``[lo, n)`` it holds.  A row of one live split
+    (a split holding such a position) returns its ``acc_s / l_s``; a
+    longer row merges its live splits in split order, ``sum acc_s c_s /
+    sum l_s c_s`` with ``c_s = exp(m_s - max m)``; other splits contribute
+    nothing and an empty row gives zeros.  Every sum runs over a dimension
+    whose length is fixed by ``split_len`` and the head dim, so a row's
+    output does not depend on the other rows.  Returns (B, H, hd) in q's
+    dtype."""
     B, H, hd = q.shape
     bs, Kv = k_pool.shape[1], k_pool.shape[2]
     MB = block_tables.shape[1]
@@ -105,8 +112,11 @@ def paged_attention_split_ref(q, k_pool, v_pool, block_tables, lengths, *,
     k = k.reshape(B, NS, split_len, H, hd).transpose(2, 3)
     v = v.reshape(B, NS, split_len, H, hd).permute(0, 1, 3, 4, 2)
     n = lengths.long().clamp(0, cap)
+    lo = (torch.clamp(n - sliding_window, min=0) if sliding_window > 0
+          else torch.zeros_like(n))
     pos = torch.arange(NS * split_len, device=q.device).reshape(NS, split_len)
-    valid = (pos[None] < n[:, None, None])[:, :, None, :]     # (B, NS, 1, S)
+    valid = ((pos[None] < n[:, None, None])                   # (B, NS, 1, S)
+             & (pos[None] >= lo[:, None, None]))[:, :, None, :]
     s = (q.float()[:, None, :, None, :] * k).sum(-1) * scale   # (B, NS, H, S)
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     m = s.amax(-1)                                             # (B, NS, H)
@@ -114,20 +124,22 @@ def paged_attention_split_ref(q, k_pool, v_pool, block_tables, lengths, *,
     l = p.sum(-1)
     v = torch.where(valid[:, :, :, None, :], v, torch.zeros_like(v))
     acc = (p[:, :, :, None, :] * v).sum(-1)                    # (B, NS, H, hd)
-    nsplit = (n + split_len - 1) // split_len                  # (B,)
-    mx = m.amax(1)                                             # (B, H)
+    s_lo = lo // split_len                                     # (B,)
+    s_hi = (n + split_len - 1) // split_len                    # (B,)
+    live = ((torch.arange(NS, device=q.device)[None] >= s_lo[:, None])
+            & (torch.arange(NS, device=q.device)[None] < s_hi[:, None]))
+    mx = torch.where(live[..., None], m,
+                     torch.full_like(m, -1e30)).amax(1)        # (B, H)
+    # one live split: c = exp(0) = 1 and the sums add to 0, so this is
+    # acc_s / l_s exactly; no live split (an empty row): 0 / 1
     num = torch.zeros_like(acc[:, 0])
     den = torch.zeros_like(l[:, 0])
     for i in range(NS):
-        live = (nsplit > i)[:, None]
-        c = torch.where(live, torch.exp(m[:, i] - mx), torch.zeros_like(mx))
+        c = torch.where(live[:, i, None], torch.exp(m[:, i] - mx),
+                        torch.zeros_like(mx))
         num = num + acc[:, i] * c[..., None]
         den = den + l[:, i] * c
-    one = acc[:, 0] / torch.where(l[:, 0] > 0, l[:, 0],
-                                  torch.ones_like(l[:, 0]))[..., None]
-    many = num / torch.where(den > 0, den, torch.ones_like(den))[..., None]
-    out = torch.where((nsplit > 1)[:, None, None], many, one)
-    out = torch.where((nsplit > 0)[:, None, None], out, torch.zeros_like(out))
+    out = num / torch.where(den > 0, den, torch.ones_like(den))[..., None]
     return out.to(q.dtype)
 
 
@@ -136,11 +148,13 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     lengths: torch.Tensor, *,
                     k_scale: Optional[torch.Tensor] = None,
                     v_scale: Optional[torch.Tensor] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    sliding_window: int = 0) -> torch.Tensor:
     """q: (B, H, hd); k_pool/v_pool: (NB, bs, Kv, hd) bf16, or int8 with
     ``k_scale``/``v_scale`` (NB, bs, Kv) fp32; block_tables: (B, MB) int32;
-    lengths: (B,) int32 exclusive.  Returns (B, H, hd) in q's dtype.  The
-    kernel takes head dims :data:`HEAD_DIMS` and 16-byte aligned pools."""
+    lengths: (B,) int32 exclusive; ``sliding_window`` W > 0 limits row b to
+    its last W positions.  Returns (B, H, hd) in q's dtype.  The kernel
+    takes head dims :data:`HEAD_DIMS` and 16-byte aligned pools."""
     if q.dim() != 3:
         raise ValueError(f"q must be (B, H, hd); got {tuple(q.shape)}")
     B, H, hd = q.shape
@@ -152,7 +166,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, block_tables, lengths,
                                    k_scale=k_scale, v_scale=v_scale,
-                                   scale=scale)
+                                   scale=scale, sliding_window=sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"no paged_attention kernel for {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16) or not q.is_contiguous():
@@ -176,7 +190,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                  v_scale.data_ptr() if quant else None,
                  block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                  part.data_ptr() if part is not None else None,
-                 B, H, Kv, hd, bs, MB, SPLIT,
+                 B, H, Kv, hd, bs, MB, SPLIT, int(sliding_window),
                  int(q.dtype == torch.bfloat16), int(quant), scale,
                  build.stream_ptr(q.device))
     build.check(err, "paged_attention")

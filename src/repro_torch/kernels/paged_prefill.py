@@ -9,10 +9,11 @@ PLACE — a serving pool is gigabytes — and return them.
 
 :func:`paged_prefill_attention` attends T chunk queries per row against
 pools that already hold the chunk: query t of row b attends
-``[0, lengths[b] + t]``.  CPU tensors run the plain version; CUDA tensors
-launch the kernel or raise.  The kernel has two tiles, picked by q's
-dtype: bf16 queries run the tensor-core tile (``csrc/attn_mma.cuh``, head
-dims 32, 64 and 128), fp32 queries the fp32 CUDA-core tile.
+``[0, lengths[b] + t]``, or with a sliding window W only ``(lengths[b] +
+t - W, lengths[b] + t]``.  CPU tensors run the plain version; CUDA
+tensors launch the kernel or raise.  The kernel has two tiles, picked by
+q's dtype: bf16 queries run the tensor-core tile (``csrc/attn_mma.cuh``,
+head dims 32, 64, 128 and 256), fp32 queries the fp32 CUDA-core tile.
 ``paged_prefill_attention.launches`` counts kernel launches, and
 ``launches_mma`` / ``launches_f32`` split them by tile.
 """
@@ -101,7 +102,7 @@ def _lib():
     lib = build.load("paged_prefill")
     fn = lib.paged_prefill_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 10 + [_F, _P]
+        fn.argtypes = [_P] * 8 + [_I] * 11 + [_F, _P]
         fn.restype = _I
     return fn
 
@@ -111,11 +112,13 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             lengths: torch.Tensor, *,
                             k_scale: Optional[torch.Tensor] = None,
                             v_scale: Optional[torch.Tensor] = None,
-                            scale: Optional[float] = None) -> torch.Tensor:
+                            scale: Optional[float] = None,
+                            sliding_window: int = 0) -> torch.Tensor:
     """q: (B, T, H, hd) at positions ``lengths[b] + t``; pools (NB, bs, Kv,
     hd) bf16 (or int8 with (NB, bs, Kv) fp32 scales) already holding the
     chunk; block_tables (B, MB) int32; lengths (B,) int32 context before the
-    chunk.  Returns (B, T, H, hd) in q's dtype."""
+    chunk; ``sliding_window`` W > 0 limits query t to the W positions
+    ending at its own.  Returns (B, T, H, hd) in q's dtype."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, T, H, hd); got {tuple(q.shape)}")
     B, T, H, hd = q.shape
@@ -127,7 +130,8 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(q, k_pool, v_pool, block_tables,
                                            lengths, k_scale=k_scale,
-                                           v_scale=v_scale, scale=scale)
+                                           v_scale=v_scale, scale=scale,
+                                           sliding_window=sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"no paged_prefill_attention kernel for {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16) or not q.is_contiguous():
@@ -149,8 +153,9 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                  k_scale.data_ptr() if quant else None,
                  v_scale.data_ptr() if quant else None,
                  block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 B, T, H, Kv, hd, bs, block_tables.shape[1], rows, int(mma),
-                 int(quant), scale, build.stream_ptr(q.device))
+                 B, T, H, Kv, hd, bs, block_tables.shape[1], rows,
+                 int(sliding_window), int(mma), int(quant), scale,
+                 build.stream_ptr(q.device))
     build.check(err, "paged_prefill_attention")
     paged_prefill_attention.launches += 1
     if mma:

@@ -87,10 +87,12 @@ def _gather_pool(pool, pool_scale, block_tables, rep: int):
 
 def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
                         k_scale=None, v_scale=None,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        sliding_window: int = 0):
     """Paged decode attention.  q: (B, H, hd); pools (NB, bs, Kv, hd);
     block_tables (B, MB); lengths (B,) exclusive: row b attends
-    ``[0, lengths[b])``.  Empty rows give zeros."""
+    ``[0, lengths[b])``, or with ``sliding_window`` W > 0 only
+    ``[lengths[b] - W, lengths[b])``.  Empty rows give zeros."""
     B, H, hd = q.shape
     bs, Kv = k_pool.shape[1], k_pool.shape[2]
     MB = block_tables.shape[1]
@@ -98,8 +100,10 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
     k = _gather_pool(k_pool, k_scale, block_tables, H // Kv)
     v = _gather_pool(v_pool, v_scale, block_tables, H // Kv)
     logits = torch.einsum("bhd,bkhd->bhk", q.float(), k) * scale
-    mask = (torch.arange(MB * bs, device=q.device)[None, :]
-            < lengths.long()[:, None])                      # (B, L)
+    k_pos = torch.arange(MB * bs, device=q.device)[None, :]
+    mask = k_pos < lengths.long()[:, None]                  # (B, L)
+    if sliding_window > 0:
+        mask &= k_pos >= lengths.long()[:, None] - sliding_window
     logits = torch.where(mask[:, None, :], logits,
                          torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
@@ -109,10 +113,12 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
 
 def paged_prefill_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
                                 k_scale=None, v_scale=None,
-                                scale: Optional[float] = None):
+                                scale: Optional[float] = None,
+                                sliding_window: int = 0):
     """Chunked paged prefill.  q: (B, T, H, hd) at positions
     ``lengths[b] + t``; pools already hold the chunk's K/V.  Query t of row
-    b attends ``[0, lengths[b] + t]``."""
+    b attends ``[0, lengths[b] + t]``, or with ``sliding_window`` W > 0
+    only ``(lengths[b] + t - W, lengths[b] + t]``."""
     B, T, H, hd = q.shape
     bs, Kv = k_pool.shape[1], k_pool.shape[2]
     MB = block_tables.shape[1]
@@ -124,6 +130,8 @@ def paged_prefill_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
              + torch.arange(T, device=q.device)[None, :])   # (B, T)
     k_pos = torch.arange(MB * bs, device=q.device)
     mask = k_pos[None, None, :] <= q_pos[:, :, None]        # (B, T, L)
+    if sliding_window > 0:
+        mask &= k_pos[None, None, :] > q_pos[:, :, None] - sliding_window
     logits = torch.where(mask[:, None], logits,
                          torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)

@@ -225,12 +225,12 @@ def _paged_attention_cuda(params, q, k, v, x, cfg, kv_cache, block_tables,
     """The paged branch through the CUDA kernels: decode steps (2-tuple
     ``paged``, S == 1) scatter then attend with exclusive ``lengths + 1``;
     prefill chunks go through ``paged_prefill_gqa_attention``, which owns
-    the scatter."""
+    the scatter.  Both kernels take ``cfg.sliding_window``."""
     B, S, H, hd = q.shape
-    if cfg.sliding_window > 0 or cfg.attn_logit_softcap > 0:
+    if cfg.attn_logit_softcap > 0:
         raise NotImplementedError(
-            "paged_backend='cuda' supports full attention only (no sliding "
-            "window / logit softcap); use paged_backend='torch'")
+            "paged_backend='cuda' has no logit softcap in its paged "
+            "attention kernels; use paged_backend='torch'")
     kp, vp = kv_cache["k_pool"], kv_cache["v_pool"]
     ks, vs = kv_cache.get("k_scale"), kv_cache.get("v_scale")
     if n_new is None and S == 1:
@@ -239,15 +239,15 @@ def _paged_attention_cuda(params, q, k, v, x, cfg, kv_cache, block_tables,
                                 None)
         else:
             paged_scatter(kp, vp, k, v, block_tables, lengths, None)
-        o = kernel_ops.paged_gqa_attention(q, kp, vp, block_tables,
-                                           lengths + 1, k_scale=ks,
-                                           v_scale=vs)
+        o = kernel_ops.paged_gqa_attention(
+            q, kp, vp, block_tables, lengths + 1, k_scale=ks, v_scale=vs,
+            sliding_window=cfg.sliding_window)
     else:
         nn = (n_new if n_new is not None
               else torch.full((B,), S, dtype=torch.int32, device=q.device))
         o, *_ = kernel_ops.paged_prefill_gqa_attention(
             q, k, v, kp, vp, block_tables, lengths, nn, k_scale=ks,
-            v_scale=vs)
+            v_scale=vs, sliding_window=cfg.sliding_window)
     out = dn(o.to(x.dtype).reshape(B, S, H * hd), params["wo"], la("wo"))
     return out, kv_cache
 

@@ -17,8 +17,10 @@ held to it too.
 
 The card checks also hold every row of the tile's output to two bf16 ulps
 of the tile references in ``repro_torch/kernels/attn_tile.py``, which
-batch the CTAs; here those references are held to the per-CTA emulation,
-and to the pool slots the kernel never reads.
+batch the heads of a CTA's tiles; here those references are held to the
+per-CTA emulation, with and without a sliding window and at head dim 256
+to the reference package's oracle, and to the pool slots the kernel never
+reads.
 """
 import math
 
@@ -27,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ref as j_ref
 from repro.kernels.paged_prefill import \
     paged_prefill_attention as j_paged_prefill
 from repro_torch.kernels import attn_tile, ref
@@ -73,10 +76,11 @@ def emulate_tile(q, k, v, lo, hi, scale, k_begin, k_end, ks=None, vs=None):
 
 
 def emulate_prefill(q, k_pool, v_pool, block_tables, lengths, k_scale=None,
-                    v_scale=None):
+                    v_scale=None, window=0):
     """``paged_prefill_attention`` through the emulated tile: per (row, kv
     head) the folded rows f = t·G + g in CTAs of 64, keys gathered through
-    the table up to the CTA's last query (and the table's end)."""
+    the table from the CTA's first query's window start (0 without a
+    window) up to its last query (and the table's end)."""
     B, T, H, hd = q.shape
     bs, Kv = k_pool.shape[1], k_pool.shape[2]
     G = H // Kv
@@ -98,9 +102,13 @@ def emulate_prefill(q, k_pool, v_pool, block_tables, lengths, k_scale=None,
                 t, g = f // G, f % G
                 k_end = min(base + int(t[-1]) + 1, MB * bs)
                 hi = torch.clamp(base + t, max=k_end - 1)
-                o = emulate_tile(q[b, t, kv * G + g], k, v,
-                                 torch.zeros_like(hi), hi, scale, 0, k_end,
-                                 ks, vs)
+                lo = torch.zeros_like(hi)
+                k_begin = 0
+                if window > 0:
+                    lo = torch.clamp(base + t - window + 1, min=0)
+                    k_begin = int(lo[0])
+                o = emulate_tile(q[b, t, kv * G + g], k, v, lo, hi, scale,
+                                 k_begin, k_end, ks, vs)
                 out[b, t, kv * G + g] = o
     return out.to(q.dtype)
 
@@ -182,11 +190,8 @@ def test_flash_tile_rounding_within_the_bound(Sq, Sk, H, Kv, window):
     assert float((o.float() - orf.float()).abs().max()) <= attn_tol(orf, v)
 
 
-def test_pallas_prefill_rounds_p_within_the_same_bound():
-    """The TPU kernel (interpret mode) rounds P to the pool's bf16 before
-    P·V, as the tile does: it stands within the same bound of the plain
-    version."""
-    q, kp, vp, bt, lens, _, _ = _prefill_inputs(2, 2, 16, 2, 2, 128, 8,
+def _pallas_prefill_within_the_bound(hd):
+    q, kp, vp, bt, lens, _, _ = _prefill_inputs(2, 2, 16, 2, 2, hd, 8,
                                                 [0, 13], False)
     yr = ref.paged_prefill_attention_ref(q, kp, vp, bt, lens)
     yj = j_paged_prefill(jnp.asarray(q.float().numpy(), jnp.bfloat16),
@@ -198,17 +203,104 @@ def test_pallas_prefill_rounds_p_within_the_same_bound():
     assert float((yj - yr.float()).abs().max()) <= attn_tol(yr, vp)
 
 
+def test_pallas_prefill_rounds_p_within_the_same_bound():
+    """The TPU kernel (interpret mode) rounds P to the pool's bf16 before
+    P·V, as the tile does: it stands within the same bound of the plain
+    version."""
+    _pallas_prefill_within_the_bound(128)
+
+
+def test_pallas_prefill_at_head_dim_256_within_the_same_bound():
+    """The same at gemma-2b's head dim 256, which the port's tile now
+    takes."""
+    _pallas_prefill_within_the_bound(256)
+
+
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("T,H,Kv,bs", [(70, 2, 2, 16), (40, 4, 2, 8),
                                        (9, 1, 1, 16)])
 def test_prefill_tile_ref_matches_the_per_cta_emulation(T, H, Kv, bs, int8):
-    """The batched reference walks every CTA's tiles to the longest row's
-    end; the per-CTA emulation stops at each CTA's last query."""
+    """The tile reference (a CTA's kv heads in one batch) against the
+    per-CTA emulation (one kv head at a time), each CTA walking keys from
+    0 to its last query."""
     q, kp, vp, bt, lens, sc, _ = _prefill_inputs(
         3, 3, T, H, Kv, 32, bs, [0, 5, 140], int8)
     y = emulate_prefill(q, kp, vp, bt, lens, **sc)
     yt = attn_tile.paged_prefill_tile_ref(q, kp, vp, bt, lens, **sc)
     assert attn_tile.tile_errors(yt, y)[1] <= 1.0
+
+
+@pytest.mark.parametrize("window", [1, 16, 63, 64, 65, 100])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("T,H,Kv,bs", [(70, 2, 2, 16), (40, 4, 2, 8),
+                                       (9, 1, 1, 16)])
+def test_windowed_prefill_tile_ref_matches_the_per_cta_emulation(
+        T, H, Kv, bs, int8, window):
+    """With a sliding window each CTA walks from its first query's window
+    start: the tile reference against the per-CTA emulation, and the
+    window binds."""
+    q, kp, vp, bt, lens, sc, _ = _prefill_inputs(
+        3, 3, T, H, Kv, 32, bs, [0, 5, 140], int8)
+    y = emulate_prefill(q, kp, vp, bt, lens, window=window, **sc)
+    yt = attn_tile.paged_prefill_tile_ref(q, kp, vp, bt, lens,
+                                          sliding_window=window, **sc)
+    assert attn_tile.tile_errors(yt, y)[1] <= 1.0
+    full = attn_tile.paged_prefill_tile_ref(q, kp, vp, bt, lens, **sc)
+    assert not torch.equal(full, yt)
+
+
+@pytest.mark.parametrize("window", [0, 16, 100])
+@pytest.mark.parametrize("int8", [False, True])
+def test_windowed_prefill_tile_rounding_within_the_bound(int8, window):
+    """The emulated tile with a window against the plain version with the
+    same window, at the rounding bound."""
+    q, kp, vp, bt, lens, sc, vdq = _prefill_inputs(
+        6, 3, 70, 4, 2, 32, 16, [0, 5, 140], int8)
+    y = emulate_prefill(q, kp, vp, bt, lens, window=window, **sc)
+    yr = ref.paged_prefill_attention_ref(q, kp, vp, bt, lens,
+                                         sliding_window=window, **sc)
+    assert float((y.float() - yr.float()).abs().max()) <= attn_tol(yr, vdq)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_head_dim_256_prefill_tile_ref_within_the_bound_of_the_oracle(int8):
+    """gemma-2b's head dim (G 4, one kv head): the tile reference against
+    the reference package's oracle (``repro.kernels.ref``) at the rounding
+    bound, and against the per-CTA emulation row by row."""
+    q, kp, vp, bt, lens, sc, vdq = _prefill_inputs(
+        7, 2, 20, 4, 1, 256, 16, [0, 70], int8)
+    yt = attn_tile.paged_prefill_tile_ref(q, kp, vp, bt, lens, **sc)
+    jsc = {k: jnp.asarray(v.numpy()) for k, v in sc.items()}
+    pools = [jnp.asarray(p.float().numpy()) if not int8 else
+             jnp.asarray(p.numpy()) for p in (kp, vp)]
+    yr = j_ref.paged_prefill_attention_ref(
+        jnp.asarray(q.float().numpy()), *pools, jnp.asarray(bt.numpy()),
+        jnp.asarray(lens.numpy()), **jsc)
+    yr = torch.from_numpy(np.array(yr, np.float32))
+    assert float((yt.float() - yr).abs().max()) <= attn_tol(yr, vdq)
+    y = emulate_prefill(q, kp, vp, bt, lens, **sc)
+    assert attn_tile.tile_errors(yt, y)[1] <= 1.0
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_head_dim_256_flash_tile_ref_within_the_bound_of_the_oracle(window):
+    """The flash tile reference at head dim 256 against the reference
+    package's oracle at the rounding bound, and against the per-CTA
+    emulation row by row."""
+    rng = np.random.default_rng(8)
+    B, H, Kv, S, d = 1, 2, 1, 80, 256
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, h, S, d))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for h in (H, Kv, Kv))
+    ot = attn_tile.flash_attention_tile_ref(q, k, v, sliding_window=window)
+    rep = lambda t: jnp.repeat(jnp.asarray(t.float().numpy()), H // Kv, 1)
+    orf = j_ref.flash_attention_ref(jnp.asarray(q.float().numpy()), rep(k),
+                                    rep(v), causal=True,
+                                    sliding_window=window)
+    orf = torch.from_numpy(np.array(orf, np.float32))
+    assert float((ot.float() - orf).abs().max()) <= attn_tol(orf, v)
+    o = emulate_flash(q, k, v, window=window)
+    assert attn_tile.tile_errors(ot, o)[1] <= 1.0
 
 
 @pytest.mark.parametrize("int8", [False, True])

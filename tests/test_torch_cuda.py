@@ -2,18 +2,20 @@
 (the split-K decode kernel at GQA groups 1 to 12, head dims 32 to 256,
 blocks of 8 to 32, bf16 and int8 pools and fp32 and bf16 queries over
 contexts of 0 to 4 splits + 3, with bitwise repeatability, row isolation,
-its refusals and its launch counts; the two other attention kernels
-through both their tiles: the tensor-core tile for bf16 at head dims 32,
-64 and 128 over ragged, poisoned and misaligned inputs, each row also held to the tile's own arithmetic, the fp32 tile
-held tight; the four LoRA kernels through both their tiles at edge
-shapes under every launch plan, with split-K held bitwise stable, the
-dual kernels at ranks 1 to 128 with rows outside the bank and negative
-fusion weights, bf16 rows held to the tile model, and the four LoRA
-libraries loaded together in one process),
-the two autograd backwards against
-plain autograd, serving runs (plain and
-with int8 K/V, a ragged int8 bank, prefix caching and speculative
-decoding), overlapped dispatch (streams with overlap on and off bitwise
+its refusals and its launch counts, and under sliding windows of 1 to
+4096 over contexts to 6144; the two other attention kernels through both
+their tiles: the tensor-core tile for bf16 at head dims 32, 64, 128 and
+256 over ragged, poisoned and misaligned inputs, the paged prefill kernel
+also under sliding windows, each row also held to the tile's own
+arithmetic, the fp32 tile held tight; the cuda paged branch of the model
+through a window, refusing a logit softcap; the four LoRA kernels through
+both their tiles at edge shapes under every launch plan, with split-K held
+bitwise stable, the dual kernels at ranks 1 to 128 with rows outside the
+bank and negative fusion weights, bf16 rows held to the tile model, and
+the four LoRA libraries loaded together in one process), the two autograd
+backwards against plain autograd, serving runs (each dense arch's smoke
+config, and with int8 K/V, a ragged int8 bank, prefix caching and
+speculative decoding), overlapped dispatch (streams with overlap on and off bitwise
 equal, greedy and sampled; no round of ``StreamSession.step`` waits for
 the stream, checked under ``torch.cuda.set_sync_debug_mode("error")``),
 ``launch/serve.py`` with those options and one ``launch/train.py
@@ -194,6 +196,129 @@ def test_paged_decode_split_launch_counts(dev):
             1, want_split, want_combine)
 
 
+# windows around the split length (128) and starcoder2's 4096
+WINDOWS = [1, 16, 127, 128, 129, 4096]
+# contexts on both sides of split boundaries and of the 4096 window, up to
+# 48 splits (6144: whole splits below the window drop out)
+WINDOW_LENGTHS = [0, 1, 7, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT + 9, 4095,
+                  4096, 4097, 4 * 1024 + 3 * SPLIT + 5, 6144]
+
+
+@pytest.mark.parametrize("W", WINDOWS)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G", [1, 12])
+def test_paged_decode_window_matches_plain(dev, G, int8, W):
+    """A sliding window (starcoder2's, and windows one position either side
+    of a split): bf16 and fp32 queries against the plain version with the
+    same window, and the window binds."""
+    gen = torch.Generator(device=dev).manual_seed(40 + W + G)
+    q, kp, vp, bt, lens, sc = _decode_case(gen, dev, G, 128, 16, int8,
+                                           WINDOW_LENGTHS)
+    kernels.reset_launch_counts()
+    y = paged_attention(q, kp, vp, bt, lens, sliding_window=W, **sc)
+    yr = ref.paged_attention_ref(q, kp, vp, bt, lens, sliding_window=W, **sc)
+    assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+    assert float(y[0].float().abs().max()) == 0.0      # empty row
+    f = paged_attention
+    assert (f.launches, f.launches_combine) == (1, 1)
+    full = ref.paged_attention_ref(q, kp, vp, bt, lens, **sc)
+    assert float((full[-1].float() - yr[-1].float()).abs().max()) > 1e-2
+    q32 = q.float()
+    y32 = paged_attention(q32, kp, vp, bt, lens, sliding_window=W, **sc)
+    yr32 = ref.paged_attention_ref(q32, kp, vp, bt, lens, sliding_window=W,
+                                   **sc)
+    torch.testing.assert_close(y32, yr32, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("W", [1, 128, 129, 4096])
+def test_paged_decode_window_rows_are_bitwise_independent(dev, W):
+    """With a window, three calls agree bitwise; each row alone equals that
+    row in the batch; a wider table changes nothing."""
+    gen = torch.Generator(device=dev).manual_seed(50 + W)
+    q, kp, vp, bt, lens, sc = _decode_case(gen, dev, 4, 128, 16, False,
+                                           WINDOW_LENGTHS)
+    kw = {"sliding_window": W, **sc}
+    ys = [paged_attention(q, kp, vp, bt, lens, **kw) for _ in range(3)]
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+    for b in range(len(WINDOW_LENGTHS)):
+        alone = paged_attention(q[b:b + 1].contiguous(), kp, vp,
+                                bt[b:b + 1].contiguous(),
+                                lens[b:b + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], ys[0][b]), b
+    wide = torch.cat([bt, bt[:, :9]], dim=1).contiguous()
+    assert torch.equal(paged_attention(q, kp, vp, wide, lens, **kw), ys[0])
+
+
+@pytest.mark.parametrize("W", WINDOWS)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G", [1, 8, 12])
+def test_paged_prefill_window_matches_plain(dev, G, int8, W):
+    """A 256-token chunk behind contexts up to 4352 (the window binds in
+    every row past it) through both tiles with a sliding window: bf16
+    against the plain version and, per row, the tile's own arithmetic;
+    fp32 tight."""
+    gen = torch.Generator(device=dev).manual_seed(60 + W + G)
+    T, bs, hd = 256, 16, 128
+    q, kp, vp, sc, vdq, bt, lens = _prefill_case(
+        gen, dev, T, G, bs, hd, int8, [0, 5, 130, 4096], H=4 * G)
+    kw = {"sliding_window": W, **sc}
+    kernels.reset_launch_counts()
+    y = paged_prefill_attention(q, kp, vp, bt, lens, **kw)
+    yr = ref.paged_prefill_attention_ref(q, kp, vp, bt, lens, **kw)
+    assert bool(torch.isfinite(y.float()).all())
+    assert float((y.float() - yr.float()).abs().max()) <= _attn_tol(yr, vdq)
+    _, ratio = attn_tile.tile_errors(y, attn_tile.paged_prefill_tile_ref(
+        q, kp, vp, bt, lens, **kw))
+    assert ratio <= 1.0
+    if W < 4096:
+        full = ref.paged_prefill_attention_ref(q, kp, vp, bt, lens, **sc)
+        assert float((full.float() - yr.float()).abs().max()) > 1e-2
+    y32 = paged_prefill_attention(q.float(), kp, vp, bt, lens, **kw)
+    yr32 = ref.paged_prefill_attention_ref(q.float(), kp, vp, bt, lens, **kw)
+    torch.testing.assert_close(y32, yr32, atol=2e-5, rtol=1e-5)
+    assert kernels.tile_counts()["paged_prefill_attention"] == {"mma": 1,
+                                                                "f32": 1}
+
+
+def test_cuda_paged_branch_takes_a_window_and_refuses_softcap(dev):
+    """starcoder2-smoke (window 16) decodes through the "cuda" paged branch
+    past its window and matches the "torch" branch; a logit softcap is
+    still refused."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import Model
+    cfg = get_config("starcoder2-15b", smoke=True).with_overrides(
+        dtype="float32")
+    model = Model(cfg, dev)
+    params = model.init(0)
+    bt = torch.arange(1, 9, dtype=torch.int32, device=dev)[None]
+    toks = torch.randint(0, cfg.vocab_size, (1, 40), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    out = {}
+    for backend in ("cuda", "torch"):
+        cache = model.init_paged_decode_cache(9, 8)
+        kernels.reset_launch_counts()
+        logits, cache = model.prefill_step(
+            params, cache, toks[:, :32], torch.tensor([0], device=dev),
+            torch.tensor([32], device=dev), block_tables=bt,
+            paged_backend=backend)
+        steps = [logits[0, -1]]
+        for i in range(32, 40):
+            lg, cache = model.decode_step(
+                params, cache, toks[:, i:i + 1], torch.tensor([i], device=dev),
+                block_tables=bt, paged_backend=backend)
+            steps.append(lg[0, -1])
+        out[backend] = (torch.stack(steps), kernels.launch_counts())
+    (lc, nc), (lt, _) = out["cuda"], out["torch"]
+    assert nc["paged_attention"] == 8 * cfg.n_layers
+    assert nc["paged_prefill_attention"] == cfg.n_layers
+    torch.testing.assert_close(lc, lt, atol=1e-4, rtol=1e-4)
+    soft = Model(cfg.with_overrides(attn_logit_softcap=30.0), dev)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        soft.decode_step(params, model.init_paged_decode_cache(9, 8),
+                         toks[:, :1], torch.tensor([0], device=dev),
+                         block_tables=bt, paged_backend="cuda")
+
+
 def test_paged_decode_split_refuses_what_it_does_not_take(dev):
     z = torch.zeros
     bf = torch.bfloat16
@@ -239,10 +364,11 @@ def _prefill_case(gen, dev, T, G, bs, hd, int8, lengths, H=None):
 
 # (T, G, bs, hd): T not a multiple of 64; G = 4 with folded rows crossing
 # a 64-row tile edge (T = 20: rows 60-67 hold t = 15, 16); blocks of 16
-# and 32; head dims 32, 64 and 128
+# and 32; head dims 32, 64, 128 and 256 (gemma-2b: G 8 over one kv head)
 PREFILL_CASES = [(1, 1, 16, 128), (8, 1, 16, 128), (100, 1, 16, 128),
                  (256, 1, 16, 128), (20, 4, 16, 128), (100, 4, 32, 64),
-                 (8, 1, 32, 32), (100, 2, 16, 32), (256, 4, 32, 64)]
+                 (8, 1, 32, 32), (100, 2, 16, 32), (256, 4, 32, 64),
+                 (20, 1, 16, 256), (100, 8, 16, 256), (256, 8, 32, 256)]
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -252,8 +378,8 @@ def test_prefill_tiles_match_plain(dev, T, G, bs, hd, int8):
     chunk tail runs past its table."""
     gen = torch.Generator(device=dev).manual_seed(10 + hd + T)
     lengths = [0, 5, 37, 130]
-    q, kp, vp, sc, vdq, bt, lens = _prefill_case(gen, dev, T, G, bs, hd,
-                                                 int8, lengths)
+    q, kp, vp, sc, vdq, bt, lens = _prefill_case(
+        gen, dev, T, G, bs, hd, int8, lengths, H=G if hd == 256 else None)
     kernels.reset_launch_counts()
     y = paged_prefill_attention(q, kp, vp, bt, lens, **sc)
     yr = ref.paged_prefill_attention_ref(q, kp, vp, bt, lens, **sc)
@@ -302,11 +428,13 @@ def test_prefill_ignores_pool_slots_past_the_last_query(dev, int8, dtype):
 
 
 # (H, Kv, Sq, Sk, window, d, causal): window, Sq < Sk and GQA at head dims
-# 32, 64 and 128, and one non-causal window
+# 32, 64, 128 and 256, and one non-causal window
 FLASH_CASES = [(4, 4, 100, 100, 17, 32, True), (4, 1, 40, 130, 0, 32, True),
                (8, 2, 200, 300, 50, 64, True), (4, 4, 96, 96, 0, 64, False),
                (8, 2, 64, 64, 0, 128, True), (4, 4, 70, 250, 33, 128, True),
-               (4, 2, 130, 130, 20, 128, False)]
+               (4, 2, 130, 130, 20, 128, False),
+               (8, 1, 256, 256, 0, 256, True), (4, 1, 130, 130, 40, 256, True),
+               (2, 2, 70, 200, 0, 256, False)]
 
 
 @pytest.mark.parametrize("H,Kv,Sq,Sk,window,d,causal", FLASH_CASES)
@@ -724,15 +852,18 @@ def test_dual_tiles_refuse_misaligned_bf16(dev):
     assert y.shape == (3, 16)
 
 
-def test_smoke_engine_serves_through_the_kernels(dev):
-    """A few requests on the smoke config through the "cuda" backend: every
+@pytest.mark.parametrize("arch", ["llama2-7b", "gemma-2b", "olmo-1b",
+                                  "yi-6b", "starcoder2-15b"])
+def test_smoke_engine_serves_through_the_kernels(dev, arch):
+    """A few requests on each dense arch's smoke config through the "cuda"
+    backend (starcoder2-smoke's prompts run past its window of 16): every
     kernel launches, and each request's first greedy token matches the
     "torch" backend's (fp32 activations, two layers: the paths differ by
     summation order only)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_engine, ragged_requests
     from repro_torch.serving.engine import ServeConfig
-    cfg = get_config("llama2-7b", smoke=True).with_overrides(dtype="float32")
+    cfg = get_config(arch, smoke=True).with_overrides(dtype="float32")
     eng = build_engine(cfg, 3, dev, seed=0, rank=8)
     reqs = ragged_requests(4, 3, cfg.vocab_size, 10, 40, seed=0)
     sc = ServeConfig(batch_size=3, max_new_tokens=5, prefill_chunk=16,

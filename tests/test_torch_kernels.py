@@ -6,6 +6,8 @@ Pallas kernel run in interpret mode, on the same numpy inputs.  On CPU
 tensors the wrappers run the plain version and launch nothing.  The
 card-only tests are in ``test_torch_cuda.py``.
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from repro.kernels.batched_lora import batched_lora_matmul as j_batched_lora
 from repro.kernels.paged_prefill import paged_scatter as j_scatter
 from repro.kernels.paged_prefill import paged_scatter_quant as j_scatter_quant
 from repro.kernels.quant import quantize_int8 as j_quantize
+from repro.models.layers import _attn_mask as j_attn_mask
 from repro_torch import kernels
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.batched_lora import (batched_dual_lora_matmul,
@@ -28,6 +31,7 @@ from repro_torch.kernels.paged_prefill import (paged_prefill_attention,
                                                paged_scatter,
                                                paged_scatter_quant)
 from repro_torch.kernels.quant import dequantize_int8, quantize_int8
+from repro_torch.models import layers
 
 # fp32 on both sides, the same inputs: only summation order differs
 F32_TOL = 2e-5
@@ -407,3 +411,105 @@ def test_batched_lora_dense_on_list_banks_matches_reference(int8):
                                       tbank.get("b_scale")),
                  2.0, _t(ids), backend="torch")
     np.testing.assert_allclose(yd.numpy(), y.numpy(), atol=1e-5 * top)
+
+
+def _windowed_prefill_oracle(q, kp, vp, ks, vs, bt, lens, W):
+    """Chunked prefill in numpy (fp64) under the mask the reference builds
+    (``repro.models.layers._attn_mask``): query t of row b at position
+    ``lens[b] + t``."""
+    B, T, H, hd = q.shape
+    bs, Kv = kp.shape[1], kp.shape[2]
+    L = bt.shape[1] * bs
+    k = kp[bt].reshape(B, L, Kv, hd).astype(np.float64)
+    v = vp[bt].reshape(B, L, Kv, hd).astype(np.float64)
+    if ks is not None:
+        k = k * ks[bt].reshape(B, L, Kv)[..., None]
+        v = v * vs[bt].reshape(B, L, Kv)[..., None]
+    k, v = np.repeat(k, H // Kv, axis=2), np.repeat(v, H // Kv, axis=2)
+    out = np.zeros((B, T, H, hd))
+    for b in range(B):
+        mask = np.asarray(j_attn_mask(jnp.arange(T) + int(lens[b]),
+                                      jnp.arange(L), W))          # (T, L)
+        s = np.einsum("thd,khd->htk", q[b], k[b]) * hd ** -0.5
+        s = np.where(mask[None], s, -np.inf)
+        p = np.exp(s - s.max(-1, keepdims=True))
+        out[b] = np.einsum("htk,khd->thd", p / p.sum(-1, keepdims=True),
+                           v[b])
+    return out
+
+
+def _layer_path(q, kp, vp, ks, vs, bt, lens, W):
+    """The port's "torch" paged branch (``layers._sdpa`` under
+    ``layers._attn_mask``, one chunk position at a time) on the same pools:
+    q (B, T, H, hd), query t of row b at position ``lens[b] + t``."""
+    B, T, H, hd = q.shape
+    bs, Kv = kp.shape[1], kp.shape[2]
+    L = bt.shape[1] * bs
+    k = kp[bt.long()].reshape(B, L, Kv, hd).float()
+    v = vp[bt.long()].reshape(B, L, Kv, hd).float()
+    if ks is not None:
+        k = k * ks[bt.long()].reshape(B, L, Kv)[..., None]
+        v = v * vs[bt.long()].reshape(B, L, Kv)[..., None]
+    cfg = types.SimpleNamespace(attn_logit_softcap=0.0)
+    pos = lens.long()[:, None] + torch.arange(T)[None, :]
+    out = [layers._sdpa(q[:, t:t + 1].float(), k, v, cfg,
+                        layers._attn_mask(pos[:, t], torch.arange(L),
+                                          W)[:, None], torch.float32)
+           for t in range(T)]
+    return torch.cat(out, dim=1).reshape(B, T, H, hd)
+
+
+@pytest.mark.parametrize("W", [1, 5, 16, 17, 40])
+@pytest.mark.parametrize("int8", [False, True])
+def test_windowed_paged_prefill_plain_matches_the_reference_mask(int8, W):
+    """The plain version with a sliding window against the reference's
+    mask in numpy, and against the port's "torch" paged branch
+    (``layers._sdpa`` under ``layers._attn_mask``, one chunk position at a
+    time) on the same pools."""
+    rng = np.random.default_rng(30 + W)
+    B, T, H, Kv, hd, bs, MB = 3, 20, 4, 2, 16, 4, 12
+    NB = 1 + B * MB
+    kp, vp, ks, vs = _pools(rng, NB, bs, Kv, hd, int8)
+    q = rng.standard_normal((B, T, H, hd)).astype(np.float32)
+    bt = _tables(rng, B, MB, NB)
+    lens = np.asarray([0, 9, 28], np.int32)
+    want = _windowed_prefill_oracle(q, kp, vp, ks, vs, bt, lens, W)
+    tsc = {"k_scale": _t(ks), "v_scale": _t(vs)} if int8 else {}
+    tk, tv = ((_t(kp), _t(vp)) if int8 else
+              (_t(kp).to(torch.bfloat16), _t(vp).to(torch.bfloat16)))
+    y = ref.paged_prefill_attention_ref(_t(q), tk, tv, _t(bt), _t(lens),
+                                        sliding_window=W, **tsc)
+    np.testing.assert_allclose(y.numpy(), want, atol=F32_TOL)
+    # the wrapper on CPU tensors is the plain version
+    assert torch.equal(paged_prefill_attention(
+        _t(q), tk, tv, _t(bt), _t(lens), sliding_window=W, **tsc), y)
+    yl = _layer_path(_t(q), tk, tv, tsc.get("k_scale"), tsc.get("v_scale"),
+                     _t(bt), _t(lens), W)
+    np.testing.assert_allclose(y.numpy(), yl.numpy(), atol=F32_TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_head_dim_256_plain_versions_match_reference(int8):
+    """gemma-2b's head dim: the decode and prefill plain versions against
+    the reference oracles, fp32 on both sides."""
+    rng = np.random.default_rng(7)
+    B, T, H, Kv, hd, bs, MB = 2, 6, 4, 1, 256, 8, 4
+    NB = 1 + B * MB
+    kp, vp, ks, vs = _pools(rng, NB, bs, Kv, hd, int8)
+    bt = _tables(rng, B, MB, NB)
+    lens = np.asarray([3, 20], np.int32)
+    sc = {} if not int8 else {"k_scale": ks, "v_scale": vs}
+    tsc = {k: _t(v) for k, v in sc.items()}
+    jsc = {k: _j(v) for k, v in sc.items()}
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    y = ref.paged_attention_ref(_t(q), _t(kp), _t(vp), _t(bt), _t(lens),
+                                **tsc)
+    yr = jref.paged_attention_ref(_j(q), _j(kp), _j(vp), _j(bt), _j(lens),
+                                  **jsc)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yr), atol=F32_TOL)
+    q = rng.standard_normal((B, T, H, hd)).astype(np.float32)
+    y = ref.paged_prefill_attention_ref(_t(q), _t(kp), _t(vp), _t(bt),
+                                        _t(lens), **tsc)
+    yr = jref.paged_prefill_attention_ref(_j(q), _j(kp), _j(vp), _j(bt),
+                                          _j(lens), **jsc)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yr), atol=F32_TOL)
