@@ -21,7 +21,8 @@ Phases (each prints one JSON line per result):
                products of a 2048-row batch, flash attention at B=8, S=256
                with a window, Sq < Sk and GQA variants and at gemma-2b's
                head dim 256, the LoRA product at gemma-2b's train-step
-               projections, and the two
+               projections and at the fixed path's 8 decode rows, and the
+               two
                autograd backwards against plain autograd); the two
                attention kernels and the four LoRA kernels also with fp32
                activations, which run their fp32 CUDA-core tile (bf16 runs
@@ -63,6 +64,26 @@ Phases (each prints one JSON line per result):
                after a prefix hit against the same positions prefilled
                cold, and the streams held to stated tolerances; one traced
                warm run;
+  4b. sharded — the same weights, the serve cell's 8 requests and 8
+               tenants' rank-16 fused adapters in a ShardedAdapterRegistry,
+               8 slots, "cuda", overlap on: num_shards 1, 2 and 4 (streams
+               bitwise equal, adapter placement for all 8), the prefix
+               cache cold then warm at 2 shards on a pinned pool (cold
+               bitwise the run without the cache, every full block hit on
+               its shard, warm against cold by the margin rule), a
+               hot-swap at 2 shards after the first decode round
+               (untouched streams bitwise those of the run without it),
+               int8 K/V over a ragged int8 bank at 1 and 2 shards (bitwise),
+               the first chunk "cuda" vs "torch" through the 2-shard
+               registry's kernel view; TTFT, decode tok/s and peak memory
+               per run, the bank concatenation's ms;
+  4c. fixed  — the fixed-batch path: one 64-token prompt, 16 new tokens,
+               cache_len 128: generate_fixed over the 8 tenants (batched
+               LoRA at 8 rows a step) and the single-tenant Engine with one
+               Eq. 7-merged adapter (lora_matmul at 8 rows a step), the
+               last prompt position's logits "cuda" vs "torch", the
+               streams against the continuous engine's by the margin rule,
+               ms per step and tok/s;
   5. train   — FDLoRA Algorithm 1 on the same llama2-7b weights (32 layers,
                full width, bf16), rank-16 adapters on all 7 targets, 2
                clients of 8 x 256-token SFT batches: one train step and one
@@ -940,8 +961,10 @@ def check_backwards(gen, device):
     emit(out)
 
 
-def training_kernels(device, seed: int, reps: int):
-    """The training path's kernels; returns {name: main-shape result}."""
+def training_kernels(device, seed: int, reps: int, registers=None):
+    """The training path's kernels, and ``lora_matmul`` at the fixed
+    path's decode rows (``registers``: ptxas's count per kernel of
+    lora_matmul.cu); returns {name: main-shape result}."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     main = {}
@@ -965,6 +988,11 @@ def training_kernels(device, seed: int, reps: int):
     for K, N in projection_shapes("gemma-2b"):
         emit({**check_single_lora(gen, device, 2048, K, N, 16, reps),
               "arch": "gemma-2b"})
+    # the single-tenant engine's decode rows (phase fixed): 8 rows through
+    # llama2-7b's projections, the tile's split-K plan
+    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        emit({**check_single_lora(gen, device, 8, K, N, 16, reps),
+              "path": "fixed", "registers": registers})
     # fp32 at the main shape: the fp32 tile, held tight
     emit(check_flash(gen, device, 8, 32, 32, 256, 256, 128, 0, reps,
                      dtype=torch.float32))
@@ -1866,6 +1894,360 @@ def serve_options_phase(device, seed: int, params, cfg, T: int = 256,
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: sharded serving and hot-swap across shards
+# ---------------------------------------------------------------------------
+
+def fused_trees(cfg, device, tenants=8, ranks=None):
+    """Each tenant's Eq. 7-fused adapter: the serve cell's seeds (those of
+    ``build_engine``), tenant i at ``ranks[i % len]`` with ``ranks``, built
+    once for every registry of the phase."""
+    from repro_torch.core.dual_lora import merge
+    from repro_torch.core.lora import init_adapters
+    trees = []
+    for i in range(tenants):
+        rank = ranks[i % len(ranks)] if ranks else 16
+        # B ~ N(0, (0.02 sqrt(r / 16))^2), as in serve_options: a rank-r
+        # tenant's update the size of a rank-16 one's (at a fixed B spread
+        # x·A·B grows like 1 / sqrt(r), and unscaled rank-4 updates, twice
+        # the size, carry bf16 noise to 62% of the largest first-chunk
+        # logit; PERF.md, the sharded phase)
+        pair = [init_adapters(cfg, rank, seed=10 + 2 * i + j, device=device,
+                              b_std=0.02 * (rank / 16) ** 0.5)
+                for j in (0, 1)]
+        trees.append(merge(*pair, [0.6, 0.6]))
+    return trees
+
+
+def sharded_engine(device, params, cfg, shards, trees, capacity=8,
+                   ranks=None, bank_dtype="f32"):
+    """A MultiTenantEngine over a ShardedAdapterRegistry of ``shards``
+    shards holding ``trees`` (client i the i-th), and the ms of its first
+    bank build (the concatenation of the shards' banks, and for a ragged
+    bank the kernel view)."""
+    import torch
+    from repro_torch.models.api import Model
+    from repro_torch.serving.engine import MultiTenantEngine
+    from repro_torch.serving.sharded import ShardedAdapterRegistry
+    reg = ShardedAdapterRegistry(cfg, capacity, num_shards=shards,
+                                 ranks=ranks, bank_dtype=bank_dtype,
+                                 device=device)
+    for i, tree in enumerate(trees):
+        reg.register(f"client{i}", tree)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reg.kernel_bank()
+    torch.cuda.synchronize()
+    return (MultiTenantEngine(Model(cfg, device), cfg, params, reg),
+            (time.perf_counter() - t0) * 1e3)
+
+
+def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
+                  new_tokens: int = 32):
+    """llama2-7b, 32 layers, bf16: the serve cell's 8 requests and 8
+    tenants' rank-16 fused adapters in a ShardedAdapterRegistry of
+    capacity 8, 8 slots, through "cuda" with overlap on: num_shards 1, 2
+    and 4 (streams bitwise equal), the prefix cache cold then warm at 2
+    shards on a pinned pool, int8 K/V over a ragged int8 bank (ranks 4, 8,
+    16) at 1 and 2 shards, and a hot-swap at 2 shards that re-registers
+    one client after the first decode round.  Returns (the launch counts
+    of the 2-shard run, its engine at 1 shard for the fixed phase)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.lora import tree_leaves
+    from repro_torch.launch.serve import ragged_requests, register_client
+    from repro_torch.models.api import Model
+    from repro_torch.serving.engine import MultiTenantEngine, ServeConfig
+    from repro_torch.serving.kv_cache import blocks_needed
+    cfg = cfg.with_overrides(lora_rank=16)
+    reqs = ragged_requests(8, 8, cfg.vocab_size, 128, 1024, seed)
+    require(sorted(len(r.prompt) for r in reqs) == list(prompt_lens),
+            "the sharded phase's requests are not the serve cell's")
+    sc = ServeConfig(batch_size=8, max_new_tokens=new_tokens,
+                     prefill_chunk=T, block_size=16, paged_backend="cuda")
+    per = blocks_needed(max(len(r.prompt) for r in reqs) + new_tokens, 16)
+    # a pool pinned at full residency: 8 slots x the longest span, which
+    # splits into whole shards at 1, 2 and 4
+    pinned = dict(num_blocks=1 + 8 * per, max_blocks_per_slot=per)
+
+    def run(name, eng, sc_, reqs_=reqs):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs_, sc_)
+        counts, tiles = kernels.launch_counts(), kernels.tile_counts()
+        st = eng.last_stats
+        emit({"phase": "sharded", "run": name, "num_shards": sc_.num_shards,
+              "kv_dtype": sc_.kv_dtype, "prefix_cache": sc_.prefix_cache,
+              "requests": len(reqs_), "tokens": sum(len(o) for o in outs),
+              "ttft_ms_p50": float(np.percentile(ttft, 50)) * 1e3,
+              "ttft_ms_max": max(ttft) * 1e3, "decode_tokens": dec_tok,
+              "decode_s": dec_s,
+              "decode_tok_per_s": dec_tok / dec_s if dec_s > 0 else None,
+              "total_s": total_s,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": counts, "tile_launches": tiles,
+              **{k: st[k] for k in (
+                  "prefill_dispatches", "decode_dispatches", "preemptions",
+                  "prefix_hit_tokens", "prefix_pool_reused",
+                  "adapter_bank_refreshes", "deferred_chunks")},
+              "shard_placements": st.get("shard_placements")})
+        for o in outs:
+            require(len(o) == new_tokens and all(0 <= t < cfg.vocab_size
+                                                 for t in o),
+                    f"sharded {name}: a stream is malformed")
+        for name_ in kernels.SERVING:
+            require(counts[name_] > 0,
+                    f"sharded {name}: kernel {name_} never launched")
+        for kernel in ("paged_prefill_attention", "batched_lora_matmul"):
+            require_mma_tile(tiles, kernel, f"sharded {name}")
+        return outs, st, counts
+
+    streams, engines, concat_ms = {}, {}, {}
+    trees = fused_trees(cfg, device)
+    for shards in (1, 2, 4):
+        eng, concat_ms[f"f32_{shards}"] = sharded_engine(
+            device, params, cfg, shards, trees)
+        if shards == 1:                 # warm-up (cuBLAS handles, allocator)
+            eng.generate(ragged_requests(2, 8, cfg.vocab_size, 8, 16,
+                                         seed + 1),
+                         ServeConfig(batch_size=2, max_new_tokens=2,
+                                     prefill_chunk=8, paged_backend="cuda"))
+        sc_s = dataclasses.replace(sc, num_shards=shards)
+        streams[shards], st, counts = run(f"f32_{shards}", eng, sc_s)
+        if shards > 1:
+            require(st["shard_placements"]["adapter"] == 8,
+                    f"{shards} shards: placements {st['shard_placements']}")
+            require(streams[shards] == streams[1],
+                    f"streams at {shards} shards differ from one pool")
+        if shards == 2:
+            counts2 = counts
+        engines[shards] = eng
+    del engines[4], trees
+    torch.cuda.empty_cache()
+    # prefix cache: cold then warm on the pinned pool at 2 shards.  Cold
+    # makes the dispatches of the run without the cache: bitwise equal.
+    # Warm re-matches every full block of each prompt on the shard that
+    # sealed it.  Warm against cold is the margin rule (below), not
+    # bitwise: a token that the cold run makes as a feedback row of a
+    # 2048-row prefill dispatch (LoRA's wgmma plan, the prefill kernel)
+    # the warm run makes in an 8-row decode dispatch (split-K plan, the
+    # decode kernel)
+    eng = engines[2]
+    sc_p = dataclasses.replace(sc, num_shards=2, prefix_cache=True, **pinned)
+    eng.release_prefix_cache()
+    cold, _, _ = run("prefix_cold_2", eng, sc_p)
+    warm, st_warm, _ = run("prefix_warm_2", eng, sc_p)
+    eng.release_prefix_cache()
+    hits = sum((len(r.prompt) - 1) // 16 * 16 for r in reqs)
+    require(st_warm["prefix_pool_reused"]
+            and st_warm["prefix_hit_tokens"] == hits,
+            f"warm run: reused {st_warm['prefix_pool_reused']}, "
+            f"{st_warm['prefix_hit_tokens']} hit tokens, not {hits}")
+    require(st_warm["shard_placements"]["prefix"] == len(reqs),
+            f"warm run: placements {st_warm['shard_placements']}")
+    require(cold == streams[1], "cold prefix-cache streams differ from the "
+            "streams without the cache")
+    # hot-swap at 2 shards: client 3 re-registers after the first decode
+    # round; the other clients' streams must stay those of the f32_2 run
+    kernels.reset_launch_counts()
+    ses = eng.session(dataclasses.replace(sc, num_shards=2), reqs)
+    swapped = [[] for _ in reqs]
+    swap_ms = None
+    while ses.has_work:
+        decodes = ses.sched.decode_dispatches
+        for rid, toks, _ in ses.step():
+            swapped[rid].extend(toks)
+        if swap_ms is None and ses.sched.decode_dispatches > decodes:
+            register_client(eng.registry, cfg, 3, device, 900, None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.registry.kernel_bank()
+            torch.cuda.synchronize()
+            swap_ms = (time.perf_counter() - t0) * 1e3
+    st = ses.finalize()
+    moved = [i for i, r in enumerate(reqs) if r.client_id == "client3"]
+    untouched = [i for i in range(len(reqs)) if i not in moved]
+    emit({"phase": "sharded_hot_swap", "swapped_client": "client3",
+          "adapter_bank_refreshes": st["adapter_bank_refreshes"],
+          "bank_concat_ms_after_swap": swap_ms,
+          "untouched_equal": all(swapped[i] == streams[2][i]
+                                 for i in untouched),
+          "swapped_stream_moved": any(swapped[i] != streams[2][i]
+                                      for i in moved),
+          "launches": kernels.launch_counts()})
+    require(swap_ms is not None and st["adapter_bank_refreshes"] >= 1,
+            "hot-swap: the bank was never refreshed")
+    require(all(swapped[i] == streams[2][i] for i in untouched),
+            "hot-swap: an untouched client's stream moved")
+    # the first chunk "cuda" vs "torch" through the 2-shard registry's
+    # kernel view (bf16 <= 10%; fp32 activations <= 1%)
+    err_bf16 = compare_first_chunk(eng, reqs, sc, "bfloat16", rel_tol=0.1,
+                                   extra={"num_shards": 2})
+    cfg32 = cfg.with_overrides(dtype="float32")
+    compare_first_chunk(MultiTenantEngine(Model(cfg32, device), cfg32,
+                                          params, eng.registry),
+                        reqs, sc, "float32", rel_tol=1e-2,
+                        extra={"num_shards": 2})
+    # warm against cold by the margin rule (2-shard engine, bf16 error)
+    m_warm = streams_by_margin(eng, reqs, sc, warm, cold, err_bf16,
+                               "sharded warm vs cold")
+    emit({"phase": "sharded_streams", "shards_bitwise": [2, 4],
+          "err_bound": 2 * err_bf16, "warm_vs_cold_matched": m_warm,
+          "warm_equals_cold": warm == cold})
+    del eng, engines[2]
+    torch.cuda.empty_cache()
+    # int8 K/V over a ragged int8 bank, at 1 and 2 shards: capacity 16 (8
+    # slots a shard at 2: buckets of 3, 3, 2 for the tenants' 4, 8, 16)
+    int8 = {}
+    trees = fused_trees(cfg, device, ranks=[4, 8, 16])
+    for shards in (1, 2):
+        eng, concat_ms[f"int8_ragged_{shards}"] = sharded_engine(
+            device, params, cfg, shards, trees, capacity=16,
+            ranks=[4, 8, 16], bank_dtype="int8")
+        sc_i = dataclasses.replace(sc, num_shards=shards, kv_dtype="int8")
+        int8[shards], st, _ = run(f"int8_ragged_{shards}", eng, sc_i)
+        if shards > 1:
+            require(int8[2] == int8[1], "int8 streams at 2 shards differ "
+                    "from one pool")
+            compare_first_chunk(eng, reqs, sc_i, "bfloat16", rel_tol=0.1,
+                                extra={"num_shards": 2, "kv_dtype": "int8",
+                                       "bank": "ragged int8"})
+            compare_first_chunk(
+                MultiTenantEngine(Model(cfg32, device), cfg32, params,
+                                  eng.registry),
+                reqs, dataclasses.replace(sc_i, kv_dtype="f32"), "float32",
+                rel_tol=1e-2, extra={"num_shards": 2, "kv_dtype": "f32",
+                                     "bank": "ragged int8"})
+        del eng
+        torch.cuda.empty_cache()
+    del trees
+    emit({"phase": "bank_concat", "ms_first_build": concat_ms,
+          "ms_after_swap": swap_ms,
+          "f32_bank_gb": sum(t.numel() * t.element_size() for _, t in
+                             tree_leaves(engines[1].registry.bank())) / 1e9})
+    return counts2, engines[1]
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the fixed-batch path and the single-tenant engine
+# ---------------------------------------------------------------------------
+
+def fixed_phase(eng, seed: int, prompt_len: int = 64, new_tokens: int = 16,
+                cache_len: int = 128):
+    """llama2-7b, 32 layers, bf16: one seeded 64-token prompt, 16 new
+    tokens, cache_len 128, greedy.  ``generate_fixed`` serves 8 requests,
+    one per tenant, over the fp32 bank (batched LoRA at M = 8 per step);
+    ``Engine.generate`` serves 8 rows with one Eq. 7-merged adapter
+    (``lora_matmul`` at M = 8).  Checks: each path's logits at the last
+    prompt position "cuda" vs "torch" (bf16 <= 10%, fp32 activations <=
+    1% of the largest logit), ``generate_fixed``'s streams against the
+    continuous "cuda" engine's by the margin rule, the kernels' launch
+    counters on their tensor-core tiles.  Returns {kernel: launches}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.dual_lora import merge
+    from repro_torch.core.lora import init_adapters
+    from repro_torch.models.api import Model
+    from repro_torch.serving.engine import (Engine, MultiTenantEngine,
+                                            Request, ServeConfig)
+    cfg, dev = eng.cfg, eng.device
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab_size, prompt_len).astype(np.int32)
+    reqs = [Request(f"client{i}", prompt) for i in range(8)]
+    sc = ServeConfig(batch_size=8, max_new_tokens=new_tokens,
+                     cache_len=cache_len, paged_backend="cuda")
+    pair = [init_adapters(cfg, seed=seed + s, device=dev, b_std=0.02)
+            for s in (700, 701)]
+    single = Engine(eng.model, cfg, eng.params, merge(*pair, [0.6, 0.6]))
+    del pair
+    steps = prompt_len + new_tokens - 1
+    out, launched = {}, {}
+    for name, fn, kernel in (
+            ("generate_fixed", lambda: eng.generate_fixed(reqs, sc),
+             "batched_lora_matmul"),
+            ("engine_generate",
+             lambda: single.generate(np.tile(prompt, (8, 1)), sc),
+             "lora_matmul")):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, tiles = kernels.launch_counts(), kernels.tile_counts()
+        emit({"phase": "fixed", "run": name, "rows": 8,
+              "prompt_len": prompt_len, "new_tokens": new_tokens,
+              "cache_len": cache_len, "steps": steps, "s": secs,
+              "ms_per_step": secs / steps * 1e3,
+              "tok_per_s": 8 * new_tokens / secs,
+              "launches": counts, "tile_launches": tiles})
+        require(tuple(res.shape) == (8, new_tokens)
+                and bool(((res >= 0) & (res < cfg.vocab_size)).all()),
+                f"fixed {name}: malformed output")
+        require(counts[kernel] > 0, f"fixed {name}: {kernel} never launched")
+        require_mma_tile(tiles, kernel, f"fixed {name}")
+        out[name], launched[kernel] = res.cpu().tolist(), counts[kernel]
+    # the last prompt position's logits through the fixed path's own
+    # sequential prefill, "cuda" vs "torch"
+    prompts = torch.as_tensor(np.tile(prompt, (8, 1)), device=dev)
+    ids = torch.tensor([eng.registry.acquire(r.client_id) for r in reqs],
+                       dtype=torch.int32, device=dev)
+    cfg32 = cfg.with_overrides(dtype="float32")
+    eng32 = MultiTenantEngine(Model(cfg32, dev), cfg32, eng.params,
+                              eng.registry)
+    err = {}
+    for name, e, routed, dtype_name, rel in (
+            ("generate_fixed", eng, True, "bfloat16", 0.1),
+            ("generate_fixed", eng32, True, "float32", 1e-2),
+            ("engine_generate", single, False, "bfloat16", 0.1)):
+        logits = {}
+        for backend in ("cuda", "torch"):
+            bank = (e.bank_for(dataclasses.replace(sc, paged_backend=backend))
+                    if routed else single.adapters)
+            _, _, logits[backend] = e._prefill(
+                e.params, bank, ids if routed else None,
+                e.model.init_decode_cache(8, cache_len), prompts, backend)
+        lc, lt = logits["cuda"], logits["torch"]
+        e_ = float((lc - lt).abs().max())
+        top = float(lt.abs().max())
+        top2 = torch.topk(lt, 2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1]) > 2 * e_
+        agree = lc.argmax(-1) == lt.argmax(-1)
+        emit({"phase": "fixed_compare", "run": name,
+              "activations": dtype_name, "last_prompt_max_abs_logit_err": e_,
+              "max_abs_logit": top, "tol": rel * top,
+              "first_token_agree": int(agree.sum()), "rows": 8,
+              "decisive_rows": int(decisive.sum())})
+        require(bool(torch.isfinite(lc).all()), f"fixed {name}: cuda "
+                "logits not finite")
+        require(e_ <= rel * top, f"fixed {name} {dtype_name}: logit error "
+                f"{e_} > {rel * top}")
+        require(bool(agree[decisive].all()), f"fixed {name}: greedy token "
+                "differs on a row whose margin exceeds the error")
+        err.setdefault((name, dtype_name), e_)
+    del eng32
+    # against the continuous engine on the same requests: the two paths
+    # attend differently (plain SDPA over the ring against the paged
+    # kernels), so the rule is the margin rule, not bitwise
+    csc = ServeConfig(batch_size=8, max_new_tokens=new_tokens,
+                      prefill_chunk=256, block_size=16, paged_backend="cuda")
+    cont = eng.generate(reqs, csc)
+    matched = streams_by_margin(eng, reqs, csc, out["generate_fixed"],
+                                [o.tolist() for o in cont],
+                                err["generate_fixed", "bfloat16"],
+                                "fixed vs continuous")
+    emit({"phase": "fixed_streams", "err_bound":
+          2 * err["generate_fixed", "bfloat16"],
+          "fixed_vs_continuous_matched": matched})
+    return launched
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the training path (FDLoRA Algorithm 1)
 # ---------------------------------------------------------------------------
 
@@ -2503,7 +2885,9 @@ def main(argv=None) -> int:
     main_shapes = kernel_phase(device, args.seed, args.reps, prompt_lens, T)
     main_shapes["batched_dual_lora_matmul"], dual_launches = \
         dual_entry_point(device, args.seed, args.reps, n_requests, T)
-    main_shapes.update(training_kernels(device, args.seed, args.reps))
+    main_shapes.update(training_kernels(
+        device, args.seed, args.reps,
+        {k: v["registers"] for k, v in ptxas.get("lora_matmul", {}).items()}))
     seconds["kernels"] = time.perf_counter() - t_kernels
     serve_counts, eng, err_bf16 = timed("serve", serve_phase, device,
                                         args.seed, n_requests, 32, 128,
@@ -2518,6 +2902,12 @@ def main(argv=None) -> int:
     timed("serve_options", serve_options_phase, device, args.seed, params,
           get_config(ARCH), T)
     torch.cuda.empty_cache()
+    sharded_counts, eng1 = timed("sharded", sharded_phase, device,
+                                 args.seed, params, get_config(ARCH),
+                                 prompt_lens, T)
+    fixed_launches = timed("fixed", fixed_phase, eng1, args.seed)
+    del eng1
+    torch.cuda.empty_cache()
     train_counts = timed("train", train_phase, device, args.seed, params,
                          get_config(ARCH))
     del params                          # llama2-7b's weights
@@ -2528,6 +2918,10 @@ def main(argv=None) -> int:
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
               **{n: train_counts[n] for n in kernels.TRAINING},
               "batched_dual_lora_matmul": dual_launches}
+    # this slice's paths, each read just after its own run
+    emit({"phase": "path_launches", "sharded": {
+        n: sharded_counts[n] for n in kernels.SERVING},
+        "fixed": fixed_launches})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})
 

@@ -19,11 +19,30 @@ wall-clock times, tokens stream back per request, graceful drain; see
         --device cpu --tenants 2 --batch 4 --serve --trace-requests 8 \
         --trace-rate 20 --time-scale 0.05
 
+Sharded serving (the pool, the slots and the bank split into placement
+domains, one dispatch per round), with online re-registration mid-stream:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+        --device cpu --tenants 4 --batch 4 --shards 2 --update-every 3
+
+The fixed-batch path: a mixed-tenant batch of one equal-length prompt
+(``--no-continuous``), or one adapter tree through the single-tenant
+``Engine`` (``--tenants 0``, with ``--dual`` for two seeded pairs merged
+by Eq. 7, or ``--adapters`` for a checkpoint):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+        --device cpu --tenants 3 --batch 4 --no-continuous
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+        --device cpu --tenants 0 --dual --batch 2
+
 Weights and adapters are random from ``--seed`` (the repo holds no trained
 weights); each tenant registers one Eq. 7-fused adapter with a non-zero B.
-Flag names are the reference CLI's (``repro.launch.serve``) for the subset
-the port serves, plus ``--bank-dtype``.  With ``--prefix-cache`` the
-requests run twice, the second time against the warm pool.
+Flag names are the reference CLI's (``repro.launch.serve``), plus
+``--bank-dtype``.  Defaults that differ from the reference's: ``--tenants``
+is 4 (the reference's 0 runs the single-tenant engine) and continuous
+batching is on unless ``--no-continuous`` (the reference runs the fixed
+path unless ``--continuous``).  With ``--prefix-cache`` the requests run
+twice, the second time against the warm pool.
 """
 from __future__ import annotations
 
@@ -37,12 +56,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.core.dual_lora import merge
 from repro_torch.core.lora import init_adapters
+from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.models.api import Model
-from repro_torch.serving.engine import MultiTenantEngine, Request, ServeConfig
+from repro_torch.serving.engine import (Engine, MultiTenantEngine, Request,
+                                        ServeConfig)
 from repro_torch.serving.kv_cache import blocks_needed
 from repro_torch.serving.registry import AdapterRegistry
+from repro_torch.serving.sharded import ShardedAdapterRegistry
 from repro_torch.serving.trace import synth_trace
+from repro_torch.training.checkpoint import load_checkpoint
 
 
 class AsyncServer:
@@ -207,28 +231,99 @@ async def serve_demo(eng: MultiTenantEngine, sc: ServeConfig, trace,
     return srv.stats
 
 
+def register_client(registry, cfg, i: int, device, seed: int, ranks=None):
+    """Register ``client{i}``: two seeded pairs (non-zero B) fused by Eq. 7
+    at (0.6, 0.6), at rank ``ranks[i % len(ranks)]`` with ``ranks``."""
+    rk = ranks[i % len(ranks)] if ranks else None
+    pair = [init_adapters(cfg, rk, seed=seed + j, device=device, b_std=0.02)
+            for j in (0, 1)]
+    return registry.register_dual(f"client{i}", *pair, [0.6, 0.6])
+
+
 def build_engine(cfg, tenants: int, device, seed: int = 0, rank=None,
-                 ranks=None, bank_dtype: str = "f32") -> MultiTenantEngine:
+                 ranks=None, bank_dtype: str = "f32",
+                 shards: int = 1) -> MultiTenantEngine:
     """Random base weights plus ``tenants`` registered fused adapters.
     ``rank`` sets the model's ``lora_rank`` (and so the scale α/r the
     engine serves with); ``ranks`` makes a ragged bank with client i at
     ``ranks[i % len(ranks)]`` and twice the tenants' slots, as the
-    reference CLI does."""
+    reference CLI does; ``shards > 1`` a :class:`ShardedAdapterRegistry`,
+    its capacity rounded up to whole shards of at least one slot per
+    bucket."""
     if rank:
         cfg = cfg.with_overrides(lora_rank=rank)
     model = Model(cfg, device=device)
     params = model.init(seed)
     cap = 2 * tenants if ranks else tenants
-    registry = AdapterRegistry(cfg, capacity=cap, ranks=ranks or None,
-                               bank_dtype=bank_dtype, device=device)
+    cap = max(cap, shards * max(1, len(set(ranks or ()))))
+    if shards > 1:
+        cap = -(-cap // shards) * shards
+        registry = ShardedAdapterRegistry(cfg, capacity=cap,
+                                          num_shards=shards,
+                                          ranks=ranks or None,
+                                          bank_dtype=bank_dtype,
+                                          device=device)
+    else:
+        registry = AdapterRegistry(cfg, capacity=cap, ranks=ranks or None,
+                                   bank_dtype=bank_dtype, device=device)
     for i in range(tenants):
-        rk = ranks[i % len(ranks)] if ranks else None
-        ad_p = init_adapters(cfg, rk, seed=10 + 2 * i, device=device,
-                             b_std=0.02)
-        ad_s = init_adapters(cfg, rk, seed=11 + 2 * i, device=device,
-                             b_std=0.02)
-        registry.register_dual(f"client{i}", ad_p, ad_s, [0.6, 0.6])
+        register_client(registry, cfg, i, device, 10 + 2 * i, ranks)
     return MultiTenantEngine(model, cfg, params, registry)
+
+
+def demo_prompt(vocab: int) -> np.ndarray:
+    """The reference CLI's fixed-path prompt: a byte-tokenized log line."""
+    ids = ByteTokenizer().encode("logs: job start | net link up anomaly? ")
+    return np.asarray(ids[:32], np.int32) % vocab
+
+
+def single_tenant(args, cfg) -> None:
+    """``--tenants 0``: one adapter tree (``--adapters`` checkpoint,
+    ``--dual`` two seeded pairs merged by Eq. 7, else none) through the
+    single-tenant :class:`Engine` on a batch of the demo prompt."""
+    model = Model(cfg, device=args.device)
+    params = model.init(args.seed)
+    adapters = None
+    if args.adapters:
+        adapters = load_checkpoint(args.adapters, device=args.device)
+    elif args.dual:
+        pair = [init_adapters(cfg, seed=s, device=args.device, b_std=0.02)
+                for s in (1, 2)]
+        adapters = merge(*pair, [0.6, 0.6])
+    eng = Engine(model, cfg, params, adapters)
+    sc = ServeConfig(batch_size=args.batch, max_new_tokens=args.new_tokens,
+                     cache_len=args.cache_len,
+                     paged_backend=args.paged_backend)
+    prompts = np.tile(demo_prompt(cfg.vocab_size), (args.batch, 1))
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, sc)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    dt = time.perf_counter() - t0
+    what = ("checkpoint" if args.adapters else
+            "Eq. 7-merged pair" if args.dual else "no adapter")
+    print(f"single tenant ({what}) on {eng.device}: {out.numel()} tokens "
+          f"in {dt:.3f}s over {args.batch} rows, cache_len "
+          f"{sc.cache_len}")
+    print(f"  sample: {out[0, :12].tolist()}")
+
+
+def fixed_demo(eng, args, sc) -> None:
+    """``--no-continuous``: one mixed-tenant batch of the demo prompt
+    through ``generate_fixed`` (row b to ``client{b % tenants}``)."""
+    prompt = demo_prompt(eng.cfg.vocab_size)
+    reqs = [Request(f"client{b % args.tenants}", prompt)
+            for b in range(args.batch)]
+    t0 = time.perf_counter()
+    out = eng.generate_fixed(reqs, sc)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    dt = time.perf_counter() - t0
+    print(f"{args.tenants} tenants resident, fixed mixed batch of "
+          f"{args.batch} on {eng.device}: {out.numel()} tokens in "
+          f"{dt:.3f}s")
+    for b in range(min(args.batch, args.tenants)):
+        print(f"  {reqs[b].client_id}: {out[b, :12].tolist()}")
 
 
 def ragged_requests(n: int, tenants: int, vocab: int, prompt_min: int,
@@ -240,14 +335,54 @@ def ragged_requests(n: int, tenants: int, vocab: int, prompt_min: int,
             for i, s in enumerate(lens)]
 
 
+def stream_with_updates(eng, reqs, sc, args, ranks):
+    """Collect ``generate_stream``; with ``--update-every N`` every N-th
+    event re-registers the next client (round-robin) with fresh seeded
+    pairs, as a finished federated round would publish it.  Returns
+    (per-request streams, re-registrations)."""
+    outs = [[] for _ in reqs]
+    updates = events = 0
+    for rid, toks, _ in eng.generate_stream(reqs, sc):
+        outs[rid].extend(toks)
+        events += 1
+        if args.update_every and events % args.update_every == 0:
+            register_client(eng.registry, eng.cfg, updates % args.tenants,
+                            eng.device, 1000 + 2 * updates, ranks or None)
+            updates += 1
+    return [np.asarray(o, np.int32) for o in outs], updates
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama2-7b", choices=ALL_ARCHS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--tenants", type=int, default=4)
+    ap.add_argument("--tenants", type=int, default=4,
+                    help="N resident client adapters; 0 serves one adapter "
+                         "tree through the single-tenant Engine")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--continuous", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="with --tenants: continuous batching (the port's "
+                         "default); --no-continuous runs one fixed mixed "
+                         "batch through generate_fixed")
+    ap.add_argument("--cache-len", type=int, default=256,
+                    help="fixed path: decode cache length")
+    ap.add_argument("--adapters", default="",
+                    help="--tenants 0: npz checkpoint to serve")
+    ap.add_argument("--dual", action="store_true",
+                    help="--tenants 0: serve two seeded pairs merged by "
+                         "Eq. 7 at (0.6, 0.6)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="split the paged pool, the slots and the adapter "
+                         "bank into N shards with placement-aware "
+                         "admission (streams equal --shards 1)")
+    ap.add_argument("--update-every", type=int, default=0,
+                    help="continuous mode: every N stream events re-register "
+                         "one client's fused adapter mid-serve "
+                         "(round-robin); the session hot-swaps the bank at "
+                         "its next round")
     ap.add_argument("--requests", type=int, default=0,
                     help="queued requests (default 2x batch)")
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -301,9 +436,24 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.tenants <= 0:
+        if args.continuous or args.serve:
+            raise SystemExit("--continuous/--serve need --tenants N (the "
+                             "continuous scheduler serves the multi-tenant "
+                             "engine)")
+        return single_tenant(args, cfg)
+    if args.adapters or args.dual:
+        raise SystemExit("--tenants is a self-contained demo (random fused "
+                         "adapters per tenant); it cannot combine with "
+                         "--adapters/--dual")
+    if args.update_every and args.prefix_cache:
+        raise SystemExit("--update-every re-registers adapters mid-serve, "
+                         "so the --prefix-cache warm-call check cannot "
+                         "hold; pick one")
     ranks = [int(r) for r in args.ranks.split(",") if r.strip()]
     eng = build_engine(cfg, args.tenants, args.device, args.seed,
-                       ranks=ranks or None, bank_dtype=args.bank_dtype)
+                       ranks=ranks or None,
+                       bank_dtype=args.bank_dtype, shards=args.shards)
     if ranks:
         print(f"ragged adapter bank: buckets {eng.registry.bucket_ranks}, "
               f"per-slot ranks {eng.registry.slot_ranks().tolist()}")
@@ -314,12 +464,16 @@ def main(argv=None):
                      paged_backend=args.paged_backend,
                      kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
                      spec_decode=args.spec_decode, spec_k=args.spec_k,
-                     overlap=not args.no_overlap)
+                     overlap=not args.no_overlap, num_shards=args.shards,
+                     cache_len=args.cache_len)
+    if args.continuous is False:
+        return fixed_demo(eng, args, sc)
     if args.serve:
         # an open-loop session needs its pool pinned: batch_size slots of
-        # the worst-case span (prompt_max + out_max)
+        # the worst-case span (prompt_max + out_max), whole shards
         bp = blocks_needed(args.prompt_max + args.new_tokens, sc.block_size)
-        sc.num_blocks, sc.max_blocks_per_slot = 1 + args.batch * bp, bp
+        nb = -(-args.batch * bp // args.shards) * args.shards
+        sc.num_blocks, sc.max_blocks_per_slot = 1 + nb, bp
         trace = synth_trace(
             args.trace_seed, args.trace_requests, arrival=args.trace_arrival,
             rate=args.trace_rate, prompt_max=args.prompt_max,
@@ -335,7 +489,7 @@ def main(argv=None):
                                      else "torch")
     for run in ("cold", "warm") if args.prefix_cache else ("cold",):
         t0 = time.perf_counter()
-        outs = eng.generate(reqs, sc)
+        outs, updates = stream_with_updates(eng, reqs, sc, args, ranks)
         if eng.device.type == "cuda":
             torch.cuda.synchronize(eng.device)
         dt = time.perf_counter() - t0
@@ -352,6 +506,13 @@ def main(argv=None):
             print(f"  prefix cache ({run}): {st['prefix_hit_tokens']} of "
                   f"{st['prompt_tokens']} prompt tokens hit, pool reused "
                   f"{st['prefix_pool_reused']}")
+        if args.shards > 1:
+            print(f"  {args.shards} shards: placements "
+                  f"{st['shard_placements']} (prefix > adapter home > "
+                  f"least loaded)")
+        if args.update_every:
+            print(f"  online updates: {updates} mid-serve re-registrations, "
+                  f"{st['adapter_bank_refreshes']} bank hot-swaps")
         if args.spec_decode:
             print(f"  spec decode (k={sc.spec_k}): "
                   f"{st['accepted_tokens']}/{st['drafted_tokens']} drafts "

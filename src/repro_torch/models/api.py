@@ -36,6 +36,9 @@ class Model:
                              paged_backend=paged_backend)
         return logits, torch.zeros((), device=logits.device)
 
+    def init_decode_cache(self, batch: int, cache_len: int) -> Params:
+        return dec.init_decode_cache(self.cfg, batch, cache_len, self.device)
+
     def init_paged_decode_cache(self, num_blocks: int, block_size: int,
                                 kv_dtype: str = "f32") -> Params:
         return dec.init_paged_decode_cache(self.cfg, num_blocks, block_size,
@@ -73,7 +76,8 @@ class Model:
                     adapter_ids: Optional[torch.Tensor] = None,
                     block_tables: Optional[torch.Tensor] = None,
                     paged_backend: Optional[str] = None):
-        """One paged decode step; returns (logits (B, 1, V), cache)."""
+        """One decode step, paged (``block_tables``, per-row ``pos``) or
+        contiguous (int ``pos``); returns (logits (B, 1, V), cache)."""
         return dec.decode_step(params, cache, tokens, pos, self.cfg, adapters,
                                lora_scale, adapter_ids=adapter_ids,
                                block_tables=block_tables,

@@ -263,6 +263,14 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
 
     * no cache (training, evaluation): causal (+ window) attention over
       the S positions, through the flash-attention kernel on ``"cuda"``;
+    * contiguous decode cache (the fixed-batch path): ``kv_cache`` = {"k",
+      "v": (B, S_cache, Kv, hd), "pos": tokens already written (int)}, a
+      ring buffer written at ``pos % S_cache`` (full context for dense
+      attention, the window for sliding-window archs, so it wraps); each
+      slot's absolute position is recovered from the ring.  Attention here
+      is the plain path on both backends, as in the reference (jnp outside
+      any kernel there); the projections still take ``backend``'s path.
+      The cache tensors are updated in place;
     * paged (continuous batching): ``kv_cache`` = {"k_pool", "v_pool":
       (NB, bs, Kv, hd)} shared by all slots (int8 pools add "k_scale",
       "v_scale" (NB, bs, Kv); the scatter quantizes, the reads dequantize),
@@ -304,7 +312,8 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
         return dn(out, params["wo"], la("wo")), None
 
     if paged is None:
-        raise NotImplementedError("the port's decode path is paged only")
+        return _ring_attention(params, q, k, v, x, cfg, kv_cache, positions,
+                               dn, la)
     if len(paged) == 3:
         block_tables, lengths, n_new = paged
     else:
@@ -341,6 +350,36 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
             for t in range(S)]
     out = outs[0] if S == 1 else torch.cat(outs, dim=1)
     return dn(out, params["wo"], la("wo")), kv_cache
+
+
+def _ring_attention(params, q, k, v, x, cfg, kv_cache, positions, dn, la):
+    """Attention over the contiguous ring-buffer cache: write the S new
+    K/V at slots ``(pos + t) % S_cache``, then attend every slot whose
+    recovered absolute position is causal (and inside the window) for the
+    query; never-written slots (negative position) are masked."""
+    S = q.shape[1]
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    cache_len = ck.shape[1]
+    pos = kv_cache["pos"]
+    slots = torch.arange(pos, pos + S, device=x.device) % cache_len
+    ck.index_copy_(1, slots, k.to(ck.dtype))
+    cv.index_copy_(1, slots, v.to(cv.dtype))
+    n = pos + S                                   # tokens written after this
+    slot = torch.arange(cache_len, device=x.device)
+    # largest p <= n - 1 with p % cache_len == slot (negative: not written)
+    k_pos = slot + torch.div(n - 1 - slot, cache_len,
+                             rounding_mode="floor") * cache_len
+    mask = (_attn_mask(positions, k_pos, cfg.sliding_window)
+            & (k_pos >= 0)[None, :])
+    out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), cfg, mask, x.dtype)
+    return dn(out, params["wo"], la("wo")), {"k": ck, "v": cv, "pos": n}
+
+
+def init_kv_cache(cfg, batch: int, cache_len: int, dtype, device) -> Params:
+    """One layer's contiguous decode cache (the fixed-batch path)."""
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
 
 
 def init_paged_kv_cache(cfg, num_blocks: int, block_size: int, dtype,

@@ -132,6 +132,19 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
     return _unembed(params, x, cfg)
 
 
+def init_decode_cache(cfg, batch: int, cache_len: int,
+                      device="cuda") -> Params:
+    """Fixed-path cache: one bf16 ring buffer per layer, ``cache_len`` long
+    (the full context for dense attention; the window for sliding-window
+    archs, where it wraps), on the card unless the caller asks for the
+    CPU."""
+    dev = resolve_device(device)
+    eff = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+           else cache_len)
+    return {"layers": [L.init_kv_cache(cfg, batch, eff, torch.bfloat16, dev)
+                       for _ in range(cfg.n_layers)]}
+
+
 def init_paged_decode_cache(cfg, num_blocks: int, block_size: int,
                             device="cuda", kv_dtype: str = "f32") -> Params:
     """Serving cache: one bf16 K/V block pool per layer (bf16 even when the
@@ -165,12 +178,17 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
                 block_tables: Optional[torch.Tensor] = None,
                 paged_backend: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Params]:
-    """One paged decode step: tokens (B, 1), per-row context lengths ``pos``
-    (B,), ``block_tables`` (B, MB).  Returns (logits (B, 1, V), cache)."""
-    if block_tables is None:
-        raise NotImplementedError("the port decodes through the paged cache "
-                                  "only: pass block_tables")
+    """One decode step, tokens (B, 1).  Paged (continuous batching): pass
+    ``block_tables`` (B, MB) and per-row context lengths ``pos`` (B,) over
+    a cache from :func:`init_paged_decode_cache`.  Contiguous (the fixed
+    path): ``block_tables`` None, ``pos`` an int, the tokens already in a
+    cache from :func:`init_decode_cache`.  Returns (logits (B, 1, V),
+    cache)."""
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
+    if block_tables is None:
+        positions = torch.full((1,), int(pos), device=tokens.device)
+        return _cached_scan(params, cache, tokens, positions, cfg, adapters,
+                            lora_scale, adapter_ids, paged=None)
     pos = pos.to(torch.int32)
     return _cached_scan(params, cache, tokens, pos[:, None].long(), cfg,
                         adapters, lora_scale, adapter_ids,

@@ -1,12 +1,24 @@
-"""Multi-tenant serving engine: continuous batching over a paged KV pool.
+"""Serving engines: continuous batching over a paged KV pool, and the
+fixed-batch path.
 
-Port of ``repro/serving/engine.py`` (``MultiTenantEngine`` and
-``StreamSession``, with overlapped dispatch).  Requests carry a ``client_id``;
-each batch row is routed to its client's slot of the
-:class:`~repro_torch.serving.registry.AdapterRegistry` bank through
-per-row ``adapter_ids``.  Ragged prompts are fed by CHUNKED prefill
-dispatches, blocks are allocated on demand, a victim is preempted when
-the pool runs dry (requeued with prompt+emitted, so nothing is lost), and
+Port of ``repro/serving/engine.py``.  Two engines share one fixed-batch
+generation loop (:meth:`_EngineBase._run`: sequential prefill through the
+decode step into a contiguous ring-buffer cache, then decode; EOS rows pad
+with ``pad_id``):
+
+  * :class:`Engine` — single tenant: one adapter tree (or none) bound at
+    construction; on the card its projections run the single-pair LoRA
+    kernel.
+  * :class:`MultiTenantEngine` — one base model and an
+    :class:`~repro_torch.serving.registry.AdapterRegistry` bank (or its
+    sharded form, ``serving/sharded.py``); each batch row is routed to its
+    client's bank slot through per-row ``adapter_ids``.  ``generate`` is
+    continuous batching (:class:`StreamSession`); ``generate_fixed`` keeps
+    the fixed-shape path for equal-length prompts with one shared budget.
+
+In :class:`StreamSession` ragged prompts are fed by CHUNKED prefill
+dispatches, blocks are allocated on demand, a victim is preempted when the
+pool runs dry (requeued with prompt+emitted, so nothing is lost), and
 decode runs in chunks of up to ``scan_chunk`` steps back to back on the
 device between host observations.  The scheduler and block allocator are
 the port's own copies of the reference's (numpy only), so both packages
@@ -14,11 +26,13 @@ plan the same chunks.
 
 The options of the reference engine served here: int8 K/V pools
 (``kv_dtype``), prefix caching within and across calls (``prefix_cache``:
-a warm pool persists between streams of one geometry), and greedy
-speculative decoding (``spec_decode``: prompt-lookup drafts verified in one
-chunk dispatch, rejected positions rolled back) and overlapped dispatch
-(``overlap``, the default: see :class:`StreamSession`).  ``num_shards >
-1`` is a later slice (ROADMAP.md).
+a warm pool persists between streams of one geometry), greedy speculative
+decoding (``spec_decode``: prompt-lookup drafts verified in one chunk
+dispatch, rejected positions rolled back), overlapped dispatch
+(``overlap``, the default: see :class:`StreamSession`) and sharded serving
+(``num_shards``: the pool, the slots and, with a
+:class:`~repro_torch.serving.sharded.ShardedAdapterRegistry`, the bank
+split into placement domains, still one dispatch per round).
 """
 from __future__ import annotations
 
@@ -34,17 +48,22 @@ from repro_torch.serving.kv_cache import (PagedKVCache, blocks_needed,
                                           reset_slot, to_device)
 from repro_torch.serving.registry import AdapterRegistry
 from repro_torch.serving.scheduler import PRIORITY_CLASSES, Scheduler
+from repro_torch.serving.sharded import ShardedPagedKVCache, ShardedScheduler
 
 Params = Any
 
 
 @dataclasses.dataclass
 class ServeConfig:
-    batch_size: int                  # decode slots
+    batch_size: int                  # decode slots (continuous) / batch rows
     max_new_tokens: int = 32         # default per-request budget
+    cache_len: int = 4096            # fixed-path cache length (the window
+    #                                  for sliding-window archs)
     temperature: float = 0.0         # 0 => greedy
     seed: int = 0                    # seeds the sampling torch.Generator
-    eos_id: Optional[int] = None     # a row that samples it stops
+    eos_id: Optional[int] = None     # a row that samples it stops (fixed
+    #                                  path: emits pad_id afterwards)
+    pad_id: int = 0
     block_size: int = 16             # paged-cache block size
     num_blocks: Optional[int] = None  # pool size; None => full residency
     max_blocks_per_slot: Optional[int] = None  # table width; None => span
@@ -70,9 +89,13 @@ class ServeConfig:
     #                                  the synchronous loop.  Both run the
     #                                  same dispatches on the same inputs,
     #                                  so streams are bitwise equal
-    # sharded serving is a later slice of the port (ROADMAP.md): > 1 raises
-    # NotImplementedError
-    num_shards: int = 1
+    num_shards: int = 1              # split the block pool and the slots
+    #                                  into this many shards
+    #                                  (serving/sharded.py): per-shard free
+    #                                  lists, seal chains and preemption,
+    #                                  placement-aware admission, one fused
+    #                                  dispatch per round; streams equal the
+    #                                  single pool's, bitwise
 
 
 @dataclasses.dataclass
@@ -89,10 +112,6 @@ class Request:
 
 
 def _check_supported(sc: ServeConfig) -> None:
-    if sc.num_shards > 1:
-        raise NotImplementedError(
-            "ServeConfig num_shards > 1 is not served by this slice of the "
-            "port (ROADMAP: sharded serving and hot-swap)")
     if sc.spec_decode:
         if sc.temperature > 0:
             raise ValueError(
@@ -107,62 +126,24 @@ def _check_supported(sc: ServeConfig) -> None:
                          f"{sc.kv_dtype!r}")
     if sc.num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {sc.num_shards}")
+    if sc.num_shards > 1 and sc.batch_size % sc.num_shards != 0:
+        raise ValueError(
+            f"batch_size {sc.batch_size} not divisible by {sc.num_shards} "
+            f"shards (slots split evenly)")
 
 
-class MultiTenantEngine:
-    """One base model serving every registered client's adapter."""
+class _EngineBase:
+    """The fixed-batch generation loop, parameterised by optional per-row
+    adapter ids."""
 
-    def __init__(self, model, cfg, params: Params, registry: AdapterRegistry):
-        if registry.device != model.device:
-            raise ValueError(f"registry bank on {registry.device} but model "
-                             f"on {model.device}")
+    def __init__(self, model, cfg):
         self.model, self.cfg = model, cfg
-        self.params, self.registry = params, registry
         self.device = model.device
         # alpha / cfg.lora_rank whatever the registry's ranks, as in the
         # reference: a client's rank is the shape of its factors, and the
         # scale is the model's
         self.scale = lora_scale(cfg)
-        self.last_stats: Optional[dict] = None
-        # cross-call prefix-cache state: (pool key, PagedKVCache, device
-        # cache) kept at stream drain so the next stream's admission can
-        # match blocks sealed by this one (the device pools stay resident
-        # until release_prefix_cache or a stream of another geometry)
-        self._warm: Optional[Tuple[tuple, PagedKVCache, Any]] = None
 
-    def release_prefix_cache(self) -> None:
-        """Drop the warm prefix-cache pool (host allocator and device K/V);
-        the next ``prefix_cache=True`` stream starts cold."""
-        self._warm = None
-
-    def _paged_pool(self, key: tuple, sc: ServeConfig
-                    ) -> Tuple[PagedKVCache, Any, bool]:
-        """(host allocator, device cache, reused) for one stream of pool
-        geometry ``key`` = (slots, block size, blocks, table width,
-        kv_dtype).  With ``sc.prefix_cache`` the pair kept by the last
-        drained stream is reused when its key matches and it is idle;
-        otherwise the stream starts cold."""
-        num_slots, _, num_blocks, blocks_per, _ = key
-        if sc.prefix_cache:
-            warm, self._warm = self._warm, None   # taken; restored at drain
-            if warm is not None and warm[0] == key and warm[1].idle:
-                return warm[1], warm[2], True
-        kv = PagedKVCache(num_slots, sc.block_size, num_blocks, blocks_per,
-                          prefix_cache=sc.prefix_cache)
-        cache = self.model.init_paged_decode_cache(
-            num_blocks, sc.block_size, kv_dtype=sc.kv_dtype)
-        return kv, cache, False
-
-    def bank_for(self, sc: ServeConfig):
-        """The registry's bank in the layout the stream's backend reads:
-        the kernel view on ``"cuda"`` (ragged buckets concatenated once per
-        bank epoch), the per-bucket lists on ``"torch"``."""
-        backend = resolve_backend(self.cfg, sc.paged_backend,
-                                  self.device).paged_backend
-        return (self.registry.kernel_bank() if backend == "cuda"
-                else self.registry.bank())
-
-    # -- device steps --------------------------------------------------------
     @staticmethod
     def _sample(logits: torch.Tensor, gen: torch.Generator,
                 temperature: float) -> torch.Tensor:
@@ -177,6 +158,134 @@ class MultiTenantEngine:
         noise = torch.empty_like(probs).exponential_(1, generator=gen)
         return torch.argmax(probs / noise, dim=-1).to(torch.int32)
 
+    def _prefill(self, params, adapters, ids, cache, prompts: torch.Tensor,
+                 backend: Optional[str]):
+        """Sequential prefill through the decode step (one position per
+        step, as in the reference).  Returns (cache, tokens fed, logits
+        (B, V) at the last prompt position)."""
+        logits = None
+        for t in range(prompts.shape[1]):
+            logits, cache = self.model.decode_step(
+                params, cache, prompts[:, t:t + 1], t, adapters=adapters,
+                lora_scale=self.scale, adapter_ids=ids,
+                paged_backend=backend)
+        return cache, prompts.shape[1], logits[:, 0]
+
+    def _run(self, params, adapters, ids, prompts, sc: ServeConfig
+             ) -> torch.Tensor:
+        """prompts (B, S) int32 -> (B, max_new_tokens) int32 on the
+        engine's device.  The first token is the argmax of the last prompt
+        position's logits (as in the reference), later ones are sampled at
+        ``sc.temperature`` from a generator seeded by ``sc.seed``.  With
+        ``sc.eos_id`` a row that samples EOS emits ``sc.pad_id`` from then
+        on, and the loop exits once every row has finished (the output
+        stays (B, max_new_tokens), pad-filled).  ``sc.paged_backend``
+        picks the projections' path ("cuda" kernels or "torch"); attention
+        over the ring-buffer cache is the plain path either way."""
+        dev = self.device
+        prompts = to_device(np.asarray(prompts, np.int32), dev)
+        B = prompts.shape[0]
+        cache = self.model.init_decode_cache(B, sc.cache_len)
+        cache, pos, last = self._prefill(params, adapters, ids, cache,
+                                         prompts, sc.paged_backend)
+        tok = torch.argmax(last, dim=-1).to(torch.int32)
+        gen = torch.Generator(device=dev).manual_seed(sc.seed)
+        out = [tok]
+        finished = (tok == sc.eos_id) if sc.eos_id is not None else None
+        for _ in range(sc.max_new_tokens - 1):
+            if finished is not None and bool(finished.all()):
+                break                         # reads back: EOS runs only
+            logits, cache = self.model.decode_step(
+                params, cache, tok[:, None], pos, adapters=adapters,
+                lora_scale=self.scale, adapter_ids=ids,
+                paged_backend=sc.paged_backend)
+            nxt = self._sample(logits[:, 0], gen, sc.temperature)
+            if finished is not None:
+                nxt = torch.where(finished, torch.full_like(nxt, sc.pad_id),
+                                  nxt)
+                finished = finished | (nxt == sc.eos_id)
+            pos += 1
+            tok = nxt
+            out.append(nxt)
+        res = torch.stack(out, dim=1)
+        if res.shape[1] < sc.max_new_tokens:           # early all-EOS exit
+            pad = torch.full((B, sc.max_new_tokens - res.shape[1]),
+                             sc.pad_id, dtype=torch.int32, device=dev)
+            res = torch.cat([res, pad], dim=1)
+        return res
+
+
+class Engine(_EngineBase):
+    """Single-tenant engine: one adapter tree (or None: the base model)
+    bound per instance."""
+
+    def __init__(self, model, cfg, params: Params,
+                 adapters: Optional[Params] = None):
+        super().__init__(model, cfg)
+        self.params, self.adapters = params, adapters
+
+    def generate(self, prompts, sc: ServeConfig) -> torch.Tensor:
+        """prompts (B, S) int32 -> (B, max_new_tokens) int32."""
+        return self._run(self.params, self.adapters, None, prompts, sc)
+
+
+class MultiTenantEngine(_EngineBase):
+    """One base model serving every registered client's adapter."""
+
+    def __init__(self, model, cfg, params: Params, registry: AdapterRegistry):
+        if registry.device != model.device:
+            raise ValueError(f"registry bank on {registry.device} but model "
+                             f"on {model.device}")
+        super().__init__(model, cfg)
+        self.params, self.registry = params, registry
+        self.last_stats: Optional[dict] = None
+        # cross-call prefix-cache state: (pool key, PagedKVCache, device
+        # cache) kept at stream drain so the next stream's admission can
+        # match blocks sealed by this one (the device pools stay resident
+        # until release_prefix_cache or a stream of another geometry)
+        self._warm: Optional[Tuple[tuple, PagedKVCache, Any]] = None
+
+    def release_prefix_cache(self) -> None:
+        """Drop the warm prefix-cache pool (host allocator and device K/V);
+        the next ``prefix_cache=True`` stream starts cold."""
+        self._warm = None
+
+    def _paged_pool(self, key: tuple, sc: ServeConfig
+                    ) -> Tuple[Any, Any, bool]:
+        """(host allocator, device cache, reused) for one stream of pool
+        geometry ``key`` = (slots, block size, blocks, table width, shards,
+        kv_dtype).  With ``sc.prefix_cache`` the pair kept by the last
+        drained stream is reused when its key matches (the shard count
+        included: a single pool's tables are not a sharded pool's) and it
+        is idle; otherwise the stream starts cold."""
+        num_slots, _, num_blocks, blocks_per, num_shards, _ = key
+        if sc.prefix_cache:
+            warm, self._warm = self._warm, None   # taken; restored at drain
+            if warm is not None and warm[0] == key and warm[1].idle:
+                return warm[1], warm[2], True
+        if num_shards > 1:
+            kv: Any = ShardedPagedKVCache(num_shards, num_slots,
+                                          sc.block_size, num_blocks,
+                                          blocks_per,
+                                          prefix_cache=sc.prefix_cache)
+        else:
+            kv = PagedKVCache(num_slots, sc.block_size, num_blocks,
+                              blocks_per, prefix_cache=sc.prefix_cache)
+        cache = self.model.init_paged_decode_cache(
+            num_blocks, sc.block_size, kv_dtype=sc.kv_dtype)
+        return kv, cache, False
+
+    def bank_for(self, sc: ServeConfig):
+        """The registry's bank in the layout the stream's backend reads:
+        the kernel view on ``"cuda"`` (ragged buckets, or a sharded
+        registry's global order, concatenated once per bank epoch), the
+        per-bucket lists on ``"torch"``."""
+        backend = resolve_backend(self.cfg, sc.paged_backend,
+                                  self.device).paged_backend
+        return (self.registry.kernel_bank() if backend == "cuda"
+                else self.registry.bank())
+
+    # -- device steps --------------------------------------------------------
     def _prefill_chunk(self, bank, ids, cache, tokens, lengths, n_new,
                        block_tables, gen, temperature, backend):
         """One chunked-prefill dispatch; samples each row at its LAST valid
@@ -252,6 +361,22 @@ class MultiTenantEngine:
             outs[rid].extend(toks)
         return [np.asarray(o, np.int32) for o in outs]
 
+    # -- fixed-shape batch ---------------------------------------------------
+    def generate_fixed(self, requests: Sequence[Request],
+                       sc: ServeConfig) -> torch.Tensor:
+        """B equal-length prompts (any mix of clients) -> (B,
+        max_new_tokens) int32, row-aligned with ``requests``; every row
+        decodes the shared ``sc.max_new_tokens`` budget over the
+        registry's bank."""
+        if not requests:
+            raise ValueError("empty request batch")
+        ids = to_device(np.asarray([self.registry.acquire(r.client_id)
+                                    for r in requests], np.int32),
+                        self.device)
+        prompts = np.stack([np.asarray(r.prompt, np.int32).reshape(-1)
+                            for r in requests])
+        return self._run(self.params, self.bank_for(sc), ids, prompts, sc)
+
 
 class _Readback:
     """A device tensor's values on their way to the host.  On a card the
@@ -289,8 +414,8 @@ class StreamSession:
     only emits nothing (``Scheduler.chunk_emits``) and is never read back,
     so the host plans and enqueues the next chunk while the card runs this
     one.  A decode chunk after which no slot can finish
-    (``Scheduler.chunk_defer_safe``; no EOS, spec decode or prefix cache
-    configured) advances its counts at once (``observe_chunk_counts``);
+    (``Scheduler.chunk_defer_safe``; no EOS, spec decode, prefix cache or
+    shards configured) advances its counts at once (``observe_chunk_counts``);
     the next round dispatches the next chunk from state chained on the
     card (final samples, lengths, cached tables and ids) and only then
     reads this one back (``observe_chunk_values``): one-round-deferred
@@ -304,7 +429,15 @@ class StreamSession:
 
     Everything runs on PyTorch's current stream, in order: a registration
     that rewrites bank slots in place between a deferred chunk's dispatch
-    and its readback is ordered behind that chunk."""
+    and its readback is ordered behind that chunk (a sharded registry's
+    next bank is a new concatenation, so the old snapshot stays as it
+    was).
+
+    With ``num_shards > 1`` the pool is a
+    :class:`~repro_torch.serving.sharded.ShardedPagedKVCache` and a
+    :class:`~repro_torch.serving.sharded.ShardedScheduler` places each
+    request on a shard; the rounds stay one dispatch each over all slots,
+    so streams equal the single pool's."""
 
     def __init__(self, engine: MultiTenantEngine, sc: ServeConfig,
                  requests: Optional[Sequence[Request]] = None):
@@ -336,22 +469,36 @@ class StreamSession:
                 blocks_per = sc.max_blocks_per_slot or (num_blocks - 1)
             else:
                 num_slots = max(1, min(sc.batch_size, len(requests)))
+                if sc.num_shards > 1:        # equal per-shard slot counts
+                    num_slots = (-(-num_slots // sc.num_shards)
+                                 * sc.num_shards)
                 blocks_per = (sc.max_blocks_per_slot
                               or blocks_needed(max_span, sc.block_size))
                 num_blocks = sc.num_blocks or (1 + num_slots * blocks_per)
             # preemption replays prompt+emitted, so the chunk width must fit
             # the longest possible replay; fixed per run
             T = max(1, min(sc.prefill_chunk, max_span - 1))
+        if sc.num_shards > 1 and (num_blocks - 1) % sc.num_shards != 0:
+            raise ValueError(
+                f"allocatable blocks {num_blocks - 1} not divisible by "
+                f"{sc.num_shards} shards (set num_blocks = 1 + "
+                f"{sc.num_shards}*k)")
         dev = engine.device
         self._geom_key = (num_slots, sc.block_size, num_blocks, blocks_per,
-                          sc.kv_dtype)
+                          sc.num_shards, sc.kv_dtype)
         self.kv, self.cache, self._reused = engine._paged_pool(
             self._geom_key, sc)
         self._evicted0 = self.kv.evicted_cached   # pool-lifetime counter
-        self.sched = Scheduler(self.kv, policy=sc.sched_policy,
-                               aging_ticks=sc.sched_aging,
-                               spec_k=sc.spec_k if sc.spec_decode else 0,
-                               spec_ngram=sc.spec_ngram)
+        spec_k = sc.spec_k if sc.spec_decode else 0
+        if sc.num_shards > 1:
+            self.sched: Any = ShardedScheduler(
+                self.kv, registry=engine.registry, policy=sc.sched_policy,
+                aging_ticks=sc.sched_aging, spec_k=spec_k,
+                spec_ngram=sc.spec_ngram)
+        else:
+            self.sched = Scheduler(self.kv, policy=sc.sched_policy,
+                                   aging_ticks=sc.sched_aging, spec_k=spec_k,
+                                   spec_ngram=sc.spec_ngram)
         self._next_rid = 0
         if not self.open_loop:
             for r in requests:
@@ -387,9 +534,10 @@ class StreamSession:
         self._pending: Optional[Tuple[_Readback, int, List[int]]] = None
         # deferral reads no token value before the next plan: EOS and the
         # drafter read values to stop or draft, and prefix sealing hashes
-        # them in ``advance``
-        self._defer_cfg_ok = (sc.overlap and sc.eos_id is None
-                              and not sc.spec_decode
+        # them in ``advance``; the sharded scheduler does not split
+        # observation into counts and values (as in the reference)
+        self._defer_cfg_ok = (sc.overlap and sc.num_shards == 1
+                              and sc.eos_id is None and not sc.spec_decode
                               and not sc.prefix_cache)
         self.deferred_chunks = 0          # decode chunks observed late
         self._finalized = False
@@ -581,6 +729,8 @@ class StreamSession:
                  "victim_sealed_fraction_mean": (
                      float(np.mean(sched.victim_sealed_fractions))
                      if sched.victim_sealed_fractions else 0.0)}
+        if sc.num_shards > 1:
+            stats["shard_placements"] = dict(sched.placed)
         self.engine.last_stats = stats
         if sc.prefix_cache:
             self.engine._warm = (self._geom_key, self.kv, self.cache)

@@ -18,6 +18,10 @@ config, and with int8 K/V, a ragged int8 bank, prefix caching and
 speculative decoding), overlapped dispatch (streams with overlap on and off bitwise
 equal, greedy and sampled; no round of ``StreamSession.step`` waits for
 the stream, checked under ``torch.cuda.set_sync_debug_mode("error")``),
+sharded serving (2 shards bitwise equal to one pool, fp32 and int8 K/V
+with a ragged int8 bank; the sharded round loop with a hot-swap under the
+sync debug mode), the fixed-batch path and the single-tenant ``Engine``
+through the LoRA kernels (``lora_matmul`` also at decode rows, M 1 to 64),
 ``launch/serve.py`` with those options and one ``launch/train.py
 --smoke`` run through the ``"cuda"`` backend.
 
@@ -1094,6 +1098,140 @@ def test_step_makes_no_blocking_copy(dev, overlap):
     st = eng.last_stats
     assert st["verify_dispatches"] > 0 and st["prefix_hit_tokens"] > 0
     assert sum(len(t) for _, ev, _ in rounds for _, t, _ in ev) == 5 * 12
+
+
+# ---------------------------------------------------------------------------
+# sharded serving, the fixed path and the single-tenant engine on the card
+# ---------------------------------------------------------------------------
+
+def _sharded_engine(dev, variant):
+    """The llama2 smoke config in bf16, 4 tenants in a 2-shard registry:
+    the fp32 bank, or rank buckets 4 and 8 in an int8 bank."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+    kw = ({} if variant == "fp32" else
+          dict(ranks=[4, 8], bank_dtype="int8"))
+    return build_engine(get_config("llama2-7b", smoke=True), 4, dev, seed=0,
+                        rank=8, shards=2, **kw)
+
+
+@pytest.mark.parametrize("variant", ["fp32", "int8"])
+def test_sharded_streams_equal_the_single_pool_on_the_card(dev, variant):
+    """Through every serving kernel in bf16: 2 shards give the streams of
+    one pool, bitwise (the rows are only permuted across the batch, and no
+    kernel's row output depends on its place in the batch); int8 K/V over a
+    ragged int8 bank against the int8 single pool."""
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.serving.engine import ServeConfig
+    eng = _sharded_engine(dev, variant)
+    reqs = ragged_requests(8, 4, eng.cfg.vocab_size, 10, 60, seed=0)
+    kv = "f32" if variant == "fp32" else "int8"
+    sc = ServeConfig(batch_size=4, max_new_tokens=10, prefill_chunk=16,
+                     block_size=8, num_blocks=41, kv_dtype=kv)
+    one = eng.generate(reqs, sc)
+    kernels.reset_launch_counts()
+    two = eng.generate(reqs, dataclasses.replace(sc, num_shards=2))
+    st = eng.last_stats
+    assert all(kernels.launch_counts()[n] > 0 for n in kernels.SERVING)
+    assert st["num_shards"] == 2 and st["shard_placements"]["adapter"] == 8
+    for a, b in zip(one, two):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sharded_rounds_do_not_wait_for_the_card(dev):
+    """The sharded round loop (2 shards, overlap on, a ragged int8 bank
+    whose kernel view is rebuilt after a mid-stream registration) makes no
+    call that waits for the stream."""
+    from repro_torch.launch.serve import ragged_requests, register_client
+    from repro_torch.serving.engine import ServeConfig
+    eng = _sharded_engine(dev, "int8")
+    reqs = ragged_requests(6, 4, eng.cfg.vocab_size, 10, 60, seed=1)
+    sc = ServeConfig(batch_size=4, max_new_tokens=12, prefill_chunk=16,
+                     block_size=8, num_blocks=41, num_shards=2)
+    eng.generate(reqs[:2], sc)                  # builds and warms up
+    ses = eng.session(sc, reqs)
+    rounds = 0
+    while ses.has_work:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ses.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        rounds += 1
+        if rounds == 2:                          # a hot-swap lands
+            register_client(eng.registry, eng.cfg, 1, dev, 500, [4, 8])
+    st = ses.finalize()
+    assert st["adapter_bank_refreshes"] == 1 and st["num_shards"] == 2
+
+
+@pytest.mark.parametrize("M", [1, 2, 8, 16, 33, 64])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 11008), (11008, 4096)])
+def test_lora_matmul_at_decode_rows_matches_plain(dev, M, K, N):
+    """``lora_matmul`` at the single-tenant engine's decode rows (one row
+    per batch row) on llama2-7b's projections: the tensor-core tile's
+    split-K plan within two bf16 roundings of the plain version, and of
+    the plan's own arithmetic."""
+    from repro_torch.kernels import lora_tile
+    from repro_torch.kernels.lora_matmul import lora_matmul
+    gen = torch.Generator(device=dev).manual_seed(M + K)
+    x = _randn(gen, (M, K), dev, torch.bfloat16)
+    w = _randn(gen, (K, N), dev, torch.bfloat16, K ** -0.5)
+    a = _randn(gen, (K, 16), dev, std=1.0 / 16)
+    b = _randn(gen, (16, N), dev, std=0.02)
+    kernels.reset_launch_counts()
+    y = lora_matmul(x, w, a, b, 2.0)
+    assert kernels.tile_counts()["lora_matmul"] == {"mma": 1, "f32": 0}
+    yr = ref.lora_matmul_ref(x, w, a, b, 2.0)
+    assert bool(torch.isfinite(y.float()).all())
+    assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+    yp, _ = lora_tile.split_plan_ref(x, w, a[None], b[None], None, 2.0)
+    assert float((y.float() - yp.float()).abs().max()) <= _bf16_tol(yp)
+
+
+def test_fixed_path_and_engine_serve_through_the_kernels(dev):
+    """``generate_fixed`` runs the batched LoRA kernel and ``Engine`` with
+    one adapter the single-pair kernel, both on the tensor-core tile (bf16);
+    the last prompt position's logits agree with the "torch" backend's
+    within the first-chunk bound (10% of the largest logit), the greedy
+    token wherever the margin exceeds twice the error."""
+    from repro_torch.core.dual_lora import merge
+    from repro_torch.core.lora import init_adapters
+    from repro_torch.serving.engine import Engine, Request, ServeConfig
+    eng = _sharded_engine(dev, "fp32")
+    cfg = eng.cfg
+    prompt = (np.arange(24, dtype=np.int32) * 7 + 3) % cfg.vocab_size
+    reqs = [Request(f"client{i % 4}", prompt) for i in range(4)]
+    sc = ServeConfig(batch_size=4, max_new_tokens=8, cache_len=64)
+    kernels.reset_launch_counts()
+    fixed = eng.generate_fixed(reqs, sc)
+    assert kernels.tile_counts()["batched_lora_matmul"]["mma"] > 0
+    assert fixed.shape == (4, 8) and fixed.device.type == "cuda"
+    pair = [init_adapters(cfg, seed=s, device=dev, b_std=0.02)
+            for s in (1, 2)]
+    single = Engine(eng.model, cfg, eng.params, merge(*pair, [0.6, 0.6]))
+    kernels.reset_launch_counts()
+    out = single.generate(np.tile(prompt, (4, 1)), sc)
+    assert kernels.tile_counts()["lora_matmul"] == {
+        "mma": kernels.launch_counts()["lora_matmul"], "f32": 0}
+    assert kernels.launch_counts()["lora_matmul"] > 0
+    assert bool((out >= 0).all()) and bool((out < cfg.vocab_size).all())
+    prompts = torch.as_tensor(np.tile(prompt, (4, 1)), device=dev)
+    ids = torch.tensor([eng.registry.acquire(r.client_id) for r in reqs],
+                       dtype=torch.int32, device=dev)
+    for e, routed in ((eng, True), (single, False)):
+        logits = {}
+        for backend in ("cuda", "torch"):
+            bank = (e.bank_for(dataclasses.replace(sc, paged_backend=backend))
+                    if routed else e.adapters)
+            _, _, logits[backend] = e._prefill(
+                e.params, bank, ids if routed else None,
+                e.model.init_decode_cache(4, sc.cache_len), prompts, backend)
+        err = float((logits["cuda"] - logits["torch"]).abs().max())
+        assert err <= 0.1 * float(logits["torch"].abs().max())
+        top2 = torch.topk(logits["torch"], 2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1]) > 2 * err
+        agree = logits["cuda"].argmax(-1) == logits["torch"].argmax(-1)
+        assert bool(agree[decisive].all())
 
 
 # ---------------------------------------------------------------------------

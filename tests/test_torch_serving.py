@@ -141,14 +141,6 @@ def test_open_loop_session(engines):
     assert ses.finalize()["open_loop"] is True
 
 
-@pytest.mark.parametrize("kw", [{"num_shards": 2}])
-def test_later_slice_serve_options_raise(engines, kw):
-    _, _, peng = engines
-    reqs = [Request("c0", np.arange(6, dtype=np.int32))]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        peng.generate(reqs, ServeConfig(batch_size=1, **kw))
-
-
 def test_cuda_backend_is_refused_on_the_cpu(engines):
     _, _, peng = engines
     reqs = [Request("c0", np.arange(6, dtype=np.int32))]
