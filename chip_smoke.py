@@ -21,8 +21,8 @@ Phases (each prints one JSON line per result):
                products of a 2048-row batch, flash attention at B=8, S=256
                with a window, Sq < Sk and GQA variants and at gemma-2b's
                head dim 256, the LoRA product at gemma-2b's train-step
-               projections and at the fixed path's 8 decode rows, and the
-               two
+               projections, at the fixed path's 8 decode rows and at the
+               baselines' ranks 8 and 32, and the two
                autograd backwards against plain autograd); the two
                attention kernels and the four LoRA kernels also with fp32
                activations, which run their fp32 CUDA-core tile (bf16 runs
@@ -90,8 +90,21 @@ Phases (each prints one JSON line per result):
                fused evaluation through "cuda" and "torch" held to stated
                bounds, then FDLoRATrainer.fit through the kernels (12 train
                steps, 18 fused evaluations), publish into an AdapterRegistry
-               and generate from it; one traced train step and one traced
-               fused evaluation;
+               and generate from it; FDLoRA's answer accuracy on 32
+               held-out examples a client; one traced train step and one
+               traced fused evaluation;
+  5b. baselines — the same weights and data: Local and the six baselines
+               (FedAvg, FedProx, FedAMP, FedRep, FedRoD, FedKD) each fit
+               through the kernels at FedConfig(n_clients=2, rounds=2,
+               local_steps=1), with s per round, train tokens/s, peak
+               memory, bytes communicated, launches by tile and the answer
+               accuracy of the returned adapters beside FDLoRA's; one step
+               of FedProx, FedRoD (rank 2r) and FedKD (a rank-r/2 student)
+               and answer_accuracy through "cuda" and "torch" held to
+               stated bounds; one make_fdlora_round_step round (2 clients
+               stacked, K 2) with the pseudo-gradient in fp32 and in bf16,
+               the bf16 one held to a derived bound; one traced FedRoD
+               step;
   6. dense_family — with llama2-7b's weights freed, gemma-2b, olmo-1b,
                yi-6b and starcoder2-15b in turn at their published width
                and depth, bf16, random weights from --seed, 4 tenants with
@@ -988,6 +1001,12 @@ def training_kernels(device, seed: int, reps: int, registers=None):
     for K, N in projection_shapes("gemma-2b"):
         emit({**check_single_lora(gen, device, 2048, K, N, 16, reps),
               "arch": "gemma-2b"})
+    # the baselines' ranks (phase baselines): FedKD's student at r/2 = 8 (a
+    # partial 16-wide rank group of the tensor-core tile), FedRoD's
+    # concatenated pair at 2r = 32 (two groups)
+    for r in (8, 32):
+        emit({**check_single_lora(gen, device, 2048, 4096, 11008, r, reps),
+              "path": "baselines"})
     # the single-tenant engine's decode rows (phase fixed): 8 rows through
     # llama2-7b's projections, the tile's split-K plan
     for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
@@ -2258,21 +2277,20 @@ def _rel(a, b) -> float:
                  / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
 
 
-def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
-                       loss_tol, grad_tol):
-    """One train step's loss and every adapter gradient through "cuda" and
-    "torch" from the same adapters and batch.  The "torch" step must launch
-    no kernel.  Bounds are relative: ``|Δloss| <= loss_tol·|loss|`` and, per
-    adapter leaf, ``||Δg|| <= grad_tol·||g||``."""
+def compare_grads(vg, batch, dtype_name, loss_tol, grad_tol,
+                  phase="compare_train_step", **extra):
+    """One step's loss and every adapter gradient through "cuda" and
+    "torch" from the same adapters and batch: ``vg(backend) -> (loss,
+    metrics, grads)``.  The "torch" step must launch no kernel.  Bounds are
+    relative: ``|Δloss| <= loss_tol·|loss|`` and, per adapter leaf,
+    ``||Δg|| <= grad_tol·||g||``."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.lora import tree_leaves
-    from repro_torch.training.train_step import lora_value_and_grad
     out = {}
     for backend in ("cuda", "torch"):
         kernels.reset_launch_counts()
-        loss, _, grads = lora_value_and_grad(model, cfg, backend)(
-            params, adapters, batch)
+        loss, _, grads = vg(backend)
         torch.cuda.synchronize()
         tiles = kernels.tile_counts()
         out[backend] = (loss, dict(tree_leaves(grads)),
@@ -2284,7 +2302,8 @@ def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
     loss_err = abs(float(lc) - float(lt)) / abs(float(lt))
     grad_errs = {p: _rel(gc[p], gt[p]) for p in gt}
     worst = max(grad_errs, key=grad_errs.get)
-    emit({"phase": "compare_train_step", "activations": dtype_name,
+    what = f"{extra.get('method', 'train step')} {dtype_name}"
+    emit({"phase": phase, **extra, "activations": dtype_name,
           "rows": int(batch["tokens"].numel()), "loss_cuda": float(lc),
           "loss_torch": float(lt), "loss_rel_err": loss_err,
           "loss_tol": loss_tol, "grad_leaves": len(grad_errs),
@@ -2293,21 +2312,28 @@ def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
               len(grad_errs) // 2], "grad_tol": grad_tol,
           "launches_cuda": nc, "tiles_cuda": tiles})
     require(all(torch.isfinite(g).all() for g in gc.values()),
-            f"{dtype_name}: a cuda gradient is not finite")
+            f"{what}: a cuda gradient is not finite")
     require(loss_err <= loss_tol,
-            f"{dtype_name} train-step loss rel err {loss_err} > {loss_tol}")
+            f"{what}: loss rel err {loss_err} > {loss_tol}")
     require(grad_errs[worst] <= grad_tol,
-            f"{dtype_name} gradient {worst} rel err {grad_errs[worst]} > "
+            f"{what}: gradient {worst} rel err {grad_errs[worst]} > "
             f"{grad_tol}")
     require(nc["lora_matmul"] > 0 and nc["flash_attention"] > 0,
-            "the cuda train step did not launch its kernels")
+            f"{what}: the cuda step did not launch its kernels")
     want = "mma" if dtype_name == "bfloat16" else "f32"
     for name in ("flash_attention", "lora_matmul"):
         require(tiles[name][want] == nc[name],
-                f"{dtype_name} train step: {name} tiles {tiles[name]}, not "
-                f"all {want}")
+                f"{what}: {name} tiles {tiles[name]}, not all {want}")
     require(all(n == 0 for n in nt.values()),
-            "the torch train step launched a CUDA kernel")
+            f"{what}: the torch step launched a CUDA kernel")
+
+
+def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
+                       loss_tol, grad_tol):
+    """``compare_grads`` for the plain LoRA train step."""
+    from repro_torch.training.train_step import lora_value_and_grad
+    compare_grads(lambda backend: lora_value_and_grad(model, cfg, backend)(
+        params, adapters, batch), batch, dtype_name, loss_tol, grad_tol)
 
 
 def compare_fused_eval(model, cfg, params, ad_p, ad_s, batch, dtype_name,
@@ -2343,10 +2369,35 @@ def compare_fused_eval(model, cfg, params, ad_p, ad_s, batch, dtype_name,
             "the torch fused evaluation launched a CUDA kernel")
 
 
+# the train and baselines cells' data: 2 clients of 8 x 256-token SFT
+# batches of log windows (64 examples each), and 32 held-out examples per
+# client from generators of their own
+TRAIN_CLIENTS, TRAIN_BATCH, TRAIN_SEQ, HELD_OUT = 2, 8, 256, 32
+
+
+def train_batchers(seed: int):
+    import numpy as np
+    from repro_torch.data.pipeline import SFTBatcher
+    from repro_torch.data.synthetic import gen_log_dataset
+    from repro_torch.data.tokenizer import ByteTokenizer
+    rng = np.random.default_rng(seed)
+    return [SFTBatcher(gen_log_dataset(rng, 64, i), ByteTokenizer(),
+                       TRAIN_SEQ, TRAIN_BATCH, seed=i)
+            for i in range(TRAIN_CLIENTS)]
+
+
+def held_out_examples(seed: int, n_clients: int):
+    import numpy as np
+    from repro_torch.data.synthetic import gen_log_dataset
+    return [gen_log_dataset(np.random.default_rng(seed + 1000 + i), HELD_OUT,
+                            i) for i in range(n_clients)]
+
+
 def train_phase(device, seed: int, params, cfg):
     """FDLoRA on llama2-7b: the cuda/torch comparisons, then the fit through
-    the kernels, publish and serve, and one traced train step.  Returns the
-    launch counts of the fit."""
+    the kernels, FDLoRA's answer accuracy on the held-out examples,
+    publish and serve, and one traced train step.  Returns the launch
+    counts of the fit and the accuracy per client."""
     import math
 
     import numpy as np
@@ -2354,8 +2405,7 @@ def train_phase(device, seed: int, params, cfg):
     from repro_torch import kernels
     from repro_torch.core.fdlora import FDLoRAConfig, FDLoRATrainer
     from repro_torch.core.lora import init_adapters, tree_leaves
-    from repro_torch.data.pipeline import SFTBatcher
-    from repro_torch.data.synthetic import gen_log_dataset
+    from repro_torch.data.synthetic import answer_accuracy, gen_log_dataset
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.models.api import Model
     from repro_torch.serving.engine import (MultiTenantEngine, Request,
@@ -2366,10 +2416,8 @@ def train_phase(device, seed: int, params, cfg):
 
     model = Model(cfg, device)
     tok = ByteTokenizer()
-    S, B, n_clients = 256, 8, 2
-    rng = np.random.default_rng(seed)
-    batchers = [SFTBatcher(gen_log_dataset(rng, 64, i), tok, S, B, seed=i)
-                for i in range(n_clients)]
+    S, B, n_clients = TRAIN_SEQ, TRAIN_BATCH, TRAIN_CLIENTS
+    batchers = train_batchers(seed)
 
     def dev_batch(raw, rows=None):
         return {k: torch.as_tensor(v[:rows]).to(device)
@@ -2462,6 +2510,15 @@ def train_phase(device, seed: int, params, cfg):
                 f"kernel {name} was never launched on the training path")
     for name in ("flash_attention", "lora_matmul", "dual_lora_matmul"):
         require_mma_tile(tiles, name, "train")
+    # FDLoRA's fused adapters on the held-out examples, beside which the
+    # baselines phase reads its methods'
+    t0 = time.perf_counter()
+    accuracy = [answer_accuracy(model, cfg, params, tr.fused_adapters(c),
+                                ex, tok, S, tr.scale)
+                for c, ex in zip(clients, held_out_examples(seed, n_clients))]
+    emit({"phase": "train_accuracy", "method": "fdlora",
+          "held_out_per_client": HELD_OUT, "max_len": S,
+          "answer_accuracy": accuracy, "s": time.perf_counter() - t0})
 
     # 5: publish into the serving slice and generate from it
     registry = AdapterRegistry(cfg, capacity=n_clients, device=device)
@@ -2508,7 +2565,327 @@ def train_phase(device, seed: int, params, cfg):
                        dual_lora_matmul_ms=dual,
                        dual_lora_matmul_share_of_busy=dual / max(
                            sum(fam.values()), 1e-30)))
-    return counts
+    return counts, accuracy
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the federated baselines, answer_accuracy and the client-stacked
+# round step
+# ---------------------------------------------------------------------------
+
+# the paper's comparison, cut from 5 clients x 30 rounds to the train cell's
+# 2 clients, 2 rounds of one local step each
+BASELINE_FED = dict(n_clients=TRAIN_CLIENTS, rounds=2, local_steps=1)
+
+
+def _finite(tree) -> bool:
+    import torch
+    from repro_torch.core.lora import tree_leaves
+    return all(bool(torch.isfinite(t).all()) for _, t in tree_leaves(tree))
+
+
+def compare_baseline_steps(model, cfg, params, batch, dtype_name, loss_tol,
+                           grad_tol, seed, rows):
+    """One step's loss and gradients of FedProx, FedRoD and FedKD through
+    "cuda" and "torch" (``compare_grads``) from the same adapters (B
+    non-zero) and batch, its first ``rows[method]`` rows: FedProx a rank-r
+    adapter with a rank-r global one in its prox term, FedRoD a rank-r
+    generic and personal pair (its second forward at rank 2r), FedKD a
+    rank-r teacher and a rank-r/2 student."""
+    import torch
+    from repro_torch.core.lora import init_adapters
+    from repro_torch.federated.baselines import BASELINES, FedConfig
+    from repro_torch.training.train_step import value_and_grad
+    r = cfg.lora_rank
+    fed = FedConfig(**BASELINE_FED, seed=seed)
+    for k, (name, ranks) in enumerate((("fedprox", (r, r)),
+                                       ("fedrod", (r, r)),
+                                       ("fedkd", (r, max(2, r // 2))))):
+        first, second = (init_adapters(cfg, rank=rk, seed=seed + 110 + 2 * k
+                                       + j, device=model.device, b_std=0.02)
+                         for j, rk in enumerate(ranks))
+        trees, extra = ((first, (second,)) if name == "fedprox"
+                        else ((first, second), ()))
+        b = {key: v[:rows[name]] for key, v in batch.items()}
+
+        def vg(backend):
+            method = BASELINES[name](model, cfg, fed, params,
+                                     device=model.device,
+                                     paged_backend=backend)
+            return value_and_grad(method.loss_fn())(trees, params, b, *extra)
+        compare_grads(vg, b, dtype_name, loss_tol, grad_tol,
+                      phase="compare_baseline_step", method=name,
+                      ranks=list(ranks))
+
+
+def compare_answer_accuracy(model, cfg, params, adapters, examples, tok,
+                            max_len, scale):
+    """``answer_accuracy`` through "cuda" and "torch" on the same adapters
+    and examples: the greedy answer byte must agree on every example whose
+    top-2 margin at the answer position ("torch" logits) is at least twice
+    the largest logit difference there (``serve_options``' margin rule), so
+    the accuracies differ by at most the examples under it."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import answer_accuracy, answer_logits
+    from repro_torch.models.api import Model
+    model_t = Model(cfg.with_overrides(paged_backend="torch"), model.device)
+    out = {}
+    for backend, m in (("cuda", model), ("torch", model_t)):
+        kernels.reset_launch_counts()
+        logits = answer_logits(m, params, adapters, examples, tok, max_len,
+                               scale)
+        acc = answer_accuracy(m, cfg, params, adapters, examples, tok,
+                              max_len, scale)
+        torch.cuda.synchronize()
+        out[backend] = (logits, acc, kernels.launch_counts(),
+                        kernels.tile_counts())
+    (lc, acc_c, nc, tiles), (lt, acc_t, nt, _) = out["cuda"], out["torch"]
+    err = float((lc - lt).abs().max())
+    top2 = torch.topk(lt, 2, dim=-1).values
+    close = (top2[:, 0] - top2[:, 1]) < 2 * err
+    differ = lc.argmax(-1) != lt.argmax(-1)
+    emit({"phase": "compare_answer_accuracy", "examples": len(examples),
+          "max_len": max_len, "accuracy_cuda": acc_c, "accuracy_torch": acc_t,
+          "max_abs_logit_err": err, "max_abs_logit": float(lt.abs().max()),
+          "under_margin": int(close.sum()), "picks_differ": int(differ.sum()),
+          "launches_cuda": {k: nc[k] for k in ("lora_matmul",
+                                               "flash_attention")}})
+    require(not bool((differ & ~close).any()),
+            f"answer_accuracy: {int((differ & ~close).sum())} examples pick "
+            f"another answer byte through cuda though their margin is at "
+            f"least 2 x {err}")
+    require(abs(acc_c - acc_t) * len(examples) <= int(close.sum()) + 1e-6,
+            f"answer_accuracy cuda {acc_c} vs torch {acc_t}")
+    for name in ("lora_matmul", "flash_attention"):
+        require_mma_tile(tiles, name, "answer_accuracy")
+    require(all(n == 0 for n in nt.values()),
+            "the torch answer_accuracy launched a CUDA kernel")
+
+
+def round_step_check(model, cfg, params, batchers, seed, K: int = 2):
+    """One ``make_fdlora_round_step`` round over the clients stacked on a
+    leading axis (K inner steps each, the paper's Nesterov outer step at
+    FDLoRAConfig's defaults), with ``compress_outer`` "none" and "bf16"
+    from the same θ_s (B non-zero) and batches, ``sync_personalized`` on so
+    that each run's θ_i come back.
+
+    The bound on the bf16 run: each client's pseudo-gradient d_i = θ_s −
+    θ_i rounds to bf16 (8 significant bits: relative error ≤ 2^-8), and
+    so does their mean (another 2^-8 of a value ≤ (1 + 2^-8)·max_i |d_i|),
+    so the mean is off by at most 2^-7·(1 + 2^-9)·max_i |d_i|; the first
+    Nesterov step (velocity from zero) moves θ_s by lr·(1 + momentum) times
+    it.  So, elementwise, |θ'_bf16 − (θ_s − lr·(1 + μ)·mean_i d_i)| ≤
+    lr·(1 + μ)·2^-7·(1 + 2^-8)·max_i |d_i| plus two fp32 ulps of θ' for
+    the outer step's own rounding (the "none" run is held to those two
+    ulps alone)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.fdlora import FDLoRAConfig
+    from repro_torch.core.lora import init_adapters, tree_leaves
+    from repro_torch.core.outer_opt import make_outer_optimizer
+    from repro_torch.federated.distributed import (make_fdlora_round_step,
+                                                   stack_clients)
+    from repro_torch.training.optimizers import adamw
+    fc = FDLoRAConfig()
+    inner = adamw(lr=fc.inner_lr, weight_decay=fc.inner_weight_decay)
+    outer = make_outer_optimizer(fc.outer_kind, fc.outer_lr,
+                                 fc.outer_momentum)
+    step_lr = fc.outer_lr * (1 + fc.outer_momentum)
+    theta = init_adapters(cfg, seed=seed + 120, device=model.device,
+                          b_std=0.02)
+    samples = [[b.sample() for _ in range(K)] for b in batchers]
+    batches = {key: torch.as_tensor(np.stack([np.stack([s[key] for s in row])
+                                              for row in samples])
+                                    ).to(model.device)
+               for key in ("tokens", "loss_mask")}
+    runs = {}
+    for compress in ("none", "bf16"):
+        state = {"inner_opt": stack_clients([inner.init(theta)]
+                                            * len(batchers)),
+                 "outer_opt": outer.init(theta)}
+        rs = make_fdlora_round_step(model, cfg, inner, outer, K,
+                                    sync_personalized=True,
+                                    compress_outer=compress)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, st, loss = rs(params, theta, state, batches)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, tiles = kernels.launch_counts(), kernels.tile_counts()
+        worst, moved, at = 0.0, 0, {}
+        for (path, prev), (_, got), (_, ti) in zip(
+                tree_leaves(theta), tree_leaves(new),
+                tree_leaves(st["personalized"])):
+            d = prev[None] - ti
+            upd = step_lr * (prev - ti.mean(dim=0))
+            want = prev - upd
+            # two ulps of θ' and four of the update (its own roundings,
+            # which alone remain where θ_s and the update cancel)
+            bnd = (2.0 ** -22 * torch.maximum(got.abs(), want.abs())
+                   + 2.0 ** -21 * upd.abs())
+            if compress == "bf16":
+                bnd = bnd + (step_lr * 2.0 ** -7 * (1 + 2.0 ** -8)
+                             * d.abs().amax(dim=0))
+            ratio = (got - want).abs() / bnd.clamp(min=1e-30)
+            i = int(ratio.argmax())
+            if float(ratio.reshape(-1)[i]) > worst:
+                worst = float(ratio.reshape(-1)[i])
+                at = {"leaf": path, **{k: float(t.reshape(-1)[i]) for k, t in
+                                       (("theta_s", prev), ("got", got),
+                                        ("want", want), ("update", upd))}}
+            moved += int((got != want).sum())
+        runs[compress] = st["personalized"]
+        emit({"phase": "round_step", "compress_outer": compress,
+              "clients": len(batchers), "inner_steps": K,
+              "batch": list(batches["tokens"].shape[2:]),
+              "outer": [fc.outer_kind, fc.outer_lr, fc.outer_momentum],
+              "s_per_round": secs,
+              "train_tokens_per_s": batches["tokens"].numel() / secs,
+              "loss": float(loss), "max_err_over_bound": worst,
+              "worst_element": at, "elements_off_the_fp32_step": moved,
+              "launches": {k: counts[k] for k in ("lora_matmul",
+                                                  "flash_attention")}})
+        require(bool(torch.isfinite(loss)) and _finite(new),
+                f"round step ({compress}): θ_s' or the loss is not finite")
+        require(worst <= 1.0, f"round step ({compress}): θ_s' off the "
+                f"outer step from its own θ_i by {worst} x the bound")
+        for name in ("lora_matmul", "flash_attention"):
+            require_mma_tile(tiles, name, f"round step ({compress})")
+        del new, st, state
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(tree_leaves(runs["none"]), tree_leaves(runs["bf16"])))
+    emit({"phase": "round_step_theta_i", "bitwise_equal_across_runs": same})
+
+
+def baselines_phase(device, seed: int, params, cfg, fdlora_accuracy):
+    """The six baselines and Local on llama2-7b through the kernels at the
+    train cell's data (``BASELINE_FED``), each with s per round, train
+    tokens/s, peak memory, bytes communicated, its kernel launches by tile
+    and its adapters' answer accuracy on the held-out examples beside
+    FDLoRA's; "cuda" against "torch" on one step of FedProx, FedRoD and
+    FedKD and on ``answer_accuracy``; the client-stacked round step; one
+    traced FedRoD step."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.lora import init_adapters, lora_scale, tree_leaves
+    from repro_torch.data.synthetic import answer_accuracy
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.federated.baselines import BASELINES, FedConfig
+    from repro_torch.models.api import Model
+
+    model = Model(cfg, device)
+    tok = ByteTokenizer()
+    S, B = TRAIN_SEQ, TRAIN_BATCH
+    held = held_out_examples(seed, TRAIN_CLIENTS)
+    raw = train_batchers(seed)[0].sample()
+    batch = {k: torch.as_tensor(v).to(device) for k, v in raw.items()}
+    t0 = time.perf_counter()
+    # 1: the new loss terms, "cuda" against "torch", at the train phase's
+    # bounds; fp32 activations at fewer rows: the plain fp32 path keeps an
+    # fp32 copy of every weight it multiplies for its backward (26 GB at
+    # full depth), once per forward, and FedRoD and FedKD run two
+    compare_baseline_steps(model, cfg, params, batch, "bfloat16", 2e-2, 0.25,
+                           seed, rows={"fedprox": B, "fedrod": B,
+                                       "fedkd": B})
+    cfg32 = cfg.with_overrides(dtype="float32")
+    compare_baseline_steps(Model(cfg32, device), cfg32, params, batch,
+                           "float32", 1e-3, 1e-2, seed,
+                           rows={"fedprox": B // 2, "fedrod": 1, "fedkd": 1})
+    compare_s = time.perf_counter() - t0
+
+    # 2: each method's fit through the kernels
+    fed = FedConfig(**BASELINE_FED, seed=seed)
+    steps = fed.rounds * fed.n_clients * fed.local_steps
+    comm, kept = {}, None
+    for name, cls in BASELINES.items():
+        method = cls(model, cfg, fed, params, device=device)
+        require(method.paged_backend == "cuda",
+                f"{name} did not pick 'cuda'")
+        batchers = train_batchers(seed)
+        # each step starts by moving its batch to the card: the times
+        # between those moves (synchronised) are the steps' (with a
+        # round's aggregation in the step after it)
+        marks, to_dev = [], method._dev
+
+        def marked(raw, to_dev=to_dev, marks=marks):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return to_dev(raw)
+        method._dev = marked
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ads = method.fit(batchers)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        step_s = np.diff(marks + [t1 + secs]).tolist()
+        counts, tiles = kernels.launch_counts(), kernels.tile_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t2 = time.perf_counter()
+        acc = [answer_accuracy(model, cfg, params, ad, ex, tok, S,
+                               method.scale) for ad, ex in zip(ads, held)]
+        ranks = sorted({t.shape[1] for ad in ads for p, t in tree_leaves(ad)
+                        if p.endswith("['a']")})
+        comm[name] = method.comm_bytes
+        emit({"phase": "baselines", "method": name, **BASELINE_FED,
+              "cut": "5 clients x 30 rounds (the paper's) cut to 2 x 2",
+              "batch": B, "seq": S, "train_steps": steps,
+              "s": secs, "s_per_round": secs / fed.rounds,
+              "step_s": step_s,
+              "train_tokens_per_s": steps * B * S / secs,
+              "peak_memory_gb": peak, "comm_bytes": method.comm_bytes,
+              "returned_ranks": ranks,
+              "launches": {k: counts[k] for k in ("lora_matmul",
+                                                  "flash_attention")},
+              "tiles": {k: tiles[k] for k in ("lora_matmul",
+                                              "flash_attention")},
+              "answer_accuracy": acc,
+              "fdlora_answer_accuracy": fdlora_accuracy,
+              "held_out_per_client": HELD_OUT,
+              "accuracy_s": time.perf_counter() - t2})
+        require(len(ads) == fed.n_clients and all(_finite(a) for a in ads),
+                f"{name}: a returned adapter is not finite")
+        require((method.comm_bytes == 0) == (name == "local"),
+                f"{name}: comm_bytes {method.comm_bytes}")
+        for k in ("lora_matmul", "flash_attention"):
+            require_mma_tile(tiles, k, name)
+        require(all(counts[k] == 0 for k in counts
+                    if k not in ("lora_matmul", "flash_attention")),
+                f"{name} launched a kernel off the training path: {counts}")
+        if name == "fedavg":
+            require(all(torch.equal(a, b) for (_, a), (_, b) in
+                        zip(tree_leaves(ads[0]), tree_leaves(ads[1]))),
+                    "FedAvg's clients differ")
+            kept = ads[0]
+        del ads, method
+    require(comm["fedkd"] < comm["fedavg"],
+            f"FedKD sent {comm['fedkd']} bytes, not fewer than FedAvg's "
+            f"{comm['fedavg']}")
+
+    # 3: answer_accuracy "cuda" against "torch" on FedAvg's adapters
+    compare_answer_accuracy(model, cfg, params, kept, held[0], tok, S,
+                            lora_scale(cfg))
+    del kept
+
+    # 4: the client-stacked round step
+    round_step_check(model, cfg, params, train_batchers(seed), seed)
+
+    # 5: one traced FedRoD step (two forwards, the second at rank 2r)
+    rod = BASELINES["fedrod"](model, cfg, fed, params, device=device)
+    step = rod._make_step(rod.loss_fn())
+    pair = tuple(init_adapters(cfg, seed=seed + 130 + j, device=device,
+                               b_std=0.02) for j in range(2))
+    st = rod.opt.init(pair)
+    wall_ms, fam = traced(lambda: step(pair, st, batch), TRAIN_FAMILIES,
+                          "other device work (norms, rope, softmax, "
+                          "elementwise, optimizer)")
+    emit(_profile_line(fam, wall_ms, phase="profile_baseline_step",
+                       method="fedrod", rows=B * S, compare_s=compare_s))
 
 
 # ---------------------------------------------------------------------------
@@ -2908,8 +3285,10 @@ def main(argv=None) -> int:
     fixed_launches = timed("fixed", fixed_phase, eng1, args.seed)
     del eng1
     torch.cuda.empty_cache()
-    train_counts = timed("train", train_phase, device, args.seed, params,
-                         get_config(ARCH))
+    train_counts, fdlora_accuracy = timed("train", train_phase, device,
+                                          args.seed, params, get_config(ARCH))
+    timed("baselines", baselines_phase, device, args.seed, params,
+          get_config(ARCH), fdlora_accuracy)
     del params                          # llama2-7b's weights
     torch.cuda.empty_cache()
     timed("dense_family", dense_family_phase, device, args.seed, T)

@@ -1,7 +1,7 @@
 """Synthetic datasets mirroring the paper's two evaluation scenarios.
 
-The port's own copy of ``repro/data/synthetic.py`` (numpy only), less
-``answer_accuracy``, which a later slice of the port adds.
+The port's own copy of ``repro/data/synthetic.py`` (numpy, and torch for
+``answer_accuracy``'s forward).
 
 Scenario-1 — log-based anomaly detection (BGL / Spirit / Thunderbird style):
 samples are sliding windows of parsed log templates; the label is whether the
@@ -132,3 +132,45 @@ def encode_sft(examples: Sequence[Example], tok: ByteTokenizer, max_len: int
     toks, lm = pad_batch(seqs, max_len, masks)
     return {"tokens": toks, "loss_mask": lm,
             "cls": np.array([ex.cls for ex in examples], dtype=np.int32)}
+
+
+def answer_logits(model, params, adapters, examples: Sequence[Example],
+                  tok: ByteTokenizer, max_len: int, lora_scale: float,
+                  batch_size: int = 32):
+    """(N, V) fp32 logits at each example's answer position, the last
+    prompt token ``min(len(prompt), max_len) - 1``: the prompts are
+    right-padded to ``max_len`` by ``pad_batch`` and run through
+    ``model.forward`` ``batch_size`` at a time, under ``torch.no_grad()``,
+    on the model's device and backend."""
+    import torch
+    from repro_torch.data.tokenizer import pad_batch
+
+    out = []
+    with torch.no_grad():
+        for i in range(0, len(examples), batch_size):
+            prompts = [tok.encode(ex.prompt)
+                       for ex in examples[i:i + batch_size]]
+            last = torch.as_tensor([min(len(p), max_len) - 1
+                                    for p in prompts], device=model.device)
+            toks, _ = pad_batch(prompts, max_len)
+            logits, _ = model.forward(
+                params, {"tokens": torch.as_tensor(toks).to(model.device)},
+                adapters=adapters, lora_scale=lora_scale)
+            out.append(logits[torch.arange(len(prompts),
+                                           device=model.device), last])
+    return torch.cat(out)
+
+
+def answer_accuracy(model, cfg, params, adapters, examples: Sequence[Example],
+                    tok: ByteTokenizer, max_len: int, lora_scale: float,
+                    batch_size: int = 32) -> float:
+    """Exact-match on the first answer token (greedy), the paper's
+    'accuracy' metric reduced to byte scale: for scenario-1 'yes'/'no' and
+    scenario-2 option letters, the first byte determines the answer."""
+    if not examples:
+        return 0.0
+    preds = answer_logits(model, params, adapters, examples, tok, max_len,
+                          lora_scale, batch_size).argmax(-1).cpu().numpy()
+    want = np.array([tok.encode(ex.answer, add_bos=False)[0]
+                     for ex in examples])
+    return int((preds == want).sum()) / len(examples)

@@ -66,20 +66,32 @@ def make_lora_loss_fn(model, cfg,
     return loss_fn
 
 
+def value_and_grad(loss_fn: Callable) -> Callable:
+    """``fn(trees, *args) -> (loss, metrics, grads)`` for ``loss_fn(trees,
+    *args) -> (loss, metrics)``: the gradient of the loss in every leaf of
+    ``trees`` (one adapter tree, or a tuple of them, which comes back as a
+    list), through ``torch.autograd.grad`` over those leaves only; nothing
+    in ``args`` gets a gradient."""
+    def fn(trees, *args):
+        ts = tree_map(lambda t: t.detach().requires_grad_(True), trees)
+        loss, metrics = loss_fn(ts, *args)
+        leaves = [t for _, t in tree_leaves(ts)]
+        grad_of = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, tree_map(lambda t: grad_of[id(t)], ts)
+
+    return fn
+
+
 def lora_value_and_grad(model, cfg,
                         paged_backend: Optional[str] = None) -> Callable:
     """``fn(params, adapters, batch) -> (loss, metrics, grads)`` with the
     gradient of the loss in every adapter leaf (fp32, the tree's layout);
     the base ``params`` get none."""
-    loss_fn = make_lora_loss_fn(model, cfg, paged_backend)
+    vg = value_and_grad(make_lora_loss_fn(model, cfg, paged_backend))
 
     def fn(params, adapters, batch):
-        ad = tree_map(lambda t: t.detach().requires_grad_(True), adapters)
-        loss, metrics = loss_fn(ad, params, batch)
-        leaves = [t for _, t in tree_leaves(ad)]
-        grad_of = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, tree_map(lambda t: grad_of[id(t)], ad)
+        return vg(adapters, params, batch)
 
     return fn
 

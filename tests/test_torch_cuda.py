@@ -22,8 +22,11 @@ sharded serving (2 shards bitwise equal to one pool, fp32 and int8 K/V
 with a ragged int8 bank; the sharded round loop with a hot-swap under the
 sync debug mode), the fixed-batch path and the single-tenant ``Engine``
 through the LoRA kernels (``lora_matmul`` also at decode rows, M 1 to 64),
-``launch/serve.py`` with those options and one ``launch/train.py
---smoke`` run through the ``"cuda"`` backend.
+``launch/serve.py`` with those options, one ``launch/train.py --smoke``
+run through the ``"cuda"`` backend, and the federated baselines
+(``lora_matmul`` at ranks 2 to 32, every baseline's fit through the
+kernels, FedProx, FedRoD and FedKD steps against the plain path, the
+client-stacked round step against the clients run by hand).
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is False.  This file imports neither JAX nor the reference package, so on a
@@ -1337,3 +1340,173 @@ def test_train_cli_smoke_runs_through_the_kernels(dev, tmp_path):
     assert torch.equal(leaf, ad["layers"][0]["mlp"]["w_up"]["b"])
     assert all(math.isfinite(float(t.abs().sum()))
                for t in (leaf, ad["layers"][1]["mixer"]["wq"]["a"]))
+
+
+# ---------------------------------------------------------------------------
+# the federated baselines and the client-stacked round step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r", [2, 8, 24, 32])
+@pytest.mark.parametrize("shape", [(8, 1032, 200), (300, 4104, 264)])
+def test_lora_matmul_at_the_baselines_ranks_matches_plain(dev, shape, r):
+    """lora_matmul at FedKD's student rank (r/2) and FedRoD's concatenated
+    rank (2r), partial and whole 16-wide rank groups of the tensor-core
+    tile, through the split-K and the wgmma plans: y to two bf16 roundings,
+    z = x·A and the fp32 tile's y to 1e-5 of their largest values (B is
+    scaled up, so that a plain version without the LoRA term misses, and
+    the outputs reach about 200 at r 2: the error scales with them)."""
+    from repro_torch.kernels.lora_matmul import _launch, lora_matmul
+    M, K, N = shape
+    gen = torch.Generator(device=dev).manual_seed(13 + r)
+    x = _randn(gen, (M, K), dev, torch.bfloat16)
+    w = _randn(gen, (K, N), dev, torch.bfloat16, K ** -0.5)
+    a = _randn(gen, (K, r), dev, std=1.0 / r)
+    b = _randn(gen, (r, N), dev, std=0.5)
+    kernels.reset_launch_counts()
+    y, z = _launch(x, w, a, b, 2.0)
+    yr = ref.lora_matmul_ref(x, w, a, b, 2.0)
+    assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+    base = (x.float() @ w.float()).to(x.dtype)
+    assert float((y.float() - base.float()).abs().max()) > 4 * _bf16_tol(yr)
+    # A enters the shrink as a bf16 hi/lo pair (16 significant bits), and
+    # at r 2 (A ~ 1/2) z reaches about 128: 1e-5 of its largest value
+    zr = x.float() @ a
+    torch.testing.assert_close(z, zr, rtol=1e-4,
+                               atol=1e-5 * float(zr.abs().max()))
+    y32 = lora_matmul(x.float(), w.float(), a, b, 2.0)
+    yr32 = ref.lora_matmul_ref(x.float(), w.float(), a, b, 2.0)
+    torch.testing.assert_close(y32, yr32, rtol=1e-4,
+                               atol=1e-5 * float(yr32.abs().max()))
+    assert kernels.tile_counts()["lora_matmul"] == {"mma": 1, "f32": 1}
+
+
+def _smoke_fed(dtype="bfloat16"):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SFTBatcher
+    from repro_torch.data.synthetic import gen_log_dataset
+    from repro_torch.data.tokenizer import ByteTokenizer
+    cfg = get_config("llama2-7b", smoke=True).with_overrides(dtype=dtype)
+    rng = np.random.default_rng(0)
+    batchers = [SFTBatcher(gen_log_dataset(rng, 16, i), ByteTokenizer(), 128,
+                           4, seed=i) for i in range(2)]
+    return cfg, batchers
+
+
+def test_baselines_fit_through_the_kernels(dev):
+    """Every baseline's fit on the smoke model launches lora_matmul and
+    flash_attention on their tensor-core tiles and no other kernel, returns
+    finite adapters (FedRoD's at 2r) and counts its bytes."""
+    from repro_torch.core.lora import tree_leaves
+    from repro_torch.federated.baselines import BASELINES, FedConfig
+    from repro_torch.models.api import Model
+    cfg, batchers = _smoke_fed()
+    model = Model(cfg, dev)
+    params = model.init(0)
+    fed = FedConfig(n_clients=2, rounds=2, local_steps=1)
+    comm = {}
+    for name, cls in BASELINES.items():
+        method = cls(model, cfg, fed, params, device=dev)
+        assert method.paged_backend == "cuda"
+        kernels.reset_launch_counts()
+        ads = method.fit(batchers)
+        counts, tiles = kernels.launch_counts(), kernels.tile_counts()
+        for k in ("lora_matmul", "flash_attention"):
+            assert counts[k] > 0 and tiles[k] == {"mma": counts[k], "f32": 0}
+        assert all(counts[k] == 0 for k in counts
+                   if k not in ("lora_matmul", "flash_attention"))
+        assert all(bool(torch.isfinite(t).all())
+                   for ad in ads for _, t in tree_leaves(ad))
+        want = 2 * cfg.lora_rank if name == "fedrod" else cfg.lora_rank
+        assert ads[0]["layers"][0]["mlp"]["w_up"]["a"].shape[1] == want
+        comm[name] = method.comm_bytes
+    assert comm["local"] == 0 and 0 < comm["fedkd"] < comm["fedavg"]
+
+
+@pytest.mark.parametrize("name", ["fedprox", "fedrod", "fedkd"])
+def test_baseline_step_cuda_matches_torch(dev, name):
+    """One step's loss and every adapter gradient of FedProx, FedRoD (its
+    second forward at rank 2r) and FedKD (a rank-r/2 student) through the
+    kernels against the plain path, fp32 activations: summation order
+    only."""
+    from repro_torch.core.lora import init_adapters, tree_leaves
+    from repro_torch.federated.baselines import BASELINES, FedConfig
+    from repro_torch.models.api import Model
+    from repro_torch.training.train_step import value_and_grad
+    cfg, batchers = _smoke_fed("float32")
+    model = Model(cfg, dev)
+    params = model.init(0)
+    r = cfg.lora_rank
+    ranks = (r, max(2, r // 2)) if name == "fedkd" else (r, r)
+    first, second = (init_adapters(cfg, rank=rk, seed=5 + j, device=dev,
+                                   b_std=0.05) for j, rk in enumerate(ranks))
+    trees, extra = ((first, (second,)) if name == "fedprox"
+                    else ((first, second), ()))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in batchers[0].sample().items()}
+    out = {}
+    for backend in ("cuda", "torch"):
+        kernels.reset_launch_counts()
+        method = BASELINES[name](model, cfg, FedConfig(), params, device=dev,
+                                 paged_backend=backend)
+        loss, _, grads = value_and_grad(method.loss_fn())(trees, params,
+                                                          batch, *extra)
+        out[backend] = (float(loss), dict(tree_leaves(grads)),
+                        kernels.launch_counts())
+    (lc, gc, nc), (lt, gt, nt) = out["cuda"], out["torch"]
+    assert nc["lora_matmul"] > 0 and all(n == 0 for n in nt.values())
+    assert lc == pytest.approx(lt, rel=1e-5)
+    for path in gt:
+        scale = float(gt[path].abs().max())
+        torch.testing.assert_close(gc[path], gt[path], rtol=1e-3,
+                                   atol=1e-3 * scale, msg=path)
+
+
+@pytest.mark.parametrize("compress", ["none", "bf16"])
+def test_round_step_runs_through_the_kernels(dev, compress):
+    """The client-stacked round step on the card equals the same clients
+    run by hand through the train step (fp32 activations, fedavg outer
+    step: the round ends at the client mean, up to the bf16 pseudo-
+    gradient's rounding under compression)."""
+    from repro_torch.core.lora import init_adapters, tree_leaves, tree_mean
+    from repro_torch.core.outer_opt import make_outer_optimizer
+    from repro_torch.federated.distributed import (make_fdlora_round_step,
+                                                   stack_clients)
+    from repro_torch.models.api import Model
+    from repro_torch.training.optimizers import adamw
+    from repro_torch.training.train_step import make_lora_train_step
+    cfg, batchers = _smoke_fed("float32")
+    model = Model(cfg, dev)
+    params = model.init(0)
+    inner, outer, K = adamw(lr=1e-3), make_outer_optimizer("fedavg"), 2
+    theta = init_adapters(cfg, seed=3, device=dev, b_std=0.05)
+    samples = [[b.sample() for _ in range(K)] for b in batchers]
+    batches = {key: torch.as_tensor(np.stack([np.stack([s[key] for s in row])
+                                              for row in samples]),
+                                    device=dev)
+               for key in ("tokens", "loss_mask")}
+    state = {"inner_opt": stack_clients([inner.init(theta)] * 2),
+             "outer_opt": outer.init(theta)}
+    kernels.reset_launch_counts()
+    new, st, loss = make_fdlora_round_step(
+        model, cfg, inner, outer, K, sync_personalized=True,
+        compress_outer=compress)(params, theta, state, batches)
+    assert kernels.launch_counts()["lora_matmul"] > 0
+    assert bool(torch.isfinite(loss)) and list(st["inner_opt"]["count"]) == \
+        [K, K]
+    step = make_lora_train_step(model, cfg, inner)
+    outs = []
+    for i in range(2):
+        ad, s = theta, inner.init(theta)
+        for k in range(K):
+            ad, s, _ = step(params, ad, s, {n: v[i, k]
+                                            for n, v in batches.items()})
+        outs.append(ad)
+    want = tree_mean(outs)
+    for (path, got), (_, w), (_, prev), *ti in zip(
+            tree_leaves(new), tree_leaves(want), tree_leaves(theta),
+            *(tree_leaves(o) for o in outs)):
+        # the bf16 mean of bf16 pseudo-gradients: 2^-7 of the largest
+        # client's, plus fp32 ulps (see chip_smoke.round_step_check)
+        d = max(float((prev - t).abs().max()) for _, t in ti)
+        tol = 1e-6 + (2.0 ** -6 * d if compress == "bf16" else 0.0)
+        assert float((got - w).abs().max()) <= tol, path

@@ -40,6 +40,14 @@ SLICE_MODULES = [
     "serving/kv_cache.py", "serving/scheduler.py", "serving/spec_decode.py",
     # overlapped dispatch and the open-loop drivers
     "serving/trace.py",
+    # the rest of the dense family
+    "configs/__init__.py", "configs/llama2_7b.py", "configs/gemma_2b.py",
+    "configs/olmo_1b.py", "configs/yi_6b.py", "configs/starcoder2_15b.py",
+    # sharded serving and the fixed path
+    "serving/sharded.py",
+    # the federated baselines and the client-stacked round step
+    "federated/__init__.py", "federated/baselines.py",
+    "federated/distributed.py",
 ]
 
 
