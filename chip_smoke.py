@@ -14,8 +14,9 @@ Phases (each prints one JSON line per result):
                gemma-2b's head dim 256 (bf16 and int8 pools), decode and
                prefill at starcoder2-15b's shape under its 4096-token
                sliding window with contexts to 6144, decode and prefill at
-               yi-6b's G 8, batched LoRA at every other dense arch's
-               projection shapes and rows, rank
+               yi-6b's G 8 and dbrx-132b's G 6, batched LoRA at every other
+               dense arch's and the MoE archs' attention projection shapes
+               and rows, rank
                mask, int8 bank, and the per-row Eq. 7 batched dual-LoRA
                product at its entry point; training: the LoRA and dual-LoRA
                products of a 2048-row batch, flash attention at B=8, S=256
@@ -118,7 +119,22 @@ Phases (each prints one JSON line per result):
                (flash attention at head dim 256), starcoder2-15b the long
                prompt's last chunk, where the window binds, held to
                "torch", and "torch" without the window shown to miss it;
-  7. the card's name and power limit, the kernel summary line, and last the
+  7. moe     — dbrx-132b (8 of its 40 layers) and kimi-k2-1t-a32b (1 of
+               its 61) at their published width, bf16, random weights from
+               --seed, 4 tenants with rank-16 fused adapters (the router's
+               pair included): 4 requests (prompts 128-1024 tokens), 16 new
+               tokens, through "cuda" with overlap on and off (streams
+               bitwise equal, every serving kernel launched, prefill
+               attention and batched LoRA on their tensor-core tiles), the
+               decode step beside the byte bound of reading every expert;
+               the first chunk twice through "cuda" (bitwise equal) and
+               through "torch" with each layer's expert ids pinned to the
+               "cuda" run's (bf16; dbrx-132b also fp32 activations), every
+               routing flip held by the router-logit margin, the dropped
+               copies per layer equal; one traced dbrx-132b run with the
+               expert products and the routing and dispatch as rows of
+               their own;
+  8. the card's name and power limit, the kernel summary line, and last the
      result line.
 
 batched_dual_lora_matmul, which no path of the port (or of the reference
@@ -1115,7 +1131,27 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
                 for variant in variants:
                     emit({**check_lora(gen, device, M, K, N, DENSE_TENANTS,
                                        16, variant, reps), "arch": arch})
+    moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T, seen)
     return main
+
+
+def moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T, seen):
+    """The MoE archs' attention projections (the only ones batched LoRA
+    runs there) not in ``seen``, at phase moe's rows over its 4 tenants,
+    and dbrx-132b's attention (H 48 over Kv 8: G 6, a group count no other
+    cell runs) at the serve cell's decode and prefill lengths."""
+    for arch, _ in MOE_FAMILY:
+        for K, N in projection_shapes(arch):
+            if (K, N) in seen:
+                continue
+            seen.add((K, N))
+            for M in (MOE_REQUESTS, MOE_REQUESTS * T):
+                emit({**check_lora(gen, device, M, K, N, MOE_TENANTS, 16,
+                                   "f32_bank", reps), "arch": arch})
+    emit({**check_decode(gen, device, dec_lengths, 6, False, reps, H=48),
+          "arch": "dbrx-132b"})
+    emit({**check_prefill(gen, device, pre_lengths, T, 6, False, reps, H=48),
+          "arch": "dbrx-132b"})
 
 
 # ---------------------------------------------------------------------------
@@ -1393,7 +1429,7 @@ FUSED_EVAL_FAMILIES = (("dual_lora_merge_kernel",
                          for k in ("gemm", "nvjet", "xmma", "cutlass")))
 
 
-def traced(fn, families, other: str, check: bool = False):
+def traced(fn, families, other: str, check: bool = False, ranges=()):
     """Run ``fn`` once under ``torch.profiler`` (CPU + CUDA activity);
     returns (wall ms, {family: device ms}) with kernels sorted into
     ``families`` by name.  A kernel of the port's own (a name with
@@ -1403,7 +1439,16 @@ def traced(fn, families, other: str, check: bool = False):
     ``key_averages()`` builds a Python event per CPU op as well, minutes
     for a trace of some seconds of serving.  With ``check`` the busy time
     is also read through ``key_averages()``, the two must agree within
-    0.1%, and that reading comes back as a third value."""
+    0.1%, and that reading comes back as a third value.
+
+    ``ranges``: ((``record_function`` name, family), ...), innermost
+    first: a kernel whose launching host op (the profiler's correlation
+    ids) started inside such a range belongs to its family, whatever its
+    name; the ranges' own device events are left out.  A kernel the trace
+    links to no host op and no name claims goes to ``other`` marked
+    "launch not linked"."""
+    import bisect
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1414,16 +1459,36 @@ def traced(fn, families, other: str, check: bool = False):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    events = list(prof.profiler.kineto_results.events())
+    # host ops and ranges only, not the CUDA runtime's calls ("cuda...",
+    # "cu..."), which number their correlation ids apart: a kernel links
+    # to the op it was launched under
+    host = {ev.correlation_id(): ev for ev in events
+            if ranges and ev.device_type() != DeviceType.CUDA
+            and not ev.name().startswith("cu")}
+    spans = {r: sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns())
+                       for ev in host.values() if ev.name() == r)
+             for r, _ in ranges}
+
+    def in_range(r, t):
+        i = bisect.bisect_right(spans[r], (t, float("inf"))) - 1
+        return i >= 0 and spans[r][i][0] <= t <= spans[r][i][1]
+
     fam = {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() != DeviceType.CUDA:
+    for ev in events:
+        if ev.device_type() != DeviceType.CUDA or ev.name() in spans:
             continue
         key = ev.name()
-        name = next((f for k, f in families if k in key), None)
+        parent = host.get(ev.linked_correlation_id())
+        name = None if parent is None else next(
+            (f for r, f in ranges if in_range(r, parent.start_ns())), None)
+        name = name or next((f for k, f in families if k in key), None)
         require(name is not None or not any(
             k in key for k in ("lora", "attn", "paged")),
             f"traced kernel {key[:120]} belongs to no family")
-        name = name or other
+        if name is None:
+            name = (f"{other}; launch not linked" if ranges and parent is None
+                    else other)
         fam[name] = fam.get(name, 0.0) + ev.duration_ns() / 1e6
     if check:
         busy = sum(fam.values())
@@ -2910,11 +2975,15 @@ def dense_requests(arch) -> int:
 
 
 def projection_shapes(arch):
-    """The (K, N) of ``arch``'s LoRA-targeted projections, sorted."""
+    """The (K, N) of ``arch``'s projections that run batched_lora_matmul,
+    sorted: every LoRA target but an MoE router (whose adapter takes the
+    plain lora_delta)."""
     from repro_torch.configs import get_config
     from repro_torch.core.lora import block_target_shapes
+    cfg = get_config(arch)
     return sorted({kn for part in block_target_shapes(
-        get_config(arch)).values() for kn in part.values()})
+        cfg, cfg.layer_entry(0)).values()
+        for name, kn in part.items() if name != "router"})
 
 
 def window_chunk_check(eng, req, sc, dtype_name, rel_tol):
@@ -3123,6 +3192,317 @@ def dense_family_phase(device, seed: int, T: int = 256,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the MoE family
+# ---------------------------------------------------------------------------
+
+# (arch, layers served): dbrx-132b's published width at 8 of its 40 layers
+# (54.6 GB of bf16 weights), kimi-k2-1t-a32b's at 1 of its 61 (38.5 GB);
+# the whole depth of either does not fit one 80 GB card
+MOE_FAMILY = (("dbrx-132b", 8), ("kimi-k2-1t-a32b", 1))
+MOE_TENANTS = 4
+MOE_REQUESTS = 4
+
+
+class RoutingLog:
+    """Wraps ``repro_torch.models.moe._top_k_routing`` and ``dispatch``
+    for the first-chunk checks: every routing call's router logits and
+    own top-k ids go to ``log`` and every dispatch's count of dropped
+    copies to ``dropped``, in call (layer) order; with ``pinned`` (one ids
+    tensor per call) each call routes to those ids instead, weighted by
+    its own probabilities there, renormalised as top-k weights are.
+    Nothing in the package changes: the wrappers are installed and removed
+    around one dispatch."""
+
+    def __init__(self, pinned=None):
+        self.pinned = pinned
+        self.log, self.dropped = [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig, self._dispatch = moe._top_k_routing, moe.dispatch
+        moe._top_k_routing, moe.dispatch = self, self._count_dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._top_k_routing, moe.dispatch = self._orig, self._dispatch
+
+    def _count_dispatch(self, ids, E, cap):
+        dest, keep = self._dispatch(ids, E, cap)
+        self.dropped.append((~keep).sum())
+        return dest, keep
+
+    def __call__(self, logits, k):
+        import torch
+        w, ids, aux = self._orig(logits, k)
+        self.log.append((logits.detach().float().clone(), ids.clone()))
+        if self.pinned is not None:
+            ids = self.pinned[len(self.log) - 1]
+            w = torch.softmax(logits.float(), dim=-1).gather(1, ids)
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return w, ids, aux
+
+
+def _flips(ids_a, ids_b):
+    """(token, layer) pairs whose expert sets differ, per layer: a bool
+    (T,) each."""
+    import torch
+    return [(torch.sort(a, -1).values != torch.sort(b, -1).values).any(-1)
+            for a, b in zip(ids_a, ids_b)]
+
+
+def moe_first_chunk(eng, reqs, sc, dtype_name, rel_tol, repeat=False):
+    """The first prefill chunk through "cuda", and through "torch" with
+    each layer's expert ids pinned to the "cuda" run's: the pinned logits
+    held to ``compare_first_chunk``'s rule (max error within ``rel_tol``
+    of the largest logit, the greedy token equal wherever the top-2
+    margin exceeds twice it), the dropped copies equal per layer.  A
+    (token, layer) whose top-k set on the pinned "torch" run differs from
+    "cuda"'s is a flip; each must be one the rounding can make: its k-th
+    vs (k+1)-th router-logit gap at most twice that layer's router-logit
+    error "cuda" vs pinned "torch".  The unpinned "torch" chunk is
+    reported (its error and its flips).  ``repeat``: "cuda" twice,
+    bitwise equal.  Returns the emitted line."""
+    import torch
+    from repro_torch import kernels
+    cfg = eng.cfg
+    k = cfg.n_experts_per_tok
+    kernels.reset_launch_counts()
+    with RoutingLog() as rc:
+        lc, n_new = first_chunk_logits(eng, reqs, sc, "cuda")
+    launches, tiles = kernels.launch_counts(), kernels.tile_counts()
+    if repeat:
+        with RoutingLog() as rc2:
+            lc2, _ = first_chunk_logits(eng, reqs, sc, "cuda")
+        require(torch.equal(lc, lc2) and all(
+            torch.equal(a[1], b[1]) for a, b in zip(rc.log, rc2.log)),
+            f"{cfg.name}: two cuda runs of the first chunk differ")
+        del lc2, rc2
+    ids_c = [ids for _, ids in rc.log]
+    kernels.reset_launch_counts()
+    with RoutingLog(pinned=ids_c) as rt:
+        lt, _ = first_chunk_logits(eng, reqs, sc, "torch")
+    with RoutingLog() as rf:
+        lf, _ = first_chunk_logits(eng, reqs, sc, "torch")
+    torch_launches = kernels.launch_counts()
+    require(len(rc.log) == len(rt.log) == cfg.n_layers,
+            f"{cfg.name}: {len(rc.log)} routed layers, not {cfg.n_layers}")
+    valid = (torch.arange(lc.shape[1], device=lc.device)[None, :]
+             < n_new.to(lc.device)[:, None])
+    err = float((lc - lt).abs()[valid].max())
+    err_free = float((lc - lf).abs()[valid].max())
+    scale = float(lt.abs()[valid].max())
+    tol = rel_tol * scale
+    rows = torch.arange(lc.shape[0], device=lc.device)
+    last = n_new.to(lc.device).long() - 1
+    top2 = torch.topk(lt[rows, last], 2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 2 * err
+    agree = lc[rows, last].argmax(-1) == lt[rows, last].argmax(-1)
+    router_err = [float((a[0] - b[0]).abs().max())
+                  for a, b in zip(rc.log, rt.log)]
+    flips = _flips(ids_c, [ids for _, ids in rt.log])
+    worst_gap = []                       # per layer: largest flipped gap
+    for (logits_t, _), flip, e in zip(rt.log, flips, router_err):
+        top = torch.topk(logits_t, k + 1, dim=-1).values
+        gap = (top[:, k - 1] - top[:, k])[flip]
+        worst_gap.append(float(gap.max()) if gap.numel() else None)
+        require(worst_gap[-1] is None or worst_gap[-1] <= 2 * e,
+                f"{cfg.name} {dtype_name}: a routing flip with router-logit "
+                f"gap {worst_gap[-1]} > 2 x the router error {e}")
+    free_flips = _flips(ids_c, [ids for _, ids in rf.log])
+    dropped_c = [int(n) for n in rc.dropped]
+    dropped_t = [int(n) for n in rt.dropped]
+    line = {"phase": "moe_compare", "arch": cfg.name,
+            "activations": dtype_name,
+            "tokens": int(lc.shape[0] * lc.shape[1]),
+            "pinned_max_abs_logit_err": err, "max_abs_logit": scale,
+            "tol": tol, "first_token_agree": int(agree.sum()),
+            "rows": int(rows.numel()), "decisive_rows": int(decisive.sum()),
+            "router_logit_err_by_layer": router_err,
+            "flips_by_layer": [int(f.sum()) for f in flips],
+            "flip_worst_gap_by_layer": worst_gap,
+            "unpinned_max_abs_logit_err": err_free,
+            "unpinned_flips_by_layer": [int(f.sum()) for f in free_flips],
+            "dropped_copies_by_layer": dropped_c,
+            "lora_tiles_cuda": tiles["batched_lora_matmul"],
+            "launches_cuda": launches, "repeat_bitwise": repeat or None}
+    emit(line)
+    want, other = (("mma", "f32") if dtype_name == "bfloat16"
+                   else ("f32", "mma"))
+    t = tiles["batched_lora_matmul"]
+    require(t[want] > 0 and t[other] == 0,
+            f"{cfg.name} {dtype_name} first chunk: batched_lora_matmul tiles "
+            f"{t}, not only {want}")
+    require(all(v == 0 for v in torch_launches.values()),
+            f"{cfg.name}: the torch backend launched {torch_launches}")
+    require(bool(torch.isfinite(lc).all()), f"{cfg.name}: cuda logits not "
+            "finite")
+    require(err <= tol, f"{cfg.name} {dtype_name} pinned first-chunk logit "
+            f"error {err} > {tol}")
+    require(bool(agree[decisive].all()), f"{cfg.name} {dtype_name}: a greedy "
+            "token differs on a row whose margin exceeds the error")
+    require(dropped_c == dropped_t, f"{cfg.name}: dropped copies differ, "
+            f"cuda {dropped_c}, pinned torch {dropped_t}")
+    return line
+
+
+MOE_RANGES = (("moe_expert_bmm", "MoE expert bmm (cuBLAS)"),
+              ("moe_dispatch", "MoE routing and dispatch (router product "
+               "and LoRA, softmax, sort, scatter, gather, combine)"))
+
+
+class MoeRanges:
+    """Puts ``apply_moe`` (``moe_dispatch``) and each expert product
+    (``moe_expert_bmm``) under ``record_function`` ranges for one traced
+    run, by wrapping the module's functions; nothing in the package
+    changes."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from repro_torch.models import moe
+        self._orig = orig_apply, orig_bmm = moe.apply_moe, moe._bmm_f32
+
+        def apply_moe(*a, **kw):
+            with record_function("moe_dispatch"):
+                return orig_apply(*a, **kw)
+
+        def bmm(*a):
+            with record_function("moe_expert_bmm"):
+                return orig_bmm(*a)
+
+        moe.apply_moe, moe._bmm_f32 = apply_moe, bmm
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.apply_moe, moe._bmm_f32 = self._orig
+
+
+def moe_phase(device, seed: int, T: int = 256, tenants: int = MOE_TENANTS,
+              rank: int = 16, new_tokens: int = 16):
+    """Each of ``MOE_FAMILY`` at its published width and the depth named
+    there, bf16, seeded weights, ``tenants`` rank-16 Eq. 7-fused adapters
+    (the router's pair included): ``MOE_REQUESTS`` requests (prompts from
+    the seed in [128, 1024]), greedy, 16 new tokens, 256-token chunks,
+    through "cuda" with overlap on and off (streams bitwise equal, every
+    serving kernel launched, prefill attention and batched LoRA on their
+    tensor-core tiles); one traced run with the MoE layer's expert
+    products and its routing and dispatch as rows of their own; the first
+    chunk against "torch" with pinned routing (``moe_first_chunk``): bf16
+    (two "cuda" runs bitwise equal) and, for dbrx-132b, fp32 activations.
+    Returns {arch: launch counts of its overlapped run}."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine, ragged_requests
+    from repro_torch.models.api import Model
+    from repro_torch.serving.engine import MultiTenantEngine, ServeConfig
+    counts = {}
+    for arch, depth in MOE_FAMILY:
+        # earlier phases' engines can linger in reference cycles: free them
+        # before 55 GB of weights go on the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        cfg = full.with_overrides(n_layers=depth, lora_rank=rank)
+        t0 = time.perf_counter()
+        eng = build_engine(cfg, tenants, device, seed, rank=rank)
+        torch.cuda.synchronize()
+        expert_bytes = (depth * 3 * cfg.n_experts * cfg.d_model
+                        * cfg.resolved_d_ff_moe * 2)
+        emit({"phase": "model", "arch": cfg.name, "n_layers": depth,
+              "published_n_layers": full.n_layers, "d_model": cfg.d_model,
+              "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+              "head_dim": cfg.resolved_head_dim,
+              "n_experts": cfg.n_experts, "top_k": cfg.n_experts_per_tok,
+              "d_ff_moe": cfg.resolved_d_ff_moe,
+              "capacity_factor": cfg.moe_capacity_factor,
+              "vocab_size": cfg.vocab_size, "norm_type": cfg.norm_type,
+              "params": cfg.count_params(),
+              "active_params": cfg.count_active_params(),
+              "expert_weight_bytes": expert_bytes, "dtype": cfg.dtype,
+              "tenants": tenants, "rank": rank,
+              "init_s": time.perf_counter() - t0,
+              "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+        reqs = ragged_requests(MOE_REQUESTS, tenants, cfg.vocab_size, 128,
+                               1024, seed)
+        sc = ServeConfig(batch_size=len(reqs), max_new_tokens=new_tokens,
+                         prefill_chunk=T, block_size=16, paged_backend="cuda")
+        eng.generate(ragged_requests(2, tenants, cfg.vocab_size, 8, 16,
+                                     seed + 1),
+                     ServeConfig(batch_size=2, max_new_tokens=2,
+                                 prefill_chunk=8, paged_backend="cuda"))
+        streams = {}
+        for overlap in (True, False):
+            sc.overlap = overlap
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs,
+                                                                 sc)
+            launches = kernels.launch_counts()
+            tiles = kernels.tile_counts()
+            st = eng.last_stats
+            steps = st["decode_dispatches"]
+            # a decode step reads every expert's weights (cap rounds up to
+            # 64 slots an expert): the byte bound of one step at 3.35 TB/s
+            bound_step_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+            emit({"phase": "serve", "arch": cfg.name, "backend": "cuda",
+                  "overlap": overlap, "requests": len(reqs),
+                  "prompt_lens": [len(r.prompt) for r in reqs],
+                  "new_tokens": new_tokens, "prefill_chunk": T,
+                  "tokens": sum(len(o) for o in outs),
+                  "ttft_ms_p50": float(np.percentile(ttft, 50)) * 1e3,
+                  "ttft_ms_max": max(ttft) * 1e3,
+                  "decode_tokens": dec_tok, "decode_s": dec_s,
+                  "decode_tok_per_s": dec_tok / dec_s if dec_s > 0 else None,
+                  "expert_read_bound_ms_per_step": bound_step_ms,
+                  "expert_read_bound_tok_per_s":
+                      len(reqs) / bound_step_ms * 1e3,
+                  "total_s": total_s,
+                  "prefill_dispatches": st["prefill_dispatches"],
+                  "decode_dispatches": steps,
+                  "launches": launches, "tile_launches": tiles,
+                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+            for o in outs:
+                require(len(o) == new_tokens
+                        and all(0 <= t < cfg.vocab_size for t in o),
+                        f"{arch}: a stream is malformed")
+            for name in kernels.SERVING:
+                require(launches[name] > 0, f"{arch}: kernel {name} was "
+                        "never launched on the serving path")
+            for name in ("paged_prefill_attention", "batched_lora_matmul"):
+                require_mma_tile(tiles, name, f"{arch} overlap={overlap}")
+            streams[overlap] = outs
+            if overlap:
+                counts[arch] = launches
+        require(streams[True] == streams[False],
+                f"{arch}: streams with overlap on and off differ")
+        if arch == MOE_FAMILY[0][0]:
+            with MoeRanges():
+                wall_ms, fam = traced(
+                    lambda: eng.generate(reqs, dataclasses.replace(
+                        sc, overlap=True)), KERNEL_FAMILIES,
+                    "other device work (torch: lm_head, norms, rope, "
+                    "scatter, sampling, copies)", ranges=MOE_RANGES)
+            emit(_profile_line(fam, wall_ms, phase="profile_moe",
+                               arch=cfg.name, requests=len(reqs),
+                               new_tokens=new_tokens, **_decode_share(fam)))
+        moe_first_chunk(eng, reqs, sc, "bfloat16", rel_tol=0.1, repeat=True)
+        if arch == MOE_FAMILY[0][0]:
+            cfg32 = eng.cfg.with_overrides(dtype="float32")
+            eng32 = MultiTenantEngine(Model(cfg32, device), cfg32,
+                                      eng.params, eng.registry)
+            moe_first_chunk(eng32, reqs, sc, "float32", rel_tol=1e-2)
+            del eng32
+        del eng
+    return counts
+
+
 def ptxas_entries(report: str):
     """``{kernel: {registers, spill_stores, spill_loads}}`` from ``nvcc
     -Xptxas=-v`` output.  The tensor-core tiles are named
@@ -3292,6 +3672,7 @@ def main(argv=None) -> int:
     del params                          # llama2-7b's weights
     torch.cuda.empty_cache()
     timed("dense_family", dense_family_phase, device, args.seed, T)
+    moe_counts = timed("moe", moe_phase, device, args.seed, T)
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
@@ -3300,7 +3681,9 @@ def main(argv=None) -> int:
     # this slice's paths, each read just after its own run
     emit({"phase": "path_launches", "sharded": {
         n: sharded_counts[n] for n in kernels.SERVING},
-        "fixed": fixed_launches})
+        "fixed": fixed_launches,
+        "moe": {arch: {n: c[n] for n in kernels.SERVING}
+                for arch, c in moe_counts.items()}})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})
 

@@ -1,4 +1,5 @@
-"""Architectures the port serves, by ``--arch`` id."""
+"""Architectures the port serves, by ``--arch`` id: the dense family and
+the MoE family."""
 from __future__ import annotations
 
 import importlib
@@ -12,6 +13,8 @@ _MODULES = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "yi-6b": "repro_torch.configs.yi_6b",
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
 }
 
 ALL_ARCHS: List[str] = list(_MODULES)

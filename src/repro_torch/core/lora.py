@@ -22,9 +22,13 @@ from repro_torch import resolve_device
 Params = Dict[str, Any]
 
 
-def block_target_shapes(cfg) -> Dict[str, Dict[str, Tuple[int, int]]]:
+def block_target_shapes(cfg, entry: str = "attn+mlp"
+                        ) -> Dict[str, Dict[str, Tuple[int, int]]]:
     """``{"mixer": {...}, "mlp": {...}}`` target -> (d_in, d_out) for one
-    dense layer, filtered by ``cfg.lora_targets``."""
+    layer of pattern ``entry``.  Attention and the dense MLP are filtered
+    by ``cfg.lora_targets``; an ``"attn+moe"`` layer's ``mlp`` holds the
+    router's pair (d, E) whatever ``lora_targets`` says (per-expert
+    adapters would defeat PEFT), as in the reference."""
     d, H, Kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd, ff = cfg.resolved_head_dim, cfg.d_ff
     sel = set(cfg.lora_targets)
@@ -38,6 +42,8 @@ def block_target_shapes(cfg) -> Dict[str, Dict[str, Tuple[int, int]]]:
         t = {k: v for k, v in targets.items() if k in sel}
         if t:
             out[part] = t
+    if entry.endswith("+moe"):
+        out["mlp"] = {"router": (d, cfg.n_experts)}
     return out
 
 
@@ -51,11 +57,10 @@ def init_adapters(cfg, rank: Optional[int] = None, seed: int = 0,
     device = resolve_device(device)
     r = rank or cfg.lora_rank
     rng = np.random.default_rng(seed)
-    shapes = block_target_shapes(cfg)
     layers = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         layer = {}
-        for part, tmap in shapes.items():
+        for part, tmap in block_target_shapes(cfg, cfg.layer_entry(i)).items():
             layer[part] = {}
             for t, (din, dout) in tmap.items():
                 a = rng.standard_normal((din, r), np.float32) / r

@@ -15,8 +15,9 @@ the card unless the caller asks for the CPU; ``paged_backend`` picks the
 kernels (``None``: ``"cuda"`` on a card, where every projection of a step
 runs the LoRA kernel, at rank 2r for FedRoD's concatenation and r/2 for
 FedKD's student, and every attention the flash-attention kernel).  The
-dense family has no router, so the reference's router aux-loss term is
-zero here and left out.
+MoE router's aux loss enters where the reference adds it: through
+``make_lora_loss_fn`` (FedProx, FedAMP) and in FedRoD's loss (FedKD's
+has none); a dense model's is 0.
 """
 from __future__ import annotations
 
@@ -329,11 +330,11 @@ class FedRoD(BaselineBase):
         """((g, p), base, batch) -> (loss, metrics)."""
         def loss_fn(both, base, batch):
             g, p = both
-            lg, _ = self._forward(g, batch)
+            lg, aux1 = self._forward(g, batch)
             l1, _ = cross_entropy(self.cfg, lg, batch)
-            lp, _ = self._forward(concat_rank(g, p), batch)
+            lp, aux2 = self._forward(concat_rank(g, p), batch)
             l2, m2 = cross_entropy(self.cfg, lp, batch)
-            return l1 + l2, m2
+            return l1 + l2 + self.cfg.router_aux_loss_coef * (aux1 + aux2), m2
 
         return loss_fn
 

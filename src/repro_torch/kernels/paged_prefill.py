@@ -60,15 +60,41 @@ def _scatter_coords(B: int, S: int, bs_blk: int, block_tables, lengths,
     return blk, pos % bs_blk
 
 
+def _last_writer(blk, off, pool):
+    """For each of the B·S writes at (``blk``, ``off``), the flat index of
+    the last write in (row, position) order that lands on the same pool
+    position: the one that wins in the reference's serial scatter.  Only
+    scratch block 0 takes several writes (ragged tails, idle rows), and
+    parallel index writes would leave any of them there; what block 0
+    holds is read by tail positions' queries, whose hidden states an MoE
+    layer routes and counts against capacity, so it must not vary from
+    run to run.  ``amax`` is order-free, so the result is deterministic
+    on a card too, with no host round trip."""
+    NB, bs = pool.shape[0], pool.shape[1]
+    dest = (blk.long() * bs + off.long()).reshape(-1)
+    idx = torch.arange(dest.numel(), device=dest.device)
+    last = torch.full((NB * bs,), -1, dtype=torch.long, device=dest.device)
+    last.scatter_reduce_(0, dest, idx, reduce="amax")
+    return last[dest]
+
+
+def _winning(x, src):
+    """(B, S, ...) values with each write replaced by its last writer's."""
+    B, S = x.shape[0], x.shape[1]
+    return x.reshape(B * S, *x.shape[2:])[src].reshape(x.shape)
+
+
 def paged_scatter(k_pool, v_pool, k, v, block_tables, lengths, n_new=None):
     """Write k/v (B, S, Kv, hd) into the pools at ``lengths[b] + t``; with
-    ``n_new``, ragged tails land in scratch block 0.  In place; returns
-    (k_pool, v_pool)."""
+    ``n_new``, ragged tails land in scratch block 0, the last one in
+    (row, position) order winning each of its positions.  In place;
+    returns (k_pool, v_pool)."""
     B, S = k.shape[0], k.shape[1]
     blk, off = _scatter_coords(B, S, k_pool.shape[1], block_tables, lengths,
                                n_new)
-    k_pool[blk, off] = k.to(k_pool.dtype)
-    v_pool[blk, off] = v.to(v_pool.dtype)
+    src = _last_writer(blk, off, k_pool)
+    k_pool[blk, off] = _winning(k, src).to(k_pool.dtype)
+    v_pool[blk, off] = _winning(v, src).to(v_pool.dtype)
     return k_pool, v_pool
 
 
@@ -80,12 +106,13 @@ def paged_scatter_quant(k_pool, v_pool, k_scale, v_scale, k, v,
     B, S = k.shape[0], k.shape[1]
     blk, off = _scatter_coords(B, S, k_pool.shape[1], block_tables, lengths,
                                n_new)
+    src = _last_writer(blk, off, k_pool)
     qk, sk = quantize_int8(k, dim=-1)
     qv, sv = quantize_int8(v, dim=-1)
-    k_pool[blk, off] = qk
-    v_pool[blk, off] = qv
-    k_scale[blk, off] = sk
-    v_scale[blk, off] = sv
+    k_pool[blk, off] = _winning(qk, src)
+    v_pool[blk, off] = _winning(qv, src)
+    k_scale[blk, off] = _winning(sk, src)
+    v_scale[blk, off] = _winning(sv, src)
     return k_pool, v_pool, k_scale, v_scale
 
 

@@ -1,7 +1,7 @@
-"""``Model``: the port's uniform interface over the dense decoder.
+"""``Model``: the port's uniform interface over the decoder.
 
-Mirrors ``repro/models/api.py::Model`` for the dense family.  A ``Model``
-is bound to a device (``"cuda"`` unless the caller asks for the CPU; a
+Mirrors ``repro/models/api.py::Model`` for the dense and MoE families.  A
+``Model`` is bound to a device (``"cuda"`` unless the caller asks for the CPU; a
 missing card raises).
 """
 from __future__ import annotations
@@ -29,12 +29,12 @@ class Model:
                 last_only: bool = False,
                 adapter_ids: Optional[torch.Tensor] = None,
                 paged_backend: Optional[str] = None):
-        """batch = {"tokens": (B, S)} -> (logits (B, S, V) fp32, aux 0.0)."""
-        logits = dec.forward(params, batch["tokens"], self.cfg, adapters,
-                             lora_scale, last_only=last_only,
-                             adapter_ids=adapter_ids,
-                             paged_backend=paged_backend)
-        return logits, torch.zeros((), device=logits.device)
+        """batch = {"tokens": (B, S)} -> (logits (B, S, V) fp32, the MoE
+        aux loss: an fp32 scalar, 0 for a dense model)."""
+        return dec.forward(params, batch["tokens"], self.cfg, adapters,
+                           lora_scale, last_only=last_only,
+                           adapter_ids=adapter_ids,
+                           paged_backend=paged_backend)
 
     def init_decode_cache(self, batch: int, cache_len: int) -> Params:
         return dec.init_decode_cache(self.cfg, batch, cache_len, self.device)

@@ -1,11 +1,13 @@
-"""Dense decoder: init, forward and the paged serving steps.
+"""Decoder: init, forward and the paged serving steps.
 
-Port of the dense family of ``repro/models/model.py``.  Parameters are a
-plain dict: ``embed`` (V, d), ``final_norm``, ``layers`` (one dict per
-layer: ``norm1``, ``mixer`` {wq, wk, wv, wo}, ``norm2``, ``mlp``) and,
-untied, ``lm_head`` (d, V).  The reference stacks layers on a period axis
-for ``lax.scan``; here a Python loop walks the list.  Adapter trees and
-banks follow the same per-layer layout (``core/lora.py``).
+Port of the dense and MoE families of ``repro/models/model.py``.
+Parameters are a plain dict: ``embed`` (V, d), ``final_norm``, ``layers``
+(one dict per layer: ``norm1``, ``mixer`` {wq, wk, wv, wo}, ``norm2``,
+``mlp``: the dense MLP of an attn+mlp layer, or the fp32 router and the
+expert stacks (E, d_in, d_out) of an attn+moe one) and, untied,
+``lm_head`` (d, V).  The reference stacks layers on a period axis for
+``lax.scan``; here a Python loop walks the list.  Adapter trees and banks
+follow the same per-layer layout (``core/lora.py``).
 """
 from __future__ import annotations
 
@@ -16,24 +18,25 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import PAGED_BACKENDS, torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 Params = Dict[str, Any]
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> Params:
     """Random weights from ``seed``: the reference's init scales (normal ×
-    d^-0.5 for projections, × d_ff^-0.5 for w_out, × 0.02 for embeddings),
-    drawn by a ``torch.Generator`` on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    d^-0.5 for projections and the fp32 router, × d_ff^-0.5 for w_out,
+    × 0.02 for embeddings), drawn by a ``torch.Generator`` on ``device``
+    (the card unless the caller asks for the CPU)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg.param_dtype)
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
 
-    def normal(shape, std):
+    def normal(shape, std, out_dtype=None):
         t = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (t * std).to(dtype)
+        return (t * std).to(out_dtype or dtype)
 
     def norm():
         if cfg.norm_type == "nonparametric":
@@ -44,11 +47,15 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
         return p
 
     layers = []
-    for _ in range(cfg.n_layers):
-        mlp = {"w_up": normal((d, ff), d ** -0.5),
-               "w_out": normal((ff, d), ff ** -0.5)}
-        if cfg.mlp_type in ("swiglu", "geglu"):
-            mlp["w_gate"] = normal((d, ff), d ** -0.5)
+    for i in range(cfg.n_layers):
+        if cfg.layer_entry(i).endswith("+moe"):
+            mlp = moe_lib.init_moe(normal, d, cfg.resolved_d_ff_moe,
+                                   cfg.n_experts, cfg.mlp_type)
+        else:
+            mlp = {"w_up": normal((d, ff), d ** -0.5),
+                   "w_out": normal((ff, d), ff ** -0.5)}
+            if cfg.mlp_type in ("swiglu", "geglu"):
+                mlp["w_gate"] = normal((d, ff), d ** -0.5)
         layers.append({
             "norm1": norm(),
             "mixer": {"wq": normal((d, H * hd), d ** -0.5),
@@ -83,7 +90,7 @@ def resolve_backend(cfg, paged_backend: Optional[str], device):
 def _embed(params, tokens, cfg):
     dtype = torch_dtype(cfg.dtype)
     x = params["embed"][tokens.long()].to(dtype)
-    if cfg.tie_embeddings:                     # gemma-style scaling
+    if cfg.family == "dense" and cfg.tie_embeddings:   # gemma-style scaling
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
     return x
 
@@ -94,8 +101,11 @@ def _unembed(params, x, cfg):
     return L.matmul(x, head, out_dtype=torch.float32)
 
 
-def _apply_layer(lp, x, cfg, positions, adapters, lora_scale, cache=None,
+def _apply_layer(i, lp, x, cfg, positions, adapters, lora_scale, cache=None,
                  adapter_ids=None, paged=None):
+    """Layer ``i``: attention, then the dense MLP or the MoE layer its
+    pattern entry names.  Returns (x, new cache, aux loss or None for a
+    dense layer)."""
     ad = adapters or {}
     h = L.apply_norm(lp["norm1"], x, cfg.norm_type)
     out, new_cache = L.multihead_attention(
@@ -103,9 +113,14 @@ def _apply_layer(lp, x, cfg, positions, adapters, lora_scale, cache=None,
         kv_cache=cache, adapter_ids=adapter_ids, paged=paged)
     x = x + out
     h = L.apply_norm(lp["norm2"], x, cfg.norm_type)
-    x = x + L.apply_mlp(lp["mlp"], h, cfg.mlp_type, ad.get("mlp"),
-                        lora_scale, adapter_ids, cfg.paged_backend)
-    return x, new_cache
+    if cfg.layer_entry(i).endswith("+moe"):
+        out, aux = moe_lib.apply_moe(lp["mlp"], h, cfg, ad.get("mlp"),
+                                     lora_scale, adapter_ids)
+    else:
+        out = L.apply_mlp(lp["mlp"], h, cfg.mlp_type, ad.get("mlp"),
+                          lora_scale, adapter_ids, cfg.paged_backend)
+        aux = None
+    return x + out, new_cache, aux
 
 
 def _layer_adapters(adapters, i):
@@ -116,20 +131,25 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
             adapters: Optional[Params] = None, lora_scale: float = 1.0,
             last_only: bool = False,
             adapter_ids: Optional[torch.Tensor] = None,
-            paged_backend: Optional[str] = None) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V) fp32 (B, 1, V with
-    ``last_only``).  ``adapter_ids`` (B,) routes rows into a banked
+            paged_backend: Optional[str] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, V) fp32 (B, 1, V with
+    ``last_only``), the MoE layers' aux losses summed: an fp32 scalar, 0
+    for a dense model).  ``adapter_ids`` (B,) routes rows into a banked
     ``adapters`` tree (leaves (C, d_in, r))."""
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=tokens.device)
+    aux = torch.zeros((), device=tokens.device)
     for i, lp in enumerate(params["layers"]):
-        x, _ = _apply_layer(lp, x, cfg, positions,
-                            _layer_adapters(adapters, i), lora_scale,
-                            adapter_ids=adapter_ids)
+        x, _, a = _apply_layer(i, lp, x, cfg, positions,
+                               _layer_adapters(adapters, i), lora_scale,
+                               adapter_ids=adapter_ids)
+        if a is not None:
+            aux = aux + a
     if last_only:
         x = x[:, -1:]
-    return _unembed(params, x, cfg)
+    return _unembed(params, x, cfg), aux
 
 
 def init_decode_cache(cfg, batch: int, cache_len: int,
@@ -159,14 +179,15 @@ def init_paged_decode_cache(cfg, num_blocks: int, block_size: int,
 
 def _cached_scan(params, cache, tokens, positions, cfg, adapters, lora_scale,
                  adapter_ids, paged) -> Tuple[torch.Tensor, Params]:
-    """Embed, every layer against its pool, final norm, unembed."""
+    """Embed, every layer against its pool, final norm, unembed (the MoE
+    aux loss is dropped, as in the reference)."""
     x = _embed(params, tokens, cfg)
     new_layers = []
     for i, lp in enumerate(params["layers"]):
-        x, nc = _apply_layer(lp, x, cfg, positions,
-                             _layer_adapters(adapters, i), lora_scale,
-                             cache=cache["layers"][i],
-                             adapter_ids=adapter_ids, paged=paged)
+        x, nc, _ = _apply_layer(i, lp, x, cfg, positions,
+                                _layer_adapters(adapters, i), lora_scale,
+                                cache=cache["layers"][i],
+                                adapter_ids=adapter_ids, paged=paged)
         new_layers.append(nc)
     return _unembed(params, x, cfg), {"layers": new_layers}
 

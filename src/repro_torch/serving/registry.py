@@ -142,21 +142,21 @@ class AdapterRegistry:
                 out["a_scale"] = torch.zeros((cap,), device=dev)
                 out["b_scale"] = torch.zeros((cap,), device=dev)
             return out
-        shapes = block_target_shapes(self._cfg)
         return {"layers": [
             {part: {t: pair(din, dout) for t, (din, dout) in tmap.items()}
-             for part, tmap in shapes.items()}
-            for _ in range(self._cfg.n_layers)]}
+             for part, tmap in block_target_shapes(
+                 self._cfg, self._cfg.layer_entry(i)).items()}
+            for i in range(self._cfg.n_layers)]}
 
     def _template(self, rank: int):
         """(path, shape) of every leaf of a client tree at ``rank``."""
-        shapes = block_target_shapes(self._cfg)
         tree = {"layers": [
             {part: {t: {"a": torch.empty((din, rank), device="meta"),
                         "b": torch.empty((rank, dout), device="meta")}
                     for t, (din, dout) in tmap.items()}
-             for part, tmap in shapes.items()}
-            for _ in range(self._cfg.n_layers)]}
+             for part, tmap in block_target_shapes(
+                 self._cfg, self._cfg.layer_entry(i)).items()}
+            for i in range(self._cfg.n_layers)]}
         return [(p, tuple(leaf.shape)) for p, leaf in tree_leaves(tree)]
 
     # ---- bookkeeping ------------------------------------------------------

@@ -1,8 +1,10 @@
 """Train and evaluation steps of LoRA SFT and the AdaFusion objective.
 
-Port of ``repro/training/train_step.py`` for the dense family:
+Port of ``repro/training/train_step.py`` for the dense and MoE families:
 
-* ``make_lora_train_step``: the paper's inner step.  The base is frozen:
+* ``make_lora_train_step``: the paper's inner step; its loss adds the MoE
+  router's aux loss times ``cfg.router_aux_loss_coef`` (0 for a dense
+  model), as the reference's does.  The base is frozen:
   gradients come from ``torch.autograd.grad`` over the adapter leaves
   only, then a global-norm clip (1.0) and the optimizer.
 * ``make_eval_fn``: next-token cross entropy and accuracy.
@@ -61,7 +63,8 @@ def make_lora_loss_fn(model, cfg,
                                     lora_scale=scale,
                                     paged_backend=paged_backend)
         loss, metrics = cross_entropy(cfg, logits, batch)
-        return loss, dict(metrics, aux_loss=aux)
+        return (loss + cfg.router_aux_loss_coef * aux,
+                dict(metrics, aux_loss=aux))
 
     return loss_fn
 

@@ -26,7 +26,11 @@ through the LoRA kernels (``lora_matmul`` also at decode rows, M 1 to 64),
 run through the ``"cuda"`` backend, and the federated baselines
 (``lora_matmul`` at ranks 2 to 32, every baseline's fit through the
 kernels, FedProx, FedRoD and FedKD steps against the plain path, the
-client-stacked round step against the clients run by hand).
+client-stacked round step against the clients run by hand), and the MoE
+family (decode and prefill at dbrx-132b's G 6, batched LoRA at the MoE
+archs' attention projections, ``apply_moe`` bitwise repeatable, each MoE
+smoke config served through the kernels, overlap on and off bitwise, and
+a prefill chunk "cuda" against "torch" with pinned routing).
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is False.  This file imports neither JAX nor the reference package, so on a
@@ -1510,3 +1514,167 @@ def test_round_step_runs_through_the_kernels(dev, compress):
         d = max(float((prev - t).abs().max()) for _, t in ti)
         tol = 1e-6 + (2.0 ** -6 * d if compress == "bf16" else 0.0)
         assert float((got - w).abs().max()) <= tol, path
+
+
+# ---------------------------------------------------------------------------
+# the MoE family on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_kernels_at_dbrx_group_match_plain(dev, int8):
+    """dbrx-132b's attention: H 48 over Kv 8 (G 6), head dim 128, bf16
+    queries over bf16 and int8 pools: decode and a 256-token prefill
+    chunk against their plain versions, the chunk also per row against
+    the tile's own arithmetic."""
+    gen = torch.Generator(device=dev).manual_seed(48)
+    q, kp, vp, bt, lens, sc = _decode_case(gen, dev, 6, 128, 16, int8,
+                                           DECODE_LENGTHS, Kv=8)
+    y = paged_attention(q, kp, vp, bt, lens, **sc)
+    yr = ref.paged_attention_ref(q, kp, vp, bt, lens, **sc)
+    assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+    assert float(y[0].float().abs().max()) == 0.0      # empty row
+    q, kp, vp, sc, vdq, bt, lens = _prefill_case(
+        gen, dev, 256, 6, 16, 128, int8, [0, 5, 37, 130], H=48)
+    kernels.reset_launch_counts()
+    y = paged_prefill_attention(q, kp, vp, bt, lens, **sc)
+    yr = ref.paged_prefill_attention_ref(q, kp, vp, bt, lens, **sc)
+    assert bool(torch.isfinite(y.float()).all())
+    assert float((y.float() - yr.float()).abs().max()) <= _attn_tol(yr, vdq)
+    _, ratio = attn_tile.tile_errors(y, attn_tile.paged_prefill_tile_ref(
+        q, kp, vp, bt, lens, **sc))
+    assert ratio <= 1.0
+    assert kernels.tile_counts()["paged_prefill_attention"] == {"mma": 1,
+                                                                "f32": 0}
+
+
+# the MoE archs' attention projections (K, N): dbrx-132b's q/o and k/v,
+# kimi-k2-1t-a32b's q, k/v and o
+MOE_PROJECTIONS = [(6144, 6144), (6144, 1024), (7168, 8192), (7168, 1024),
+                   (8192, 7168)]
+
+
+@pytest.mark.parametrize("M", [4, 1024])
+@pytest.mark.parametrize("K,N", MOE_PROJECTIONS)
+def test_batched_lora_at_moe_projections_matches_plain(dev, K, N, M):
+    """batched_lora_matmul at the MoE cells' decode (4) and prefill (4 x
+    256) rows over 4 clients, to two bf16 roundings of the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(K + N + M)
+    x, w, a, b, ids, kw = _lora_case(gen, dev, M, K, N, 4, 16, "f32_bank")
+    kernels.reset_launch_counts()
+    y = batched_lora_matmul(x, w, a, b, ids, 2.0, **kw)
+    yr = _lora_plain(x, w, a, b, ids, **kw)
+    assert bool(torch.isfinite(y.float()).all())
+    assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+    assert kernels.tile_counts()["batched_lora_matmul"] == {"mma": 1,
+                                                             "f32": 0}
+
+
+def _moe_engine(dev, arch, dtype="bfloat16", **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+    cfg = get_config(arch, smoke=True).with_overrides(dtype=dtype, **kw)
+    return build_engine(cfg, 3, dev, seed=0, rank=8)
+
+
+def test_apply_moe_on_the_card_is_bitwise_repeatable(dev):
+    """dbrx-smoke's MoE layer in bf16 with a banked router adapter, at a
+    capacity factor where copies drop: two calls agree bitwise (the
+    combine sums each token's copies in a fixed order, no atomics)."""
+    from repro_torch.models import moe
+    eng = _moe_engine(dev, "dbrx-132b", moe_capacity_factor=0.25)
+    lp = eng.params["layers"][0]["mlp"]
+    bank = eng.registry.bank()["layers"][0]["mlp"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = _randn(gen, (4, 96, eng.cfg.d_model), dev, torch.bfloat16)
+    ids = torch.tensor([0, 2, 1, 0], dtype=torch.int32, device=dev)
+    kept = []
+    orig = moe.dispatch
+    moe.dispatch = lambda *a: kept.append(orig(*a)) or kept[-1]
+    try:
+        outs = [moe.apply_moe(lp, x, eng.cfg, bank, eng.scale, ids)
+                for _ in range(2)]
+    finally:
+        moe.dispatch = orig
+    assert not bool(kept[0][1].all())                   # copies dropped
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert bool(torch.isfinite(outs[0][0].float()).all())
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_moe_smoke_engine_serves_through_the_kernels(dev, arch):
+    """Each MoE arch's smoke config in bf16: every serving kernel launches,
+    streams with overlap on and off are bitwise equal; in fp32 a prefill
+    chunk through "cuda" and through "torch" with each layer's expert ids
+    pinned to the "cuda" run's agree to 1% of the largest logit."""
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import ServeConfig
+    eng = _moe_engine(dev, arch)
+    reqs = ragged_requests(4, 3, eng.cfg.vocab_size, 10, 40, seed=0)
+    sc = ServeConfig(batch_size=3, max_new_tokens=5, prefill_chunk=16,
+                     block_size=4, num_blocks=40)
+    kernels.reset_launch_counts()
+    out = [list(o) for o in eng.generate(reqs, sc)]
+    assert all(kernels.launch_counts()[n] > 0 for n in kernels.SERVING)
+    assert [list(o) for o in eng.generate(
+        reqs, dataclasses.replace(sc, overlap=False))] == out
+    eng32 = _moe_engine(dev, arch, dtype="float32")
+    cfg = eng32.cfg
+    B, T, bs = 3, 24, 4
+    toks = torch.randint(0, cfg.vocab_size, (B, T), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    n_new = torch.tensor([T, 10, 17], dtype=torch.int32, device=dev)
+    lens = torch.zeros(B, dtype=torch.int32, device=dev)
+    bt = (torch.arange(B * 6, device=dev, dtype=torch.int32) + 1).reshape(B, 6)
+    ids = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)
+    routed, orig = [], moe._top_k_routing
+
+    def run(backend, pinned=None):
+        def routing(logits, k):
+            w, i, aux = orig(logits, k)
+            if pinned is not None:
+                i = pinned[len(routed)]
+                w = torch.softmax(logits.float(), -1).gather(1, i)
+                w = w / w.sum(-1, keepdim=True)
+            routed.append(i)
+            return w, i, aux
+        cache = eng32.model.init_paged_decode_cache(1 + B * 6, bs)
+        moe._top_k_routing = routing
+        try:
+            logits, _ = eng32.model.prefill_step(
+                eng32.params, cache, toks, lens, n_new,
+                adapters=eng32.bank_for(dataclasses.replace(
+                    sc, paged_backend=backend)),
+                lora_scale=eng32.scale, adapter_ids=ids, block_tables=bt,
+                paged_backend=backend)
+        finally:
+            moe._top_k_routing = orig
+        return logits
+
+    lc = run("cuda")
+    ids_c = list(routed)
+    routed.clear()
+    lt = run("torch", ids_c)
+    valid = torch.arange(T, device=dev)[None, :] < n_new[:, None]
+    err = float((lc - lt).abs()[valid].max())
+    assert err <= 1e-2 * float(lt.abs()[valid].max())
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_moe_rounds_do_not_wait_for_the_card(dev, arch):
+    """Routing, the capacity dispatch and the combine take their shapes
+    from (T, k, E) alone: every round of an MoE session runs without a call
+    that waits for the stream."""
+    from repro_torch.serving.engine import Request
+    eng = _moe_engine(dev, arch)
+    eng.generate([Request("client0", np.arange(1, 20, dtype=np.int32))],
+                 _overlap_sc())                 # builds and warms up
+    ses = eng.session(_overlap_sc())
+    for i in range(3):
+        ses.submit(Request(f"client{i}",
+                           (np.arange(20 + 9 * i) * (i + 3)) % 500 + 1,
+                           max_new_tokens=16))
+    rounds = _rounds_without_sync(ses)
+    assert sum(len(t) for _, ev, _ in rounds for _, t, _ in ev) == 3 * 16

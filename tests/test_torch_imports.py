@@ -48,6 +48,8 @@ SLICE_MODULES = [
     # the federated baselines and the client-stacked round step
     "federated/__init__.py", "federated/baselines.py",
     "federated/distributed.py",
+    # the MoE family
+    "models/moe.py", "configs/dbrx_132b.py", "configs/kimi_k2_1t_a32b.py",
 ]
 
 
