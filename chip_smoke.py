@@ -16,7 +16,7 @@ Phases (each prints one JSON line per result):
                sliding window with contexts to 6144, decode and prefill at
                yi-6b's G 8 and dbrx-132b's G 6, batched LoRA at every other
                dense arch's and the MoE archs' attention projection shapes
-               and rows, rank
+               and rows and at the SSM archs' in_proj and out_proj, rank
                mask, int8 bank, and the per-row Eq. 7 batched dual-LoRA
                product at its entry point; training: the LoRA and dual-LoRA
                products of a 2048-row batch, flash attention at B=8, S=256
@@ -134,7 +134,30 @@ Phases (each prints one JSON line per result):
                copies per layer equal; one traced dbrx-132b run with the
                expert products and the routing and dispatch as rows of
                their own;
-  8. the card's name and power limit, the kernel summary line, and last the
+  8. ssm     — mamba2-2.7b (all 64 layers) and jamba-v0.1-52b (8 of its
+               32: one period, every pattern entry once) at their published
+               width, bf16, random weights from --seed, 4 tenants with
+               rank-16 fused adapters (the mamba in_proj/out_proj pairs
+               included): the dense_family cell's 4 requests and 2 more
+               over 4 slots (two slots reused), 16 new tokens, through
+               "cuda" with overlap on and off (streams bitwise equal,
+               batched LoRA on its tensor-core tile; jamba also both paged
+               attention kernels), the decode rate beside the byte bound of
+               a step (weights, and every slot's recurrent state read and
+               written); the per-slot state's bytes against the shapes'
+               count; the first chunk held to "torch" (bf16 and fp32
+               activations; jamba's expert ids pinned as in phase moe); on
+               mamba2 64 prompt tokens prefilled in chunks of 16 against
+               the same tokens fed one at a time through decode_step (bf16
+               and fp32); each reused slot's state zero at admission and
+               its stream against the same request in a fresh slot by the
+               margin rule; one traced mamba2 run of the first 4 requests
+               with the per-token scan as a row of its own and the host
+               time spent issuing it;
+               its kernel lines (kernels phase) hold batched LoRA at both
+               archs' in_proj (N tails of 80 and 160 columns past a
+               multiple of 256) and out_proj shapes;
+  9. the card's name and power limit, the kernel summary line, and last the
      result line.
 
 batched_dual_lora_matmul, which no path of the port (or of the reference
@@ -147,6 +170,7 @@ non-zero otherwise, and on any failed check.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -263,9 +287,10 @@ def device_ms(fn, reps: int, parts=()):
 
 
 # traces of device_ms taken again because they lacked device events, and
-# how many tries a measurement gets
+# how many tries a measurement gets (one windowed prefill shape on an H100
+# once lost events in 4 tries running; 5 traces of a whole run lost some)
 DEVICE_TRACE_RETAKES = []
-TRACE_ATTEMPTS = 4
+TRACE_ATTEMPTS = 8
 
 
 def bound(bytes_moved: float, flops: float, fp32: bool = False):
@@ -563,13 +588,15 @@ def _lora_share(parts, dead_parts, total):
 
 
 def check_lora(gen, device, M, K, N, C, r, variant, reps, dtype=None,
-               by_request=False, share=False):
+               by_request=False, share=False, tail=False):
     """batched_lora_matmul against its plain version (``_lora_tol``): bf16
     activations run the tensor-core tile, fp32 ones (over the same bf16 W)
     the fp32 tile.  Every row draws its own client, so every tile mixes
     clients, unless ``by_request``: rows in runs of 256 per client, as a
     prefill dispatch lays them out.  ``share``: also the shrink's and the
-    epilogue's share of the call's device time (``_lora_share``)."""
+    epilogue's share of the call's device time (``_lora_share``).
+    ``tail``: also the error over the columns past the last multiple of
+    256 (an N tail the tile's column guard must hold)."""
     import torch
     from repro_torch.kernels.batched_lora import (batched_lora_matmul,
                                                   batched_lora_matmul_ref)
@@ -603,14 +630,20 @@ def check_lora(gen, device, M, K, N, C, r, variant, reps, dtype=None,
     ref = batched_lora_matmul_ref(x, w, a, b, ids, scale, **kw)
     tol = _lora_tol(ref)
     err = _check_close(f"batched_lora {variant} M={M} {dtype}", out, ref, tol)
+    extra = {}
+    if tail:
+        n0 = N // 256 * 256
+        require(n0 < N, f"N {N} has no tail past a multiple of 256")
+        extra["tail_columns"] = N - n0
+        extra["tail_max_abs_err"] = _check_close(
+            f"batched_lora N tail M={M} N={N}", out[:, n0:], ref[:, n0:], tol)
     ms = time_ms(call, reps)
     dev_ms, parts = device_ms(call, reps, LORA_PARTS)
-    extra = {}
     if share:
         dead = torch.full_like(ids, -1)
         _, dead_parts = device_ms(lambda: batched_lora_matmul(
             x, w, a, b, dead, scale, **kw), reps, LORA_PARTS)
-        extra = _lora_share(parts, dead_parts, dev_ms)
+        extra.update(_lora_share(parts, dead_parts, dev_ms))
     plain_ms = time_ms(lambda: batched_lora_matmul_ref(
         x, w, a, b, ids, scale, **kw), max(1, reps // 4), 1)
     library_ms = time_ms(lambda: torch.matmul(x, w.to(dtype)), reps)
@@ -1132,6 +1165,7 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
                     emit({**check_lora(gen, device, M, K, N, DENSE_TENANTS,
                                        16, variant, reps), "arch": arch})
     moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T, seen)
+    ssm_kernels(gen, device, reps, T, seen)
     return main
 
 
@@ -1183,7 +1217,8 @@ def first_chunk_logits(eng, reqs, sc, backend):
     ids = torch.tensor([eng.registry.acquire(r.client_id) for r in reqs],
                        dtype=torch.int32, device=dev)
     cache = eng.model.init_paged_decode_cache(1 + B * per, sc.block_size,
-                                              kv_dtype=sc.kv_dtype)
+                                              kv_dtype=sc.kv_dtype,
+                                              num_slots=B)
     bank = eng.bank_for(dataclasses.replace(sc, paged_backend=backend))
     logits, _ = eng.model.prefill_step(
         eng.params, cache, tokens.to(dev), lens, n_new.to(dev),
@@ -1266,8 +1301,8 @@ def timed_generate(eng, reqs, sc):
 def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
                 prompt_min: int, prompt_max: int, T: int, cfg=None,
                 tenants: int = 8, rank: int = 16):
-    """Returns (launch counts of the overlapped "cuda" run, the engine,
-    the bf16 first-chunk logit error "cuda" vs "torch")."""
+    """Returns (launch counts of the overlapped "cuda" run, the
+    engine)."""
     import dataclasses
 
     import numpy as np
@@ -1354,7 +1389,7 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
     # normalised ones), 224 projections deep.  The bound is a sanity bound:
     # a wrong mask or a lost LoRA term moves logits by O(their largest
     # value).
-    err_bf16 = compare_first_chunk(
+    compare_first_chunk(
         eng, reqs, sc, "bfloat16", rel_tol=0.1,
         extra={"stream_prefix_matched": matched,
                "stream_tokens_agree_fraction":
@@ -1373,7 +1408,7 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
     for i, overlap in enumerate((True, False, False, True)):
         profile_phase(eng, reqs, dataclasses.replace(sc, overlap=overlap),
                       check=i == 0)
-    return cuda_counts, eng, err_bf16
+    return cuda_counts, eng
 
 
 KERNEL_FAMILIES = (("paged_decode_split_kernel", "paged_attention (split)"),
@@ -1557,21 +1592,44 @@ def _trace_line(rep, **extra):
                                   "deferred_chunks", "preemptions")}}
 
 
-def serve_trace_phase(eng, seed: int, err_bf16: float, n_requests: int = 16):
+# llama2-7b's layers the serve_trace phase serves (of 32): the phase is
+# host-paced, so its time follows the depth, and the script must stay
+# inside its time limit
+SERVE_TRACE_LAYERS = 16
+
+
+def serve_trace_phase(device, seed: int, n_requests: int = 16,
+                      depth: int = SERVE_TRACE_LAYERS, tenants: int = 8,
+                      rank: int = 16):
     """An open-loop Poisson trace (``serving/trace.py``) through the serve
-    phase's engine: logical mode (arrivals mapped to rounds) with overlap
-    on and off, streams bitwise equal; realtime mode with overlap on and
-    off, TTFT from each scheduled arrival, TPOT, goodput and wall-clock
-    queue waits, streams held to the logical ones by the margin rule (the
-    batch make-up differs); one traced realtime run."""
+    cell's engine (llama2-7b at full width, ``tenants`` rank-16 fused
+    adapters) cut to ``depth`` layers: logical mode (arrivals mapped to
+    rounds) with overlap on and off, streams bitwise equal; realtime mode
+    with overlap on and off, TTFT from each scheduled arrival, TPOT,
+    goodput and wall-clock queue waits, streams held to the logical ones
+    by the margin rule (the batch make-up differs), whose error is this
+    engine's bf16 first chunk "cuda" vs "torch"; one traced realtime
+    run."""
     import dataclasses
 
     import torch
     from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine, ragged_requests
     from repro_torch.serving.engine import ServeConfig
     from repro_torch.serving.kv_cache import kv_bytes_per_block
     from repro_torch.serving.trace import run_trace, synth_trace
+    full = get_config(ARCH)
+    eng = build_engine(full.with_overrides(n_layers=depth), tenants, device,
+                       seed, rank=rank)
     cfg = eng.cfg
+    emit({"phase": "model", "arch": cfg.name, "n_layers": depth,
+          "published_n_layers": full.n_layers, "for": "serve_trace",
+          "params": cfg.count_params(), "dtype": cfg.dtype,
+          "tenants": tenants, "rank": rank})
+    eng.generate(ragged_requests(2, tenants, cfg.vocab_size, 8, 16, seed + 1),
+                 ServeConfig(batch_size=2, max_new_tokens=2, prefill_chunk=8,
+                             paged_backend="cuda"))
     trace = synth_trace(seed, n_requests, arrival="poisson", rate=2.0,
                         prompt_mean=256, prompt_sigma=0.6, prompt_max=1024,
                         out_mean=32, out_sigma=0.6, out_max=64,
@@ -1630,6 +1688,10 @@ def serve_trace_phase(eng, seed: int, err_bf16: float, n_requests: int = 16):
             "serve_trace: no decode chunk was deferred")
 
     reqs = [e.request() for e in trace]
+    err_bf16 = compare_first_chunk(
+        eng, reqs[:sc.batch_size], dataclasses.replace(sc, max_new_tokens=64),
+        "bfloat16", rel_tol=0.1, extra={"for": "serve_trace",
+                                        "n_layers": depth})
     want = [logical[True]["streams"][rid] for rid in range(n_requests)]
     for overlap in (True, False, False, True):      # in turns
         rep = run_trace(eng, dataclasses.replace(sc, overlap=overlap), trace,
@@ -1700,7 +1762,8 @@ def _fresh_pool(eng, sc, n_tokens, slots=1):
                       prefix_cache=True)
     return kv, eng.model.init_paged_decode_cache(1 + slots * per,
                                                  sc.block_size,
-                                                 kv_dtype=sc.kv_dtype)
+                                                 kv_dtype=sc.kv_dtype,
+                                                 num_slots=slots)
 
 
 def next_token_margin(eng, req, tokens, sc, backend="cuda"):
@@ -2981,9 +3044,9 @@ def projection_shapes(arch):
     from repro_torch.configs import get_config
     from repro_torch.core.lora import block_target_shapes
     cfg = get_config(arch)
-    return sorted({kn for part in block_target_shapes(
-        cfg, cfg.layer_entry(0)).values()
-        for name, kn in part.items() if name != "router"})
+    return sorted({kn for entry in cfg.layer_pattern
+                   for part in block_target_shapes(cfg, entry).values()
+                   for name, kn in part.items() if name != "router"})
 
 
 def window_chunk_check(eng, req, sc, dtype_name, rel_tol):
@@ -3052,6 +3115,101 @@ def window_chunk_check(eng, req, sc, dtype_name, rel_tol):
             f"window chunk launches: cuda {nc}, torch {nt}, {nn}")
 
 
+def serve_and_check(eng, reqs, sc, needs, mma_names, extra=None,
+                    off_ctx=None):
+    """Serve ``reqs`` through ``sc.paged_backend`` with overlap on, then
+    off (the counts and peak memory reset before each run), emitting a
+    ``serve`` line for each (``extra``'s fields added); every stream must be
+    ``sc.max_new_tokens`` tokens of the vocabulary, each kernel of
+    ``needs`` launched, each of ``mma_names`` on its tensor-core tile
+    only, and the streams of the two runs bitwise equal.  ``off_ctx``: a
+    context manager the overlap-off run runs under.  Returns ({overlap:
+    streams}, the overlap-on run's launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    cfg = eng.cfg
+    streams, counts = {}, None
+    for overlap in (True, False):
+        sc.overlap = overlap
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with (off_ctx if off_ctx is not None and not overlap
+              else contextlib.nullcontext()):
+            outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs,
+                                                                 sc)
+        launches = kernels.launch_counts()
+        tiles = kernels.tile_counts()
+        st = eng.last_stats
+        emit({"phase": "serve", "arch": cfg.name, "backend": sc.paged_backend,
+              "overlap": overlap, "requests": len(reqs),
+              "prompt_lens": [len(r.prompt) for r in reqs],
+              "new_tokens": sc.max_new_tokens,
+              "prefill_chunk": sc.prefill_chunk,
+              "tokens": sum(len(o) for o in outs),
+              "ttft_ms_p50": float(np.percentile(ttft, 50)) * 1e3,
+              "ttft_ms_max": max(ttft) * 1e3,
+              "decode_tokens": dec_tok, "decode_s": dec_s,
+              "decode_tok_per_s": dec_tok / dec_s if dec_s > 0 else None,
+              "total_s": total_s,
+              "prefill_dispatches": st["prefill_dispatches"],
+              "decode_dispatches": st["decode_dispatches"],
+              "launches": launches, "tile_launches": tiles,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              **(extra or {})})
+        for o in outs:
+            require(len(o) == sc.max_new_tokens
+                    and all(0 <= t < cfg.vocab_size for t in o),
+                    f"{cfg.name}: a stream is malformed")
+        for name in needs:
+            require(launches[name] > 0, f"{cfg.name}: kernel {name} was "
+                    "never launched on the serving path")
+        for name in mma_names:
+            require_mma_tile(tiles, name, f"{cfg.name} overlap={overlap}")
+        streams[overlap] = outs
+        if overlap:
+            counts = launches
+    require(streams[True] == streams[False],
+            f"{cfg.name}: streams with overlap on and off differ")
+    return streams, counts
+
+
+class Ranges:
+    """Puts each function ``module.attr`` of ``wrapped`` ({(module, attr):
+    ``record_function`` name}) under its range for one traced run, and
+    sums the host seconds spent in those calls and their number (their
+    kernels run asynchronously, so this is the cost of issuing them; a
+    call inside another wrapped one counts in both).  Nothing in the
+    package changes: the wrappers are installed and removed around the
+    run."""
+
+    def __init__(self, wrapped):
+        self.wrapped = wrapped
+        self.host_s, self.calls = 0.0, 0
+
+    def __enter__(self):
+        self._orig = {key: getattr(*key) for key in self.wrapped}
+        for (mod, attr), name in self.wrapped.items():
+            setattr(mod, attr, self._ranged(self._orig[mod, attr], name))
+        return self
+
+    def _ranged(self, orig, name):
+        from torch.profiler import record_function
+
+        def call(*a, **kw):
+            t = time.perf_counter()
+            with record_function(name):
+                out = orig(*a, **kw)
+            self.host_s += time.perf_counter() - t
+            self.calls += 1
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for (mod, attr), orig in self._orig.items():
+            setattr(mod, attr, orig)
+
+
 def dense_family_phase(device, seed: int, T: int = 256,
                        tenants: int = DENSE_TENANTS, rank: int = 16,
                        new_tokens: int = 16):
@@ -3113,44 +3271,9 @@ def dense_family_phase(device, seed: int, T: int = 256,
                                      seed + 1),
                      ServeConfig(batch_size=2, max_new_tokens=2,
                                  prefill_chunk=8, paged_backend="cuda"))
-        streams = {}
-        for overlap in (True, False):
-            sc.overlap = overlap
-            kernels.reset_launch_counts()
-            torch.cuda.reset_peak_memory_stats()
-            outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, served,
-                                                                 sc)
-            launches = kernels.launch_counts()
-            tiles = kernels.tile_counts()
-            st = eng.last_stats
-            emit({"phase": "serve", "arch": cfg.name, "backend": "cuda",
-                  "overlap": overlap, "requests": len(served),
-                  "prompt_lens": [len(r.prompt) for r in served],
-                  "new_tokens": new_tokens, "prefill_chunk": T,
-                  "tokens": sum(len(o) for o in outs),
-                  "ttft_ms_p50": float(np.percentile(ttft, 50)) * 1e3,
-                  "ttft_ms_max": max(ttft) * 1e3,
-                  "decode_tokens": dec_tok, "decode_s": dec_s,
-                  "decode_tok_per_s": dec_tok / dec_s if dec_s > 0 else None,
-                  "total_s": total_s,
-                  "prefill_dispatches": st["prefill_dispatches"],
-                  "decode_dispatches": st["decode_dispatches"],
-                  "launches": launches, "tile_launches": tiles,
-                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-            for o in outs:
-                require(len(o) == new_tokens
-                        and all(0 <= t < cfg.vocab_size for t in o),
-                        f"{arch}: a stream is malformed")
-            for name in kernels.SERVING:
-                require(launches[name] > 0, f"{arch}: kernel {name} was "
-                        "never launched on the serving path")
-            for name in ("paged_prefill_attention", "batched_lora_matmul"):
-                require_mma_tile(tiles, name, f"{arch} overlap={overlap}")
-            streams[overlap] = outs
-            if overlap:
-                counts[arch] = launches
-        require(streams[True] == streams[False],
-                f"{arch}: streams with overlap on and off differ")
+        _, counts[arch] = serve_and_check(
+            eng, served, sc, kernels.SERVING,
+            ("paged_prefill_attention", "batched_lora_matmul"))
         # one traced run (overlap on): device time by kernel family, idle
         wall_ms, fam = traced(
             lambda: eng.generate(served, dataclasses.replace(sc,
@@ -3286,8 +3409,10 @@ def moe_first_chunk(eng, reqs, sc, dtype_name, rel_tol, repeat=False):
     with RoutingLog() as rf:
         lf, _ = first_chunk_logits(eng, reqs, sc, "torch")
     torch_launches = kernels.launch_counts()
-    require(len(rc.log) == len(rt.log) == cfg.n_layers,
-            f"{cfg.name}: {len(rc.log)} routed layers, not {cfg.n_layers}")
+    n_moe = sum(cfg.layer_entry(i).endswith("+moe")
+                for i in range(cfg.n_layers))
+    require(len(rc.log) == len(rt.log) == n_moe,
+            f"{cfg.name}: {len(rc.log)} routed layers, not {n_moe}")
     valid = (torch.arange(lc.shape[1], device=lc.device)[None, :]
              < n_new.to(lc.device)[:, None])
     err = float((lc - lt).abs()[valid].max())
@@ -3352,33 +3477,6 @@ MOE_RANGES = (("moe_expert_bmm", "MoE expert bmm (cuBLAS)"),
                "and LoRA, softmax, sort, scatter, gather, combine)"))
 
 
-class MoeRanges:
-    """Puts ``apply_moe`` (``moe_dispatch``) and each expert product
-    (``moe_expert_bmm``) under ``record_function`` ranges for one traced
-    run, by wrapping the module's functions; nothing in the package
-    changes."""
-
-    def __enter__(self):
-        from torch.profiler import record_function
-        from repro_torch.models import moe
-        self._orig = orig_apply, orig_bmm = moe.apply_moe, moe._bmm_f32
-
-        def apply_moe(*a, **kw):
-            with record_function("moe_dispatch"):
-                return orig_apply(*a, **kw)
-
-        def bmm(*a):
-            with record_function("moe_expert_bmm"):
-                return orig_bmm(*a)
-
-        moe.apply_moe, moe._bmm_f32 = apply_moe, bmm
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.models import moe
-        moe.apply_moe, moe._bmm_f32 = self._orig
-
-
 def moe_phase(device, seed: int, T: int = 256, tenants: int = MOE_TENANTS,
               rank: int = 16, new_tokens: int = 16):
     """Each of ``MOE_FAMILY`` at its published width and the depth named
@@ -3395,11 +3493,11 @@ def moe_phase(device, seed: int, T: int = 256, tenants: int = MOE_TENANTS,
     import dataclasses
     import gc
 
-    import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_engine, ragged_requests
+    from repro_torch.models import moe
     from repro_torch.models.api import Model
     from repro_torch.serving.engine import MultiTenantEngine, ServeConfig
     counts = {}
@@ -3437,53 +3535,18 @@ def moe_phase(device, seed: int, T: int = 256, tenants: int = MOE_TENANTS,
                                      seed + 1),
                      ServeConfig(batch_size=2, max_new_tokens=2,
                                  prefill_chunk=8, paged_backend="cuda"))
-        streams = {}
-        for overlap in (True, False):
-            sc.overlap = overlap
-            kernels.reset_launch_counts()
-            torch.cuda.reset_peak_memory_stats()
-            outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs,
-                                                                 sc)
-            launches = kernels.launch_counts()
-            tiles = kernels.tile_counts()
-            st = eng.last_stats
-            steps = st["decode_dispatches"]
-            # a decode step reads every expert's weights (cap rounds up to
-            # 64 slots an expert): the byte bound of one step at 3.35 TB/s
-            bound_step_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
-            emit({"phase": "serve", "arch": cfg.name, "backend": "cuda",
-                  "overlap": overlap, "requests": len(reqs),
-                  "prompt_lens": [len(r.prompt) for r in reqs],
-                  "new_tokens": new_tokens, "prefill_chunk": T,
-                  "tokens": sum(len(o) for o in outs),
-                  "ttft_ms_p50": float(np.percentile(ttft, 50)) * 1e3,
-                  "ttft_ms_max": max(ttft) * 1e3,
-                  "decode_tokens": dec_tok, "decode_s": dec_s,
-                  "decode_tok_per_s": dec_tok / dec_s if dec_s > 0 else None,
-                  "expert_read_bound_ms_per_step": bound_step_ms,
-                  "expert_read_bound_tok_per_s":
-                      len(reqs) / bound_step_ms * 1e3,
-                  "total_s": total_s,
-                  "prefill_dispatches": st["prefill_dispatches"],
-                  "decode_dispatches": steps,
-                  "launches": launches, "tile_launches": tiles,
-                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-            for o in outs:
-                require(len(o) == new_tokens
-                        and all(0 <= t < cfg.vocab_size for t in o),
-                        f"{arch}: a stream is malformed")
-            for name in kernels.SERVING:
-                require(launches[name] > 0, f"{arch}: kernel {name} was "
-                        "never launched on the serving path")
-            for name in ("paged_prefill_attention", "batched_lora_matmul"):
-                require_mma_tile(tiles, name, f"{arch} overlap={overlap}")
-            streams[overlap] = outs
-            if overlap:
-                counts[arch] = launches
-        require(streams[True] == streams[False],
-                f"{arch}: streams with overlap on and off differ")
+        # a decode step reads every expert's weights (cap rounds up to 64
+        # slots an expert): the byte bound of one step at 3.35 TB/s
+        bound_step_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+        _, counts[arch] = serve_and_check(
+            eng, reqs, sc, kernels.SERVING,
+            ("paged_prefill_attention", "batched_lora_matmul"),
+            extra={"expert_read_bound_ms_per_step": bound_step_ms,
+                   "expert_read_bound_tok_per_s":
+                       len(reqs) / bound_step_ms * 1e3})
         if arch == MOE_FAMILY[0][0]:
-            with MoeRanges():
+            with Ranges({(moe, "apply_moe"): "moe_dispatch",
+                         (moe, "_bmm_f32"): "moe_expert_bmm"}):
                 wall_ms, fam = traced(
                     lambda: eng.generate(reqs, dataclasses.replace(
                         sc, overlap=True)), KERNEL_FAMILIES,
@@ -3501,6 +3564,323 @@ def moe_phase(device, seed: int, T: int = 256, tenants: int = MOE_TENANTS,
             del eng32
         del eng
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+# (arch, layers served): mamba2-2.7b at its whole depth (5.7 GB of bf16
+# weights); jamba-v0.1-52b at 8 of its 32 layers, one period that holds
+# every pattern entry once (26.5 GB; all 32 would take 103 GB, more than
+# one 80 GB card)
+SSM_FAMILY = (("mamba2-2.7b", 64), ("jamba-v0.1-52b", 8))
+SSM_TENANTS = 4
+SSM_SLOTS = 4
+SSM_TOKEN_CHECK = 64        # prompt tokens fed one at a time on mamba2
+
+
+def ssm_kernels(gen, device, reps, T, seen):
+    """The SSM archs' projections that run batched_lora_matmul (mamba's
+    ``in_proj`` and ``out_proj``; jamba's attention and MLP too) not in
+    ``seen``, at phase ssm's decode (4) and prefill (4 x T) rows over its
+    4 tenants; an N past a multiple of 256 (the ``in_proj`` shapes: 80
+    and 160 columns) has its tail held on its own."""
+    for arch, _ in SSM_FAMILY:
+        for K, N in projection_shapes(arch):
+            if (K, N) in seen:
+                continue
+            seen.add((K, N))
+            for M in (SSM_SLOTS, SSM_SLOTS * T):
+                emit({**check_lora(gen, device, M, K, N, SSM_TENANTS, 16,
+                                   "f32_bank", reps, tail=N % 256 != 0),
+                      "arch": arch})
+
+
+SSM_RANGES = (("ssm_scan", "SSM recurrence: the per-token scan (torch)"),)
+
+
+class ResetLog:
+    """Wraps the engine's ``reset_slot`` for one run: each admission's slot,
+    and whether every mamba layer's ``h`` and ``conv`` rows of that slot
+    read zero right after the reset, before the slot's first chunk (kept
+    on the card until the run is over)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.serving import engine
+        self._orig = orig = engine.reset_slot
+        self.slots, self._zero = [], []
+
+        def reset(cache, slot):
+            out = orig(cache, slot)
+            rows = [layer[k][slot] for layer in out["layers"]
+                    for k in ("h", "conv") if k in layer]
+            self.slots.append(slot)
+            self._zero.append(torch.stack([r.abs().amax() == 0
+                                           for r in rows]).all())
+            return out
+
+        engine.reset_slot = reset
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import engine
+        engine.reset_slot = self._orig
+
+    def zeroed(self):
+        return [bool(z) for z in self._zero]
+
+
+def ssm_state_bytes(cfg) -> int:
+    """One slot's decode state counted from the shapes: per mamba layer h
+    (H, P, N) fp32 and conv (K-1, d_inner + 2 G N) bf16."""
+    H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    conv_dim = cfg.ssm_expand * cfg.d_model + 2 * cfg.ssm_n_groups * \
+        cfg.ssm_d_state
+    n_mamba = sum(cfg.layer_entry(i).startswith("mamba+")
+                  for i in range(cfg.n_layers))
+    return n_mamba * (H * cfg.ssm_head_dim * cfg.ssm_d_state * 4
+                      + (cfg.ssm_d_conv - 1) * conv_dim * 2)
+
+
+def ssm_requests(vocab, seed):
+    """The dense_family cell's 4 requests (prompts from the seed in [128,
+    1024]) and 2 more, 6 over the 4 tenants."""
+    from repro_torch.launch.serve import ragged_requests
+    more = ragged_requests(2, SSM_TENANTS, vocab, 128, 1024, seed + 2)
+    return (ragged_requests(DENSE_REQUESTS, SSM_TENANTS, vocab, 128, 1024,
+                            seed) + more)
+
+
+def token_by_token_check(eng, req, sc, dtype_name, rel_tol,
+                         n_tokens=SSM_TOKEN_CHECK, T=16):
+    """``req``'s first ``n_tokens`` prompt tokens prefilled in chunks of
+    ``T`` and fed one at a time through ``decode_step``, both through
+    "cuda" from fresh state: the last position's logits held by
+    ``compare_first_chunk``'s rule (max error within ``rel_tol`` of the
+    largest logit; the greedy token equal where the top-2 margin exceeds
+    twice it)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    seq = dataclasses.replace(req, prompt=req.prompt[:n_tokens])
+    sc2 = dataclasses.replace(sc, prefill_chunk=T, paged_backend="cuda")
+    kv, cache = _fresh_pool(eng, sc2, n_tokens)
+    kv.admit(0)
+    kernels.reset_launch_counts()
+    out, _ = feed_chunks(eng, kv, cache, 0, seq, sc2, "cuda")
+    lc = out[-1][1][-1]
+    chunk_launches = kernels.launch_counts()
+    dev = eng.device
+    kv, cache = _fresh_pool(eng, sc2, n_tokens)
+    kv.admit(0)
+    require(kv.ensure(0, n_tokens), "token-by-token pool too small")
+    bt, _ = kv.device_tables(dev)
+    ids = torch.tensor([eng.registry.acquire(req.client_id)],
+                       dtype=torch.int32, device=dev)
+    bank = eng.bank_for(sc2)
+    toks = torch.as_tensor(seq.prompt, dtype=torch.int32).to(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(n_tokens):
+        logits, cache = eng.model.decode_step(
+            eng.params, cache, toks[t:t + 1][None],
+            torch.full((1,), t, dtype=torch.int32, device=dev),
+            adapters=bank, lora_scale=eng.scale, adapter_ids=ids,
+            block_tables=bt, paged_backend="cuda")
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_tokens * 1e3
+    ld = logits[0, 0]
+    err = float((lc - ld).abs().max())
+    top = float(ld.abs().max())
+    top2 = torch.topk(ld, 2).values
+    margin = float(top2[0] - top2[1])
+    agree = bool(lc.argmax() == ld.argmax())
+    emit({"phase": "ssm_token_by_token", "arch": eng.cfg.name,
+          "activations": dtype_name, "tokens": n_tokens, "prefill_chunk": T,
+          "max_abs_logit_err": err, "max_abs_logit": top,
+          "tol": rel_tol * top, "greedy_agree": agree,
+          "top2_margin": margin, "decode_step_ms": step_ms,
+          "launches_chunks": chunk_launches,
+          "launches_steps": kernels.launch_counts()})
+    require(bool(torch.isfinite(lc).all() and torch.isfinite(ld).all()),
+            f"{eng.cfg.name} token-by-token: logits not finite")
+    require(err <= rel_tol * top, f"{eng.cfg.name} {dtype_name}: chunked "
+            f"prefill vs one token at a time, logit error {err} > "
+            f"{rel_tol * top}")
+    require(agree or margin <= 2 * err, f"{eng.cfg.name} {dtype_name}: the "
+            "greedy token differs where the margin exceeds twice the error")
+
+
+def ssm_phase(device, seed: int, T: int = 256, new_tokens: int = 16,
+              rank: int = 16):
+    """Each of ``SSM_FAMILY`` at its published width and the depth named
+    there, bf16, seeded weights, ``SSM_TENANTS`` rank-16 Eq. 7-fused
+    adapters (the mamba projections' included): 6 requests over 4 slots
+    (two slots reused), greedy, 16 new tokens, 256-token chunks, through
+    "cuda" with overlap on and off (streams bitwise equal, batched LoRA on
+    its tensor-core tile, both paged attention kernels for jamba), the
+    decode rate beside the byte bound of a step; the overlap-off run logs
+    the slot resets (each reused slot's state zero before its first chunk,
+    its stream against the same request in a fresh slot by the margin
+    rule); one traced mamba2 run of the first 4 requests with the
+    per-token scan as a row of its own; the first chunk against "torch"
+    (bf16 <= 10%, fp32 activations <= 1%; jamba's expert ids pinned as in
+    phase moe); on mamba2 64 prompt tokens prefilled in chunks of 16
+    against the same tokens fed one at a time.
+    Returns {arch: launch counts of its overlapped run}."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import tree_leaves
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import mamba2
+    from repro_torch.models.api import Model
+    from repro_torch.serving.engine import MultiTenantEngine, ServeConfig
+    counts = {}
+    for arch, depth in SSM_FAMILY:
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        cfg = full.with_overrides(n_layers=depth, lora_rank=rank)
+        t0 = time.perf_counter()
+        eng = build_engine(cfg, SSM_TENANTS, device, seed, rank=rank)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        # the state the pool holds per slot, against the shapes' count
+        pool = eng.model.init_paged_decode_cache(2, 16,
+                                                 num_slots=SSM_SLOTS)
+        state = sum(t.numel() * t.element_size() for layer in pool["layers"]
+                    for k, t in layer.items() if k in ("h", "conv"))
+        want_state = SSM_SLOTS * ssm_state_bytes(cfg)
+        require(state == want_state, f"{arch}: SSM state {state} B, the "
+                f"shapes count {want_state} B")
+        del pool
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for _, t in tree_leaves(eng.params))
+        emit({"phase": "model", "arch": cfg.name, "n_layers": depth,
+              "published_n_layers": full.n_layers, "d_model": cfg.d_model,
+              "layer_pattern": list(cfg.layer_pattern),
+              "ssm_d_state": cfg.ssm_d_state,
+              "ssm_head_dim": cfg.ssm_head_dim,
+              "ssm_n_heads": cfg.ssm_n_heads,
+              "ssm_d_inner": cfg.ssm_d_inner,
+              "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+              "sliding_window": cfg.sliding_window,
+              "n_experts": cfg.n_experts, "vocab_size": cfg.vocab_size,
+              "params": cfg.count_params(), "weight_bytes": weight_bytes,
+              "ssm_state_bytes_per_slot": state // SSM_SLOTS,
+              "dtype": cfg.dtype, "tenants": SSM_TENANTS, "rank": rank,
+              "init_s": init_s,
+              "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+        reqs = ssm_requests(cfg.vocab_size, seed)
+        sc = ServeConfig(batch_size=SSM_SLOTS, max_new_tokens=new_tokens,
+                         prefill_chunk=T, block_size=16, paged_backend="cuda")
+        eng.generate(ssm_requests(cfg.vocab_size, seed + 1)[:2],
+                     ServeConfig(batch_size=2, max_new_tokens=2,
+                                 prefill_chunk=8, paged_backend="cuda"))
+        needs, mma_names = ((("batched_lora_matmul",),) * 2
+                            if not cfg.has_mixer("attn") else
+                            (kernels.SERVING, ("paged_prefill_attention",
+                                               "batched_lora_matmul")))
+        # a decode step reads every weight (jamba: every expert of its MoE
+        # layers; capacity rounds up to cover them all) and reads and
+        # writes every slot's state
+        step_bytes = weight_bytes + 2 * SSM_SLOTS * (state // SSM_SLOTS)
+        bound_step_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+        # the overlap-off run logs each admission's slot reset (one
+        # reduction an admission, no wait for the card)
+        log = ResetLog()
+        streams, counts[arch] = serve_and_check(
+            eng, reqs, sc, needs, mma_names,
+            extra={"slots": SSM_SLOTS, "decode_step_bytes": step_bytes,
+                   "byte_bound_ms_per_step": bound_step_ms,
+                   "byte_bound_tok_per_s": SSM_SLOTS / bound_step_ms * 1e3},
+            off_ctx=log)
+        if arch == SSM_FAMILY[0][0]:
+            # the first wave alone (4 requests, 8 new tokens): the trace
+            # slows the host, and the scan's share shows in one wave
+            sc_tr = dataclasses.replace(sc, overlap=True, max_new_tokens=8)
+            with Ranges({(mamba2, "ssm_recurrence"): "ssm_scan"}) as rg:
+                wall_ms, fam = traced(
+                    lambda: eng.generate(reqs[:SSM_SLOTS], sc_tr),
+                    KERNEL_FAMILIES,
+                    "other device work (torch: conv, gated norm, softplus, "
+                    "lm_head, norms, sampling, copies)", ranges=SSM_RANGES)
+            busy = sum(fam.values())
+            kinds = {"ssm_scan": sum(v for k, v in fam.items()
+                                     if k.startswith("SSM recurrence")),
+                     "batched_lora": sum(v for k, v in fam.items()
+                                         if k.startswith("batched_lora")),
+                     "other": sum(v for k, v in fam.items()
+                                  if k.startswith("other device work"))}
+            emit(_profile_line(fam, wall_ms, phase="profile_ssm",
+                               arch=cfg.name, requests=SSM_SLOTS,
+                               new_tokens=sc_tr.max_new_tokens,
+                               device_ms_by_kind=kinds,
+                               scan_share_of_busy=(kinds["ssm_scan"] / busy
+                                                   if busy else None),
+                               scan_host_ms=rg.host_s * 1e3,
+                               scan_calls=rg.calls,
+                               scan_host_share_of_wall=(rg.host_s * 1e3
+                                                        / wall_ms)))
+        # the first chunk against "torch"; its bf16 error is the margin
+        # rule's error for the slot-reuse streams below
+        if cfg.has_moe():
+            err_bf16 = max(moe_first_chunk(eng, reqs[:SSM_SLOTS], sc,
+                                           "bfloat16", rel_tol=0.1)
+                           ["pinned_max_abs_logit_err"], 0.0)
+        else:
+            err_bf16 = compare_first_chunk(eng, reqs[:SSM_SLOTS], sc,
+                                           "bfloat16", rel_tol=0.1,
+                                           extra={"arch": cfg.name})
+        cfg32 = eng.cfg.with_overrides(dtype="float32")
+        eng32 = MultiTenantEngine(Model(cfg32, device), cfg32, eng.params,
+                                  eng.registry)
+        if cfg.has_moe():
+            moe_first_chunk(eng32, reqs[:SSM_SLOTS], sc, "float32",
+                            rel_tol=1e-2)
+        else:
+            compare_first_chunk(eng32, reqs[:SSM_SLOTS], sc, "float32",
+                                rel_tol=1e-2, extra={"arch": cfg.name})
+            token_by_token_check(eng, reqs[0], sc, "bfloat16", 0.1)
+            token_by_token_check(eng32, reqs[0], sc, "float32", 1e-2)
+        del eng32
+        # slot reuse (the logged overlap-off run): each admission's slot
+        # read zero state, and each request admitted into a reused slot
+        # streams as it does in a fresh one (both together in a fresh
+        # session of 2 slots: another LoRA plan, and for jamba other MoE
+        # capacity, so by the margin rule)
+        zeroed = log.zeroed()
+        reused = [i for i, s in enumerate(log.slots)
+                  if s in log.slots[:i]]
+        fresh = [[int(t) for t in o] for o in eng.generate(
+            [reqs[i] for i in reused],
+            dataclasses.replace(sc, batch_size=len(reused)))]
+        got = [[int(t) for t in streams[False][i]] for i in reused]
+        matched = streams_by_margin(
+            eng, [reqs[i] for i in reused], sc, got, fresh, err_bf16,
+            f"{arch} reused slot")
+        emit({"phase": "ssm_slot_reuse", "arch": cfg.name,
+              "admission_slots": log.slots, "state_zeroed": zeroed,
+              "reused_requests": reused, "matched_prefix": matched,
+              "bitwise_fresh": [g == f for g, f in zip(got, fresh)],
+              "err_bound": err_bf16})
+        require(len(log.slots) == len(reqs) and all(zeroed),
+                f"{arch}: a slot's state was not zero at admission: "
+                f"{list(zip(log.slots, zeroed))}")
+        require(len(reused) == len(reqs) - SSM_SLOTS,
+                f"{arch}: {len(reused)} admissions into reused slots, not "
+                f"{len(reqs) - SSM_SLOTS}")
+        del eng
+        torch.cuda.empty_cache()
+    return counts
+
 
 
 def ptxas_entries(report: str):
@@ -3646,11 +4026,10 @@ def main(argv=None) -> int:
         device, args.seed, args.reps,
         {k: v["registers"] for k, v in ptxas.get("lora_matmul", {}).items()}))
     seconds["kernels"] = time.perf_counter() - t_kernels
-    serve_counts, eng, err_bf16 = timed("serve", serve_phase, device,
-                                        args.seed, n_requests, 32, 128,
-                                        1024, T)
+    serve_counts, eng = timed("serve", serve_phase, device, args.seed,
+                              n_requests, 32, 128, 1024, T)
     torch.cuda.empty_cache()            # the serving pools are gone
-    timed("serve_trace", serve_trace_phase, eng, args.seed, err_bf16)
+    timed("serve_trace", serve_trace_phase, device, args.seed)
     params = eng.params
     del eng
     torch.cuda.empty_cache()
@@ -3673,6 +4052,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     timed("dense_family", dense_family_phase, device, args.seed, T)
     moe_counts = timed("moe", moe_phase, device, args.seed, T)
+    ssm_counts = timed("ssm", ssm_phase, device, args.seed, T)
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
@@ -3683,7 +4063,9 @@ def main(argv=None) -> int:
         n: sharded_counts[n] for n in kernels.SERVING},
         "fixed": fixed_launches,
         "moe": {arch: {n: c[n] for n in kernels.SERVING}
-                for arch, c in moe_counts.items()}})
+                for arch, c in moe_counts.items()},
+        "ssm": {arch: {n: c[n] for n in kernels.SERVING}
+                for arch, c in ssm_counts.items()}})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})
 

@@ -2,7 +2,9 @@
 
 The reference stacks every layer leaf on a leading period axis (params
 ``blocks/b<j>/...`` of shape ``(n_periods, ...)``; adapter banks
-``(n_periods, C, d_in, r)``).  The port keeps one dict per layer.  These
+``(n_periods, C, d_in, r)``; decode caches, SSM state included).  Each
+leaf keeps its dtype, so a mamba layer's fp32 ``a_log``, ``dt_bias``,
+``d_skip`` and ``norm_scale`` stay fp32 in a bf16 model.  The port keeps one dict per layer.  These
 functions take the reference trees AS NUMPY ARRAYS (``np.asarray`` on each
 leaf; bfloat16 arrays are accepted) and return torch trees, so both
 packages compute on the same weights.  Nothing here imports the reference
@@ -81,8 +83,11 @@ def params_from_jax(tree: Params, device="cuda") -> Params:
 
 
 def adapters_from_jax(tree: Params, device="cuda") -> Params:
-    """Reference adapter tree or registry bank (numpy leaves, stacked on the
-    period axis) -> port tree ``{"layers": [...]}``."""
+    """Reference adapter tree or registry bank, or decode cache (numpy
+    leaves, stacked on the period axis: K/V pools or ring buffers, SSM
+    state ``h`` (n_periods, rows, H, P, N) and ``conv`` (n_periods, rows,
+    K-1, conv_dim)) -> port tree ``{"layers": [...]}`` with the same
+    dtypes (a ring buffer's write count is not carried)."""
     return {"layers": unstack_blocks(tree["blocks"], device)}
 
 

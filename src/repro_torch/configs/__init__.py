@@ -1,5 +1,5 @@
-"""Architectures the port serves, by ``--arch`` id: the dense family and
-the MoE family."""
+"""Architectures the port serves, by ``--arch`` id: the dense, MoE, SSM
+and hybrid families."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +15,8 @@ _MODULES = {
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2p7b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0p1_52b",
 }
 
 ALL_ARCHS: List[str] = list(_MODULES)

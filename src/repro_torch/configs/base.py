@@ -1,10 +1,14 @@
-"""Model configuration of the PyTorch port (dense and MoE decoders).
+"""Model configuration of the PyTorch port (dense, MoE, SSM and hybrid
+decoders).
 
 The port keeps its own copy of the reference package's ``ModelConfig``,
-trimmed to the fields the dense and MoE families read.  A model is
-``n_layers`` layers repeating ``layer_pattern``; each entry is
-``"<mixer>+<mlp>"``, and the port serves ``"attn+mlp"`` (dense) and
-``"attn+moe"`` (top-k routed experts, ``models/moe.py``).
+trimmed to the fields those families read.  A model is ``n_layers``
+layers repeating ``layer_pattern``; each entry is ``"<mixer>+<mlp>"``
+with the mixer ``"attn"`` or ``"mamba"`` (Mamba2 SSD, ``models/mamba2.py``)
+and the MLP ``"mlp"``, ``"moe"`` (top-k routed experts,
+``models/moe.py``) or ``"none"``.  The dense family serves ``"attn+mlp"``,
+the MoE family ``"attn+moe"``, the SSM family ``"mamba+none"`` and the
+hybrid family any pattern of those mixers and MLPs (Jamba's period of 8).
 ``paged_backend`` (named for the paged attention it first switched)
 routes EVERY kernel of the port, serving and training alike: ``"cuda"``
 runs the hand-written Hopper kernels (paged decode and prefill attention,
@@ -21,14 +25,18 @@ from typing import Optional, Tuple
 import torch
 
 PAGED_BACKENDS = ("torch", "cuda")
-# family -> the layer patterns the port serves for it
-SERVED_PATTERNS = {"dense": ("attn+mlp",), "moe": ("attn+moe",)}
+VALID_MIXERS = ("attn", "mamba")
+VALID_MLPS = ("mlp", "moe", "none")
+# family -> the layer patterns the port serves for it (None: any pattern
+# of VALID_MIXERS and VALID_MLPS)
+SERVED_PATTERNS = {"dense": ("attn+mlp",), "moe": ("attn+moe",),
+                   "ssm": ("mamba+none",), "hybrid": None}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" | "moe" are served by the port so far
+    family: str  # "dense" | "moe" | "ssm" | "hybrid" are served so far
 
     n_layers: int
     d_model: int
@@ -57,6 +65,14 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     router_aux_loss_coef: float = 0.01
 
+    # SSM (Mamba2 / SSD)
+    ssm_d_state: int = 0
+    ssm_d_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_n_groups: int = 1
+    ssm_chunk: int = 128
+
     max_seq_len: int = 8192
 
     lora_rank: int = 16
@@ -72,9 +88,18 @@ class ModelConfig:
     def __post_init__(self):
         if self.family not in SERVED_PATTERNS:
             raise NotImplementedError(
-                f"{self.name}: the port serves the dense and MoE families "
-                f"only (got {self.family!r})")
-        if tuple(self.layer_pattern) != SERVED_PATTERNS[self.family]:
+                f"{self.name}: the port serves the {sorted(SERVED_PATTERNS)} "
+                f"families only (got {self.family!r})")
+        served = SERVED_PATTERNS[self.family]
+        if served is None:
+            for p in self.layer_pattern:
+                mixer, _, mlp = p.partition("+")
+                if mixer not in VALID_MIXERS or mlp not in VALID_MLPS:
+                    raise NotImplementedError(
+                        f"{self.name}: layer pattern entry {p!r} is not "
+                        f"<{'|'.join(VALID_MIXERS)}>+<"
+                        f"{'|'.join(VALID_MLPS)}>")
+        elif tuple(self.layer_pattern) != served:
             raise NotImplementedError(
                 f"{self.name}: the port serves the {self.family} family with "
                 f"layer_pattern {SERVED_PATTERNS[self.family]}, not "
@@ -85,6 +110,10 @@ class ModelConfig:
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: n_heads must be a multiple of "
                              "n_kv_heads")
+        if self.n_layers % len(self.layer_pattern):
+            raise ValueError(f"{self.name}: n_layers={self.n_layers} not a "
+                             "multiple of the pattern period "
+                             f"{len(self.layer_pattern)}")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -94,11 +123,24 @@ class ModelConfig:
     def resolved_d_ff_moe(self) -> int:
         return self.d_ff_moe or self.d_ff
 
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    def has_mixer(self, mixer: str) -> bool:
+        return any(p.startswith(mixer + "+") or p == mixer
+                   for p in self.layer_pattern)
+
     def has_moe(self) -> bool:
         return any(p.endswith("+moe") for p in self.layer_pattern)
 
     def layer_entry(self, i: int) -> str:
-        """Layer ``i``'s pattern entry (``"attn+mlp"`` or ``"attn+moe"``)."""
+        """Layer ``i``'s pattern entry (``"attn+mlp"``, ``"mamba+moe"``,
+        ...)."""
         return self.layer_pattern[i % len(self.layer_pattern)]
 
     def with_overrides(self, **kw) -> "ModelConfig":
@@ -106,15 +148,22 @@ class ModelConfig:
 
     def count_params(self) -> int:
         """Base parameters, counted as the reference counts them (the
-        final norm left out)."""
+        final norm left out, two norms a layer even where an ``"+none"``
+        layer has one, a mamba layer's per-head vectors counted twice and
+        its gated norm's scale not at all)."""
         d, ff, V = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
         n_mats = 3 if self.mlp_type in ("swiglu", "geglu") else 2
+        d_in, n_h = self.ssm_d_inner, self.ssm_n_heads
+        bc = 2 * self.ssm_n_groups * self.ssm_d_state
         per = {"attn": (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                         + self.n_heads * hd * d),
+               "mamba": (d * (2 * d_in + bc + n_h) + d_in * d
+                         + self.ssm_d_conv * (d_in + bc) + 2 * n_h),
                "mlp": n_mats * d * ff,
                "moe": (self.n_experts * n_mats * d * self.resolved_d_ff_moe
-                       + d * self.n_experts)}
+                       + d * self.n_experts),
+               "none": 0}
         total = 0
         for i in range(self.n_layers):
             mixer, _, mlp = self.layer_entry(i).partition("+")

@@ -2,7 +2,8 @@
 
 An adapter tree is ``{"layers": [layer_0, layer_1, ...]}`` where each layer
 holds, at each targeted linear, ``{"a": A (d_in, r), "b": B (r, d_out)}``
-under ``"mixer"`` (attention) or ``"mlp"``.  The reference package stacks
+under ``"mixer"`` (attention, or a mamba block's projections) or
+``"mlp"``.  The reference package stacks
 the same leaves on a leading period axis for its ``lax.scan``; the port
 loops over layers in Python, so it keeps one entry per layer
 (``repro_torch.bridge`` converts between the two).
@@ -25,24 +26,35 @@ Params = Dict[str, Any]
 def block_target_shapes(cfg, entry: str = "attn+mlp"
                         ) -> Dict[str, Dict[str, Tuple[int, int]]]:
     """``{"mixer": {...}, "mlp": {...}}`` target -> (d_in, d_out) for one
-    layer of pattern ``entry``.  Attention and the dense MLP are filtered
-    by ``cfg.lora_targets``; an ``"attn+moe"`` layer's ``mlp`` holds the
-    router's pair (d, E) whatever ``lora_targets`` says (per-expert
-    adapters would defeat PEFT), as in the reference."""
+    layer of pattern ``entry``, as the reference's.  Attention and the
+    dense MLP are filtered by ``cfg.lora_targets``; a mamba mixer always
+    holds ``in_proj`` and ``out_proj``, and a ``"+moe"`` layer's ``mlp``
+    the router's pair (d, E), whatever ``lora_targets`` says (per-expert
+    adapters would defeat PEFT).  So Jamba's mamba layers carry adapters
+    though its ``lora_targets`` name only attention and MLP weights."""
     d, H, Kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd, ff = cfg.resolved_head_dim, cfg.d_ff
     sel = set(cfg.lora_targets)
-    attn = {"wq": (d, H * hd), "wk": (d, Kv * hd), "wv": (d, Kv * hd),
-            "wo": (H * hd, d)}
-    mlp = {"w_up": (d, ff), "w_out": (ff, d)}
-    if cfg.mlp_type in ("swiglu", "geglu"):
-        mlp["w_gate"] = (d, ff)
+    mixer, _, mlp_kind = entry.partition("+")
     out = {}
-    for part, targets in (("mixer", attn), ("mlp", mlp)):
-        t = {k: v for k, v in targets.items() if k in sel}
+    if mixer == "attn":
+        t = {k: v for k, v in {"wq": (d, H * hd), "wk": (d, Kv * hd),
+                               "wv": (d, Kv * hd),
+                               "wo": (H * hd, d)}.items() if k in sel}
+    else:
+        from repro_torch.models.mamba2 import _dims
+        d_in, _, _, _, _, proj_dim = _dims(cfg)
+        t = {"in_proj": (d, proj_dim), "out_proj": (d_in, d)}
+    if t:
+        out["mixer"] = t
+    if mlp_kind == "mlp":
+        mlp = {"w_up": (d, ff), "w_out": (ff, d)}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            mlp["w_gate"] = (d, ff)
+        t = {k: v for k, v in mlp.items() if k in sel}
         if t:
-            out[part] = t
-    if entry.endswith("+moe"):
+            out["mlp"] = t
+    elif mlp_kind == "moe":
         out["mlp"] = {"router": (d, cfg.n_experts)}
     return out
 

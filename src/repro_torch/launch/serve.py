@@ -35,6 +35,14 @@ by Eq. 7, or ``--adapters`` for a checkpoint):
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
         --device cpu --tenants 0 --dual --batch 2
 
+Any arch the port serves, by ``--arch`` (``repro_torch.configs.ALL_ARCHS``):
+the dense, MoE, SSM and hybrid families; mamba2-2.7b and jamba-v0.1-52b
+keep recurrent state per slot, so they refuse ``--prefix-cache`` and
+``--spec-decode``, as the reference does:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --smoke --device cpu --tenants 2 --batch 2
+
 Weights and adapters are random from ``--seed`` (the repo holds no trained
 weights); each tenant registers one Eq. 7-fused adapter with a non-zero B.
 Flag names are the reference CLI's (``repro.launch.serve``), plus

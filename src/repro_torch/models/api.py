@@ -1,6 +1,7 @@
 """``Model``: the port's uniform interface over the decoder.
 
-Mirrors ``repro/models/api.py::Model`` for the dense and MoE families.  A
+Mirrors ``repro/models/api.py::Model`` for the dense, MoE, SSM and hybrid
+families.  A
 ``Model`` is bound to a device (``"cuda"`` unless the caller asks for the CPU; a
 missing card raises).
 """
@@ -30,7 +31,7 @@ class Model:
                 adapter_ids: Optional[torch.Tensor] = None,
                 paged_backend: Optional[str] = None):
         """batch = {"tokens": (B, S)} -> (logits (B, S, V) fp32, the MoE
-        aux loss: an fp32 scalar, 0 for a dense model)."""
+        aux loss: an fp32 scalar, 0 for a model without MoE layers)."""
         return dec.forward(params, batch["tokens"], self.cfg, adapters,
                            lora_scale, last_only=last_only,
                            adapter_ids=adapter_ids,
@@ -40,9 +41,13 @@ class Model:
         return dec.init_decode_cache(self.cfg, batch, cache_len, self.device)
 
     def init_paged_decode_cache(self, num_blocks: int, block_size: int,
-                                kv_dtype: str = "f32") -> Params:
+                                kv_dtype: str = "f32",
+                                num_slots: Optional[int] = None) -> Params:
+        """K/V pools of ``num_blocks`` blocks; a model with mamba layers
+        also needs ``num_slots``, its rows of recurrent state."""
         return dec.init_paged_decode_cache(self.cfg, num_blocks, block_size,
-                                           self.device, kv_dtype=kv_dtype)
+                                           self.device, kv_dtype=kv_dtype,
+                                           num_slots=num_slots)
 
     def prefill_step(self, params: Params, cache: Params, tokens, pos, n_new,
                      adapters: Optional[Params] = None,

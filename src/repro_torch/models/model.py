@@ -1,13 +1,17 @@
 """Decoder: init, forward and the paged serving steps.
 
-Port of the dense and MoE families of ``repro/models/model.py``.
-Parameters are a plain dict: ``embed`` (V, d), ``final_norm``, ``layers``
-(one dict per layer: ``norm1``, ``mixer`` {wq, wk, wv, wo}, ``norm2``,
-``mlp``: the dense MLP of an attn+mlp layer, or the fp32 router and the
-expert stacks (E, d_in, d_out) of an attn+moe one) and, untied,
-``lm_head`` (d, V).  The reference stacks layers on a period axis for
-``lax.scan``; here a Python loop walks the list.  Adapter trees and banks
-follow the same per-layer layout (``core/lora.py``).
+Port of the dense, MoE, SSM and hybrid families of
+``repro/models/model.py``.  Parameters are a plain dict: ``embed`` (V,
+d), ``final_norm``, ``layers`` (one dict per layer: ``norm1``, ``mixer``:
+attention {wq, wk, wv, wo} or a mamba block (``models/mamba2.py``), and,
+unless the layer's MLP is ``"none"``, ``norm2`` and ``mlp``: the dense
+MLP, or the fp32 router and the expert stacks (E, d_in, d_out) of an MoE
+layer) and, untied, ``lm_head`` (d, V).  The reference stacks layers on
+a period axis for ``lax.scan``; here a Python loop walks the list.
+Adapter trees and banks follow the same per-layer layout
+(``core/lora.py``), as do decode caches: an attention layer's K/V (a ring
+buffer, or a block pool shared by the serving slots) or a mamba layer's
+per-row recurrent state.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import PAGED_BACKENDS, torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_lib
 
 Params = Dict[str, Any]
@@ -26,8 +31,9 @@ Params = Dict[str, Any]
 def init_params(cfg, seed: int = 0, device="cuda") -> Params:
     """Random weights from ``seed``: the reference's init scales (normal ×
     d^-0.5 for projections and the fp32 router, × d_ff^-0.5 for w_out,
-    × 0.02 for embeddings), drawn by a ``torch.Generator`` on ``device``
-    (the card unless the caller asks for the CPU)."""
+    × 0.02 for embeddings; a mamba layer's as ``mamba2.init_mamba`` says),
+    drawn by a ``torch.Generator`` on ``device`` (the card unless the
+    caller asks for the CPU)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg.param_dtype)
@@ -48,26 +54,38 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
 
     layers = []
     for i in range(cfg.n_layers):
-        if cfg.layer_entry(i).endswith("+moe"):
+        mixer, mlp_kind = _parse(cfg.layer_entry(i))
+        layer = {"norm1": norm()}
+        if mixer == "attn":
+            layer["mixer"] = {"wq": normal((d, H * hd), d ** -0.5),
+                              "wk": normal((d, Kv * hd), d ** -0.5),
+                              "wv": normal((d, Kv * hd), d ** -0.5),
+                              "wo": normal((H * hd, d), d ** -0.5)}
+        else:
+            layer["mixer"] = mamba2.init_mamba(normal, cfg, dev)
+        if mlp_kind == "moe":
             mlp = moe_lib.init_moe(normal, d, cfg.resolved_d_ff_moe,
                                    cfg.n_experts, cfg.mlp_type)
-        else:
+        elif mlp_kind == "mlp":
             mlp = {"w_up": normal((d, ff), d ** -0.5),
                    "w_out": normal((ff, d), ff ** -0.5)}
             if cfg.mlp_type in ("swiglu", "geglu"):
                 mlp["w_gate"] = normal((d, ff), d ** -0.5)
-        layers.append({
-            "norm1": norm(),
-            "mixer": {"wq": normal((d, H * hd), d ** -0.5),
-                      "wk": normal((d, Kv * hd), d ** -0.5),
-                      "wv": normal((d, Kv * hd), d ** -0.5),
-                      "wo": normal((H * hd, d), d ** -0.5)},
-            "norm2": norm(), "mlp": mlp})
+        if mlp_kind != "none":
+            layer["norm2"], layer["mlp"] = norm(), mlp
+        layers.append(layer)
     params = {"embed": normal((V, d), 0.02), "final_norm": norm(),
               "layers": layers}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, V), 0.02)
     return params
+
+
+def _parse(entry: str) -> Tuple[str, str]:
+    """A pattern entry's (mixer, MLP): ``"mamba+none"`` -> ("mamba",
+    "none")."""
+    mixer, _, mlp = entry.partition("+")
+    return mixer, (mlp or "none")
 
 
 def resolve_backend(cfg, paged_backend: Optional[str], device):
@@ -102,25 +120,35 @@ def _unembed(params, x, cfg):
 
 
 def _apply_layer(i, lp, x, cfg, positions, adapters, lora_scale, cache=None,
-                 adapter_ids=None, paged=None):
-    """Layer ``i``: attention, then the dense MLP or the MoE layer its
-    pattern entry names.  Returns (x, new cache, aux loss or None for a
-    dense layer)."""
+                 adapter_ids=None, paged=None, n_new=None):
+    """Layer ``i``: its mixer (attention, or a mamba block, which reads
+    ``n_new``, the valid leading tokens of each row of a ragged prefill
+    chunk), then the dense MLP or the MoE layer its pattern entry names,
+    or none.  Returns (x, new cache, aux loss or None where the layer has
+    no MoE)."""
+    mixer, mlp = _parse(cfg.layer_entry(i))
     ad = adapters or {}
     h = L.apply_norm(lp["norm1"], x, cfg.norm_type)
-    out, new_cache = L.multihead_attention(
-        lp["mixer"], h, cfg, positions, ad.get("mixer"), lora_scale,
-        kv_cache=cache, adapter_ids=adapter_ids, paged=paged)
-    x = x + out
-    h = L.apply_norm(lp["norm2"], x, cfg.norm_type)
-    if cfg.layer_entry(i).endswith("+moe"):
-        out, aux = moe_lib.apply_moe(lp["mlp"], h, cfg, ad.get("mlp"),
-                                     lora_scale, adapter_ids)
+    if mixer == "attn":
+        out, new_cache = L.multihead_attention(
+            lp["mixer"], h, cfg, positions, ad.get("mixer"), lora_scale,
+            kv_cache=cache, adapter_ids=adapter_ids, paged=paged)
     else:
-        out = L.apply_mlp(lp["mlp"], h, cfg.mlp_type, ad.get("mlp"),
-                          lora_scale, adapter_ids, cfg.paged_backend)
-        aux = None
-    return x + out, new_cache, aux
+        out, new_cache = mamba2.apply_mamba(
+            lp["mixer"], h, cfg, ad.get("mixer"), lora_scale,
+            ssm_cache=cache, adapter_ids=adapter_ids, n_new=n_new)
+    x = x + out
+    aux = None
+    if mlp != "none":
+        h = L.apply_norm(lp["norm2"], x, cfg.norm_type)
+        if mlp == "moe":
+            out, aux = moe_lib.apply_moe(lp["mlp"], h, cfg, ad.get("mlp"),
+                                         lora_scale, adapter_ids)
+        else:
+            out = L.apply_mlp(lp["mlp"], h, cfg.mlp_type, ad.get("mlp"),
+                              lora_scale, adapter_ids, cfg.paged_backend)
+        x = x + out
+    return x, new_cache, aux
 
 
 def _layer_adapters(adapters, i):
@@ -135,7 +163,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V) fp32 (B, 1, V with
     ``last_only``), the MoE layers' aux losses summed: an fp32 scalar, 0
-    for a dense model).  ``adapter_ids`` (B,) routes rows into a banked
+    for a model without MoE layers).  ``adapter_ids`` (B,) routes rows into a banked
     ``adapters`` tree (leaves (C, d_in, r))."""
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
     x = _embed(params, tokens, cfg)
@@ -152,34 +180,49 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
     return _unembed(params, x, cfg), aux
 
 
+def _is_mamba(cfg, i: int) -> bool:
+    return _parse(cfg.layer_entry(i))[0] == "mamba"
+
+
 def init_decode_cache(cfg, batch: int, cache_len: int,
                       device="cuda") -> Params:
-    """Fixed-path cache: one bf16 ring buffer per layer, ``cache_len`` long
-    (the full context for dense attention; the window for sliding-window
-    archs, where it wraps), on the card unless the caller asks for the
-    CPU."""
+    """Fixed-path cache, on the card unless the caller asks for the CPU:
+    per attention layer one bf16 ring buffer ``cache_len`` long (the full
+    context for dense attention; the window for sliding-window archs,
+    where it wraps), per mamba layer ``batch`` rows of recurrent state."""
     dev = resolve_device(device)
     eff = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
            else cache_len)
-    return {"layers": [L.init_kv_cache(cfg, batch, eff, torch.bfloat16, dev)
-                       for _ in range(cfg.n_layers)]}
+    return {"layers": [
+        mamba2.init_ssm_cache(cfg, batch, dev) if _is_mamba(cfg, i)
+        else L.init_kv_cache(cfg, batch, eff, torch.bfloat16, dev)
+        for i in range(cfg.n_layers)]}
 
 
 def init_paged_decode_cache(cfg, num_blocks: int, block_size: int,
-                            device="cuda", kv_dtype: str = "f32") -> Params:
-    """Serving cache: one bf16 K/V block pool per layer (bf16 even when the
-    model computes in fp32, as in the reference), on the card unless the
-    caller asks for the CPU."""
+                            device="cuda", kv_dtype: str = "f32",
+                            num_slots: Optional[int] = None) -> Params:
+    """Serving cache, on the card unless the caller asks for the CPU: per
+    attention layer one K/V block pool shared by every slot (bf16 even
+    when the model computes in fp32, as in the reference; int8 with
+    ``kv_dtype="int8"``), per mamba layer a row of recurrent state for
+    each of ``num_slots`` slots (required when the model has mamba
+    layers; row i is slot i, reset on admission by
+    ``serving/kv_cache.reset_slot``)."""
     dev = resolve_device(device)
-    return {"layers": [L.init_paged_kv_cache(cfg, num_blocks, block_size,
-                                             torch.bfloat16, dev,
-                                             kv_dtype=kv_dtype)
-                       for _ in range(cfg.n_layers)]}
+    if num_slots is None and cfg.has_mixer("mamba"):
+        raise ValueError(f"{cfg.name}: a model with mamba layers keeps "
+                         "recurrent state per serving slot; pass num_slots")
+    return {"layers": [
+        mamba2.init_ssm_cache(cfg, num_slots, dev) if _is_mamba(cfg, i)
+        else L.init_paged_kv_cache(cfg, num_blocks, block_size,
+                                   torch.bfloat16, dev, kv_dtype=kv_dtype)
+        for i in range(cfg.n_layers)]}
 
 
 def _cached_scan(params, cache, tokens, positions, cfg, adapters, lora_scale,
-                 adapter_ids, paged) -> Tuple[torch.Tensor, Params]:
-    """Embed, every layer against its pool, final norm, unembed (the MoE
+                 adapter_ids, paged, n_new=None) -> Tuple[torch.Tensor, Params]:
+    """Embed, every layer against its cache, final norm, unembed (the MoE
     aux loss is dropped, as in the reference)."""
     x = _embed(params, tokens, cfg)
     new_layers = []
@@ -187,7 +230,8 @@ def _cached_scan(params, cache, tokens, positions, cfg, adapters, lora_scale,
         x, nc, _ = _apply_layer(i, lp, x, cfg, positions,
                                 _layer_adapters(adapters, i), lora_scale,
                                 cache=cache["layers"][i],
-                                adapter_ids=adapter_ids, paged=paged)
+                                adapter_ids=adapter_ids, paged=paged,
+                                n_new=n_new)
         new_layers.append(nc)
     return _unembed(params, x, cfg), {"layers": new_layers}
 
@@ -224,7 +268,8 @@ def prefill_step(params: Params, cache: Params, tokens: torch.Tensor,
                  paged_backend: Optional[str] = None
                  ) -> Tuple[torch.Tensor, Params]:
     """Chunked paged prefill: tokens (B, T), ``n_new[b]`` valid per row,
-    written at positions ``pos[b] .. pos[b] + n_new[b] - 1``.  Returns
+    written at positions ``pos[b] .. pos[b] + n_new[b] - 1`` (a mamba
+    layer steps each row's state through its valid tokens only).  Returns
     (logits (B, T, V), cache)."""
     if block_tables is None:
         raise ValueError("prefill_step requires block_tables (paged cache)")
@@ -236,5 +281,5 @@ def prefill_step(params: Params, cache: Params, tokens: torch.Tensor,
                  + torch.arange(T, device=tokens.device)[None, :])
     return _cached_scan(params, cache, tokens, positions, cfg, adapters,
                         lora_scale, adapter_ids,
-                        paged=(block_tables, pos, n_new))
+                        paged=(block_tables, pos, n_new), n_new=n_new)
 

@@ -24,11 +24,16 @@ device between host observations.  The scheduler and block allocator are
 the port's own copies of the reference's (numpy only), so both packages
 plan the same chunks.
 
+A model with mamba layers keeps their recurrent state per slot next to
+the K/V pools (zeroed when a slot admits a request); the fixed path keeps
+it per batch row.
+
 The options of the reference engine served here: int8 K/V pools
 (``kv_dtype``), prefix caching within and across calls (``prefix_cache``:
 a warm pool persists between streams of one geometry), greedy speculative
 decoding (``spec_decode``: prompt-lookup drafts verified in one chunk
-dispatch, rejected positions rolled back), overlapped dispatch
+dispatch, rejected positions rolled back; these two need an
+attention-only model, as in the reference), overlapped dispatch
 (``overlap``, the default: see :class:`StreamSession`) and sharded serving
 (``num_shards``: the pool, the slots and, with a
 :class:`~repro_torch.serving.sharded.ShardedAdapterRegistry`, the bank
@@ -272,7 +277,22 @@ class MultiTenantEngine(_EngineBase):
             kv = PagedKVCache(num_slots, sc.block_size, num_blocks,
                               blocks_per, prefix_cache=sc.prefix_cache)
         cache = self.model.init_paged_decode_cache(
-            num_blocks, sc.block_size, kv_dtype=sc.kv_dtype)
+            num_blocks, sc.block_size, kv_dtype=sc.kv_dtype,
+            num_slots=num_slots)
+        if sc.prefix_cache or sc.spec_decode:
+            # recurrent SSM state is per slot and dense: it cannot be
+            # rebuilt from cached K/V blocks (a prefix hit would skip state
+            # updates) nor rolled back a token at a time (a verify dispatch
+            # advances it through rejected drafts)
+            feature = "prefix_cache" if sc.prefix_cache else "spec_decode"
+            for entry in cache["layers"]:
+                extra = set(entry) - {"k_pool", "v_pool", "k_scale",
+                                      "v_scale"}
+                if extra:
+                    raise ValueError(
+                        f"{feature}=True needs an attention-only model: "
+                        f"recurrent per-slot state {sorted(extra)} cannot "
+                        "be block-cached or rolled back")
         return kv, cache, False
 
     def bank_for(self, sc: ServeConfig):

@@ -588,10 +588,12 @@ class PagedKVCache:
 
 def reset_slot(cache, slot: int):
     """Zero one slot's dense per-slot state in a paged decode cache (in
-    place).  K/V pool blocks need no reset — the per-row length mask
+    place): a mamba layer's ``h`` (slots, H, P, N) and ``conv`` (slots,
+    K-1, conv_dim) rows at ``slot``, whatever dtype the conv state has
+    taken.  K/V pool blocks need no reset — the per-row length mask
     excludes never-written positions, and prefix-cached blocks must keep
-    their content across owners — so for the dense family, whose layers
-    hold pools only, this touches nothing."""
+    their content across owners — so for an attention-only model this
+    touches nothing."""
     for entry in cache["layers"]:
         for key, leaf in entry.items():
             if key not in ("k_pool", "v_pool", "k_scale", "v_scale"):

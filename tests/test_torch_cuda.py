@@ -30,7 +30,11 @@ client-stacked round step against the clients run by hand), and the MoE
 family (decode and prefill at dbrx-132b's G 6, batched LoRA at the MoE
 archs' attention projections, ``apply_moe`` bitwise repeatable, each MoE
 smoke config served through the kernels, overlap on and off bitwise, and
-a prefill chunk "cuda" against "torch" with pinned routing).
+a prefill chunk "cuda" against "torch" with pinned routing), and the SSM
+and hybrid families (batched LoRA at the in_proj shapes whose N runs past
+a multiple of 256, mamba2-smoke and jamba-smoke served through the
+kernels with overlap on and off bitwise, mamba2-smoke "cuda" against
+"torch", its rounds without a wait for the stream).
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is False.  This file imports neither JAX nor the reference package, so on a
@@ -902,7 +906,8 @@ def _next_logits(eng, req, tokens, sc, backend):
     assert kv.ensure(0, len(seq))
     dev = eng.device
     cache = eng.model.init_paged_decode_cache(1 + per, sc.block_size,
-                                              kv_dtype=sc.kv_dtype)
+                                              kv_dtype=sc.kv_dtype,
+                                              num_slots=1)
     ids = torch.tensor([eng.registry.acquire(req.client_id)],
                        dtype=torch.int32, device=dev)
     bank = eng.bank_for(dataclasses.replace(sc, paged_backend=backend))
@@ -1669,6 +1674,99 @@ def test_moe_rounds_do_not_wait_for_the_card(dev, arch):
     that waits for the stream."""
     from repro_torch.serving.engine import Request
     eng = _moe_engine(dev, arch)
+    eng.generate([Request("client0", np.arange(1, 20, dtype=np.int32))],
+                 _overlap_sc())                 # builds and warms up
+    ses = eng.session(_overlap_sc())
+    for i in range(3):
+        ses.submit(Request(f"client{i}",
+                           (np.arange(20 + 9 * i) * (i + 3)) % 500 + 1,
+                           max_new_tokens=16))
+    rounds = _rounds_without_sync(ses)
+    assert sum(len(t) for _, ev, _ in rounds for _, t, _ in ev) == 3 * 16
+
+
+# the SSM family's in_proj shapes (K, N): mamba2-2.7b's N of 10,576 and
+# jamba-v0.1-52b's of 16,544 run 80 and 160 columns past a multiple of 256
+SSM_IN_PROJ = [(2560, 10576), (4096, 16544)]
+
+
+@pytest.mark.parametrize("M", [4, 1024])
+@pytest.mark.parametrize("K,N", SSM_IN_PROJ)
+def test_batched_lora_at_ssm_in_proj_tails_matches_plain(dev, K, N, M):
+    """batched_lora_matmul at the SSM cells' in_proj, decode (4) and
+    prefill (4 x 256) rows over 4 clients: the tile's column guard holds
+    the N tail, to two bf16 roundings of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(K + N + M)
+    x, w, a, b, ids, kw = _lora_case(gen, dev, M, K, N, 4, 16, "f32_bank")
+    kernels.reset_launch_counts()
+    y = batched_lora_matmul(x, w, a, b, ids, 2.0, **kw)
+    yr = _lora_plain(x, w, a, b, ids, **kw)
+    assert bool(torch.isfinite(y.float()).all())
+    assert float((y.float() - yr.float()).abs().max()) <= _bf16_tol(yr)
+    tail = slice(N // 256 * 256, N)
+    assert float((y[:, tail].float() - yr[:, tail].float()).abs().max()) \
+        <= _bf16_tol(yr)
+    assert kernels.tile_counts()["batched_lora_matmul"] == {"mma": 1,
+                                                             "f32": 0}
+
+
+def _ssm_engine(dev, arch, dtype="bfloat16"):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+    cfg = get_config(arch, smoke=True).with_overrides(dtype=dtype)
+    return build_engine(cfg, 3, dev, seed=0, rank=8)
+
+
+def test_mamba2_smoke_engine_serves_through_the_kernels(dev):
+    """mamba2-smoke: in bf16 batched LoRA launches on its tensor-core tile
+    and streams with overlap on and off are bitwise equal; in fp32 each
+    request's stream through "cuda" equals the "torch" backend's first
+    greedy token and the first prefill chunk's logits agree to 1% of the
+    largest."""
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.serving.engine import ServeConfig
+    eng = _ssm_engine(dev, "mamba2-2.7b")
+    reqs = ragged_requests(5, 3, eng.cfg.vocab_size, 10, 40, seed=0)
+    sc = ServeConfig(batch_size=3, max_new_tokens=5, prefill_chunk=16,
+                     block_size=4)
+    kernels.reset_launch_counts()
+    out = [list(o) for o in eng.generate(reqs, sc)]
+    assert kernels.launch_counts()["batched_lora_matmul"] > 0
+    assert kernels.tile_counts()["batched_lora_matmul"]["f32"] == 0
+    assert [list(o) for o in eng.generate(
+        reqs, dataclasses.replace(sc, overlap=False))] == out
+    eng32 = _ssm_engine(dev, "mamba2-2.7b", dtype="float32")
+    got = eng32.generate(reqs, sc)
+    want = eng32.generate(reqs, dataclasses.replace(sc,
+                                                    paged_backend="torch"))
+    assert [o[0] for o in got] == [o[0] for o in want]
+    lc = _next_logits(eng32, reqs[0], [], sc, "cuda")
+    lt = _next_logits(eng32, reqs[0], [], sc, "torch")
+    assert float((lc - lt).abs().max()) <= 1e-2 * float(lt.abs().max())
+
+
+def test_jamba_smoke_engine_serves_through_the_kernels(dev):
+    """jamba-smoke (mamba, MoE and attention layers) in bf16: every serving
+    kernel launches and streams with overlap on and off are bitwise
+    equal."""
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.serving.engine import ServeConfig
+    eng = _ssm_engine(dev, "jamba-v0.1-52b")
+    reqs = ragged_requests(5, 3, eng.cfg.vocab_size, 10, 40, seed=0)
+    sc = ServeConfig(batch_size=3, max_new_tokens=5, prefill_chunk=16,
+                     block_size=4)
+    kernels.reset_launch_counts()
+    out = [list(o) for o in eng.generate(reqs, sc)]
+    assert all(kernels.launch_counts()[n] > 0 for n in kernels.SERVING)
+    assert [list(o) for o in eng.generate(
+        reqs, dataclasses.replace(sc, overlap=False))] == out
+
+
+def test_ssm_rounds_do_not_wait_for_the_card(dev):
+    """The recurrence steps on shapes known on the host: every round of a
+    mamba2-smoke session runs without a call that waits for the stream."""
+    from repro_torch.serving.engine import Request
+    eng = _ssm_engine(dev, "mamba2-2.7b")
     eng.generate([Request("client0", np.arange(1, 20, dtype=np.int32))],
                  _overlap_sc())                 # builds and warms up
     ses = eng.session(_overlap_sc())

@@ -80,9 +80,11 @@ def _window_binds(jcfg, max_pos):
 
 
 def test_all_five_dense_archs_are_served():
-    # the five dense archs, and since the MoE slice the two MoE ones
+    # the five dense archs, since the MoE slice the two MoE ones, and
+    # since the SSM slice mamba2-2.7b and jamba-v0.1-52b
     assert set(ALL_ARCHS) == {"llama2-7b", *ARCHS, "dbrx-132b",
-                              "kimi-k2-1t-a32b"}
+                              "kimi-k2-1t-a32b", "mamba2-2.7b",
+                              "jamba-v0.1-52b"}
 
 
 @pytest.mark.parametrize("smoke", [False, True])

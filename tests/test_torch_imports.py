@@ -50,6 +50,9 @@ SLICE_MODULES = [
     "federated/distributed.py",
     # the MoE family
     "models/moe.py", "configs/dbrx_132b.py", "configs/kimi_k2_1t_a32b.py",
+    # the SSM and hybrid families
+    "models/mamba2.py", "configs/mamba2_2p7b.py",
+    "configs/jamba_v0p1_52b.py",
 ]
 
 
