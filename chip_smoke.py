@@ -157,7 +157,31 @@ Phases (each prints one JSON line per result):
                its kernel lines (kernels phase) hold batched LoRA at both
                archs' in_proj (N tails of 80 and 160 columns past a
                multiple of 256) and out_proj shapes;
-  9. the card's name and power limit, the kernel summary line, and last the
+  9. vlm_encdec — internvl2-26b at all 48 layers, published width, bf16,
+               random weights from --seed, 4 tenants with rank-16 fused
+               adapters: phase dense_family's 4 text-only requests through
+               "cuda" with overlap on and off (streams bitwise equal, every
+               serving kernel launched on its tensor-core tiles), the first
+               chunk held to "torch" (bf16 and fp32 activations); then one
+               LoRA train step of 2 rows, each 256 seeded stub patch
+               embeddings and 256 SFT tokens, held to "torch" (bf16 at 48
+               layers, fp32 at the first 8), with each step's peak memory;
+               whisper-small in full (12 + 12 layers, 1,500 stub frames):
+               one train step of 8 x 256 SFT tokens through lora_matmul and
+               non-causal flash attention held to "torch" (the cross-
+               attention's wv gradients exactly 0 on both backends), then
+               prefill_cross and 32 greedy decode_step calls for 8 rows
+               with one Eq. 7-fused rank-16 adapter: the first step's
+               logits against "torch", the streams by the margin rule, the
+               teacher-forced fp32 decode logits against forward's within
+               1% of the largest logit, ms a step and tok/s; its kernel
+               lines (kernels phase) hold every new shape: batched LoRA and
+               lora_matmul at internvl2-26b's projections, flash attention
+               at its G 6, lora_matmul at whisper's three projection shapes
+               at 12,000, 2,048 and 8 rows, flash attention at head dim 64
+               non-causal (1,500 x 1,500, 256 x 1,500, 1 x 1,500) and
+               causal (256);
+ 10. the card's name and power limit, the kernel summary line, and last the
      result line.
 
 batched_dual_lora_matmul, which no path of the port (or of the reference
@@ -920,9 +944,11 @@ def check_dual_lora(gen, device, M, K, N, r, reps, dtype=None):
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
+def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None,
+                causal=True):
     """flash_attention on model-layout (B, S, heads, d) tensors read through
-    strided views, as the training forward calls it.  Tolerance:
+    strided views, as the training forward calls it (``causal=False``: an
+    encoder's or a cross-attention's, every key attended).  Tolerance:
     ``_attn_tol`` against the plain version (bf16: the tensor-core tile
     and the plain version each round the probabilities to bf16, at other
     points, and ``_tile_check`` holds each row to the tile reference;
@@ -937,22 +963,21 @@ def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
         dtype).transpose(1, 2)
     k, v = (torch.randn((B, Sk, Kv, d), generator=gen, device=device).to(
         dtype).transpose(1, 2) for _ in range(2))
-    ref = flash_attention_ref(q, k, v, sliding_window=window)
+    kw = {"causal": causal, "sliding_window": window}
+    ref = flash_attention_ref(q, k, v, **kw)
     tol = _attn_tol(ref, v)
-    out = _one_tile("flash_attention", lambda: flash_attention(
-        q, k, v, sliding_window=window), dtype)
+    out = _one_tile("flash_attention", lambda: flash_attention(q, k, v, **kw),
+                    dtype)
     err = _check_close(f"flash_attention {dtype}", out, ref, tol)
     tile = {}
     if dtype == torch.bfloat16:
-        tile = _tile_check(f"flash_attention window={window} Sq={Sq} "
-                           f"Kv={Kv}", out, flash_attention_tile_ref(
-                               q, k, v, sliding_window=window))
-    ms = time_ms(lambda: flash_attention(q, k, v, sliding_window=window), reps)
-    dev_ms, _ = device_ms(lambda: flash_attention(q, k, v,
-                                                  sliding_window=window),
-                          reps)
-    plain_ms = time_ms(lambda: flash_attention_ref(
-        q, k, v, sliding_window=window), max(1, reps // 4), 1)
+        tile = _tile_check(f"flash_attention causal={causal} window={window} "
+                           f"Sq={Sq} Sk={Sk} Kv={Kv}", out,
+                           flash_attention_tile_ref(q, k, v, **kw))
+    ms = time_ms(lambda: flash_attention(q, k, v, **kw), reps)
+    dev_ms, _ = device_ms(lambda: flash_attention(q, k, v, **kw), reps)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                       max(1, reps // 4), 1)
     # yardstick: SDPA on contiguous (B, H, S, d) with kv heads repeated and
     # the end-aligned mask built outside the timing
     qc = q.contiguous()
@@ -960,10 +985,15 @@ def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
               for t in (k, v))
     q_pos = torch.arange(Sq, device=device) + (Sk - Sq)
     k_pos = torch.arange(Sk, device=device)
-    mask = k_pos[None, :] <= q_pos[:, None]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
     if window > 0:
         mask &= k_pos[None, :] > q_pos[:, None] - window
-    if Sq == Sk and window == 0:
+    if not causal and window == 0:
+        def library():
+            return F.scaled_dot_product_attention(qc, kc, vc)
+    elif Sq == Sk and window == 0:
         def library():
             return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)
     else:
@@ -979,7 +1009,8 @@ def check_flash(gen, device, B, H, Kv, Sq, Sk, d, window, reps, dtype=None):
             "dtype": "bf16" if dtype == torch.bfloat16 else "fp32",
             "tile": "mma" if dtype == torch.bfloat16 else "f32",
             "B": B, "H": H, "Kv": Kv, "Sq": Sq,
-            "Sk": Sk, "d": d, "window": window, "max_abs_err": err,
+            "Sk": Sk, "d": d, "causal": causal, "window": window,
+            "max_abs_err": err,
             "tol": tol, **tile, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_device_ms": library_device_ms, "bound_ms": b_ms,
@@ -1166,6 +1197,7 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
                                        16, variant, reps), "arch": arch})
     moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T, seen)
     ssm_kernels(gen, device, reps, T, seen)
+    vlm_encdec_kernels(gen, device, reps, T, seen)
     return main
 
 
@@ -2406,20 +2438,24 @@ def _rel(a, b) -> float:
 
 
 def compare_grads(vg, batch, dtype_name, loss_tol, grad_tol,
-                  phase="compare_train_step", **extra):
+                  phase="compare_train_step", zero=(), **extra):
     """One step's loss and every adapter gradient through "cuda" and
     "torch" from the same adapters and batch: ``vg(backend) -> (loss,
     metrics, grads)``.  The "torch" step must launch no kernel.  Bounds are
     relative: ``|Δloss| <= loss_tol·|loss|`` and, per adapter leaf,
-    ``||Δg|| <= grad_tol·||g||``."""
+    ``||Δg|| <= grad_tol·||g||``; leaves whose path holds a string of
+    ``zero`` must have gradients exactly 0 on both backends.  Each step's
+    peak memory is reported.  Returns the "cuda" step's launch counts."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.lora import tree_leaves
-    out = {}
+    out, peak = {}, {}
     for backend in ("cuda", "torch"):
         kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         loss, _, grads = vg(backend)
         torch.cuda.synchronize()
+        peak[backend] = torch.cuda.max_memory_allocated() / 1e9
         tiles = kernels.tile_counts()
         out[backend] = (loss, dict(tree_leaves(grads)),
                         kernels.launch_counts(),
@@ -2427,8 +2463,11 @@ def compare_grads(vg, batch, dtype_name, loss_tol, grad_tol,
                                                "lora_matmul")})
         del grads
     (lc, gc, nc, tiles), (lt, gt, nt, _) = out["cuda"], out["torch"]
+    zero_leaves = sorted(p for p in gt if any(z in p for z in zero))
+    nonzero = [f"{b} {p}" for b, g in (("cuda", gc), ("torch", gt))
+               for p in zero_leaves if bool(g[p].any())]
     loss_err = abs(float(lc) - float(lt)) / abs(float(lt))
-    grad_errs = {p: _rel(gc[p], gt[p]) for p in gt}
+    grad_errs = {p: _rel(gc[p], gt[p]) for p in gt if p not in zero_leaves}
     worst = max(grad_errs, key=grad_errs.get)
     what = f"{extra.get('method', 'train step')} {dtype_name}"
     emit({"phase": phase, **extra, "activations": dtype_name,
@@ -2438,9 +2477,14 @@ def compare_grads(vg, batch, dtype_name, loss_tol, grad_tol,
           "max_grad_rel_err": grad_errs[worst], "worst_leaf": worst,
           "median_grad_rel_err": sorted(grad_errs.values())[
               len(grad_errs) // 2], "grad_tol": grad_tol,
-          "launches_cuda": nc, "tiles_cuda": tiles})
+          "launches_cuda": nc, "tiles_cuda": tiles, "peak_memory_gb": peak,
+          **({"zero_grad_leaves": zero_leaves, "nonzero": nonzero}
+             if zero else {})})
     require(all(torch.isfinite(g).all() for g in gc.values()),
             f"{what}: a cuda gradient is not finite")
+    require(len(zero_leaves) >= len(zero) and not nonzero,
+            f"{what}: gradients that must be 0: {zero_leaves}, non-zero: "
+            f"{nonzero}")
     require(loss_err <= loss_tol,
             f"{what}: loss rel err {loss_err} > {loss_tol}")
     require(grad_errs[worst] <= grad_tol,
@@ -2454,14 +2498,17 @@ def compare_grads(vg, batch, dtype_name, loss_tol, grad_tol,
                 f"{what}: {name} tiles {tiles[name]}, not all {want}")
     require(all(n == 0 for n in nt.values()),
             f"{what}: the torch step launched a CUDA kernel")
+    return nc
 
 
 def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
-                       loss_tol, grad_tol):
-    """``compare_grads`` for the plain LoRA train step."""
+                       loss_tol, grad_tol, **kw):
+    """``compare_grads`` for the plain LoRA train step; returns the "cuda"
+    step's launch counts."""
     from repro_torch.training.train_step import lora_value_and_grad
-    compare_grads(lambda backend: lora_value_and_grad(model, cfg, backend)(
-        params, adapters, batch), batch, dtype_name, loss_tol, grad_tol)
+    return compare_grads(lambda backend: lora_value_and_grad(
+        model, cfg, backend)(params, adapters, batch), batch, dtype_name,
+        loss_tol, grad_tol, **kw)
 
 
 def compare_fused_eval(model, cfg, params, ad_p, ad_s, batch, dtype_name,
@@ -3883,6 +3930,373 @@ def ssm_phase(device, seed: int, T: int = 256, new_tokens: int = 16,
 
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the VLM and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "internvl2-26b"
+VLM_TENANTS = 4
+VLM_REQUESTS = 4
+VLM_TRAIN_ROWS = 2          # each 256 patch embeddings, then 256 SFT tokens
+# the fp32 train step reads an fp32 copy of every weight it multiplies on
+# the plain path (79 GB at all 48 layers): it runs on the first 8
+VLM_FP32_LAYERS = 8
+ENCDEC_ARCH = "whisper-small"
+ENCDEC_TRAIN_ROWS = 8       # each 1,500 stub frames and 256 SFT tokens
+ENCDEC_ROWS = 8             # decode rows
+ENCDEC_STEPS = 32           # greedy decode steps
+# whisper's decode runs lora_matmul and flash attention; cuBLAS carries
+# the cross K/V products, the lm_head and the ring-buffer attention
+WHISPER_DECODE_FAMILIES = (
+    *((k, f) for k, f in TRAIN_FAMILIES if not f.startswith("cuBLAS")),
+    *((k, "cuBLAS matmuls (cross K/V, lm_head, ring-buffer attention)")
+      for k in ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def vlm_encdec_kernels(gen, device, reps, T, seen):
+    """The shapes phase vlm_encdec gives the kernels that no earlier line
+    holds: batched LoRA at internvl2-26b's projections not in ``seen`` (4
+    decode and 4 x T prefill rows over 4 tenants), lora_matmul at its
+    train step's 1,024 rows and flash attention at its G 6 over 512
+    causal positions; lora_matmul at whisper-small's three projection
+    shapes at its encoder's 12,000 train rows, its decoder's 2,048 and
+    its decode step's 8, and flash attention at whisper's head dim 64:
+    non-causal over the encoder's 1,500 frames, the cross-attention's 256
+    and 1 queries against them, and the decoder's causal 256."""
+    from repro_torch.configs import get_config
+    vlm, enc = get_config(VLM_ARCH), get_config(ENCDEC_ARCH)
+    S = vlm.n_patch_tokens + T
+    for K, N in projection_shapes(VLM_ARCH):
+        if (K, N) not in seen:
+            seen.add((K, N))
+            for M in (VLM_REQUESTS, VLM_REQUESTS * T):
+                emit({**check_lora(gen, device, M, K, N, VLM_TENANTS, 16,
+                                   "f32_bank", reps), "arch": VLM_ARCH})
+        emit({**check_single_lora(gen, device, VLM_TRAIN_ROWS * S, K, N, 16,
+                                  reps), "arch": VLM_ARCH})
+    emit({**check_flash(gen, device, VLM_TRAIN_ROWS, vlm.n_heads,
+                        vlm.n_kv_heads, S, S, vlm.resolved_head_dim, 0,
+                        reps), "arch": VLM_ARCH})
+    F = enc.encoder_seq_len
+    for K, N in projection_shapes(ENCDEC_ARCH):
+        for M in (ENCDEC_TRAIN_ROWS * F, ENCDEC_TRAIN_ROWS * T, ENCDEC_ROWS):
+            emit({**check_single_lora(gen, device, M, K, N, enc.lora_rank,
+                                      reps), "arch": ENCDEC_ARCH})
+    H, hd = enc.n_heads, enc.resolved_head_dim
+    for B, Sq, Sk, causal in ((ENCDEC_TRAIN_ROWS, F, F, False),
+                              (ENCDEC_TRAIN_ROWS, T, F, False),
+                              (ENCDEC_ROWS, 1, F, False),
+                              (ENCDEC_TRAIN_ROWS, T, T, True)):
+        emit({**check_flash(gen, device, B, H, H, Sq, Sk, hd, 0, reps,
+                            causal=causal), "arch": ENCDEC_ARCH})
+
+
+def sft_batch(seed: int, rows: int, T: int, vocab: int, device):
+    """``rows`` SFT rows of T byte tokens (the log dataset from ``seed``)
+    with their loss mask, on ``device``."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import SFTBatcher
+    from repro_torch.data.synthetic import gen_log_dataset
+    from repro_torch.data.tokenizer import ByteTokenizer
+    raw = SFTBatcher(gen_log_dataset(np.random.default_rng(seed), 64, 0),
+                     ByteTokenizer(), T, rows, seed=0).sample()
+    raw["tokens"] = raw["tokens"] % vocab
+    return {k: torch.as_tensor(v).to(device) for k, v in raw.items()}
+
+
+def vlm_phase(device, seed: int, T: int, new_tokens: int, rank: int):
+    """internvl2-26b at all 48 layers: serve (as phase dense_family), then
+    a train step with stub patch embeddings.  Returns {"serve", "train":
+    launch counts}."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import init_adapters, tree_leaves
+    from repro_torch.launch.serve import build_engine, ragged_requests
+    from repro_torch.models.api import Model
+    from repro_torch.serving.engine import MultiTenantEngine, ServeConfig
+    cfg = get_config(VLM_ARCH).with_overrides(lora_rank=rank)
+    t0 = time.perf_counter()
+    eng = build_engine(cfg, VLM_TENANTS, device, seed, rank=rank)
+    torch.cuda.synchronize()
+    emit({"phase": "model", "arch": cfg.name, "family": cfg.family,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+          "vocab_size": cfg.vocab_size, "n_patch_tokens": cfg.n_patch_tokens,
+          "params": cfg.count_params(),
+          "weight_bytes": sum(t.numel() * t.element_size()
+                              for _, t in tree_leaves(eng.params)),
+          "dtype": cfg.dtype, "tenants": VLM_TENANTS, "rank": rank,
+          "init_s": time.perf_counter() - t0,
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    # text-only requests, as the reference serves the VLM
+    reqs = ragged_requests(VLM_REQUESTS, VLM_TENANTS, cfg.vocab_size, 128,
+                           1024, seed)
+    sc = ServeConfig(batch_size=len(reqs), max_new_tokens=new_tokens,
+                     prefill_chunk=T, block_size=16, paged_backend="cuda")
+    eng.generate(ragged_requests(2, VLM_TENANTS, cfg.vocab_size, 8, 16,
+                                 seed + 1),
+                 ServeConfig(batch_size=2, max_new_tokens=2, prefill_chunk=8,
+                             paged_backend="cuda"))
+    _, serve_counts = serve_and_check(
+        eng, reqs, sc, kernels.SERVING,
+        ("paged_prefill_attention", "batched_lora_matmul"),
+        extra={"text_only": True})
+    # one traced run (overlap on): device time by kernel family, idle
+    wall_ms, fam = traced(
+        lambda: eng.generate(reqs, dataclasses.replace(sc, overlap=True)),
+        KERNEL_FAMILIES, "other device work (torch: lm_head, norms, rope, "
+        "scatter, sampling, copies)")
+    emit(_profile_line(fam, wall_ms, phase="profile_vlm", arch=cfg.name,
+                       requests=len(reqs), new_tokens=new_tokens,
+                       **_decode_share(fam)))
+    compare_first_chunk(eng, reqs, sc, "bfloat16", rel_tol=0.1,
+                        extra={"arch": cfg.name})
+    cfg32 = eng.cfg.with_overrides(dtype="float32")
+    eng32 = MultiTenantEngine(Model(cfg32, device), cfg32, eng.params,
+                              eng.registry)
+    compare_first_chunk(eng32, reqs, sc, "float32", rel_tol=1e-2,
+                        extra={"arch": cfg.name})
+    params, model, cfg = eng.params, eng.model, eng.cfg
+    del eng, eng32
+    gc.collect()
+    torch.cuda.empty_cache()            # the pools and the bank are gone
+    # one train step: each row 256 seeded stub patch embeddings (the
+    # embedding table's scale), then 256 SFT tokens; the loss reads the
+    # text positions only
+    batch = sft_batch(seed, VLM_TRAIN_ROWS, T, cfg.vocab_size, device)
+    g = torch.Generator(device=device).manual_seed(seed + 7)
+    batch["patch_embeds"] = torch.randn(
+        (VLM_TRAIN_ROWS, cfg.n_patch_tokens, cfg.d_model), generator=g,
+        device=device) * 0.02
+    ad = init_adapters(cfg, seed=seed + 100, device=device, b_std=0.02)
+    info = {"arch": cfg.name, "patch_tokens": cfg.n_patch_tokens,
+            "text_tokens": T}
+    train_counts = compare_train_step(
+        model, cfg, params, ad, batch, "bfloat16", loss_tol=2e-2,
+        grad_tol=0.25, n_layers=cfg.n_layers, **info)
+    cut = cfg32.with_overrides(n_layers=VLM_FP32_LAYERS)
+    compare_train_step(
+        Model(cut, device), cut,
+        dict(params, layers=params["layers"][:VLM_FP32_LAYERS]),
+        {"layers": ad["layers"][:VLM_FP32_LAYERS]},
+        {k: v[:1] for k, v in batch.items()}, "float32", loss_tol=1e-3,
+        grad_tol=1e-2, n_layers=VLM_FP32_LAYERS, **info)
+    del params, ad, batch
+    return {"serve": {n: serve_counts[n] for n in kernels.SERVING},
+            "train": {n: train_counts[n] for n in kernels.TRAINING}}
+
+
+def whisper_decode(model, cfg, params, adapters, enc, first, backend,
+                   forced=None):
+    """``prefill_cross`` then ``ENCDEC_STEPS`` greedy ``decode_step`` calls
+    from ``first`` (B, 1), through ``backend`` (``forced`` (B, steps):
+    teacher forcing, step t fed ``forced[:, t]``).  Returns (tokens (B,
+    steps + 1), logits (B, steps, V) fp32, prefill s, decode s, launch
+    counts)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.lora import lora_scale
+    from repro_torch.models import encdec
+    scale = lora_scale(cfg)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = model.init_decode_cache(first.shape[0], 2 * ENCDEC_STEPS)
+        cache["cross_k"], cache["cross_v"] = encdec.prefill_cross(
+            params, enc, cfg, adapters, scale, paged_backend=backend)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok, toks, logits = first, [first], []
+        for t in range(ENCDEC_STEPS):
+            if forced is not None:
+                tok = forced[:, t:t + 1]
+            lg, cache = model.decode_step(params, cache, tok, t,
+                                          adapters=adapters,
+                                          lora_scale=scale,
+                                          paged_backend=backend)
+            logits.append(lg[:, 0])
+            tok = lg[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (torch.cat(toks, 1), torch.stack(logits, 1), t1 - t0, t2 - t1,
+            kernels.launch_counts())
+
+
+def decode_margin_rule(tc, lc, tt, lt, rel_tol, what):
+    """Streams ``tc`` ("cuda") and ``tt`` ("torch"), each (B, steps + 1)
+    from one first token, with their steps' logits ``lc``/``lt`` (B,
+    steps, V).  Row by row, over the steps that read the same tokens on
+    both sides: the logit error stays within ``rel_tol`` of the largest
+    logit; at the first step whose greedy tokens differ, the torch step's
+    top-2 margin is at most twice that step's error.  Returns (tokens
+    matched per row, the largest error compared)."""
+    import torch
+    matched, worst = [], 0.0
+    for b in range(tc.shape[0]):
+        n = 0
+        for t in range(lc.shape[1]):
+            err = float((lc[b, t] - lt[b, t]).abs().max())
+            top = float(lt[b, t].abs().max())
+            worst = max(worst, err)
+            require(err <= rel_tol * top, f"{what} row {b} step {t}: logit "
+                    f"error {err} > {rel_tol * top}")
+            if int(tc[b, t + 1]) != int(tt[b, t + 1]):
+                top2 = torch.topk(lt[b, t], 2).values
+                margin = float(top2[0] - top2[1])
+                require(margin <= 2 * err, f"{what} row {b} step {t}: "
+                        f"greedy tokens differ where the margin {margin} "
+                        f"exceeds twice the error {err}")
+                break
+            n += 1
+        matched.append(n)
+    return matched, worst
+
+
+def whisper_phase(device, seed: int, T: int, rank: int):
+    """whisper-small in full (12 + 12 layers, 1,500 frames): a train step
+    over stub frames, then prefill_cross and greedy decode.  Returns
+    {"train", "decode": launch counts}."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.dual_lora import merge
+    from repro_torch.core.lora import init_adapters, lora_scale
+    from repro_torch.models.api import Model
+    cfg = get_config(ENCDEC_ARCH).with_overrides(lora_rank=rank)
+    model = Model(cfg, device)
+    t0 = time.perf_counter()
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    F, V = cfg.encoder_seq_len, cfg.vocab_size
+    emit({"phase": "model", "arch": cfg.name, "family": cfg.family,
+          "n_encoder_layers": cfg.n_encoder_layers, "n_layers": cfg.n_layers,
+          "encoder_seq_len": F, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "head_dim": cfg.resolved_head_dim,
+          "d_ff": cfg.d_ff, "vocab_size": V, "mlp_type": cfg.mlp_type,
+          "norm_type": cfg.norm_type, "lora_targets": list(cfg.lora_targets),
+          "params": cfg.count_params(), "dtype": cfg.dtype, "rank": rank,
+          "init_s": time.perf_counter() - t0,
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    g = torch.Generator(device=device).manual_seed(seed + 11)
+    # a train step over seeded stub frames (unit scale: a conv frontend's
+    # output) and 256 SFT tokens a row
+    batch = sft_batch(seed, ENCDEC_TRAIN_ROWS, T, V, device)
+    batch["enc_embeds"] = torch.randn((ENCDEC_TRAIN_ROWS, F, cfg.d_model),
+                                      generator=g, device=device)
+    ad = init_adapters(cfg, seed=seed + 100, device=device, b_std=0.02)
+    info = {"arch": cfg.name, "frames": F, "text_tokens": T}
+    cfg32 = cfg.with_overrides(dtype="float32")
+    model32 = Model(cfg32, device)
+    train_counts = compare_train_step(
+        model, cfg, params, ad, batch, "bfloat16", loss_tol=2e-2,
+        grad_tol=0.25, zero=("['cross_attn']['wv']",), **info)
+    compare_train_step(model32, cfg32, params, ad,
+                       {k: v[:4] for k, v in batch.items()}, "float32",
+                       loss_tol=1e-3, grad_tol=1e-2,
+                       zero=("['cross_attn']['wv']",), **info)
+    # flash attention: per forward 12 encoder layers and 12 cross-
+    # attentions without a mask, 12 causal decoder self-attentions
+    want = cfg.n_encoder_layers + 2 * cfg.n_layers
+    require(train_counts["flash_attention"] == want,
+            f"whisper train step: {train_counts['flash_attention']} flash "
+            f"launches, not {want}")
+    del ad, batch
+    # decode: 8 rows of stub frames, one Eq. 7-fused rank-16 adapter
+    fused = merge(*(init_adapters(cfg, seed=seed + 20 + j, device=device,
+                                  b_std=0.02) for j in (0, 1)), [0.6, 0.6])
+    enc = torch.randn((ENCDEC_ROWS, F, cfg.d_model), generator=g,
+                      device=device)
+    first = torch.randint(0, V, (ENCDEC_ROWS, 1), generator=g,
+                          device=device, dtype=torch.int32)
+    tc, lc, pre_c, dec_c, nc = whisper_decode(model, cfg, params, fused, enc,
+                                              first, "cuda")
+    wall_ms, fam = traced(
+        lambda: whisper_decode(model, cfg, params, fused, enc, first,
+                               "cuda"), WHISPER_DECODE_FAMILIES,
+        "other device work (torch: ring-buffer attention, norms, GELU, "
+        "embeddings, argmax, copies)")
+    emit(_profile_line(fam, wall_ms, phase="profile_whisper_decode",
+                       arch=cfg.name, rows=ENCDEC_ROWS, steps=ENCDEC_STEPS,
+                       includes="prefill_cross and every decode step"))
+    tt, lt, pre_t, dec_t, nt = whisper_decode(model, cfg, params, fused, enc,
+                                              first, "torch")
+    # the first step by compare_first_chunk's rule
+    err0 = float((lc[:, 0] - lt[:, 0]).abs().max())
+    top0 = float(lt[:, 0].abs().max())
+    top2 = torch.topk(lt[:, 0], 2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 2 * err0
+    agree = lc[:, 0].argmax(-1) == lt[:, 0].argmax(-1)
+    matched, worst = decode_margin_rule(tc, lc, tt, lt, 0.1,
+                                        "whisper decode bf16")
+    # teacher-forced: the cuda stream's tokens through decode_step (bf16
+    # ring buffers and cross K/V) and through forward (K/V unrounded), fp32
+    # activations, both on the kernels
+    forced = tc[:, :ENCDEC_STEPS]
+    _, ld32, _, _, _ = whisper_decode(model32, cfg32, params, fused, enc,
+                                      first, "cuda", forced=forced)
+    with torch.no_grad():
+        lf32, _ = model32.forward(params, {"enc_embeds": enc,
+                                           "tokens": forced},
+                                  adapters=fused, lora_scale=lora_scale(cfg),
+                                  paged_backend="cuda")
+    tf_err = float((ld32 - lf32).abs().max())
+    tf_top = float(lf32.abs().max())
+    emit({"phase": "whisper_decode", "arch": cfg.name, "rows": ENCDEC_ROWS,
+          "frames": F, "steps": ENCDEC_STEPS, "adapter": "eq7_fused_rank16",
+          "prefill_cross_ms_cuda": pre_c * 1e3,
+          "prefill_cross_ms_torch": pre_t * 1e3,
+          "ms_per_step_cuda": dec_c / ENCDEC_STEPS * 1e3,
+          "ms_per_step_torch": dec_t / ENCDEC_STEPS * 1e3,
+          "tok_per_s_cuda": ENCDEC_ROWS * ENCDEC_STEPS / dec_c,
+          "tok_per_s_torch": ENCDEC_ROWS * ENCDEC_STEPS / dec_t,
+          "first_step_max_abs_logit_err": err0, "max_abs_logit": top0,
+          "first_step_tol": 0.1 * top0,
+          "first_token_agree": int(agree.sum()),
+          "decisive_rows": int(decisive.sum()),
+          "matched_tokens": matched, "max_abs_logit_err": worst,
+          "streams_bitwise": bool(torch.equal(tc, tt)),
+          "teacher_forced_steps": ENCDEC_STEPS,
+          "teacher_forced_fp32_max_abs_err": tf_err,
+          "teacher_forced_tol": 1e-2 * tf_top,
+          "launches_cuda": nc, "launches_torch": nt})
+    require(bool(torch.isfinite(lc).all()), "whisper decode: cuda logits "
+            "not finite")
+    require(bool(agree[decisive].all()), "whisper decode: a first greedy "
+            "token differs where the margin exceeds twice the error")
+    require(tf_err <= 1e-2 * tf_top, f"whisper teacher-forced decode: fp32 "
+            f"logit error {tf_err} > {1e-2 * tf_top}")
+    require(nc["lora_matmul"] > 0 and nc["flash_attention"] > 0,
+            f"whisper decode launched {nc}")
+    require(all(n == 0 for n in nt.values()),
+            f"whisper decode through torch launched {nt}")
+    return {"train": {n: train_counts[n] for n in kernels.TRAINING},
+            "decode": {n: nc[n] for n in kernels.TRAINING}}
+
+
+def vlm_encdec_phase(device, seed: int, T: int = 256, new_tokens: int = 16,
+                     rank: int = 16):
+    """internvl2-26b, then whisper-small (``vlm_phase``,
+    ``whisper_phase``); returns {arch: {run: launch counts}}."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {VLM_ARCH: vlm_phase(device, seed, T, new_tokens, rank)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts[ENCDEC_ARCH] = whisper_phase(device, seed, T, rank)
+    return counts
+
+
 def ptxas_entries(report: str):
     """``{kernel: {registers, spill_stores, spill_loads}}`` from ``nvcc
     -Xptxas=-v`` output.  The tensor-core tiles are named
@@ -4053,6 +4467,8 @@ def main(argv=None) -> int:
     timed("dense_family", dense_family_phase, device, args.seed, T)
     moe_counts = timed("moe", moe_phase, device, args.seed, T)
     ssm_counts = timed("ssm", ssm_phase, device, args.seed, T)
+    vlm_encdec_counts = timed("vlm_encdec", vlm_encdec_phase, device,
+                              args.seed, T)
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
@@ -4065,7 +4481,8 @@ def main(argv=None) -> int:
         "moe": {arch: {n: c[n] for n in kernels.SERVING}
                 for arch, c in moe_counts.items()},
         "ssm": {arch: {n: c[n] for n in kernels.SERVING}
-                for arch, c in ssm_counts.items()}})
+                for arch, c in ssm_counts.items()},
+        "vlm_encdec": vlm_encdec_counts})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})
 

@@ -72,7 +72,12 @@ def _n_layers(blocks: Params) -> int:
 
 
 def params_from_jax(tree: Params, device="cuda") -> Params:
-    """Reference ``init_params`` tree (numpy leaves) -> port params."""
+    """Reference ``init_params`` tree (numpy leaves) -> port params.  The
+    encoder-decoder's tree (``embed``, ``enc_pos``, ``dec_pos``,
+    ``enc_blocks``, ``dec_blocks``, two final norms) keeps its layout,
+    leaves stacked over depth, as ``models/encdec.py`` reads it."""
+    if "enc_blocks" in tree:
+        return _map(lambda l: to_torch(l, device), tree)
     out = {"embed": to_torch(tree["embed"], device),
            "final_norm": _map(lambda l: to_torch(l, device),
                               tree["final_norm"]),
@@ -87,7 +92,19 @@ def adapters_from_jax(tree: Params, device="cuda") -> Params:
     leaves, stacked on the period axis: K/V pools or ring buffers, SSM
     state ``h`` (n_periods, rows, H, P, N) and ``conv`` (n_periods, rows,
     K-1, conv_dim)) -> port tree ``{"layers": [...]}`` with the same
-    dtypes (a ring buffer's write count is not carried)."""
+    dtypes (a ring buffer's write count is not carried).  The
+    encoder-decoder's adapter tree (``enc_blocks``/``dec_blocks``) keeps
+    its stacked layout; its decode cache (``self``, ``cross_k``,
+    ``cross_v``) too, the ring buffers' write count carried as one int."""
+    if "enc_blocks" in tree:
+        return _map(lambda l: to_torch(l, device), tree)
+    if "cross_k" in tree:
+        ring = tree["self"]
+        return {"self": {"k": to_torch(ring["k"], device),
+                         "v": to_torch(ring["v"], device),
+                         "pos": int(np.asarray(ring["pos"]).reshape(-1)[0])},
+                "cross_k": to_torch(tree["cross_k"], device),
+                "cross_v": to_torch(tree["cross_v"], device)}
     return {"layers": unstack_blocks(tree["blocks"], device)}
 
 

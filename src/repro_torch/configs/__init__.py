@@ -1,5 +1,6 @@
-"""Architectures the port serves, by ``--arch`` id: the dense, MoE, SSM
-and hybrid families."""
+"""Architectures of the port, by ``--arch`` id: the dense, MoE, SSM,
+hybrid, VLM and encoder-decoder families (every arch of the reference
+registry)."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +18,8 @@ _MODULES = {
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2p7b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0p1_52b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "whisper-small": "repro_torch.configs.whisper_small",
 }
 
 ALL_ARCHS: List[str] = list(_MODULES)

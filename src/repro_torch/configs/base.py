@@ -1,14 +1,20 @@
-"""Model configuration of the PyTorch port (dense, MoE, SSM and hybrid
-decoders).
+"""Model configuration of the PyTorch port (dense, MoE, SSM, hybrid,
+vision-language and encoder-decoder models).
 
 The port keeps its own copy of the reference package's ``ModelConfig``,
-trimmed to the fields those families read.  A model is ``n_layers``
+trimmed to the fields those families read.  A decoder is ``n_layers``
 layers repeating ``layer_pattern``; each entry is ``"<mixer>+<mlp>"``
 with the mixer ``"attn"`` or ``"mamba"`` (Mamba2 SSD, ``models/mamba2.py``)
 and the MLP ``"mlp"``, ``"moe"`` (top-k routed experts,
 ``models/moe.py``) or ``"none"``.  The dense family serves ``"attn+mlp"``,
 the MoE family ``"attn+moe"``, the SSM family ``"mamba+none"`` and the
 hybrid family any pattern of those mixers and MLPs (Jamba's period of 8).
+The VLM family is a dense decoder that reads ``n_patch_tokens`` stubbed
+image-patch embeddings before the text (``models/model.py``); the
+encoder-decoder family (Whisper, ``models/encdec.py``) runs
+``n_encoder_layers`` encoder layers over ``encoder_seq_len`` stubbed frame
+embeddings and ``n_layers`` decoder layers with cross-attention, both
+``"attn+mlp"``.
 ``paged_backend`` (named for the paged attention it first switched)
 routes EVERY kernel of the port, serving and training alike: ``"cuda"``
 runs the hand-written Hopper kernels (paged decode and prefill attention,
@@ -30,13 +36,14 @@ VALID_MLPS = ("mlp", "moe", "none")
 # family -> the layer patterns the port serves for it (None: any pattern
 # of VALID_MIXERS and VALID_MLPS)
 SERVED_PATTERNS = {"dense": ("attn+mlp",), "moe": ("attn+moe",),
-                   "ssm": ("mamba+none",), "hybrid": None}
+                   "ssm": ("mamba+none",), "hybrid": None,
+                   "vlm": ("attn+mlp",), "encdec": ("attn+mlp",)}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" | "moe" | "ssm" | "hybrid" are served so far
+    family: str  # dense | moe | ssm | hybrid | vlm | encdec
 
     n_layers: int
     d_model: int
@@ -72,6 +79,12 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_n_groups: int = 1
     ssm_chunk: int = 128
+
+    # encoder-decoder (Whisper): the encoder's depth and frame count
+    n_encoder_layers: int = 0
+    encoder_seq_len: int = 0
+    # VLM: stubbed image-patch embeddings prepended to the text
+    n_patch_tokens: int = 0
 
     max_seq_len: int = 8192
 
@@ -131,6 +144,10 @@ class ModelConfig:
     def ssm_n_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.family == "encdec"
+
     def has_mixer(self, mixer: str) -> bool:
         return any(p.startswith(mixer + "+") or p == mixer
                    for p in self.layer_pattern)
@@ -150,7 +167,10 @@ class ModelConfig:
         """Base parameters, counted as the reference counts them (the
         final norm left out, two norms a layer even where an ``"+none"``
         layer has one, a mamba layer's per-head vectors counted twice and
-        its gated norm's scale not at all)."""
+        its gated norm's scale not at all; an encoder-decoder adds its
+        encoder layers, a cross-attention per ENCODER layer with one norm,
+        and learned positions at ``encoder_seq_len`` and
+        ``max_seq_len``)."""
         d, ff, V = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
         n_mats = 3 if self.mlp_type in ("swiglu", "geglu") else 2
@@ -171,7 +191,18 @@ class ModelConfig:
         total += V * d
         if not self.tie_embeddings:
             total += V * d
+        if self.is_encdec:
+            enc_layer = per["attn"] + per["mlp"] + 2 * d
+            total += self.n_encoder_layers * (enc_layer + per["attn"] + d)
+            total += self.encoder_seq_len * d + self.max_seq_len * d
         return total
+
+    def count_lora_params(self, rank: Optional[int] = None) -> int:
+        """Trainable parameters of one adapter tree at ``rank``."""
+        from repro_torch.core.lora import lora_target_shapes
+        r = rank or self.lora_rank
+        return sum(din * r + r * dout
+                   for din, dout in lora_target_shapes(self))
 
     def count_active_params(self) -> int:
         """Parameters a token reads: MoE layers count their routed experts

@@ -6,14 +6,18 @@ under ``"mixer"`` (attention, or a mamba block's projections) or
 ``"mlp"``.  The reference package stacks
 the same leaves on a leading period axis for its ``lax.scan``; the port
 loops over layers in Python, so it keeps one entry per layer
-(``repro_torch.bridge`` converts between the two).
+(``repro_torch.bridge`` converts between the two).  The encoder-decoder's
+tree is the reference's: ``{"enc_blocks": {"self_attn", "mlp"},
+"dec_blocks": {"self_attn", "cross_attn", "mlp"}}``, each target's leaves
+stacked over its own depth (A (L, d_in, r), B (L, r, d_out)), as
+``models/encdec.py`` stacks its weights.
 
 The update is ``(alpha / r) · (x @ A) @ B`` added to the frozen base
 output; ``B`` starts at zero so a fresh adapter is the base model.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +63,27 @@ def block_target_shapes(cfg, entry: str = "attn+mlp"
     return out
 
 
+def _attn_mlp_targets(cfg):
+    """The encoder-decoder's attention and MLP targets, filtered by
+    ``cfg.lora_targets``: ({name: (d_in, d_out)}, {name: (d_in, d_out)})."""
+    t = block_target_shapes(cfg, "attn+mlp")
+    return t.get("mixer", {}), t.get("mlp", {})
+
+
+def lora_target_shapes(cfg) -> List[Tuple[int, int]]:
+    """Every adapted (d_in, d_out) over the whole depth, as the reference
+    lists them for its parameter count.  The encoder-decoder counts its
+    attention targets over the encoder's layers and twice over the
+    decoder's (self- and cross-attention), the MLP's once per layer."""
+    if cfg.is_encdec:
+        at, mt = _attn_mlp_targets(cfg)
+        return (list(at.values()) * (cfg.n_encoder_layers + 2 * cfg.n_layers)
+                + list(mt.values()) * (cfg.n_encoder_layers + cfg.n_layers))
+    return [kn for i in range(cfg.n_layers)
+            for part in block_target_shapes(cfg, cfg.layer_entry(i)).values()
+            for kn in part.values()]
+
+
 def init_adapters(cfg, rank: Optional[int] = None, seed: int = 0,
                   device="cuda", b_std: float = 0.0) -> Params:
     """A fresh adapter tree on ``device`` (the card unless the caller asks
@@ -69,19 +94,29 @@ def init_adapters(cfg, rank: Optional[int] = None, seed: int = 0,
     device = resolve_device(device)
     r = rank or cfg.lora_rank
     rng = np.random.default_rng(seed)
-    layers = []
-    for i in range(cfg.n_layers):
-        layer = {}
-        for part, tmap in block_target_shapes(cfg, cfg.layer_entry(i)).items():
-            layer[part] = {}
-            for t, (din, dout) in tmap.items():
-                a = rng.standard_normal((din, r), np.float32) / r
-                b = (rng.standard_normal((r, dout), np.float32) * b_std
-                     if b_std > 0 else np.zeros((r, dout), np.float32))
-                layer[part][t] = {"a": torch.from_numpy(a).to(device),
-                                  "b": torch.from_numpy(b).to(device)}
-        layers.append(layer)
-    return {"layers": layers}
+
+    def pairs(tmap, *lead):
+        out = {}
+        for t, (din, dout) in tmap.items():
+            a = rng.standard_normal((*lead, din, r), np.float32) / r
+            b = (rng.standard_normal((*lead, r, dout), np.float32) * b_std
+                 if b_std > 0 else np.zeros((*lead, r, dout), np.float32))
+            out[t] = {"a": torch.from_numpy(a).to(device),
+                      "b": torch.from_numpy(b).to(device)}
+        return out
+
+    if cfg.is_encdec:
+        at, mt = _attn_mlp_targets(cfg)
+        Le, Ld = cfg.n_encoder_layers, cfg.n_layers
+        return {"enc_blocks": {"self_attn": pairs(at, Le),
+                               "mlp": pairs(mt, Le)},
+                "dec_blocks": {"self_attn": pairs(at, Ld),
+                               "cross_attn": pairs(at, Ld),
+                               "mlp": pairs(mt, Ld)}}
+    return {"layers": [
+        {part: pairs(tmap) for part, tmap in
+         block_target_shapes(cfg, cfg.layer_entry(i)).items()}
+        for i in range(cfg.n_layers)]}
 
 
 def lora_scale(cfg, rank: Optional[int] = None) -> float:

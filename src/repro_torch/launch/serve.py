@@ -35,10 +35,13 @@ by Eq. 7, or ``--adapters`` for a checkpoint):
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
         --device cpu --tenants 0 --dual --batch 2
 
-Any arch the port serves, by ``--arch`` (``repro_torch.configs.ALL_ARCHS``):
-the dense, MoE, SSM and hybrid families; mamba2-2.7b and jamba-v0.1-52b
-keep recurrent state per slot, so they refuse ``--prefix-cache`` and
-``--spec-decode``, as the reference does:
+Any arch of the port, by ``--arch`` (``repro_torch.configs.ALL_ARCHS``):
+the dense, MoE, SSM, hybrid and VLM families (internvl2-26b serves
+text-only requests, as in the reference); the encoder-decoder
+(whisper-small) needs audio embeddings and is refused, as the reference
+refuses it.  mamba2-2.7b and jamba-v0.1-52b keep recurrent state per
+slot, so they refuse ``--prefix-cache`` and ``--spec-decode``, as the
+reference does:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --smoke --device cpu --tenants 2 --batch 2
@@ -444,6 +447,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.is_encdec:
+        raise SystemExit("enc-dec serving needs audio embeds; use tests/"
+                         "test_models.py::test_whisper_prefill_cross for the "
+                         "path")
     if args.tenants <= 0:
         if args.continuous or args.serve:
             raise SystemExit("--continuous/--serve need --tenants N (the "

@@ -12,7 +12,11 @@ Flag names are the reference CLI's (``repro.launch.train``), plus
 ``"torch"`` path on the CPU).  Base weights are random from seed 0 (the
 repo holds no trained weights); the adapters start at the standard LoRA
 init (B = 0), from seed 1.  ``--ckpt`` writes the adapters in the reference's npz
-layout.
+layout.  A VLM (``internvl2-26b``) or an encoder-decoder
+(``whisper-small``) needs modality inputs whose frontend is a stub: each
+batch carries zero patch embeddings (B, n_patch_tokens, d) or frame
+embeddings (B, encoder_seq_len, d) beside the synthetic text, as the
+reference CLI feeds them.
 """
 from __future__ import annotations
 
@@ -49,9 +53,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.is_encdec or cfg.family == "vlm":
+        print(f"note: {args.arch} needs modality inputs; feeding stub "
+              "embeddings alongside synthetic text")
     model = Model(cfg, device=args.device)
-    print(f"arch: {cfg.name} ({cfg.count_params() / 1e6:.1f}M params) on "
-          f"{model.device}")
+    print(f"arch: {cfg.name} ({cfg.count_params() / 1e6:.1f}M params, "
+          f"LoRA {cfg.count_lora_params() / 1e3:.1f}K) on {model.device}")
     params = model.init(0)
     adapters = init_adapters(cfg, seed=1, device=model.device)
     opt = adamw(lr=args.lr, schedule=cosine_schedule(10, args.steps))
@@ -69,6 +76,12 @@ def main(argv=None):
         raw = batcher.sample()
         batch = {"tokens": torch.as_tensor(raw["tokens"] % cfg.vocab_size),
                  "loss_mask": torch.as_tensor(raw["loss_mask"])}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (args.batch, cfg.n_patch_tokens, cfg.d_model))
+        if cfg.is_encdec:
+            batch["enc_embeds"] = torch.zeros(
+                (args.batch, cfg.encoder_seq_len, cfg.d_model))
         batch = {k: v.to(model.device) for k, v in batch.items()}
         adapters, state, m = step(params, adapters, state, batch)
         if i % 10 == 0 or i == args.steps - 1:

@@ -1,9 +1,17 @@
-"""``Model``: the port's uniform interface over the decoder.
+"""``Model``: the port's uniform interface over every model family.
 
-Mirrors ``repro/models/api.py::Model`` for the dense, MoE, SSM and hybrid
-families.  A
-``Model`` is bound to a device (``"cuda"`` unless the caller asks for the CPU; a
-missing card raises).
+Mirrors ``repro/models/api.py::Model``.  ``Model.forward(params, batch,
+adapters)`` takes a dict ``batch``:
+
+* decoder families: {"tokens": (B, S)}, plus "patch_embeds" (B, P, d) for
+  the VLM (prepended to the text);
+* the encoder-decoder: {"enc_embeds": (B, T, d), "tokens": (B, S)}.
+
+``Model.decode_step`` serves both: paged or contiguous for decoders, the
+contiguous cache of ``models/encdec.py`` for the encoder-decoder, which,
+as in the reference, refuses banked adapters, paged caches and paged
+prefill.  A ``Model`` is bound to a device (``"cuda"`` unless the caller
+asks for the CPU; a missing card raises).
 """
 from __future__ import annotations
 
@@ -12,6 +20,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import encdec
 from repro_torch.models import model as dec
 
 Params = Dict[str, Any]
@@ -23,6 +32,8 @@ class Model:
         self.device = resolve_device(device)
 
     def init(self, seed: int = 0) -> Params:
+        if self.cfg.is_encdec:
+            return encdec.init_params(self.cfg, seed, self.device)
         return dec.init_params(self.cfg, seed, self.device)
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor],
@@ -30,14 +41,27 @@ class Model:
                 last_only: bool = False,
                 adapter_ids: Optional[torch.Tensor] = None,
                 paged_backend: Optional[str] = None):
-        """batch = {"tokens": (B, S)} -> (logits (B, S, V) fp32, the MoE
-        aux loss: an fp32 scalar, 0 for a model without MoE layers)."""
-        return dec.forward(params, batch["tokens"], self.cfg, adapters,
+        """batch -> (logits (B, S, V) fp32, the MoE aux loss: an fp32
+        scalar, 0 for a model without MoE layers).  A VLM's logits cover
+        its P patch positions, then the S text positions."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            if adapter_ids is not None:
+                raise NotImplementedError("multi-tenant banked adapters are "
+                                          "decoder-family only")
+            return encdec.forward(params, batch["enc_embeds"],
+                                  batch["tokens"], cfg, adapters, lora_scale,
+                                  paged_backend=paged_backend)
+        extra = batch.get("patch_embeds") if cfg.family == "vlm" else None
+        return dec.forward(params, batch["tokens"], cfg, adapters,
                            lora_scale, last_only=last_only,
                            adapter_ids=adapter_ids,
-                           paged_backend=paged_backend)
+                           paged_backend=paged_backend, extra_embeds=extra)
 
     def init_decode_cache(self, batch: int, cache_len: int) -> Params:
+        if self.cfg.is_encdec:
+            return encdec.init_decode_cache(self.cfg, batch, cache_len,
+                                            self.device)
         return dec.init_decode_cache(self.cfg, batch, cache_len, self.device)
 
     def init_paged_decode_cache(self, num_blocks: int, block_size: int,
@@ -45,6 +69,8 @@ class Model:
                                 num_slots: Optional[int] = None) -> Params:
         """K/V pools of ``num_blocks`` blocks; a model with mamba layers
         also needs ``num_slots``, its rows of recurrent state."""
+        if self.cfg.is_encdec:
+            raise NotImplementedError("paged decoding is decoder-family only")
         return dec.init_paged_decode_cache(self.cfg, num_blocks, block_size,
                                            self.device, kv_dtype=kv_dtype,
                                            num_slots=num_slots)
@@ -56,6 +82,8 @@ class Model:
                      block_tables: Optional[torch.Tensor] = None,
                      paged_backend: Optional[str] = None):
         """Chunked paged prefill; returns (logits (B, T, V), cache)."""
+        if self.cfg.is_encdec:
+            raise NotImplementedError("paged prefill is decoder-family only")
         return dec.prefill_step(params, cache, tokens, pos, n_new, self.cfg,
                                 adapters, lora_scale, adapter_ids=adapter_ids,
                                 block_tables=block_tables,
@@ -82,7 +110,17 @@ class Model:
                     block_tables: Optional[torch.Tensor] = None,
                     paged_backend: Optional[str] = None):
         """One decode step, paged (``block_tables``, per-row ``pos``) or
-        contiguous (int ``pos``); returns (logits (B, 1, V), cache)."""
+        contiguous (int ``pos``); returns (logits (B, 1, V), cache).  The
+        encoder-decoder steps its contiguous cache only, its cross K/V
+        filled by ``encdec.prefill_cross``."""
+        if self.cfg.is_encdec:
+            if adapter_ids is not None or block_tables is not None:
+                raise NotImplementedError("multi-tenant banked adapters and "
+                                          "paged decoding are decoder-family "
+                                          "only")
+            return encdec.decode_step(params, cache, tokens, pos, self.cfg,
+                                      adapters, lora_scale,
+                                      paged_backend=paged_backend)
         return dec.decode_step(params, cache, tokens, pos, self.cfg, adapters,
                                lora_scale, adapter_ids=adapter_ids,
                                block_tables=block_tables,

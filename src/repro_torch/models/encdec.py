@@ -1,0 +1,258 @@
+"""Whisper-style encoder-decoder: init, training forward and decode.
+
+Port of ``repro/models/encdec.py``.  The modality frontend (mel
+spectrogram and convolutions) is a stub, as in the reference: callers pass
+frame embeddings ``enc_embeds`` (B, T, d) with T <= ``encoder_seq_len``.
+Whisper's flavour: learned positions (no RoPE), pre-LayerNorm with bias,
+a GELU MLP without a gate, a tied unembedding.
+
+Parameters follow the reference's tree: ``embed`` (V, d), ``enc_pos``
+(encoder_seq_len, d), ``dec_pos`` (max_seq_len, d), ``enc_blocks`` and
+``dec_blocks`` (each leaf stacked over its own depth: ``self_attn``,
+``mlp``, ``norm1``, ``norm2``; the decoder adds ``cross_attn`` and
+``norm3``), ``enc_final_norm`` and ``dec_final_norm``.  Adapter trees stack
+the same way (``core/lora.py``).  A Python loop walks the layers, each
+reading its slice of the stacks.
+
+The encoder's self-attention and every cross-attention attend without a
+mask (``causal=False``: the flash-attention kernel's non-causal mode on
+``"cuda"``); the decoder's self-attention is causal, through the kernel in
+training and through the fixed path's ring buffer in decode.  Cross
+K/V come from plain products of the encoder's output with ``wk``/``wv``:
+the cross-attention's ``wk``/``wv`` adapters are never read, so a
+``cross_attn.wv`` adapter gets a zero gradient, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import torch_dtype
+from repro_torch.models import layers as L
+from repro_torch.models.model import resolve_backend
+
+Params = Dict[str, Any]
+
+
+def init_params(cfg, seed: int = 0, device="cuda") -> Params:
+    """Random weights from ``seed`` at the reference's init scales (normal
+    × d^-0.5 for projections, × d_ff^-0.5 for ``w_out``, × 0.02 for the
+    embedding and both position tables; fp32 norms at 1 and 0), drawn by
+    a ``torch.Generator`` on ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = torch_dtype(cfg.param_dtype)
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def normal(shape, std):
+        t = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (t * std).to(dtype)
+
+    def attn(n):
+        return {"wq": normal((n, d, H * hd), d ** -0.5),
+                "wk": normal((n, d, Kv * hd), d ** -0.5),
+                "wv": normal((n, d, Kv * hd), d ** -0.5),
+                "wo": normal((n, H * hd, d), d ** -0.5)}
+
+    def mlp(n):
+        p = {"w_up": normal((n, d, ff), d ** -0.5),
+             "w_out": normal((n, ff, d), ff ** -0.5)}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            p["w_gate"] = normal((n, d, ff), d ** -0.5)
+        return p
+
+    def norm(*lead):
+        if cfg.norm_type == "nonparametric":
+            return {}
+        p = {"scale": torch.ones(*lead, d, device=dev)}
+        if cfg.norm_type == "layernorm":
+            p["bias"] = torch.zeros(*lead, d, device=dev)
+        return p
+
+    Le, Ld = cfg.n_encoder_layers, cfg.n_layers
+    return {
+        "embed": normal((V, d), 0.02),
+        "enc_pos": normal((cfg.encoder_seq_len, d), 0.02),
+        "dec_pos": normal((cfg.max_seq_len, d), 0.02),
+        "enc_blocks": {"self_attn": attn(Le), "mlp": mlp(Le),
+                       "norm1": norm(Le), "norm2": norm(Le)},
+        "dec_blocks": {"self_attn": attn(Ld), "cross_attn": attn(Ld),
+                       "mlp": mlp(Ld), "norm1": norm(Ld), "norm2": norm(Ld),
+                       "norm3": norm(Ld)},
+        "enc_final_norm": norm(),
+        "dec_final_norm": norm(),
+    }
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (params or adapters; None stays
+    None).  A dual adapter's fusion weights ``w`` (2,) are shared by every
+    layer and pass whole."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: (v if k == "w" else _layer(v, i)) for k, v in tree.items()}
+    return tree[i]
+
+
+def encode(params: Params, enc_embeds: torch.Tensor, cfg,
+           adapters: Optional[Params] = None,
+           lora_scale: float = 1.0) -> torch.Tensor:
+    """enc_embeds (B, T, d) -> encoder output (B, T, d) in the activations'
+    dtype: positions added, then every encoder layer (self-attention
+    without a mask, MLP), then the final norm.  ``cfg.paged_backend`` must
+    be resolved (``forward`` and ``prefill_cross`` do it)."""
+    dtype = torch_dtype(cfg.dtype)
+    T = enc_embeds.shape[1]
+    x = enc_embeds.to(dtype) + params["enc_pos"][:T].to(dtype)[None]
+    positions = torch.arange(T, device=x.device)
+    blocks, ad = params["enc_blocks"], (adapters or {}).get("enc_blocks")
+    for i in range(cfg.n_encoder_layers):
+        lp, la = _layer(blocks, i), _layer(ad, i) or {}
+        h = L.apply_norm(lp["norm1"], x, cfg.norm_type)
+        out, _ = L.multihead_attention(lp["self_attn"], h, cfg, positions,
+                                       la.get("self_attn"), lora_scale,
+                                       causal=False)
+        x = x + out
+        h = L.apply_norm(lp["norm2"], x, cfg.norm_type)
+        x = x + L.apply_mlp(lp["mlp"], h, cfg.mlp_type, la.get("mlp"),
+                            lora_scale, backend=cfg.paged_backend)
+    return L.apply_norm(params["enc_final_norm"], x, cfg.norm_type)
+
+
+def _cross_kv(block: Params, enc_out: torch.Tensor,
+              cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer's cross K/V (B, T, Kv, hd): plain products of the
+    encoder output with the cross-attention's ``wk``/``wv`` (no adapter,
+    as in the reference)."""
+    B, T, _ = enc_out.shape
+    Kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    k = L.matmul(enc_out, block["cross_attn"]["wk"]).reshape(B, T, Kv, hd)
+    v = L.matmul(enc_out, block["cross_attn"]["wv"]).reshape(B, T, Kv, hd)
+    return k, v
+
+
+def _decoder_stack(params: Params, x: torch.Tensor, positions, cfg,
+                   enc_out=None, cross_kv=None, adapters=None,
+                   lora_scale: float = 1.0, cache=None):
+    """The decoder's layers over x (B, S, d), reading either ``enc_out``
+    (training: cross K/V computed per layer) or ``cross_kv`` (decode: the
+    stacked bf16 cache).  ``cache``: the self-attention ring buffers
+    {"k", "v": (L, B, S_cache, Kv, hd), "pos": int}, written in place.
+    Returns (x, the new self cache or None)."""
+    blocks, ad = params["dec_blocks"], (adapters or {}).get("dec_blocks")
+    pos = None
+    for i in range(cfg.n_layers):
+        lp, la = _layer(blocks, i), _layer(ad, i) or {}
+        ring = None
+        if cache is not None:
+            ring = {"k": cache["k"][i], "v": cache["v"][i],
+                    "pos": cache["pos"]}
+        h = L.apply_norm(lp["norm1"], x, cfg.norm_type)
+        out, ring = L.multihead_attention(lp["self_attn"], h, cfg, positions,
+                                          la.get("self_attn"), lora_scale,
+                                          kv_cache=ring)
+        x = x + out
+        if ring is not None:
+            pos = ring["pos"]
+        h = L.apply_norm(lp["norm2"], x, cfg.norm_type)
+        if cross_kv is not None:
+            ck, cv = cross_kv[0][i], cross_kv[1][i]
+        else:
+            ck, cv = _cross_kv(lp, enc_out, cfg)
+        out, _ = L.multihead_attention(
+            lp["cross_attn"], h, cfg, positions, la.get("cross_attn"),
+            lora_scale, causal=False,
+            kv_override=(ck.to(h.dtype), cv.to(h.dtype)))
+        x = x + out
+        h = L.apply_norm(lp["norm3"], x, cfg.norm_type)
+        x = x + L.apply_mlp(lp["mlp"], h, cfg.mlp_type, la.get("mlp"),
+                            lora_scale, backend=cfg.paged_backend)
+    if cache is None:
+        return x, None
+    return x, {"k": cache["k"], "v": cache["v"], "pos": pos}
+
+
+def _unembed(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    x = L.apply_norm(params["dec_final_norm"], x, cfg.norm_type)
+    return L.matmul(x, params["embed"].T, out_dtype=torch.float32)
+
+
+def forward(params: Params, enc_embeds: torch.Tensor,
+            dec_tokens: torch.Tensor, cfg,
+            adapters: Optional[Params] = None, lora_scale: float = 1.0,
+            paged_backend: Optional[str] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: frame embeddings (B, T, d) and decoder tokens
+    (B, S) -> (logits (B, S, V) fp32, a zero fp32 aux loss)."""
+    cfg = resolve_backend(cfg, paged_backend, dec_tokens.device)
+    dtype = torch_dtype(cfg.dtype)
+    enc_out = encode(params, enc_embeds, cfg, adapters, lora_scale)
+    S = dec_tokens.shape[1]
+    x = (params["embed"][dec_tokens.long()].to(dtype)
+         + params["dec_pos"][:S].to(dtype)[None])
+    positions = torch.arange(S, device=x.device)
+    x, _ = _decoder_stack(params, x, positions, cfg, enc_out=enc_out,
+                          adapters=adapters, lora_scale=lora_scale)
+    return (_unembed(params, x, cfg),
+            torch.zeros((), device=dec_tokens.device))
+
+
+def init_decode_cache(cfg, batch: int, cache_len: int,
+                      device="cuda") -> Params:
+    """The fixed path's decode cache, bf16, on the card unless the caller
+    asks for the CPU: the decoder's self-attention ring buffers ``self``
+    {"k", "v": (L, batch, cache_len, Kv, hd), "pos": 0} and the cross K/V
+    ``cross_k``/``cross_v`` (L, batch, encoder_seq_len, Kv, hd), zero
+    until :func:`prefill_cross` fills them."""
+    dev = resolve_device(device)
+    Kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    nL, T = cfg.n_layers, cfg.encoder_seq_len
+
+    def zeros(n):
+        return torch.zeros((nL, batch, n, Kv, hd), dtype=torch.bfloat16,
+                           device=dev)
+    return {"self": {"k": zeros(cache_len), "v": zeros(cache_len), "pos": 0},
+            "cross_k": zeros(T), "cross_v": zeros(T)}
+
+
+def prefill_cross(params: Params, enc_embeds: torch.Tensor, cfg,
+                  adapters: Optional[Params] = None, lora_scale: float = 1.0,
+                  paged_backend: Optional[str] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the encoder once and compute every decoder layer's cross K/V:
+    (cross_k, cross_v), each (L, B, T, Kv, hd) bf16, for the decode
+    cache."""
+    cfg = resolve_backend(cfg, paged_backend, enc_embeds.device)
+    enc_out = encode(params, enc_embeds, cfg, adapters, lora_scale)
+    kv = [_cross_kv(_layer(params["dec_blocks"], i), enc_out, cfg)
+          for i in range(cfg.n_layers)]
+    return (torch.stack([k for k, _ in kv]).to(torch.bfloat16),
+            torch.stack([v for _, v in kv]).to(torch.bfloat16))
+
+
+def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
+                pos: int, cfg, adapters: Optional[Params] = None,
+                lora_scale: float = 1.0,
+                paged_backend: Optional[str] = None
+                ) -> Tuple[torch.Tensor, Params]:
+    """One decoder step, tokens (B, 1) at position ``pos`` (the tokens
+    already in the cache): its learned position is ``dec_pos[pos %
+    max_seq_len]``.  Returns (logits (B, 1, V) fp32, cache); the ring
+    buffers are written in place."""
+    cfg = resolve_backend(cfg, paged_backend, tokens.device)
+    dtype = torch_dtype(cfg.dtype)
+    pos = int(pos)
+    x = (params["embed"][tokens.long()].to(dtype)
+         + params["dec_pos"][pos % cfg.max_seq_len].to(dtype))
+    positions = torch.full((1,), pos, device=tokens.device)
+    x, new_self = _decoder_stack(
+        params, x, positions, cfg,
+        cross_kv=(cache["cross_k"], cache["cross_v"]), adapters=adapters,
+        lora_scale=lora_scale, cache=cache["self"])
+    return _unembed(params, x, cfg), {"self": new_self,
+                                      "cross_k": cache["cross_k"],
+                                      "cross_v": cache["cross_v"]}

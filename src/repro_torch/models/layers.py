@@ -1,6 +1,7 @@
-"""Neural-net primitives of the dense decoder (plain functions on tensors).
+"""Neural-net primitives of the port's models (plain functions on tensors).
 
-Port of the dense subset of ``repro/models/layers.py``.  Weights keep the
+Port of the attention, MLP and norm primitives of
+``repro/models/layers.py``.  Weights keep the
 reference's ``(d_in, d_out)`` layout (``y = x @ w``).  Linear layers take an
 optional LoRA pair; the adapter path computes in fp32 and is added to the
 frozen base output.  ``cfg.paged_backend`` (resolved by the model before
@@ -258,11 +259,19 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
                         lora_scale: float = 1.0,
                         kv_cache: Optional[Params] = None,
                         adapter_ids: Optional[torch.Tensor] = None,
-                        paged: Optional[Tuple] = None):
+                        paged: Optional[Tuple] = None,
+                        causal: bool = True,
+                        kv_override: Optional[Tuple] = None):
     """Attention over x (B, S, d).
 
     * no cache (training, evaluation): causal (+ window) attention over
       the S positions, through the flash-attention kernel on ``"cuda"``;
+      ``causal=False`` attends every key (no mask, no window), as an
+      encoder does;
+    * cross-attention (the encoder-decoder): ``kv_override=(k, v)``, each
+      (B, T, Kv, hd), computed from the encoder's output by the caller;
+      ``wk``/``wv`` and their adapters are not read and no RoPE is
+      applied, as in the reference; pass ``causal=False``;
     * contiguous decode cache (the fixed-batch path): ``kv_cache`` = {"k",
       "v": (B, S_cache, Kv, hd), "pos": tokens already written (int)}, a
       ring buffer written at ``pos % S_cache`` (full context for dense
@@ -291,11 +300,14 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
         return dense(inp, w, lora, lora_scale, adapter_ids, backend)
 
     q = dn(x, params["wq"], la("wq")).reshape(B, S, H, hd)
-    k = dn(x, params["wk"], la("wk")).reshape(B, S, Kv, hd)
-    v = dn(x, params["wv"], la("wv")).reshape(B, S, Kv, hd)
-    if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = dn(x, params["wk"], la("wk")).reshape(B, S, Kv, hd)
+        v = dn(x, params["wv"], la("wv")).reshape(B, S, Kv, hd)
+        if cfg.use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override
 
     if kv_cache is None:
         if backend == "cuda":
@@ -304,10 +316,12 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
                     "paged_backend='cuda' has no logit softcap in its flash "
                     "attention kernel; use paged_backend='torch'")
             out = kernel_ops.gqa_flash_attention(
-                q, k, v, causal=True, sliding_window=cfg.sliding_window)
+                q, k, v, causal=causal,
+                sliding_window=cfg.sliding_window if causal else 0)
             out = out.reshape(B, S, H * hd)
         else:
-            mask = _attn_mask(positions, positions, cfg.sliding_window)
+            mask = (_attn_mask(positions, positions, cfg.sliding_window)
+                    if causal else None)
             out = _sdpa(q, k, v, cfg, mask, x.dtype)
         return dn(out, params["wo"], la("wo")), None
 

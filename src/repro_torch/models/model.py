@@ -1,7 +1,7 @@
 """Decoder: init, forward and the paged serving steps.
 
-Port of the dense, MoE, SSM and hybrid families of
-``repro/models/model.py``.  Parameters are a plain dict: ``embed`` (V,
+Port of the dense, MoE, SSM, hybrid and VLM families of
+``repro/models/model.py`` (the encoder-decoder is ``models/encdec.py``).  Parameters are a plain dict: ``embed`` (V,
 d), ``final_norm``, ``layers`` (one dict per layer: ``norm1``, ``mixer``:
 attention {wq, wk, wv, wo} or a mamba block (``models/mamba2.py``), and,
 unless the layer's MLP is ``"none"``, ``norm2`` and ``mlp``: the dense
@@ -159,14 +159,20 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
             adapters: Optional[Params] = None, lora_scale: float = 1.0,
             last_only: bool = False,
             adapter_ids: Optional[torch.Tensor] = None,
-            paged_backend: Optional[str] = None
+            paged_backend: Optional[str] = None,
+            extra_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V) fp32 (B, 1, V with
     ``last_only``), the MoE layers' aux losses summed: an fp32 scalar, 0
     for a model without MoE layers).  ``adapter_ids`` (B,) routes rows into a banked
-    ``adapters`` tree (leaves (C, d_in, r))."""
+    ``adapters`` tree (leaves (C, d_in, r)).  ``extra_embeds`` (B, P, d)
+    (a VLM's image patches) are cast to the activations' dtype and
+    prepended to the embedded text: the logits then cover P + S positions,
+    the patches at RoPE positions 0..P-1."""
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
     x = _embed(params, tokens, cfg)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=tokens.device)
     aux = torch.zeros((), device=tokens.device)
     for i, lp in enumerate(params["layers"]):

@@ -1,6 +1,8 @@
 """Train and evaluation steps of LoRA SFT and the AdaFusion objective.
 
-Port of ``repro/training/train_step.py`` for the dense and MoE families:
+Port of ``repro/training/train_step.py`` for every model family (a VLM's
+loss skips its patch positions; an encoder-decoder's batch carries
+``enc_embeds``):
 
 * ``make_lora_train_step``: the paper's inner step; its loss adds the MoE
   router's aux loss times ``cfg.router_aux_loss_coef`` (0 for a dense
@@ -34,18 +36,29 @@ from repro_torch.training.optimizers import (Optimizer, apply_updates,
 Params = Dict[str, Any]
 
 
+def _shift_for_family(cfg, logits: torch.Tensor, batch):
+    """(logits, targets, mask) aligned for next-token prediction.  A VLM's
+    logits start with its ``n_patch_tokens`` patch positions, which no
+    target reads: the text's predictions are ``logits[:, Pn:Pn + S - 1]``."""
+    tokens = batch["tokens"]
+    if cfg.family == "vlm":
+        Pn = cfg.n_patch_tokens
+        lg = logits[:, Pn:Pn + tokens.shape[1] - 1]
+    else:
+        lg = logits[:, :-1]
+    tg = tokens[:, 1:].long()
+    mask = batch.get("loss_mask")
+    mask = (mask[:, 1:] if mask is not None
+            else torch.ones_like(tg)).float() * (tg >= 0)
+    return lg, torch.clamp(tg, min=0), mask
+
+
 def cross_entropy(cfg, logits: torch.Tensor,
                   batch) -> Tuple[torch.Tensor, Dict]:
     """Masked next-token cross entropy over ``batch["tokens"]`` (B, S) and
     the optional ``batch["loss_mask"]``; returns (loss, metrics) as device
     scalars."""
-    tokens = batch["tokens"]
-    lg = logits[:, :-1]
-    tg = tokens[:, 1:].long()
-    mask = batch.get("loss_mask")
-    mask = (mask[:, 1:] if mask is not None
-            else torch.ones_like(tg)).float() * (tg >= 0)
-    tg = torch.clamp(tg, min=0)
+    lg, tg, mask = _shift_for_family(cfg, logits, batch)
     logp = torch.log_softmax(lg.float(), dim=-1)
     nll = -torch.gather(logp, -1, tg[..., None])[..., 0]
     denom = torch.clamp(mask.sum(), min=1.0)
@@ -79,7 +92,11 @@ def value_and_grad(loss_fn: Callable) -> Callable:
         ts = tree_map(lambda t: t.detach().requires_grad_(True), trees)
         loss, metrics = loss_fn(ts, *args)
         leaves = [t for _, t in tree_leaves(ts)]
-        grad_of = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+        # a leaf the loss never reads (the encoder-decoder's cross-attention
+        # wv adapter) gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grad_of = {id(t): torch.zeros_like(t) if g is None else g
+                   for t, g in zip(leaves, grads)}
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_map(lambda t: grad_of[id(t)], ts)
 

@@ -443,13 +443,18 @@ def test_prefill_ignores_pool_slots_past_the_last_query(dev, int8, dtype):
 
 
 # (H, Kv, Sq, Sk, window, d, causal): window, Sq < Sk and GQA at head dims
-# 32, 64, 128 and 256, and one non-causal window
+# 32, 64, 128 and 256, non-causal cases with and without a window
 FLASH_CASES = [(4, 4, 100, 100, 17, 32, True), (4, 1, 40, 130, 0, 32, True),
                (8, 2, 200, 300, 50, 64, True), (4, 4, 96, 96, 0, 64, False),
                (8, 2, 64, 64, 0, 128, True), (4, 4, 70, 250, 33, 128, True),
                (4, 2, 130, 130, 20, 128, False),
                (8, 1, 256, 256, 0, 256, True), (4, 1, 130, 130, 40, 256, True),
-               (2, 2, 70, 200, 0, 256, False)]
+               (2, 2, 70, 200, 0, 256, False),
+               # whisper-small's, non-causal at hd 64: cross-attention in
+               # decode and in training, the encoder's self-attention
+               (12, 12, 1, 1500, 0, 64, False),
+               (12, 12, 256, 1500, 0, 64, False),
+               (12, 12, 1500, 1500, 0, 64, False)]
 
 
 @pytest.mark.parametrize("H,Kv,Sq,Sk,window,d,causal", FLASH_CASES)
@@ -670,7 +675,15 @@ def test_batched_lora_tiles_match_plain(dev, shape, want, variant):
     assert kernels.launch_counts()["batched_lora_matmul"] == 2
 
 
-@pytest.mark.parametrize("shape,want", LORA_SHAPES)
+# whisper-small's projections (K 768 / N 3072, K 3072 / N 768) at its
+# train step's 2,048 decoder rows and its decode step's 8
+WHISPER_LORA_SHAPES = [((2048, 768, 3072), (2, False)),
+                       ((2048, 3072, 768), (2, False)),
+                       ((8, 768, 3072), (0, True)),
+                       ((8, 3072, 768), (0, True))]
+
+
+@pytest.mark.parametrize("shape,want", LORA_SHAPES + WHISPER_LORA_SHAPES)
 def test_lora_matmul_tiles_match_plain(dev, shape, want):
     """lora_matmul through both tiles at the same shapes: y to two bf16
     roundings (tensor-core tile) or 1e-4 (fp32 tile), and the z it keeps

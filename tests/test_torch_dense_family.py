@@ -80,11 +80,13 @@ def _window_binds(jcfg, max_pos):
 
 
 def test_all_five_dense_archs_are_served():
-    # the five dense archs, since the MoE slice the two MoE ones, and
-    # since the SSM slice mamba2-2.7b and jamba-v0.1-52b
+    # the five dense archs, since the MoE slice the two MoE ones, since
+    # the SSM slice mamba2-2.7b and jamba-v0.1-52b, and since the VLM and
+    # encoder-decoder slice internvl2-26b and whisper-small
     assert set(ALL_ARCHS) == {"llama2-7b", *ARCHS, "dbrx-132b",
                               "kimi-k2-1t-a32b", "mamba2-2.7b",
-                              "jamba-v0.1-52b"}
+                              "jamba-v0.1-52b", "internvl2-26b",
+                              "whisper-small"}
 
 
 @pytest.mark.parametrize("smoke", [False, True])

@@ -53,6 +53,9 @@ SLICE_MODULES = [
     # the SSM and hybrid families
     "models/mamba2.py", "configs/mamba2_2p7b.py",
     "configs/jamba_v0p1_52b.py",
+    # the VLM and encoder-decoder families
+    "models/encdec.py", "configs/internvl2_26b.py",
+    "configs/whisper_small.py",
 ]
 
 

@@ -150,6 +150,29 @@ def test_flash_attention_matches_reference_and_pallas(B, H, Sq, Sk, d,
     np.testing.assert_allclose(o.numpy(), _np(ok), atol=F32_TOL)
 
 
+@pytest.mark.parametrize("B,H,Sq,Sk", [
+    (2, 2, 128, 128),     # an encoder's self-attention: Sq == Sk
+    (1, 2, 128, 384),     # cross-attention in training: Sq < Sk
+    (2, 2, 1, 256),       # cross-attention in decode: one query
+    (1, 2, 256, 128),     # Sq > Sk: every query still attends every key
+])
+def test_non_causal_flash_attention_matches_reference_and_pallas(B, H, Sq,
+                                                                 Sk):
+    """``causal=False`` at head dim 64 (whisper's): no mask at all, so the
+    positions' end alignment plays no part."""
+    rng = np.random.default_rng(7)
+    d = 64
+    q, k, v = (rng.standard_normal((B, H, S, d)).astype(np.float32)
+               for S in (Sq, Sk, Sk))
+    o = flash_attention(_tn(q), _tn(k), _tn(v), causal=False)
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    orf = jref.flash_attention_ref(jq, jk, jv, causal=False)
+    ok = j_flash(jq, jk, jv, causal=False)
+    assert o.shape == (B, H, Sq, d)
+    np.testing.assert_allclose(o.numpy(), _np(orf), atol=F32_TOL)
+    np.testing.assert_allclose(o.numpy(), _np(ok), atol=F32_TOL)
+
+
 def test_gqa_flash_attention_matches_reference_wrapper():
     """Model layout (B, S, H, d) with Kv < H: the port's plain path repeats
     kv heads as the reference wrapper does; the same numbers come out."""

@@ -10,8 +10,8 @@ scale the embeddings) and on both smoke configs; a ragged prefill chunk in
 which the padded tails fill the experts' capacity ahead of later rows'
 real tokens, then a decode step, through bf16 pools; greedy engine streams
 (overlap on and off, a ragged bank too); a dbrx-smoke train step with the
-aux loss; the serve CLI per MoE arch; the VLM and encoder-decoder families
-still refused.
+aux loss; the serve CLI per MoE arch; every arch of the reference registry
+resolving in the port.
 Weights come from the reference init, bridged; adapters are numpy-seeded
 with a non-zero B.
 """
@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from conftest import tiny_moe
+from repro.configs.registry import ALL_ARCHS as J_ALL_ARCHS
 from repro.configs.registry import get_config as j_get_config
 from repro.core.lora import init_adapters as j_init_adapters
 from repro.models import moe as j_moe
@@ -183,10 +184,12 @@ def test_parameter_counts_equal_the_reference(arch):
     assert got.count_active_params() == want.count_active_params()
 
 
-@pytest.mark.parametrize("arch", ["internvl2-26b", "whisper-small"])
-def test_other_families_are_still_refused(arch):
-    with pytest.raises(NotImplementedError):
-        bridge.config_from_jax(j_get_config(arch))
+@pytest.mark.parametrize("arch", J_ALL_ARCHS)
+def test_every_reference_arch_resolves_in_the_port(arch):
+    """Every family of the reference registry resolves: the port's config
+    equals the reference's field by field."""
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+        bridge.config_from_jax(j_get_config(arch)))
 
 
 def test_moe_family_with_a_dense_pattern_is_refused():
