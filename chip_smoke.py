@@ -65,7 +65,8 @@ Phases (each prints one JSON line per result):
                after a prefix hit against the same positions prefilled
                cold, and the streams held to stated tolerances; one traced
                warm run;
-  4b. sharded — the same weights, the serve cell's 8 requests and 8
+  4b. sharded — the same weights cut to 16 of their 32 layers (the
+               script's time limit), the serve cell's 8 requests and 8
                tenants' rank-16 fused adapters in a ShardedAdapterRegistry,
                8 slots, "cuda", overlap on: num_shards 1, 2 and 4 (streams
                bitwise equal, adapter placement for all 8), the prefix
@@ -181,7 +182,22 @@ Phases (each prints one JSON line per result):
                at 12,000, 2,048 and 8 rows, flash attention at head dim 64
                non-causal (1,500 x 1,500, 256 x 1,500, 1 x 1,500) and
                causal (256);
- 10. the card's name and power limit, the kernel summary line, and last the
+ 10. train_families — one LoRA train step of dbrx-132b (the deepest of at
+               most 8 of its 40 layers whose dry-run peak fits in 90% of
+               the card), mamba2-2.7b (all 64 layers, the SSD chunked
+               scan) and jamba-v0.1-52b (8 of 32) at published width,
+               bf16, random weights from --seed, rank-16 adapters on every
+               target (the router's and the mamba projections' pairs
+               included), 2 x 256 SFT tokens, through the kernels: step
+               seconds, mfu and peak memory beside the dry run's
+               prediction for the same config and batch
+               (launch/dryrun.py on the meta device: argument bytes equal
+               exactly, the measured peak within 25% of the predicted);
+               loss and adapter gradients "cuda" vs "torch" in bf16 at
+               that depth and in fp32 at the first layer of each kind,
+               routing pinned, and a stage-3 fused evaluation; the train
+               phase's llama2-7b step is held to its prediction too;
+ 11. the card's name and power limit, the kernel summary line, and last the
      result line.
 
 batched_dual_lora_matmul, which no path of the port (or of the reference
@@ -200,11 +216,6 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-
-# published H100 SXM peaks (data sheet, dense), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-FP32_FLOPS = 67e12
 
 ROOT = Path(__file__).resolve().parent
 ARCH = "llama2-7b"
@@ -272,7 +283,10 @@ def device_ms(fn, reps: int, parts=()):
     A trace now and then comes back with device events missing (seen on
     sub-millisecond windows), which lowers the sum: a trace counts only if
     it holds ``reps`` times the device events of a traced single call, and
-    is taken again otherwise (``DEVICE_TRACE_RETAKES`` counts how often)."""
+    is taken again otherwise (``DEVICE_TRACE_RETAKES`` counts how often).
+    A single call's trace can drop events too (its window is the
+    shortest), never add them, so the count per call is the most any of
+    the attempts' single-call traces held."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -287,8 +301,9 @@ def device_ms(fn, reps: int, parts=()):
 
     fn()
     torch.cuda.synchronize()
+    per_call = 0
     for attempt in range(TRACE_ATTEMPTS):
-        per_call = sum(ev.count for ev in trace(1))
+        per_call = max(per_call, sum(ev.count for ev in trace(1)))
         evs = trace(reps)
         seen = sum(ev.count for ev in evs)
         if per_call > 0 and seen == reps * per_call:
@@ -320,9 +335,11 @@ TRACE_ATTEMPTS = 8
 def bound(bytes_moved: float, flops: float, fp32: bool = False):
     """(least ms, what sets it): bytes over the memory rate against
     operations over the bf16 tensor-core peak (``fp32``: the fp32 peak
-    outside the tensor cores)."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (FP32_FLOPS if fp32 else BF16_FLOPS) * 1e3
+    outside the tensor cores); the H100 data sheet's peaks, from
+    ``repro_torch.analysis.roofline`` as the dry run reads them."""
+    from repro_torch.analysis import roofline as rl
+    t_bytes = bytes_moved / rl.HBM_BW * 1e3
+    t_ops = flops / (rl.FP32_FLOPS if fp32 else rl.PEAK_FLOPS) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2120,16 +2137,21 @@ def sharded_engine(device, params, cfg, shards, trees, capacity=8,
             (time.perf_counter() - t0) * 1e3)
 
 
+SHARDED_LAYERS = 16
+
+
 def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
-                  new_tokens: int = 32):
-    """llama2-7b, 32 layers, bf16: the serve cell's 8 requests and 8
+                  new_tokens: int = 32, depth: int = SHARDED_LAYERS):
+    """llama2-7b cut to ``depth`` of its 32 layers (the script's time
+    limit), bf16: the serve cell's 8 requests and 8
     tenants' rank-16 fused adapters in a ShardedAdapterRegistry of
     capacity 8, 8 slots, through "cuda" with overlap on: num_shards 1, 2
     and 4 (streams bitwise equal), the prefix cache cold then warm at 2
     shards on a pinned pool, int8 K/V over a ragged int8 bank (ranks 4, 8,
     16) at 1 and 2 shards, and a hot-swap at 2 shards that re-registers
     one client after the first decode round.  Returns (the launch counts
-    of the 2-shard run, its engine at 1 shard for the fixed phase)."""
+    of the 2-shard run, an engine at 1 shard at all 32 layers for the
+    fixed phase)."""
     import dataclasses
 
     import numpy as np
@@ -2140,7 +2162,9 @@ def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
     from repro_torch.models.api import Model
     from repro_torch.serving.engine import MultiTenantEngine, ServeConfig
     from repro_torch.serving.kv_cache import blocks_needed
-    cfg = cfg.with_overrides(lora_rank=16)
+    full_cfg, full_params = cfg.with_overrides(lora_rank=16), params
+    cfg = full_cfg.with_overrides(n_layers=depth)
+    params = dict(params, layers=params["layers"][:depth])
     reqs = ragged_requests(8, 8, cfg.vocab_size, 128, 1024, seed)
     require(sorted(len(r.prompt) for r in reqs) == list(prompt_lens),
             "the sharded phase's requests are not the serve cell's")
@@ -2157,7 +2181,8 @@ def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
         outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs_, sc_)
         counts, tiles = kernels.launch_counts(), kernels.tile_counts()
         st = eng.last_stats
-        emit({"phase": "sharded", "run": name, "num_shards": sc_.num_shards,
+        emit({"phase": "sharded", "run": name, "n_layers": depth,
+              "num_shards": sc_.num_shards,
               "kv_dtype": sc_.kv_dtype, "prefix_cache": sc_.prefix_cache,
               "requests": len(reqs_), "tokens": sum(len(o) for o in outs),
               "ttft_ms_p50": float(np.percentile(ttft, 50)) * 1e3,
@@ -2184,7 +2209,8 @@ def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
         return outs, st, counts
 
     streams, engines, concat_ms = {}, {}, {}
-    trees = fused_trees(cfg, device)
+    full_trees = fused_trees(full_cfg, device)
+    trees = [{"layers": t["layers"][:depth]} for t in full_trees]
     for shards in (1, 2, 4):
         eng, concat_ms[f"f32_{shards}"] = sharded_engine(
             device, params, cfg, shards, trees)
@@ -2302,11 +2328,13 @@ def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
         del eng
         torch.cuda.empty_cache()
     del trees
-    emit({"phase": "bank_concat", "ms_first_build": concat_ms,
-          "ms_after_swap": swap_ms,
+    emit({"phase": "bank_concat", "n_layers": depth,
+          "ms_first_build": concat_ms, "ms_after_swap": swap_ms,
           "f32_bank_gb": sum(t.numel() * t.element_size() for _, t in
                              tree_leaves(engines[1].registry.bank())) / 1e9})
-    return counts2, engines[1]
+    del engines
+    return counts2, sharded_engine(device, full_params, full_cfg, 1,
+                                   full_trees)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -2438,14 +2466,19 @@ def _rel(a, b) -> float:
 
 
 def compare_grads(vg, batch, dtype_name, loss_tol, grad_tol,
-                  phase="compare_train_step", zero=(), **extra):
+                  phase="compare_train_step", zero=(),
+                  needs=("lora_matmul", "flash_attention"), pin=None,
+                  **extra):
     """One step's loss and every adapter gradient through "cuda" and
     "torch" from the same adapters and batch: ``vg(backend) -> (loss,
     metrics, grads)``.  The "torch" step must launch no kernel.  Bounds are
     relative: ``|Δloss| <= loss_tol·|loss|`` and, per adapter leaf,
     ``||Δg|| <= grad_tol·||g||``; leaves whose path holds a string of
     ``zero`` must have gradients exactly 0 on both backends.  Each step's
-    peak memory is reported.  Returns the "cuda" step's launch counts."""
+    peak memory is reported.  The "cuda" step must launch every kernel of
+    ``needs``.  ``pin`` (a :class:`RoutingPin`) pins the "torch" step's
+    expert ids to the "cuda" step's.  Returns the "cuda" step's launch
+    counts."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.lora import tree_leaves
@@ -2453,7 +2486,8 @@ def compare_grads(vg, batch, dtype_name, loss_tol, grad_tol,
     for backend in ("cuda", "torch"):
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        loss, _, grads = vg(backend)
+        with pin(backend) if pin else contextlib.nullcontext():
+            loss, _, grads = vg(backend)
         torch.cuda.synchronize()
         peak[backend] = torch.cuda.max_memory_allocated() / 1e9
         tiles = kernels.tile_counts()
@@ -2479,7 +2513,8 @@ def compare_grads(vg, batch, dtype_name, loss_tol, grad_tol,
               len(grad_errs) // 2], "grad_tol": grad_tol,
           "launches_cuda": nc, "tiles_cuda": tiles, "peak_memory_gb": peak,
           **({"zero_grad_leaves": zero_leaves, "nonzero": nonzero}
-             if zero else {})})
+             if zero else {}),
+          **({"routing_flips": pin.flips} if pin else {})})
     require(all(torch.isfinite(g).all() for g in gc.values()),
             f"{what}: a cuda gradient is not finite")
     require(len(zero_leaves) >= len(zero) and not nonzero,
@@ -2490,8 +2525,8 @@ def compare_grads(vg, batch, dtype_name, loss_tol, grad_tol,
     require(grad_errs[worst] <= grad_tol,
             f"{what}: gradient {worst} rel err {grad_errs[worst]} > "
             f"{grad_tol}")
-    require(nc["lora_matmul"] > 0 and nc["flash_attention"] > 0,
-            f"{what}: the cuda step did not launch its kernels")
+    require(all(nc[n] > 0 for n in needs),
+            f"{what}: the cuda step did not launch its kernels {needs}")
     want = "mma" if dtype_name == "bfloat16" else "f32"
     for name in ("flash_attention", "lora_matmul"):
         require(tiles[name][want] == nc[name],
@@ -2512,10 +2547,10 @@ def compare_train_step(model, cfg, params, adapters, batch, dtype_name,
 
 
 def compare_fused_eval(model, cfg, params, ad_p, ad_s, batch, dtype_name,
-                       tol):
+                       tol, pin=None, **extra):
     """The AdaFusion objective at w = (0.6, 0.6) through "cuda" (the
     dual-LoRA kernel merges on the chip) and "torch" (merge, then the plain
-    forward): ``|Δloss| <= tol·|loss|``."""
+    forward): ``|Δloss| <= tol·|loss|``; ``pin`` as ``compare_grads``'."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.training.train_step import make_fused_eval_fn
@@ -2523,16 +2558,19 @@ def compare_fused_eval(model, cfg, params, ad_p, ad_s, batch, dtype_name,
     losses, counts = {}, {}
     for backend in ("cuda", "torch"):
         kernels.reset_launch_counts()
-        loss, _ = make_fused_eval_fn(model, cfg, backend)(params, ad_p, ad_s,
-                                                          w, batch)
+        with pin(backend) if pin else contextlib.nullcontext():
+            loss, _ = make_fused_eval_fn(model, cfg, backend)(
+                params, ad_p, ad_s, w, batch)
         losses[backend], counts[backend] = float(loss), kernels.launch_counts()
         if backend == "cuda":
             tiles = kernels.tile_counts()["dual_lora_matmul"]
     err = abs(losses["cuda"] - losses["torch"]) / abs(losses["torch"])
-    emit({"phase": "compare_fused_eval", "activations": dtype_name,
+    emit({"phase": "compare_fused_eval", **extra,
+          "activations": dtype_name,
           "w": w.tolist(), "loss_cuda": losses["cuda"],
           "loss_torch": losses["torch"], "loss_rel_err": err, "tol": tol,
-          "launches_cuda": counts["cuda"], "dual_lora_tiles_cuda": tiles})
+          "launches_cuda": counts["cuda"], "dual_lora_tiles_cuda": tiles,
+          **({"routing_flips": pin.flips} if pin else {})})
     require(err <= tol, f"{dtype_name} fused-eval loss rel err {err} > {tol}")
     require(counts["cuda"]["dual_lora_matmul"] > 0,
             "the cuda fused evaluation did not launch dual_lora_matmul")
@@ -2660,6 +2698,15 @@ def train_phase(device, seed: int, params, cfg):
     losses = [h["loss"] for h in tr.history]
     weights = [c.fusion_weights.tolist() for c in clients]
     med = float(np.median(step_s))
+    fit_peak = torch.cuda.max_memory_allocated() / 1e9
+    # one more train step (client 0's personalized adapter, a fresh AdamW
+    # state, a batch of the cell) beside the dry run's prediction
+    opt = adamw()
+    _, predicted = predicted_step(
+        cfg, make_lora_train_step(model, cfg, opt, paged_backend="cuda"),
+        (params, clients[0].personalized,
+         opt.init(clients[0].personalized), dev_batch(batchers[0].sample())),
+        B, S)
     emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "dtype": cfg.dtype, "rank": cfg.lora_rank,
           "alpha": cfg.lora_alpha, "targets": list(cfg.lora_targets),
@@ -2670,7 +2717,7 @@ def train_phase(device, seed: int, params, cfg):
           "train_tokens_per_s": B * S / med,
           "stage1_2_s": t1 - t0, "stage3_s": t2 - t1,
           "round_losses": losses, "fusion_weights": weights,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "peak_memory_gb": fit_peak, "predicted_step": predicted,
           "launches": counts, "tile_launches": tiles,
           "compare_s": compare_s})
     require(len(step_s) == 12, f"{len(step_s)} train steps, not 12")
@@ -3584,7 +3631,7 @@ def moe_phase(device, seed: int, T: int = 256, tenants: int = MOE_TENANTS,
                                  prefill_chunk=8, paged_backend="cuda"))
         # a decode step reads every expert's weights (cap rounds up to 64
         # slots an expert): the byte bound of one step at 3.35 TB/s
-        bound_step_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+        bound_step_ms = bound(expert_bytes, 0)[0]
         _, counts[arch] = serve_and_check(
             eng, reqs, sc, kernels.SERVING,
             ("paged_prefill_attention", "batched_lora_matmul"),
@@ -3839,7 +3886,7 @@ def ssm_phase(device, seed: int, T: int = 256, new_tokens: int = 16,
         # layers; capacity rounds up to cover them all) and reads and
         # writes every slot's state
         step_bytes = weight_bytes + 2 * SSM_SLOTS * (state // SSM_SLOTS)
-        bound_step_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+        bound_step_ms = bound(step_bytes, 0)[0]
         # the overlap-off run logs each admission's slot reset (one
         # reduction an admission, no wait for the card)
         log = ResetLog()
@@ -4281,6 +4328,263 @@ def whisper_phase(device, seed: int, T: int, rank: int):
             "decode": {n: nc[n] for n in kernels.TRAINING}}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training on the MoE, SSM and hybrid bases, beside the dry run
+# ---------------------------------------------------------------------------
+
+# (arch, depth): dbrx-132b's is the deepest whose dry-run train-step peak
+# fits in PEAK_FIT of the card, at most the moe cell's 8 of its 40
+TRAIN_ARCHS = (("dbrx-132b", None), ("mamba2-2.7b", 64),
+               ("jamba-v0.1-52b", 8))
+TRAIN_ARCH_ROWS = 2          # each 256 SFT tokens
+PEAK_FIT = 0.9               # of the card's memory, for the depth choice
+PEAK_TOL = 0.25              # measured peak against the dry run's
+
+
+class RoutingPin:
+    """``with pin(backend):`` around a step: a "cuda" step's expert ids
+    are kept (``RoutingLog``), and a "torch" step routes to them, as
+    ``moe_first_chunk`` pins routing; ``flips`` counts the (token, layer)
+    pairs whose own top-k set on "torch" differs from "cuda"'s."""
+
+    def __init__(self):
+        self.ids, self.flips = None, None
+
+    @contextlib.contextmanager
+    def __call__(self, backend):
+        with RoutingLog(pinned=None if backend == "cuda" else self.ids) as log:
+            yield
+        own = [ids for _, ids in log.log]
+        if backend == "cuda":
+            self.ids = own
+        else:
+            self.flips = sum(int(f.sum()) for f in _flips(self.ids, own))
+
+
+class ScanCount:
+    """Counts ``models.mamba2.ssd_chunked`` calls (the SSD chunked scan of
+    a forward without a cache: training's path) inside the block."""
+
+    def __enter__(self):
+        from repro_torch.models import mamba2
+        self.calls, self._orig = 0, mamba2.ssd_chunked
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self._orig(*a, **kw)
+        mamba2.ssd_chunked = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba2
+        mamba2.ssd_chunked = self._orig
+
+
+def tree_nbytes(*trees) -> int:
+    from repro_torch.launch.dryrun import iter_tensors
+    return sum(t.numel() * t.element_size() for t in iter_tensors(trees))
+
+
+def predicted_step(cfg, step, args, rows: int, seq: int, dry=None):
+    """One train step ``step(*args)`` on the card beside the dry run's
+    prediction for the same config and batch (``dry``, or walked here on
+    the meta device): the step's seconds, its peak (``max_memory_allocated``
+    less what was allocated besides the arguments), the arguments' summed
+    bytes, which must equal the dry run's ``argument_bytes`` exactly, the
+    measured peak within ``PEAK_TOL`` of the dry run's ``peak_bytes``, and
+    mfu (6·N_active·D over the step's seconds at the bf16 peak).  Returns
+    (the step's outputs, the fields)."""
+    import torch
+    from repro_torch.analysis import roofline as rl
+    dry = dry or dry_train_step(cfg, rows, seq)
+    mem, roof = dry["memory"], dry["roofline"]
+    torch.cuda.synchronize()
+    arg_bytes = tree_nbytes(*args)
+    other = torch.cuda.memory_allocated() - arg_bytes
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - other
+    model_flops = rl.model_flops_train(cfg, rows * seq)
+    fields = {"step_s": step_s, "train_tokens_per_s": rows * seq / step_s,
+              "measured_argument_bytes": arg_bytes,
+              "measured_peak_bytes": peak,
+              "dry_argument_bytes": mem["argument_bytes"],
+              "dry_argument_bytes_by": mem["argument_bytes_by"],
+              "dry_peak_bytes": mem["peak_bytes"],
+              "dry_temp_bytes": mem["temp_bytes"],
+              "peak_rel_err": peak / mem["peak_bytes"] - 1,
+              "peak_tol": PEAK_TOL, "dry_flops": roof["flops"],
+              "dry_hbm_bytes": roof["hbm_bytes"],
+              "dry_compute_ms": roof["compute_s"] * 1e3,
+              "dry_memory_ms": roof["memory_s"] * 1e3,
+              "dry_dominant": roof["dominant"],
+              "dry_kernel_launches": {k: v["launches"] for k, v in
+                                      dry["kernels"].items()},
+              "dry_walk_s": dry["walk_s"], "model_flops": model_flops,
+              "mfu": model_flops / (step_s * rl.PEAK_FLOPS)}
+    require(arg_bytes == mem["argument_bytes"],
+            f"{cfg.name}: the step's arguments hold {arg_bytes} bytes, the "
+            f"dry run says {mem['argument_bytes']}")
+    require(abs(fields["peak_rel_err"]) <= PEAK_TOL,
+            f"{cfg.name}: measured peak {peak} bytes is "
+            f"{fields['peak_rel_err']:+.1%} off the dry run's "
+            f"{mem['peak_bytes']}")
+    return out, fields
+
+
+def dry_train_step(cfg, rows: int, seq: int):
+    """The dry run's train step of ``cfg`` at ``rows`` × ``seq`` on the
+    meta device, with the seconds the walk took (``walk_s``)."""
+    from repro_torch.launch.dryrun import dry_run
+    t0 = time.perf_counter()
+    dry = dry_run(cfg.with_overrides(paged_backend="cuda"), "train", rows,
+                  seq)
+    return dict(dry, walk_s=time.perf_counter() - t0)
+
+
+def _kinds(cfg, i: int):
+    mixer, _, mlp = cfg.layer_entry(i).partition("+")
+    return {mixer, mlp} & {"attn", "mamba", "moe"}
+
+
+def reduced_layers(cfg):
+    """The first layer of each kind the arch has (attention, mamba, MoE),
+    in depth order: the fp32 comparison's cut."""
+    keep, seen = [], set()
+    for i in range(cfg.n_layers):
+        if _kinds(cfg, i) - seen:
+            keep.append(i)
+            seen |= _kinds(cfg, i)
+    return keep
+
+
+def train_families_phase(device, seed: int, T: int = 256):
+    """One LoRA train step of dbrx-132b, mamba2-2.7b (64 of 64 layers) and
+    jamba-v0.1-52b (8 of 32) at published width through the kernels,
+    beside the dry run's prediction, with "cuda" vs "torch" checks (bf16 at
+    the phase depth, fp32 at the first layer of each kind; routing pinned)
+    and a stage-3 fused evaluation.  Returns {arch: the measured step's
+    launch counts}."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import init_adapters
+    from repro_torch.models import mamba2
+    from repro_torch.models.api import Model
+    from repro_torch.training.optimizers import adamw
+    from repro_torch.training.train_step import (lora_value_and_grad,
+                                                 make_lora_train_step)
+    card = torch.cuda.get_device_properties(device).total_memory
+    out = {}
+    for arch, depth in TRAIN_ARCHS:
+        t_arch = time.perf_counter()
+        base = get_config(arch).with_overrides(lora_rank=16)
+        if depth is None:
+            tried = {}
+            for depth in range(dict(MOE_FAMILY)[arch], 0, -1):
+                dry = dry_train_step(base.with_overrides(n_layers=depth),
+                                     TRAIN_ARCH_ROWS, T)
+                tried[depth] = dry["memory"]["peak_bytes"]
+                if tried[depth] <= PEAK_FIT * card:
+                    break
+            emit({"phase": "train_families_depth", "arch": arch,
+                  "depth": depth, "of": base.n_layers,
+                  "card_bytes": card, "fit_bytes": PEAK_FIT * card,
+                  "dry_peak_bytes_by_depth": tried,
+                  "why": f"the deepest of at most {dict(MOE_FAMILY)[arch]} "
+                         "layers whose dry-run train-step peak fits in "
+                         f"{PEAK_FIT:.0%} of the card"})
+            require(tried[depth] <= PEAK_FIT * card,
+                    f"{arch}: no depth fits the card")
+        else:
+            dry = dry_train_step(base.with_overrides(n_layers=depth),
+                                 TRAIN_ARCH_ROWS, T)
+        cfg = base.with_overrides(n_layers=depth)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = Model(cfg, device)
+        params = model.init(seed)
+        ad = init_adapters(cfg, seed=seed + 100, device=device, b_std=0.02)
+        opt = adamw()
+        st = opt.init(ad)
+        batch = sft_batch(seed, TRAIN_ARCH_ROWS, T, cfg.vocab_size, device)
+        step = make_lora_train_step(model, cfg, opt, paged_backend="cuda")
+        step(params, ad, st, batch)                 # warm-up
+        kernels.reset_launch_counts()
+        with ScanCount() as scan:
+            _, fields = predicted_step(cfg, step, (params, ad, st, batch),
+                                       TRAIN_ARCH_ROWS, T, dry)
+        counts, tiles = kernels.launch_counts(), kernels.tile_counts()
+        n_mamba = sum("mamba" in _kinds(cfg, i) for i in range(depth))
+        n_attn = sum("attn" in _kinds(cfg, i) for i in range(depth))
+        needs = ("lora_matmul",) + (("flash_attention",) if n_attn else ())
+        emit({"phase": "train_families", "arch": arch, "n_layers": depth,
+              "of": base.n_layers, "d_model": cfg.d_model, "rows":
+              TRAIN_ARCH_ROWS, "seq": T, "rank": cfg.lora_rank, **fields,
+              "ssd_scan_calls": scan.calls, "mamba_layers": n_mamba,
+              "launches": {n: counts[n] for n in kernels.TRAINING},
+              "tile_launches": {n: tiles[n] for n in
+                                ("lora_matmul", "flash_attention")}})
+        require(scan.calls == n_mamba, f"{arch}: {scan.calls} SSD scans, "
+                f"not one per mamba layer ({n_mamba})")
+        for name in needs:
+            require(counts[name] > 0, f"{arch}: the train step did not "
+                    f"launch {name}")
+            require_mma_tile(tiles, name, f"{arch} train step")
+        out[arch] = {n: counts[n] for n in kernels.TRAINING}
+        if n_mamba == depth:
+            # the SSD chunked scan's trace (its forward: the backward's
+            # kernels launch from autograd's thread, outside the range)
+            with Ranges({(mamba2, "ssd_chunked"): "ssd_scan"}) as rg:
+                wall_ms, fam = traced(
+                    lambda: step(params, ad, st, batch), TRAIN_FAMILIES,
+                    "other device work (torch: the scan's backward, conv, "
+                    "gated norm, norms, loss, optimizer)",
+                    ranges=(("ssd_scan", "SSD chunked scan, forward "
+                             "(torch)"),))
+            emit(_profile_line(fam, wall_ms, phase="profile_train_families",
+                               arch=arch, rows=TRAIN_ARCH_ROWS * T,
+                               scan_host_ms=rg.host_s * 1e3,
+                               scan_calls=rg.calls))
+        # "cuda" against "torch": bf16 at the phase depth (the train
+        # phase's bounds), the stage-3 fused evaluation, then fp32
+        # activations at the first layer of each kind
+        info = {"arch": arch, "n_layers": depth}
+        compare_grads(lambda b: lora_value_and_grad(model, cfg, b)(
+            params, ad, batch), batch, "bfloat16", 2e-2, 0.25,
+            phase="train_families_compare", needs=needs, pin=RoutingPin(),
+            **info)
+        ad_s = init_adapters(cfg, seed=seed + 101, device=device, b_std=0.02)
+        compare_fused_eval(model, cfg, params, ad, ad_s, batch, "bfloat16",
+                           2e-2, pin=RoutingPin(), **info)
+        keep = reduced_layers(cfg)
+        cut = cfg.with_overrides(
+            n_layers=len(keep), dtype="float32",
+            layer_pattern=tuple(cfg.layer_entry(i) for i in keep))
+        params = dict(params, layers=[params["layers"][i] for i in keep])
+        ad = {"layers": [ad["layers"][i] for i in keep]}
+        del st, ad_s, step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        compare_grads(lambda b: lora_value_and_grad(Model(cut, device), cut,
+                                                    b)(params, ad, batch),
+                      batch, "float32", 1e-3, 1e-2,
+                      phase="train_families_compare", needs=needs,
+                      pin=RoutingPin(), arch=arch, n_layers=len(keep),
+                      layers=keep)
+        emit({"phase": "train_families_arch", "arch": arch,
+              "seconds": time.perf_counter() - t_arch})
+        del params, ad, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def vlm_encdec_phase(device, seed: int, T: int = 256, new_tokens: int = 16,
                      rank: int = 16):
     """internvl2-26b, then whisper-small (``vlm_phase``,
@@ -4469,6 +4773,8 @@ def main(argv=None) -> int:
     ssm_counts = timed("ssm", ssm_phase, device, args.seed, T)
     vlm_encdec_counts = timed("vlm_encdec", vlm_encdec_phase, device,
                               args.seed, T)
+    train_families_counts = timed("train_families", train_families_phase,
+                                  device, args.seed, T)
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
@@ -4482,7 +4788,8 @@ def main(argv=None) -> int:
                 for arch, c in moe_counts.items()},
         "ssm": {arch: {n: c[n] for n in kernels.SERVING}
                 for arch, c in ssm_counts.items()},
-        "vlm_encdec": vlm_encdec_counts})
+        "vlm_encdec": vlm_encdec_counts,
+        "train_families": train_families_counts})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})
 

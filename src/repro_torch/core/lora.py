@@ -90,7 +90,8 @@ def init_adapters(cfg, rank: Optional[int] = None, seed: int = 0,
     for the CPU): ``A ~ N(0, 1) / r`` from a numpy generator seeded with
     ``seed``; ``B`` is zero (standard LoRA init) unless ``b_std > 0`` draws
     it ``N(0, b_std²)``: the serving and training checks want a non-zero
-    update so a fault in the LoRA path cannot hide."""
+    update so a fault in the LoRA path cannot hide.  On the meta device
+    the tree has the same shapes and dtypes and no values."""
     device = resolve_device(device)
     r = rank or cfg.lora_rank
     rng = np.random.default_rng(seed)
@@ -98,6 +99,10 @@ def init_adapters(cfg, rank: Optional[int] = None, seed: int = 0,
     def pairs(tmap, *lead):
         out = {}
         for t, (din, dout) in tmap.items():
+            if device.type == "meta":
+                out[t] = {"a": torch.empty((*lead, din, r), device=device),
+                          "b": torch.empty((*lead, r, dout), device=device)}
+                continue
             a = rng.standard_normal((*lead, din, r), np.float32) / r
             b = (rng.standard_normal((*lead, r, dout), np.float32) * b_std
                  if b_std > 0 else np.zeros((*lead, r, dout), np.float32))

@@ -8,7 +8,7 @@ per-row client ids over stacked banks, an optional per-client rank mask
 kernel computes the base product itself (fp32 accumulation) and rounds
 once in its epilogue.  CPU tensors run the plain version
 (:func:`batched_lora_matmul_ref`); CUDA tensors launch the kernel or
-raise.  The kernel has two tiles, picked by dtype
+raise; meta tensors take the meta route (``kernels/meta.py``).  The kernel has two tiles, picked by dtype
 (``kernels/lora_tile.py``): bf16 x with bf16 W runs the tensor-core tile
 (``csrc/lora_mma.cuh``, K and N multiples of 8, 16-byte aligned x and W)
 under a launch plan chosen from the shape, anything else the fp32
@@ -32,7 +32,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import build, lora_tile
+from repro_torch.kernels import build, lora_tile, meta
 from repro_torch.kernels.ref import (batched_dual_lora_matmul_ref,
                                      batched_lora_matmul_ref)
 
@@ -71,6 +71,23 @@ def _check(name, t, dtypes, shape, device):
             f"{tuple(t.shape)} on {t.device}")
 
 
+def tile_scratch_sizes(p: lora_tile.Plan, tile: str, M: int, N: int,
+                       C: int, r: int, z_given: bool, *, pairs: int = 1,
+                       extra: Sequence[int] = ()) -> list:
+    """The fp32 element counts of :func:`tile_scratch`'s parts (z, zpart,
+    ypart, zl, bl, then ``extra``), each rounded up to 16 bytes; z is 0
+    when the caller gives it (``z_given``)."""
+    mma = tile == "mma"
+    nq = pairs * -(-r // 16)
+    sizes = [0 if z_given else pairs * M * r,                    # z
+             pairs * p.zsplit * M * r if mma and p.zsplit > 1 else 0,
+             p.split * M * N if mma and p.split > 1 else 0,     # ypart
+             M * nq * 32 if mma and p.split == 1 else 0,        # zl (bf16)
+             C * nq * 16 * N if mma and p.split == 1 else 0,    # bl (bf16)
+             *(n if mma else 0 for n in extra)]
+    return [-(-n // 4) * 4 for n in sizes]        # each part 16-byte aligned
+
+
 def tile_scratch(p: lora_tile.Plan, tile: str, M: int, N: int, C: int,
                  r: int, device, z: Optional[torch.Tensor] = None, *,
                  pairs: int = 1, extra: Sequence[int] = ()) -> tuple:
@@ -88,15 +105,8 @@ def tile_scratch(p: lora_tile.Plan, tile: str, M: int, N: int, C: int,
     (M, 2nq, 64), bl (C, 2nq, 32, N), C counting any extra slot).
     ``extra``: fp32 element counts of further parts the tensor-core tile's
     caller needs; their pointers (None on the fp32 tile) follow bl."""
-    mma = tile == "mma"
-    nq = pairs * -(-r // 16)
-    sizes = [0 if z is not None else pairs * M * r,                # z
-             pairs * p.zsplit * M * r if mma and p.zsplit > 1 else 0,
-             p.split * M * N if mma and p.split > 1 else 0,     # ypart
-             M * nq * 32 if mma and p.split == 1 else 0,        # zl (bf16)
-             C * nq * 16 * N if mma and p.split == 1 else 0,    # bl (bf16)
-             *(n if mma else 0 for n in extra)]
-    sizes = [-(-n // 4) * 4 for n in sizes]       # each part 16-byte aligned
+    sizes = tile_scratch_sizes(p, tile, M, N, C, r, z is not None,
+                               pairs=pairs, extra=extra)
     if sum(sizes) == 0:
         return (z, *[None] * (len(sizes) - 1))
     buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
@@ -134,7 +144,7 @@ def batched_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         return batched_lora_matmul_ref(x, w, a, b, adapter_ids, scale,
                                        a_scale=a_scale, b_scale=b_scale,
                                        ranks=ranks)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no batched_lora_matmul kernel for {x.device}")
     dev = x.device
     quant = a_scale is not None
@@ -155,6 +165,10 @@ def batched_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     tile = lora_tile.lora_tile(x.dtype, w.dtype)
     if tile == "mma":
         lora_tile.check_mma_tile(x, w)
+    if dev.type == "meta":
+        meta.record("batched_lora_matmul", meta.batched_lora_cost(
+            M, K, N, C, r, x.dtype, w.dtype, a.element_size()))
+        return meta.empty((M, N), x.dtype)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0:
         return y
@@ -209,7 +223,7 @@ def batched_dual_lora_matmul(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return batched_dual_lora_matmul_ref(x, w, a1, b1, a2, b2, adapter_ids,
                                             fusion_w, scale)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no batched_dual_lora_matmul kernel for {x.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, a1, b1, a2, b2, fusion_w)):
@@ -230,6 +244,10 @@ def batched_dual_lora_matmul(x: torch.Tensor, w: torch.Tensor,
     tile = lora_tile.lora_tile(x.dtype, w.dtype)
     if tile == "mma":
         lora_tile.check_mma_tile(x, w)
+    if dev.type == "meta":
+        meta.record("batched_dual_lora_matmul", meta.batched_dual_lora_cost(
+            M, K, N, C, r, x.dtype, w.dtype))
+        return meta.empty((M, N), x.dtype)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0:
         return y

@@ -8,7 +8,8 @@ stage-3 AdaFusion evaluation, which takes no gradient: the kernel is
 forward only and the wrapper raises if a gradient is asked of it.
 
 CPU tensors run the plain version (:func:`dual_lora_matmul_ref`); CUDA
-tensors launch the kernel or raise.  The kernel has two tiles, picked by
+tensors launch the kernel or raise; meta tensors take the meta route
+(``kernels/meta.py``).  The kernel has two tiles, picked by
 dtype as the LoRA kernels' are (``kernels/lora_tile.py``): bf16 x with bf16
 W merges the two pairs in fp32 on the card and runs ``lora_matmul``'s
 tensor-core tile on the merged pair (``csrc/lora_mma.cuh``: K and N
@@ -22,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, lora_tile
+from repro_torch.kernels import build, lora_tile, meta
 from repro_torch.kernels.batched_lora import MAX_RANK, _check, tile_scratch
 from repro_torch.kernels.ref import dual_lora_matmul_ref
 
@@ -62,7 +63,7 @@ def dual_lora_matmul(x: torch.Tensor, w: torch.Tensor, a1: torch.Tensor,
     if x.device.type == "cpu":
         return dual_lora_matmul_ref(x, w, a1, b1, a2, b2, fusion_w[0],
                                     fusion_w[1], scale)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no dual_lora_matmul kernel for {x.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, a1, b1, a2, b2, fusion_w)):
@@ -83,6 +84,10 @@ def dual_lora_matmul(x: torch.Tensor, w: torch.Tensor, a1: torch.Tensor,
     tile = lora_tile.lora_tile(x.dtype, w.dtype)
     if tile == "mma":
         lora_tile.check_mma_tile(x, w)
+    if dev.type == "meta":
+        meta.record("dual_lora_matmul", meta.dual_lora_cost(
+            M, K, N, r, x.dtype, w.dtype))
+        return meta.empty((M, N), x.dtype)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0:
         return y

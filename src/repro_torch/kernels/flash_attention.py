@@ -15,7 +15,8 @@ plain PyTorch backward that recomputes the probabilities in fp32 from the
 saved q, k, v (the reference has no backward kernel either).
 
 CPU tensors run the plain version (:func:`flash_attention_ref`); CUDA
-tensors launch the kernel or raise.  The kernel has two tiles, picked by
+tensors launch the kernel or raise; meta tensors take the meta route
+(``kernels/meta.py``), their backward the plain one on meta tensors.  The kernel has two tiles, picked by
 dtype: bf16 runs the tensor-core tile (``csrc/attn_mma.cuh``, head dims
 32, 64 and 128, every row start 16-byte aligned), fp32 the fp32 CUDA-core
 tile.  ``flash_attention.launches`` counts launches, and
@@ -28,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.attn_tile import check_mma_tile
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -85,6 +86,10 @@ def _launch(q, k, v, causal: bool, sliding_window: int, scale: float):
         check_mma_tile(d, (("q", q), ("k", k), ("v", v), ("out", out)))
     elif d > THREADS * MAX_ACC or smem_bytes(rows, d) > MAX_SMEM:
         raise ValueError(f"head_dim {d} exceeds the kernel's tile")
+    if dev.type == "meta":
+        meta.record("flash_attention", meta.flash_cost(
+            B, H, Kv, Sq, Sk, d, causal, sliding_window, q.dtype))
+        return o
     if out.numel() == 0:
         return o
     strides = (ctypes.c_longlong * 12)(
@@ -145,7 +150,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    sliding_window=sliding_window, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no flash_attention kernel for {q.device}")
     return FlashAttention.apply(q, k, v, bool(causal), int(sliding_window),
                                 scale)

@@ -9,7 +9,10 @@ backward kernel either; its gradients come from autodiff outside the
 Pallas call).  ``W`` is frozen and gets no gradient.
 
 CPU tensors run the plain version (:func:`lora_matmul_ref`, differentiated
-by autograd); CUDA tensors launch the kernel or raise.  The kernel has two
+by autograd); CUDA tensors launch the kernel or raise; meta tensors take
+the meta route (``kernels/meta.py``: empty outputs, the launch's cost
+recorded), and their backward is :func:`lora_matmul_backward` on meta
+tensors, plain ops like any other.  The kernel has two
 tiles, picked by dtype (``kernels/lora_tile.py``): bf16 x with bf16 W runs
 the tensor-core tile (``csrc/lora_mma.cuh``, K and N multiples of 8,
 16-byte aligned x and W) under a launch plan chosen from the shape,
@@ -23,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, lora_tile
+from repro_torch.kernels import build, lora_tile, meta
 from repro_torch.kernels.batched_lora import MAX_RANK, _check, tile_scratch
 from repro_torch.kernels.ref import lora_matmul_ref
 
@@ -58,6 +61,10 @@ def _launch(x, w, a, b, scale: float):
     tile = lora_tile.lora_tile(x.dtype, w.dtype)
     if tile == "mma":
         lora_tile.check_mma_tile(x, w)
+    if dev.type == "meta":
+        meta.record("lora_matmul", meta.lora_cost(M, K, N, r, x.dtype,
+                                                  w.dtype))
+        return meta.empty((M, N), x.dtype), meta.empty((M, r), torch.float32)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     z = torch.empty((M, r), dtype=torch.float32, device=dev)
     if M == 0:
@@ -133,7 +140,7 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                          f"{tuple(b.shape)}")
     if x.device.type == "cpu":
         return lora_matmul_ref(x, w, a, b, scale)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no lora_matmul kernel for {x.device}")
     return LoRAMatmul.apply(x, w, a, b, float(scale))
 

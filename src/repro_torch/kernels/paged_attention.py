@@ -7,7 +7,7 @@ shared pool through its block table, never gathered into a padded tensor.
 sliding window W only ``[lengths[b] - W, lengths[b])``); empty rows give
 zeros.  For tensors on the CPU the wrapper runs the plain version
 (:func:`paged_attention_ref`); for CUDA tensors it launches the kernel or
-raises.
+raises; meta tensors take the meta route (``kernels/meta.py``).
 
 The kernel is split-K flash decoding: each row's context is cut into
 splits of :data:`SPLIT` positions, one CTA per (split, kv head, row); a
@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ref import _gather_pool, paged_attention_ref
 
 __all__ = ["paged_attention", "paged_attention_ref",
@@ -167,7 +167,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_attention_ref(q, k_pool, v_pool, block_tables, lengths,
                                    k_scale=k_scale, v_scale=v_scale,
                                    scale=scale, sliding_window=sliding_window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no paged_attention kernel for {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16) or not q.is_contiguous():
         raise ValueError("q must be contiguous float32 or bfloat16")
@@ -179,6 +179,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("k_pool and v_pool must be 16-byte aligned")
     bs, MB = k_pool.shape[1], block_tables.shape[1]
+    if q.device.type == "meta":
+        meta.record("paged_attention", meta.paged_attention_cost(
+            B, H, Kv, hd, bs, MB, sliding_window, q.dtype,
+            k_scale is not None, SPLIT))
+        return meta.empty(q.shape, q.dtype)
     NS = max(1, -(-(MB * bs) // SPLIT))
     out = torch.empty_like(q)
     # (m, l, acc) of every split, only when a row can need more than one

@@ -11,7 +11,8 @@ PLACE — a serving pool is gigabytes — and return them.
 pools that already hold the chunk: query t of row b attends
 ``[0, lengths[b] + t]``, or with a sliding window W only ``(lengths[b] +
 t - W, lengths[b] + t]``.  CPU tensors run the plain version; CUDA
-tensors launch the kernel or raise.  The kernel has two tiles, picked by
+tensors launch the kernel or raise; meta tensors take the meta route
+(``kernels/meta.py``), the scatter too (the pools come back as given).  The kernel has two tiles, picked by
 q's dtype: bf16 queries run the tensor-core tile (``csrc/attn_mma.cuh``,
 head dims 32, 64, 128 and 256), fp32 queries the fp32 CUDA-core tile.
 ``paged_prefill_attention.launches`` counts kernel launches, and
@@ -24,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.attn_tile import check_mma_tile
 from repro_torch.kernels.paged_attention import check_pools, check_tables
 from repro_torch.kernels.quant import quantize_int8
@@ -89,6 +90,10 @@ def paged_scatter(k_pool, v_pool, k, v, block_tables, lengths, n_new=None):
     ``n_new``, ragged tails land in scratch block 0, the last one in
     (row, position) order winning each of its positions.  In place;
     returns (k_pool, v_pool)."""
+    if k_pool.device.type == "meta":
+        meta.record("paged_scatter", meta.scatter_cost(k, v, k_pool.dtype,
+                                                       False))
+        return k_pool, v_pool
     B, S = k.shape[0], k.shape[1]
     blk, off = _scatter_coords(B, S, k_pool.shape[1], block_tables, lengths,
                                n_new)
@@ -103,6 +108,10 @@ def paged_scatter_quant(k_pool, v_pool, k_scale, v_scale, k, v,
     """:func:`paged_scatter` for int8 pools: each token's K/V quantizes per
     (token, kv-head) and its fp32 scale lands at the same coordinates.
     In place; returns the four pools."""
+    if k_pool.device.type == "meta":
+        meta.record("paged_scatter", meta.scatter_cost(k, v, k_pool.dtype,
+                                                       True))
+        return k_pool, v_pool, k_scale, v_scale
     B, S = k.shape[0], k.shape[1]
     blk, off = _scatter_coords(B, S, k_pool.shape[1], block_tables, lengths,
                                n_new)
@@ -159,7 +168,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                            lengths, k_scale=k_scale,
                                            v_scale=v_scale, scale=scale,
                                            sliding_window=sliding_window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no paged_prefill_attention kernel for {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16) or not q.is_contiguous():
         raise ValueError("q must be contiguous float32 or bfloat16")
@@ -176,6 +185,11 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     elif hd > THREADS * MAX_ACC or smem_bytes(rows, bs, hd) > MAX_SMEM:
         raise ValueError(f"head_dim {hd} (block {bs}) exceeds the kernel's "
                          "tile")
+    if q.device.type == "meta":
+        meta.record("paged_prefill_attention", meta.paged_prefill_cost(
+            B, T, H, Kv, hd, bs, block_tables.shape[1], sliding_window,
+            q.dtype, quant))
+        return out
     err = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  k_scale.data_ptr() if quant else None,
                  v_scale.data_ptr() if quant else None,

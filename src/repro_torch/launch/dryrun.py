@@ -1,0 +1,421 @@
+"""Dry run on the meta device: what an arch × shape step needs on one card,
+and what bounds it.
+
+Port of ``repro/launch/dryrun.py`` for one H100.  The reference lowers
+and compiles each step for hundreds of placeholder TPU devices and reads
+the compiler's memory and cost analyses; the port has no compiler to ask,
+so it runs the same four steps on ``torch.device("meta")`` along the
+card's path (``paged_backend="cuda"``), where every kernel wrapper takes
+its meta route (``kernels/meta.py``: empty outputs of the launch's
+shapes, the launch's FLOPs, bytes and scratch recorded) and no plain-path
+attention scores are formed in a forward.  Nothing is allocated and
+nothing is computed; every layer is visited once, so no depth is
+extrapolated.
+
+Per step the result JSON holds:
+
+* ``memory.argument_bytes``: the bytes of every tensor the step takes
+  (parameters, adapters, optimizer state, decode cache, inputs), exact;
+* ``memory.peak_bytes`` / ``temp_bytes``: the arguments plus the peak of
+  the storages the step holds live at once (tallied by :class:`Tally`, a
+  ``TorchDispatchMode``, as storages are made and freed), plus the scratch
+  of the kernel running at that moment; ``output_bytes`` what the step
+  returns;
+* ``roofline``: ``analysis/roofline.analyze`` of the FLOPs
+  (``FlopCounterMode`` over the plain ops, plus the kernels' recorded
+  FLOPs) and HBM bytes (every plain op's operand and result bytes, an
+  unfused upper bound, plus the kernels' recorded bytes);
+* ``kernels``: launches, FLOPs, bytes and the largest scratch of each
+  kernel; ``device``: the card's name and memory.
+
+Usage (on the CPU; no card needed):
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama2-7b \\
+        --shape train_4k --step fdlora_round
+
+Outputs JSON to ``experiments/dryrun_torch/<arch>__<shape>__1xh100__<step>
+[__<variant>].json``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+import weakref
+from typing import Dict
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.analysis import roofline as rl
+from repro_torch.configs.base import INPUT_SHAPES
+from repro_torch.configs.registry import (ALL_ARCHS, config_for_shape,
+                                          shape_supported)
+from repro_torch.core.lora import init_adapters, lora_scale
+from repro_torch.kernels import meta
+from repro_torch.launch import specs as sp
+from repro_torch.models.api import Model
+from repro_torch.training.optimizers import adamw
+from repro_torch.training.train_step import make_lora_train_step
+
+META = torch.device("meta")
+MESH = "1xh100"
+CARD_BYTES = 80 * 2 ** 30            # the data sheet's 80 GB of HBM3
+
+# ops that move no bytes: their outputs are allocated, not written
+_NO_BYTES = {torch.ops.aten.empty.memory_format,
+             torch.ops.aten.empty_like.default,
+             torch.ops.aten.empty_strided.default}
+
+
+def iter_tensors(obj):
+    """Every tensor inside nested tuples, lists and dicts."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from iter_tensors(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from iter_tensors(o)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages of every tensor in ``tree``."""
+    seen = {}
+    for t in iter_tensors(tree):
+        st = t.untyped_storage()
+        seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
+def _bmm_flop(a_shape, b_shape, *_, out_shape=None, **__) -> int:
+    """``aten::bmm`` of either overload (``bmm.dtype`` passes its out
+    dtype as a third argument, which torch's own formula mistakes)."""
+    b, m, k = a_shape
+    return 2 * b * m * k * b_shape[-1]
+
+
+class Tally(TorchDispatchMode):
+    """Storages made and freed by one step on the meta device, every op's
+    operand and result bytes, and the kernels' meta launches.  Storages of
+    the step's ``arguments`` are neither counted nor tracked."""
+
+    def __init__(self, arguments):
+        super().__init__()
+        self.known = {t.untyped_storage()._cdata
+                      for t in iter_tensors(arguments)}
+        self.live: Dict[int, tuple] = {}
+        self.live_bytes = 0
+        self.peak_temp = 0
+        self.op_bytes = 0.0
+        self.kernels: Dict[str, Dict[str, float]] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        outs = list(iter_tensors(out))
+        if not (func.is_view or func in _NO_BYTES):
+            self.op_bytes += sum(_nbytes(t) for t in
+                                 iter_tensors((args, kwargs, outs)))
+        for t in outs:
+            self._track(t)
+        return out
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self.known or key in self.live:
+            return
+        n = st.nbytes()
+        self.live[key] = (weakref.ref(st, lambda _r, k=key: self._free(k)), n)
+        self.live_bytes += n
+        self.peak_temp = max(self.peak_temp, self.live_bytes)
+
+    def _free(self, key: int) -> None:
+        entry = self.live.pop(key, None)
+        if entry is not None:
+            self.live_bytes -= entry[1]
+
+    def kernel(self, name: str, cost: meta.Cost) -> None:
+        k = self.kernels.setdefault(name, {"launches": 0, "flops": 0.0,
+                                           "bytes": 0.0, "scratch_bytes": 0.0})
+        k["launches"] += 1
+        k["flops"] += cost.flops
+        k["bytes"] += cost.bytes_read + cost.bytes_written
+        k["scratch_bytes"] = max(k["scratch_bytes"], cost.scratch_bytes)
+        self.peak_temp = max(self.peak_temp,
+                             self.live_bytes + cost.scratch_bytes)
+
+
+def measure(fn, arguments: Dict, model_flops: float = 0.0) -> Dict:
+    """Run ``fn()`` (a step over meta tensors) under the tally, the FLOP
+    counter and the kernels' meta records; ``arguments`` names the trees
+    the step takes.  Returns the ``memory``, ``roofline``, ``counts`` and
+    ``kernels`` entries of a result."""
+    arg_bytes = storage_bytes(arguments)
+    tally = Tally(arguments)
+    counter = FlopCounterMode(display=False,
+                              custom_mapping={torch.ops.aten.bmm: _bmm_flop})
+    with meta.recording(tally.kernel), counter, tally:
+        out = fn()
+    out_bytes = sum(n for key, n in
+                    {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+                     for t in iter_tensors(out)}.items()
+                    if key not in tally.known)
+    op_flops = float(counter.get_total_flops())
+    k_flops = sum(k["flops"] for k in tally.kernels.values())
+    k_bytes = sum(k["bytes"] for k in tally.kernels.values())
+    roof = rl.analyze(op_flops + k_flops, tally.op_bytes + k_bytes, 1,
+                      model_flops)
+    return {"memory": {"argument_bytes": arg_bytes,
+                       "argument_bytes_by": {n: storage_bytes(t) for n, t
+                                             in arguments.items()},
+                       "output_bytes": out_bytes,
+                       "temp_bytes": tally.peak_temp,
+                       "peak_bytes": arg_bytes + tally.peak_temp},
+            "roofline": roof.to_dict(),
+            "counts": {"op_flops": op_flops, "kernel_flops": k_flops,
+                       "op_bytes": tally.op_bytes, "kernel_bytes": k_bytes,
+                       "op_bytes_are": "every plain op's operands and "
+                                       "result, unfused: an upper bound"},
+            "kernels": tally.kernels}
+
+
+# ---------------------------------------------------------------------------
+# the four steps, each over meta parameters, adapters, state and inputs
+# ---------------------------------------------------------------------------
+
+def _params_adapters(model, cfg):
+    return model.init(), init_adapters(cfg, device=META)
+
+
+def build_train(model, cfg, B: int, S: int):
+    """The paper's train step: LoRA SFT of a frozen base, AdamW."""
+    opt = adamw(lr=2e-4)
+    step = make_lora_train_step(model, cfg, opt, paged_backend="cuda")
+    params, adapters = _params_adapters(model, cfg)
+    opt_state = opt.init(adapters)
+    batch = sp.batch_inputs(cfg, B, S)
+    return ((lambda: step(params, adapters, opt_state, batch)),
+            {"params": params, "adapters": adapters, "opt_state": opt_state,
+             "inputs": batch}, rl.model_flops_train(cfg, B * S))
+
+
+def build_prefill(model, cfg, B: int, S: int):
+    """Inference prefill: a whole forward, the last position unembedded
+    (every position for the encoder-decoder, as the reference)."""
+    scale = lora_scale(cfg)
+    params, adapters = _params_adapters(model, cfg)
+    batch = sp.batch_inputs(cfg, B, S)
+    batch.pop("loss_mask")
+
+    def fn():
+        with torch.no_grad():
+            return model.forward(params, batch, adapters=adapters,
+                                 lora_scale=scale,
+                                 last_only=not cfg.is_encdec,
+                                 paged_backend="cuda")[0]
+    return (fn, {"params": params, "adapters": adapters, "inputs": batch},
+            rl.model_flops_decode(cfg, B * S))
+
+
+def build_decode(model, cfg, B: int, S: int):
+    """One decode step against a cache holding S positions (a ring of the
+    window's length for windowed archs), token S - 1 written last."""
+    scale = lora_scale(cfg)
+    params, adapters = _params_adapters(model, cfg)
+    cache = model.init_decode_cache(B, S)
+    for lc in ([cache["self"]] if cfg.is_encdec else cache["layers"]):
+        if "pos" in lc:
+            lc["pos"] = S - 1
+    dec = sp.step_inputs(B)
+
+    def fn():
+        with torch.no_grad():
+            return model.decode_step(params, cache, dec["tokens"], S - 1,
+                                     adapters=adapters, lora_scale=scale,
+                                     paged_backend="cuda")
+    return (fn, {"params": params, "adapters": adapters, "cache": cache,
+                 "inputs": dec}, rl.model_flops_decode(cfg, B))
+
+
+def build_fdlora_round(model, cfg, B: int, S: int, n_clients: int = 2,
+                       K: int = 3):
+    """One FDLoRA round: K inner AdamW steps for each of ``n_clients``
+    clients on B / n_clients rows, then the outer Nesterov step.  Each
+    client's batches carry the VLM's patch or the encoder-decoder's frame
+    embeddings too (the reference's round batches hold tokens and masks
+    only, which those families' forwards cannot run on)."""
+    from repro_torch.core.outer_opt import make_outer_optimizer
+    from repro_torch.federated.distributed import (make_fdlora_round_step,
+                                                   stack_clients)
+    inner = adamw(lr=2e-4)
+    outer = make_outer_optimizer("nesterov", 1e-3, 0.5)
+    round_step = make_fdlora_round_step(
+        model, cfg.with_overrides(paged_backend="cuda"), inner, outer, K)
+    params, theta = _params_adapters(model, cfg)
+    state = {"inner_opt": stack_clients([inner.init(theta)] * n_clients),
+             "outer_opt": outer.init(theta)}
+    B_local = B // n_clients
+    batches = {n: torch.empty((n_clients, K, *t.shape), dtype=t.dtype,
+                              device=META)
+               for n, t in sp.batch_inputs(cfg, B_local, S).items()}
+    return ((lambda: round_step(params, theta, state, batches)),
+            {"params": params, "adapters": theta, "opt_state": state,
+             "inputs": batches},
+            rl.model_flops_train(cfg, n_clients * K * B_local * S))
+
+
+BUILDERS = {"train": build_train, "prefill": build_prefill,
+            "decode": build_decode, "fdlora_round": build_fdlora_round}
+
+# the reference's variants: those that change a field the port reads
+VARIANTS = {"baseline": {}, "moe_cap1": {"moe_capacity_factor": 1.0}}
+# those that only steer the reference's XLA lowering
+XLA_ONLY_VARIANTS = ("gqa_grouped", "sm_bf16", "opt_attn", "no_remat",
+                     "remat_dots", "serve2d", "bf16_outer", "opt_moe")
+
+
+def device_entry() -> Dict:
+    """The card's name and memory: the card's own when one is present,
+    else the data sheet's."""
+    if torch.cuda.is_available():
+        props = torch.cuda.get_device_properties(0)
+        return {"name": props.name, "memory_bytes": props.total_memory,
+                "source": "torch.cuda.get_device_properties(0)"}
+    return {"name": rl.CARD, "memory_bytes": CARD_BYTES,
+            "source": "data sheet"}
+
+
+def dry_run(cfg, step: str, B: int, S: int) -> Dict:
+    """One step of ``cfg`` at B rows of S tokens on the meta device; the
+    result's ``params``, ``memory``, ``roofline``, ``counts`` and
+    ``kernels`` entries."""
+    model = Model(cfg, META)
+    fn, args, model_flops = BUILDERS[step](model, cfg, B, S)
+    res = measure(fn, args, model_flops)
+    return {"params": cfg.count_params(),
+            "active_params": cfg.count_active_params(),
+            "lora_params": cfg.count_lora_params(), **res}
+
+
+def check_variant(variant: str) -> None:
+    if variant in XLA_ONLY_VARIANTS:
+        raise ValueError(f"variant {variant!r} only steers the reference's "
+                         "XLA lowering; the port has nothing it changes")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}")
+
+
+def run_one(arch: str, shape_name: str, step: str = "auto",
+            variant: str = "baseline",
+            out_dir: str = "experiments/dryrun_torch",
+            smoke: bool = False) -> Dict:
+    if not shape_supported(arch, shape_name):
+        return {"arch": arch, "shape": shape_name, "skipped": True,
+                "reason": "whisper-small's decoder context is bounded by "
+                          "its design"}
+    check_variant(variant)
+    cfg = config_for_shape(arch, shape_name, smoke=smoke)
+    cfg = cfg.with_overrides(paged_backend="cuda", **VARIANTS[variant])
+    if step == "auto":
+        step = INPUT_SHAPES[shape_name].kind
+    sh = INPUT_SHAPES[shape_name]
+    t0 = time.time()
+    res = dry_run(cfg, step, sh.global_batch, sh.seq_len)
+    dev = device_entry()
+    result = {"arch": arch, "shape": shape_name, "mesh": MESH, "step": step,
+              "variant": variant, "chips": 1,
+              "walk_s": round(time.time() - t0, 2), **res, "device": dev,
+              "fits": res["memory"]["peak_bytes"] <= dev["memory_bytes"]}
+    os.makedirs(out_dir, exist_ok=True)
+    tag = f"{arch}__{shape_name}__{MESH}__{step}"
+    if variant != "baseline":
+        tag += f"__{variant}"
+    if smoke:
+        tag += "__smoke"
+    with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True, choices=ALL_ARCHS + ["all"])
+    ap.add_argument("--shape", required=True,
+                    choices=list(INPUT_SHAPES) + ["all"])
+    ap.add_argument("--step", default="auto",
+                    choices=["auto", "train", "prefill", "decode",
+                             "fdlora_round"])
+    ap.add_argument("--variant", default="baseline",
+                    help=f"one of {sorted(VARIANTS)}; "
+                         f"{', '.join(XLA_ONLY_VARIANTS)} are refused")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="refused: the port has no mesh yet")
+    ap.add_argument("--out-dir", default="experiments/dryrun_torch")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--skip-existing", action="store_true",
+                    help="skip combos whose JSON artifact already exists")
+    args = ap.parse_args(argv)
+    if args.multi_pod:
+        ap.error("--multi-pod needs the port's mesh (launch/mesh.py), which "
+                 "is not ported yet")
+    try:
+        check_variant(args.variant)
+    except ValueError as e:
+        ap.error(str(e))
+
+    archs = ALL_ARCHS if args.arch == "all" else [args.arch]
+    shapes = list(INPUT_SHAPES) if args.shape == "all" else [args.shape]
+    failures = []
+    for arch in archs:
+        for shape in shapes:
+            step_tag = (args.step if args.step != "auto"
+                        else INPUT_SHAPES[shape].kind)
+            tag = f"{arch}__{shape}__{MESH}__{step_tag}"
+            if args.variant != "baseline":
+                tag += f"__{args.variant}"
+            if args.smoke:
+                tag += "__smoke"
+            if args.skip_existing and os.path.exists(
+                    os.path.join(args.out_dir, tag + ".json")):
+                print(f"SKIP-EXISTING {arch} {shape}")
+                continue
+            try:
+                r = run_one(arch, shape, args.step, args.variant,
+                            args.out_dir, args.smoke)
+            except Exception as e:  # keep sweeping; report at the end
+                failures.append((arch, shape, repr(e)[:300]))
+                print(f"FAIL {arch} {shape}: {repr(e)[:300]}")
+                sys.stdout.flush()
+                continue
+            if r.get("skipped"):
+                print(f"SKIP {arch} {shape}: {r['reason']}")
+                continue
+            roof, mem = r["roofline"], r["memory"]
+            print(f"OK {arch} {shape} {r['mesh']} {r['step']} "
+                  f"walk={r['walk_s']}s peak={mem['peak_bytes'] / 1e9:.2f}GB "
+                  f"fits={r['fits']} compute={roof['compute_s']:.4f}s "
+                  f"memory={roof['memory_s']:.4f}s dom={roof['dominant']} "
+                  f"useful={roof['useful_ratio']:.2f}")
+            sys.stdout.flush()
+    if failures:
+        print(f"{len(failures)} FAILURES:")
+        for a, s, e in failures:
+            print(" ", a, s, e)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

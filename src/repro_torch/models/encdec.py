@@ -31,7 +31,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.models.model import resolve_backend
+from repro_torch.models.model import normal_init, resolve_backend
 
 Params = Dict[str, Any]
 
@@ -40,16 +40,13 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
     """Random weights from ``seed`` at the reference's init scales (normal
     × d^-0.5 for projections, × d_ff^-0.5 for ``w_out``, × 0.02 for the
     embedding and both position tables; fp32 norms at 1 and 0), drawn by
-    a ``torch.Generator`` on ``device``."""
+    a ``torch.Generator`` on ``device`` (on the meta device: the same
+    shapes and dtypes, no values)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg.param_dtype)
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-
-    def normal(shape, std):
-        t = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (t * std).to(dtype)
+    normal = normal_init(seed, dev, dtype)
 
     def attn(n):
         return {"wq": normal((n, d, H * hd), d ** -0.5),

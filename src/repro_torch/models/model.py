@@ -33,16 +33,13 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
     d^-0.5 for projections and the fp32 router, × d_ff^-0.5 for w_out,
     × 0.02 for embeddings; a mamba layer's as ``mamba2.init_mamba`` says),
     drawn by a ``torch.Generator`` on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU).  On the meta device the tree has the same
+    shapes and dtypes and no values (``launch/dryrun.py``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg.param_dtype)
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-
-    def normal(shape, std, out_dtype=None):
-        t = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (t * std).to(out_dtype or dtype)
+    normal = normal_init(seed, dev, dtype)
 
     def norm():
         if cfg.norm_type == "nonparametric":
@@ -81,6 +78,23 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
     return params
 
 
+def normal_init(seed: int, dev: torch.device, dtype):
+    """``normal(shape, std, out_dtype=None)``: N(0, std²) drawn in fp32
+    by a generator on ``dev`` seeded with ``seed``, cast to ``out_dtype``
+    (``dtype`` by default); on the meta device an empty tensor of that
+    shape and dtype (a meta device has no generator)."""
+    if dev.type == "meta":
+        def normal(shape, std, out_dtype=None):
+            return torch.empty(shape, dtype=out_dtype or dtype, device=dev)
+        return normal
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, std, out_dtype=None):
+        t = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (t * std).to(out_dtype or dtype)
+    return normal
+
+
 def _parse(entry: str) -> Tuple[str, str]:
     """A pattern entry's (mixer, MLP): ``"mamba+none"`` -> ("mamba",
     "none")."""
@@ -91,12 +105,15 @@ def _parse(entry: str) -> Tuple[str, str]:
 def resolve_backend(cfg, paged_backend: Optional[str], device):
     """``cfg`` with ``paged_backend`` settled: the call's override, else the
     config's, else ``"cuda"`` on a card and ``"torch"`` on the CPU.  The CPU
-    allows only ``"torch"``, for serving and training alike."""
+    allows only ``"torch"``, for serving and training alike.  The meta
+    device walks the card's path (``"cuda"``: the kernels' meta routes)
+    unless asked for ``"torch"``."""
+    kind = torch.device(device).type
     backend = paged_backend or cfg.paged_backend or (
-        "cuda" if torch.device(device).type == "cuda" else "torch")
+        "cuda" if kind in ("cuda", "meta") else "torch")
     if backend not in PAGED_BACKENDS:
         raise ValueError(f"unknown paged_backend {backend!r}")
-    if backend == "cuda" and torch.device(device).type != "cuda":
+    if backend == "cuda" and kind not in ("cuda", "meta"):
         raise ValueError("paged_backend='cuda' runs the CUDA kernels and "
                          "needs tensors on a card; the CPU allows only "
                          "'torch'")

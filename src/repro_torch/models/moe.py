@@ -103,15 +103,41 @@ def dispatch(ids: torch.Tensor, E: int, cap: int
     return dest, keep
 
 
+class _BmmF32(torch.autograd.Function):
+    """``aten::bmm.dtype`` (bf16 operands, fp32 result) with a backward,
+    which autograd lacks for that overload: each operand's gradient is a
+    bf16 product of the other operand and the fp32 output gradient
+    rounded to bf16, accumulated in fp32 and returned in the operand's
+    dtype, with no fp32 copy of an expert stack."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g.to(b.dtype), b.transpose(1, 2),
+                           out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.transpose(1, 2), g.to(a.dtype),
+                           out_dtype=torch.float32).to(b.dtype)
+        return ga, gb
+
+
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched a @ b accumulated and returned in fp32 (the reference's
     ``preferred_element_type=float32``).  bf16 operands on a card use
     ``aten::bmm.dtype``, which multiplies bf16 into fp32 without an fp32
-    copy of the expert stack; elsewhere the operands go to fp32 (exact
-    for bf16 values)."""
-    if (a.dtype != torch.float32 and a.is_cuda
+    copy of the expert stack (so does the meta device, which walks the
+    card's path); elsewhere the operands go to fp32 (exact for bf16
+    values)."""
+    if (a.dtype != torch.float32 and (a.is_cuda or a.is_meta)
             and "dtype" in torch.ops.aten.bmm.overloads()):
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 

@@ -1789,3 +1789,72 @@ def test_ssm_rounds_do_not_wait_for_the_card(dev):
                            max_new_tokens=16))
     rounds = _rounds_without_sync(ses)
     assert sum(len(t) for _, ev, _ in rounds for _, t, _ in ev) == 3 * 16
+
+
+# ---------------------------------------------------------------------------
+# training on the MoE base and the torch examples on the card
+# ---------------------------------------------------------------------------
+
+def test_moe_expert_bmm_has_a_backward_on_the_card(dev):
+    """``moe._bmm_f32`` (``aten::bmm.dtype``, bf16 in, fp32 out) has no
+    autograd formula in torch; the port's backward gives the plain fp32
+    product's gradient but for one bf16 rounding of the output gradient
+    (relative 2^-9 an element) and the final rounding to bf16, which both
+    sides make in another order: ``_bf16_tol``."""
+    from repro_torch.models.moe import _bmm_f32
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((4, 64, 96), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((4, 96, 80), generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn((4, 64, 80), generator=g, device=dev)
+    a1 = a.clone().requires_grad_(True)
+    out = _bmm_f32(a1, b)
+    assert out.dtype == torch.float32
+    (ga,) = torch.autograd.grad(out, a1, dy)
+    a2 = a.clone().requires_grad_(True)
+    (gr,) = torch.autograd.grad(torch.bmm(a2.float(), b.float()), a2, dy)
+    assert ga.dtype == torch.bfloat16
+    torch.testing.assert_close(ga.float(), gr.float(), rtol=0.0,
+                               atol=_bf16_tol(gr))
+
+
+def test_moe_train_step_runs_through_the_kernels(dev):
+    """A dbrx-smoke LoRA train step on "cuda": finite loss and gradients
+    for every adapter leaf, the router's pair included."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import init_adapters, tree_leaves
+    from repro_torch.models.api import Model
+    from repro_torch.training.train_step import lora_value_and_grad
+    cfg = get_config("dbrx-132b", smoke=True)
+    model = Model(cfg, dev)
+    params = model.init(0)
+    ad = init_adapters(cfg, seed=1, device=dev, b_std=0.02)
+    tokens = torch.arange(64, device=dev, dtype=torch.int32).reshape(2, 32)
+    batch = {"tokens": tokens % cfg.vocab_size,
+             "loss_mask": torch.ones_like(tokens)}
+    kernels.reset_launch_counts()
+    loss, _, grads = lora_value_and_grad(model, cfg, "cuda")(params, ad,
+                                                             batch)
+    assert kernels.launch_counts()["lora_matmul"] > 0
+    assert bool(torch.isfinite(loss))
+    leaves = dict(tree_leaves(grads))
+    assert any("router" in p for p in leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in leaves.values())
+
+
+def test_torch_quickstart_runs_through_the_kernels(dev):
+    """``examples/torch_quickstart.py`` on the card: its train steps launch
+    the LoRA and flash-attention kernels, its losses stay finite."""
+    import importlib.util
+    import math
+    from pathlib import Path
+    path = (Path(__file__).resolve().parents[1] / "examples"
+            / "torch_quickstart.py")
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    kernels.reset_launch_counts()
+    out = mod.main(["--steps", "3", "--device", "cuda"])
+    counts = kernels.launch_counts()
+    assert counts["lora_matmul"] > 0 and counts["flash_attention"] > 0
+    assert all(math.isfinite(x) for x in out["losses"])
+    assert out["tokens"].shape == (1, 4)

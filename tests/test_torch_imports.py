@@ -1,6 +1,6 @@
-"""The port stands alone: nothing in ``src/repro_torch`` or ``chip_smoke.py``
-imports JAX or the reference package (an AST scan, so a module that is
-never imported by the tests is covered too)."""
+"""The port stands alone: nothing in ``src/repro_torch``, ``chip_smoke.py``
+or the torch examples imports JAX or the reference package (an AST scan,
+so a module that is never imported by the tests is covered too)."""
 import ast
 from pathlib import Path
 
@@ -8,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro", "triton")
 
 
@@ -56,7 +56,12 @@ SLICE_MODULES = [
     # the VLM and encoder-decoder families
     "models/encdec.py", "configs/internvl2_26b.py",
     "configs/whisper_small.py",
+    # the full-size tooling: registry, roofline, specs, the meta dry run
+    "configs/registry.py", "analysis/__init__.py", "analysis/roofline.py",
+    "kernels/meta.py", "launch/specs.py", "launch/dryrun.py",
 ]
+EXAMPLES = ["torch_quickstart.py", "torch_serve_fused.py",
+            "torch_federated_log_analysis.py"]
 
 
 def test_the_port_has_files():
@@ -66,6 +71,11 @@ def test_the_port_has_files():
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_slice_module_is_scanned(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
+
+
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_torch_example_is_scanned(example):
+    assert ROOT / "examples" / example in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
