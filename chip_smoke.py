@@ -79,8 +79,8 @@ Phases (each prints one JSON line per result):
                the first chunk "cuda" vs "torch" through the 2-shard
                registry's kernel view; TTFT, decode tok/s and peak memory
                per run, the bank concatenation's ms;
-  4c. fixed  — the fixed-batch path: one 64-token prompt, 16 new tokens,
-               cache_len 128: generate_fixed over the 8 tenants (batched
+  4c. fixed  — the fixed-batch path on the sharded phase's 16 layers: one
+               64-token prompt, 16 new tokens, cache_len 128: generate_fixed over the 8 tenants (batched
                LoRA at 8 rows a step) and the single-tenant Engine with one
                Eq. 7-merged adapter (lora_matmul at 8 rows a step), the
                last prompt position's logits "cuda" vs "torch", the
@@ -109,7 +109,8 @@ Phases (each prints one JSON line per result):
                step;
   6. dense_family — with llama2-7b's weights freed, gemma-2b, olmo-1b,
                yi-6b and starcoder2-15b in turn at their published width
-               and depth, bf16, random weights from --seed, 4 tenants with
+               and at most 16 layers (olmo-1b all 16; the script's time
+               limit), bf16, random weights from --seed, 4 tenants with
                rank-16 fused adapters: 4 requests (prompts 128-1024 tokens;
                starcoder2-15b one more of 4,608 tokens, past its window),
                16 new tokens, through "cuda" with overlap on and off
@@ -135,7 +136,7 @@ Phases (each prints one JSON line per result):
                copies per layer equal; one traced dbrx-132b run with the
                expert products and the routing and dispatch as rows of
                their own;
-  8. ssm     — mamba2-2.7b (all 64 layers) and jamba-v0.1-52b (8 of its
+  8. ssm     — mamba2-2.7b (32 of its 64 layers) and jamba-v0.1-52b (8 of its
                32: one period, every pattern entry once) at their published
                width, bf16, random weights from --seed, 4 tenants with
                rank-16 fused adapters (the mamba in_proj/out_proj pairs
@@ -197,7 +198,24 @@ Phases (each prints one JSON line per result):
                that depth and in fp32 at the first layer of each kind,
                routing pinned, and a stage-3 fused evaluation; the train
                phase's llama2-7b step is held to its prediction too;
- 11. the card's name and power limit, the kernel summary line, and last the
+ 11. full_train — full fine-tuning (make_full_train_step: every weight
+               trains, AdamW, no adapter) of llama2-7b at full width,
+               bf16, random weights from --seed, 8 x 256 SFT tokens, at
+               the deepest of at most 32 layers whose dry-run peak (the
+               full step walked on the meta device by launch/dryrun.py's
+               measure) fits in 90% of the card, found by bisection (the
+               depths tried are emitted): one warmed, timed step with its
+               mfu and its measured peak within 2% of the dry run's, one
+               traced step (the AdamW update, the clip and the new weights
+               as rows of their own);
+               flash attention launched on its tensor-core tile in every
+               layer and no LoRA kernel launched; loss and every weight's
+               gradient "cuda" vs "torch" in bf16 at that depth and in
+               fp32 at one layer, then the weights after one fp32 AdamW
+               step; fused_forward with two seeded rank-16 adapter trees
+               (the dual-LoRA kernel in every projection) against the
+               plain merge;
+ 12. the card's name and power limit, the kernel summary line, and last the
      result line.
 
 batched_dual_lora_matmul, which no path of the port (or of the reference
@@ -286,18 +304,25 @@ def device_ms(fn, reps: int, parts=()):
     is taken again otherwise (``DEVICE_TRACE_RETAKES`` counts how often).
     A single call's trace can drop events too (its window is the
     shortest), never add them, so the count per call is the most any of
-    the attempts' single-call traces held."""
+    the attempts' single-call traces held.  The losses fall at a trace's
+    edges (on torch 2.11 the windowed prefill's traces each lost exactly
+    one event, a single call's its only one, 8 times running), so each
+    trace opens and closes with a spin kernel of its own, left out of the
+    sums, and the calls measured sit inside."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def trace(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(EDGE_CYCLES)
             for _ in range(n):
                 fn()
+            torch.cuda._sleep(EDGE_CYCLES)
             torch.cuda.synchronize()
         return [ev for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA]
+                if ev.device_type == DeviceType.CUDA
+                and "spin_kernel" not in ev.key]
 
     fn()
     torch.cuda.synchronize()
@@ -330,6 +355,7 @@ def device_ms(fn, reps: int, parts=()):
 # once lost events in 4 tries running; 5 traces of a whole run lost some)
 DEVICE_TRACE_RETAKES = []
 TRACE_ATTEMPTS = 8
+EDGE_CYCLES = 20_000       # each edge kernel spins about 10 µs
 
 
 def bound(bytes_moved: float, flops: float, fp32: bool = False):
@@ -2150,7 +2176,7 @@ def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
     shards on a pinned pool, int8 K/V over a ragged int8 bank (ranks 4, 8,
     16) at 1 and 2 shards, and a hot-swap at 2 shards that re-registers
     one client after the first decode round.  Returns (the launch counts
-    of the 2-shard run, an engine at 1 shard at all 32 layers for the
+    of the 2-shard run, an engine at 1 shard at ``depth`` layers for the
     fixed phase)."""
     import dataclasses
 
@@ -2162,7 +2188,7 @@ def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
     from repro_torch.models.api import Model
     from repro_torch.serving.engine import MultiTenantEngine, ServeConfig
     from repro_torch.serving.kv_cache import blocks_needed
-    full_cfg, full_params = cfg.with_overrides(lora_rank=16), params
+    full_cfg = cfg.with_overrides(lora_rank=16)
     cfg = full_cfg.with_overrides(n_layers=depth)
     params = dict(params, layers=params["layers"][:depth])
     reqs = ragged_requests(8, 8, cfg.vocab_size, 128, 1024, seed)
@@ -2333,8 +2359,9 @@ def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
           "f32_bank_gb": sum(t.numel() * t.element_size() for _, t in
                              tree_leaves(engines[1].registry.bank())) / 1e9})
     del engines
-    return counts2, sharded_engine(device, full_params, full_cfg, 1,
-                                   full_trees)[0]
+    return counts2, sharded_engine(
+        device, params, cfg, 1,
+        [{"layers": t["layers"][:depth]} for t in full_trees])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -2343,7 +2370,8 @@ def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
 
 def fixed_phase(eng, seed: int, prompt_len: int = 64, new_tokens: int = 16,
                 cache_len: int = 128):
-    """llama2-7b, 32 layers, bf16: one seeded 64-token prompt, 16 new
+    """llama2-7b at the sharded phase's 16 of its 32 layers (the script's
+    time limit), bf16: one seeded 64-token prompt, 16 new
     tokens, cache_len 128, greedy.  ``generate_fixed`` serves 8 requests,
     one per tenant, over the fp32 bank (batched LoRA at M = 8 per step);
     ``Engine.generate`` serves 8 rows with one Eq. 7-merged adapter
@@ -3111,7 +3139,7 @@ def baselines_phase(device, seed: int, params, cfg, fdlora_accuracy):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the rest of the dense family at full width and depth
+# phase 6: the rest of the dense family at full width, 16 layers at most
 # ---------------------------------------------------------------------------
 
 # why each arch is here: gemma-2b runs head dim 256 (one kv head, a 256,000
@@ -3120,6 +3148,8 @@ def baselines_phase(device, seed: int, params, cfg, fdlora_accuracy):
 # gate-less GELU MLP (6 LoRA targets), LayerNorm with bias and a 4,096
 # token sliding window
 DENSE_FAMILY = ("gemma-2b", "olmo-1b", "yi-6b", "starcoder2-15b")
+DENSE_LAYERS = 16           # the script's time limit: yi-6b 16 of 32,
+                            # starcoder2-15b 16 of 40, gemma-2b 16 of 18
 DENSE_TENANTS = 4
 DENSE_REQUESTS = 4          # and one of LONG_PROMPT tokens under a window
 LONG_PROMPT = 4608
@@ -3307,8 +3337,9 @@ class Ranges:
 def dense_family_phase(device, seed: int, T: int = 256,
                        tenants: int = DENSE_TENANTS, rank: int = 16,
                        new_tokens: int = 16):
-    """Each of ``DENSE_FAMILY`` at its published width and depth, bf16,
-    seeded weights, ``tenants`` rank-16 fused adapters: 4 requests
+    """Each of ``DENSE_FAMILY`` at its published width and at most
+    ``DENSE_LAYERS`` of its layers (the script's time limit), bf16, seeded
+    weights, ``tenants`` rank-16 fused adapters: 4 requests
     (prompts from the seed in [128, 1024]; starcoder2-15b one more of
     4,608 tokens), greedy, through "cuda" with overlap on and off (streams
     bitwise equal, every serving kernel launched, prefill attention and
@@ -3333,11 +3364,14 @@ def dense_family_phase(device, seed: int, T: int = 256,
                                             ServeConfig)
     counts = {}
     for arch in DENSE_FAMILY:
-        cfg = get_config(arch).with_overrides(lora_rank=rank)
+        full = get_config(arch)
+        cfg = full.with_overrides(lora_rank=rank, n_layers=min(
+            full.n_layers, DENSE_LAYERS))
         t0 = time.perf_counter()
         eng = build_engine(cfg, tenants, device, seed, rank=rank)
         torch.cuda.synchronize()
         emit({"phase": "model", "arch": cfg.name, "n_layers": cfg.n_layers,
+              "published_n_layers": full.n_layers,
               "d_model": cfg.d_model, "n_heads": cfg.n_heads,
               "n_kv_heads": cfg.n_kv_heads,
               "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
@@ -3664,11 +3698,12 @@ def moe_phase(device, seed: int, T: int = 256, tenants: int = MOE_TENANTS,
 # phase 8: the SSM and hybrid families
 # ---------------------------------------------------------------------------
 
-# (arch, layers served): mamba2-2.7b at its whole depth (5.7 GB of bf16
-# weights); jamba-v0.1-52b at 8 of its 32 layers, one period that holds
+# (arch, layers served): mamba2-2.7b at half its depth (the script's time
+# limit; the per-token scan is host-paced, so the phase's time goes with
+# depth); jamba-v0.1-52b at 8 of its 32 layers, one period that holds
 # every pattern entry once (26.5 GB; all 32 would take 103 GB, more than
 # one 80 GB card)
-SSM_FAMILY = (("mamba2-2.7b", 64), ("jamba-v0.1-52b", 8))
+SSM_FAMILY = (("mamba2-2.7b", 32), ("jamba-v0.1-52b", 8))
 SSM_TENANTS = 4
 SSM_SLOTS = 4
 SSM_TOKEN_CHECK = 64        # prompt tokens fed one at a time on mamba2
@@ -4585,6 +4620,270 @@ def train_families_phase(device, seed: int, T: int = 256):
     return out
 
 
+FULL_ARCH = "llama2-7b"
+FULL_MAX_LAYERS = 32
+FULL_ROWS = 8                # each 256 SFT tokens
+FULL_PEAK_TOL = 0.02         # measured peak against the dry run's
+FULL_LR = 2e-4
+# the weights after one fp32 AdamW step, "cuda" against "torch", per leaf:
+# ||Δp|| <= tol·||p_torch - p_0||.  Adam's first step moves an element by
+# about lr·sign(g), so an element whose gradient is within the two
+# backends' difference of 0 can flip by 2·lr; the fp32 gradient bound
+UPDATE_TOL = 1e-2
+LORA_KERNELS = ("lora_matmul", "dual_lora_matmul", "batched_lora_matmul",
+                "batched_dual_lora_matmul")
+
+
+def full_depth(base, rows: int, seq: int, fit: float):
+    """The deepest depth of at most ``FULL_MAX_LAYERS`` whose dry-run peak
+    is at most ``fit`` bytes, by bisection (the peak grows with depth):
+    each depth's full step walked on the meta device under
+    ``launch/dryrun.measure``, as ``dry_train_step`` walks the LoRA step.
+    Returns (depth, {depth tried: its dry run, with the walk's seconds})."""
+    from repro_torch.launch.dryrun import META, build_full_train, measure
+    from repro_torch.models.api import Model
+    tried = {}
+
+    def fits(d):
+        if d not in tried:
+            cfg = base.with_overrides(n_layers=d, paged_backend="cuda")
+            t0 = time.perf_counter()
+            dry = measure(*build_full_train(Model(cfg, META), cfg, rows, seq))
+            tried[d] = dict(dry, walk_s=time.perf_counter() - t0)
+        return tried[d]["memory"]["peak_bytes"] <= fit
+
+    lo, hi = 0, FULL_MAX_LAYERS + 1         # fits(lo) (0: vacuously); not hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid
+    require(lo > 0, f"{base.name}: not even one layer's full step fits")
+    return lo, tried
+
+
+def compare_fused_forward(model, cfg, params, state, batch, tol, **extra):
+    """``fused_forward`` through "cuda" (the dual-LoRA kernel merges in
+    every projection) and "torch" (merge, then the plain forward), held as
+    ``compare_fused_eval`` holds the AdaFusion objective: the cross
+    entropy of each backend's logits within ``tol`` relative.  Returns the
+    "cuda" run's launch counts."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.dual_lora import fused_forward
+    from repro_torch.core.lora import lora_scale
+    from repro_torch.training.train_step import cross_entropy
+    losses, counts, logits = {}, {}, {}
+    for backend in ("cuda", "torch"):
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            logits[backend], _ = fused_forward(model, params, batch, state,
+                                               lora_scale(cfg), backend)
+            loss, _ = cross_entropy(cfg, logits[backend], batch)
+        losses[backend], counts[backend] = float(loss), kernels.launch_counts()
+        if backend == "cuda":
+            tiles = kernels.tile_counts()
+    err = abs(losses["cuda"] - losses["torch"]) / abs(losses["torch"])
+    lg = logits["torch"]
+    logit_err = float((logits["cuda"] - lg).abs().max() / lg.abs().max())
+    nc = counts["cuda"]
+    emit({"phase": "full_train_fused_forward", **extra,
+          "w": state.fusion_weights.tolist(), "loss_cuda": losses["cuda"],
+          "loss_torch": losses["torch"], "loss_rel_err": err, "tol": tol,
+          "max_logit_err_rel_to_max": logit_err, "launches_cuda": nc,
+          "tiles_cuda": {n: tiles[n] for n in ("dual_lora_matmul",
+                                               "flash_attention")}})
+    require(bool(torch.isfinite(logits["cuda"]).all()),
+            "fused_forward: cuda logits are not finite")
+    require(err <= tol, f"fused_forward loss rel err {err} > {tol}")
+    for name in ("dual_lora_matmul", "flash_attention"):
+        require_mma_tile(tiles, name, "fused_forward")
+    require(all(nc[n] == 0 for n in LORA_KERNELS if n != "dual_lora_matmul"),
+            f"fused_forward launched another LoRA kernel: {nc}")
+    require(all(n == 0 for n in counts["torch"].values()),
+            "the torch fused_forward launched a CUDA kernel")
+    return nc
+
+
+def compare_full_update(model, cfg, params, batch, tol, **extra):
+    """One full AdamW step (lr ``FULL_LR``) from the same weights and a
+    fresh optimizer state through "cuda" and "torch": per leaf,
+    ``||p_cuda - p_torch|| <= tol·||p_torch - p_0||``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.lora import tree_leaves
+    from repro_torch.training.optimizers import adamw
+    from repro_torch.training.train_step import make_full_train_step
+    opt = adamw(lr=FULL_LR)
+    new, counts, loss = {}, {}, {}
+    for backend in ("cuda", "torch"):
+        kernels.reset_launch_counts()
+        step = make_full_train_step(model, cfg, opt, paged_backend=backend)
+        p, st, metrics = step(params, opt.init(params), batch)
+        new[backend], counts[backend] = dict(tree_leaves(p)), \
+            kernels.launch_counts()
+        loss[backend] = float(metrics["loss"])
+        del p, st
+    old = dict(tree_leaves(params))
+    errs = {k: float(torch.linalg.vector_norm(new["cuda"][k] - t)
+                     / torch.linalg.vector_norm(t - old[k]))
+            for k, t in new["torch"].items()}
+    worst = max(errs, key=errs.get)
+    diff_in_lr = max(float((new["cuda"][k] - t).abs().max()) / FULL_LR
+                     for k, t in new["torch"].items())
+    emit({"phase": "full_train_update", **extra, "lr": FULL_LR,
+          "loss_cuda": loss["cuda"], "loss_torch": loss["torch"],
+          "leaves": len(errs), "max_update_rel_err": errs[worst],
+          "worst_leaf": worst, "median_update_rel_err":
+          sorted(errs.values())[len(errs) // 2], "tol": tol,
+          "max_abs_diff_in_lr": diff_in_lr,
+          "launches_cuda": counts["cuda"]})
+    require(all(bool(torch.isfinite(t).all()) for t in new["cuda"].values()),
+            "full AdamW step: a cuda weight is not finite")
+    require(errs[worst] <= tol, f"full AdamW step: {worst} differs by "
+            f"{errs[worst]} of its update > {tol}")
+    require(counts["cuda"]["flash_attention"] > 0
+            and all(counts["cuda"][n] == 0 for n in LORA_KERNELS),
+            f"full AdamW step launches {counts['cuda']}")
+    require(all(n == 0 for n in counts["torch"].values()),
+            "the torch full step launched a CUDA kernel")
+
+
+def full_step_trace(model, cfg, opt, params, st, batch):
+    """One full step traced by ``traced``, with the AdamW update, the
+    global-norm clip and the weights' update each a row of its own; returns
+    (wall ms, {family: device ms})."""
+    from torch.profiler import record_function
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.optimizers import Optimizer
+
+    def update(*a, **kw):
+        with record_function("adamw"):
+            return opt.update(*a, **kw)
+    step = ts.make_full_train_step(model, cfg, Optimizer(opt.init, update),
+                                   paged_backend="cuda")
+    with Ranges({(ts, "clip_by_global_norm"): "clip",
+                 (ts, "apply_updates"): "apply"}):
+        return traced(lambda: step(params, st, batch), TRAIN_FAMILIES,
+                      "other device work (torch: the flash backward, norms, "
+                      "RoPE, SwiGLU, embedding, loss)",
+                      ranges=(("adamw", "AdamW update (torch)"),
+                              ("clip", "global-norm clip (torch)"),
+                              ("apply", "new weights, bf16 (torch)")))
+
+
+def full_train_phase(device, seed: int, T: int = 256):
+    """Full fine-tuning of llama2-7b at full width and the deepest depth
+    whose dry-run peak fits: the timed step beside its prediction, its
+    launches, a traced step, "cuda" vs "torch" (bf16 at depth, fp32 at one layer, the
+    fp32 AdamW update) and ``fused_forward``.  Returns the launch counts
+    of the timed step and of the "cuda" ``fused_forward``."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.dual_lora import DualLoRAState
+    from repro_torch.core.lora import init_adapters, tree_map
+    from repro_torch.models.api import Model
+    from repro_torch.training.optimizers import adamw
+    from repro_torch.training.train_step import (full_value_and_grad,
+                                                 make_full_train_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = torch.cuda.get_device_properties(device).total_memory
+    resident = torch.cuda.memory_allocated(device)
+    base = get_config(FULL_ARCH)
+    t_walk = time.perf_counter()
+    depth, tried = full_depth(base, FULL_ROWS, T, PEAK_FIT * card)
+    emit({"phase": "full_train_depth", "arch": FULL_ARCH, "depth": depth,
+          "of": base.n_layers, "card_bytes": card,
+          "fit_bytes": PEAK_FIT * card, "resident_bytes": resident,
+          "dry_peak_bytes_by_depth": {d: r["memory"]["peak_bytes"]
+                                      for d, r in sorted(tried.items())},
+          "dry_argument_bytes_by_depth": {
+              d: r["memory"]["argument_bytes"]
+              for d, r in sorted(tried.items())},
+          "walks_s": time.perf_counter() - t_walk,
+          "why": f"the deepest of at most {FULL_MAX_LAYERS} layers whose "
+                 "dry-run full-step peak fits in "
+                 f"{PEAK_FIT:.0%} of the card (bisection)"})
+    cfg = base.with_overrides(n_layers=depth)
+    dry = tried[depth]
+    model = Model(cfg, device)
+    params = model.init(seed)
+    opt = adamw(lr=FULL_LR)
+    st = opt.init(params)
+    batch = sft_batch(seed, FULL_ROWS, T, cfg.vocab_size, device)
+    step = make_full_train_step(model, cfg, opt, paged_backend="cuda")
+    step(params, st, batch)                     # warm-up, outputs dropped
+    kernels.reset_launch_counts()
+    out, fields = predicted_step(cfg, step, (params, st, batch), FULL_ROWS,
+                                 T, dry)
+    counts, tiles = kernels.launch_counts(), kernels.tile_counts()
+    metrics = out[2]
+    del out                             # the new weights and state
+    # one traced step, the optimizer's passes as rows of their own
+    wall_ms, fam = full_step_trace(model, cfg, opt, params, st, batch)
+    emit(_profile_line(fam, wall_ms, phase="profile_full_train",
+                       arch=FULL_ARCH, n_layers=depth,
+                       rows=FULL_ROWS * T))
+    del st, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "full_train", "arch": FULL_ARCH, "n_layers": depth,
+          "of": base.n_layers, "d_model": cfg.d_model, "rows": FULL_ROWS,
+          "seq": T, "params": cfg.count_params(),
+          "loss": float(metrics["loss"]), **fields,
+          "peak_tol_full": FULL_PEAK_TOL, "launches": counts,
+          "flash_tiles": tiles["flash_attention"]})
+    require(bool(torch.isfinite(metrics["loss"])), "full step: loss is not "
+            "finite")
+    require(abs(fields["peak_rel_err"]) <= FULL_PEAK_TOL,
+            f"full step: measured peak {fields['measured_peak_bytes']} is "
+            f"{fields['peak_rel_err']:+.2%} off the dry run's "
+            f"{fields['dry_peak_bytes']}")
+    require(counts["flash_attention"] == depth,
+            f"full step: {counts['flash_attention']} flash launches, not one "
+            f"per layer ({depth})")
+    require_mma_tile(tiles, "flash_attention", "full step")
+    require(all(counts[n] == 0 for n in LORA_KERNELS),
+            f"full step launched a LoRA kernel: {counts}")
+    info = {"arch": FULL_ARCH, "method": "full train step"}
+    compare_grads(lambda b: full_value_and_grad(model, cfg, b)(
+        params, batch), batch, "bfloat16", 2e-2, 0.25,
+        phase="full_train_compare", needs=("flash_attention",),
+        n_layers=depth, **info)
+    state = DualLoRAState(*(init_adapters(cfg, seed=seed + s,
+                                          device=device, b_std=0.02)
+                            for s in (200, 201)),
+                          torch.tensor([0.6, 0.6], device=device))
+    fused = compare_fused_forward(model, cfg, params, state, batch, 2e-2,
+                                  arch=FULL_ARCH, n_layers=depth,
+                                  rank=cfg.lora_rank)
+    del state
+    # fp32 at one layer: the step's first layer, embeddings and head
+    cut = cfg.with_overrides(n_layers=1, dtype="float32",
+                             param_dtype="float32")
+    p32 = tree_map(lambda t: t.float(),
+                   dict(params, layers=params["layers"][:1]))
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    m32 = Model(cut, device)
+    compare_grads(lambda b: full_value_and_grad(m32, cut, b)(p32, batch),
+                  batch, "float32", 1e-3, 1e-2, phase="full_train_compare",
+                  needs=("flash_attention",), n_layers=1, **info)
+    compare_full_update(m32, cut, p32, batch, UPDATE_TOL, arch=FULL_ARCH,
+                        n_layers=1, activations="float32")
+    del p32, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step": {n: counts[n] for n in kernels.WRAPPERS},
+            "fused_forward": {n: fused[n] for n in kernels.WRAPPERS}}
+
+
 def vlm_encdec_phase(device, seed: int, T: int = 256, new_tokens: int = 16,
                      rank: int = 16):
     """internvl2-26b, then whisper-small (``vlm_phase``,
@@ -4775,6 +5074,8 @@ def main(argv=None) -> int:
                               args.seed, T)
     train_families_counts = timed("train_families", train_families_phase,
                                   device, args.seed, T)
+    full_train_counts = timed("full_train", full_train_phase, device,
+                              args.seed, T)
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
@@ -4789,7 +5090,8 @@ def main(argv=None) -> int:
         "ssm": {arch: {n: c[n] for n in kernels.SERVING}
                 for arch, c in ssm_counts.items()},
         "vlm_encdec": vlm_encdec_counts,
-        "train_families": train_families_counts})
+        "train_families": train_families_counts,
+        "full_train": full_train_counts})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})
 

@@ -61,7 +61,8 @@ from repro_torch.kernels import meta
 from repro_torch.launch import specs as sp
 from repro_torch.models.api import Model
 from repro_torch.training.optimizers import adamw
-from repro_torch.training.train_step import make_lora_train_step
+from repro_torch.training.train_step import (make_full_train_step,
+                                             make_lora_train_step)
 
 META = torch.device("meta")
 MESH = "1xh100"
@@ -209,6 +210,21 @@ def build_train(model, cfg, B: int, S: int):
     return ((lambda: step(params, adapters, opt_state, batch)),
             {"params": params, "adapters": adapters, "opt_state": opt_state,
              "inputs": batch}, rl.model_flops_train(cfg, B * S))
+
+
+def build_full_train(model, cfg, B: int, S: int):
+    """Full fine-tuning (``make_full_train_step``): every weight trains
+    under AdamW, no adapter.  Not one of the CLI's steps (the reference's
+    dry run has none); ``chip_smoke.py`` walks it to choose the depth of
+    its ``full_train`` phase."""
+    opt = adamw(lr=2e-4)
+    step = make_full_train_step(model, cfg, opt, paged_backend="cuda")
+    params = model.init()
+    opt_state = opt.init(params)
+    batch = sp.batch_inputs(cfg, B, S)
+    return ((lambda: step(params, opt_state, batch)),
+            {"params": params, "opt_state": opt_state, "inputs": batch},
+            rl.model_flops_train(cfg, B * S))
 
 
 def build_prefill(model, cfg, B: int, S: int):

@@ -46,6 +46,14 @@ reference does:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --smoke --device cpu --tenants 2 --batch 2
 
+Per-request token increments as chunks complete (``--stream``), and SLA
+classes cycled over the requests (``--priority-mix``; the default puts
+every request in ``batch``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+        --device cpu --tenants 2 --batch 2 --stream \
+        --priority-mix interactive,batch
+
 Weights and adapters are random from ``--seed`` (the repo holds no trained
 weights); each tenant registers one Eq. 7-fused adapter with a non-zero B.
 Flag names are the reference CLI's (``repro.launch.serve``), plus
@@ -75,6 +83,7 @@ from repro_torch.serving.engine import (Engine, MultiTenantEngine, Request,
                                         ServeConfig)
 from repro_torch.serving.kv_cache import blocks_needed
 from repro_torch.serving.registry import AdapterRegistry
+from repro_torch.serving.scheduler import PRIORITY_CLASSES
 from repro_torch.serving.sharded import ShardedAdapterRegistry
 from repro_torch.serving.trace import synth_trace
 from repro_torch.training.checkpoint import load_checkpoint
@@ -338,23 +347,33 @@ def fixed_demo(eng, args, sc) -> None:
 
 
 def ragged_requests(n: int, tenants: int, vocab: int, prompt_min: int,
-                    prompt_max: int, seed: int = 0):
+                    prompt_max: int, seed: int = 0, mix=()):
+    """``n`` requests of seeded random prompts, request i to
+    ``client{i % tenants}`` in class ``mix[i % len(mix)]`` (``"batch"``
+    with no mix)."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(prompt_min, prompt_max + 1, n)
     return [Request(f"client{i % tenants}",
-                    rng.integers(0, vocab, int(s)).astype(np.int32))
+                    rng.integers(0, vocab, int(s)).astype(np.int32),
+                    priority=mix[i % len(mix)] if mix else "batch")
             for i, s in enumerate(lens)]
 
 
 def stream_with_updates(eng, reqs, sc, args, ranks):
-    """Collect ``generate_stream``; with ``--update-every N`` every N-th
+    """Collect ``generate_stream``; with ``--stream`` print each increment
+    on the reference CLI's line; with ``--update-every N`` every N-th
     event re-registers the next client (round-robin) with fresh seeded
     pairs, as a finished federated round would publish it.  Returns
     (per-request streams, re-registrations)."""
     outs = [[] for _ in reqs]
     updates = events = 0
-    for rid, toks, _ in eng.generate_stream(reqs, sc):
+    tok = ByteTokenizer()
+    for rid, toks, finished in eng.generate_stream(reqs, sc):
         outs[rid].extend(toks)
+        if args.stream:
+            tag = " <done>" if finished else ""
+            print(f"  [stream] req{rid} +{len(toks)} ({len(outs[rid])} "
+                  f"total){tag}: {tok.decode(np.asarray(toks))[:24]!r}")
         events += 1
         if args.update_every and events % args.update_every == 0:
             register_client(eng.registry, eng.cfg, updates % args.tenants,
@@ -404,6 +423,14 @@ def main(argv=None):
     ap.add_argument("--paged-backend", default=None, choices=["cuda", "torch"],
                     help="default: 'cuda' on a card, 'torch' on the CPU")
     ap.add_argument("--sched-policy", default="sla", choices=["sla", "fcfs"])
+    ap.add_argument("--stream", action="store_true",
+                    help="continuous mode: print each request's token "
+                         "increments as chunks complete (generate_stream)")
+    ap.add_argument("--priority-mix", default="",
+                    help="continuous mode: comma list of classes "
+                         "(interactive,batch,background) cycled over the "
+                         "requests, e.g. 'batch,batch,interactive'; empty: "
+                         "all batch")
     ap.add_argument("--kv-dtype", default="f32", choices=["f32", "int8"],
                     help="paged K/V storage: 'int8' quantizes blocks with "
                          "per-(block, position, kv-head) scales")
@@ -445,6 +472,11 @@ def main(argv=None):
                     help="run the synchronous loop instead of overlapped "
                          "dispatch (tokens are equal either way)")
     args = ap.parse_args(argv)
+    mix = [c.strip() for c in args.priority_mix.split(",") if c.strip()]
+    unknown = sorted(set(mix) - set(PRIORITY_CLASSES))
+    if unknown:
+        ap.error(f"--priority-mix: unknown classes {unknown} (have "
+                 f"{sorted(PRIORITY_CLASSES, key=PRIORITY_CLASSES.get)})")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.is_encdec:
@@ -499,7 +531,7 @@ def main(argv=None):
         return
     reqs = ragged_requests(args.requests or 2 * args.batch, args.tenants,
                            cfg.vocab_size, args.prompt_min, args.prompt_max,
-                           args.seed)
+                           args.seed, mix)
     backend = args.paged_backend or ("cuda" if eng.device.type == "cuda"
                                      else "torch")
     for run in ("cold", "warm") if args.prefix_cache else ("cold",):

@@ -1,4 +1,5 @@
-"""Train and evaluation steps of LoRA SFT and the AdaFusion objective.
+"""Train and evaluation steps: LoRA SFT, full fine-tuning and the AdaFusion
+objective.
 
 Port of ``repro/training/train_step.py`` for every model family (a VLM's
 loss skips its patch positions; an encoder-decoder's batch carries
@@ -9,6 +10,15 @@ loss skips its patch positions; an encoder-decoder's batch carries
   model), as the reference's does.  The base is frozen:
   gradients come from ``torch.autograd.grad`` over the adapter leaves
   only, then a global-norm clip (1.0) and the optimizer.
+* ``make_full_train_step``: full fine-tuning, the paper's cost baseline
+  (Table 5) and the step the reference's benchmark harness pretrains its
+  base with.  Every leaf of the params tree gets a gradient (a leaf the
+  loss never reads gets zeros, as ``jax.grad`` gives it), then the same
+  clip and optimizer; bf16 weights are rounded after the update.  No
+  adapter is passed, so no projection reaches a LoRA kernel (their
+  backwards refuse a gradient for the base weight): on ``"cuda"`` the
+  projections are plain ``torch.matmul`` (plain jnp in the reference too)
+  and every attention runs the flash-attention kernel.
 * ``make_eval_fn``: next-token cross entropy and accuracy.
 * ``make_fused_eval_fn``: the AdaFusion objective (Eq. 8 without its L1
   term): the Eq. 7 merge of a personalized and a global tree, then a
@@ -85,9 +95,10 @@ def make_lora_loss_fn(model, cfg,
 def value_and_grad(loss_fn: Callable) -> Callable:
     """``fn(trees, *args) -> (loss, metrics, grads)`` for ``loss_fn(trees,
     *args) -> (loss, metrics)``: the gradient of the loss in every leaf of
-    ``trees`` (one adapter tree, or a tuple of them, which comes back as a
-    list), through ``torch.autograd.grad`` over those leaves only; nothing
-    in ``args`` gets a gradient."""
+    ``trees`` (an adapter tree, the weights of full fine-tuning, or a
+    tuple of trees, which comes back as a list), through
+    ``torch.autograd.grad`` over those leaves only; nothing in ``args``
+    gets a gradient."""
     def fn(trees, *args):
         ts = tree_map(lambda t: t.detach().requires_grad_(True), trees)
         loss, metrics = loss_fn(ts, *args)
@@ -128,6 +139,41 @@ def make_lora_train_step(model, cfg, opt: Optimizer, clip_norm: float = 1.0,
             grads = clip_by_global_norm(grads, clip_norm)
         updates, opt_state = opt.update(grads, opt_state, adapters)
         return apply_updates(adapters, updates), opt_state, metrics
+
+    return step
+
+
+def full_value_and_grad(model, cfg,
+                        paged_backend: Optional[str] = None) -> Callable:
+    """``fn(params, batch) -> (loss, metrics, grads)``: the reference's full
+    loss (the forward with no adapter; cross entropy plus
+    ``cfg.router_aux_loss_coef`` times the MoE aux loss) and its gradient
+    in every leaf of ``params``, each in its leaf's dtype."""
+    backend = resolve_backend(cfg, paged_backend, model.device).paged_backend
+
+    def loss_fn(params: Params, batch):
+        logits, aux = model.forward(params, batch, paged_backend=backend)
+        loss, metrics = cross_entropy(cfg, logits, batch)
+        return loss + cfg.router_aux_loss_coef * aux, metrics
+
+    return value_and_grad(loss_fn)
+
+
+def make_full_train_step(model, cfg, opt: Optimizer, clip_norm: float = 1.0,
+                         paged_backend: Optional[str] = None) -> Callable:
+    """step(params, opt_state, batch) -> (params, opt_state, metrics).
+    The gradients are dropped before the new weights are made, so the
+    step's peak holds one tree fewer than the arguments, the gradients,
+    the new optimizer state, the updates and the new weights together."""
+    vg = full_value_and_grad(model, cfg, paged_backend)
+
+    def step(params, opt_state, batch):
+        _, metrics, grads = vg(params, batch)
+        if clip_norm:
+            grads = clip_by_global_norm(grads, clip_norm)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        del grads
+        return apply_updates(params, updates), opt_state, metrics
 
     return step
 

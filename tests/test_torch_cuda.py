@@ -34,7 +34,9 @@ a prefill chunk "cuda" against "torch" with pinned routing), and the SSM
 and hybrid families (batched LoRA at the in_proj shapes whose N runs past
 a multiple of 256, mamba2-smoke and jamba-smoke served through the
 kernels with overlap on and off bitwise, mamba2-smoke "cuda" against
-"torch", its rounds without a wait for the stream).
+"torch", its rounds without a wait for the stream), and full fine-tuning
+(the expert products' weight gradient; every family's smoke config
+through flash attention and no LoRA kernel, "cuda" against "torch").
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is False.  This file imports neither JAX nor the reference package, so on a
@@ -1815,6 +1817,90 @@ def test_moe_expert_bmm_has_a_backward_on_the_card(dev):
     assert ga.dtype == torch.bfloat16
     torch.testing.assert_close(ga.float(), gr.float(), rtol=0.0,
                                atol=_bf16_tol(gr))
+
+
+def test_moe_expert_bmm_weight_gradient_on_the_card(dev):
+    """Full fine-tuning asks ``moe._bmm_f32`` for the expert stack's
+    gradient too (``needs_input_grad[1]``): the plain fp32 product's, but
+    for the bf16 rounding of the output gradient and of the result
+    (``_bf16_tol``), in the stack's dtype, and none for a frozen input."""
+    from repro_torch.models.moe import _bmm_f32
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn((4, 64, 96), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((4, 96, 80), generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn((4, 64, 80), generator=g, device=dev)
+    a1, b1 = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    ga, gb = torch.autograd.grad(_bmm_f32(a1, b1), (a1, b1), dy)
+    a2, b2 = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    ra, rb = torch.autograd.grad(torch.bmm(a2.float(), b2.float()), (a2, b2),
+                                 dy)
+    assert ga.dtype == gb.dtype == torch.bfloat16
+    torch.testing.assert_close(ga.float(), ra.float(), rtol=0.0,
+                               atol=_bf16_tol(ra))
+    torch.testing.assert_close(gb.float(), rb.float(), rtol=0.0,
+                               atol=_bf16_tol(rb))
+    (only_b,) = torch.autograd.grad(_bmm_f32(a, b1), b1, dy)
+    torch.testing.assert_close(only_b, gb, rtol=0.0, atol=0.0)
+
+
+FULL_STEP_ARCHS = ["llama2-7b", "gemma-2b", "dbrx-132b", "mamba2-2.7b",
+                   "jamba-v0.1-52b", "internvl2-26b", "whisper-small"]
+
+
+@pytest.mark.parametrize("arch", FULL_STEP_ARCHS)
+def test_full_train_step_runs_through_flash_attention(dev, arch):
+    """``make_full_train_step`` on each family's smoke config in bf16 on
+    "cuda": every weight's gradient against "torch" within the bf16
+    bounds chip_smoke.py's train phases use (loss 2e-2, each leaf 0.25
+    relative), flash attention in every attention layer and no LoRA
+    kernel (their backwards refuse a gradient for the base weight), then
+    one AdamW step with finite weights in their dtypes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import tree_leaves
+    from repro_torch.models.api import Model
+    from repro_torch.training.optimizers import adamw
+    from repro_torch.training.train_step import (full_value_and_grad,
+                                                 make_full_train_step)
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg, dev)
+    params = model.init(0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=g,
+                           device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens, "loss_mask": torch.ones_like(tokens)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (2, cfg.n_patch_tokens, cfg.d_model), generator=g, device=dev)
+    if cfg.is_encdec:
+        batch["enc_embeds"] = torch.randn(
+            (2, cfg.encoder_seq_len, cfg.d_model), generator=g, device=dev)
+    out = {}
+    for backend in ("cuda", "torch"):
+        kernels.reset_launch_counts()
+        loss, _, grads = full_value_and_grad(model, cfg, backend)(params,
+                                                                  batch)
+        out[backend] = (float(loss), dict(tree_leaves(grads)),
+                        kernels.launch_counts())
+    (lc, gc, nc), (lt, gt, nt) = out["cuda"], out["torch"]
+    assert abs(lc - lt) <= 2e-2 * abs(lt)
+    assert gc.keys() == gt.keys() == {p for p, _ in tree_leaves(params)}
+    for p, ref_g in gt.items():
+        assert gc[p].dtype == ref_g.dtype and bool(torch.isfinite(gc[p]).all())
+        err = torch.linalg.vector_norm((gc[p] - ref_g).float())
+        assert float(err) <= 0.25 * float(
+            torch.linalg.vector_norm(ref_g.float())) + 1e-30, p
+    n_attn = (2 * cfg.n_layers if cfg.is_encdec else
+              sum(cfg.layer_entry(i).startswith("attn")
+                  for i in range(cfg.n_layers)))
+    assert nc["flash_attention"] >= n_attn and not any(nt.values())
+    assert all(nc[n] == 0 for n in kernels.WRAPPERS if n != "flash_attention")
+    opt = adamw()
+    new, st, metrics = make_full_train_step(model, cfg, opt,
+                                            paged_backend="cuda")(
+        params, opt.init(params), batch)
+    assert st["count"] == 1 and bool(torch.isfinite(metrics["loss"]))
+    for (p, t), (_, t0) in zip(tree_leaves(new), tree_leaves(params)):
+        assert t.dtype == t0.dtype and bool(torch.isfinite(t).all()), p
 
 
 def test_moe_train_step_runs_through_the_kernels(dev):

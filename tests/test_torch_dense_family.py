@@ -50,6 +50,16 @@ LOSS_TOL = 1e-5
 GRAD_TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small torch ops under the suite's worker processes: one intra-op
+    thread for this file (as tests/test_torch_ssm.py), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(arch):
     jcfg = j_get_config(arch, smoke=True).with_overrides(
         dtype="float32", param_dtype="float32")

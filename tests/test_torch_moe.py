@@ -57,6 +57,16 @@ MOE_TOL = 1e-5
 AUX_TOL = 1e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small torch ops under the suite's worker processes: one intra-op
+    thread for this file (as tests/test_torch_ssm.py), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

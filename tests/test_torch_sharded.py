@@ -46,6 +46,16 @@ from repro_torch.serving.trace import run_trace, synth_trace
 VOCAB = 300
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small torch ops under the suite's worker processes: one intra-op
+    thread for this file (as tests/test_torch_ssm.py), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _prompt(n, seed=0):
     return (np.arange(n, dtype=np.int32) * 3 + seed) % VOCAB
 
