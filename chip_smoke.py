@@ -215,7 +215,25 @@ Phases (each prints one JSON line per result):
                step; fused_forward with two seeded rank-16 adapter trees
                (the dual-LoRA kernel in every projection) against the
                plain merge;
- 12. the card's name and power limit, the kernel summary line, and last the
+ 12. mesh_round — FDLoRA's round over a torch.distributed mesh
+               (launch/mesh.py, federated/mesh_job.py) on llama2-7b at
+               full width, 16 of 32 layers, bf16, random weights from
+               --seed, rank-16 adapters on all 7 targets, 2 clients, K 2,
+               8 x 256 SFT rows: (a) world size 1 on NCCL in this process,
+               the mesh round bitwise the meshless one, compress_outer
+               none and bf16; (b) world size 2 on this card (gloo, spawned,
+               each rank building the weights from the seed), pod 2:
+               θ_s', every client's state and the loss bitwise (a)'s on
+               both ranks, both modes, lora_matmul and flash attention on
+               their tensor-core tiles on each rank, exactly one pod
+               all-reduce a round of the adapter tree's bytes; (c) world
+               size 2, data 2: one client's rows split 4 + 4, fp32, one
+               layer, its loss within 4 fp32 ulps of the single-rank
+               round's and θ within a derived bound;
+               s per round, the all-reduce's host ms (gloo through the
+               host on a shared card, not a link rate), the collectives by
+               op and group, the peak memory per rank;
+ 13. the card's name and power limit, the kernel summary line, and last the
      result line.
 
 batched_dual_lora_matmul, which no path of the port (or of the reference
@@ -4884,6 +4902,266 @@ def full_train_phase(device, seed: int, T: int = 256):
             "fused_forward": {n: fused[n] for n in kernels.WRAPPERS}}
 
 
+MESH_LAYERS = SHARDED_LAYERS  # 16 of llama2-7b's 32: the sharded phase's
+MESH_CLIENTS, MESH_K, MESH_ROWS = 2, 2, 8
+MESH_ROUNDS = 2              # the first warms cuBLAS and the kernels
+MESH_LORA = 19_988_480       # rank-16 adapter parameters at 16 layers
+MESH_TRAVEL_TOL = 1e-3       # (c): a leaf's difference over its travel
+MESH_LOSS_ULPS = 4           # (c): the loss's distance in fp32 ulps
+GLOO_NOTE = ("gloo through the host on one shared card: a host copy, a "
+             "loopback ring and a copy back, not a link rate")
+
+
+def _collective_summary(log):
+    """A round's log by op and group: count, payload bytes, host ms."""
+    out = {}
+    for c in log:
+        k = f"{c['op']} {c['axis']}({c['group']})"
+        e = out.setdefault(k, {"n": 0, "bytes": 0, "ms": []})
+        e["n"] += 1
+        e["bytes"] += c["bytes"]
+        e["ms"].append(c["ms"])
+    return out
+
+
+def _pod_logs(res):
+    return [[c for c in log if c["axis"] == "pod"]
+            for log in res["collectives"]]
+
+
+def mesh_round_phase(device, seed: int, T: int = 256):
+    """FDLoRA's round over a torch.distributed mesh (launch/mesh.py,
+    federated/mesh_job.py): llama2-7b at full width, 16 layers, bf16,
+    random weights from ``seed``, rank-16 adapters on all 7 targets (B
+    non-zero), 2 clients, K 2, 8 x 256 SFT rows a client and step,
+    ``MESH_ROUNDS`` rounds:
+
+    (a) world size 1 on NCCL, in this process: the mesh round bitwise the
+        meshless round, ``compress_outer`` "none" and "bf16";
+    (b) world size 2 on this one card (gloo; each rank builds the weights
+        from the seed): pod 2, one client a rank, θ_s', every client's
+        state, the outer state and the loss bitwise (a)'s on both ranks,
+        both modes, the LoRA and flash kernels on their tensor-core tiles
+        on each rank, exactly one pod all-reduce a round of the adapter
+        tree's bytes (and the two losses' slots);
+    (c) world size 2, data 2: one client's 8 rows split 4 + 4, fp32, one
+        layer, one round, against the same client on one rank.  The
+        loss is the global token mean, each rank's masked sum over the
+        global count, the two added: the same terms as the single rank's
+        in another order, so each round's loss is held within
+        ``MESH_LOSS_ULPS`` fp32 ulps of the single rank's (a per-rank
+        mean, or a sum never divided, is off by about 2x; AdamW's steps
+        barely see the gradient's scale, so θ alone cannot show it).  The
+        gradients are sums in another order, so each element moves by a
+        relative ρ; AdamW's first update lr·g/(|g|+ε) then moves by at
+        most lr·ρ/4.  So each θ_i leaf is held within ``MESH_TRAVEL_TOL``
+        (ρ up to 0.4%) of its own travel ||θ_i − θ_s||; θ_s' = θ_s −
+        lr_o(1 + μ)(θ_s − θ_i) then within lr_o(1 + μ)·|Δθ_i|, two ulps
+        of itself and four of the update, element by element; both ranks
+        bitwise equal.
+
+    Returns the launch counts of each run's last round."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import init_adapters, tree_leaves
+    from repro_torch.federated.distributed import client_slice
+    from repro_torch.federated.mesh_job import Case, RoundJob, run, run_jobs
+    from repro_torch.launch import mesh as mesh_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH).with_overrides(n_layers=MESH_LAYERS)
+    lora = cfg.count_lora_params()
+    require(lora == MESH_LORA and cfg.lora_rank == 16
+            and len(cfg.lora_targets) == 7,
+            f"mesh round: {lora} adapter parameters at rank "
+            f"{cfg.lora_rank} on {cfg.lora_targets}")
+    base = dict(clients=MESH_CLIENTS, inner_steps=MESH_K, rows=MESH_ROWS,
+                seq=T, rounds=MESH_ROUNDS, seed=seed, device=str(device))
+    modes = ("none", "bf16")
+    payload = {"none": lora * 4 + MESH_CLIENTS * 4,
+               "bf16": lora * 2 + MESH_CLIENTS * 8}
+    counts = {"a": {}, "b": {}}
+    info = {"phase": "mesh_round", "arch": ARCH, "n_layers": MESH_LAYERS,
+            "clients": MESH_CLIENTS, "inner_steps": MESH_K,
+            "rows": MESH_ROWS, "seq": T, "rounds": MESH_ROUNDS,
+            "lora_params": lora}
+
+    # -- (a) world size 1, NCCL, in this process ------------------------------
+    res = run(RoundJob(cfg, [Case(pod, compress=c, sync=True)
+                             for c in modes for pod in (None, 1)],
+                       return_trees=False, **base))
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    a = {}
+    for i, c in enumerate(modes):
+        ref, got = res[2 * i], res[2 * i + 1]
+        a[c] = got
+        same = (got["digest"] == ref["digest"]
+                and got["client_digests"] == ref["client_digests"]
+                and got["outer_digest"] == ref["outer_digest"]
+                and got["loss"] == ref["loss"])
+        pods = _pod_logs(got)
+        emit({**info, "run": "a", "world": 1, "backend": backend,
+              "compress_outer": c, "bitwise_equal_meshless": same,
+              "s_per_round": got["seconds"],
+              "meshless_s_per_round": ref["seconds"], "loss": got["loss"],
+              "pod_allreduce_ms": [p[0]["ms"] for p in pods],
+              "collectives": [_collective_summary(l)
+                              for l in got["collectives"]],
+              "peak_bytes": got["peak_bytes"],
+              "launches": {k: got["launches"][k]
+                           for k in ("lora_matmul", "flash_attention")},
+              "tiles": {k: got["tiles"][k]
+                        for k in ("lora_matmul", "flash_attention")}})
+        require(same, f"mesh round (a, {c}): not bitwise the meshless round")
+        require(all(len(l) == 1 and l[0]["axis"] == "pod"
+                    and l[0]["bytes"] == payload[c]
+                    for l in got["collectives"]),
+                f"mesh round (a, {c}): collectives {got['collectives']}")
+        for name in ("lora_matmul", "flash_attention"):
+            require_mma_tile(got["tiles"], name, f"mesh round (a, {c})")
+        counts["a"][c] = got["launches"]
+    del res
+    # -- (c)'s single-rank run, here ------------------------------------------
+    cfg_c = cfg.with_overrides(n_layers=1, dtype="float32",
+                               param_dtype="float32")
+    base_c = dict(base, clients=1, rounds=1)
+    ref_c = run(RoundJob(cfg_c, [Case(None, sync=True)], **base_c))[0]
+    theta_s = init_adapters(cfg_c, seed=seed + 120, device="cpu",
+                            b_std=0.02)
+    ref_c = mesh_lib.to_cpu({k: ref_c[k] for k in ("theta", "state", "loss",
+                                                   "seconds")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- (b) and (c): two ranks on this one card, gloo --------------------------
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(
+        run_jobs, 2,
+        [RoundJob(cfg, [Case(2, compress=c, sync=True) for c in modes],
+                  return_trees=False, **base),
+         RoundJob(cfg_c, [Case(1, data=2, sync=True)], **base_c)],
+        device=device)
+    spawn_s = time.perf_counter() - t0
+    counts["b"] = {c: [rk[0][i]["launches"] for rk in ranks]
+                   for i, c in enumerate(modes)}
+    for i, c in enumerate(modes):
+        rs = sorted((rk[0][i] for rk in ranks),
+                    key=lambda r: r["coord"]["pod"])
+        same = all(r["digest"] == a[c]["digest"] and r["loss"] == a[c]["loss"]
+                   and r["outer_digest"] == a[c]["outer_digest"]
+                   for r in rs)
+        clients = [d for r in rs for d in r["client_digests"]] == \
+            a[c]["client_digests"]
+        pods = [_pod_logs(r) for r in rs]
+        sheet = rl.analyze(0.0, 0.0, chips=2, collectives=[
+            rl.Collective(**pods[0][-1][0])])
+        emit({**info, "run": "b", "world": 2, "backend": "gloo",
+              "mesh": {"pod": 2, "data": 1, "model": 1},
+              "compress_outer": c, "bitwise_equal_a": same,
+              "clients_bitwise_equal_a": clients,
+              "s_per_round": [r["seconds"] for r in rs],
+              "loss": rs[0]["loss"],
+              "pod_allreduce_bytes": pods[0][-1][0]["bytes"],
+              "pod_allreduce_bytes_want": payload[c],
+              "pod_allreduce_host_ms": [[p[0]["ms"] for p in pr]
+                                        for pr in pods],
+              "host_ms_note": GLOO_NOTE,
+              "pod_allreduce_nvlink_data_sheet_ms":
+                  sheet.collective_s * 1e3,
+              "gloo_bf16_on_cuda": "accepted (no host staging)",
+              "collectives": [[_collective_summary(l)
+                               for l in r["collectives"]] for r in rs],
+              "peak_bytes_per_rank": [r["peak_bytes"] for r in rs],
+              "launches": [{k: r["launches"][k]
+                            for k in ("lora_matmul", "flash_attention")}
+                           for r in rs],
+              "tiles": [{k: r["tiles"][k]
+                         for k in ("lora_matmul", "flash_attention")}
+                        for r in rs], "spawn_s": spawn_s})
+        require(same and clients, f"mesh round (b, {c}): the two ranks' "
+                "θ_s', states or losses are not bitwise (a)'s")
+        for r in rs:
+            require(all(len(l) == 1 and len(p) == 1
+                        and p[0]["bytes"] == payload[c]
+                        and p[0]["group"] == 2
+                        for l, p in zip(r["collectives"], _pod_logs(r))),
+                    f"mesh round (b, {c}): collectives {r['collectives']}")
+            for name in ("lora_matmul", "flash_attention"):
+                require_mma_tile(r["tiles"], name,
+                                 f"mesh round (b, {c}) rank {r['coord']}")
+    # -- (c): data 2 against the single rank ------------------------------------
+    rc = [rk[1][0] for rk in ranks]
+    agree = (rc[0]["digest"] == rc[1]["digest"]
+             and rc[0]["client_digests"] == rc[1]["client_digests"])
+    lr, step_lr = RoundJob.inner_lr, RoundJob.outer_lr * (
+        1 + RoundJob.outer_momentum)
+    got_i = dict(tree_leaves(client_slice(rc[0]["state"]["personalized"],
+                                          0)))
+    want_i = dict(tree_leaves(client_slice(ref_c["state"]["personalized"],
+                                           0)))
+    start = dict(tree_leaves(theta_s))
+    travel = {k: float(torch.linalg.vector_norm(got_i[k] - want_i[k])
+                       / torch.linalg.vector_norm(want_i[k] - start[k]))
+              for k in want_i}
+    worst = max(travel, key=travel.get)
+    in_lr = max(float((got_i[k] - want_i[k]).abs().max()) / lr
+                for k in want_i)
+    ratio = 0.0
+    for (k, g), (_, w) in zip(tree_leaves(rc[0]["theta"]),
+                              tree_leaves(ref_c["theta"])):
+        # two ulps of θ_s' and four of the update (its own roundings,
+        # which alone remain where θ_s and the update cancel)
+        upd = step_lr * (start[k] - want_i[k]).abs()
+        bnd = (step_lr * (got_i[k] - want_i[k]).abs()
+               + 2.0 ** -22 * torch.maximum(g.abs(), w.abs())
+               + 2.0 ** -21 * upd)
+        ratio = max(ratio, float(((g - w).abs() / bnd.clamp(min=1e-30))
+                                 .max()))
+    # per round, the distance in fp32 ulps of the single rank's loss
+    loss_ulps = max(abs(g - w) / float(np.spacing(np.float32(w)))
+                    for g, w in zip(rc[0]["loss"], ref_c["loss"]))
+    data = [[c for c in log if c["axis"] == "data"]
+            for log in rc[0]["collectives"]]
+    emit({**info, "run": "c", "world": 2, "backend": "gloo",
+          "mesh": {"pod": 1, "data": 2, "model": 1}, "n_layers": 1,
+          "lora_params": cfg_c.count_lora_params(),
+          "clients": 1, "rounds": 1, "rows_per_rank": MESH_ROWS // 2,
+          "activations": "float32", "ranks_bitwise_equal": agree,
+          "loss": rc[0]["loss"], "single_rank_loss": ref_c["loss"],
+          "max_leaf_diff_over_travel": travel[worst], "worst_leaf": worst,
+          "loss_ulps": loss_ulps, "loss_ulps_tol": MESH_LOSS_ULPS,
+          "travel_tol": MESH_TRAVEL_TOL, "max_abs_diff_in_lr": in_lr,
+          "theta_s_max_err_over_bound": ratio,
+          "s_per_round": [r["seconds"] for r in rc],
+          "single_rank_s_per_round": ref_c["seconds"],
+          "collectives": [_collective_summary(l)
+                          for l in rc[0]["collectives"]],
+          "host_ms_note": GLOO_NOTE,
+          "peak_bytes_per_rank": [r["peak_bytes"] for r in rc],
+          "launches": [{k: r["launches"][k]
+                        for k in ("lora_matmul", "flash_attention")}
+                       for r in rc]})
+    require(agree, "mesh round (c): the two ranks' θ differ")
+    require(travel[worst] <= MESH_TRAVEL_TOL,
+            f"mesh round (c): {worst} is {travel[worst]} of its travel off")
+    require(loss_ulps <= MESH_LOSS_ULPS,
+            f"mesh round (c): loss {rc[0]['loss']} is {loss_ulps} fp32 ulps "
+            f"off the single rank's {ref_c['loss']}")
+    require(ratio <= 1.0, f"mesh round (c): θ_s' {ratio} x its bound off")
+    require(all(len(d) == MESH_K + 1 for d in data),
+            f"mesh round (c): data all-reduces {data}")
+    require(all(r["launches"]["lora_matmul"] > 0
+                and r["launches"]["flash_attention"] > 0 for r in rc),
+            "mesh round (c): a rank launched no LoRA or flash kernel")
+    counts["c"] = [r["launches"] for r in rc]
+    return counts
+
+
 def vlm_encdec_phase(device, seed: int, T: int = 256, new_tokens: int = 16,
                      rank: int = 16):
     """internvl2-26b, then whisper-small (``vlm_phase``,
@@ -5076,6 +5354,7 @@ def main(argv=None) -> int:
                                   device, args.seed, T)
     full_train_counts = timed("full_train", full_train_phase, device,
                               args.seed, T)
+    mesh_counts = timed("mesh_round", mesh_round_phase, device, args.seed, T)
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
@@ -5091,7 +5370,8 @@ def main(argv=None) -> int:
                 for arch, c in ssm_counts.items()},
         "vlm_encdec": vlm_encdec_counts,
         "train_families": train_families_counts,
-        "full_train": full_train_counts})
+        "full_train": full_train_counts,
+        "mesh_round": mesh_counts})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})
 

@@ -5,7 +5,7 @@ at its 700 W limit.  Three terms per (arch × shape × cards), in seconds:
 
     compute    = FLOPs / PEAK_FLOPS
     memory     = HBM bytes / HBM_BW
-    collective = collective bytes / link rate (0 on one card)
+    collective = collective bytes / link rate
 
 The peaks are the data sheet's: 989 TFLOP/s bf16 dense on the tensor
 cores, 67 TFLOP/s fp32 outside them, 3.35 TB/s of HBM3.
@@ -13,20 +13,26 @@ cores, 67 TFLOP/s fp32 outside them, 3.35 TB/s of HBM3.
 
 FLOPs and bytes come from the port's dry run (``launch/dryrun.py``), which
 walks a step on the meta device; nothing in the port emits HLO, so the
-reference's HLO parser has no counterpart.  Collectives wait for the
-port's mesh (and the NVLink rate with it): until then ``chips`` must be 1
-and the collective term is 0; :func:`ring_bytes` keeps the reference's
-ring factors for that day.
+reference's HLO parser has no counterpart.  The collective bytes come
+from a log of :class:`Collective` records instead, which
+``launch/mesh.all_reduce`` appends to as a round issues its collectives;
+each record's per-card bytes are the reference's ring factors
+(:func:`ring_bytes`).  The link rates are the data sheet's, not measured
+ones: NVLink 4 at 450 GB/s a direction between the 8 cards of a node,
+400 Gb/s NDR InfiniBand (50 GB/s) per card beyond it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 CARD = "NVIDIA H100 80GB HBM3, 700 W"
 PEAK_FLOPS = 989e12          # bf16 dense, tensor cores, per card
 FP32_FLOPS = 67e12           # fp32, outside the tensor cores
 HBM_BW = 3.35e12             # bytes/s per card
+NVLINK_BW = 450e9            # bytes/s per card a direction, NVLink 4
+NODE_CARDS = 8               # cards one NVLink switch joins
+NDR_BW = 50e9                # bytes/s per card, 400 Gb/s NDR InfiniBand
 
 RING_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
             "collective-permute")
@@ -50,10 +56,31 @@ def ring_bytes(op: str, out_bytes: float, group: int) -> float:
 
 
 @dataclasses.dataclass
+class Collective:
+    """One collective a rank issued: ``op`` (one of :data:`RING_OPS`) over
+    the group of mesh axis ``axis`` (``group`` ranks), ``bytes`` of
+    payload, ``per_card_bytes`` each member moves by the ring algorithm,
+    and the host's ``ms`` around the call (the device synchronised on
+    both sides)."""
+    op: str
+    axis: str
+    group: int
+    bytes: int
+    per_card_bytes: float
+    ms: float = 0.0
+
+
+def link_rate(chips: int) -> float:
+    """The data sheet's bytes/s per card for a collective among ``chips``
+    cards: NVLink inside one node, NDR InfiniBand once a ring leaves it."""
+    return NVLINK_BW if chips <= NODE_CARDS else NDR_BW
+
+
+@dataclasses.dataclass
 class Roofline:
     flops: float                # FLOPs per card
     hbm_bytes: float            # bytes per card to and from HBM
-    collective_bytes: float     # bytes per card over NVLink
+    collective_bytes: float     # bytes per card over the links
     chips: int
     compute_s: float
     memory_s: float
@@ -69,25 +96,33 @@ class Roofline:
 
 
 def analyze(flops: float, hbm_bytes: float, chips: int = 1,
-            model_flops: float = 0.0) -> Roofline:
+            model_flops: float = 0.0,
+            collectives: Sequence[Collective] = ()) -> Roofline:
     """The three terms for one step of ``flops`` and ``hbm_bytes`` per
-    card.  ``useful_ratio`` is ``model_flops`` (6·N·D or 2·N·D) over the
-    FLOPs counted.  One card only until the port has a mesh."""
-    if chips != 1:
-        raise ValueError(f"chips={chips}: the port has no mesh yet, so its "
-                         "roofline is for one card")
+    card on ``chips`` cards.  ``useful_ratio`` is ``model_flops`` (6·N·D
+    or 2·N·D, over all cards) over the FLOPs counted on all cards.  The
+    collective term sums the per-card bytes of ``collectives`` (one
+    rank's log of the step) over the data sheet's link rate for
+    ``chips`` cards (:func:`link_rate`); with no log it is 0."""
+    if chips < 1:
+        raise ValueError(f"chips must be >= 1, got {chips}")
+    per_card = float(sum(c.per_card_bytes for c in collectives))
+    by_op: Dict[str, float] = {}
+    for c in collectives:
+        by_op[c.op] = by_op.get(c.op, 0.0) + c.per_card_bytes
     compute_s = flops / PEAK_FLOPS
     memory_s = hbm_bytes / HBM_BW
-    coll_s = 0.0
+    coll_s = per_card / link_rate(chips)
     dominant = max((("compute", compute_s), ("memory", memory_s),
                     ("collective", coll_s)), key=lambda kv: kv[1])[0]
     total = flops * chips
     return Roofline(flops=float(flops), hbm_bytes=float(hbm_bytes),
-                    collective_bytes=0.0, chips=chips, compute_s=compute_s,
-                    memory_s=memory_s, collective_s=coll_s,
-                    dominant=dominant, model_flops=float(model_flops),
+                    collective_bytes=per_card, chips=chips,
+                    compute_s=compute_s, memory_s=memory_s,
+                    collective_s=coll_s, dominant=dominant,
+                    model_flops=float(model_flops),
                     useful_ratio=model_flops / total if total else 0.0,
-                    n_collectives=0, coll_by_op={})
+                    n_collectives=len(collectives), coll_by_op=by_op)
 
 
 def model_flops_train(cfg, tokens: int) -> float:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.partition import P
 
 Params = Dict[str, Any]
 
@@ -124,6 +125,33 @@ def init_adapters(cfg, rank: Optional[int] = None, seed: int = 0,
         for i in range(cfg.n_layers)]}
 
 
+def adapter_specs(cfg, base_specs: Optional[Params] = None) -> Params:
+    """Partition specs (``core/partition.P``) of :func:`init_adapters`'s
+    tree, the reference's rule: A takes the base weight's input-dim sharding,
+    B its output-dim sharding; the rank dim is never split.  The base
+    keeps d_model replicated and splits head and ff dims on ``"model"``,
+    so B's output dim is on ``"model"`` for wq/wk/wv/w_up/w_gate/in_proj
+    and A's input dim for wo/w_out/out_proj; everything else is
+    replicated.  A stacked (encoder-decoder) leaf has a replicated depth
+    entry first.  ``base_specs`` is accepted and unused, as in the
+    reference."""
+    sharded_out = {"wq", "wk", "wv", "w_up", "w_gate", "in_proj"}
+    sharded_in = {"wo", "w_out", "out_proj"}
+
+    def walk(tree, name=None):
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        if set(tree) == {"a", "b"}:
+            lead = (None,) * (tree["a"].dim() - 2)
+            return {"a": P(*lead, "model" if name in sharded_in else None,
+                           None),
+                    "b": P(*lead, None,
+                           "model" if name in sharded_out else None)}
+        return {k: walk(v, k) for k, v in tree.items()}
+
+    return walk(init_adapters(cfg, device="meta"))
+
+
 def lora_scale(cfg, rank: Optional[int] = None) -> float:
     return cfg.lora_alpha / float(rank or cfg.lora_rank)
 
@@ -148,6 +176,32 @@ def tree_leaves(tree, path: str = ""):
         return [x for i, v in enumerate(tree) for x in
                 tree_leaves(v, f"{path}[{i}]")]
     return [(path, tree)]
+
+
+def tree_flatten(tree, dtype=None) -> torch.Tensor:
+    """Every leaf of ``tree`` in :func:`tree_leaves` order, in one 1-D
+    tensor (of ``dtype``, or the leaves' own)."""
+    return torch.cat([t.reshape(-1).to(dtype or t.dtype)
+                      for _, t in tree_leaves(tree)])
+
+
+def tree_unflatten(flat: torch.Tensor, like):
+    """The inverse of :func:`tree_flatten`: ``like``'s tree with each leaf
+    a view of its span of ``flat``, shaped as ``like``'s leaf."""
+    off = 0
+
+    def walk(t):
+        nonlocal off
+        if isinstance(t, dict):
+            vals = {k: walk(t[k]) for k in sorted(t)}
+            return {k: vals[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        out = flat[off:off + t.numel()].view(t.shape)
+        off += t.numel()
+        return out
+
+    return walk(like)
 
 
 # ---------------------------------------------------------------------------

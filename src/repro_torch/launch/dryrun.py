@@ -377,15 +377,17 @@ def main(argv=None) -> int:
                     help=f"one of {sorted(VARIANTS)}; "
                          f"{', '.join(XLA_ONLY_VARIANTS)} are refused")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: the port has no mesh yet")
+                    help="refused: needs the mesh's \"model\" axis")
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--skip-existing", action="store_true",
                     help="skip combos whose JSON artifact already exists")
     args = ap.parse_args(argv)
     if args.multi_pod:
-        ap.error("--multi-pod needs the port's mesh (launch/mesh.py), which "
-                 "is not ported yet")
+        ap.error("--multi-pod needs the mesh's \"model\" axis (tensor-"
+                 "parallel projections through the LoRA kernels), which "
+                 "launch/mesh.py does not have: its per-card peaks at "
+                 "(2, 16, 16) wait for it")
     try:
         check_variant(args.variant)
     except ValueError as e:

@@ -12,7 +12,9 @@ Flag names are the reference CLI's (``repro.launch.train``), plus
 ``"torch"`` path on the CPU).  Base weights are random from seed 0 (the
 repo holds no trained weights); the adapters start at the standard LoRA
 init (B = 0), from seed 1.  ``--ckpt`` writes the adapters in the reference's npz
-layout.  A VLM (``internvl2-26b``) or an encoder-decoder
+layout.  The first line names the mesh, as the reference's does: the
+host mesh's ("data", "model") shape over the running process group's
+ranks (one when none runs; no group is started for it).  A VLM (``internvl2-26b``) or an encoder-decoder
 (``whisper-small``) needs modality inputs whose frontend is a stub: each
 batch carries zero patch embeddings (B, n_patch_tokens, d) or frame
 embeddings (B, encoder_seq_len, d) beside the synthetic text, as the
@@ -25,6 +27,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.lora import init_adapters
@@ -57,7 +60,9 @@ def main(argv=None):
         print(f"note: {args.arch} needs modality inputs; feeding stub "
               "embeddings alongside synthetic text")
     model = Model(cfg, device=args.device)
-    print(f"arch: {cfg.name} ({cfg.count_params() / 1e6:.1f}M params, "
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    print(f"mesh: {{'data': {world}, 'model': 1}}, arch: {cfg.name} "
+          f"({cfg.count_params() / 1e6:.1f}M params, "
           f"LoRA {cfg.count_lora_params() / 1e3:.1f}K) on {model.device}")
     params = model.init(0)
     adapters = init_adapters(cfg, seed=1, device=model.device)

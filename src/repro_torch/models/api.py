@@ -36,6 +36,12 @@ class Model:
             return encdec.init_params(self.cfg, seed, self.device)
         return dec.init_params(self.cfg, seed, self.device)
 
+    def param_specs(self) -> Params:
+        """Partition specs (``core/partition.P``) of :meth:`init`'s tree."""
+        if self.cfg.is_encdec:
+            return encdec.param_specs(self.cfg)
+        return dec.param_specs(self.cfg)
+
     def forward(self, params: Params, batch: Dict[str, torch.Tensor],
                 adapters: Optional[Params] = None, lora_scale: float = 1.0,
                 last_only: bool = False,
@@ -64,6 +70,11 @@ class Model:
                                             self.device)
         return dec.init_decode_cache(self.cfg, batch, cache_len, self.device)
 
+    def decode_cache_specs(self) -> Params:
+        if self.cfg.is_encdec:
+            return encdec.decode_cache_specs(self.cfg)
+        return dec.decode_cache_specs(self.cfg)
+
     def init_paged_decode_cache(self, num_blocks: int, block_size: int,
                                 kv_dtype: str = "f32",
                                 num_slots: Optional[int] = None) -> Params:
@@ -74,6 +85,11 @@ class Model:
         return dec.init_paged_decode_cache(self.cfg, num_blocks, block_size,
                                            self.device, kv_dtype=kv_dtype,
                                            num_slots=num_slots)
+
+    def paged_decode_cache_specs(self, kv_dtype: str = "f32") -> Params:
+        if self.cfg.is_encdec:
+            raise NotImplementedError("paged decoding is decoder-family only")
+        return dec.paged_decode_cache_specs(self.cfg, kv_dtype)
 
     def prefill_step(self, params: Params, cache: Params, tokens, pos, n_new,
                      adapters: Optional[Params] = None,

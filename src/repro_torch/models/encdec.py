@@ -10,7 +10,9 @@ Parameters follow the reference's tree: ``embed`` (V, d), ``enc_pos``
 (encoder_seq_len, d), ``dec_pos`` (max_seq_len, d), ``enc_blocks`` and
 ``dec_blocks`` (each leaf stacked over its own depth: ``self_attn``,
 ``mlp``, ``norm1``, ``norm2``; the decoder adds ``cross_attn`` and
-``norm3``), ``enc_final_norm`` and ``dec_final_norm``.  Adapter trees stack
+``norm3``), ``enc_final_norm`` and ``dec_final_norm``; ``param_specs`` and
+``decode_cache_specs`` are the reference's partition specs of both
+trees.  Adapter trees stack
 the same way (``core/lora.py``).  A Python loop walks the layers, each
 reading its slice of the stacks.
 
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import torch_dtype
+from repro_torch.core.partition import P, add_leading
 from repro_torch.models import layers as L
 from repro_torch.models.model import normal_init, resolve_backend
 
@@ -82,6 +85,31 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
         "enc_final_norm": norm(),
         "dec_final_norm": norm(),
     }
+
+
+def param_specs(cfg) -> Params:
+    """Partition specs of :func:`init_params`'s tree: each block's leaves
+    with a replicated depth entry first."""
+    norm = L.norm_specs(cfg.norm_type)
+    enc = {"self_attn": L.attention_specs(cfg),
+           "mlp": L.mlp_specs(cfg.mlp_type), "norm1": norm, "norm2": norm}
+    dec = {"self_attn": L.attention_specs(cfg),
+           "cross_attn": L.attention_specs(cfg),
+           "mlp": L.mlp_specs(cfg.mlp_type), "norm1": norm, "norm2": norm,
+           "norm3": norm}
+    return {"embed": L.embed_specs(), "enc_pos": P(None, None),
+            "dec_pos": P(None, None), "enc_blocks": add_leading(enc),
+            "dec_blocks": add_leading(dec), "enc_final_norm": norm,
+            "dec_final_norm": norm}
+
+
+def decode_cache_specs(cfg) -> Params:
+    """Partition specs of :func:`init_decode_cache`'s tree; the ring
+    buffers' write count is one replicated int here (the reference stacks
+    it over depth)."""
+    cross = P(None, L.DATA, None, L.MODEL, None)
+    return {"self": dict(add_leading(L.kv_cache_specs()), pos=P()),
+            "cross_k": cross, "cross_v": cross}
 
 
 def _layer(tree, i: int):

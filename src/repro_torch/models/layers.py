@@ -12,6 +12,12 @@ chunk sizes); ``"cuda"`` runs the hand-written kernels: paged decode and
 prefill attention, flash attention for the no-cache branch, and the LoRA
 kernels for every adapted projection (batched for banks, single-tenant
 for a pair, dual for an Eq. 7 pair of pairs).
+
+Every init has a ``*_specs`` function giving its tree of partition specs
+(``core/partition.P``) over the mesh axes ``"data"`` and ``"model"``, leaf
+for leaf the reference's.  The reference's ``maybe_shard`` (a sharding
+constraint on an activation) has no counterpart: in the port a rank's
+local rows are its shard, and collectives are explicit.
 """
 from __future__ import annotations
 
@@ -23,8 +29,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.paged_prefill import (paged_scatter,
                                                paged_scatter_quant)
+from repro_torch.core.partition import P
 
 Params = Dict[str, Any]
+
+# mesh axes of the spec trees; a spec names only these two
+MODEL = "model"
+DATA = "data"
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -387,6 +398,50 @@ def _ring_attention(params, q, k, v, x, cfg, kv_cache, positions, dn, la):
             & (k_pos >= 0)[None, :])
     out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), cfg, mask, x.dtype)
     return dn(out, params["wo"], la("wo")), {"k": ck, "v": cv, "pos": n}
+
+
+def norm_specs(norm_type: str) -> Params:
+    if norm_type == "rmsnorm":
+        return {"scale": P(None)}
+    if norm_type == "layernorm":
+        return {"scale": P(None), "bias": P(None)}
+    return {}
+
+
+def attention_specs(cfg) -> Params:
+    """The projections' head (output) dim on the model axis, ``wo`` on its
+    input (head) dim; d_model replicated."""
+    return {"wq": P(None, MODEL), "wk": P(None, MODEL),
+            "wv": P(None, MODEL), "wo": P(MODEL, None)}
+
+
+def mlp_specs(mlp_type: str) -> Params:
+    p = {"w_up": P(None, MODEL), "w_out": P(MODEL, None)}
+    if mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = P(None, MODEL)
+    return p
+
+
+def embed_specs() -> P:
+    return P(MODEL, None)
+
+
+def kv_cache_specs() -> Params:
+    """Ring buffers: rows on the data axis, kv heads on the model axis;
+    the write count replicated."""
+    return {"k": P(DATA, None, MODEL, None), "v": P(DATA, None, MODEL, None),
+            "pos": P()}
+
+
+def paged_kv_cache_specs(kv_dtype: str = "f32") -> Params:
+    """The block pools are shared by every slot (no row axis to split);
+    kv heads on the model axis."""
+    specs = {"k_pool": P(None, None, MODEL, None),
+             "v_pool": P(None, None, MODEL, None)}
+    if kv_dtype == "int8":
+        specs["k_scale"] = P(None, None, MODEL)
+        specs["v_scale"] = P(None, None, MODEL)
+    return specs
 
 
 def init_kv_cache(cfg, batch: int, cache_len: int, dtype, device) -> Params:

@@ -27,7 +27,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense, lora_pair
+from repro_torch.core.partition import P
+from repro_torch.models.layers import DATA, MODEL, dense, lora_pair
 
 Params = Dict[str, Any]
 
@@ -60,6 +61,18 @@ def init_mamba(normal, cfg, device) -> Params:
         "d_skip": torch.ones(n_h, dtype=f32, device=device),
         "norm_scale": torch.ones(d_in, dtype=f32, device=device),
         "out_proj": normal((d_in, d), d_in ** -0.5),
+    }
+
+
+def mamba_specs(cfg) -> Params:
+    return {
+        "in_proj": P(None, MODEL),
+        "conv_w": P(None, MODEL),
+        "a_log": P(None),
+        "dt_bias": P(None),
+        "d_skip": P(None),
+        "norm_scale": P(MODEL),
+        "out_proj": P(MODEL, None),
     }
 
 
@@ -257,3 +270,6 @@ def init_ssm_cache(cfg, batch: int, device) -> Params:
             "conv": torch.zeros((batch, cfg.ssm_d_conv - 1, conv_dim),
                                 dtype=torch.bfloat16, device=device)}
 
+
+def ssm_cache_specs() -> Params:
+    return {"h": P(DATA, MODEL, None, None), "conv": P(DATA, None, MODEL)}

@@ -12,6 +12,10 @@ Adapter trees and banks follow the same per-layer layout
 (``core/lora.py``), as do decode caches: an attention layer's K/V (a ring
 buffer, or a block pool shared by the serving slots) or a mamba layer's
 per-row recurrent state.
+
+``param_specs``, ``decode_cache_specs`` and ``paged_decode_cache_specs``
+give the partition specs (``core/partition.P``) of those trees, layer by
+layer: the reference's spec of a stacked leaf without its period entry.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import PAGED_BACKENDS, torch_dtype
+from repro_torch.core.partition import P
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_lib
@@ -76,6 +81,29 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, V), 0.02)
     return params
+
+
+def _layer_specs(cfg, i: int) -> Params:
+    mixer, mlp_kind = _parse(cfg.layer_entry(i))
+    p: Params = {"norm1": L.norm_specs(cfg.norm_type),
+                 "mixer": (L.attention_specs(cfg) if mixer == "attn"
+                           else mamba2.mamba_specs(cfg))}
+    if mlp_kind != "none":
+        p["norm2"] = L.norm_specs(cfg.norm_type)
+        p["mlp"] = (moe_lib.moe_specs(cfg.mlp_type) if mlp_kind == "moe"
+                    else L.mlp_specs(cfg.mlp_type))
+    return p
+
+
+def param_specs(cfg) -> Params:
+    """Partition specs of :func:`init_params`'s tree."""
+    specs: Params = {"embed": L.embed_specs(),
+                     "final_norm": L.norm_specs(cfg.norm_type),
+                     "layers": [_layer_specs(cfg, i)
+                                for i in range(cfg.n_layers)]}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, L.MODEL)
+    return specs
 
 
 def normal_init(seed: int, dev: torch.device, dtype):
@@ -220,6 +248,19 @@ def init_decode_cache(cfg, batch: int, cache_len: int,
         mamba2.init_ssm_cache(cfg, batch, dev) if _is_mamba(cfg, i)
         else L.init_kv_cache(cfg, batch, eff, torch.bfloat16, dev)
         for i in range(cfg.n_layers)]}
+
+
+def decode_cache_specs(cfg) -> Params:
+    """Partition specs of :func:`init_decode_cache`'s tree."""
+    return {"layers": [mamba2.ssm_cache_specs() if _is_mamba(cfg, i)
+                       else L.kv_cache_specs() for i in range(cfg.n_layers)]}
+
+
+def paged_decode_cache_specs(cfg, kv_dtype: str = "f32") -> Params:
+    """Partition specs of :func:`init_paged_decode_cache`'s tree."""
+    return {"layers": [mamba2.ssm_cache_specs() if _is_mamba(cfg, i)
+                       else L.paged_kv_cache_specs(kv_dtype)
+                       for i in range(cfg.n_layers)]}
 
 
 def init_paged_decode_cache(cfg, num_blocks: int, block_size: int,

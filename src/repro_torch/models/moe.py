@@ -29,7 +29,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import DualPair, lora_delta, lora_pair, matmul
+from repro_torch.core.partition import P
+from repro_torch.models.layers import (MODEL, DualPair, lora_delta, lora_pair,
+                                       matmul)
 
 Params = Dict[str, Any]
 
@@ -54,6 +56,16 @@ def init_moe(normal, d: int, ff: int, n_experts: int, mlp_type: str
          "w_out": stack((ff, d), ff ** -0.5)}
     if mlp_type in ("swiglu", "geglu"):
         p["w_gate"] = stack((d, ff), d ** -0.5)
+    return p
+
+
+def moe_specs(mlp_type: str) -> Params:
+    """Experts on the model axis; the router replicated."""
+    p = {"router": P(None, None),
+         "w_up": P(MODEL, None, None),
+         "w_out": P(MODEL, None, None)}
+    if mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = P(MODEL, None, None)
     return p
 
 

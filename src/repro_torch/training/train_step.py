@@ -19,6 +19,9 @@ loss skips its patch positions; an encoder-decoder's batch carries
   backwards refuse a gradient for the base weight): on ``"cuda"`` the
   projections are plain ``torch.matmul`` (plain jnp in the reference too)
   and every attention runs the flash-attention kernel.
+* ``data_parallel_value_and_grad`` and ``global_token_counts``: the
+  LoRA step's gradient over the ``"data"`` group of a mesh, each rank on
+  its own rows, keeping the reference's global token mean (below).
 * ``make_eval_fn``: next-token cross entropy and accuracy.
 * ``make_fused_eval_fn``: the AdaFusion objective (Eq. 8 without its L1
   term): the Eq. 7 merge of a personalized and a global tree, then a
@@ -29,6 +32,14 @@ loss skips its patch positions; an encoder-decoder's batch carries
 
 ``paged_backend`` picks the kernels as everywhere in the port (``None``:
 by device; the CPU refuses ``"cuda"``).
+
+The loss is the reference's ``(nll·mask).sum() / max(mask.sum(), 1)``
+over the whole batch, so ranks that split a batch's rows cannot average
+their own means (their masks differ).  Over a data group each rank
+divides its own sum by the global count (``global_token_counts``: one
+all-reduce of the counts, for every batch of a round at once), and one
+all-reduce per step sums the gradient trees with the losses and
+accuracies folded in; the clip comes after it.
 """
 from __future__ import annotations
 
@@ -38,12 +49,22 @@ import torch
 
 from repro_torch.core.dual_lora import dual_tree, merge
 from repro_torch.core.lora import lora_scale as _lora_scale
-from repro_torch.core.lora import tree_leaves, tree_map
+from repro_torch.core.lora import (tree_flatten, tree_leaves, tree_map,
+                                   tree_unflatten)
 from repro_torch.models.model import resolve_backend
 from repro_torch.training.optimizers import (Optimizer, apply_updates,
                                              clip_by_global_norm)
 
 Params = Dict[str, Any]
+
+
+def target_mask(batch) -> torch.Tensor:
+    """(B, S - 1) fp32: 1 where a next-token target counts in the loss
+    (``loss_mask`` if given, and the target id is not negative)."""
+    tg = batch["tokens"][:, 1:]
+    mask = batch.get("loss_mask")
+    return (mask[:, 1:] if mask is not None
+            else torch.ones_like(tg)).float() * (tg >= 0)
 
 
 def _shift_for_family(cfg, logits: torch.Tensor, batch):
@@ -57,21 +78,21 @@ def _shift_for_family(cfg, logits: torch.Tensor, batch):
     else:
         lg = logits[:, :-1]
     tg = tokens[:, 1:].long()
-    mask = batch.get("loss_mask")
-    mask = (mask[:, 1:] if mask is not None
-            else torch.ones_like(tg)).float() * (tg >= 0)
-    return lg, torch.clamp(tg, min=0), mask
+    return lg, torch.clamp(tg, min=0), target_mask(batch)
 
 
-def cross_entropy(cfg, logits: torch.Tensor,
-                  batch) -> Tuple[torch.Tensor, Dict]:
+def cross_entropy(cfg, logits: torch.Tensor, batch,
+                  denom: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict]:
     """Masked next-token cross entropy over ``batch["tokens"]`` (B, S) and
     the optional ``batch["loss_mask"]``; returns (loss, metrics) as device
-    scalars."""
+    scalars.  ``denom``: divide by it (a data group's global token count)
+    instead of this batch's own ``max(mask.sum(), 1)``."""
     lg, tg, mask = _shift_for_family(cfg, logits, batch)
     logp = torch.log_softmax(lg.float(), dim=-1)
     nll = -torch.gather(logp, -1, tg[..., None])[..., 0]
-    denom = torch.clamp(mask.sum(), min=1.0)
+    if denom is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
     loss = (nll * mask).sum() / denom
     acc = ((torch.argmax(lg, -1) == tg) * mask).sum() / denom
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
@@ -81,11 +102,11 @@ def make_lora_loss_fn(model, cfg,
                       paged_backend: Optional[str] = None) -> Callable:
     scale = _lora_scale(cfg)
 
-    def loss_fn(adapters: Params, params: Params, batch):
+    def loss_fn(adapters: Params, params: Params, batch, denom=None):
         logits, aux = model.forward(params, batch, adapters=adapters,
                                     lora_scale=scale,
                                     paged_backend=paged_backend)
-        loss, metrics = cross_entropy(cfg, logits, batch)
+        loss, metrics = cross_entropy(cfg, logits, batch, denom)
         return (loss + cfg.router_aux_loss_coef * aux,
                 dict(metrics, aux_loss=aux))
 
@@ -123,6 +144,54 @@ def lora_value_and_grad(model, cfg,
 
     def fn(params, adapters, batch):
         return vg(adapters, params, batch)
+
+    return fn
+
+
+def global_token_counts(batches, reduce: Callable) -> torch.Tensor:
+    """The loss denominators of ``batches`` (this rank's rows of each)
+    over the ranks that split them: each batch's target tokens summed by
+    ``reduce`` (an in-place sum over the data group, as
+    ``launch/mesh.all_reduce``) in ONE call, then ``max(count, 1)``;
+    (len(batches),) fp32."""
+    counts = torch.stack([target_mask(b).sum() for b in batches])
+    return torch.clamp(reduce(counts), min=1.0)
+
+
+def data_parallel_value_and_grad(model, cfg, reduce: Callable) -> Callable:
+    """``fn(params, adapters, batches, denoms) -> (metrics, grads)``, one
+    entry per (adapter tree, batch, denominator) of this rank (the
+    clients it runs, each on its own rows of its batch): the gradient of
+    the loss over the whole batch, whose rows the ranks of a data group
+    split.  Each rank's loss is its rows' ``(nll·mask).sum()`` over the
+    global count (``denoms``, from :func:`global_token_counts`); ONE
+    ``reduce`` (an in-place sum over the group) adds every tree's
+    gradients with its loss and accuracy folded in, so each rank gets the
+    global loss's gradient and metrics.  Configs with experts are
+    refused: the reference computes expert capacity and the aux loss over
+    the global batch."""
+    if cfg.has_moe():
+        raise ValueError(f"{cfg.name}: experts over a data axis > 1 are not "
+                         "ported (the reference computes expert capacity "
+                         "and the router's aux loss over the global batch)")
+    vg = value_and_grad(make_lora_loss_fn(model, cfg))
+
+    def fn(params, adapters, batches, denoms):
+        grads, nums = [], []
+        for ad, batch, denom in zip(adapters, batches, denoms):
+            _, m, g = vg(ad, params, batch, denom)
+            grads.append(g)
+            nums += [m["loss"], m["accuracy"]]
+        flat = [tree_flatten(g) for g in grads]
+        buf = reduce(torch.cat(flat + [torch.stack(nums).to(flat[0].dtype)]))
+        out, off = [], 0
+        for g, f in zip(grads, flat):
+            out.append(tree_unflatten(buf[off:off + f.numel()], g))
+            off += f.numel()
+        tail = buf[off:]
+        metrics = [{"loss": tail[2 * i], "accuracy": tail[2 * i + 1],
+                    "tokens": denoms[i]} for i in range(len(grads))]
+        return metrics, out
 
     return fn
 

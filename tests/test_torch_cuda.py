@@ -1944,3 +1944,37 @@ def test_torch_quickstart_runs_through_the_kernels(dev):
     assert counts["lora_matmul"] > 0 and counts["flash_attention"] > 0
     assert all(math.isfinite(x) for x in out["losses"])
     assert out["tokens"].shape == (1, 4)
+
+
+# ---------------------------------------------------------------------------
+# the mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("compress", ["none", "bf16"])
+def test_mesh_round_at_world_one_is_bitwise_the_meshless_round(dev,
+                                                               compress):
+    """``make_fdlora_round_step(mesh=...)`` on a one-rank NCCL group (the
+    mesh factory starts it over a HashStore): θ_s', every client's state
+    and the loss bitwise those of the meshless round, through the LoRA
+    and flash-attention kernels; one pod all-reduce a round."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.federated.mesh_job import Case, RoundJob, run
+    cfg = get_config("llama2-7b", smoke=True)
+    job = RoundJob(cfg, [Case(pod=None, compress=compress, sync=True),
+                         Case(pod=1, compress=compress, sync=True)],
+                   clients=2, inner_steps=2, rows=4, seq=128, rounds=2,
+                   device="cuda", return_trees=False)
+    running = dist.is_initialized()
+    try:
+        ref, got = run(job)
+    finally:
+        if not running and dist.is_initialized():
+            dist.destroy_process_group()
+    assert got["loss"] == ref["loss"] and got["digest"] == ref["digest"]
+    assert got["client_digests"] == ref["client_digests"]
+    assert got["outer_digest"] == ref["outer_digest"]
+    assert got["launches"]["lora_matmul"] > 0
+    assert got["launches"]["flash_attention"] > 0
+    assert [[c["axis"] for c in log] for log in got["collectives"]] == \
+        [["pod"], ["pod"]]

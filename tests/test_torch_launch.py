@@ -126,5 +126,12 @@ def test_analyze_terms_and_the_one_card_rule():
     assert rl.analyze(1e15, 1e9).dominant == "compute"
     assert set(r.to_dict()) == {f.name for f in
                                 dataclasses.fields(j_rl.Roofline)}
-    with pytest.raises(ValueError, match="one card"):
-        rl.analyze(1.0, 1.0, chips=4)
+    # one card: no link, so no collective term; more cards read the
+    # round's collective log over the data sheet's link rate
+    assert rl.analyze(1.0, 1.0, chips=4).collective_s == 0.0
+    log = [rl.Collective("all-reduce", "pod", 4, 800,
+                         rl.ring_bytes("all-reduce", 800, 4))]
+    assert rl.analyze(1.0, 1.0, chips=4, collectives=log).collective_s == \
+        pytest.approx(1200 / rl.NVLINK_BW)
+    with pytest.raises(ValueError, match="chips"):
+        rl.analyze(1.0, 1.0, chips=0)
