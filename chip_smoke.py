@@ -229,7 +229,16 @@ Phases (each prints one JSON line per result):
                all-reduce a round of the adapter tree's bytes; (c) world
                size 2, data 2: one client's rows split 4 + 4, fp32, one
                layer, its loss within 4 fp32 ulps of the single-rank
-               round's and θ within a derived bound;
+               round's and θ within a derived bound; (d) world size 2,
+               model 2: each rank 16 of the 32 heads, 5,504 of the 11,008
+               ff columns and 16,000 of the 32,000 vocabulary columns,
+               (a)'s round otherwise: replicated leaves and loss bitwise
+               equal across the ranks, θ_s' gathered from the shards
+               within the train phase's bf16 bounds of (a)'s, the kernels
+               on their tensor-core tiles at the local shapes, the
+               collectives equal to the dry run's walk of the rank, each
+               rank's peak within 25% of the dry run's; (e) (c)'s fp32
+               round at model 2 against the single rank;
                s per round, the all-reduce's host ms (gloo through the
                host on a shared card, not a link rate), the collectives by
                op and group, the peak memory per rank;
@@ -1153,6 +1162,14 @@ def training_kernels(device, seed: int, reps: int, registers=None):
     for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
         emit({**check_single_lora(gen, device, 8, K, N, 16, reps),
               "path": "fixed", "registers": registers})
+    # the "model" axis at 2 (phase mesh_round (d)): each rank's shard of
+    # llama2-7b's projections (w_gate/w_up, w_out, wq/wk/wv, wo) and its
+    # 16 of 32 heads
+    for K, N in ((4096, 5504), (5504, 4096), (4096, 2048), (2048, 4096)):
+        emit({**check_single_lora(gen, device, 2048, K, N, 16, reps),
+              "path": "mesh_round (d)"})
+    emit({**check_flash(gen, device, 8, 16, 16, 256, 256, 128, 0, reps),
+          "path": "mesh_round (d)"})
     # fp32 at the main shape: the fp32 tile, held tight
     emit(check_flash(gen, device, 8, 32, 32, 256, 256, 128, 0, reps,
                      dtype=torch.float32))
@@ -4908,6 +4925,14 @@ MESH_ROUNDS = 2              # the first warms cuBLAS and the kernels
 MESH_LORA = 19_988_480       # rank-16 adapter parameters at 16 layers
 MESH_TRAVEL_TOL = 1e-3       # (c): a leaf's difference over its travel
 MESH_LOSS_ULPS = 4           # (c): the loss's distance in fp32 ulps
+MESH_TP_LOSS_ULPS = 16       # (e): the loss's distance in fp32 ulps
+MESH_TP_LOSS_REL = 0.02      # (d): the loss's relative distance from (a)'s
+MESH_TP_LEAF_TOL = 0.25      # (d): a θ_s' leaf's distance over its travel
+MESH_TP_SPREAD = 2.0         # (d): either, over the plain path's spread
+MESH_TP_PEAK_TOL = 0.25      # (d): the peak against the dry run's
+MESH_TP_ACT = 16_777_216     # (d): one (8, 256, 4096) bf16 activation sum
+MESH_TP_REPLICATED = 7_340_032   # (d): a client's adapter values every
+                                 # rank holds (458,752 a layer)
 GLOO_NOTE = ("gloo through the host on one shared card: a host copy, a "
              "loopback ring and a copy back, not a link rate")
 
@@ -4927,6 +4952,77 @@ def _collective_summary(log):
 def _pod_logs(res):
     return [[c for c in log if c["axis"] == "pod"]
             for log in res["collectives"]]
+
+
+def _against_single_rank(personalized, theta, loss, ref, theta_s):
+    """(c)'s and (e)'s distances of a mesh round's client (its θ_i
+    ``personalized`` and θ_s' ``theta``, whole trees) and losses from the
+    same client's round on one rank (``ref``: its θ_s', state and losses;
+    ``theta_s``, the round's start): each θ_i leaf's distance over its
+    travel, the largest element distance in inner lrs, θ_s''s largest
+    error over its bound (:func:`mesh_round_phase` derives it) and the
+    worst round's loss distance in fp32 ulps."""
+    import numpy as np
+    import torch
+    from repro_torch.core.lora import tree_leaves
+    from repro_torch.federated.distributed import client_slice
+    from repro_torch.federated.mesh_job import RoundJob
+    lr, step_lr = RoundJob.inner_lr, RoundJob.outer_lr * (
+        1 + RoundJob.outer_momentum)
+    got_i = dict(tree_leaves(personalized))
+    want_i = dict(tree_leaves(client_slice(ref["state"]["personalized"], 0)))
+    start = dict(tree_leaves(theta_s))
+    travel = {k: float(torch.linalg.vector_norm(got_i[k] - want_i[k])
+                       / torch.linalg.vector_norm(want_i[k] - start[k]))
+              for k in want_i}
+    worst = max(travel, key=travel.get)
+    in_lr = max(float((got_i[k] - want_i[k]).abs().max()) / lr
+                for k in want_i)
+    ratio = 0.0
+    for (k, g), (_, w) in zip(tree_leaves(theta), tree_leaves(ref["theta"])):
+        # two ulps of θ_s' and four of the update (its own roundings,
+        # which alone remain where θ_s and the update cancel)
+        upd = step_lr * (start[k] - want_i[k]).abs()
+        bnd = (step_lr * (got_i[k] - want_i[k]).abs()
+               + 2.0 ** -22 * torch.maximum(g.abs(), w.abs())
+               + 2.0 ** -21 * upd)
+        ratio = max(ratio, float(((g - w).abs() / bnd.clamp(min=1e-30))
+                                 .max()))
+    # per round, the distance in fp32 ulps of the single rank's loss
+    loss_ulps = max(abs(g - w) / float(np.spacing(np.float32(w)))
+                    for g, w in zip(loss, ref["loss"]))
+    return {"travel": travel, "worst_leaf": worst,
+            "max_leaf_diff_over_travel": travel[worst],
+            "max_abs_diff_in_lr": in_lr,
+            "theta_s_max_err_over_bound": ratio, "loss_ulps": loss_ulps}
+
+
+def _gather_model(spec_tree, shards):
+    """A whole tree from its two model shards (model coordinates 0, 1):
+    each leaf split over "model" concatenated on that dim; a replicated
+    leaf taken from rank 0.  Also returns the paths of the replicated
+    leaves that differ between the ranks."""
+    import torch
+    from repro_torch.core.partition import entry_axes, spec_map
+    differ = []
+
+    def join(spec, *leaves):
+        for d, e in enumerate(spec):
+            if "model" in entry_axes(e):
+                return torch.cat(leaves, d)
+        if not all(torch.equal(x, leaves[0]) for x in leaves[1:]):
+            differ.append(tuple(leaves[0].shape))
+        return leaves[0]
+    return spec_map(join, spec_tree, *shards), differ
+
+
+def _by_axis(log):
+    """A round's collective log as {(axis, bytes): count}."""
+    out = {}
+    for c in log:
+        key = (c["axis"], c["bytes"])
+        out[key] = out.get(key, 0) + 1
+    return out
 
 
 def mesh_round_phase(device, seed: int, T: int = 256):
@@ -4958,20 +5054,42 @@ def mesh_round_phase(device, seed: int, T: int = 256):
         (ρ up to 0.4%) of its own travel ||θ_i − θ_s||; θ_s' = θ_s −
         lr_o(1 + μ)(θ_s − θ_i) then within lr_o(1 + μ)·|Δθ_i|, two ulps
         of itself and four of the update, element by element; both ranks
-        bitwise equal.
+        bitwise equal;
+    (d) world size 2, model 2: llama2-7b's heads (16 of 32 a rank), ff
+        columns (5,504 of 11,008) and vocabulary (16,000 of 32,000) split
+        over the two ranks, (a)'s round otherwise (bf16, compress "none"):
+        the replicated leaves of θ_s' and the loss bitwise equal on both
+        ranks; θ_s' gathered from the two shards held to (a)'s single
+        rank: the worst leaf's distance over its travel and the loss's
+        relative distance each within ``MESH_TP_SPREAD`` times the same
+        distance of (a)'s round on the plain path (``paged_backend``
+        "torch", another bf16 ordering of every product), and never
+        looser than the train phase's bf16 bounds (``MESH_TP_LEAF_TOL``,
+        ``MESH_TP_LOSS_REL``); the LoRA and
+        flash kernels on their tensor-core tiles at the local shapes;
+        each round's collectives equal in count and bytes to
+        ``launch/dryrun.dry_run(..., mesh=(1, 1, 2))``'s walk of the same
+        round, and each rank's peak within ``MESH_TP_PEAK_TOL`` of its
+        per-rank peak; s a round beside (a)'s, the model all-reduces'
+        host ms beside the data sheet's NVLink time;
+    (e) (c)'s fp32 one-layer round at model 2 against the single rank:
+        the loss within ``MESH_TP_LOSS_ULPS`` fp32 ulps, each θ_i leaf
+        within ``MESH_TRAVEL_TOL`` of its travel and θ_s' within (c)'s
+        derived bound.
 
     Returns the launch counts of each run's last round."""
     import gc
 
-    import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.analysis import roofline as rl
     from repro_torch.configs import get_config
-    from repro_torch.core.lora import init_adapters, tree_leaves
+    from repro_torch.core.lora import (adapter_specs, init_adapters,
+                                       tree_leaves)
     from repro_torch.federated.distributed import client_slice
     from repro_torch.federated.mesh_job import Case, RoundJob, run, run_jobs
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.dryrun import dry_run
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(ARCH).with_overrides(n_layers=MESH_LAYERS)
@@ -5036,15 +5154,28 @@ def mesh_round_phase(device, seed: int, T: int = 256):
                             b_std=0.02)
     ref_c = mesh_lib.to_cpu({k: ref_c[k] for k in ("theta", "state", "loss",
                                                    "seconds")})
+    # -- (d)'s single-rank run: (a)'s meshless round, θ_s' kept --------------
+    ref_d = run(RoundJob(cfg, [Case(None, sync=True)], **base))[0]
+    ref_d = mesh_lib.to_cpu({k: ref_d[k] for k in ("theta", "loss",
+                                                   "seconds", "digest")})
     gc.collect()
     torch.cuda.empty_cache()
-    # -- (b) and (c): two ranks on this one card, gloo --------------------------
+    # -- the same round on the plain path: (d)'s spread ------------------------
+    ref_t = run(RoundJob(cfg.with_overrides(paged_backend="torch"),
+                         [Case(None, sync=True)], **base))[0]
+    ref_t = mesh_lib.to_cpu({k: ref_t[k] for k in ("theta", "loss",
+                                                   "seconds")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- (b)-(e): two ranks on this one card, gloo ------------------------------
     t0 = time.perf_counter()
     ranks = mesh_lib.spawn(
         run_jobs, 2,
         [RoundJob(cfg, [Case(2, compress=c, sync=True) for c in modes],
                   return_trees=False, **base),
-         RoundJob(cfg_c, [Case(1, data=2, sync=True)], **base_c)],
+         RoundJob(cfg_c, [Case(1, data=2, sync=True)], **base_c),
+         RoundJob(cfg, [Case(1, model=2, sync=True)], **base),
+         RoundJob(cfg_c, [Case(1, model=2, sync=True)], **base_c)],
         device=device)
     spawn_s = time.perf_counter() - t0
     counts["b"] = {c: [rk[0][i]["launches"] for rk in ranks]
@@ -5098,33 +5229,13 @@ def mesh_round_phase(device, seed: int, T: int = 256):
     rc = [rk[1][0] for rk in ranks]
     agree = (rc[0]["digest"] == rc[1]["digest"]
              and rc[0]["client_digests"] == rc[1]["client_digests"])
-    lr, step_lr = RoundJob.inner_lr, RoundJob.outer_lr * (
-        1 + RoundJob.outer_momentum)
-    got_i = dict(tree_leaves(client_slice(rc[0]["state"]["personalized"],
-                                          0)))
-    want_i = dict(tree_leaves(client_slice(ref_c["state"]["personalized"],
-                                           0)))
-    start = dict(tree_leaves(theta_s))
-    travel = {k: float(torch.linalg.vector_norm(got_i[k] - want_i[k])
-                       / torch.linalg.vector_norm(want_i[k] - start[k]))
-              for k in want_i}
-    worst = max(travel, key=travel.get)
-    in_lr = max(float((got_i[k] - want_i[k]).abs().max()) / lr
-                for k in want_i)
-    ratio = 0.0
-    for (k, g), (_, w) in zip(tree_leaves(rc[0]["theta"]),
-                              tree_leaves(ref_c["theta"])):
-        # two ulps of θ_s' and four of the update (its own roundings,
-        # which alone remain where θ_s and the update cancel)
-        upd = step_lr * (start[k] - want_i[k]).abs()
-        bnd = (step_lr * (got_i[k] - want_i[k]).abs()
-               + 2.0 ** -22 * torch.maximum(g.abs(), w.abs())
-               + 2.0 ** -21 * upd)
-        ratio = max(ratio, float(((g - w).abs() / bnd.clamp(min=1e-30))
-                                 .max()))
-    # per round, the distance in fp32 ulps of the single rank's loss
-    loss_ulps = max(abs(g - w) / float(np.spacing(np.float32(w)))
-                    for g, w in zip(rc[0]["loss"], ref_c["loss"]))
+    far = _against_single_rank(
+        client_slice(rc[0]["state"]["personalized"], 0), rc[0]["theta"],
+        rc[0]["loss"], ref_c, theta_s)
+    travel, worst = far["travel"], far["worst_leaf"]
+    in_lr, ratio, loss_ulps = (far["max_abs_diff_in_lr"],
+                               far["theta_s_max_err_over_bound"],
+                               far["loss_ulps"])
     data = [[c for c in log if c["axis"] == "data"]
             for log in rc[0]["collectives"]]
     emit({**info, "run": "c", "world": 2, "backend": "gloo",
@@ -5134,6 +5245,7 @@ def mesh_round_phase(device, seed: int, T: int = 256):
           "activations": "float32", "ranks_bitwise_equal": agree,
           "loss": rc[0]["loss"], "single_rank_loss": ref_c["loss"],
           "max_leaf_diff_over_travel": travel[worst], "worst_leaf": worst,
+          "leaf_diff_over_travel_by_leaf": travel,
           "loss_ulps": loss_ulps, "loss_ulps_tol": MESH_LOSS_ULPS,
           "travel_tol": MESH_TRAVEL_TOL, "max_abs_diff_in_lr": in_lr,
           "theta_s_max_err_over_bound": ratio,
@@ -5159,6 +5271,170 @@ def mesh_round_phase(device, seed: int, T: int = 256):
                 and r["launches"]["flash_attention"] > 0 for r in rc),
             "mesh round (c): a rank launched no LoRA or flash kernel")
     counts["c"] = [r["launches"] for r in rc]
+    # -- (d): model 2, llama2-7b's heads, ff columns and vocabulary split ------
+    specs = adapter_specs(cfg)
+    rd = sorted((rk[2][0] for rk in ranks), key=lambda r: r["coord"]["model"])
+    theta_d, differ = _gather_model(specs, [r["theta"] for r in rd])
+    start = dict(tree_leaves(init_adapters(cfg, seed=seed + 120,
+                                           device="cpu", b_std=0.02)))
+    want = dict(tree_leaves(ref_d["theta"]))
+
+    def off_a(theta, loss):
+        """Each leaf's distance from (a)'s θ_s' over its travel, and the
+        loss's largest relative distance from (a)'s."""
+        leaf = {k: float(torch.linalg.vector_norm(g - want[k])
+                         / torch.linalg.vector_norm(want[k] - start[k]))
+                for k, g in tree_leaves(theta)}
+        return leaf, max(abs(g - w) / abs(w)
+                         for g, w in zip(loss, ref_d["loss"]))
+    leaf, loss_rel = off_a(theta_d, rd[0]["loss"])
+    worst_d = max(leaf, key=leaf.get)
+    spread, spread_loss = off_a(ref_t["theta"], ref_t["loss"])
+    worst_t = max(spread, key=spread.get)
+    # the split reorders and re-rounds sums in bf16 (each row-parallel
+    # product as two rounded partials and their rounded sum, the
+    # vocabulary's max and sum of exps, the column-parallel inputs'
+    # gradients): a second bf16 ordering of the same round, as the plain
+    # path is of every product.  AdamW's first steps move an element by
+    # about lr·sign(g), so a leaf's distance grows as the root of the
+    # share of its elements whose sign flips: twice the plain path's
+    # spread covers a perturbation four times as large.
+    leaf_bound = min(MESH_TP_LEAF_TOL, MESH_TP_SPREAD * spread[worst_t])
+    loss_bound = min(MESH_TP_LOSS_REL, MESH_TP_SPREAD * spread_loss)
+    t_dry = time.perf_counter()
+    dry = dry_run(cfg.with_overrides(paged_backend="cuda"), "fdlora_round",
+                  MESH_CLIENTS * MESH_ROWS, T, mesh=(1, 1, 2),
+                  n_clients=MESH_CLIENTS, K=MESH_K)
+    dry_s = time.perf_counter() - t_dry
+    dry_log = _by_axis(dry["collectives"])
+    dry_peak = dry["memory"]["peak_bytes"]
+    model_logs = [[[c for c in log if c["axis"] == "model"]
+                   for log in r["collectives"]] for r in rd]
+    sheet = rl.analyze(0.0, 0.0, chips=2, collectives=[
+        rl.Collective(**c) for c in model_logs[0][-1]])
+    # a round's model all-reduces: per client and step 4 a layer less the
+    # first layer's attention input (no gradient flows there), the
+    # embedding's and the unembedding's, each one activation; 3 of the
+    # cross entropy; per step one of both clients' replicated leaves and
+    # their squared norms
+    acts = (4 * MESH_LAYERS + 1) * MESH_CLIENTS * MESH_K
+    grad_bytes = 4 * MESH_CLIENTS * (MESH_TP_REPLICATED + 1)
+    emit({**info, "run": "d", "world": 2, "backend": "gloo",
+          "mesh": {"pod": 1, "data": 1, "model": 2},
+          "heads_per_rank": cfg.n_heads // 2,
+          "ff_columns_per_rank": cfg.d_ff // 2,
+          "vocab_columns_per_rank": cfg.vocab_size // 2,
+          "replicated_leaves_differ": differ,
+          "loss": rd[0]["loss"], "loss_per_rank": [r["loss"] for r in rd],
+          "single_rank_loss": ref_d["loss"],
+          "single_rank_bitwise_a": ref_d["digest"] == a["none"]["digest"],
+          "max_loss_rel": loss_rel, "loss_rel_bound": loss_bound,
+          "max_leaf_diff_over_travel": leaf[worst_d], "worst_leaf": worst_d,
+          "leaf_bound": leaf_bound,
+          "plain_path_loss": ref_t["loss"],
+          "plain_path_max_loss_rel": spread_loss,
+          "plain_path_max_leaf_diff_over_travel": spread[worst_t],
+          "plain_path_worst_leaf": worst_t,
+          "plain_path_s_per_round": ref_t["seconds"],
+          "spread_factor": MESH_TP_SPREAD,
+          "ceilings": {"loss_rel": MESH_TP_LOSS_REL,
+                       "leaf": MESH_TP_LEAF_TOL},
+          "leaf_diff_over_travel_by_leaf": leaf,
+          "plain_path_by_leaf": spread,
+          "s_per_round": [r["seconds"] for r in rd],
+          "a_s_per_round": a["none"]["seconds"],
+          "s_note": "both ranks share one card: no gain is claimed",
+          "model_allreduces_per_round": [len(l) for l in model_logs[0]],
+          "model_allreduce_host_ms": [sum(c["ms"] for c in l)
+                                      for l in model_logs[0]],
+          "model_allreduce_activation_host_ms_mean": [
+              sum(c["ms"] for c in l if c["bytes"] == MESH_TP_ACT)
+              / max(1, sum(c["bytes"] == MESH_TP_ACT for c in l))
+              for l in model_logs[0]],
+          "host_ms_note": GLOO_NOTE,
+          "model_allreduce_nvlink_data_sheet_ms": sheet.collective_s * 1e3,
+          "collectives": [_collective_summary(l)
+                          for l in rd[0]["collectives"]],
+          "dry_run_collectives": {f"{a_} {b_}": n
+                                  for (a_, b_), n in dry_log.items()},
+          "dry_run_s": dry_s,
+          "peak_bytes_per_rank": [r["peak_bytes"] for r in rd],
+          "dry_run_peak_bytes": dry_peak,
+          "dry_run_argument_bytes": dry["memory"]["argument_bytes"],
+          "launches": [{k: r["launches"][k]
+                        for k in ("lora_matmul", "flash_attention")}
+                       for r in rd],
+          "tiles": [{k: r["tiles"][k]
+                     for k in ("lora_matmul", "flash_attention")}
+                    for r in rd]})
+    require(not differ and rd[0]["loss"] == rd[1]["loss"],
+            f"mesh round (d): replicated leaves {differ} or the losses "
+            f"{[r['loss'] for r in rd]} differ between the ranks")
+    require(loss_rel <= loss_bound,
+            f"mesh round (d): loss {rd[0]['loss']} is {loss_rel} off the "
+            f"single rank's {ref_d['loss']} (bound {loss_bound})")
+    require(leaf[worst_d] <= leaf_bound,
+            f"mesh round (d): {worst_d} is {leaf[worst_d]} of its travel "
+            f"off the single rank's θ_s' (bound {leaf_bound})")
+    for r in rd:
+        for name in ("lora_matmul", "flash_attention"):
+            require_mma_tile(r["tiles"], name,
+                             f"mesh round (d) rank {r['coord']}")
+        for log in r["collectives"]:
+            got = _by_axis(log)
+            require(got == dry_log
+                    and got.get(("model", MESH_TP_ACT)) == acts
+                    and got.get(("model", grad_bytes)) == MESH_K,
+                    f"mesh round (d) rank {r['coord']}: collectives {got}, "
+                    f"the dry run's {dry_log}")
+        require(abs(r["peak_bytes"] - dry_peak) <= MESH_TP_PEAK_TOL
+                * dry_peak, f"mesh round (d) rank {r['coord']}: peak "
+                f"{r['peak_bytes']} against the dry run's {dry_peak}")
+    counts["d"] = [r["launches"] for r in rd]
+    # -- (e): (c)'s round at model 2 against the single rank -------------------
+    re_ = sorted((rk[3][0] for rk in ranks),
+                 key=lambda r: r["coord"]["model"])
+    specs_c = adapter_specs(cfg_c)
+    theta_e, differ = _gather_model(specs_c, [r["theta"] for r in re_])
+    pers, differ_p = _gather_model(specs_c, [
+        client_slice(r["state"]["personalized"], 0) for r in re_])
+    far = _against_single_rank(pers, theta_e, re_[0]["loss"], ref_c,
+                               theta_s)
+    emit({**info, "run": "e", "world": 2, "backend": "gloo",
+          "mesh": {"pod": 1, "data": 1, "model": 2}, "n_layers": 1,
+          "lora_params": cfg_c.count_lora_params(), "clients": 1,
+          "rounds": 1, "activations": "float32",
+          "replicated_leaves_differ": differ + differ_p,
+          "loss": re_[0]["loss"], "single_rank_loss": ref_c["loss"],
+          **{k: v for k, v in far.items() if k != "travel"},
+          "leaf_diff_over_travel_by_leaf": far["travel"],
+          "loss_ulps_tol": MESH_TP_LOSS_ULPS, "travel_tol": MESH_TRAVEL_TOL,
+          "s_per_round": [r["seconds"] for r in re_],
+          "single_rank_s_per_round": ref_c["seconds"],
+          "collectives": [_collective_summary(l)
+                          for l in re_[0]["collectives"]],
+          "launches": [{k: r["launches"][k]
+                        for k in ("lora_matmul", "flash_attention")}
+                       for r in re_]})
+    require(not differ and not differ_p
+            and re_[0]["loss"] == re_[1]["loss"],
+            "mesh round (e): the ranks' replicated leaves or losses differ")
+    require(far["max_leaf_diff_over_travel"] <= MESH_TRAVEL_TOL,
+            f"mesh round (e): {far['worst_leaf']} is "
+            f"{far['max_leaf_diff_over_travel']} of its travel off")
+    # the split reorders four sums the loss reads (wo's and w_out's
+    # partials, the vocabulary's max and its sum of exps), each able to
+    # move the loss as far as (c)'s reordered global mean: 4 x (c)'s bound
+    require(far["loss_ulps"] <= MESH_TP_LOSS_ULPS,
+            f"mesh round (e): loss {re_[0]['loss']} is {far['loss_ulps']} "
+            f"fp32 ulps off the single rank's {ref_c['loss']}")
+    require(far["theta_s_max_err_over_bound"] <= 1.0,
+            f"mesh round (e): θ_s' {far['theta_s_max_err_over_bound']} x "
+            "its bound off")
+    require(all(r["launches"]["lora_matmul"] > 0
+                and r["launches"]["flash_attention"] > 0 for r in re_),
+            "mesh round (e): a rank launched no LoRA or flash kernel")
+    counts["e"] = [r["launches"] for r in re_]
     return counts
 
 

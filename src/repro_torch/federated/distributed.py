@@ -31,6 +31,17 @@ slot of its own.  Every rank applies the same outer step to the same
 mean, so θ_s' is identical on all ranks.  At one client a rank the
 shares are exact halves at pod 2, so their sum, rounded once, is the
 meshless round's mean bit for bit.
+
+With a ``"model"`` axis > 1 (dense configs; ``models/
+tensor_parallel.py``) each rank holds its shard of the base, of θ_s and
+of the state (heads, ff columns and vocabulary split over the model
+group, ``local_shard`` under ``param_specs`` and :func:`state_specs`):
+the forward and backward sum activations over the group, and each step
+ONE model all-reduce (after the data one) sums the adapter leaves every
+rank holds whole and carries the clip's squared norms
+(``training/train_step.model_group_grads``).  The pod all-reduce stays
+one a round: each model coordinate has its own pod group and reduces its
+own shard.
 """
 from __future__ import annotations
 
@@ -39,16 +50,19 @@ from typing import Any, Callable, Dict, List, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.lora import tree_flatten, tree_map, tree_unflatten
+from repro_torch.core.lora import (adapter_specs, tree_flatten, tree_map,
+                                   tree_unflatten)
 from repro_torch.core.partition import (P, entry_axes, mesh_coordinate,
                                         mesh_shape, spec_map)
-from repro_torch.launch.mesh import all_reduce
+from repro_torch.launch.mesh import all_reduce, model_group
 from repro_torch.launch.specs import sharding_tree
+from repro_torch.models import tensor_parallel as tpl
 from repro_torch.training.optimizers import (Optimizer, apply_updates,
                                              clip_by_global_norm)
 from repro_torch.training.train_step import (data_parallel_value_and_grad,
                                              global_token_counts,
                                              make_lora_loss_fn,
+                                             model_group_grads,
                                              value_and_grad)
 
 Params = Any
@@ -87,8 +101,11 @@ def batch_specs(kind: str = "train") -> P:
 def state_specs(adapter_spec_tree, state: Dict) -> Dict:
     """Specs of a round's stacked state: the inner optimizer's trees and
     the personalized adapters along "pod" (AdamW's step count, a numpy
-    (N,), too); the outer optimizer's state replicated."""
+    (N,), too); the outer optimizer's state replicated over "pod" and
+    "data", its trees split over "model" as the adapters are."""
     stacked = client_stacked_specs(adapter_spec_tree)
+    on_model = spec_map(lambda s: P() if tpl.replicated(s) else s,
+                        adapter_spec_tree)
     out = {}
     for key, sub in state.items():
         if key == "inner_opt":
@@ -97,7 +114,9 @@ def state_specs(adapter_spec_tree, state: Dict) -> Dict:
         elif key == "personalized":
             out[key] = stacked
         else:
-            out[key] = tree_map(lambda _: P(), sub)
+            out[key] = {k: on_model if isinstance(v, dict)
+                        else tree_map(lambda _: P(), v)
+                        for k, v in sub.items()}
     return out
 
 
@@ -153,12 +172,16 @@ def make_fdlora_round_step(model, cfg, inner_opt: Optimizer,
 
     With ``mesh`` (``launch/mesh.make_mesh``) the state and batches are
     this rank's shards (:func:`local_shard` under :func:`state_specs` and
-    :func:`batch_specs`), θ_s and the outer state are replicated, and the
-    round returns θ_s' and the loss (the same on every rank) and this
-    rank's shard of the new state.  A ``"model"`` axis > 1 is refused
-    (tensor-parallel projections through the LoRA kernels are not
-    ported), and so are experts at ``"data"`` > 1.  ``mesh=None`` is one
-    pod holding every client, with no collective.
+    :func:`batch_specs`), θ_s and the outer state are replicated over
+    "pod" and "data", and the round returns θ_s' and the loss (the same
+    on every rank of a model coordinate) and this rank's shard of the new
+    state.  At ``"model"`` > 1 the base, θ_s and the outer state are this
+    rank's shards too (``local_shard`` under ``param_specs`` and
+    ``core/lora.adapter_specs``); refused there, naming what is not
+    ported: experts, mamba layers, the VLM, the encoder-decoder, and
+    head, kv-head, ff or vocabulary counts that do not divide.  Experts
+    at ``"data"`` > 1 are refused too.  ``mesh=None`` is one pod holding
+    every client, with no collective.
     """
     if compress_outer not in ("none", "bf16"):
         raise ValueError(f"unknown compress_outer {compress_outer!r}")
@@ -166,18 +189,17 @@ def make_fdlora_round_step(model, cfg, inner_opt: Optimizer,
     if "pod" not in sizes:
         raise ValueError(f"mesh {sizes}: the round's clients ride a \"pod\" "
                          "axis; make the mesh with launch.mesh.make_mesh")
-    if sizes.get("model", 1) > 1:
-        raise ValueError(
-            f"mesh {sizes}: a \"model\" axis > 1 needs tensor-parallel "
-            "projections through the LoRA kernels, which the port does not "
-            "have; run the round at model 1")
+    tpl.check_model_axis(cfg, sizes.get("model", 1))
+    tp = None if mesh is None else model_group(mesh)
+    if tp is not None:
+        replicated = tpl.replicated(adapter_specs(cfg))
     data_parallel = sizes.get("data", 1) > 1
     if data_parallel:
         def reduce_data(t):
             return all_reduce(t, mesh, "data")
-        dp_grads = data_parallel_value_and_grad(model, cfg, reduce_data)
+        dp_grads = data_parallel_value_and_grad(model, cfg, reduce_data, tp)
     else:
-        vg = value_and_grad(make_lora_loss_fn(model, cfg))
+        vg = value_and_grad(make_lora_loss_fn(model, cfg, tp=tp))
     pods = sizes["pod"]
     wire = torch.bfloat16 if compress_outer == "bf16" else torch.float32
 
@@ -205,8 +227,11 @@ def make_fdlora_round_step(model, cfg, inner_opt: Optimizer,
                     _, m, g = vg(ad, base, b)
                     metrics.append(m)
                     grads.append(g)
+            norms = [None] * n_local
+            if tp is not None:
+                grads, norms = model_group_grads(grads, replicated, tp)
             for i in range(n_local):
-                g = clip_by_global_norm(grads[i], 1.0)
+                g = clip_by_global_norm(grads[i], 1.0, norms[i])
                 upd, sts[i] = inner_opt.update(g, sts[i], ads[i])
                 ads[i] = apply_updates(ads[i], upd)
                 losses[i].append(metrics[i]["loss"])

@@ -5,7 +5,8 @@ on N ranks, or in the caller's process at world size 1.  It builds the
 model and data of a :class:`RoundJob` (random weights and SFT rows of
 synthetic log text from its seed, or the trees it carries), then for each
 :class:`Case` makes the mesh, takes this rank's shards
-(``federated/distributed.local_shard``), runs ``rounds`` rounds of
+(``federated/distributed.local_shard``: at ``"model"`` > 1 of the base
+and θ_s too), runs ``rounds`` rounds of
 ``make_fdlora_round_step`` and returns θ_s', this rank's state shard, the
 losses, the collectives issued, the kernels' launches, the seconds per
 round and the peak memory.  The tests, ``examples/
@@ -32,6 +33,7 @@ from repro_torch.federated.distributed import (batch_specs, client_slice,
                                                local_shard,
                                                make_fdlora_round_step,
                                                stack_clients, state_specs)
+from repro_torch.models.model import param_specs
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.api import Model
 from repro_torch.training.optimizers import adamw
@@ -40,10 +42,11 @@ from repro_torch.training.optimizers import adamw
 @dataclasses.dataclass(frozen=True)
 class Case:
     """One round configuration: ``pod`` None is the meshless round (every
-    client on this rank, no collective); else the ``("pod", "data")``
-    sizes of the mesh (model 1), which must cover the world."""
+    client on this rank, no collective); else the ``("pod", "data",
+    "model")`` sizes of the mesh, which must cover the world."""
     pod: Optional[int] = 1
     data: int = 1
+    model: int = 1
     compress: str = "none"
     sync: bool = False
 
@@ -120,7 +123,11 @@ def _sync(dev):
 
 
 def run(job: RoundJob) -> List[Dict]:
-    """Every case of ``job`` on this rank; one result dict per case."""
+    """Every case of ``job`` on this rank; one result dict per case.  At
+    ``"model"`` > 1 a case runs on this rank's shard of the base (the
+    whole base is dropped once no case of the job needs it, before any
+    round, so the peak holds the shard only) and returns its shards of
+    θ_s' and the state."""
     dev = resolve_device(job.device)
     cfg = job.cfg
     model = Model(cfg, dev)
@@ -134,14 +141,25 @@ def run(job: RoundJob) -> List[Dict]:
     outer = make_outer_optimizer("nesterov", job.outer_lr, job.outer_momentum)
     specs = adapter_specs(cfg)
     meshes: Dict[tuple, Any] = {}
+    bases: Dict[tuple, Any] = {}
+    for case in job.cases:
+        if case.pod is not None:
+            shape = (case.pod, case.data, case.model)
+            if shape not in meshes:
+                meshes[shape] = mesh_lib.make_mesh(*shape, device=dev)
+                if case.model > 1:     # copies: a row block is a view
+                    bases[shape] = tree_map(
+                        lambda t: t.clone(),
+                        local_shard(params, param_specs(cfg), meshes[shape]))
+    if all(c.pod is not None and c.model > 1 for c in job.cases):
+        params = None
+        gc.collect()
     results = []
     for case in job.cases:
         mesh = None
         if case.pod is not None:
-            shape = (case.pod, case.data)
-            if shape not in meshes:
-                meshes[shape] = mesh_lib.make_mesh(*shape, device=dev)
-            mesh = meshes[shape]
+            mesh = meshes[(case.pod, case.data, case.model)]
+        base = bases.get((case.pod, case.data, case.model), params)
         step = make_fdlora_round_step(
             model, cfg, inner, outer, job.inner_steps,
             sync_personalized=case.sync, compress_outer=case.compress,
@@ -152,6 +170,8 @@ def run(job: RoundJob) -> List[Dict]:
                  "outer_opt": outer.init(theta)}
         if mesh is not None:
             state = local_shard(state, state_specs(specs, state), mesh)
+            if case.model > 1:
+                theta = local_shard(theta, specs, mesh)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         rec = {"case": dataclasses.asdict(case), "clients": job.clients,
@@ -168,7 +188,7 @@ def run(job: RoundJob) -> List[Dict]:
             mesh_lib.reset_collectives()
             _sync(dev)
             t0 = time.perf_counter()
-            theta, state, loss = step(params, theta, state, batch)
+            theta, state, loss = step(base, theta, state, batch)
             _sync(dev)
             rec["seconds"].append(time.perf_counter() - t0)
             rec["loss"].append(float(loss))
@@ -183,8 +203,8 @@ def run(job: RoundJob) -> List[Dict]:
         if job.return_trees:
             rec.update(theta=theta, state=state)
         results.append(rec)
-        del theta, state, step
-    del params, model, theta0
+        del theta, state, step, base
+    del params, model, theta0, bases
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()

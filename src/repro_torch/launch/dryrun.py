@@ -28,19 +28,33 @@ Per step the result JSON holds:
 * ``kernels``: launches, FLOPs, bytes and the largest scratch of each
   kernel; ``device``: the card's name and memory.
 
+Over a mesh (``dry_run(..., mesh=(pod, data, model))``, the CLI's
+``--multi-pod`` at the reference's (2, 16, 16)) the walk is one rank's
+step at its local shard shapes (``models/tensor_parallel.local_config``:
+heads, ff columns and vocabulary over "model"; batch rows over "pod" and
+"data"): ``memory`` is per rank, every collective the step issues is
+logged by ``launch/mesh.all_reduce`` instead of issued (``collectives``:
+each one's axis, group and bytes), and the roofline takes ``chips`` and
+that log.  ``train`` and ``fdlora_round`` walk there, for the dense
+family; serving over the model axis is not ported.
+
 Usage (on the CPU; no card needed):
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama2-7b \\
         --shape train_4k --step fdlora_round
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama2-7b \\
+        --shape train_4k --multi-pod
 
-Outputs JSON to ``experiments/dryrun_torch/<arch>__<shape>__1xh100__<step>
-[__<variant>].json``.
+Outputs JSON to ``experiments/dryrun_torch/<arch>__<shape>__<mesh>__<step>
+[__<variant>].json``, ``<mesh>`` "1xh100", or "2x16x16" under
+``--multi-pod``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -57,15 +71,19 @@ from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.configs.registry import (ALL_ARCHS, config_for_shape,
                                           shape_supported)
 from repro_torch.core.lora import init_adapters, lora_scale
+from repro_torch.core.partition import AXES
 from repro_torch.kernels import meta
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import specs as sp
 from repro_torch.models.api import Model
+from repro_torch.models.tensor_parallel import check_model_axis
 from repro_torch.training.optimizers import adamw
 from repro_torch.training.train_step import (make_full_train_step,
                                              make_lora_train_step)
 
 META = torch.device("meta")
 MESH = "1xh100"
+MULTI_POD = (2, 16, 16)              # the reference's ("pod", "data", "model")
 CARD_BYTES = 80 * 2 ** 30            # the data sheet's 80 GB of HBM3
 
 # ops that move no bytes: their outputs are allocated, not written
@@ -158,17 +176,22 @@ class Tally(TorchDispatchMode):
                              self.live_bytes + cost.scratch_bytes)
 
 
-def measure(fn, arguments: Dict, model_flops: float = 0.0) -> Dict:
+def measure(fn, arguments: Dict, model_flops: float = 0.0,
+            chips: int = 1) -> Dict:
     """Run ``fn()`` (a step over meta tensors) under the tally, the FLOP
     counter and the kernels' meta records; ``arguments`` names the trees
     the step takes.  Returns the ``memory``, ``roofline``, ``counts`` and
-    ``kernels`` entries of a result."""
+    ``kernels`` entries of a result, and ``collectives``: those the step
+    logged (``launch/mesh.all_reduce`` on meta tensors), which the
+    roofline's collective term reads for ``chips`` cards."""
     arg_bytes = storage_bytes(arguments)
     tally = Tally(arguments)
     counter = FlopCounterMode(display=False,
                               custom_mapping={torch.ops.aten.bmm: _bmm_flop})
+    mesh_lib.reset_collectives()
     with meta.recording(tally.kernel), counter, tally:
         out = fn()
+    colls = mesh_lib.collectives()
     out_bytes = sum(n for key, n in
                     {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
                      for t in iter_tensors(out)}.items()
@@ -176,8 +199,8 @@ def measure(fn, arguments: Dict, model_flops: float = 0.0) -> Dict:
     op_flops = float(counter.get_total_flops())
     k_flops = sum(k["flops"] for k in tally.kernels.values())
     k_bytes = sum(k["bytes"] for k in tally.kernels.values())
-    roof = rl.analyze(op_flops + k_flops, tally.op_bytes + k_bytes, 1,
-                      model_flops)
+    roof = rl.analyze(op_flops + k_flops, tally.op_bytes + k_bytes, chips,
+                      model_flops, colls)
     return {"memory": {"argument_bytes": arg_bytes,
                        "argument_bytes_by": {n: storage_bytes(t) for n, t
                                              in arguments.items()},
@@ -189,27 +212,69 @@ def measure(fn, arguments: Dict, model_flops: float = 0.0) -> Dict:
                        "op_bytes": tally.op_bytes, "kernel_bytes": k_bytes,
                        "op_bytes_are": "every plain op's operands and "
                                        "result, unfused: an upper bound"},
-            "kernels": tally.kernels}
+            "kernels": tally.kernels,
+            "collectives": [dataclasses.asdict(c) for c in colls]}
+
+
+class RankMesh:
+    """Rank 0 of a ``("pod", "data", "model")`` mesh as the round and the
+    collectives read it (axis names, sizes, this rank's coordinate): on
+    meta tensors ``launch/mesh.all_reduce`` logs and issues nothing."""
+    mesh_dim_names = AXES
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+    def size(self, i: int) -> int:
+        return self.shape[i]
+
+    def get_coordinate(self):
+        return (0,) * len(self.shape)
 
 
 # ---------------------------------------------------------------------------
 # the four steps, each over meta parameters, adapters, state and inputs
 # ---------------------------------------------------------------------------
 
-def _params_adapters(model, cfg):
-    return model.init(), init_adapters(cfg, device=META)
+def _params_adapters(model, cfg, mesh=None):
+    """Meta params and adapters, at one rank's shard shapes on a mesh."""
+    if mesh is None:
+        return model.init(), init_adapters(cfg, device=META)
+    local = check_model_axis(cfg, mesh.shape[2])
+    return (Model(local, META).init(), init_adapters(local, device=META))
 
 
-def build_train(model, cfg, B: int, S: int):
-    """The paper's train step: LoRA SFT of a frozen base, AdamW."""
+def _rows(B: int, ranks: int) -> int:
+    if B % ranks:
+        raise ValueError(f"{B} rows do not split over {ranks} ranks")
+    return B // ranks
+
+
+def build_train(model, cfg, B: int, S: int, mesh=None):
+    """The paper's train step: LoRA SFT of a frozen base, AdamW.  On a
+    mesh each rank takes B / (pod · data) rows, its gradient summed over
+    "data" then "pod", and its model group's shards."""
     opt = adamw(lr=2e-4)
-    step = make_lora_train_step(model, cfg, opt, paged_backend="cuda")
-    params, adapters = _params_adapters(model, cfg)
+    model_flops = rl.model_flops_train(cfg, B * S)   # over every rank
+    tp = reduce_data = None
+    if mesh is not None:
+        pod, data, _ = mesh.shape
+        B = _rows(B, pod * data)
+        tp = mesh_lib.model_group(mesh)
+        axes = [a for a, n in (("data", data), ("pod", pod)) if n > 1]
+        if axes:
+            def reduce_data(t):
+                for a in axes:
+                    mesh_lib.all_reduce(t, mesh, a)
+                return t
+    step = make_lora_train_step(model, cfg, opt, paged_backend="cuda",
+                                tp=tp, reduce_data=reduce_data)
+    params, adapters = _params_adapters(model, cfg, mesh)
     opt_state = opt.init(adapters)
     batch = sp.batch_inputs(cfg, B, S)
     return ((lambda: step(params, adapters, opt_state, batch)),
             {"params": params, "adapters": adapters, "opt_state": opt_state,
-             "inputs": batch}, rl.model_flops_train(cfg, B * S))
+             "inputs": batch}, model_flops)
 
 
 def build_full_train(model, cfg, B: int, S: int):
@@ -265,31 +330,37 @@ def build_decode(model, cfg, B: int, S: int):
                  "inputs": dec}, rl.model_flops_decode(cfg, B))
 
 
-def build_fdlora_round(model, cfg, B: int, S: int, n_clients: int = 2,
-                       K: int = 3):
+def build_fdlora_round(model, cfg, B: int, S: int, mesh=None,
+                       n_clients: int = 2, K: int = 3):
     """One FDLoRA round: K inner AdamW steps for each of ``n_clients``
     clients on B / n_clients rows, then the outer Nesterov step.  Each
     client's batches carry the VLM's patch or the encoder-decoder's frame
     embeddings too (the reference's round batches hold tokens and masks
-    only, which those families' forwards cannot run on)."""
+    only, which those families' forwards cannot run on).  On a mesh the
+    rank takes the clients of its pod coordinate, its 1 / data of each
+    client's rows, and its model group's shards."""
     from repro_torch.core.outer_opt import make_outer_optimizer
     from repro_torch.federated.distributed import (make_fdlora_round_step,
                                                    stack_clients)
     inner = adamw(lr=2e-4)
     outer = make_outer_optimizer("nesterov", 1e-3, 0.5)
     round_step = make_fdlora_round_step(
-        model, cfg.with_overrides(paged_backend="cuda"), inner, outer, K)
-    params, theta = _params_adapters(model, cfg)
-    state = {"inner_opt": stack_clients([inner.init(theta)] * n_clients),
+        model, cfg.with_overrides(paged_backend="cuda"), inner, outer, K,
+        mesh=mesh)
+    params, theta = _params_adapters(model, cfg, mesh)
+    pod, data = (1, 1) if mesh is None else mesh.shape[:2]
+    n_local = _rows(n_clients, pod)
+    state = {"inner_opt": stack_clients([inner.init(theta)] * n_local),
              "outer_opt": outer.init(theta)}
-    B_local = B // n_clients
-    batches = {n: torch.empty((n_clients, K, *t.shape), dtype=t.dtype,
+    B_local = _rows(_rows(B, n_clients), data)
+    batches = {n: torch.empty((n_local, K, *t.shape), dtype=t.dtype,
                               device=META)
                for n, t in sp.batch_inputs(cfg, B_local, S).items()}
     return ((lambda: round_step(params, theta, state, batches)),
             {"params": params, "adapters": theta, "opt_state": state,
              "inputs": batches},
-            rl.model_flops_train(cfg, n_clients * K * B_local * S))
+            rl.model_flops_train(cfg, K * _rows(B, n_clients) * n_clients
+                                 * S))
 
 
 BUILDERS = {"train": build_train, "prefill": build_prefill,
@@ -313,13 +384,26 @@ def device_entry() -> Dict:
             "source": "data sheet"}
 
 
-def dry_run(cfg, step: str, B: int, S: int) -> Dict:
+def dry_run(cfg, step: str, B: int, S: int, mesh=None, **opts) -> Dict:
     """One step of ``cfg`` at B rows of S tokens on the meta device; the
-    result's ``params``, ``memory``, ``roofline``, ``counts`` and
-    ``kernels`` entries."""
+    result's ``params``, ``memory``, ``roofline``, ``counts``,
+    ``kernels`` and ``collectives`` entries.  ``mesh`` (pod, data,
+    model): one rank's step there (``train`` and ``fdlora_round`` only;
+    the model axis for dense configs whose split dims divide, refused
+    otherwise naming the dim).  ``opts`` go to the step's ``build_*``
+    (``n_clients``, ``K`` of the round)."""
     model = Model(cfg, META)
-    fn, args, model_flops = BUILDERS[step](model, cfg, B, S)
-    res = measure(fn, args, model_flops)
+    chips = 1
+    if mesh is not None:
+        if step not in ("train", "fdlora_round"):
+            raise ValueError(f"{step} over a mesh: serving over the "
+                             "\"model\" axis is not ported (the dry run "
+                             "walks train and fdlora_round there)")
+        check_model_axis(cfg, mesh[2])
+        chips = mesh[0] * mesh[1] * mesh[2]
+        opts["mesh"] = RankMesh(mesh)
+    fn, args, model_flops = BUILDERS[step](model, cfg, B, S, **opts)
+    res = measure(fn, args, model_flops, chips)
     return {"params": cfg.count_params(),
             "active_params": cfg.count_active_params(),
             "lora_params": cfg.count_lora_params(), **res}
@@ -333,10 +417,18 @@ def check_variant(variant: str) -> None:
         raise ValueError(f"unknown variant {variant!r}")
 
 
+def mesh_tag(multi_pod: bool) -> str:
+    return "x".join(map(str, MULTI_POD)) if multi_pod else MESH
+
+
 def run_one(arch: str, shape_name: str, step: str = "auto",
             variant: str = "baseline",
             out_dir: str = "experiments/dryrun_torch",
-            smoke: bool = False) -> Dict:
+            smoke: bool = False, multi_pod: bool = False) -> Dict:
+    """One arch x shape x step; ``multi_pod``: one rank of the
+    reference's (2, 16, 16) mesh, per-rank memory and the collective
+    log (a config whose split dims do not divide is skipped, naming the
+    dim)."""
     if not shape_supported(arch, shape_name):
         return {"arch": arch, "shape": shape_name, "skipped": True,
                 "reason": "whisper-small's decoder context is bounded by "
@@ -346,16 +438,28 @@ def run_one(arch: str, shape_name: str, step: str = "auto",
     cfg = cfg.with_overrides(paged_backend="cuda", **VARIANTS[variant])
     if step == "auto":
         step = INPUT_SHAPES[shape_name].kind
+    mesh = MULTI_POD if multi_pod else None
+    if multi_pod:
+        try:
+            check_model_axis(cfg, mesh[2])
+        except ValueError as e:
+            return {"arch": arch, "shape": shape_name, "skipped": True,
+                    "reason": str(e)}
     sh = INPUT_SHAPES[shape_name]
     t0 = time.time()
-    res = dry_run(cfg, step, sh.global_batch, sh.seq_len)
+    res = dry_run(cfg, step, sh.global_batch, sh.seq_len, mesh=mesh)
     dev = device_entry()
-    result = {"arch": arch, "shape": shape_name, "mesh": MESH, "step": step,
-              "variant": variant, "chips": 1,
+    tag_mesh = mesh_tag(multi_pod)
+    result = {"arch": arch, "shape": shape_name, "mesh": tag_mesh,
+              "step": step, "variant": variant,
+              "chips": res["roofline"]["chips"],
               "walk_s": round(time.time() - t0, 2), **res, "device": dev,
               "fits": res["memory"]["peak_bytes"] <= dev["memory_bytes"]}
+    if multi_pod:
+        result["mesh_shape"] = dict(zip(AXES, mesh))
+        result["per_rank"] = True
     os.makedirs(out_dir, exist_ok=True)
-    tag = f"{arch}__{shape_name}__{MESH}__{step}"
+    tag = f"{arch}__{shape_name}__{tag_mesh}__{step}"
     if variant != "baseline":
         tag += f"__{variant}"
     if smoke:
@@ -377,17 +481,18 @@ def main(argv=None) -> int:
                     help=f"one of {sorted(VARIANTS)}; "
                          f"{', '.join(XLA_ONLY_VARIANTS)} are refused")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: needs the mesh's \"model\" axis")
+                    help="one rank of the (2, 16, 16) (pod, data, model) "
+                         "mesh: train and fdlora_round, dense archs "
+                         "whose dims divide by 16")
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--skip-existing", action="store_true",
                     help="skip combos whose JSON artifact already exists")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        ap.error("--multi-pod needs the mesh's \"model\" axis (tensor-"
-                 "parallel projections through the LoRA kernels), which "
-                 "launch/mesh.py does not have: its per-card peaks at "
-                 "(2, 16, 16) wait for it")
+    if args.multi_pod and args.step in ("prefill", "decode"):
+        ap.error(f"--multi-pod --step {args.step}: serving over the "
+                 "\"model\" axis is not ported; --multi-pod walks train "
+                 "and fdlora_round")
     try:
         check_variant(args.variant)
     except ValueError as e:
@@ -396,37 +501,51 @@ def main(argv=None) -> int:
     archs = ALL_ARCHS if args.arch == "all" else [args.arch]
     shapes = list(INPUT_SHAPES) if args.shape == "all" else [args.shape]
     failures = []
+    tag_mesh = mesh_tag(args.multi_pod)
     for arch in archs:
         for shape in shapes:
-            step_tag = (args.step if args.step != "auto"
-                        else INPUT_SHAPES[shape].kind)
-            tag = f"{arch}__{shape}__{MESH}__{step_tag}"
-            if args.variant != "baseline":
-                tag += f"__{args.variant}"
-            if args.smoke:
-                tag += "__smoke"
-            if args.skip_existing and os.path.exists(
-                    os.path.join(args.out_dir, tag + ".json")):
-                print(f"SKIP-EXISTING {arch} {shape}")
+            kind = INPUT_SHAPES[shape].kind
+            if args.step != "auto":
+                steps = [args.step]
+            elif not args.multi_pod:
+                steps = [kind]
+            elif kind == "train":
+                steps = ["train", "fdlora_round"]
+            else:
+                print(f"SKIP {arch} {shape}: a {kind} shape; serving over "
+                      "the \"model\" axis is not ported")
                 continue
-            try:
-                r = run_one(arch, shape, args.step, args.variant,
-                            args.out_dir, args.smoke)
-            except Exception as e:  # keep sweeping; report at the end
-                failures.append((arch, shape, repr(e)[:300]))
-                print(f"FAIL {arch} {shape}: {repr(e)[:300]}")
+            for step in steps:
+                tag = f"{arch}__{shape}__{tag_mesh}__{step}"
+                if args.variant != "baseline":
+                    tag += f"__{args.variant}"
+                if args.smoke:
+                    tag += "__smoke"
+                if args.skip_existing and os.path.exists(
+                        os.path.join(args.out_dir, tag + ".json")):
+                    print(f"SKIP-EXISTING {arch} {shape} {step}")
+                    continue
+                try:
+                    r = run_one(arch, shape, step, args.variant,
+                                args.out_dir, args.smoke, args.multi_pod)
+                except Exception as e:  # keep sweeping; report at the end
+                    failures.append((arch, shape, repr(e)[:300]))
+                    print(f"FAIL {arch} {shape}: {repr(e)[:300]}")
+                    sys.stdout.flush()
+                    continue
+                if r.get("skipped"):
+                    print(f"SKIP {arch} {shape}: {r['reason']}")
+                    break
+                roof, mem = r["roofline"], r["memory"]
+                print(f"OK {arch} {shape} {r['mesh']} {r['step']} "
+                      f"walk={r['walk_s']}s "
+                      f"peak={mem['peak_bytes'] / 1e9:.2f}GB "
+                      f"fits={r['fits']} compute={roof['compute_s']:.4f}s "
+                      f"memory={roof['memory_s']:.4f}s "
+                      f"collective={roof['collective_s']:.4f}s "
+                      f"dom={roof['dominant']} "
+                      f"useful={roof['useful_ratio']:.2f}")
                 sys.stdout.flush()
-                continue
-            if r.get("skipped"):
-                print(f"SKIP {arch} {shape}: {r['reason']}")
-                continue
-            roof, mem = r["roofline"], r["memory"]
-            print(f"OK {arch} {shape} {r['mesh']} {r['step']} "
-                  f"walk={r['walk_s']}s peak={mem['peak_bytes'] / 1e9:.2f}GB "
-                  f"fits={r['fits']} compute={roof['compute_s']:.4f}s "
-                  f"memory={roof['memory_s']:.4f}s dom={roof['dominant']} "
-                  f"useful={roof['useful_ratio']:.2f}")
-            sys.stdout.flush()
     if failures:
         print(f"{len(failures)} FAILURES:")
         for a, s, e in failures:

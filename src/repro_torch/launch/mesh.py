@@ -8,8 +8,9 @@ names:
 
     "pod"    FDLoRA clients (a client is a pod slice, or one card);
     "data"   batch rows inside a client;
-    "model"  tensor parallelism: not ported, always size 1 on a path that
-             runs (``federated/distributed.py`` refuses more).
+    "model"  tensor parallelism inside a client (Megatron-style: heads,
+             ff columns and the vocabulary split across its ranks;
+             ``models/tensor_parallel.py``), dense configs only.
 
 Single pod: ``("data", "model")`` = (16, 16), 256 ranks.  Multi-pod:
 ``("pod", "data", "model")`` = (2, 16, 16), 512 ranks.
@@ -22,7 +23,8 @@ in a temporary directory).
 
 Spec trees and the helpers that read a mesh's axes are plain data, in
 ``core/partition.py``.  Collectives go through :func:`all_reduce`, which
-logs each one (``analysis/roofline.Collective``).
+logs each one (``analysis/roofline.Collective``); on meta tensors (the
+dry run's walk of one rank) it logs and issues nothing.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.analysis.roofline import Collective, ring_bytes
-from repro_torch.core.partition import AXES
+from repro_torch.core.partition import AXES, mesh_coordinate, mesh_shape
+from repro_torch.models.tensor_parallel import ModelGroup
 
 # ---------------------------------------------------------------------------
 # Process groups and mesh factories
@@ -99,13 +102,12 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
                       mesh_dim_names=axes)
 
 
-def make_mesh(pod: int, data: int, device="cuda"):
+def make_mesh(pod: int, data: int, model: int = 1, device="cuda"):
     """FDLoRA's ``("pod", "data", "model")`` mesh over the running group's
-    ranks, at model 1 (the round refuses more).  Refused unless ``pod``
-    and ``data`` multiply to the world size."""
+    ranks.  Refused unless the three sizes multiply to the world size."""
     dev = start_group(device)
     n = dist.get_world_size()
-    shape = (pod, data, 1)
+    shape = (pod, data, model)
     if min(shape) < 1 or math.prod(shape) != n:
         raise ValueError(f"mesh {dict(zip(AXES, shape))} does not cover the "
                          f"{n} ranks of the running group")
@@ -133,21 +135,49 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
-def all_reduce(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Sum ``t`` in place over the ranks of mesh axis ``axis`` (the group
-    of ranks that differ from this one in that coordinate only) and log
-    it.  Returns ``t``."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+
+
+def all_reduce(t: torch.Tensor, mesh, axis: str,
+               op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` in place (``op``: "sum", "max" or "min") over the
+    ranks of mesh axis ``axis`` (the group of ranks that differ from this
+    one in that coordinate only) and log it.  Returns ``t``.  A meta
+    tensor is logged and not reduced: the dry run walks one rank
+    (``mesh`` may then be any object :func:`core.partition.mesh_shape`
+    reads)."""
+    if op not in _OPS:
+        raise ValueError(f"unknown reduce op {op!r}; one of {sorted(_OPS)}")
+    nbytes = t.numel() * t.element_size()
+    if t.is_meta:
+        g = mesh_shape(mesh)[axis]
+        _LOG.append(Collective("all-reduce", axis, g, nbytes,
+                               ring_bytes("all-reduce", nbytes, g)))
+        return t
     group = mesh.get_group(axis)
     _sync(t)
     t0 = time.perf_counter()
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, op=_OPS[op], group=group)
     _sync(t)
     ms = (time.perf_counter() - t0) * 1e3
     g = dist.get_world_size(group)
-    nbytes = t.numel() * t.element_size()
     _LOG.append(Collective("all-reduce", axis, g, nbytes,
                            ring_bytes("all-reduce", nbytes, g), ms))
     return t
+
+
+def model_group(mesh):
+    """This rank's ``"model"`` group of ``mesh`` as the models take it
+    (``models/tensor_parallel.ModelGroup``): its size, this rank's
+    coordinate on the axis, and :func:`all_reduce` over the axis.  None
+    at model 1 (or a mesh without the axis): every path then runs as
+    with no mesh."""
+    size = mesh_shape(mesh).get("model", 1)
+    if size == 1:
+        return None
+    return ModelGroup(size, mesh_coordinate(mesh)["model"],
+                      lambda t, op="sum": all_reduce(t, mesh, "model", op))
 
 
 # ---------------------------------------------------------------------------

@@ -46,12 +46,17 @@ class Model:
                 adapters: Optional[Params] = None, lora_scale: float = 1.0,
                 last_only: bool = False,
                 adapter_ids: Optional[torch.Tensor] = None,
-                paged_backend: Optional[str] = None):
+                paged_backend: Optional[str] = None, tp=None):
         """batch -> (logits (B, S, V) fp32, the MoE aux loss: an fp32
         scalar, 0 for a model without MoE layers).  A VLM's logits cover
-        its P patch positions, then the S text positions."""
+        its P patch positions, then the S text positions.  ``tp``: a
+        model group (``models/tensor_parallel.py``), the params and
+        adapters this rank's shards, the logits its vocabulary block."""
         cfg = self.cfg
         if cfg.is_encdec:
+            if tp is not None:
+                raise ValueError("the encoder-decoder over the \"model\" "
+                                 "axis is not ported")
             if adapter_ids is not None:
                 raise NotImplementedError("multi-tenant banked adapters are "
                                           "decoder-family only")
@@ -62,7 +67,8 @@ class Model:
         return dec.forward(params, batch["tokens"], cfg, adapters,
                            lora_scale, last_only=last_only,
                            adapter_ids=adapter_ids,
-                           paged_backend=paged_backend, extra_embeds=extra)
+                           paged_backend=paged_backend, extra_embeds=extra,
+                           tp=tp)
 
     def init_decode_cache(self, batch: int, cache_len: int) -> Params:
         if self.cfg.is_encdec:

@@ -15,9 +15,13 @@ for a pair, dual for an Eq. 7 pair of pairs).
 
 Every init has a ``*_specs`` function giving its tree of partition specs
 (``core/partition.P``) over the mesh axes ``"data"`` and ``"model"``, leaf
-for leaf the reference's.  The reference's ``maybe_shard`` (a sharding
-constraint on an activation) has no counterpart: in the port a rank's
-local rows are its shard, and collectives are explicit.
+for leaf the reference's.  With a model group (``tp``,
+``models/tensor_parallel.py``) attention and the MLP run on this rank's
+shard of those trees: its heads and ff columns, the row-parallel
+``wo``/``w_out`` partials summed over the group.  The reference's
+``maybe_shard`` (a sharding constraint on an activation) has no
+counterpart: in the port a rank's local rows are its shard, and
+collectives are explicit.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.paged_prefill import (paged_scatter,
                                                paged_scatter_quant)
 from repro_torch.core.partition import P
+from repro_torch.models.tensor_parallel import reduce_from_group
 
 Params = Dict[str, Any]
 
@@ -272,7 +277,8 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
                         adapter_ids: Optional[torch.Tensor] = None,
                         paged: Optional[Tuple] = None,
                         causal: bool = True,
-                        kv_override: Optional[Tuple] = None):
+                        kv_override: Optional[Tuple] = None,
+                        tp=None):
     """Attention over x (B, S, d).
 
     * no cache (training, evaluation): causal (+ window) attention over
@@ -299,8 +305,18 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
       tails go to scratch block 0) and query t attends ``[0, lengths[b] +
       t]``.  The pools are updated in place.
 
+    With ``tp`` (no cache: serving over the model axis is not ported) the
+    params and adapters are this rank's shards: its ``n_heads / size``
+    query and ``n_kv_heads / size`` kv heads, and ``wo``'s partial summed
+    over the group.
+
     Returns (out (B, S, d), new cache or None)."""
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if tp is not None:
+        if kv_cache is not None:
+            raise NotImplementedError("serving over the \"model\" axis "
+                                      "is not ported")
+        H, Kv = H // tp.size, Kv // tp.size
     B, S, _ = x.shape
     backend = cfg.paged_backend
 
@@ -334,7 +350,8 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
             mask = (_attn_mask(positions, positions, cfg.sliding_window)
                     if causal else None)
             out = _sdpa(q, k, v, cfg, mask, x.dtype)
-        return dn(out, params["wo"], la("wo")), None
+        out = dn(out, params["wo"], la("wo"))
+        return (out if tp is None else reduce_from_group(out, tp)), None
 
     if paged is None:
         return _ring_attention(params, q, k, v, x, cfg, kv_cache, positions,
@@ -472,7 +489,9 @@ def init_paged_kv_cache(cfg, num_blocks: int, block_size: int, dtype,
 def apply_mlp(params: Params, x: torch.Tensor, mlp_type: str,
               adapters: Optional[Params] = None, lora_scale: float = 1.0,
               adapter_ids: Optional[torch.Tensor] = None,
-              backend: Optional[str] = None) -> torch.Tensor:
+              backend: Optional[str] = None, tp=None) -> torch.Tensor:
+    """The dense MLP; with ``tp`` on this rank's ff columns, ``w_out``'s
+    partial summed over the group."""
     def dn(inp, name):
         return dense(inp, params[name], lora_pair(adapters, name),
                      lora_scale, adapter_ids, backend)
@@ -485,5 +504,6 @@ def apply_mlp(params: Params, x: torch.Tensor, mlp_type: str,
         h = act.to(x.dtype) * u
     else:
         h = F.gelu(dn(x, "w_up").float(), approximate="tanh").to(x.dtype)
-    return dn(h, "w_out")
+    out = dn(h, "w_out")
+    return out if tp is None else reduce_from_group(out, tp)
 

@@ -29,6 +29,7 @@ from repro_torch.core.partition import P
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import tensor_parallel as tpl
 
 Params = Dict[str, Any]
 
@@ -150,34 +151,46 @@ def resolve_backend(cfg, paged_backend: Optional[str], device):
     return cfg.with_overrides(paged_backend=backend)
 
 
-def _embed(params, tokens, cfg):
+def _embed(params, tokens, cfg, tp=None):
     dtype = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens.long()].to(dtype)
+    if tp is None:
+        x = params["embed"][tokens.long()].to(dtype)
+    else:
+        x = tpl.vocab_parallel_embed(params["embed"], tokens, tp).to(dtype)
     if cfg.family == "dense" and cfg.tie_embeddings:   # gemma-style scaling
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
     return x
 
 
-def _unembed(params, x, cfg):
+def _unembed(params, x, cfg, tp=None):
+    """Logits (fp32); with ``tp`` this rank's block of the vocabulary."""
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
+    if tp is not None:
+        x = tpl.copy_to_group(x, tp)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return L.matmul(x, head, out_dtype=torch.float32)
 
 
 def _apply_layer(i, lp, x, cfg, positions, adapters, lora_scale, cache=None,
-                 adapter_ids=None, paged=None, n_new=None):
+                 adapter_ids=None, paged=None, n_new=None, tp=None):
     """Layer ``i``: its mixer (attention, or a mamba block, which reads
     ``n_new``, the valid leading tokens of each row of a ragged prefill
     chunk), then the dense MLP or the MoE layer its pattern entry names,
-    or none.  Returns (x, new cache, aux loss or None where the layer has
-    no MoE)."""
+    or none.  With ``tp`` (attention and the dense MLP only) each block's
+    input enters the model group through ``copy_to_group``.  Returns (x,
+    new cache, aux loss or None where the layer has no MoE)."""
     mixer, mlp = _parse(cfg.layer_entry(i))
+    if tp is not None and (mixer != "attn" or mlp == "moe"):
+        raise ValueError(f"{cfg.name}: layer {i} ({cfg.layer_entry(i)}) "
+                         "has no tensor-parallel port")
     ad = adapters or {}
     h = L.apply_norm(lp["norm1"], x, cfg.norm_type)
+    if tp is not None:
+        h = tpl.copy_to_group(h, tp)
     if mixer == "attn":
         out, new_cache = L.multihead_attention(
             lp["mixer"], h, cfg, positions, ad.get("mixer"), lora_scale,
-            kv_cache=cache, adapter_ids=adapter_ids, paged=paged)
+            kv_cache=cache, adapter_ids=adapter_ids, paged=paged, tp=tp)
     else:
         out, new_cache = mamba2.apply_mamba(
             lp["mixer"], h, cfg, ad.get("mixer"), lora_scale,
@@ -186,12 +199,15 @@ def _apply_layer(i, lp, x, cfg, positions, adapters, lora_scale, cache=None,
     aux = None
     if mlp != "none":
         h = L.apply_norm(lp["norm2"], x, cfg.norm_type)
+        if tp is not None:
+            h = tpl.copy_to_group(h, tp)
         if mlp == "moe":
             out, aux = moe_lib.apply_moe(lp["mlp"], h, cfg, ad.get("mlp"),
                                          lora_scale, adapter_ids)
         else:
             out = L.apply_mlp(lp["mlp"], h, cfg.mlp_type, ad.get("mlp"),
-                              lora_scale, adapter_ids, cfg.paged_backend)
+                              lora_scale, adapter_ids, cfg.paged_backend,
+                              tp=tp)
         x = x + out
     return x, new_cache, aux
 
@@ -205,7 +221,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
             last_only: bool = False,
             adapter_ids: Optional[torch.Tensor] = None,
             paged_backend: Optional[str] = None,
-            extra_embeds: Optional[torch.Tensor] = None
+            extra_embeds: Optional[torch.Tensor] = None, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V) fp32 (B, 1, V with
     ``last_only``), the MoE layers' aux losses summed: an fp32 scalar, 0
@@ -213,9 +229,17 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
     ``adapters`` tree (leaves (C, d_in, r)).  ``extra_embeds`` (B, P, d)
     (a VLM's image patches) are cast to the activations' dtype and
     prepended to the embedded text: the logits then cover P + S positions,
-    the patches at RoPE positions 0..P-1."""
+    the patches at RoPE positions 0..P-1.
+
+    ``tp`` (``models/tensor_parallel.ModelGroup``; dense configs): the
+    params and adapters are this rank's shards under ``param_specs`` and
+    ``core/lora.adapter_specs``, and the logits (B, S, V / size) its
+    block of the vocabulary."""
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
-    x = _embed(params, tokens, cfg)
+    if tp is not None and extra_embeds is not None:
+        raise ValueError("the VLM's patch embeddings over the \"model\" "
+                         "axis are not ported")
+    x = _embed(params, tokens, cfg, tp)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=tokens.device)
@@ -223,12 +247,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
     for i, lp in enumerate(params["layers"]):
         x, _, a = _apply_layer(i, lp, x, cfg, positions,
                                _layer_adapters(adapters, i), lora_scale,
-                               adapter_ids=adapter_ids)
+                               adapter_ids=adapter_ids, tp=tp)
         if a is not None:
             aux = aux + a
     if last_only:
         x = x[:, -1:]
-    return _unembed(params, x, cfg), aux
+    return _unembed(params, x, cfg, tp), aux
 
 
 def _is_mamba(cfg, i: int) -> bool:

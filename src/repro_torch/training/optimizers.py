@@ -103,10 +103,14 @@ def sgd(lr: float = 1e-3, momentum: float = 0.0,
 # Gradient utilities
 # ---------------------------------------------------------------------------
 
-def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> Params:
     """Scale every leaf by ``min(1, max_norm / ||grads||)`` (global L2 norm
-    in fp32); the scale stays on the device."""
-    norm = tree_norm(grads)
+    in fp32); the scale stays on the device.  ``norm``: the norm to clip
+    by, where ``grads`` is one rank's shard of the tree (a model group's,
+    ``training/train_step.model_group_grads``)."""
+    if norm is None:
+        norm = tree_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads)
 

@@ -22,6 +22,13 @@ loss skips its patch positions; an encoder-decoder's batch carries
 * ``data_parallel_value_and_grad`` and ``global_token_counts``: the
   LoRA step's gradient over the ``"data"`` group of a mesh, each rank on
   its own rows, keeping the reference's global token mean (below).
+* ``model_group_grads``: the LoRA step over a mesh's ``"model"`` group
+  (``models/tensor_parallel.py``), each rank on its shard of the base
+  and adapters: the adapter leaves that every rank holds whole (A of
+  the column-parallel targets, B of the row-parallel ones) get a partial
+  gradient on each rank, summed in ONE all-reduce a step, which also
+  carries the sharded leaves' squared norms, so the clip reads the
+  global norm.
 * ``make_eval_fn``: next-token cross entropy and accuracy.
 * ``make_fused_eval_fn``: the AdaFusion objective (Eq. 8 without its L1
   term): the Eq. 7 merge of a personalized and a global tree, then a
@@ -39,7 +46,9 @@ their own means (their masks differ).  Over a data group each rank
 divides its own sum by the global count (``global_token_counts``: one
 all-reduce of the counts, for every batch of a round at once), and one
 all-reduce per step sums the gradient trees with the losses and
-accuracies folded in; the clip comes after it.
+accuracies folded in; the clip comes after it.  With a model group too,
+the data reduce comes first and the model group's after it, so the
+squared norms it carries are those of the whole batch's gradient.
 """
 from __future__ import annotations
 
@@ -48,9 +57,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.dual_lora import dual_tree, merge
+from repro_torch.core.lora import adapter_specs
 from repro_torch.core.lora import lora_scale as _lora_scale
 from repro_torch.core.lora import (tree_flatten, tree_leaves, tree_map,
                                    tree_unflatten)
+from repro_torch.models import tensor_parallel as tpl
 from repro_torch.models.model import resolve_backend
 from repro_torch.training.optimizers import (Optimizer, apply_updates,
                                              clip_by_global_norm)
@@ -82,31 +93,42 @@ def _shift_for_family(cfg, logits: torch.Tensor, batch):
 
 
 def cross_entropy(cfg, logits: torch.Tensor, batch,
-                  denom: Optional[torch.Tensor] = None
+                  denom: Optional[torch.Tensor] = None, tp=None
                   ) -> Tuple[torch.Tensor, Dict]:
     """Masked next-token cross entropy over ``batch["tokens"]`` (B, S) and
     the optional ``batch["loss_mask"]``; returns (loss, metrics) as device
     scalars.  ``denom``: divide by it (a data group's global token count)
-    instead of this batch's own ``max(mask.sum(), 1)``."""
+    instead of this batch's own ``max(mask.sum(), 1)``.  ``tp``: the
+    logits are this rank's vocabulary block of a model group
+    (``tensor_parallel.vocab_parallel_nll``); loss and accuracy come out
+    the same on every rank of the group."""
     lg, tg, mask = _shift_for_family(cfg, logits, batch)
-    logp = torch.log_softmax(lg.float(), dim=-1)
-    nll = -torch.gather(logp, -1, tg[..., None])[..., 0]
+    if tp is None:
+        logp = torch.log_softmax(lg.float(), dim=-1)
+        nll = -torch.gather(logp, -1, tg[..., None])[..., 0]
+        top = torch.argmax(lg, -1)
+    else:
+        nll, gmax = tpl.vocab_parallel_nll(lg.float(), tg, tp)
+        top = tpl.vocab_parallel_argmax(lg.detach().float(), gmax, tp)
     if denom is None:
         denom = torch.clamp(mask.sum(), min=1.0)
     loss = (nll * mask).sum() / denom
-    acc = ((torch.argmax(lg, -1) == tg) * mask).sum() / denom
+    acc = ((top == tg) * mask).sum() / denom
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
 
 
-def make_lora_loss_fn(model, cfg,
-                      paged_backend: Optional[str] = None) -> Callable:
+def make_lora_loss_fn(model, cfg, paged_backend: Optional[str] = None,
+                      tp=None) -> Callable:
+    """``loss_fn(adapters, params, batch, denom=None) -> (loss,
+    metrics)``; with a model group ``tp`` the trees are this rank's
+    shards and the cross entropy is vocabulary-parallel."""
     scale = _lora_scale(cfg)
 
     def loss_fn(adapters: Params, params: Params, batch, denom=None):
         logits, aux = model.forward(params, batch, adapters=adapters,
                                     lora_scale=scale,
-                                    paged_backend=paged_backend)
-        loss, metrics = cross_entropy(cfg, logits, batch, denom)
+                                    paged_backend=paged_backend, tp=tp)
+        loss, metrics = cross_entropy(cfg, logits, batch, denom, tp)
         return (loss + cfg.router_aux_loss_coef * aux,
                 dict(metrics, aux_loss=aux))
 
@@ -158,7 +180,9 @@ def global_token_counts(batches, reduce: Callable) -> torch.Tensor:
     return torch.clamp(reduce(counts), min=1.0)
 
 
-def data_parallel_value_and_grad(model, cfg, reduce: Callable) -> Callable:
+def data_parallel_value_and_grad(model, cfg, reduce: Callable, tp=None,
+                                 paged_backend: Optional[str] = None
+                                 ) -> Callable:
     """``fn(params, adapters, batches, denoms) -> (metrics, grads)``, one
     entry per (adapter tree, batch, denominator) of this rank (the
     clients it runs, each on its own rows of its batch): the gradient of
@@ -167,14 +191,15 @@ def data_parallel_value_and_grad(model, cfg, reduce: Callable) -> Callable:
     global count (``denoms``, from :func:`global_token_counts`); ONE
     ``reduce`` (an in-place sum over the group) adds every tree's
     gradients with its loss and accuracy folded in, so each rank gets the
-    global loss's gradient and metrics.  Configs with experts are
-    refused: the reference computes expert capacity and the aux loss over
-    the global batch."""
+    global loss's gradient and metrics (with a model group ``tp``, each
+    rank's shard of them: :func:`model_group_grads` follows).  Configs
+    with experts are refused: the reference computes expert capacity and
+    the aux loss over the global batch."""
     if cfg.has_moe():
         raise ValueError(f"{cfg.name}: experts over a data axis > 1 are not "
                          "ported (the reference computes expert capacity "
                          "and the router's aux loss over the global batch)")
-    vg = value_and_grad(make_lora_loss_fn(model, cfg))
+    vg = value_and_grad(make_lora_loss_fn(model, cfg, paged_backend, tp))
 
     def fn(params, adapters, batches, denoms):
         grads, nums = [], []
@@ -196,16 +221,69 @@ def data_parallel_value_and_grad(model, cfg, reduce: Callable) -> Callable:
     return fn
 
 
+def model_group_grads(grads, replicated, tp):
+    """Gradient trees of a model group's ranks (this rank's shards, one
+    tree per client) -> (the trees with every leaf that ``replicated``
+    marks (``tensor_parallel.replicated`` of the adapter specs) summed
+    over the group, each tree's global L2 norm (n,) fp32).  The replicated
+    leaves hold a partial gradient on each rank; the sharded ones are
+    whole, and their squared norms ride in slots of the same buffer, so
+    ONE reduce serves both, and the replicated leaves count once."""
+    rep, sq = [], []
+    for g in grads:
+        own = []
+        tree_map(lambda r, t: (rep if r else own).append(t), replicated, g)
+        sq.append(sum(torch.sum(torch.square(t.float())) for t in own))
+    buf = tp.reduce(torch.cat([t.reshape(-1).float() for t in rep]
+                              + [torch.stack(sq)]), "sum")
+    tail = buf[buf.numel() - len(grads):]
+    out, norms, off = [], [], 0
+    for i, g in enumerate(grads):
+        rep_sq = []
+
+        def put(r, t):
+            nonlocal off
+            if not r:
+                return t
+            v = buf[off:off + t.numel()].view(t.shape)
+            off += t.numel()
+            rep_sq.append(torch.sum(torch.square(v)))
+            return v
+
+        out.append(tree_map(put, replicated, g))
+        norms.append(torch.sqrt(tail[i] + sum(rep_sq)))
+    return out, torch.stack(norms)
+
+
 def make_lora_train_step(model, cfg, opt: Optimizer, clip_norm: float = 1.0,
-                         paged_backend: Optional[str] = None) -> Callable:
+                         paged_backend: Optional[str] = None, tp=None,
+                         reduce_data: Optional[Callable] = None) -> Callable:
     """step(params, adapters, opt_state, batch) -> (adapters, opt_state,
-    metrics)."""
-    value_and_grad = lora_value_and_grad(model, cfg, paged_backend)
+    metrics).  Over a mesh: ``reduce_data`` (an in-place sum over the
+    ranks that split the batch's rows) takes the gradient of the whole
+    batch's loss (:func:`data_parallel_value_and_grad`); ``tp`` (a model
+    group) runs each rank on its shards, its replicated leaves summed and
+    the clip by the global norm (:func:`model_group_grads`)."""
+    if tp is not None:
+        tpl.check_model_axis(cfg, tp.size)
+        replicated = tpl.replicated(adapter_specs(cfg))
+    if reduce_data is not None:
+        dp = data_parallel_value_and_grad(model, cfg, reduce_data, tp,
+                                          paged_backend)
+    else:
+        vg = value_and_grad(make_lora_loss_fn(model, cfg, paged_backend, tp))
 
     def step(params, adapters, opt_state, batch):
-        _, metrics, grads = value_and_grad(params, adapters, batch)
+        if reduce_data is not None:
+            denom = global_token_counts([batch], reduce_data)
+            (metrics,), (grads,) = dp(params, [adapters], [batch], denom)
+        else:
+            _, metrics, grads = vg(adapters, params, batch)
+        norm = None
+        if tp is not None:
+            (grads,), (norm,) = model_group_grads([grads], replicated, tp)
         if clip_norm:
-            grads = clip_by_global_norm(grads, clip_norm)
+            grads = clip_by_global_norm(grads, clip_norm, norm)
         updates, opt_state = opt.update(grads, opt_state, adapters)
         return apply_updates(adapters, updates), opt_state, metrics
 

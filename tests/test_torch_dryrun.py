@@ -11,7 +11,8 @@ bytes on meta reproduce the depth cuts the card runs; a prefill walk
 launches flash attention and holds no (B, H, S, S) scores; every
 supported arch × {decode_32k, train_4k} writes a JSON with the stated
 keys (smoke widths), whisper-small × long_500k is skipped, and the CLI's
-refusals; the torch examples on the CPU.
+refusals; ``--multi-pod`` on one rank of (2, 16, 16) at llama2-7b's full
+width; the torch examples on the CPU.
 """
 import importlib.util
 import json
@@ -422,14 +423,43 @@ def test_cli_runs_skips_and_refuses(tmp_path, capsys):
                         "--out-dir", out]) == 0
     assert (tmp_path / "dbrx-132b__decode_32k__1xh100__decode__moe_cap1"
             "__smoke.json").exists()
-    for bad in (["--multi-pod"], ["--variant", "gqa_grouped"],
-                ["--variant", "nope"]):
+    for bad in (["--multi-pod", "--step", "decode"],
+                ["--variant", "gqa_grouped"], ["--variant", "nope"]):
         with pytest.raises(SystemExit):
             dryrun.main(["--arch", "olmo-1b", "--shape", "decode_32k",
                          "--out-dir", out] + bad)
     with pytest.raises(ValueError, match="XLA"):
         dryrun.run_one("olmo-1b", "decode_32k", variant="no_remat",
                        out_dir=out)
+
+
+def test_cli_multi_pod_walks_one_rank_of_the_production_mesh(tmp_path,
+                                                             capsys):
+    """llama2-7b's train step at full width on one rank of (2, 16, 16):
+    per-rank memory, the roofline over 512 cards and the collective log
+    (per layer two sums forward and two backward over "model", one
+    gradient all-reduce over "data" then "pod"); gemma-2b is skipped,
+    naming its head count."""
+    out = str(tmp_path)
+    assert dryrun.main(["--arch", "llama2-7b", "--shape", "train_4k",
+                        "--multi-pod", "--step", "train",
+                        "--out-dir", out]) == 0
+    r = json.loads((tmp_path / "llama2-7b__train_4k__2x16x16__train.json")
+                   .read_text())
+    assert r["mesh_shape"] == {"pod": 2, "data": 16, "model": 16}
+    assert r["chips"] == r["roofline"]["chips"] == 512
+    assert 0 < r["memory"]["argument_bytes"] < r["memory"]["peak_bytes"]
+    by = {}
+    for c in r["collectives"]:
+        by.setdefault((c["axis"], c["group"]), []).append(c["bytes"])
+    act = 8 * 4096 * 4096 * 2        # 8 rows a rank, bf16 activations
+    assert by[("model", 16)].count(act) == 4 * 32 + 1
+    assert len(by[("data", 16)]) == len(by[("pod", 2)]) == 2
+    assert r["roofline"]["collective_s"] > 0
+    assert "OK llama2-7b train_4k 2x16x16 train" in capsys.readouterr().out
+    assert dryrun.main(["--arch", "gemma-2b", "--shape", "train_4k",
+                        "--multi-pod", "--out-dir", out]) == 0
+    assert "n_heads 8 does not divide" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------

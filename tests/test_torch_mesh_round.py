@@ -25,8 +25,9 @@ a rank), every case of that world inside it (``federated/mesh_job.run``):
   data 2 (none at data 1).
 
 World 1 runs in this process (a one-rank gloo group over a HashStore).
-The refusals (a "model" axis > 1; experts at data > 1) come at the round
-step's construction and need no ranks.  Last, the torch multipod example
+The refusals (experts or a kv-head count that does not divide at a
+"model" axis > 1; experts at data > 1) come at the round step's
+construction and need no ranks.  Last, the torch multipod example
 on 2 CPU ranks.
 """
 import importlib.util
@@ -340,11 +341,18 @@ def test_refusals():
     with pytest.raises(ValueError, match='"pod" axis'):
         distributed.make_fdlora_round_step(
             model, pcfg, inner, outer, K, mesh={"data": 1, "model": 1})
-    with pytest.raises(ValueError, match='"model" axis > 1'):
-        distributed.make_fdlora_round_step(
-            model, pcfg, inner, outer, K,
-            mesh={"pod": 1, "data": 1, "model": 2})
+    # the "model" axis splits dense configs whose counts divide: experts
+    # and a kv-head count that does not divide stay refused
     moe = bridge.config_from_jax(tiny_moe())
+    with pytest.raises(ValueError, match="experts"):
+        distributed.make_fdlora_round_step(
+            Model(moe, device="cpu"), moe, inner, outer, K,
+            mesh={"pod": 1, "data": 1, "model": 2})
+    mqa = bridge.config_from_jax(tiny_dense(n_kv_heads=1))
+    with pytest.raises(ValueError, match="n_kv_heads 1 does not divide"):
+        distributed.make_fdlora_round_step(
+            Model(mqa, device="cpu"), mqa, inner, outer, K,
+            mesh={"pod": 1, "data": 1, "model": 2})
     with pytest.raises(ValueError, match="experts over a data axis"):
         distributed.make_fdlora_round_step(
             Model(moe, device="cpu"), moe, inner, outer, K,
