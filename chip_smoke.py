@@ -109,8 +109,8 @@ Phases (each prints one JSON line per result):
                step;
   6. dense_family — with llama2-7b's weights freed, gemma-2b, olmo-1b,
                yi-6b and starcoder2-15b in turn at their published width
-               and at most 16 layers (olmo-1b all 16; the script's time
-               limit), bf16, random weights from --seed, 4 tenants with
+               and at most 12 layers (the script's time limit), bf16,
+               random weights from --seed, 4 tenants with
                rank-16 fused adapters: 4 requests (prompts 128-1024 tokens;
                starcoder2-15b one more of 4,608 tokens, past its window),
                16 new tokens, through "cuda" with overlap on and off
@@ -136,7 +136,7 @@ Phases (each prints one JSON line per result):
                copies per layer equal; one traced dbrx-132b run with the
                expert products and the routing and dispatch as rows of
                their own;
-  8. ssm     — mamba2-2.7b (32 of its 64 layers) and jamba-v0.1-52b (8 of its
+  8. ssm     — mamba2-2.7b (16 of its 64 layers) and jamba-v0.1-52b (8 of its
                32: one period, every pattern entry once) at their published
                width, bf16, random weights from --seed, 4 tenants with
                rank-16 fused adapters (the mamba in_proj/out_proj pairs
@@ -217,7 +217,8 @@ Phases (each prints one JSON line per result):
                plain merge;
  12. mesh_round — FDLoRA's round over a torch.distributed mesh
                (launch/mesh.py, federated/mesh_job.py) on llama2-7b at
-               full width, 16 of 32 layers, bf16, random weights from
+               full width, 8 of 32 layers (the script's time limit),
+               bf16, random weights from
                --seed, rank-16 adapters on all 7 targets, 2 clients, K 2,
                8 x 256 SFT rows: (a) world size 1 on NCCL in this process,
                the mesh round bitwise the meshless one, compress_outer
@@ -242,6 +243,27 @@ Phases (each prints one JSON line per result):
                s per round, the all-reduce's host ms (gloo through the
                host on a shared card, not a link rate), the collectives by
                op and group, the peak memory per rank;
+ 12b. mesh_serve — serving over a torch.distributed mesh
+               (ServeConfig.mesh; launch/serve.ServeJob the rank program):
+               llama2-7b at full width, 8 of 32 layers (the script's
+               time limit), bf16, random weights from --seed, 8 tenants' rank-16 adapters, 8
+               requests (prompts 128-512 tokens, 16 new tokens) through
+               MultiTenantEngine.generate on "cuda"; the meshless runs at
+               num_shards 2 and 1 here, then two ranks on this card
+               (gloo, spawned): (a) mesh (1, 2, 1), num_shards 2, each
+               rank 4 of the 8 slots, streams bitwise the meshless ones
+               or held by the margin rule; (b) mesh (1, 1, 2), each rank
+               16 of 32 heads and kv heads, half the ff columns and the
+               vocabulary of base, bank and pools: the first chunk's
+               logits within 10% of the largest logit, streams by the
+               margin rule, the collectives equal to the dry run's
+               prefill and decode walks at (1, 1, 2), each rank's peak
+               beside the dry run's, the all-reduces' host ms beside the
+               data sheet's NVLink time; (c) under (b), int8 K/V with the
+               prefix cache, warm against cold by the margin rule; the
+               three serving kernels launched on every rank in each case
+               at the rank's shapes (those shapes are held in the kernels
+               phase); decode tok/s and TTFT beside the meshless runs';
  13. the card's name and power limit, the kernel summary line, and last the
      result line.
 
@@ -1276,7 +1298,27 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
     moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T, seen)
     ssm_kernels(gen, device, reps, T, seen)
     vlm_encdec_kernels(gen, device, reps, T, seen)
+    mesh_serve_kernels(gen, device, reps, dec_lengths, pre_lengths, T)
     return main
+
+
+def mesh_serve_kernels(gen, device, reps, dec_lengths, pre_lengths, T):
+    """Phase mesh_serve (b)'s per-rank shapes at "model" 2: llama2-7b's
+    16 of 32 query heads over 16 of 32 kv heads (G 1) in decode and
+    prefill at the serve cell's lengths, and batched LoRA at each rank's
+    projections (wq/wk/wv 4096 -> 2048, w_gate/w_up 4096 -> 5504, w_out
+    5504 -> 4096, wo 2048 -> 4096) at a decode step's 8 rows and a
+    prefill chunk's 8 x T, over the phase's 8 tenants."""
+    path = {"path": "mesh_serve (b)", "model_axis": 2}
+    emit({**check_decode(gen, device, dec_lengths, 1, False, reps, H=16),
+          **path})
+    emit({**check_prefill(gen, device, pre_lengths, T, 1, False, reps,
+                          H=16), **path})
+    B = len(dec_lengths)
+    for K, N in ((4096, 2048), (4096, 5504), (5504, 4096), (2048, 4096)):
+        for M in (B, B * T):
+            emit({**check_lora(gen, device, M, K, N, 8, 16, "f32_bank",
+                               reps), **path})
 
 
 def moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T, seen):
@@ -1302,39 +1344,15 @@ def moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T, seen):
 # phase 3: the serving path
 # ---------------------------------------------------------------------------
 
-def first_chunk_logits(eng, reqs, sc, backend):
+def first_chunk_logits(eng, reqs, sc, backend, rows=None):
     """Logits of the first prefill dispatch the engine would make for
     ``reqs`` (all slots admitted, fresh pool of ``sc.kv_dtype``, the
-    registry's bank in ``backend``'s layout), through ``backend``."""
+    registry's bank in ``backend``'s layout), through ``backend``
+    (``launch/serve.first_chunk_logits``; ``rows``: those rows alone)."""
     import dataclasses
-    import torch
-    from repro_torch.serving.kv_cache import PagedKVCache, blocks_needed
-    B = len(reqs)
-    span = max(len(r.prompt) + sc.max_new_tokens for r in reqs)
-    T = min(sc.prefill_chunk, span - 1)
-    per = blocks_needed(span, sc.block_size)
-    kv = PagedKVCache(B, sc.block_size, 1 + B * per, per)
-    tokens = torch.zeros((B, T), dtype=torch.int32)
-    n_new = torch.zeros((B,), dtype=torch.int32)
-    for i, r in enumerate(reqs):
-        kv.admit(i)
-        n = min(T, len(r.prompt))
-        require(kv.ensure(i, n), "first-chunk pool too small")
-        tokens[i, :n] = torch.as_tensor(r.prompt[:n])
-        n_new[i] = n
-    dev = eng.device
-    bt, lens = kv.device_tables(dev)
-    ids = torch.tensor([eng.registry.acquire(r.client_id) for r in reqs],
-                       dtype=torch.int32, device=dev)
-    cache = eng.model.init_paged_decode_cache(1 + B * per, sc.block_size,
-                                              kv_dtype=sc.kv_dtype,
-                                              num_slots=B)
-    bank = eng.bank_for(dataclasses.replace(sc, paged_backend=backend))
-    logits, _ = eng.model.prefill_step(
-        eng.params, cache, tokens.to(dev), lens, n_new.to(dev),
-        adapters=bank, lora_scale=eng.scale, adapter_ids=ids,
-        block_tables=bt, paged_backend=backend)
-    return logits, n_new
+    from repro_torch.launch import serve
+    return serve.first_chunk_logits(
+        eng, reqs, dataclasses.replace(sc, paged_backend=backend), rows)
 
 
 def compare_first_chunk(eng, reqs, sc, dtype_name, rel_tol, extra=None):
@@ -1386,28 +1404,6 @@ def require_mma_tile(tiles, name, what):
             "tensor-core tile and not the fp32 one")
 
 
-def timed_generate(eng, reqs, sc):
-    """Run ``generate_stream``; returns (streams, TTFT per request in s,
-    seconds of the decode phase, tokens emitted in it, total seconds).  The
-    decode phase starts at the last request's first token."""
-    import torch
-    outs = [[] for _ in reqs]
-    first = [None] * len(reqs)
-    stamps = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for rid, toks, _ in eng.generate_stream(reqs, sc):
-        now = time.perf_counter()             # events follow a readback
-        if first[rid] is None:
-            first[rid] = now - t0
-        outs[rid].extend(toks)
-        stamps.append((now - t0, len(toks)))
-    t_end = time.perf_counter() - t0
-    t_dec0 = max(first)
-    dec_tokens = sum(n for t, n in stamps if t > t_dec0)
-    return outs, first, t_end - t_dec0, dec_tokens, t_end
-
-
 def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
                 prompt_min: int, prompt_max: int, T: int, cfg=None,
                 tenants: int = 8, rank: int = 16):
@@ -1419,7 +1415,8 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import build_engine, ragged_requests
+    from repro_torch.launch.serve import (build_engine, ragged_requests,
+                                          timed_stream)
     from repro_torch.serving.engine import ServeConfig
     cfg = cfg or get_config(ARCH)
     t0 = time.perf_counter()
@@ -1448,7 +1445,7 @@ def serve_phase(device, seed: int, n_requests: int, new_tokens: int,
         sc.paged_backend, sc.overlap = backend, overlap
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs, sc)
+        outs, ttft, dec_s, dec_tok, total_s = timed_stream(eng, reqs, sc)
         counts = kernels.launch_counts()
         tiles = kernels.tile_counts()
         st = eng.last_stats
@@ -1984,6 +1981,7 @@ def serve_options_phase(device, seed: int, params, cfg, T: int = 256,
     import numpy as np
     import torch
     from repro_torch import kernels
+    from repro_torch.launch.serve import timed_stream
     from repro_torch.core.lora import init_adapters
     from repro_torch.models.api import Model
     from repro_torch.serving.engine import (MultiTenantEngine, Request,
@@ -2049,7 +2047,7 @@ def serve_options_phase(device, seed: int, params, cfg, T: int = 256,
     def run(name, reqs_, sc_):
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs_, sc_)
+        outs, ttft, dec_s, dec_tok, total_s = timed_stream(eng, reqs_, sc_)
         counts = kernels.launch_counts()
         tiles = kernels.tile_counts()
         st = eng.last_stats
@@ -2219,7 +2217,8 @@ def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
     import torch
     from repro_torch import kernels
     from repro_torch.core.lora import tree_leaves
-    from repro_torch.launch.serve import ragged_requests, register_client
+    from repro_torch.launch.serve import (ragged_requests, register_client,
+                                          timed_stream)
     from repro_torch.models.api import Model
     from repro_torch.serving.engine import MultiTenantEngine, ServeConfig
     from repro_torch.serving.kv_cache import blocks_needed
@@ -2239,7 +2238,7 @@ def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
     def run(name, eng, sc_, reqs_=reqs):
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs_, sc_)
+        outs, ttft, dec_s, dec_tok, total_s = timed_stream(eng, reqs_, sc_)
         counts, tiles = kernels.launch_counts(), kernels.tile_counts()
         st = eng.last_stats
         emit({"phase": "sharded", "run": name, "n_layers": depth,
@@ -3174,7 +3173,7 @@ def baselines_phase(device, seed: int, params, cfg, fdlora_accuracy):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the rest of the dense family at full width, 16 layers at most
+# phase 6: the rest of the dense family at full width, 12 layers at most
 # ---------------------------------------------------------------------------
 
 # why each arch is here: gemma-2b runs head dim 256 (one kv head, a 256,000
@@ -3183,8 +3182,9 @@ def baselines_phase(device, seed: int, params, cfg, fdlora_accuracy):
 # gate-less GELU MLP (6 LoRA targets), LayerNorm with bias and a 4,096
 # token sliding window
 DENSE_FAMILY = ("gemma-2b", "olmo-1b", "yi-6b", "starcoder2-15b")
-DENSE_LAYERS = 16           # the script's time limit: yi-6b 16 of 32,
-                            # starcoder2-15b 16 of 40, gemma-2b 16 of 18
+DENSE_LAYERS = 12           # the script's time limit: yi-6b 12 of 32,
+                            # starcoder2-15b 12 of 40, gemma-2b 12 of 18,
+                            # olmo-1b 12 of 16
 DENSE_TENANTS = 4
 DENSE_REQUESTS = 4          # and one of LONG_PROMPT tokens under a window
 LONG_PROMPT = 4608
@@ -3287,6 +3287,7 @@ def serve_and_check(eng, reqs, sc, needs, mma_names, extra=None,
     import numpy as np
     import torch
     from repro_torch import kernels
+    from repro_torch.launch.serve import timed_stream
     cfg = eng.cfg
     streams, counts = {}, None
     for overlap in (True, False):
@@ -3295,7 +3296,7 @@ def serve_and_check(eng, reqs, sc, needs, mma_names, extra=None,
         torch.cuda.reset_peak_memory_stats()
         with (off_ctx if off_ctx is not None and not overlap
               else contextlib.nullcontext()):
-            outs, ttft, dec_s, dec_tok, total_s = timed_generate(eng, reqs,
+            outs, ttft, dec_s, dec_tok, total_s = timed_stream(eng, reqs,
                                                                  sc)
         launches = kernels.launch_counts()
         tiles = kernels.tile_counts()
@@ -3738,7 +3739,8 @@ def moe_phase(device, seed: int, T: int = 256, tenants: int = MOE_TENANTS,
 # depth); jamba-v0.1-52b at 8 of its 32 layers, one period that holds
 # every pattern entry once (26.5 GB; all 32 would take 103 GB, more than
 # one 80 GB card)
-SSM_FAMILY = (("mamba2-2.7b", 32), ("jamba-v0.1-52b", 8))
+SSM_FAMILY = (("mamba2-2.7b", 16), ("jamba-v0.1-52b", 8))  # the script's
+#                                                             time limit
 SSM_TENANTS = 4
 SSM_SLOTS = 4
 SSM_TOKEN_CHECK = 64        # prompt tokens fed one at a time on mamba2
@@ -4919,10 +4921,10 @@ def full_train_phase(device, seed: int, T: int = 256):
             "fused_forward": {n: fused[n] for n in kernels.WRAPPERS}}
 
 
-MESH_LAYERS = SHARDED_LAYERS  # 16 of llama2-7b's 32: the sharded phase's
+MESH_LAYERS = 8              # of llama2-7b's 32: the script's time limit
 MESH_CLIENTS, MESH_K, MESH_ROWS = 2, 2, 8
 MESH_ROUNDS = 2              # the first warms cuBLAS and the kernels
-MESH_LORA = 19_988_480       # rank-16 adapter parameters at 16 layers
+MESH_LORA = 9_994_240        # rank-16 adapter parameters at 8 layers
 MESH_TRAVEL_TOL = 1e-3       # (c): a leaf's difference over its travel
 MESH_LOSS_ULPS = 4           # (c): the loss's distance in fp32 ulps
 MESH_TP_LOSS_ULPS = 16       # (e): the loss's distance in fp32 ulps
@@ -4931,21 +4933,24 @@ MESH_TP_LEAF_TOL = 0.25      # (d): a θ_s' leaf's distance over its travel
 MESH_TP_SPREAD = 2.0         # (d): either, over the plain path's spread
 MESH_TP_PEAK_TOL = 0.25      # (d): the peak against the dry run's
 MESH_TP_ACT = 16_777_216     # (d): one (8, 256, 4096) bf16 activation sum
-MESH_TP_REPLICATED = 7_340_032   # (d): a client's adapter values every
+MESH_TP_REPLICATED = 3_670_016   # (d): a client's adapter values every
                                  # rank holds (458,752 a layer)
 GLOO_NOTE = ("gloo through the host on one shared card: a host copy, a "
              "loopback ring and a copy back, not a link rate")
 
 
 def _collective_summary(log):
-    """A round's log by op and group: count, payload bytes, host ms."""
+    """A log by op, group and payload: count and host ms (total, mean,
+    max)."""
     out = {}
     for c in log:
-        k = f"{c['op']} {c['axis']}({c['group']})"
-        e = out.setdefault(k, {"n": 0, "bytes": 0, "ms": []})
+        k = f"{c['op']} {c['axis']}({c['group']}) {c['bytes']} B"
+        e = out.setdefault(k, {"n": 0, "ms_total": 0.0, "ms_max": 0.0})
         e["n"] += 1
-        e["bytes"] += c["bytes"]
-        e["ms"].append(c["ms"])
+        e["ms_total"] += c["ms"]
+        e["ms_max"] = max(e["ms_max"], c["ms"])
+    for e in out.values():
+        e["ms_mean"] = e["ms_total"] / e["n"]
     return out
 
 
@@ -5027,7 +5032,8 @@ def _by_axis(log):
 
 def mesh_round_phase(device, seed: int, T: int = 256):
     """FDLoRA's round over a torch.distributed mesh (launch/mesh.py,
-    federated/mesh_job.py): llama2-7b at full width, 16 layers, bf16,
+    federated/mesh_job.py): llama2-7b at full width, ``MESH_LAYERS``
+    layers, bf16,
     random weights from ``seed``, rank-16 adapters on all 7 targets (B
     non-zero), 2 clients, K 2, 8 x 256 SFT rows a client and step,
     ``MESH_ROUNDS`` rounds:
@@ -5438,6 +5444,293 @@ def mesh_round_phase(device, seed: int, T: int = 256):
     return counts
 
 
+MESH_SERVE_LAYERS = 8        # of llama2-7b's 32: the script's time limit
+#                              (32 took 108.7 s alone, 16 took 40-65 s)
+MESH_SERVE_REQUESTS = 8      # 8 slots, 8 tenants
+MESH_SERVE_NEW = 16          # new tokens a request
+MESH_SERVE_PROMPTS = (128, 512)
+MESH_SERVE_REL = 0.1         # (b): first-chunk error over the largest logit
+
+
+def _serve_summary(res, ref=None):
+    """A run's times beside the meshless run's: TTFT p50 and max, decode
+    tok/s, total s."""
+    import numpy as np
+    out = {}
+    for tag, r in (("", res),) + ((("meshless_", ref),) if ref else ()):
+        ttft = [t for t in r["ttft_s"] if t is not None]
+        out.update({
+            f"{tag}ttft_ms_p50": float(np.percentile(ttft, 50)) * 1e3,
+            f"{tag}ttft_ms_max": max(ttft) * 1e3,
+            f"{tag}decode_tok_per_s": (r["decode_tokens"] / r["decode_s"]
+                                       if r["decode_s"] > 0 else None),
+            f"{tag}total_s": r["total_s"]})
+    return out
+
+
+def _first_chunk_err(got, want, n_new):
+    """Max |got - want| over the valid positions, and the largest |want|
+    there."""
+    import torch
+    valid = (torch.arange(want.shape[1])[None, :] < n_new[:, None])
+    return (float((got - want).abs()[valid].max()),
+            float(want.abs()[valid].max()))
+
+
+def _stream_walks(cfg, mesh, st, slots, T, span):
+    """The collectives a stream of ``st`` (its prefill dispatches and
+    decode steps) issues per the dry run's walks of one dispatch of each
+    at ``mesh``: {(axis, bytes): count}, and the decode walk."""
+    from repro_torch.launch.dryrun import dry_run
+    cfg = cfg.with_overrides(paged_backend="cuda")
+    pre = dry_run(cfg, "prefill", slots, T, mesh=mesh)
+    dec = dry_run(cfg, "decode", slots, span, mesh=mesh)
+    want = {}
+    for walk, n in ((pre, st["prefill_dispatches"]),
+                    (dec, st["decode_steps"])):
+        for k, v in _by_axis(walk["collectives"]).items():
+            want[k] = want.get(k, 0) + n * v
+    return want, dec
+
+
+def mesh_serve_phase(device, seed: int, T: int = 256):
+    """Serving over a torch.distributed mesh (``ServeConfig.mesh``;
+    ``launch/serve.ServeJob`` is the rank program): llama2-7b at full
+    width, ``MESH_SERVE_LAYERS`` layers, bf16, random weights from
+    ``seed``, 8 tenants' rank-16 fused adapters, a closed batch of 8
+    requests (prompts 128-512 tokens, 16 new tokens, prefill chunk T)
+    through ``MultiTenantEngine.generate`` on "cuda".  The meshless runs
+    (num_shards 2 and 1) in this process; then two ranks on this one card
+    (gloo, spawned, each building the weights from the seed):
+
+    (a) mesh (1, 2, 1), num_shards 2: each rank serves 4 of the 8 slots
+        (its shard's blocks in its own pool) with the whole base; its
+        first chunk bitwise the same 4 rows' on one device (the meshless
+        engine, here); streams bitwise the meshless num_shards 2 run's
+        where the card gives it, else held by the margin rule (a rank's
+        projections run on 4 rows where the meshless ones run on 8, and
+        a kernel may take another plan at another row count: the 4-row
+        chunk on one device differs from the 8-row one as much), the
+        error base being the first chunk's;
+    (b) mesh (1, 1, 2): each rank its 16 of 32 heads (and kv heads), 5,504
+        of 11,008 ff columns, 16,000 of 32,000 vocabulary columns, of the
+        base, the bank and the pools (the base freed once (a) is done):
+        the first chunk's logits, gathered over the ranks, within
+        ``MESH_SERVE_REL`` of the largest logit of the meshless chunk's
+        (bf16: each row-parallel product becomes two rounded partials and
+        their rounded sum), the streams by the margin rule on that error;
+        the ranks' collectives equal to ``dryrun.dry_run``'s ``prefill``
+        and ``decode`` walks at (1, 1, 2), dispatch by dispatch; each
+        rank's peak beside the dry run's decode peak; the all-reduces'
+        host ms beside the data sheet's NVLink time;
+    (c) under (b), int8 K/V with the prefix cache: a cold run and a warm
+        one (the pool kept), the warm one reusing the pool and hitting,
+        its streams held to the cold ones by the margin rule on (b)'s
+        error.
+
+    Each rank's paged_attention, paged_prefill_attention and
+    batched_lora_matmul launch in every case at the rank's shapes, the
+    prefill and LoRA kernels on their tensor-core tiles; decode tok/s and
+    TTFT beside the meshless runs' (two ranks share one card through
+    gloo: no gain is claimed).  Returns each case's launches on rank 0."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import (ServeJob, build_engine, mesh_serve,
+                                          ragged_requests, serve_runs)
+    from repro_torch.serving.engine import ServeConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH).with_overrides(n_layers=MESH_SERVE_LAYERS,
+                                          lora_rank=16)
+    reqs = ragged_requests(MESH_SERVE_REQUESTS, 8, cfg.vocab_size,
+                           *MESH_SERVE_PROMPTS, seed)
+    span = max(len(r.prompt) for r in reqs) + MESH_SERVE_NEW
+    width = min(T, span - 1)
+    kw = dict(batch_size=MESH_SERVE_REQUESTS, max_new_tokens=MESH_SERVE_NEW,
+              prefill_chunk=T, block_size=16, paged_backend="cuda")
+    per = -(-span // 16)
+    int8 = dict(kw, kv_dtype="int8", prefix_cache=True,
+                num_blocks=1 + MESH_SERVE_REQUESTS * per)
+    info = {"phase": "mesh_serve", "arch": ARCH,
+            "n_layers": MESH_SERVE_LAYERS, "requests": len(reqs),
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "new_tokens": MESH_SERVE_NEW, "prefill_chunk": width,
+            "tenants": 8, "lora_rank": 16}
+    # -- the meshless runs, here ----------------------------------------------
+    t_ref = time.perf_counter()
+    eng = build_engine(cfg, 8, device, seed)
+    job = ServeJob(cfg, reqs, [("ref2", None, dict(kw, num_shards=2)),
+                               ("ref1", None, kw)],
+                   seed=seed, first_chunk=("ref1",))
+    ref = serve_runs(eng, job)
+    ref = mesh_lib.to_cpu(ref)
+    require(ref["ref1"]["streams"] == ref["ref2"]["streams"],
+            "mesh serve: the meshless streams at 1 and 2 shards differ")
+    # the first chunk on one device at each data rank's 4 rows: what (a)'s
+    # ranks must reproduce bit for bit
+    half = MESH_SERVE_REQUESTS // 2
+    with torch.no_grad():
+        halves = [mesh_lib.to_cpu(first_chunk_logits(
+            eng, reqs, ServeConfig(**kw), "cuda",
+            rows=(i * half, (i + 1) * half))[0]) for i in (0, 1)]
+    eng.release_prefix_cache()
+    torch.cuda.empty_cache()
+    meshless_s = time.perf_counter() - t_ref
+    # -- (a)-(c): two ranks on this card ----------------------------------------
+    t0 = time.perf_counter()
+    runs = [("a", (1, 2, 1), dict(kw, num_shards=2)), ("b", (1, 1, 2), kw),
+            ("c_cold", (1, 1, 2), int8), ("c_warm", (1, 1, 2), int8)]
+    ranks = mesh_lib.spawn(
+        mesh_serve, 2,
+        ServeJob(cfg, reqs, runs, seed=seed, first_chunk=("a", "b")),
+        device=device)
+    spawn_s = time.perf_counter() - t0
+    want_logits, n_new = ref["ref1"]["first_chunk"]
+    t_dry = time.perf_counter()
+    walk_a, _ = _stream_walks(cfg, (1, 2, 1), ranks[0]["a"]["stats"],
+                              MESH_SERVE_REQUESTS, width, span)
+    walk_b, dec = _stream_walks(cfg, (1, 1, 2), ranks[0]["b"]["stats"],
+                                MESH_SERVE_REQUESTS, width, span)
+    dry_s = time.perf_counter() - t_dry
+    counts = {}
+    for case in ("a", "b", "c_cold", "c_warm"):
+        for rk in ranks:
+            r = rk[case]
+            for name in ("paged_attention", "paged_prefill_attention",
+                         "batched_lora_matmul"):
+                require(r["launches"][name] > 0,
+                        f"mesh serve ({case}) rank {r['coord']}: {name} "
+                        "never launched")
+            for name in ("paged_prefill_attention", "batched_lora_matmul"):
+                require_mma_tile(r["tiles"], name,
+                                 f"mesh serve ({case}) rank {r['coord']}")
+        counts[case] = {n: ranks[0][case]["launches"][n]
+                        for n in kernels.SERVING}
+    # -- (a) --------------------------------------------------------------------
+    ra = sorted((rk["a"] for rk in ranks), key=lambda r: r["coord"]["data"])
+    got_a = torch.cat([r["first_chunk"][0] for r in ra], 0)
+    err_a, top = _first_chunk_err(got_a, want_logits, n_new)
+    rows_bitwise = all(torch.equal(r["first_chunk"][0], h)
+                       for r, h in zip(ra, halves))
+    err_half, _ = _first_chunk_err(torch.cat(halves, 0), want_logits, n_new)
+    require(rows_bitwise, "mesh serve (a): a data rank's first chunk is not "
+            "bitwise the same 4 rows' on one device")
+    want_a = ref["ref2"]["streams"]
+    same_a = all(r["streams"] == want_a for r in ra)
+    matched_a = streams_by_margin(eng, reqs, ServeConfig(**kw),
+                                  ra[0]["streams"], want_a, err_a,
+                                  "mesh serve (a)")
+    require(ra[0]["streams"] == ra[1]["streams"],
+            "mesh serve (a): the two ranks' streams differ")
+    for r in ra:
+        require(_by_axis(r["collectives"]) == walk_a,
+                f"mesh serve (a) rank {r['coord']}: collectives "
+                f"{_by_axis(r['collectives'])}, the dry run's {walk_a}")
+    emit({**info, "run": "a", "world": 2, "backend": "gloo",
+          "mesh": {"pod": 1, "data": 2, "model": 1}, "num_shards": 2,
+          "slots_per_rank": MESH_SERVE_REQUESTS // 2,
+          "streams_bitwise_meshless": same_a,
+          "stream_prefix_matched": matched_a,
+          "first_chunk_max_abs_err": err_a, "max_abs_logit": top,
+          "first_chunk_rows_bitwise_one_device_at_4_rows": rows_bitwise,
+          "one_device_4_rows_against_8_rows_max_abs_err": err_half,
+          **_serve_summary(ra[0], ref["ref2"]),
+          "prefill_dispatches": ra[0]["stats"]["prefill_dispatches"],
+          "decode_steps": ra[0]["stats"]["decode_steps"],
+          "collectives": _collective_summary(ra[0]["collectives"]),
+          "host_ms_note": GLOO_NOTE,
+          "peak_bytes_per_rank": [r["peak_bytes"] for r in ra],
+          "launches": [{k: r["launches"][k] for k in kernels.SERVING}
+                       for r in ra],
+          "meshless_s": meshless_s, "spawn_s": spawn_s})
+    # -- (b) --------------------------------------------------------------------
+    rb = sorted((rk["b"] for rk in ranks), key=lambda r: r["coord"]["model"])
+    got_b = torch.cat([r["first_chunk"][0] for r in rb], -1)
+    err_b, top = _first_chunk_err(got_b, want_logits, n_new)
+    want_b = ref["ref1"]["streams"]
+    require(rb[0]["streams"] == rb[1]["streams"],
+            "mesh serve (b): the two ranks' streams differ")
+    require(err_b <= MESH_SERVE_REL * top,
+            f"mesh serve (b): first-chunk error {err_b} over "
+            f"{MESH_SERVE_REL} x the largest logit {top}")
+    matched_b = streams_by_margin(eng, reqs, ServeConfig(**kw),
+                                  rb[0]["streams"], want_b, err_b,
+                                  "mesh serve (b)")
+    for r in rb:
+        require(_by_axis(r["collectives"]) == walk_b,
+                f"mesh serve (b) rank {r['coord']}: collectives "
+                f"{_by_axis(r['collectives'])}, the dry run's {walk_b}")
+    act = MESH_SERVE_REQUESTS * cfg.d_model * 2    # a decode step's sum
+    step_log = [c for c in rb[0]["collectives"]
+                if c["axis"] == "model" and c["bytes"] == act]
+    per_step = 2 * cfg.n_layers + 1
+    sheet = rl.analyze(0.0, 0.0, chips=2, collectives=[
+        rl.Collective(**c) for c in step_log[:per_step]])
+    emit({**info, "run": "b", "world": 2, "backend": "gloo",
+          "mesh": {"pod": 1, "data": 1, "model": 2},
+          "heads_per_rank": cfg.n_heads // 2,
+          "kv_heads_per_rank": cfg.n_kv_heads // 2,
+          "ff_columns_per_rank": cfg.d_ff // 2,
+          "vocab_columns_per_rank": cfg.vocab_size // 2,
+          "first_chunk_max_abs_err": err_b, "max_abs_logit": top,
+          "first_chunk_rel_err": err_b / top, "rel_bound": MESH_SERVE_REL,
+          "streams_bitwise_meshless": rb[0]["streams"] == want_b,
+          "stream_prefix_matched": matched_b,
+          **_serve_summary(rb[0], ref["ref1"]),
+          "prefill_dispatches": rb[0]["stats"]["prefill_dispatches"],
+          "decode_steps": rb[0]["stats"]["decode_steps"],
+          "deferred_chunks": rb[0]["stats"]["deferred_chunks"],
+          "collectives": _collective_summary(rb[0]["collectives"]),
+          "dry_run_collectives": {f"{k[0]} {k[1]} B": n
+                                  for k, n in walk_b.items()},
+          "allreduces_per_decode_step": per_step + 1,
+          "decode_step_allreduce_host_ms_mean": (
+              sum(c["ms"] for c in step_log) / max(1, len(step_log))),
+          "decode_step_allreduce_host_ms_total_per_step": (
+              sum(c["ms"] for c in step_log)
+              / max(1, rb[0]["stats"]["decode_steps"])),
+          "decode_step_allreduces_nvlink_data_sheet_ms":
+              sheet.collective_s * 1e3,
+          "host_ms_note": GLOO_NOTE,
+          "peak_bytes_per_rank": [r["peak_bytes"] for r in rb],
+          "dry_run_decode_peak_bytes": dec["memory"]["peak_bytes"],
+          "dry_run_decode_argument_bytes": dec["memory"]["argument_bytes"],
+          "dry_runs_s": dry_s,
+          "launches": [{k: r["launches"][k] for k in kernels.SERVING}
+                       for r in rb]})
+    # -- (c) --------------------------------------------------------------------
+    rc = [sorted((rk[c] for rk in ranks), key=lambda r: r["coord"]["model"])
+          for c in ("c_cold", "c_warm")]
+    cold, warm = rc[0][0], rc[1][0]
+    require(rc[0][1]["streams"] == cold["streams"]
+            and rc[1][1]["streams"] == warm["streams"],
+            "mesh serve (c): the two ranks' streams differ")
+    require(warm["stats"]["prefix_pool_reused"]
+            and warm["stats"]["prefix_hit_tokens"] > 0,
+            f"mesh serve (c): the warm run hit "
+            f"{warm['stats']['prefix_hit_tokens']} tokens")
+    matched_c = streams_by_margin(eng, reqs, ServeConfig(**int8),
+                                  warm["streams"], cold["streams"], err_b,
+                                  "mesh serve (c) warm vs cold")
+    emit({**info, "run": "c", "world": 2, "backend": "gloo",
+          "mesh": {"pod": 1, "data": 1, "model": 2}, "kv_dtype": "int8",
+          "prefix_cache": True, "warm_bitwise_cold": (warm["streams"]
+                                                      == cold["streams"]),
+          "stream_prefix_matched": matched_c,
+          "prefix_hit_tokens": warm["stats"]["prefix_hit_tokens"],
+          "cold": _serve_summary(cold), "warm": _serve_summary(warm),
+          "peak_bytes_per_rank": [r["peak_bytes"] for r in rc[1]]})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def vlm_encdec_phase(device, seed: int, T: int = 256, new_tokens: int = 16,
                      rank: int = 16):
     """internvl2-26b, then whisper-small (``vlm_phase``,
@@ -5631,6 +5924,8 @@ def main(argv=None) -> int:
     full_train_counts = timed("full_train", full_train_phase, device,
                               args.seed, T)
     mesh_counts = timed("mesh_round", mesh_round_phase, device, args.seed, T)
+    mesh_serve_counts = timed("mesh_serve", mesh_serve_phase, device,
+                              args.seed, T)
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
@@ -5647,7 +5942,8 @@ def main(argv=None) -> int:
         "vlm_encdec": vlm_encdec_counts,
         "train_families": train_families_counts,
         "full_train": full_train_counts,
-        "mesh_round": mesh_counts})
+        "mesh_round": mesh_counts,
+        "mesh_serve": mesh_serve_counts})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})
 

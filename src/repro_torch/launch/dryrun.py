@@ -35,8 +35,12 @@ heads, ff columns and vocabulary over "model"; batch rows over "pod" and
 "data"): ``memory`` is per rank, every collective the step issues is
 logged by ``launch/mesh.all_reduce`` instead of issued (``collectives``:
 each one's axis, group and bytes), and the roofline takes ``chips`` and
-that log.  ``train`` and ``fdlora_round`` walk there, for the dense
-family; serving over the model axis is not ported.
+that log.  All four steps walk there, for the dense family: ``prefill``
+and ``decode`` on the rank's shards of params and adapters, the decode
+cache at its kv heads over "model", rows over the ``launch/specs.
+batch_axes`` prefix of ("pod", "data"), then the greedy sample every
+rank agrees on (one reduce over "model") and every row's token gathered
+over the rows' axes, as ``ServeConfig.mesh`` serves.
 
 Usage (on the CPU; no card needed):
 
@@ -46,6 +50,8 @@ Usage (on the CPU; no card needed):
         --shape train_4k --step fdlora_round
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama2-7b \\
         --shape train_4k --multi-pod
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama2-7b \\
+        --shape decode_32k --multi-pod
 
 Outputs JSON to ``experiments/dryrun_torch/<arch>__<shape>__<mesh>__<step>
 [__<variant>].json``, ``<mesh>`` "1xh100", or "2x16x16" under
@@ -76,7 +82,8 @@ from repro_torch.kernels import meta
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import specs as sp
 from repro_torch.models.api import Model
-from repro_torch.models.tensor_parallel import check_model_axis
+from repro_torch.models.tensor_parallel import (check_model_axis,
+                                                vocab_parallel_greedy)
 from repro_torch.training.optimizers import adamw
 from repro_torch.training.train_step import (make_full_train_step,
                                              make_lora_train_step)
@@ -292,30 +299,65 @@ def build_full_train(model, cfg, B: int, S: int):
             rl.model_flops_train(cfg, B * S))
 
 
-def build_prefill(model, cfg, B: int, S: int):
+def _serve_rank(B: int, mesh):
+    """A serving step's rows on one rank of ``mesh`` (B / the product of
+    the ``batch_axes`` prefix of ("pod", "data")), its model group, and
+    the axes of size > 1 its rows are split over."""
+    if mesh is None:
+        return B, None, ()
+    sizes = dict(zip(AXES, mesh.shape))
+    axes = sp.batch_axes(mesh, B) or ()
+    for a in axes:
+        B = _rows(B, sizes[a])
+    split = tuple(a for a in ("data", "pod") if a in axes and sizes[a] > 1)
+    return B, mesh_lib.model_group(mesh), split
+
+
+def _greedy_tokens(logits, mesh, tp, split):
+    """The step's greedy sample as every rank takes it (``ServeConfig.
+    mesh``): the vocabulary-parallel argmax of the last position (one
+    reduce over "model"), then every row's token gathered over the axes
+    the rows are split over."""
+    last = logits[:, -1]
+    tok = (torch.argmax(last, -1) if tp is None
+           else vocab_parallel_greedy(last, tp)).to(torch.int32)
+    for a in split:
+        tok = mesh_lib.all_gather(tok, mesh, a).reshape(-1)
+    return tok
+
+
+def build_prefill(model, cfg, B: int, S: int, mesh=None):
     """Inference prefill: a whole forward, the last position unembedded
-    (every position for the encoder-decoder, as the reference)."""
+    (every position for the encoder-decoder, as the reference).  On a
+    mesh the rank's rows and shards, then the sample every rank takes."""
     scale = lora_scale(cfg)
-    params, adapters = _params_adapters(model, cfg)
+    B, tp, split = _serve_rank(B, mesh)
+    params, adapters = _params_adapters(model, cfg, mesh)
     batch = sp.batch_inputs(cfg, B, S)
     batch.pop("loss_mask")
 
     def fn():
         with torch.no_grad():
-            return model.forward(params, batch, adapters=adapters,
-                                 lora_scale=scale,
-                                 last_only=not cfg.is_encdec,
-                                 paged_backend="cuda")[0]
+            logits = model.forward(params, batch, adapters=adapters,
+                                   lora_scale=scale,
+                                   last_only=not cfg.is_encdec,
+                                   paged_backend="cuda", tp=tp)[0]
+            if mesh is None:
+                return logits
+            return logits, _greedy_tokens(logits, mesh, tp, split)
     return (fn, {"params": params, "adapters": adapters, "inputs": batch},
             rl.model_flops_decode(cfg, B * S))
 
 
-def build_decode(model, cfg, B: int, S: int):
+def build_decode(model, cfg, B: int, S: int, mesh=None):
     """One decode step against a cache holding S positions (a ring of the
-    window's length for windowed archs), token S - 1 written last."""
+    window's length for windowed archs), token S - 1 written last.  On a
+    mesh the rank's rows, shards and kv heads, then the sample every rank
+    takes."""
     scale = lora_scale(cfg)
-    params, adapters = _params_adapters(model, cfg)
-    cache = model.init_decode_cache(B, S)
+    B, tp, split = _serve_rank(B, mesh)
+    params, adapters = _params_adapters(model, cfg, mesh)
+    cache = model.init_decode_cache(B, S, tp=tp)
     for lc in ([cache["self"]] if cfg.is_encdec else cache["layers"]):
         if "pos" in lc:
             lc["pos"] = S - 1
@@ -323,9 +365,12 @@ def build_decode(model, cfg, B: int, S: int):
 
     def fn():
         with torch.no_grad():
-            return model.decode_step(params, cache, dec["tokens"], S - 1,
-                                     adapters=adapters, lora_scale=scale,
-                                     paged_backend="cuda")
+            out = model.decode_step(params, cache, dec["tokens"], S - 1,
+                                    adapters=adapters, lora_scale=scale,
+                                    paged_backend="cuda", tp=tp)
+            if mesh is None:
+                return out
+            return out, _greedy_tokens(out[0], mesh, tp, split)
     return (fn, {"params": params, "adapters": adapters, "cache": cache,
                  "inputs": dec}, rl.model_flops_decode(cfg, B))
 
@@ -388,17 +433,12 @@ def dry_run(cfg, step: str, B: int, S: int, mesh=None, **opts) -> Dict:
     """One step of ``cfg`` at B rows of S tokens on the meta device; the
     result's ``params``, ``memory``, ``roofline``, ``counts``,
     ``kernels`` and ``collectives`` entries.  ``mesh`` (pod, data,
-    model): one rank's step there (``train`` and ``fdlora_round`` only;
-    the model axis for dense configs whose split dims divide, refused
-    otherwise naming the dim).  ``opts`` go to the step's ``build_*``
-    (``n_clients``, ``K`` of the round)."""
+    model): one rank's step there (the model axis for dense configs whose
+    split dims divide, refused otherwise naming the dim).  ``opts`` go to
+    the step's ``build_*`` (``n_clients``, ``K`` of the round)."""
     model = Model(cfg, META)
     chips = 1
     if mesh is not None:
-        if step not in ("train", "fdlora_round"):
-            raise ValueError(f"{step} over a mesh: serving over the "
-                             "\"model\" axis is not ported (the dry run "
-                             "walks train and fdlora_round there)")
         check_model_axis(cfg, mesh[2])
         chips = mesh[0] * mesh[1] * mesh[2]
         opts["mesh"] = RankMesh(mesh)
@@ -482,17 +522,13 @@ def main(argv=None) -> int:
                          f"{', '.join(XLA_ONLY_VARIANTS)} are refused")
     ap.add_argument("--multi-pod", action="store_true",
                     help="one rank of the (2, 16, 16) (pod, data, model) "
-                         "mesh: train and fdlora_round, dense archs "
-                         "whose dims divide by 16")
+                         "mesh: every step, dense archs whose dims divide "
+                         "by 16")
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--skip-existing", action="store_true",
                     help="skip combos whose JSON artifact already exists")
     args = ap.parse_args(argv)
-    if args.multi_pod and args.step in ("prefill", "decode"):
-        ap.error(f"--multi-pod --step {args.step}: serving over the "
-                 "\"model\" axis is not ported; --multi-pod walks train "
-                 "and fdlora_round")
     try:
         check_variant(args.variant)
     except ValueError as e:
@@ -507,14 +543,10 @@ def main(argv=None) -> int:
             kind = INPUT_SHAPES[shape].kind
             if args.step != "auto":
                 steps = [args.step]
-            elif not args.multi_pod:
-                steps = [kind]
-            elif kind == "train":
+            elif args.multi_pod and kind == "train":
                 steps = ["train", "fdlora_round"]
             else:
-                print(f"SKIP {arch} {shape}: a {kind} shape; serving over "
-                      "the \"model\" axis is not ported")
-                continue
+                steps = [kind]
             for step in steps:
                 tag = f"{arch}__{shape}__{tag_mesh}__{step}"
                 if args.variant != "baseline":

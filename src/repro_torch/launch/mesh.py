@@ -167,6 +167,20 @@ def all_reduce(t: torch.Tensor, mesh, axis: str,
     return t
 
 
+def all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The tensors ``t`` of every rank of mesh axis ``axis``, stacked in
+    coordinate order on a new leading dim: each rank writes its ``t``
+    into its row of a zeroed buffer and one sum :func:`all_reduce`
+    fills the others' rows (exact: every other rank adds zeros), since
+    gloo runs only all-reduce and broadcast on a card's tensors.  Logged
+    as that all-reduce."""
+    n = mesh_shape(mesh)[axis]
+    buf = torch.zeros((n, *t.shape), dtype=t.dtype, device=t.device)
+    if not t.is_meta:
+        buf[mesh_coordinate(mesh)[axis]] = t
+    return all_reduce(buf, mesh, axis)
+
+
 def model_group(mesh):
     """This rank's ``"model"`` group of ``mesh`` as the models take it
     (``models/tensor_parallel.ModelGroup``): its size, this rank's

@@ -67,9 +67,12 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
+import gc
 import time
 from collections import deque
-from typing import AsyncIterator, Dict, List, Optional, Tuple
+from typing import (Any, AsyncIterator, Dict, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -77,11 +80,14 @@ import torch
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.dual_lora import merge
 from repro_torch.core.lora import init_adapters
+from repro_torch.core.partition import mesh_coordinate, mesh_shape
 from repro_torch.data.tokenizer import ByteTokenizer
+from repro_torch.launch.mesh import model_group
 from repro_torch.models.api import Model
 from repro_torch.serving.engine import (Engine, MultiTenantEngine, Request,
                                         ServeConfig)
-from repro_torch.serving.kv_cache import blocks_needed
+from repro_torch.serving.kv_cache import (PagedKVCache, blocks_needed,
+                                          to_device)
 from repro_torch.serving.registry import AdapterRegistry
 from repro_torch.serving.scheduler import PRIORITY_CLASSES
 from repro_torch.serving.sharded import ShardedAdapterRegistry
@@ -357,6 +363,170 @@ def ragged_requests(n: int, tenants: int, vocab: int, prompt_min: int,
                     rng.integers(0, vocab, int(s)).astype(np.int32),
                     priority=mix[i % len(mix)] if mix else "batch")
             for i, s in enumerate(lens)]
+
+
+# ---------------------------------------------------------------------------
+# one engine served on every rank of a mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ServeJob:
+    """An engine (``build_engine``: random weights and ``tenants`` fused
+    adapters from ``seed``) and the runs it serves: each ``(name, mesh,
+    ServeConfig keywords)``, ``mesh`` a ("pod", "data", "model") shape or
+    None (no mesh).  ``first_chunk`` names the runs whose first prefill
+    chunk's logits (this rank's rows and vocabulary block) are kept.  The
+    whole base is freed once every later run is at "model" > 1, so those
+    ranks hold their shard only."""
+    cfg: Any                          # the port's ModelConfig
+    requests: Sequence[Request]
+    runs: Sequence[Tuple[str, Optional[Tuple[int, int, int]], Dict]]
+    tenants: int = 8
+    seed: int = 0
+    device: str = "cuda"
+    first_chunk: Sequence[str] = ()
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def timed_stream(eng, reqs, sc):
+    """``generate_stream`` with host times: (streams, TTFT per request in
+    s, seconds of the decode phase, tokens emitted in it, total seconds).
+    The decode phase starts at the last request's first token."""
+    outs: List[List[int]] = [[] for _ in reqs]
+    first: List[Any] = [None] * len(reqs)
+    stamps = []
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    for rid, toks, _ in eng.generate_stream(reqs, sc):
+        now = time.perf_counter() - t0        # events follow a readback
+        if first[rid] is None:
+            first[rid] = now
+        outs[rid].extend(toks)
+        stamps.append((now, len(toks)))
+    total = time.perf_counter() - t0
+    t_dec0 = max(first)
+    return (outs, first, total - t_dec0,
+            sum(n for t, n in stamps if t > t_dec0), total)
+
+
+def first_chunk_logits(eng, reqs, sc, rows=None):
+    """Logits of the first prefill dispatch a stream of ``reqs`` makes
+    (every request on a slot, a fresh pool), as this rank of ``sc.mesh``
+    computes them: its rows (a block of the slots over "data") on its
+    shards of base, bank and kv heads, its vocabulary block.  ``rows``
+    (lo, hi): those rows alone, on one device, as a data rank computes
+    them.  Returns (logits (rows, T, V / model), n_new (rows,))."""
+    B = len(reqs)
+    span = max(len(r.prompt) + (sc.max_new_tokens if r.max_new_tokens is None
+                                else r.max_new_tokens) for r in reqs)
+    T = max(1, min(sc.prefill_chunk, span - 1))
+    per = blocks_needed(span, sc.block_size)
+    tp = None
+    if sc.mesh is not None:
+        data = mesh_shape(sc.mesh).get("data", 1)
+        d = mesh_coordinate(sc.mesh).get("data", 0)
+        rows = (d * B // data, (d + 1) * B // data)
+        tp = model_group(sc.mesh)
+    if rows is not None:
+        reqs = reqs[rows[0]:rows[1]]
+    b = len(reqs)
+    kv = PagedKVCache(b, sc.block_size, 1 + b * per, per)
+    tokens = np.zeros((b, T), np.int32)
+    n_new = np.zeros((b,), np.int32)
+    for i, r in enumerate(reqs):
+        kv.admit(i)
+        n_new[i] = min(T, len(r.prompt))
+        kv.ensure(i, int(n_new[i]))
+        tokens[i, :n_new[i]] = np.asarray(r.prompt[:n_new[i]])
+    dev = eng.device
+    bt, lens = kv.device_tables(dev)
+    ids = to_device(np.asarray([eng.registry.acquire(r.client_id)
+                                for r in reqs], np.int32), dev)
+    cache = eng.model.init_paged_decode_cache(
+        1 + b * per, sc.block_size, kv_dtype=sc.kv_dtype, num_slots=b, tp=tp)
+    logits, _ = eng.model.prefill_step(
+        eng.params_for(sc), cache, to_device(tokens, dev), lens,
+        to_device(n_new, dev), adapters=eng.bank_for(sc),
+        lora_scale=eng.scale, adapter_ids=ids, block_tables=bt,
+        paged_backend=sc.paged_backend, tp=tp)
+    return logits, torch.from_numpy(n_new)
+
+
+def serve_runs(eng, job: ServeJob) -> Dict[str, Dict]:
+    """``job``'s runs on ``eng`` in this process, each after a short
+    warm-up on its mesh's first use (cuBLAS handles, the allocator, the
+    kernels' first launches, the collectives' groups): per run its
+    streams, TTFT, decode seconds and tokens, stats, collectives, kernel
+    launches and tiles, peak memory and, where asked, its first chunk's
+    logits (:func:`first_chunk_logits`)."""
+    from repro_torch import kernels
+    from repro_torch.launch import mesh as mesh_lib
+    dev = eng.device
+    meshes: Dict[tuple, Any] = {}
+    out = {}
+    for i, (name, shape, kw) in enumerate(job.runs):
+        mesh = None
+        if shape is not None:
+            fresh = shape not in meshes
+            if fresh:
+                meshes[shape] = mesh_lib.make_mesh(*shape, device=dev)
+            mesh = meshes[shape]
+        else:
+            fresh = "none" not in meshes
+            meshes["none"] = None
+        sc = ServeConfig(mesh=mesh, **kw)
+        if eng.params is not None and all(
+                s is not None and s[2] > 1 for _, s, _ in job.runs[i:]):
+            eng.params_for(sc)             # the shard, then the base goes
+            eng.params = None
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if fresh:
+            warm = ragged_requests(sc.num_shards * 2, job.tenants,
+                                   job.cfg.vocab_size, 8, 16, job.seed + 1)
+            eng.generate(warm, dataclasses.replace(
+                sc, batch_size=len(warm), max_new_tokens=2, prefill_chunk=8,
+                prefix_cache=False, spec_decode=False, num_blocks=None))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        mesh_lib.reset_collectives()
+        streams, ttft, dec_s, dec_tok, total = timed_stream(
+            eng, job.requests, sc)
+        res = {"mesh": shape, "streams": streams, "ttft_s": ttft,
+               "decode_s": dec_s, "decode_tokens": dec_tok,
+               "total_s": total, "stats": eng.last_stats,
+               "collectives": [dataclasses.asdict(c)
+                               for c in mesh_lib.collectives()],
+               "launches": kernels.launch_counts(),
+               "tiles": kernels.tile_counts(),
+               "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else 0),
+               "coord": {} if mesh is None else mesh_coordinate(mesh)}
+        if name in job.first_chunk:
+            with torch.no_grad():
+                res["first_chunk"] = first_chunk_logits(eng, job.requests,
+                                                        sc)
+        out[name] = res
+    return out
+
+
+def mesh_serve(job: ServeJob) -> Dict[str, Dict]:
+    """The rank program of :class:`ServeJob` (``launch/mesh.spawn``
+    runs it on every rank; at world size 1 in the caller's process):
+    build the engine from ``job.seed`` and :func:`serve_runs`."""
+    eng = build_engine(job.cfg, job.tenants, job.device, job.seed)
+    out = serve_runs(eng, job)
+    del eng
+    gc.collect()
+    if torch.device(job.device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def stream_with_updates(eng, reqs, sc, args, ranks):

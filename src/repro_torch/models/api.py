@@ -54,9 +54,7 @@ class Model:
         adapters this rank's shards, the logits its vocabulary block."""
         cfg = self.cfg
         if cfg.is_encdec:
-            if tp is not None:
-                raise ValueError("the encoder-decoder over the \"model\" "
-                                 "axis is not ported")
+            _no_model_axis(tp)
             if adapter_ids is not None:
                 raise NotImplementedError("multi-tenant banked adapters are "
                                           "decoder-family only")
@@ -70,11 +68,15 @@ class Model:
                            paged_backend=paged_backend, extra_embeds=extra,
                            tp=tp)
 
-    def init_decode_cache(self, batch: int, cache_len: int) -> Params:
+    def init_decode_cache(self, batch: int, cache_len: int,
+                          tp=None) -> Params:
+        """The fixed path's cache; ``tp``: the rank's kv heads."""
         if self.cfg.is_encdec:
+            _no_model_axis(tp)
             return encdec.init_decode_cache(self.cfg, batch, cache_len,
                                             self.device)
-        return dec.init_decode_cache(self.cfg, batch, cache_len, self.device)
+        return dec.init_decode_cache(self.cfg, batch, cache_len, self.device,
+                                     tp=tp)
 
     def decode_cache_specs(self) -> Params:
         if self.cfg.is_encdec:
@@ -83,14 +85,16 @@ class Model:
 
     def init_paged_decode_cache(self, num_blocks: int, block_size: int,
                                 kv_dtype: str = "f32",
-                                num_slots: Optional[int] = None) -> Params:
+                                num_slots: Optional[int] = None,
+                                tp=None) -> Params:
         """K/V pools of ``num_blocks`` blocks; a model with mamba layers
-        also needs ``num_slots``, its rows of recurrent state."""
+        also needs ``num_slots``, its rows of recurrent state.  ``tp``:
+        the pools hold the rank's kv heads."""
         if self.cfg.is_encdec:
             raise NotImplementedError("paged decoding is decoder-family only")
         return dec.init_paged_decode_cache(self.cfg, num_blocks, block_size,
                                            self.device, kv_dtype=kv_dtype,
-                                           num_slots=num_slots)
+                                           num_slots=num_slots, tp=tp)
 
     def paged_decode_cache_specs(self, kv_dtype: str = "f32") -> Params:
         if self.cfg.is_encdec:
@@ -102,21 +106,22 @@ class Model:
                      lora_scale: float = 1.0,
                      adapter_ids: Optional[torch.Tensor] = None,
                      block_tables: Optional[torch.Tensor] = None,
-                     paged_backend: Optional[str] = None):
-        """Chunked paged prefill; returns (logits (B, T, V), cache)."""
+                     paged_backend: Optional[str] = None, tp=None):
+        """Chunked paged prefill; returns (logits (B, T, V), cache).
+        ``tp``: this rank's shards, its block of the vocabulary."""
         if self.cfg.is_encdec:
             raise NotImplementedError("paged prefill is decoder-family only")
         return dec.prefill_step(params, cache, tokens, pos, n_new, self.cfg,
                                 adapters, lora_scale, adapter_ids=adapter_ids,
                                 block_tables=block_tables,
-                                paged_backend=paged_backend)
+                                paged_backend=paged_backend, tp=tp)
 
     def verify_step(self, params: Params, cache: Params, tokens, pos, n_new,
                     adapters: Optional[Params] = None,
                     lora_scale: float = 1.0,
                     adapter_ids: Optional[torch.Tensor] = None,
                     block_tables: Optional[torch.Tensor] = None,
-                    paged_backend: Optional[str] = None):
+                    paged_backend: Optional[str] = None, tp=None):
         """Speculative verification: the same dataflow as
         :meth:`prefill_step`, whose logits the caller reads at every chunk
         position."""
@@ -124,18 +129,20 @@ class Model:
                                  adapters=adapters, lora_scale=lora_scale,
                                  adapter_ids=adapter_ids,
                                  block_tables=block_tables,
-                                 paged_backend=paged_backend)
+                                 paged_backend=paged_backend, tp=tp)
 
     def decode_step(self, params: Params, cache: Params, tokens, pos,
                     adapters: Optional[Params] = None, lora_scale: float = 1.0,
                     adapter_ids: Optional[torch.Tensor] = None,
                     block_tables: Optional[torch.Tensor] = None,
-                    paged_backend: Optional[str] = None):
+                    paged_backend: Optional[str] = None, tp=None):
         """One decode step, paged (``block_tables``, per-row ``pos``) or
         contiguous (int ``pos``); returns (logits (B, 1, V), cache).  The
         encoder-decoder steps its contiguous cache only, its cross K/V
-        filled by ``encdec.prefill_cross``."""
+        filled by ``encdec.prefill_cross``.  ``tp``: this rank's shards
+        (dense configs), the logits its block of the vocabulary."""
         if self.cfg.is_encdec:
+            _no_model_axis(tp)
             if adapter_ids is not None or block_tables is not None:
                 raise NotImplementedError("multi-tenant banked adapters and "
                                           "paged decoding are decoder-family "
@@ -146,7 +153,13 @@ class Model:
         return dec.decode_step(params, cache, tokens, pos, self.cfg, adapters,
                                lora_scale, adapter_ids=adapter_ids,
                                block_tables=block_tables,
-                               paged_backend=paged_backend)
+                               paged_backend=paged_backend, tp=tp)
+
+
+def _no_model_axis(tp) -> None:
+    if tp is not None:
+        raise ValueError("the encoder-decoder over the \"model\" axis is "
+                         "not ported")
 
 
 def get_model(cfg, device="cuda") -> Model:

@@ -237,8 +237,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
     return out.to(out_dtype).reshape(B, Sq, H * hd)
 
 
-def _paged_attention_cuda(params, q, k, v, x, cfg, kv_cache, block_tables,
-                          lengths, n_new, dn, la):
+def _paged_attention_cuda(q, k, v, x, cfg, kv_cache, block_tables,
+                          lengths, n_new, out_proj):
     """The paged branch through the CUDA kernels: decode steps (2-tuple
     ``paged``, S == 1) scatter then attend with exclusive ``lengths + 1``;
     prefill chunks go through ``paged_prefill_gqa_attention``, which owns
@@ -265,8 +265,7 @@ def _paged_attention_cuda(params, q, k, v, x, cfg, kv_cache, block_tables,
         o, *_ = kernel_ops.paged_prefill_gqa_attention(
             q, k, v, kp, vp, block_tables, lengths, nn, k_scale=ks,
             v_scale=vs, sliding_window=cfg.sliding_window)
-    out = dn(o.to(x.dtype).reshape(B, S, H * hd), params["wo"], la("wo"))
-    return out, kv_cache
+    return out_proj(o.to(x.dtype).reshape(B, S, H * hd)), kv_cache
 
 
 def multihead_attention(params: Params, x: torch.Tensor, cfg,
@@ -305,17 +304,16 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
       tails go to scratch block 0) and query t attends ``[0, lengths[b] +
       t]``.  The pools are updated in place.
 
-    With ``tp`` (no cache: serving over the model axis is not ported) the
-    params and adapters are this rank's shards: its ``n_heads / size``
-    query and ``n_kv_heads / size`` kv heads, and ``wo``'s partial summed
-    over the group.
+    With ``tp`` the params and adapters are this rank's shards: its
+    ``n_heads / size`` query and ``n_kv_heads / size`` kv heads, and
+    ``wo``'s partial summed over the group.  A cache then holds the
+    rank's kv heads only (``kv_cache_specs``, ``paged_kv_cache_specs``:
+    heads on "model"; an int8 pool's scales on the same heads), and every
+    branch attends them with the rank's query heads.
 
     Returns (out (B, S, d), new cache or None)."""
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     if tp is not None:
-        if kv_cache is not None:
-            raise NotImplementedError("serving over the \"model\" axis "
-                                      "is not ported")
         H, Kv = H // tp.size, Kv // tp.size
     B, S, _ = x.shape
     backend = cfg.paged_backend
@@ -325,6 +323,11 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
 
     def dn(inp, w, lora):
         return dense(inp, w, lora, lora_scale, adapter_ids, backend)
+
+    def out_proj(o):
+        """``wo`` (row-parallel under ``tp``: the partials summed)."""
+        out = dn(o, params["wo"], la("wo"))
+        return out if tp is None else reduce_from_group(out, tp)
 
     q = dn(x, params["wq"], la("wq")).reshape(B, S, H, hd)
     if kv_override is None:
@@ -350,19 +353,18 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
             mask = (_attn_mask(positions, positions, cfg.sliding_window)
                     if causal else None)
             out = _sdpa(q, k, v, cfg, mask, x.dtype)
-        out = dn(out, params["wo"], la("wo"))
-        return (out if tp is None else reduce_from_group(out, tp)), None
+        return out_proj(out), None
 
     if paged is None:
-        return _ring_attention(params, q, k, v, x, cfg, kv_cache, positions,
-                               dn, la)
+        return _ring_attention(q, k, v, x, cfg, kv_cache, positions,
+                               out_proj)
     if len(paged) == 3:
         block_tables, lengths, n_new = paged
     else:
         (block_tables, lengths), n_new = paged, None
     if backend == "cuda":
-        return _paged_attention_cuda(params, q, k, v, x, cfg, kv_cache,
-                                     block_tables, lengths, n_new, dn, la)
+        return _paged_attention_cuda(q, k, v, x, cfg, kv_cache,
+                                     block_tables, lengths, n_new, out_proj)
     kp, vp = kv_cache["k_pool"], kv_cache["v_pool"]
     bs_blk = kp.shape[1]
     pos = (lengths.long()[:, None]
@@ -391,10 +393,10 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
                   x.dtype)
             for t in range(S)]
     out = outs[0] if S == 1 else torch.cat(outs, dim=1)
-    return dn(out, params["wo"], la("wo")), kv_cache
+    return out_proj(out), kv_cache
 
 
-def _ring_attention(params, q, k, v, x, cfg, kv_cache, positions, dn, la):
+def _ring_attention(q, k, v, x, cfg, kv_cache, positions, out_proj):
     """Attention over the contiguous ring-buffer cache: write the S new
     K/V at slots ``(pos + t) % S_cache``, then attend every slot whose
     recovered absolute position is causal (and inside the window) for the
@@ -414,7 +416,7 @@ def _ring_attention(params, q, k, v, x, cfg, kv_cache, positions, dn, la):
     mask = (_attn_mask(positions, k_pos, cfg.sliding_window)
             & (k_pos >= 0)[None, :])
     out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), cfg, mask, x.dtype)
-    return dn(out, params["wo"], la("wo")), {"k": ck, "v": cv, "pos": n}
+    return out_proj(out), {"k": ck, "v": cv, "pos": n}
 
 
 def norm_specs(norm_type: str) -> Params:
@@ -461,20 +463,28 @@ def paged_kv_cache_specs(kv_dtype: str = "f32") -> Params:
     return specs
 
 
-def init_kv_cache(cfg, batch: int, cache_len: int, dtype, device) -> Params:
-    """One layer's contiguous decode cache (the fixed-batch path)."""
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+def _kv_heads(cfg, tp) -> int:
+    return cfg.n_kv_heads if tp is None else cfg.n_kv_heads // tp.size
+
+
+def init_kv_cache(cfg, batch: int, cache_len: int, dtype, device,
+                  tp=None) -> Params:
+    """One layer's contiguous decode cache (the fixed-batch path); with
+    ``tp`` the rank's ``n_kv_heads / size`` kv heads."""
+    shape = (batch, cache_len, _kv_heads(cfg, tp), cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
 
 
 def init_paged_kv_cache(cfg, num_blocks: int, block_size: int, dtype,
-                        device, kv_dtype: str = "f32") -> Params:
+                        device, kv_dtype: str = "f32", tp=None) -> Params:
     """One K/V pool per layer, shared by every serving slot.  ``"int8"``
     stores the pools as int8 with one fp32 scale per (block, position,
     kv-head) in ``k_scale``/``v_scale`` (NB, bs, Kv) leaves; ``"f32"`` keeps
-    unquantized pools in ``dtype``."""
-    shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    unquantized pools in ``dtype``.  With ``tp`` the pools (and scales)
+    hold the rank's ``n_kv_heads / size`` kv heads."""
+    shape = (num_blocks, block_size, _kv_heads(cfg, tp),
+             cfg.resolved_head_dim)
     if kv_dtype == "int8":
         return {"k_pool": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v_pool": torch.zeros(shape, dtype=torch.int8, device=device),

@@ -260,17 +260,19 @@ def _is_mamba(cfg, i: int) -> bool:
 
 
 def init_decode_cache(cfg, batch: int, cache_len: int,
-                      device="cuda") -> Params:
+                      device="cuda", tp=None) -> Params:
     """Fixed-path cache, on the card unless the caller asks for the CPU:
     per attention layer one bf16 ring buffer ``cache_len`` long (the full
     context for dense attention; the window for sliding-window archs,
-    where it wraps), per mamba layer ``batch`` rows of recurrent state."""
+    where it wraps), per mamba layer ``batch`` rows of recurrent state.
+    With ``tp`` the ring buffers hold the rank's kv heads
+    (``decode_cache_specs``)."""
     dev = resolve_device(device)
     eff = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
            else cache_len)
     return {"layers": [
         mamba2.init_ssm_cache(cfg, batch, dev) if _is_mamba(cfg, i)
-        else L.init_kv_cache(cfg, batch, eff, torch.bfloat16, dev)
+        else L.init_kv_cache(cfg, batch, eff, torch.bfloat16, dev, tp=tp)
         for i in range(cfg.n_layers)]}
 
 
@@ -289,14 +291,16 @@ def paged_decode_cache_specs(cfg, kv_dtype: str = "f32") -> Params:
 
 def init_paged_decode_cache(cfg, num_blocks: int, block_size: int,
                             device="cuda", kv_dtype: str = "f32",
-                            num_slots: Optional[int] = None) -> Params:
+                            num_slots: Optional[int] = None,
+                            tp=None) -> Params:
     """Serving cache, on the card unless the caller asks for the CPU: per
     attention layer one K/V block pool shared by every slot (bf16 even
     when the model computes in fp32, as in the reference; int8 with
     ``kv_dtype="int8"``), per mamba layer a row of recurrent state for
     each of ``num_slots`` slots (required when the model has mamba
     layers; row i is slot i, reset on admission by
-    ``serving/kv_cache.reset_slot``)."""
+    ``serving/kv_cache.reset_slot``).  With ``tp`` the pools (and an int8
+    pool's scales) hold the rank's kv heads (``paged_decode_cache_specs``)."""
     dev = resolve_device(device)
     if num_slots is None and cfg.has_mixer("mamba"):
         raise ValueError(f"{cfg.name}: a model with mamba layers keeps "
@@ -304,24 +308,27 @@ def init_paged_decode_cache(cfg, num_blocks: int, block_size: int,
     return {"layers": [
         mamba2.init_ssm_cache(cfg, num_slots, dev) if _is_mamba(cfg, i)
         else L.init_paged_kv_cache(cfg, num_blocks, block_size,
-                                   torch.bfloat16, dev, kv_dtype=kv_dtype)
+                                   torch.bfloat16, dev, kv_dtype=kv_dtype,
+                                   tp=tp)
         for i in range(cfg.n_layers)]}
 
 
 def _cached_scan(params, cache, tokens, positions, cfg, adapters, lora_scale,
-                 adapter_ids, paged, n_new=None) -> Tuple[torch.Tensor, Params]:
+                 adapter_ids, paged, n_new=None, tp=None
+                 ) -> Tuple[torch.Tensor, Params]:
     """Embed, every layer against its cache, final norm, unembed (the MoE
-    aux loss is dropped, as in the reference)."""
-    x = _embed(params, tokens, cfg)
+    aux loss is dropped, as in the reference).  With ``tp`` the logits are
+    the rank's block of the vocabulary."""
+    x = _embed(params, tokens, cfg, tp)
     new_layers = []
     for i, lp in enumerate(params["layers"]):
         x, nc, _ = _apply_layer(i, lp, x, cfg, positions,
                                 _layer_adapters(adapters, i), lora_scale,
                                 cache=cache["layers"][i],
                                 adapter_ids=adapter_ids, paged=paged,
-                                n_new=n_new)
+                                n_new=n_new, tp=tp)
         new_layers.append(nc)
-    return _unembed(params, x, cfg), {"layers": new_layers}
+    return _unembed(params, x, cfg, tp), {"layers": new_layers}
 
 
 def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
@@ -329,23 +336,25 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
                 lora_scale: float = 1.0,
                 adapter_ids: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                paged_backend: Optional[str] = None
+                paged_backend: Optional[str] = None, tp=None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step, tokens (B, 1).  Paged (continuous batching): pass
     ``block_tables`` (B, MB) and per-row context lengths ``pos`` (B,) over
     a cache from :func:`init_paged_decode_cache`.  Contiguous (the fixed
     path): ``block_tables`` None, ``pos`` an int, the tokens already in a
     cache from :func:`init_decode_cache`.  Returns (logits (B, 1, V),
-    cache)."""
+    cache).  ``tp`` (``models/tensor_parallel.ModelGroup``; dense
+    configs): params, adapters and cache are this rank's shards, the
+    logits (B, 1, V / size) its block of the vocabulary."""
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
     if block_tables is None:
         positions = torch.full((1,), int(pos), device=tokens.device)
         return _cached_scan(params, cache, tokens, positions, cfg, adapters,
-                            lora_scale, adapter_ids, paged=None)
+                            lora_scale, adapter_ids, paged=None, tp=tp)
     pos = pos.to(torch.int32)
     return _cached_scan(params, cache, tokens, pos[:, None].long(), cfg,
                         adapters, lora_scale, adapter_ids,
-                        paged=(block_tables, pos))
+                        paged=(block_tables, pos), tp=tp)
 
 
 def prefill_step(params: Params, cache: Params, tokens: torch.Tensor,
@@ -353,12 +362,12 @@ def prefill_step(params: Params, cache: Params, tokens: torch.Tensor,
                  adapters: Optional[Params] = None, lora_scale: float = 1.0,
                  adapter_ids: Optional[torch.Tensor] = None,
                  block_tables: Optional[torch.Tensor] = None,
-                 paged_backend: Optional[str] = None
+                 paged_backend: Optional[str] = None, tp=None
                  ) -> Tuple[torch.Tensor, Params]:
     """Chunked paged prefill: tokens (B, T), ``n_new[b]`` valid per row,
     written at positions ``pos[b] .. pos[b] + n_new[b] - 1`` (a mamba
     layer steps each row's state through its valid tokens only).  Returns
-    (logits (B, T, V), cache)."""
+    (logits (B, T, V), cache); with ``tp`` as :func:`decode_step`."""
     if block_tables is None:
         raise ValueError("prefill_step requires block_tables (paged cache)")
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
@@ -369,5 +378,6 @@ def prefill_step(params: Params, cache: Params, tokens: torch.Tensor,
                  + torch.arange(T, device=tokens.device)[None, :])
     return _cached_scan(params, cache, tokens, positions, cfg, adapters,
                         lora_scale, adapter_ids,
-                        paged=(block_tables, pos, n_new), n_new=n_new)
+                        paged=(block_tables, pos, n_new), n_new=n_new,
+                        tp=tp)
 

@@ -187,3 +187,26 @@ def vocab_parallel_argmax(logits: torch.Tensor, gmax: torch.Tensor,
     cand = torch.where(top == gmax, idx + tp.rank * V,
                        torch.full_like(idx, tp.size * V))
     return tp.reduce(cand, "min")
+
+
+def vocab_parallel_greedy(logits: torch.Tensor,
+                          tp: ModelGroup) -> torch.Tensor:
+    """The global argmax of fp32 logits (..., V / size) split over the
+    group, in one "sum" reduce: each rank writes its block's top logit and
+    that logit's global index into its row of a zeroed (size, ..., 2)
+    buffer (an all-gather, exact since the other ranks add zeros; an
+    index below 2^24 is exact in fp32), then every rank picks the first
+    row holding the largest top, so ties go to the lowest global index,
+    as ``torch.argmax`` breaks them over the whole vocabulary.  Returns
+    int64 indices of ``logits.shape[:-1]``."""
+    V = logits.shape[-1]
+    idx = torch.argmax(logits, -1)
+    top = torch.gather(logits, -1, idx[..., None])[..., 0]
+    buf = torch.zeros((tp.size, *top.shape, 2), dtype=torch.float32,
+                      device=logits.device)
+    if not logits.is_meta:
+        buf[tp.rank, ..., 0] = top
+        buf[tp.rank, ..., 1] = (idx + tp.rank * V).float()
+    buf = tp.reduce(buf, "sum")
+    best = torch.argmax(buf[..., 0], 0)
+    return torch.gather(buf[..., 1], 0, best[None])[0].long()

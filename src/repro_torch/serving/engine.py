@@ -38,6 +38,22 @@ attention-only model, as in the reference), overlapped dispatch
 (``num_shards``: the pool, the slots and, with a
 :class:`~repro_torch.serving.sharded.ShardedAdapterRegistry`, the bank
 split into placement domains, still one dispatch per round).
+
+``ServeConfig.mesh`` (a ``("pod", "data", "model")`` ``DeviceMesh`` from
+``launch/mesh.make_mesh``; dense configs) serves one stream on every rank
+of the mesh, each rank's process running this same code: every rank
+plans every slot (scheduler, pool, prefix index, drafts), and dispatches
+its part.  Slots lie on "data" (rank r of D serves its shard-contiguous
+block of slots, with a device pool of scratch block 0 and its shards'
+blocks), heads, ff columns and the vocabulary on "model" (each rank
+holds its shard of the base, of the bank and of the pools' kv heads;
+``models/tensor_parallel.py``), and "pod" replicates, as the reference's
+``P("data")`` on the fused batch does.  Every rank samples the same
+tokens: greedy through the vocabulary-parallel argmax, sampling from the
+rows' whole logits and the meshless stream's (K, V) draws; one all-gather
+over "data" then gives each rank the whole batch's tokens, so the host
+planning stays identical on every rank and the streams are the meshless
+ones (bitwise where the ranks' products round as one card's do).
 """
 from __future__ import annotations
 
@@ -48,10 +64,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.lora import lora_scale
-from repro_torch.models.model import resolve_backend
+from repro_torch.core.partition import mesh_coordinate, mesh_shape
+from repro_torch.federated.distributed import local_shard
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import tensor_parallel as tpl
+from repro_torch.models.model import param_specs, resolve_backend
 from repro_torch.serving.kv_cache import (PagedKVCache, blocks_needed,
                                           reset_slot, to_device)
-from repro_torch.serving.registry import AdapterRegistry
+from repro_torch.serving.registry import AdapterRegistry, model_shard
 from repro_torch.serving.scheduler import PRIORITY_CLASSES, Scheduler
 from repro_torch.serving.sharded import ShardedPagedKVCache, ShardedScheduler
 
@@ -101,6 +121,13 @@ class ServeConfig:
     #                                  placement-aware admission, one fused
     #                                  dispatch per round; streams equal the
     #                                  single pool's, bitwise
+    mesh: Any = None                 # a ("pod", "data", "model")
+    #                                  DeviceMesh (launch/mesh.make_mesh):
+    #                                  slots over "data" (num_shards a
+    #                                  multiple of its size), heads, ff
+    #                                  columns and vocabulary over "model",
+    #                                  "pod" replicated; every rank runs the
+    #                                  same stream.  None: one device
 
 
 @dataclasses.dataclass
@@ -135,6 +162,102 @@ def _check_supported(sc: ServeConfig) -> None:
         raise ValueError(
             f"batch_size {sc.batch_size} not divisible by {sc.num_shards} "
             f"shards (slots split evenly)")
+    data = 1 if sc.mesh is None else mesh_shape(sc.mesh).get("data", 1)
+    if sc.num_shards % data:
+        raise ValueError(
+            f"num_shards {sc.num_shards} is not a multiple of the mesh's "
+            f"\"data\" axis {data}: each data rank serves whole shards")
+
+
+def check_serve_mesh(cfg, mesh) -> None:
+    """Refuse, naming why, a config ``ServeConfig.mesh`` cannot serve:
+    at "model" > 1 anything but the dense family
+    (``tensor_parallel.check_model_axis``: experts, mamba layers, the
+    VLM, the encoder-decoder, or a split dim that does not divide); at
+    "data" > 1 expert layers, whose capacity counts the whole fused
+    batch's tokens, and mamba layers, whose per-slot state is not split
+    over data ranks."""
+    sizes = mesh_shape(mesh)
+    tpl.check_model_axis(cfg, sizes.get("model", 1))
+    if sizes.get("data", 1) > 1:
+        if cfg.has_moe():
+            raise ValueError(
+                f"{cfg.name}: not served over a \"data\" axis > 1: an "
+                "expert's capacity counts the whole fused batch's tokens, "
+                "which a data rank's rows do not hold")
+        if cfg.has_mixer("mamba"):
+            raise ValueError(
+                f"{cfg.name}: not served over a \"data\" axis > 1: mamba "
+                "layers' per-slot recurrent state is not split over data "
+                "ranks")
+
+
+class _MeshRank:
+    """One rank's part of a stream over ``ServeConfig.mesh``: its rows
+    (slots ``[lo, hi)``, shard-contiguous), its shards of the pool and its
+    device pool's size, its model group, and the sampling every rank
+    agrees on."""
+
+    def __init__(self, mesh, num_slots: int, num_blocks: int,
+                 num_shards: int):
+        sizes, coord = mesh_shape(mesh), mesh_coordinate(mesh)
+        self.mesh = mesh
+        self.data = sizes.get("data", 1)
+        d = coord.get("data", 0)
+        self.num_slots = num_slots
+        rows = num_slots // self.data
+        self.lo, self.hi = d * rows, (d + 1) * rows
+        per = num_shards // self.data
+        self.shards = range(d * per, (d + 1) * per)
+        self.num_blocks = 1 + per * ((num_blocks - 1) // num_shards)
+        self.tp = mesh_lib.model_group(mesh)
+        self.key = (tuple(sizes.items()), tuple(coord.items()))
+        self.params = None            # the engine's params_for(mesh)
+
+    def rows(self, arr):
+        """This rank's rows of a per-slot host array."""
+        return arr[self.lo:self.hi]
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ``t`` (its leading dim), in slot
+        order: one all-gather over "data"."""
+        if self.data == 1:
+            return t
+        g = mesh_lib.all_gather(t, self.mesh, "data")
+        return g.reshape(-1, *t.shape[1:])
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """int32 argmax of this rank's rows' logits (..., V / size)."""
+        if self.tp is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return tpl.vocab_parallel_greedy(logits, self.tp).to(torch.int32)
+
+    def sample(self, logits: torch.Tensor, gen: torch.Generator,
+               temperature: float) -> torch.Tensor:
+        """(K_rank, V / size) fp32 logits -> every slot's (K,) int32
+        sample, the same on every rank and the meshless stream's: greedy
+        as :meth:`greedy`; else the rows' whole logits (gathered over
+        "model") and their rows of the meshless (K, V) Exp(1) draws
+        (every rank draws them all, so the generators stay in step)."""
+        if temperature <= 0:
+            return self.gather(self.greedy(logits))
+        if self.tp is not None:
+            g = mesh_lib.all_gather(logits.contiguous(), self.mesh, "model")
+            logits = g.permute(1, 0, 2).reshape(logits.shape[0], -1)
+        probs = torch.softmax(logits / max(temperature, 1e-6), dim=-1)
+        noise = torch.empty((self.num_slots, probs.shape[-1]),
+                            dtype=probs.dtype,
+                            device=probs.device).exponential_(1,
+                                                              generator=gen)
+        tok = torch.argmax(probs / noise[self.lo:self.hi], dim=-1)
+        return self.gather(tok.to(torch.int32))
+
+
+def _no_fixed_mesh(sc: ServeConfig) -> None:
+    if sc.mesh is not None:
+        raise ValueError("the fixed-batch path (Engine.generate, "
+                         "generate_fixed) over ServeConfig.mesh is not "
+                         "ported; generate and generate_stream serve there")
 
 
 class _EngineBase:
@@ -231,6 +354,7 @@ class Engine(_EngineBase):
 
     def generate(self, prompts, sc: ServeConfig) -> torch.Tensor:
         """prompts (B, S) int32 -> (B, max_new_tokens) int32."""
+        _no_fixed_mesh(sc)
         return self._run(self.params, self.adapters, None, prompts, sc)
 
 
@@ -249,21 +373,28 @@ class MultiTenantEngine(_EngineBase):
         # match blocks sealed by this one (the device pools stay resident
         # until release_prefix_cache or a stream of another geometry)
         self._warm: Optional[Tuple[tuple, PagedKVCache, Any]] = None
+        # a model rank's shards of the base (per mesh) and of the bank
+        # (per mesh, bank epoch and layout), taken once each
+        self._params_shard: Optional[Tuple[tuple, Params]] = None
+        self._bank_shard: Optional[Tuple[tuple, Params]] = None
 
     def release_prefix_cache(self) -> None:
         """Drop the warm prefix-cache pool (host allocator and device K/V);
         the next ``prefix_cache=True`` stream starts cold."""
         self._warm = None
 
-    def _paged_pool(self, key: tuple, sc: ServeConfig
+    def _paged_pool(self, key: tuple, sc: ServeConfig,
+                    rk: Optional[_MeshRank] = None
                     ) -> Tuple[Any, Any, bool]:
         """(host allocator, device cache, reused) for one stream of pool
         geometry ``key`` = (slots, block size, blocks, table width, shards,
-        kv_dtype).  With ``sc.prefix_cache`` the pair kept by the last
-        drained stream is reused when its key matches (the shard count
-        included: a single pool's tables are not a sharded pool's) and it
-        is idle; otherwise the stream starts cold."""
-        num_slots, _, num_blocks, blocks_per, num_shards, _ = key
+        kv_dtype, mesh rank).  With ``sc.prefix_cache`` the pair kept by
+        the last drained stream is reused when its key matches (the shard
+        count included: a single pool's tables are not a sharded pool's)
+        and it is idle; otherwise the stream starts cold.  Over a mesh the
+        device cache is the rank's: its shards' blocks, its slots' state
+        and its kv heads."""
+        num_slots, _, num_blocks, blocks_per, num_shards = key[:5]
         if sc.prefix_cache:
             warm, self._warm = self._warm, None   # taken; restored at drain
             if warm is not None and warm[0] == key and warm[1].idle:
@@ -276,9 +407,11 @@ class MultiTenantEngine(_EngineBase):
         else:
             kv = PagedKVCache(num_slots, sc.block_size, num_blocks,
                               blocks_per, prefix_cache=sc.prefix_cache)
+        if rk is not None:
+            num_blocks, num_slots = rk.num_blocks, rk.hi - rk.lo
         cache = self.model.init_paged_decode_cache(
             num_blocks, sc.block_size, kv_dtype=sc.kv_dtype,
-            num_slots=num_slots)
+            num_slots=num_slots, tp=None if rk is None else rk.tp)
         if sc.prefix_cache or sc.spec_decode:
             # recurrent SSM state is per slot and dense: it cannot be
             # rebuilt from cached K/V blocks (a prefix hit would skip state
@@ -299,55 +432,98 @@ class MultiTenantEngine(_EngineBase):
         """The registry's bank in the layout the stream's backend reads:
         the kernel view on ``"cuda"`` (ragged buckets, or a sharded
         registry's global order, concatenated once per bank epoch), the
-        per-bucket lists on ``"torch"``."""
+        per-bucket lists on ``"torch"``.  Over a mesh whose "model" axis
+        is > 1: this rank's shard of it (``registry.model_shard``), taken
+        once per bank epoch."""
         backend = resolve_backend(self.cfg, sc.paged_backend,
                                   self.device).paged_backend
-        return (self.registry.kernel_bank() if backend == "cuda"
+        bank = (self.registry.kernel_bank() if backend == "cuda"
                 else self.registry.bank())
+        tp = None if sc.mesh is None else mesh_lib.model_group(sc.mesh)
+        if tp is None:
+            return bank
+        key = (self.registry.bank_epoch, backend, tp.size, tp.rank)
+        if self._bank_shard is None or self._bank_shard[0] != key:
+            self._bank_shard = None       # the old shard's memory first
+            self._bank_shard = (key, model_shard(bank, self.cfg, tp.size,
+                                                 tp.rank))
+        return self._bank_shard[1]
+
+    def params_for(self, sc: ServeConfig) -> Params:
+        """The base as the stream's ranks hold it: whole, or over a mesh
+        whose "model" axis is > 1 this rank's ``local_shard`` under
+        ``param_specs`` (taken once per mesh)."""
+        tp = None if sc.mesh is None else mesh_lib.model_group(sc.mesh)
+        if tp is None:
+            return self.params
+        key = (tp.size, tp.rank)
+        if self._params_shard is None or self._params_shard[0] != key:
+            self._params_shard = None
+            self._params_shard = (key, local_shard(
+                self.params, param_specs(self.cfg), sc.mesh))
+        return self._params_shard[1]
 
     # -- device steps --------------------------------------------------------
+    # Each takes its rows' inputs (a mesh rank's ``rk``: its slots, on its
+    # shards of base, bank and pools) and returns every slot's samples.
+
+    def _step_kw(self, bank, ids, block_tables, backend, rk):
+        return {"adapters": bank, "lora_scale": self.scale,
+                "adapter_ids": ids, "block_tables": block_tables,
+                "paged_backend": backend,
+                "tp": None if rk is None else rk.tp}
+
+    def _params(self, rk):
+        return self.params if rk is None else rk.params
+
+    def _sample_all(self, logits, gen, temperature, rk):
+        if rk is None:
+            return self._sample(logits, gen, temperature)
+        return rk.sample(logits, gen, temperature)
+
     def _prefill_chunk(self, bank, ids, cache, tokens, lengths, n_new,
-                       block_tables, gen, temperature, backend):
+                       block_tables, gen, temperature, backend, rk=None):
         """One chunked-prefill dispatch; samples each row at its LAST valid
         position.  Returns ((K,) sampled, cache, lengths + n_new): the
         lengths on the card, as the host pool's ``advance`` leaves them."""
         logits, cache = self.model.prefill_step(
-            self.params, cache, tokens, lengths, n_new, adapters=bank,
-            lora_scale=self.scale, adapter_ids=ids,
-            block_tables=block_tables, paged_backend=backend)
+            self._params(rk), cache, tokens, lengths, n_new,
+            **self._step_kw(bank, ids, block_tables, backend, rk))
         K, T, _ = logits.shape
         rows = torch.arange(K, device=logits.device)
         last = torch.clamp(n_new.long() - 1, 0, T - 1)
-        return (self._sample(logits[rows, last], gen, temperature), cache,
-                lengths + n_new)
+        return (self._sample_all(logits[rows, last], gen, temperature, rk),
+                cache, lengths + n_new)
 
     def _verify_chunk(self, bank, ids, cache, tokens, lengths, n_new,
-                      block_tables, backend):
+                      block_tables, backend, rk=None):
         """One draft-verify dispatch: the prefill dataflow, with the greedy
         sample read at EVERY chunk position.  Returns ((K, T) int32,
         cache)."""
         logits, cache = self.model.verify_step(
-            self.params, cache, tokens, lengths, n_new, adapters=bank,
-            lora_scale=self.scale, adapter_ids=ids,
-            block_tables=block_tables, paged_backend=backend)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+            self._params(rk), cache, tokens, lengths, n_new,
+            **self._step_kw(bank, ids, block_tables, backend, rk))
+        if rk is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32), cache
+        return rk.gather(rk.greedy(logits)), cache
 
     def _decode_chunk(self, bank, ids, cache, last, active, lengths,
-                      block_tables, n_steps, gen, temperature, backend):
+                      block_tables, n_steps, gen, temperature, backend,
+                      rk=None):
         """``n_steps`` decode steps, each slot feeding its last sample.
         Returns ((n_steps, K) sampled, cache, each slot's final length
         ``lengths + n_steps * active``, each slot's final sample): the last
-        two on the card, the feed of a next chunk that is dispatched before
-        this one is read back (garbage for inactive rows, whose writes sink
-        into scratch block 0)."""
+        two on the card (a mesh rank's rows), the feed of a next chunk that
+        is dispatched before this one is read back (garbage for inactive
+        rows, whose writes sink into scratch block 0)."""
         out = []
+        kw = self._step_kw(bank, ids, block_tables, backend, rk)
         for _ in range(n_steps):
             logits, cache = self.model.decode_step(
-                self.params, cache, last[:, None], lengths, adapters=bank,
-                lora_scale=self.scale, adapter_ids=ids,
-                block_tables=block_tables, paged_backend=backend)
-            last = self._sample(logits[:, 0], gen, temperature)
-            out.append(last)
+                self._params(rk), cache, last[:, None], lengths, **kw)
+            every = self._sample_all(logits[:, 0], gen, temperature, rk)
+            out.append(every)
+            last = every if rk is None else every[rk.lo:rk.hi]
             lengths = lengths + active
         return torch.stack(out), cache, lengths, last
 
@@ -390,6 +566,7 @@ class MultiTenantEngine(_EngineBase):
         registry's bank."""
         if not requests:
             raise ValueError("empty request batch")
+        _no_fixed_mesh(sc)
         ids = to_device(np.asarray([self.registry.acquire(r.client_id)
                                     for r in requests], np.int32),
                         self.device)
@@ -457,13 +634,28 @@ class StreamSession:
     :class:`~repro_torch.serving.sharded.ShardedPagedKVCache` and a
     :class:`~repro_torch.serving.sharded.ShardedScheduler` places each
     request on a shard; the rounds stay one dispatch each over all slots,
-    so streams equal the single pool's."""
+    so streams equal the single pool's.
+
+    With ``sc.mesh`` every rank runs the session: the host state is every
+    slot's on every rank, and each dispatch sends the rank's rows (its
+    tables with block ids local to its pool, lengths, ids, feeds) and
+    returns every slot's samples (``_MeshRank``).  An open-loop session is
+    refused there: ranks admitting by their own wall clocks would plan
+    different chunks."""
 
     def __init__(self, engine: MultiTenantEngine, sc: ServeConfig,
                  requests: Optional[Sequence[Request]] = None):
         _check_supported(sc)
         self.engine, self.sc = engine, sc
         self.open_loop = requests is None
+        if sc.mesh is not None:
+            check_serve_mesh(engine.cfg, sc.mesh)
+            if self.open_loop:
+                raise ValueError(
+                    "an open-loop StreamSession over ServeConfig.mesh is "
+                    "not ported: the ranks would admit by their own wall "
+                    "clocks and plan different chunks; serve closed batches "
+                    "(generate, generate_stream, session(sc, requests))")
         if self.open_loop:
             if sc.num_blocks is None:
                 raise ValueError(
@@ -504,10 +696,15 @@ class StreamSession:
                 f"{sc.num_shards} shards (set num_blocks = 1 + "
                 f"{sc.num_shards}*k)")
         dev = engine.device
+        self.rk: Optional[_MeshRank] = None
+        if sc.mesh is not None:
+            self.rk = _MeshRank(sc.mesh, num_slots, num_blocks, sc.num_shards)
+            self.rk.params = engine.params_for(sc)
         self._geom_key = (num_slots, sc.block_size, num_blocks, blocks_per,
-                          sc.num_shards, sc.kv_dtype)
+                          sc.num_shards, sc.kv_dtype,
+                          None if self.rk is None else self.rk.key)
         self.kv, self.cache, self._reused = engine._paged_pool(
-            self._geom_key, sc)
+            self._geom_key, sc, self.rk)
         self._evicted0 = self.kv.evicted_cached   # pool-lifetime counter
         spec_k = sc.spec_k if sc.spec_decode else 0
         if sc.num_shards > 1:
@@ -606,9 +803,13 @@ class StreamSession:
             # admission or planning may preempt a slot, whose replay
             # (prompt + emitted) must hold the deferred chunk's tokens
             flushed = self._flush_pending()
+        rk = self.rk
         for slot, cid in sched.admit():
             self.ids[slot] = eng.registry.acquire(cid)
-            self.cache = reset_slot(self.cache, slot)
+            if rk is None:
+                self.cache = reset_slot(self.cache, slot)
+            elif rk.lo <= slot < rk.hi:
+                self.cache = reset_slot(self.cache, slot - rk.lo)
             self._ids_dev = None
         plan = sched.prepare_chunk(self.T, self.cap)
         if plan is None:
@@ -616,23 +817,29 @@ class StreamSession:
                 raise RuntimeError("scheduler stalled with queued work")
             return flushed
         ver = self.kv.table_version
+        mine = self._mine
         if not sc.overlap or ver != self._tables_ver:
-            self._bt_dev, self._lens_dev = self.kv.device_tables(dev)
+            if rk is not None and rk.data > 1:
+                self._bt_dev, self._lens_dev = self.kv.device_tables(
+                    dev, rk.shards)
+            else:
+                self._bt_dev, self._lens_dev = self.kv.device_tables(dev)
             self._tables_ver, self._lens_ok = ver, True
             # a table move can change the active set or a slot's feed
             self._last_ok, self._act_dev = False, None
         elif not self._lens_ok:
-            self._lens_dev = to_device(self.kv.lengths, dev)
+            self._lens_dev = to_device(mine(self.kv.lengths), dev)
             self._lens_ok = True
         if self._ids_dev is None:
-            self._ids_dev = to_device(self.ids, dev)
+            self._ids_dev = to_device(mine(self.ids), dev)
         bt, lens, ids = self._bt_dev, self._lens_dev, self._ids_dev
         if plan[0] == "prefill":
             arrs = sched.prefill_arrays(self.T)
             sampled, self.cache, self._lens_dev = eng._prefill_chunk(
-                self.bank, ids, self.cache, to_device(arrs["tokens"], dev),
-                lens, to_device(arrs["n_new"], dev), bt, self.gen,
-                sc.temperature, sc.paged_backend)
+                self.bank, ids, self.cache,
+                to_device(mine(arrs["tokens"]), dev), lens,
+                to_device(mine(arrs["n_new"]), dev), bt, self.gen,
+                sc.temperature, sc.paged_backend, rk)
             self._last_ok = False         # completing prompts seed the feed
             # a chunk that emits no token is never read back
             # (observe_prefill reads samples of emitting rows only)
@@ -643,8 +850,10 @@ class StreamSession:
         if plan[0] == "verify":
             arrs = sched.verify_arrays(self.Tv)
             greedy, self.cache = eng._verify_chunk(
-                self.bank, ids, self.cache, to_device(arrs["tokens"], dev),
-                lens, to_device(arrs["n_new"], dev), bt, sc.paged_backend)
+                self.bank, ids, self.cache,
+                to_device(mine(arrs["tokens"]), dev), lens,
+                to_device(mine(arrs["n_new"]), dev), bt, sc.paged_backend,
+                rk)
             # acceptance decides the advance and rollback on the host
             self._lens_ok, self._last_ok = False, False
             return flushed + sched.observe_verify(
@@ -655,11 +864,11 @@ class StreamSession:
             last, act = self._last_dev, self._act_dev
         else:
             st = sched.chunk_arrays()
-            last, act = (to_device(st["last"], dev),
-                         to_device(st["active"], dev))
+            last, act = (to_device(mine(st["last"]), dev),
+                         to_device(mine(st["active"]), dev))
         out, self.cache, self._lens_dev, self._last_dev = eng._decode_chunk(
             self.bank, ids, self.cache, last, act, lens, bt, n, self.gen,
-            sc.temperature, sc.paged_backend)
+            sc.temperature, sc.paged_backend, rk)
         self._act_dev, self._last_ok = act, sc.overlap
         got = _Readback(out)              # enqueued before the next chunk
         if self._pending is not None:
@@ -671,6 +880,11 @@ class StreamSession:
             self.deferred_chunks += 1
             return flushed
         return flushed + sched.observe_chunk(got.numpy(), eos_id=sc.eos_id)
+
+    def _mine(self, arr):
+        """This rank's rows of a per-slot host array (all of them with no
+        mesh)."""
+        return arr if self.rk is None else self.rk.rows(arr)
 
     # -- deferred observation ------------------------------------------------
     def _growth_possible(self) -> bool:
@@ -739,6 +953,8 @@ class StreamSession:
                  "adapter_bank_refreshes": self.bank_refreshes,
                  "sched_policy": sc.sched_policy,
                  "num_shards": sc.num_shards,
+                 "mesh": (None if sc.mesh is None
+                          else mesh_shape(sc.mesh)),
                  "kv_dtype": sc.kv_dtype,
                  "overlap": sc.overlap,
                  "paged_backend": sc.paged_backend,

@@ -36,7 +36,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.dual_lora import check_rank_agreement, merge
-from repro_torch.core.lora import block_target_shapes, tree_leaves
+from repro_torch.core.lora import (adapter_specs, block_target_shapes,
+                                   tree_leaves)
 from repro_torch.kernels.ops import concat_buckets
 from repro_torch.kernels.quant import quantize_int8
 from repro_torch.serving.scheduler import PRIORITY_CLASSES
@@ -65,6 +66,35 @@ def _zip_banks(banks: Sequence[Params]) -> Params:
     if all(isinstance(v, (dict, list)) for v in first.values()):
         return {k: _zip_banks([bk[k] for bk in banks]) for k in first}
     return {k: [bk[k] for bk in banks] for k in first}
+
+
+def model_shard(bank: Params, cfg, size: int, rank: int) -> Params:
+    """Rank ``rank``'s shard of a bank over a ``size``-way ``"model"``
+    axis: per target, the factor dim ``core/lora.adapter_specs`` splits
+    (B's output columns for wq/wk/wv/w_up/w_gate, A's input rows for
+    wo/w_out), after the client axis, in every bucket of a ragged bank's
+    lists and in its kernel view alike; int8 scales (one per (layer,
+    client) and factor) and the kernel view's ``ranks`` stay whole, so a
+    quantized shard dequantizes as the whole factor does.  Copies: the
+    shard of a bank epoch stays as it was when the bank is written in
+    place."""
+    specs = adapter_specs(cfg)
+
+    def take(spec, leaf):
+        if isinstance(leaf, (list, tuple)):
+            return [take(spec, t) for t in leaf]
+        for d, e in enumerate(spec):
+            if e == "model":
+                w = leaf.shape[d + 1] // size
+                return leaf.narrow(d + 1, rank * w, w).contiguous()
+        return leaf
+
+    return {"layers": [
+        {part: {t: {k: take(specs["layers"][i][part][t][k], v)
+                    if k in ("a", "b") else v for k, v in node.items()}
+                for t, node in tmap.items()}
+         for part, tmap in layer.items()}
+        for i, layer in enumerate(bank["layers"])]}
 
 
 class AdapterRegistry:

@@ -149,15 +149,23 @@ class ShardedPagedKVCache:
         return best, best_hit
 
     # ---- device view -------------------------------------------------------
-    def device_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    def device_tables(self, device, shards: Optional[range] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Global ``(block_tables, lengths)`` on ``device``, as snapshots
         that never wait for the stream (:func:`to_device`): each shard's
-        local block ids shift into its global slice (block 0 stays 0)."""
+        local block ids shift into its global slice (block 0 stays 0).
+        With ``shards`` (a range of shard indices: one data rank's, under
+        ``ServeConfig.mesh``) the rows of those shards' slots only, their
+        ids shifted into a pool that holds scratch block 0 and those
+        shards' blocks, in order."""
+        shards = range(self.num_shards) if shards is None else shards
+        P = self.blocks_per_shard
         tables = np.concatenate(
-            [np.where(sh.block_tables > 0,
-                      sh.block_tables + s * self.blocks_per_shard, 0)
-             for s, sh in enumerate(self.shards)], axis=0).astype(np.int32)
-        return to_device(tables, device), to_device(self.lengths, device)
+            [np.where(self.shards[s].block_tables > 0,
+                      self.shards[s].block_tables + (s - shards[0]) * P, 0)
+             for s in shards], axis=0).astype(np.int32)
+        lengths = np.concatenate([self.shards[s].lengths for s in shards])
+        return to_device(tables, device), to_device(lengths, device)
 
     # ---- invariants --------------------------------------------------------
     def check_invariants(self) -> None:

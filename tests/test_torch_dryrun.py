@@ -423,11 +423,17 @@ def test_cli_runs_skips_and_refuses(tmp_path, capsys):
                         "--out-dir", out]) == 0
     assert (tmp_path / "dbrx-132b__decode_32k__1xh100__decode__moe_cap1"
             "__smoke.json").exists()
-    for bad in (["--multi-pod", "--step", "decode"],
-                ["--variant", "gqa_grouped"], ["--variant", "nope"]):
+    for bad in (["--variant", "gqa_grouped"], ["--variant", "nope"]):
         with pytest.raises(SystemExit):
             dryrun.main(["--arch", "olmo-1b", "--shape", "decode_32k",
                          "--out-dir", out] + bad)
+    # serving over the production mesh walks one rank's decode step
+    assert dryrun.main(["--arch", "olmo-1b", "--shape", "decode_32k",
+                        "--multi-pod", "--step", "decode",
+                        "--out-dir", out]) == 0
+    r = json.loads((tmp_path / "olmo-1b__decode_32k__2x16x16__decode.json")
+                   .read_text())
+    assert r["chips"] == 512 and r["per_rank"] and r["collectives"]
     with pytest.raises(ValueError, match="XLA"):
         dryrun.run_one("olmo-1b", "decode_32k", variant="no_remat",
                        out_dir=out)

@@ -5,7 +5,8 @@ and vocabulary 300, each divisible by 2).
 
 * ``local_config`` and the refusals of what is not split (experts,
   mamba layers, the VLM, the encoder-decoder, counts that do not
-  divide; full fine-tuning; serving in the dry run);
+  divide; full fine-tuning), and the dry run's serving steps at the
+  model axis;
 * the vocabulary-parallel embedding, cross entropy and argmax on 2, 3
   and 4 ranks simulated by threads, against the plain ones, with ties in
   the argmax across the vocabulary blocks;
@@ -119,14 +120,20 @@ def test_what_is_not_split_is_refused(arch, size, match):
 
 
 def test_full_training_and_serving_over_the_model_axis_are_refused():
+    """Full fine-tuning takes no model group; serving's dry-run steps walk
+    one rank at the model axis (they were refused before the slice that
+    serves over a mesh): per layer two activation sums, the embedding's,
+    and the greedy sample's one reduce."""
     cfg = _cfg()
     model = Model(cfg, "cpu")
     group = tpl.ModelGroup(2, 0, lambda t, op="sum": t)
     with pytest.raises(TypeError, match="tp"):   # it takes no model group
         make_full_train_step(model, cfg, optimizers.adamw(), tp=group)
     for step in ("prefill", "decode"):
-        with pytest.raises(ValueError, match="serving over"):
-            dryrun.dry_run(cfg, step, 2, 16, mesh=(1, 1, 2))
+        res = dryrun.dry_run(cfg.with_overrides(paged_backend="cuda"), step,
+                             2, 16, mesh=(1, 1, 2))
+        assert [(c["axis"], c["group"]) for c in res["collectives"]] == (
+            [("model", 2)] * (2 * cfg.n_layers + 2))
     for arch in ("llama2-7b", "olmo-1b"):     # --multi-pod's archs
         tpl.check_model_axis(get_config(arch), 16)
 
