@@ -264,6 +264,38 @@ Phases (each prints one JSON line per result):
                three serving kernels launched on every rank in each case
                at the rank's shapes (those shapes are held in the kernels
                phase); decode tok/s and TTFT beside the meshless runs';
+ 12c. mesh_moe — experts over a torch.distributed mesh: dbrx-132b at full
+               width, 4 of 40 layers (2 where two ranks' dry-run peaks at
+               data 2 pass 90% of the card), bf16, random weights from
+               --seed, 4 tenants' rank-16 fused adapters (the router's
+               pair included), 8 requests (prompts 128-512 tokens, 16 new
+               tokens); the meshless engine (1 and 2 shards) and rounds
+               here, then one spawn of two ranks on this card (gloo):
+               (a) mesh (1, 1, 2), each rank 24 of 48 heads, 4 of 8 kv
+               heads, 8 of 16 experts (drawn shard by shard) and half the
+               vocabulary and bank: routing bitwise equal on both ranks,
+               the first chunk against the meshless chunk with each
+               layer's expert ids pinned to the ranks' within 10% of the
+               largest logit, dropped copies equal, routing flips held by
+               the router-logit margin, streams by the margin rule, the
+               collectives equal to the dry run's prefill and decode
+               walks, peaks beside the dry run's, decode tok/s beside the
+               rank's expert-read byte bound; (b) mesh (1, 2, 1),
+               num_shards 2, each rank the whole base and 4 slots: the
+               same first-chunk rule (capacity and slots of the fused
+               batch), streams and collectives; (c) one FDLoRA round (2
+               clients, K 1, 4 x 256 SFT rows a client) at (1, 1, 2) and
+               (1, 2, 1) against the meshless round: bf16 at the phase's
+               depth (loss and aux metric within 2%, θ_s''s worst leaf
+               within 25% of its travel or, where larger, twice the worst
+               leaf of the same meshless round on the plain path,
+               collectives equal to the dry run's), fp32 at one layer
+               (loss within 16 ulps, aux within 4, each leaf within 1e-3
+               of its travel); its kernel lines
+               (kernels phase) hold decode and prefill at H 24 over Kv 4,
+               batched LoRA at each rank's wq, wk/wv and wo shards at 2,048
+               and 8 rows, lora_matmul at the round's 1,024 rows and flash
+               attention at B 4, H 24, Kv 4, S 256;
  13. the card's name and power limit, the kernel summary line, and last the
      result line.
 
@@ -1299,6 +1331,7 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
     ssm_kernels(gen, device, reps, T, seen)
     vlm_encdec_kernels(gen, device, reps, T, seen)
     mesh_serve_kernels(gen, device, reps, dec_lengths, pre_lengths, T)
+    mesh_moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T)
     return main
 
 
@@ -3491,44 +3524,12 @@ MOE_TENANTS = 4
 MOE_REQUESTS = 4
 
 
-class RoutingLog:
-    """Wraps ``repro_torch.models.moe._top_k_routing`` and ``dispatch``
-    for the first-chunk checks: every routing call's router logits and
-    own top-k ids go to ``log`` and every dispatch's count of dropped
-    copies to ``dropped``, in call (layer) order; with ``pinned`` (one ids
-    tensor per call) each call routes to those ids instead, weighted by
-    its own probabilities there, renormalised as top-k weights are.
-    Nothing in the package changes: the wrappers are installed and removed
-    around one dispatch."""
-
-    def __init__(self, pinned=None):
-        self.pinned = pinned
-        self.log, self.dropped = [], []
-
-    def __enter__(self):
-        from repro_torch.models import moe
-        self._orig, self._dispatch = moe._top_k_routing, moe.dispatch
-        moe._top_k_routing, moe.dispatch = self, self._count_dispatch
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.models import moe
-        moe._top_k_routing, moe.dispatch = self._orig, self._dispatch
-
-    def _count_dispatch(self, ids, E, cap):
-        dest, keep = self._dispatch(ids, E, cap)
-        self.dropped.append((~keep).sum())
-        return dest, keep
-
-    def __call__(self, logits, k):
-        import torch
-        w, ids, aux = self._orig(logits, k)
-        self.log.append((logits.detach().float().clone(), ids.clone()))
-        if self.pinned is not None:
-            ids = self.pinned[len(self.log) - 1]
-            w = torch.softmax(logits.float(), dim=-1).gather(1, ids)
-            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
-        return w, ids, aux
+def RoutingLog(pinned=None):
+    """``repro_torch.models.moe.RoutingLog``: each MoE layer's router
+    logits, ids and keep mask, its routing pinned to ``pinned`` if
+    given."""
+    from repro_torch.models import moe
+    return moe.RoutingLog(pinned)
 
 
 def _flips(ids_a, ids_b):
@@ -3563,10 +3564,10 @@ def moe_first_chunk(eng, reqs, sc, dtype_name, rel_tol, repeat=False):
         with RoutingLog() as rc2:
             lc2, _ = first_chunk_logits(eng, reqs, sc, "cuda")
         require(torch.equal(lc, lc2) and all(
-            torch.equal(a[1], b[1]) for a, b in zip(rc.log, rc2.log)),
+            torch.equal(a, b) for a, b in zip(rc.ids, rc2.ids)),
             f"{cfg.name}: two cuda runs of the first chunk differ")
         del lc2, rc2
-    ids_c = [ids for _, ids in rc.log]
+    ids_c = rc.ids
     kernels.reset_launch_counts()
     with RoutingLog(pinned=ids_c) as rt:
         lt, _ = first_chunk_logits(eng, reqs, sc, "torch")
@@ -3575,8 +3576,8 @@ def moe_first_chunk(eng, reqs, sc, dtype_name, rel_tol, repeat=False):
     torch_launches = kernels.launch_counts()
     n_moe = sum(cfg.layer_entry(i).endswith("+moe")
                 for i in range(cfg.n_layers))
-    require(len(rc.log) == len(rt.log) == n_moe,
-            f"{cfg.name}: {len(rc.log)} routed layers, not {n_moe}")
+    require(len(rc.ids) == len(rt.ids) == n_moe,
+            f"{cfg.name}: {len(rc.ids)} routed layers, not {n_moe}")
     valid = (torch.arange(lc.shape[1], device=lc.device)[None, :]
              < n_new.to(lc.device)[:, None])
     err = float((lc - lt).abs()[valid].max())
@@ -3588,20 +3589,19 @@ def moe_first_chunk(eng, reqs, sc, dtype_name, rel_tol, repeat=False):
     top2 = torch.topk(lt[rows, last], 2, dim=-1).values
     decisive = (top2[:, 0] - top2[:, 1]) > 2 * err
     agree = lc[rows, last].argmax(-1) == lt[rows, last].argmax(-1)
-    router_err = [float((a[0] - b[0]).abs().max())
-                  for a, b in zip(rc.log, rt.log)]
-    flips = _flips(ids_c, [ids for _, ids in rt.log])
+    router_err = [float((a - b).abs().max())
+                  for a, b in zip(rc.logits, rt.logits)]
+    flips = _flips(ids_c, rt.ids)
     worst_gap = []                       # per layer: largest flipped gap
-    for (logits_t, _), flip, e in zip(rt.log, flips, router_err):
+    for logits_t, flip, e in zip(rt.logits, flips, router_err):
         top = torch.topk(logits_t, k + 1, dim=-1).values
         gap = (top[:, k - 1] - top[:, k])[flip]
         worst_gap.append(float(gap.max()) if gap.numel() else None)
         require(worst_gap[-1] is None or worst_gap[-1] <= 2 * e,
                 f"{cfg.name} {dtype_name}: a routing flip with router-logit "
                 f"gap {worst_gap[-1]} > 2 x the router error {e}")
-    free_flips = _flips(ids_c, [ids for _, ids in rf.log])
-    dropped_c = [int(n) for n in rc.dropped]
-    dropped_t = [int(n) for n in rt.dropped]
+    free_flips = _flips(ids_c, rf.ids)
+    dropped_c, dropped_t = rc.dropped, rt.dropped
     line = {"phase": "moe_compare", "arch": cfg.name,
             "activations": dtype_name,
             "tokens": int(lc.shape[0] * lc.shape[1]),
@@ -4426,7 +4426,7 @@ class RoutingPin:
     def __call__(self, backend):
         with RoutingLog(pinned=None if backend == "cuda" else self.ids) as log:
             yield
-        own = [ids for _, ids in log.log]
+        own = log.ids
         if backend == "cuda":
             self.ids = own
         else:
@@ -5731,6 +5731,478 @@ def mesh_serve_phase(device, seed: int, T: int = 256):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12c: experts over a torch.distributed mesh
+# ---------------------------------------------------------------------------
+
+MESH_MOE_ARCH = "dbrx-132b"
+MESH_MOE_LAYERS = 4         # of 40; 2 where two ranks' dry-run peaks at data
+#                             2 pass 90% of the card
+MESH_MOE_TENANTS = 4
+MESH_MOE_REQUESTS = 8       # 8 slots
+MESH_MOE_PROMPTS = (128, 512)
+MESH_MOE_NEW = 16
+MESH_MOE_REL = 0.1          # first chunk, of the largest logit (bf16)
+MESH_MOE_ROWS = 4           # a client's rows a step in the round
+MESH_MOE_LEAF_TOL = 0.25    # bf16: each θ_s' leaf, of its travel, or
+MESH_MOE_SPREAD = 2.0       # this times the same leaf's on the plain path,
+MESH_MOE_LEAF_CAP = 0.75    # if larger, but never past this (unmoved: 1)
+MESH_MOE_LOSS_REL = 0.02    # bf16: the loss and the aux metric (train's)
+MESH_MOE_FP32_LEAF = 1e-3   # fp32, one layer: of the travel
+MESH_MOE_LOSS_ULPS = 16     # fp32, one layer
+MESH_MOE_AUX_ULPS = 4
+
+
+def mesh_moe_depth(cfg, span: int, T: int, card_bytes: int):
+    """``MESH_MOE_LAYERS``, or 2 where two ranks' dry-run peaks at data 2
+    (a decode step of every slot, a prefill chunk, the round) pass 90% of
+    the card: (depth, the peaks walked at that depth)."""
+    from repro_torch.launch.dryrun import dry_run
+    for layers in (MESH_MOE_LAYERS, 2):
+        c = cfg.with_overrides(n_layers=layers, paged_backend="cuda")
+        peaks = {s: dry_run(c, s, MESH_MOE_REQUESTS, n, mesh=(1, 2, 1),
+                            **kw)["memory"]["peak_bytes"]
+                 for s, n, kw in (("decode", span, {}), ("prefill", T, {}),
+                                  ("fdlora_round", T,
+                                   {"n_clients": 2, "K": 1}))}
+        if 2 * max(peaks.values()) <= 0.9 * card_bytes:
+            break
+    return layers, peaks
+
+
+def mesh_moe_chunk(eng, reqs, sc, recs, got, what):
+    """The meshless first chunk ("cuda", this process) with each MoE
+    layer's expert ids pinned to the ranks' (``recs``: their routing
+    records, in row order), against the ranks' logits ``got``:
+    (error, largest logit, flips by layer, dropped copies by layer, the
+    largest flipped gap by layer, the error against the unpinned meshless
+    chunk).  Held: the error within ``MESH_MOE_REL`` of the largest
+    logit, the dropped copies per layer equal, and each flip (a token
+    whose experts the ranks and the meshless routing pick differently)
+    one the rounding can make: its k-th vs (k+1)-th router-logit gap at
+    most twice that layer's router-logit error, ranks against meshless.
+    The unpinned error, flips included (a flip moves a token by a whole
+    expert's share, PR 22), is the one the streams' margin rule takes."""
+    import torch
+    ids = [torch.cat(x, 0) for x in zip(*(r["ids"] for r in recs))]
+    logits = [torch.cat(x, 0) for x in zip(*(r["logits"] for r in recs))]
+    dropped = [r["dropped"] for r in recs]
+    require(all(d == dropped[0] for d in dropped),
+            f"{what}: the ranks count other dropped copies {dropped}")
+    k = eng.cfg.n_experts_per_tok
+    with RoutingLog(pinned=[i.to(eng.device) for i in ids]) as rl:
+        want, n_new = first_chunk_logits(eng, reqs, sc, "cuda")
+    want = want.float().cpu()
+    err, top = _first_chunk_err(got.float(), want, n_new)
+    free, _ = first_chunk_logits(eng, reqs, sc, "cuda")
+    err_free, _ = _first_chunk_err(got.float(), free.float().cpu(), n_new)
+    flips = _flips(ids, [i.cpu() for i in rl.ids])
+    worst = []
+    for lw, lg, flip in zip(rl.logits, logits, flips):
+        lw = lw.cpu()
+        e = float((lw - lg).abs().max())
+        gaps = torch.topk(lw, k + 1, dim=-1).values
+        gap = (gaps[:, k - 1] - gaps[:, k])[flip]
+        worst.append(float(gap.max()) if gap.numel() else None)
+        require(worst[-1] is None or worst[-1] <= 2 * e,
+                f"{what}: a routing flip with router-logit gap {worst[-1]} "
+                f"> 2 x the router error {e}")
+    mine = rl.dropped
+    require(mine == dropped[0], f"{what}: dropped copies {dropped[0]}, the "
+            f"meshless fused batch's {mine}")
+    require(err <= MESH_MOE_REL * top, f"{what}: first-chunk error {err} "
+            f"over {MESH_MOE_REL} x the largest logit {top}")
+    return err, top, [int(f.sum()) for f in flips], mine, worst, err_free
+
+
+def _ulps(got: float, want: float) -> float:
+    import numpy as np
+    return abs(got - want) / float(np.spacing(np.float32(want)))
+
+
+def mesh_moe_phase(device, seed: int, T: int = 256):
+    """Experts over a torch.distributed mesh: dbrx-132b at full width,
+    ``MESH_MOE_LAYERS`` of 40 layers (the deepest at which two ranks'
+    dry-run peaks at data 2 fit in 90% of the card, else 2), bf16, random
+    weights from ``seed``, ``MESH_MOE_TENANTS`` tenants' rank-16 fused
+    adapters (the router's pair included), 8 requests (prompts 128-512
+    tokens, 16 new tokens, prefill chunk T) through
+    ``MultiTenantEngine.generate`` on "cuda".  The meshless engine (at 1
+    and 2 shards) and rounds run here and are freed; then one spawn of
+    two ranks on this card (gloo; ``launch/mesh.run_each`` of the serve
+    and round rank programs):
+
+    (a) mesh (1, 1, 2): each rank 24 of 48 heads, 4 of 8 kv heads, 8 of
+        16 experts (drawn as they are cut, no whole base held), half the
+        vocabulary and half the bank's sharded factors: routing ids
+        bitwise equal on the two ranks; the first chunk's logits,
+        gathered, against the meshless chunk with each layer's expert ids
+        pinned to the ranks' (:func:`mesh_moe_chunk`), the streams by the
+        margin rule on the unpinned chunk's error (a routing flip moves a
+        token by a whole expert's share); the collectives equal to the dry
+        run's ``prefill`` and ``decode`` walks at (1, 1, 2); each rank's peak
+        beside the dry run's; decode tok/s beside the rank's expert-read
+        byte bound (its 8 experts a layer);
+    (b) mesh (1, 2, 1), ``num_shards`` 2: each rank the whole base and 4
+        slots, the routing ids gathered over "data" so each expert's
+        capacity and slots are the fused batch's (and the scratch block
+        synced): the first chunk by (a)'s rule, its dropped copies per
+        layer the meshless fused batch's, the streams by the margin rule,
+        the collectives equal to the dry run's walks at (1, 2, 1);
+    (c) one FDLoRA round (2 clients, K 1, 4 x T SFT rows a client) at
+        (1, 1, 2) and (1, 2, 1) against the meshless round: bf16 at
+        the phase's depth, the loss and the aux metric within
+        ``MESH_MOE_LOSS_REL``, and each θ_s' leaf (its distance over its
+        travel) within ``MESH_MOE_LEAF_TOL``, or within
+        ``MESH_MOE_SPREAD`` times the same leaf's distance on the
+        meshless round's plain path (``paged_backend`` "torch") where
+        that is larger, but never past ``MESH_MOE_LEAF_CAP`` (a leaf the
+        round left where it was reads 1): AdamW's first step is about
+        lr·sign(g), and in bf16 routing flips move many small gradients
+        across 0, so two correct paths' θ_s' can sit farther apart than
+        0.25; fp32 at one layer, the loss within ``MESH_MOE_LOSS_ULPS``
+        ulps, the aux metric within ``MESH_MOE_AUX_ULPS`` and each leaf
+        within ``MESH_MOE_FP32_LEAF`` of its travel.  The loss and aux
+        metric are the round's own (its clients' mean cross entropy) and
+        ``mesh_job.objective``'s evaluation at θ_s' on a client's first
+        step batch, through the round's loss function: the cross entropy
+        plus the aux term, the data ranks' shares summed, held as the
+        loss (counted twice, the aux term is off by its whole value, not
+        by ulps).  The bf16 rounds' collectives equal to the dry run's
+        walk.
+
+    Each rank's serving kernels launch in (a) and (b), the prefill and
+    LoRA kernels on their tensor-core tiles, and the round's lora_matmul
+    and flash_attention at the rank's shapes.  Returns the launches of
+    each case on rank 0."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import (adapter_specs, init_adapters,
+                                       tree_leaves)
+    from repro_torch.federated.mesh_job import Case, RoundJob, run, run_jobs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.launch.serve import (ServeJob, build_engine, mesh_serve,
+                                          ragged_requests, serve_runs)
+    from repro_torch.serving.engine import ServeConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    base_cfg = get_config(MESH_MOE_ARCH).with_overrides(lora_rank=16)
+    reqs = ragged_requests(MESH_MOE_REQUESTS, MESH_MOE_TENANTS,
+                           base_cfg.vocab_size, *MESH_MOE_PROMPTS, seed)
+    span = max(len(r.prompt) for r in reqs) + MESH_MOE_NEW
+    width = min(T, span - 1)
+    card = torch.cuda.get_device_properties(device).total_memory
+    layers, dry_peaks = mesh_moe_depth(base_cfg, span, T, card)
+    cfg = base_cfg.with_overrides(n_layers=layers)
+    kw = dict(batch_size=MESH_MOE_REQUESTS, max_new_tokens=MESH_MOE_NEW,
+              prefill_chunk=T, block_size=16, paged_backend="cuda")
+    info = {"phase": "mesh_moe", "arch": MESH_MOE_ARCH, "n_layers": layers,
+            "requests": len(reqs),
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "new_tokens": MESH_MOE_NEW, "prefill_chunk": width,
+            "tenants": MESH_MOE_TENANTS, "lora_rank": 16}
+    emit({**info, "run": "depth", "card_bytes": card,
+          "dry_run_peak_bytes_per_rank_at_data_2": dry_peaks,
+          "two_ranks_over_card": 2 * max(dry_peaks.values()) / card})
+    # -- the meshless engine and rounds, here, then freed ---------------------
+    t_ref = time.perf_counter()
+    eng = build_engine(cfg, MESH_MOE_TENANTS, device, seed)
+    ref = mesh_lib.to_cpu(serve_runs(eng, ServeJob(
+        cfg, reqs, [("ref1", None, kw), ("ref2", None,
+                                         dict(kw, num_shards=2))],
+        tenants=MESH_MOE_TENANTS, seed=seed, device=str(device))))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    rbase = dict(clients=2, inner_steps=1, rows=MESH_MOE_ROWS, seq=T,
+                 rounds=1, seed=seed, device=str(device))
+    cfg1 = cfg.with_overrides(n_layers=1, dtype="float32",
+                              param_dtype="float32")
+    round_ref = {}
+    for tag, c in (("bf16", cfg), ("fp32", cfg1),
+                   ("plain", cfg.with_overrides(paged_backend="torch"))):
+        r = run(RoundJob(c, [Case(None, sync=True)], **rbase))[0]
+        round_ref[tag] = mesh_lib.to_cpu(
+            {k: r[k] for k in ("theta", "loss", "aux_loss", "objective",
+                               "seconds", "launches")})
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    meshless_s = time.perf_counter() - t_ref
+    # -- (a)-(c): two ranks on this card --------------------------------------
+    t0 = time.perf_counter()
+    rounds = [(c, m) for c in ("bf16", "fp32") for m in ((1, 1, 2),
+                                                        (1, 2, 1))]
+    job = dict(tenants=MESH_MOE_TENANTS, seed=seed, device=str(device))
+    tasks = [(mesh_serve, (ServeJob(cfg, reqs, [("a", (1, 1, 2), kw)],
+                                    first_chunk=("a",), **job),)),
+             (mesh_serve, (ServeJob(cfg, reqs, [("b", (1, 2, 1),
+                                                 dict(kw, num_shards=2))],
+                                    first_chunk=("b",), **job),)),
+             (run_jobs, ([RoundJob(cfg if c == "bf16" else cfg1,
+                                   [Case(1, data=m[1], model=m[2],
+                                         sync=True)], **rbase)
+                          for c, m in rounds],))]
+    ranks = mesh_lib.spawn(mesh_lib.run_each, 2, tasks, device=device)
+    spawn_s = time.perf_counter() - t0
+    eng = build_engine(cfg, MESH_MOE_TENANTS, device, seed)
+    counts = {}
+    for case, key in (("a", 0), ("b", 1)):
+        for rk in ranks:
+            r = rk[key][case]
+            for name in ("paged_attention", "paged_prefill_attention",
+                         "batched_lora_matmul"):
+                require(r["launches"][name] > 0,
+                        f"mesh moe ({case}) rank {r['coord']}: {name} "
+                        "never launched")
+            for name in ("paged_prefill_attention", "batched_lora_matmul"):
+                require_mma_tile(r["tiles"], name,
+                                 f"mesh moe ({case}) rank {r['coord']}")
+        counts[case] = {n: ranks[0][key][case]["launches"][n]
+                        for n in kernels.SERVING}
+    # -- (a) --------------------------------------------------------------------
+    ra = sorted((rk[0]["a"] for rk in ranks),
+                key=lambda r: r["coord"]["model"])
+    recs = [r["first_chunk_routing"] for r in ra]
+    same_ids = all(torch.equal(x, y) for x, y in zip(recs[0]["ids"],
+                                                     recs[1]["ids"]))
+    require(same_ids and len(recs[0]["ids"]) == layers,
+            "mesh moe (a): the two ranks route differently")
+    got_a = torch.cat([r["first_chunk"][0] for r in ra], -1)
+    err_a, top_a, flips_a, dropped_a, gap_a, free_a = mesh_moe_chunk(
+        eng, reqs, ServeConfig(**kw), recs[:1], got_a, "mesh moe (a)")
+    require(ra[0]["streams"] == ra[1]["streams"],
+            "mesh moe (a): the two ranks' streams differ")
+    matched_a = streams_by_margin(eng, reqs, ServeConfig(**kw),
+                                  ra[0]["streams"], ref["ref1"]["streams"],
+                                  free_a, "mesh moe (a)")
+    walk_a, dec_a = _stream_walks(cfg, (1, 1, 2), ra[0]["stats"],
+                                  MESH_MOE_REQUESTS, width, span)
+    for r in ra:
+        require(_by_axis(r["collectives"]) == walk_a,
+                f"mesh moe (a) rank {r['coord']}: collectives "
+                f"{_by_axis(r['collectives'])}, the dry run's {walk_a}")
+    E_rank = cfg.n_experts // 2
+    expert_bytes = (layers * E_rank * 3 * cfg.d_model
+                    * cfg.resolved_d_ff_moe * 2)
+    summary_a = _serve_summary(ra[0], ref["ref1"])
+    emit({**info, "run": "a", "world": 2, "backend": "gloo",
+          "mesh": {"pod": 1, "data": 1, "model": 2},
+          "heads_per_rank": cfg.n_heads // 2,
+          "kv_heads_per_rank": cfg.n_kv_heads // 2,
+          "experts_per_rank": E_rank,
+          "vocab_columns_per_rank": cfg.vocab_size // 2,
+          "routing_bitwise_equal_across_ranks": same_ids,
+          "first_chunk_max_abs_err": err_a, "max_abs_logit": top_a,
+          "first_chunk_rel_err": err_a / top_a, "rel_bound": MESH_MOE_REL,
+          "unpinned_first_chunk_max_abs_err": free_a,
+          "flips_by_layer": flips_a, "flip_worst_gap_by_layer": gap_a,
+          "dropped_copies_by_layer": dropped_a,
+          "streams_bitwise_meshless": ra[0]["streams"]
+          == ref["ref1"]["streams"], "stream_prefix_matched": matched_a,
+          **summary_a,
+          "expert_read_bytes_per_step_per_rank": expert_bytes,
+          "expert_read_bound_tok_per_s": (MESH_MOE_REQUESTS
+                                          / (expert_bytes / 3.35e12)),
+          "prefill_dispatches": ra[0]["stats"]["prefill_dispatches"],
+          "decode_steps": ra[0]["stats"]["decode_steps"],
+          "collectives": _collective_summary(ra[0]["collectives"]),
+          "host_ms_note": GLOO_NOTE,
+          "peak_bytes_per_rank": [r["peak_bytes"] for r in ra],
+          "dry_run_decode_peak_bytes": dec_a["memory"]["peak_bytes"],
+          "launches": [{k: r["launches"][k] for k in kernels.SERVING}
+                       for r in ra],
+          "meshless_s": meshless_s, "spawn_s": spawn_s})
+    # -- (b) --------------------------------------------------------------------
+    rb = sorted((rk[1]["b"] for rk in ranks),
+                key=lambda r: r["coord"]["data"])
+    recs = [r["first_chunk_routing"] for r in rb]
+    got_b = torch.cat([r["first_chunk"][0] for r in rb], 0)
+    err_b, top_b, flips_b, dropped_b, gap_b, free_b = mesh_moe_chunk(
+        eng, reqs, ServeConfig(**kw), recs, got_b, "mesh moe (b)")
+    require(rb[0]["streams"] == rb[1]["streams"],
+            "mesh moe (b): the two ranks' streams differ")
+    want_b = ref["ref2"]["streams"]
+    matched_b = streams_by_margin(eng, reqs, ServeConfig(**kw),
+                                  rb[0]["streams"], want_b, free_b,
+                                  "mesh moe (b)")
+    walk_b, dec_b = _stream_walks(cfg, (1, 2, 1), rb[0]["stats"],
+                                  MESH_MOE_REQUESTS, width, span)
+    for r in rb:
+        require(_by_axis(r["collectives"]) == walk_b,
+                f"mesh moe (b) rank {r['coord']}: collectives "
+                f"{_by_axis(r['collectives'])}, the dry run's {walk_b}")
+    emit({**info, "run": "b", "world": 2, "backend": "gloo",
+          "mesh": {"pod": 1, "data": 2, "model": 1}, "num_shards": 2,
+          "slots_per_rank": MESH_MOE_REQUESTS // 2,
+          "first_chunk_max_abs_err": err_b, "max_abs_logit": top_b,
+          "first_chunk_rel_err": err_b / top_b,
+          "unpinned_first_chunk_max_abs_err": free_b,
+          "flips_by_layer": flips_b, "flip_worst_gap_by_layer": gap_b,
+          "dropped_copies_by_layer": dropped_b,
+          "streams_bitwise_meshless": rb[0]["streams"] == want_b,
+          "stream_prefix_matched": matched_b,
+          **_serve_summary(rb[0], ref["ref2"]),
+          "prefill_dispatches": rb[0]["stats"]["prefill_dispatches"],
+          "decode_steps": rb[0]["stats"]["decode_steps"],
+          "collectives": _collective_summary(rb[0]["collectives"]),
+          "host_ms_note": GLOO_NOTE,
+          "peak_bytes_per_rank": [r["peak_bytes"] for r in rb],
+          "dry_run_decode_peak_bytes": dec_b["memory"]["peak_bytes"],
+          "launches": [{k: r["launches"][k] for k in kernels.SERVING}
+                       for r in rb]})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- (c) --------------------------------------------------------------------
+    def off(theta, want, start):
+        """Each leaf's distance from ``want`` over its travel."""
+        return {k: float(torch.linalg.vector_norm(g - want[k])
+                         / torch.linalg.vector_norm(want[k] - start[k]))
+                for k, g in tree_leaves(theta)}
+    start = dict(tree_leaves(init_adapters(cfg, seed=seed + 120,
+                                           device="cpu", b_std=0.02)))
+    spread = off(round_ref["plain"]["theta"],
+                 dict(tree_leaves(round_ref["bf16"]["theta"])), start)
+    worst_plain = max(spread, key=spread.get)
+    leaf_bound = {k: min(MESH_MOE_LEAF_CAP,
+                         max(MESH_MOE_LEAF_TOL, MESH_MOE_SPREAD * v))
+                  for k, v in spread.items()}
+    for i, (tag, mesh) in enumerate(rounds):
+        c = cfg if tag == "bf16" else cfg1
+        rs = sorted((rk[2][i][0] for rk in ranks),
+                    key=lambda r: (r["coord"]["data"], r["coord"]["model"]))
+        want = round_ref[tag]
+        if mesh[2] > 1:
+            theta, differ = _gather_model(adapter_specs(c),
+                                          [r["theta"] for r in rs])
+            require(not differ, f"mesh moe (c, {tag}, {mesh}): replicated "
+                    f"leaves differ across the ranks: {differ}")
+        else:
+            require(rs[0]["digest"] == rs[1]["digest"],
+                    f"mesh moe (c, {tag}, {mesh}): the ranks' θ_s' differ")
+            theta = rs[0]["theta"]
+        travel = off(theta, dict(tree_leaves(want["theta"])), dict(
+            tree_leaves(init_adapters(c, seed=seed + 120, device="cpu",
+                                      b_std=0.02))))
+        worst = max(travel, key=travel.get)
+        loss, aux = rs[0]["loss"][0], rs[0]["aux_loss"]
+        obj = rs[0]["objective"]
+        require(all(r["loss"] == rs[0]["loss"] and r["aux_loss"] == aux
+                    and r["objective"] == obj for r in rs),
+                f"mesh moe (c, {tag}, {mesh}): the ranks' losses or aux "
+                "metrics differ")
+        line = {**info, "run": "c", "world": 2, "backend": "gloo",
+                "activations": "bfloat16" if tag == "bf16" else "float32",
+                "n_layers": c.n_layers,
+                "mesh": dict(zip(("pod", "data", "model"), mesh)),
+                "clients": 2, "inner_steps": 1, "rows": MESH_MOE_ROWS,
+                "seq": T, "loss": loss, "meshless_loss": want["loss"][0],
+                "aux_loss": aux, "meshless_aux_loss": want["aux_loss"],
+                "objective": obj, "meshless_objective": want["objective"],
+                "max_leaf_diff_over_travel": travel[worst],
+                "worst_leaf": worst, "leaf_diff_over_travel_by_leaf": travel,
+                "s_per_round": [r["seconds"] for r in rs],
+                "meshless_s_per_round": want["seconds"],
+                "collectives": _collective_summary(rs[0]["collectives"][0]),
+                "host_ms_note": GLOO_NOTE,
+                "peak_bytes_per_rank": [r["peak_bytes"] for r in rs],
+                "launches": [{k: r["launches"][k]
+                              for k in ("lora_matmul", "flash_attention")}
+                             for r in rs]}
+        if tag == "bf16":
+            dry = dry_run(c.with_overrides(paged_backend="cuda"),
+                          "fdlora_round", 2 * MESH_MOE_ROWS, T, mesh=mesh,
+                          n_clients=2, K=1)
+            line.update(loss_rel=abs(loss - want["loss"][0])
+                        / abs(want["loss"][0]),
+                        aux_rel=abs(aux - want["aux_loss"])
+                        / abs(want["aux_loss"]),
+                        objective_rel=abs(obj - want["objective"])
+                        / abs(want["objective"]),
+                        plain_path_worst_leaf=worst_plain,
+                        plain_path_max_leaf_diff_over_travel=spread[
+                            worst_plain],
+                        plain_path_leaf_diff_over_travel_by_leaf=spread,
+                        plain_path_loss=round_ref["plain"]["loss"][0],
+                        plain_path_aux_loss=round_ref["plain"]["aux_loss"],
+                        leaf_bound_by_leaf=leaf_bound,
+                        worst_leaf_over_bound=max(
+                            travel[k] / leaf_bound[k] for k in travel),
+                        dry_run_peak_bytes=dry["memory"]["peak_bytes"])
+            emit(line)
+            require(max(line["loss_rel"], line["aux_rel"],
+                        line["objective_rel"]) <= MESH_MOE_LOSS_REL,
+                    f"mesh moe (c, bf16, {mesh}): loss {loss}, aux {aux} "
+                    f"or objective {obj} over {MESH_MOE_LOSS_REL} off the "
+                    f"meshless {want['loss'][0]}, {want['aux_loss']}, "
+                    f"{want['objective']}")
+            for k, v in travel.items():
+                require(v <= leaf_bound[k],
+                        f"mesh moe (c, bf16, {mesh}): {k} is {v} of its "
+                        f"travel off, over {leaf_bound[k]}")
+            for r in rs:
+                require(_by_axis(r["collectives"][0])
+                        == _by_axis(dry["collectives"]),
+                        f"mesh moe (c, bf16, {mesh}) rank {r['coord']}: "
+                        "collectives differ from the dry run's walk")
+                for name in ("lora_matmul", "flash_attention"):
+                    require_mma_tile(r["tiles"], name, f"mesh moe (c, "
+                                     f"{mesh}) rank {r['coord']}")
+        else:
+            line.update(loss_ulps=_ulps(loss, want["loss"][0]),
+                        aux_ulps=_ulps(aux, want["aux_loss"]),
+                        objective_ulps=_ulps(obj, want["objective"]))
+            emit(line)
+            require(line["loss_ulps"] <= MESH_MOE_LOSS_ULPS
+                    and line["objective_ulps"] <= MESH_MOE_LOSS_ULPS,
+                    f"mesh moe (c, fp32, {mesh}): loss {line['loss_ulps']} "
+                    f"or objective {line['objective_ulps']} ulps off")
+            require(line["aux_ulps"] <= MESH_MOE_AUX_ULPS,
+                    f"mesh moe (c, fp32, {mesh}): aux {line['aux_ulps']} "
+                    "ulps off")
+            require(travel[worst] <= MESH_MOE_FP32_LEAF,
+                    f"mesh moe (c, fp32, {mesh}): {worst} is "
+                    f"{travel[worst]} of its travel off")
+        counts[f"c_{tag}_{'x'.join(map(str, mesh))}"] = rs[0]["launches"]
+    emit({**info, "run": "seconds", "phase_s": time.perf_counter() - t_phase,
+          "meshless_s": meshless_s, "spawn_s": spawn_s})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T):
+    """Phase mesh_moe's per-rank shapes at "model" 2 on dbrx-132b: 24 of
+    48 query heads over 4 of 8 kv heads (G 6) in decode and prefill at the
+    serve cell's lengths; batched LoRA at each rank's attention
+    projections (wq 6144 -> 3072, wk/wv 6144 -> 512, wo 3072 -> 6144) at
+    a prefill chunk's 8 x T rows and a decode step's 8, over the phase's
+    4 tenants; the round's lora_matmul at a client's 4 x T rows and flash
+    attention at B 4, H 24 over Kv 4, S T."""
+    path = {"path": "mesh_moe", "model_axis": 2, "arch": MESH_MOE_ARCH}
+    emit({**check_decode(gen, device, dec_lengths, 6, False, reps, H=24),
+          **path})
+    emit({**check_prefill(gen, device, pre_lengths, T, 6, False, reps,
+                          H=24), **path})
+    B = MESH_MOE_REQUESTS
+    shapes = ((6144, 3072), (6144, 512), (3072, 6144))
+    for K, N in shapes:
+        for M in (B * T, B):
+            emit({**check_lora(gen, device, M, K, N, MESH_MOE_TENANTS, 16,
+                               "f32_bank", reps), **path})
+    for K, N in shapes:
+        emit({**check_single_lora(gen, device, MESH_MOE_ROWS * T, K, N, 16,
+                                  reps), **path, "step": "round"})
+    emit({**check_flash(gen, device, MESH_MOE_ROWS, 24, 4, T, T, 128, 0,
+                        reps), **path, "step": "round"})
+
+
 def vlm_encdec_phase(device, seed: int, T: int = 256, new_tokens: int = 16,
                      rank: int = 16):
     """internvl2-26b, then whisper-small (``vlm_phase``,
@@ -5926,6 +6398,8 @@ def main(argv=None) -> int:
     mesh_counts = timed("mesh_round", mesh_round_phase, device, args.seed, T)
     mesh_serve_counts = timed("mesh_serve", mesh_serve_phase, device,
                               args.seed, T)
+    mesh_moe_counts = timed("mesh_moe", mesh_moe_phase, device, args.seed,
+                            T)
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
@@ -5943,7 +6417,8 @@ def main(argv=None) -> int:
         "train_families": train_families_counts,
         "full_train": full_train_counts,
         "mesh_round": mesh_counts,
-        "mesh_serve": mesh_serve_counts})
+        "mesh_serve": mesh_serve_counts,
+        "mesh_moe": mesh_moe_counts})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})
 

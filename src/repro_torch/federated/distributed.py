@@ -32,16 +32,20 @@ mean, so θ_s' is identical on all ranks.  At one client a rank the
 shares are exact halves at pod 2, so their sum, rounded once, is the
 meshless round's mean bit for bit.
 
-With a ``"model"`` axis > 1 (dense configs; ``models/
+With a ``"model"`` axis > 1 (dense and MoE configs; ``models/
 tensor_parallel.py``) each rank holds its shard of the base, of θ_s and
-of the state (heads, ff columns and vocabulary split over the model
-group, ``local_shard`` under ``param_specs`` and :func:`state_specs`):
+of the state (heads, ff columns, vocabulary and experts split over the
+model group, ``local_shard`` under ``param_specs`` and
+:func:`state_specs`):
 the forward and backward sum activations over the group, and each step
 ONE model all-reduce (after the data one) sums the adapter leaves every
 rank holds whole and carries the clip's squared norms
 (``training/train_step.model_group_grads``).  The pod all-reduce stays
 one a round: each model coordinate has its own pod group and reduces its
-own shard.
+own shard.  An MoE layer at ``"data"`` > 1 sizes its experts' capacity
+and takes its aux loss over the client's whole batch, as the reference's
+does (one gather of the routing ids over the data group a layer, and
+one (2, E) sum; ``models/moe.apply_moe``).
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ from repro_torch.core.lora import (adapter_specs, tree_flatten, tree_map,
                                    tree_unflatten)
 from repro_torch.core.partition import (P, entry_axes, mesh_coordinate,
                                         mesh_shape, spec_map)
-from repro_torch.launch.mesh import all_reduce, model_group
+from repro_torch.launch.mesh import all_reduce, data_group, model_group
 from repro_torch.launch.specs import sharding_tree
 from repro_torch.models import tensor_parallel as tpl
 from repro_torch.training.optimizers import (Optimizer, apply_updates,
@@ -178,10 +182,9 @@ def make_fdlora_round_step(model, cfg, inner_opt: Optimizer,
     state.  At ``"model"`` > 1 the base, θ_s and the outer state are this
     rank's shards too (``local_shard`` under ``param_specs`` and
     ``core/lora.adapter_specs``); refused there, naming what is not
-    ported: experts, mamba layers, the VLM, the encoder-decoder, and
-    head, kv-head, ff or vocabulary counts that do not divide.  Experts
-    at ``"data"`` > 1 are refused too.  ``mesh=None`` is one pod holding
-    every client, with no collective.
+    ported: mamba layers, the VLM, the encoder-decoder, and head,
+    kv-head, ff, vocabulary or expert counts that do not divide.
+    ``mesh=None`` is one pod holding every client, with no collective.
     """
     if compress_outer not in ("none", "bf16"):
         raise ValueError(f"unknown compress_outer {compress_outer!r}")
@@ -195,9 +198,10 @@ def make_fdlora_round_step(model, cfg, inner_opt: Optimizer,
         replicated = tpl.replicated(adapter_specs(cfg))
     data_parallel = sizes.get("data", 1) > 1
     if data_parallel:
-        def reduce_data(t):
-            return all_reduce(t, mesh, "data")
-        dp_grads = data_parallel_value_and_grad(model, cfg, reduce_data, tp)
+        dp = data_group(mesh)
+        reduce_data = dp.reduce
+        dp_grads = data_parallel_value_and_grad(model, cfg, reduce_data, tp,
+                                                dp=dp)
     else:
         vg = value_and_grad(make_lora_loss_fn(model, cfg, tp=tp))
     pods = sizes["pod"]

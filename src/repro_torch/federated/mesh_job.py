@@ -9,7 +9,8 @@ synthetic log text from its seed, or the trees it carries), then for each
 and θ_s too), runs ``rounds`` rounds of
 ``make_fdlora_round_step`` and returns θ_s', this rank's state shard, the
 losses, the collectives issued, the kernels' launches, the seconds per
-round and the peak memory.  The tests, ``examples/
+round and the peak memory (and, for an MoE model, the LoRA loss and its
+aux metric at θ_s', :func:`objective`).  The tests, ``examples/
 torch_multipod_federated.py`` and ``chip_smoke.py`` share it, so every
 rank program is importable from the package (``spawn`` needs that).
 """
@@ -37,6 +38,8 @@ from repro_torch.models.model import param_specs
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.api import Model
 from repro_torch.training.optimizers import adamw
+from repro_torch.training.train_step import (global_token_counts,
+                                             make_lora_loss_fn)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,17 +125,40 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def objective(model, cfg, base, theta, batch, mesh=None) -> Dict:
+    """The round's LoRA loss (``training/train_step.make_lora_loss_fn``:
+    the cross entropy plus ``router_aux_loss_coef`` times the aux loss,
+    each rank's share of it as the round differentiates it) and its
+    ``aux_loss`` metric, of one client's first step batch (``batch``:
+    this rank's (n, K, B, S) rows) at adapters ``theta``, on this rank's
+    shards and rows of ``mesh``.  At ``"data"`` > 1 the ranks' shares of
+    the loss are summed over the data group: the whole batch's, where the
+    aux term counts once."""
+    tp = dp = None
+    if mesh is not None:
+        tp, dp = mesh_lib.model_group(mesh), mesh_lib.data_group(mesh)
+    first = {k: v[0, 0] for k, v in batch.items()}
+    loss_fn = make_lora_loss_fn(model, cfg, tp=tp, dp=dp)
+    with torch.no_grad():
+        denom = (None if dp is None
+                 else global_token_counts([first], dp.reduce)[0])
+        loss, metrics = loss_fn(theta, base, first, denom)
+        if dp is not None:
+            loss = dp.reduce(loss.float().reshape(1))[0]
+    return {"objective": float(loss), "aux_loss": float(metrics["aux_loss"])}
+
+
 def run(job: RoundJob) -> List[Dict]:
     """Every case of ``job`` on this rank; one result dict per case.  At
     ``"model"`` > 1 a case runs on this rank's shard of the base (the
     whole base is dropped once no case of the job needs it, before any
-    round, so the peak holds the shard only) and returns its shards of
-    θ_s' and the state."""
+    round, so the peak holds the shard only; where every case runs on one
+    such mesh and the job carries no weights, the shard is drawn as it is
+    cut, ``Model.init(shard=)``, and the base is never held whole) and
+    returns its shards of θ_s' and the state."""
     dev = resolve_device(job.device)
     cfg = job.cfg
     model = Model(cfg, dev)
-    params = model.init(job.seed) if job.params is None else _on(job.params,
-                                                                  dev)
     theta0 = (init_adapters(cfg, seed=job.seed + 120, device=dev,
                             b_std=0.02)
               if job.theta is None else _on(job.theta, dev))
@@ -147,11 +173,21 @@ def run(job: RoundJob) -> List[Dict]:
             shape = (case.pod, case.data, case.model)
             if shape not in meshes:
                 meshes[shape] = mesh_lib.make_mesh(*shape, device=dev)
-                if case.model > 1:     # copies: a row block is a view
-                    bases[shape] = tree_map(
-                        lambda t: t.clone(),
-                        local_shard(params, param_specs(cfg), meshes[shape]))
-    if all(c.pod is not None and c.model > 1 for c in job.cases):
+    sharded = all(c.pod is not None and c.model > 1 for c in job.cases)
+    params = None
+    if sharded and job.params is None and len(meshes) == 1:
+        ((shape, mesh),) = meshes.items()
+        bases[shape] = model.init(job.seed, shard=(
+            shape[2], mesh_coordinate(mesh)["model"]))
+    else:
+        params = (model.init(job.seed) if job.params is None
+                  else _on(job.params, dev))
+        for shape, mesh in meshes.items():
+            if shape[2] > 1:          # copies: a row block is a view
+                bases[shape] = tree_map(
+                    lambda t: t.clone(),
+                    local_shard(params, param_specs(cfg), mesh))
+    if sharded:
         params = None
         gc.collect()
     results = []
@@ -195,7 +231,10 @@ def run(job: RoundJob) -> List[Dict]:
             rec["collectives"].append(
                 [dataclasses.asdict(c) for c in mesh_lib.collectives()])
         rec.update(launches=kernels.launch_counts(),
-                   tiles=kernels.tile_counts(), digest=digest(theta),
+                   tiles=kernels.tile_counts(),
+                   **(objective(model, cfg, base, theta, batch, mesh)
+                      if cfg.has_moe() else {}),
+                   digest=digest(theta),
                    client_digests=client_digests(state),
                    outer_digest=digest(state["outer_opt"]),
                    peak_bytes=(torch.cuda.max_memory_allocated(dev)

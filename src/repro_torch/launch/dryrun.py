@@ -29,14 +29,18 @@ Per step the result JSON holds:
   kernel; ``device``: the card's name and memory.
 
 Over a mesh (``dry_run(..., mesh=(pod, data, model))``, the CLI's
-``--multi-pod`` at the reference's (2, 16, 16)) the walk is one rank's
+``--mesh P,D,M``; ``--mesh 2,16,16`` is the reference's multi-pod mesh)
+the walk is one rank's
 step at its local shard shapes (``models/tensor_parallel.local_config``:
 heads, ff columns and vocabulary over "model"; batch rows over "pod" and
 "data"): ``memory`` is per rank, every collective the step issues is
 logged by ``launch/mesh.all_reduce`` instead of issued (``collectives``:
 each one's axis, group and bytes), and the roofline takes ``chips`` and
-that log.  All four steps walk there, for the dense family: ``prefill``
-and ``decode`` on the rank's shards of params and adapters, the decode
+that log.  All four steps walk there, for the dense and MoE families
+(an MoE layer's experts split over "model", its routing ids gathered
+over the axes that split the rows, and in training its aux loss summed
+there, as ``models/moe.apply_moe`` runs over a mesh): ``prefill`` and
+``decode`` on the rank's shards of params and adapters, the decode
 cache at its kv heads over "model", rows over the ``launch/specs.
 batch_axes`` prefix of ("pod", "data"), then the greedy sample every
 rank agrees on (one reduce over "model") and every row's token gathered
@@ -49,13 +53,15 @@ Usage (on the CPU; no card needed):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama2-7b \\
         --shape train_4k --step fdlora_round
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama2-7b \\
-        --shape train_4k --multi-pod
+        --shape train_4k --mesh 2,16,16
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama2-7b \\
-        --shape decode_32k --multi-pod
+        --shape decode_32k --mesh 2,16,16
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dbrx-132b \\
+        --shape decode_32k --mesh 1,1,8
 
 Outputs JSON to ``experiments/dryrun_torch/<arch>__<shape>__<mesh>__<step>
-[__<variant>].json``, ``<mesh>`` "1xh100", or "2x16x16" under
-``--multi-pod``.
+[__<variant>].json``, ``<mesh>`` "1xh100", or the ``--mesh`` shape (as
+"2x16x16").
 """
 from __future__ import annotations
 
@@ -90,7 +96,6 @@ from repro_torch.training.train_step import (make_full_train_step,
 
 META = torch.device("meta")
 MESH = "1xh100"
-MULTI_POD = (2, 16, 16)              # the reference's ("pod", "data", "model")
 CARD_BYTES = 80 * 2 ** 30            # the data sheet's 80 GB of HBM3
 
 # ops that move no bytes: their outputs are allocated, not written
@@ -244,11 +249,13 @@ class RankMesh:
 # ---------------------------------------------------------------------------
 
 def _params_adapters(model, cfg, mesh=None):
-    """Meta params and adapters, at one rank's shard shapes on a mesh."""
-    if mesh is None:
+    """Meta params and adapters, at one rank's shard shapes on a mesh
+    (its block of the experts too)."""
+    if mesh is None or mesh.shape[2] == 1:
         return model.init(), init_adapters(cfg, device=META)
     local = check_model_axis(cfg, mesh.shape[2])
-    return (Model(local, META).init(), init_adapters(local, device=META))
+    return (model.init(shard=(mesh.shape[2], 0)),
+            init_adapters(local, device=META))
 
 
 def _rows(B: int, ranks: int) -> int:
@@ -263,11 +270,12 @@ def build_train(model, cfg, B: int, S: int, mesh=None):
     "data" then "pod", and its model group's shards."""
     opt = adamw(lr=2e-4)
     model_flops = rl.model_flops_train(cfg, B * S)   # over every rank
-    tp = reduce_data = None
+    tp = reduce_data = dp = None
     if mesh is not None:
         pod, data, _ = mesh.shape
         B = _rows(B, pod * data)
         tp = mesh_lib.model_group(mesh)
+        dp = mesh_lib.data_group(mesh, ("pod", "data"))
         axes = [a for a, n in (("data", data), ("pod", pod)) if n > 1]
         if axes:
             def reduce_data(t):
@@ -275,7 +283,7 @@ def build_train(model, cfg, B: int, S: int, mesh=None):
                     mesh_lib.all_reduce(t, mesh, a)
                 return t
     step = make_lora_train_step(model, cfg, opt, paged_backend="cuda",
-                                tp=tp, reduce_data=reduce_data)
+                                tp=tp, reduce_data=reduce_data, dp=dp)
     params, adapters = _params_adapters(model, cfg, mesh)
     opt_state = opt.init(adapters)
     batch = sp.batch_inputs(cfg, B, S)
@@ -301,16 +309,18 @@ def build_full_train(model, cfg, B: int, S: int):
 
 def _serve_rank(B: int, mesh):
     """A serving step's rows on one rank of ``mesh`` (B / the product of
-    the ``batch_axes`` prefix of ("pod", "data")), its model group, and
-    the axes of size > 1 its rows are split over."""
+    the ``batch_axes`` prefix of ("pod", "data")), its model group, the
+    axes of size > 1 its rows are split over (the minor first) and their
+    data group."""
     if mesh is None:
-        return B, None, ()
+        return B, None, (), None
     sizes = dict(zip(AXES, mesh.shape))
     axes = sp.batch_axes(mesh, B) or ()
     for a in axes:
         B = _rows(B, sizes[a])
     split = tuple(a for a in ("data", "pod") if a in axes and sizes[a] > 1)
-    return B, mesh_lib.model_group(mesh), split
+    return (B, mesh_lib.model_group(mesh), split,
+            mesh_lib.data_group(mesh, split[::-1]))
 
 
 def _greedy_tokens(logits, mesh, tp, split):
@@ -326,12 +336,30 @@ def _greedy_tokens(logits, mesh, tp, split):
     return tok
 
 
-def build_prefill(model, cfg, B: int, S: int, mesh=None):
+def _scratch_syncs(cfg, tp, dp, block_size: int, kv_dtype: str):
+    """The serving step's scratch-block syncs (``layers.sync_scratch``:
+    one gather per attention layer, of a model with MoE layers whose rows
+    a data group splits), logged on the meta device: the walks run the
+    unpaged forward, which has no pool."""
+    if dp is None or not cfg.has_moe():
+        return
+    from repro_torch.models import layers as L
+    pool = L.init_paged_kv_cache(cfg, 1, block_size, torch.bfloat16, META,
+                                 kv_dtype, tp)
+    for i in range(cfg.n_layers):
+        if cfg.layer_entry(i).startswith("attn"):
+            L.sync_scratch(pool, None, None, None, 0, dp)
+
+
+def build_prefill(model, cfg, B: int, S: int, mesh=None,
+                  block_size: int = 16, kv_dtype: str = "f32"):
     """Inference prefill: a whole forward, the last position unembedded
     (every position for the encoder-decoder, as the reference).  On a
-    mesh the rank's rows and shards, then the sample every rank takes."""
+    mesh the rank's rows and shards, then the sample every rank takes
+    (and the scratch-block syncs of a paged pool of ``block_size`` and
+    ``kv_dtype``, :func:`_scratch_syncs`)."""
     scale = lora_scale(cfg)
-    B, tp, split = _serve_rank(B, mesh)
+    B, tp, split, dp = _serve_rank(B, mesh)
     params, adapters = _params_adapters(model, cfg, mesh)
     batch = sp.batch_inputs(cfg, B, S)
     batch.pop("loss_mask")
@@ -341,21 +369,24 @@ def build_prefill(model, cfg, B: int, S: int, mesh=None):
             logits = model.forward(params, batch, adapters=adapters,
                                    lora_scale=scale,
                                    last_only=not cfg.is_encdec,
-                                   paged_backend="cuda", tp=tp)[0]
+                                   paged_backend="cuda", tp=tp, dp=dp,
+                                   need_aux=False)[0]
             if mesh is None:
                 return logits
+            _scratch_syncs(cfg, tp, dp, block_size, kv_dtype)
             return logits, _greedy_tokens(logits, mesh, tp, split)
     return (fn, {"params": params, "adapters": adapters, "inputs": batch},
             rl.model_flops_decode(cfg, B * S))
 
 
-def build_decode(model, cfg, B: int, S: int, mesh=None):
+def build_decode(model, cfg, B: int, S: int, mesh=None,
+                 block_size: int = 16, kv_dtype: str = "f32"):
     """One decode step against a cache holding S positions (a ring of the
     window's length for windowed archs), token S - 1 written last.  On a
     mesh the rank's rows, shards and kv heads, then the sample every rank
-    takes."""
+    takes (and the scratch-block syncs, as :func:`build_prefill`)."""
     scale = lora_scale(cfg)
-    B, tp, split = _serve_rank(B, mesh)
+    B, tp, split, dp = _serve_rank(B, mesh)
     params, adapters = _params_adapters(model, cfg, mesh)
     cache = model.init_decode_cache(B, S, tp=tp)
     for lc in ([cache["self"]] if cfg.is_encdec else cache["layers"]):
@@ -367,9 +398,10 @@ def build_decode(model, cfg, B: int, S: int, mesh=None):
         with torch.no_grad():
             out = model.decode_step(params, cache, dec["tokens"], S - 1,
                                     adapters=adapters, lora_scale=scale,
-                                    paged_backend="cuda", tp=tp)
+                                    paged_backend="cuda", tp=tp, dp=dp)
             if mesh is None:
                 return out
+            _scratch_syncs(cfg, tp, dp, block_size, kv_dtype)
             return out, _greedy_tokens(out[0], mesh, tp, split)
     return (fn, {"params": params, "adapters": adapters, "cache": cache,
                  "inputs": dec}, rl.model_flops_decode(cfg, B))
@@ -433,8 +465,9 @@ def dry_run(cfg, step: str, B: int, S: int, mesh=None, **opts) -> Dict:
     """One step of ``cfg`` at B rows of S tokens on the meta device; the
     result's ``params``, ``memory``, ``roofline``, ``counts``,
     ``kernels`` and ``collectives`` entries.  ``mesh`` (pod, data,
-    model): one rank's step there (the model axis for dense configs whose
-    split dims divide, refused otherwise naming the dim).  ``opts`` go to
+    model): one rank's step there (the model axis for dense and MoE
+    configs whose split counts divide, refused otherwise naming the
+    count).  ``opts`` go to
     the step's ``build_*`` (``n_clients``, ``K`` of the round)."""
     model = Model(cfg, META)
     chips = 1
@@ -457,18 +490,18 @@ def check_variant(variant: str) -> None:
         raise ValueError(f"unknown variant {variant!r}")
 
 
-def mesh_tag(multi_pod: bool) -> str:
-    return "x".join(map(str, MULTI_POD)) if multi_pod else MESH
+def mesh_tag(mesh=None) -> str:
+    return "x".join(map(str, mesh)) if mesh else MESH
 
 
 def run_one(arch: str, shape_name: str, step: str = "auto",
             variant: str = "baseline",
             out_dir: str = "experiments/dryrun_torch",
-            smoke: bool = False, multi_pod: bool = False) -> Dict:
-    """One arch x shape x step; ``multi_pod``: one rank of the
-    reference's (2, 16, 16) mesh, per-rank memory and the collective
-    log (a config whose split dims do not divide is skipped, naming the
-    dim)."""
+            smoke: bool = False, mesh=None) -> Dict:
+    """One arch x shape x step; ``mesh`` (pod, data, model; the
+    reference's multi-pod mesh is (2, 16, 16)): one rank of that mesh,
+    per-rank memory and the collective log (a config whose split counts
+    do not divide is skipped, naming the count)."""
     if not shape_supported(arch, shape_name):
         return {"arch": arch, "shape": shape_name, "skipped": True,
                 "reason": "whisper-small's decoder context is bounded by "
@@ -478,8 +511,7 @@ def run_one(arch: str, shape_name: str, step: str = "auto",
     cfg = cfg.with_overrides(paged_backend="cuda", **VARIANTS[variant])
     if step == "auto":
         step = INPUT_SHAPES[shape_name].kind
-    mesh = MULTI_POD if multi_pod else None
-    if multi_pod:
+    if mesh is not None:
         try:
             check_model_axis(cfg, mesh[2])
         except ValueError as e:
@@ -489,13 +521,13 @@ def run_one(arch: str, shape_name: str, step: str = "auto",
     t0 = time.time()
     res = dry_run(cfg, step, sh.global_batch, sh.seq_len, mesh=mesh)
     dev = device_entry()
-    tag_mesh = mesh_tag(multi_pod)
+    tag_mesh = mesh_tag(mesh)
     result = {"arch": arch, "shape": shape_name, "mesh": tag_mesh,
               "step": step, "variant": variant,
               "chips": res["roofline"]["chips"],
               "walk_s": round(time.time() - t0, 2), **res, "device": dev,
               "fits": res["memory"]["peak_bytes"] <= dev["memory_bytes"]}
-    if multi_pod:
+    if mesh is not None:
         result["mesh_shape"] = dict(zip(AXES, mesh))
         result["per_rank"] = True
     os.makedirs(out_dir, exist_ok=True)
@@ -520,10 +552,11 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", default="baseline",
                     help=f"one of {sorted(VARIANTS)}; "
                          f"{', '.join(XLA_ONLY_VARIANTS)} are refused")
-    ap.add_argument("--multi-pod", action="store_true",
-                    help="one rank of the (2, 16, 16) (pod, data, model) "
-                         "mesh: every step, dense archs whose dims divide "
-                         "by 16")
+    ap.add_argument("--mesh", type=lambda v: tuple(map(int, v.split(","))),
+                    help="POD,DATA,MODEL: one rank of that (pod, data, "
+                         "model) mesh, 2,16,16 the reference's multi-pod "
+                         "one; every step, dense and MoE archs whose counts "
+                         "divide"),
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--skip-existing", action="store_true",
@@ -537,13 +570,13 @@ def main(argv=None) -> int:
     archs = ALL_ARCHS if args.arch == "all" else [args.arch]
     shapes = list(INPUT_SHAPES) if args.shape == "all" else [args.shape]
     failures = []
-    tag_mesh = mesh_tag(args.multi_pod)
+    tag_mesh = mesh_tag(args.mesh)
     for arch in archs:
         for shape in shapes:
             kind = INPUT_SHAPES[shape].kind
             if args.step != "auto":
                 steps = [args.step]
-            elif args.multi_pod and kind == "train":
+            elif args.mesh and kind == "train":
                 steps = ["train", "fdlora_round"]
             else:
                 steps = [kind]
@@ -559,7 +592,7 @@ def main(argv=None) -> int:
                     continue
                 try:
                     r = run_one(arch, shape, step, args.variant,
-                                args.out_dir, args.smoke, args.multi_pod)
+                                args.out_dir, args.smoke, args.mesh)
                 except Exception as e:  # keep sweeping; report at the end
                     failures.append((arch, shape, repr(e)[:300]))
                     print(f"FAIL {arch} {shape}: {repr(e)[:300]}")
@@ -571,6 +604,7 @@ def main(argv=None) -> int:
                 roof, mem = r["roofline"], r["memory"]
                 print(f"OK {arch} {shape} {r['mesh']} {r['step']} "
                       f"walk={r['walk_s']}s "
+                      f"args={mem['argument_bytes'] / 1e9:.2f}GB "
                       f"peak={mem['peak_bytes'] / 1e9:.2f}GB "
                       f"fits={r['fits']} compute={roof['compute_s']:.4f}s "
                       f"memory={roof['memory_s']:.4f}s "

@@ -9,8 +9,9 @@ names:
     "pod"    FDLoRA clients (a client is a pod slice, or one card);
     "data"   batch rows inside a client;
     "model"  tensor parallelism inside a client (Megatron-style: heads,
-             ff columns and the vocabulary split across its ranks;
-             ``models/tensor_parallel.py``), dense configs only.
+             ff columns and the vocabulary split across its ranks, and
+             an MoE layer's experts; ``models/tensor_parallel.py``),
+             dense and MoE configs.
 
 Single pod: ``("data", "model")`` = (16, 16), 256 ranks.  Multi-pod:
 ``("pod", "data", "model")`` = (2, 16, 16), 512 ranks.
@@ -35,7 +36,7 @@ import pickle
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -43,7 +44,7 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.analysis.roofline import Collective, ring_bytes
 from repro_torch.core.partition import AXES, mesh_coordinate, mesh_shape
-from repro_torch.models.tensor_parallel import ModelGroup
+from repro_torch.models.tensor_parallel import DataGroup, ModelGroup
 
 # ---------------------------------------------------------------------------
 # Process groups and mesh factories
@@ -194,9 +195,45 @@ def model_group(mesh):
                       lambda t, op="sum": all_reduce(t, mesh, "model", op))
 
 
+def data_group(mesh, axes=("data",)):
+    """This rank's data group of ``mesh`` as the models take it
+    (``models/tensor_parallel.DataGroup``): the ranks that differ from
+    this one in ``axes`` (the first major, as :func:`federated.
+    distributed.local_shard` lays rows out), this rank's place among
+    them, :func:`all_gather` (minor axis first, so the rows come back in
+    flat order) and :func:`all_reduce` over them.  None where those axes
+    are all of size 1 (or absent): every path then runs as with no
+    mesh."""
+    sizes, coord = mesh_shape(mesh), mesh_coordinate(mesh)
+    axes = tuple(a for a in axes if sizes.get(a, 1) > 1)
+    if not axes:
+        return None
+    size, rank = 1, 0
+    for a in axes:
+        size, rank = size * sizes[a], rank * sizes[a] + coord[a]
+
+    def gather(t):
+        for a in reversed(axes):
+            t = all_gather(t, mesh, a).reshape(-1, *t.shape[1:])
+        return t
+
+    def reduce(t, op="sum"):
+        for a in axes:
+            all_reduce(t, mesh, a, op)
+        return t
+
+    return DataGroup(size, rank, gather, reduce)
+
+
 # ---------------------------------------------------------------------------
 # Running a function on N ranks
 # ---------------------------------------------------------------------------
+
+def run_each(tasks: Sequence[Tuple[Callable, tuple]]) -> List[Any]:
+    """``[fn(*args) for fn, args in tasks]``: several rank programs, each
+    an importable function, in one :func:`spawn`."""
+    return [fn(*args) for fn, args in tasks]
+
 
 def to_cpu(tree):
     """``tree`` (dicts, lists, tuples) with every tensor moved to the

@@ -82,7 +82,8 @@ from repro_torch.core.dual_lora import merge
 from repro_torch.core.lora import init_adapters
 from repro_torch.core.partition import mesh_coordinate, mesh_shape
 from repro_torch.data.tokenizer import ByteTokenizer
-from repro_torch.launch.mesh import model_group
+from repro_torch.launch.mesh import data_group, model_group
+from repro_torch.models import moe
 from repro_torch.models.api import Model
 from repro_torch.serving.engine import (Engine, MultiTenantEngine, Request,
                                         ServeConfig)
@@ -268,18 +269,20 @@ def register_client(registry, cfg, i: int, device, seed: int, ranks=None):
 
 def build_engine(cfg, tenants: int, device, seed: int = 0, rank=None,
                  ranks=None, bank_dtype: str = "f32",
-                 shards: int = 1) -> MultiTenantEngine:
+                 shards: int = 1, shard=None) -> MultiTenantEngine:
     """Random base weights plus ``tenants`` registered fused adapters.
     ``rank`` sets the model's ``lora_rank`` (and so the scale α/r the
     engine serves with); ``ranks`` makes a ragged bank with client i at
     ``ranks[i % len(ranks)]`` and twice the tenants' slots, as the
     reference CLI does; ``shards > 1`` a :class:`ShardedAdapterRegistry`,
     its capacity rounded up to whole shards of at least one slot per
-    bucket."""
+    bucket.  ``shard`` (size, rank): the engine holds that rank's shard of
+    a ``size``-way "model" axis, drawn as it is cut (``Model.init``), and
+    serves over such a mesh only."""
     if rank:
         cfg = cfg.with_overrides(lora_rank=rank)
     model = Model(cfg, device=device)
-    params = model.init(seed)
+    params = model.init(seed, shard=shard)
     cap = 2 * tenants if ranks else tenants
     cap = max(cap, shards * max(1, len(set(ranks or ()))))
     if shards > 1:
@@ -294,7 +297,11 @@ def build_engine(cfg, tenants: int, device, seed: int = 0, rank=None,
                                    bank_dtype=bank_dtype, device=device)
     for i in range(tenants):
         register_client(registry, cfg, i, device, 10 + 2 * i, ranks)
-    return MultiTenantEngine(model, cfg, params, registry)
+    if shard is None:
+        return MultiTenantEngine(model, cfg, params, registry)
+    eng = MultiTenantEngine(model, cfg, None, registry)
+    eng.hold_shard(*shard, params)
+    return eng
 
 
 def demo_prompt(vocab: int) -> np.ndarray:
@@ -375,9 +382,11 @@ class ServeJob:
     adapters from ``seed``) and the runs it serves: each ``(name, mesh,
     ServeConfig keywords)``, ``mesh`` a ("pod", "data", "model") shape or
     None (no mesh).  ``first_chunk`` names the runs whose first prefill
-    chunk's logits (this rank's rows and vocabulary block) are kept.  The
-    whole base is freed once every later run is at "model" > 1, so those
-    ranks hold their shard only."""
+    chunk's logits (this rank's rows and vocabulary block) are kept, with
+    each MoE layer's routing ids and dropped copies there.  The whole base
+    is freed once every later run is at "model" > 1, so those ranks hold
+    their shard only; where every run is on one mesh of "model" > 1, the
+    base is drawn shard by shard and never held whole."""
     cfg: Any                          # the port's ModelConfig
     requests: Sequence[Request]
     runs: Sequence[Tuple[str, Optional[Tuple[int, int, int]], Dict]]
@@ -416,21 +425,24 @@ def timed_stream(eng, reqs, sc):
 def first_chunk_logits(eng, reqs, sc, rows=None):
     """Logits of the first prefill dispatch a stream of ``reqs`` makes
     (every request on a slot, a fresh pool), as this rank of ``sc.mesh``
-    computes them: its rows (a block of the slots over "data") on its
-    shards of base, bank and kv heads, its vocabulary block.  ``rows``
-    (lo, hi): those rows alone, on one device, as a data rank computes
-    them.  Returns (logits (rows, T, V / model), n_new (rows,))."""
+    computes them: its rows (a block of the slots over "data", an MoE
+    layer's dispatch over every rank's) on its shards of base, bank, kv
+    heads and experts, its vocabulary block.  ``rows`` (lo, hi): those
+    rows alone, on one device, as a data rank of a model without MoE
+    layers computes them.  Returns (logits (rows, T, V / model), n_new
+    (rows,))."""
     B = len(reqs)
     span = max(len(r.prompt) + (sc.max_new_tokens if r.max_new_tokens is None
                                 else r.max_new_tokens) for r in reqs)
     T = max(1, min(sc.prefill_chunk, span - 1))
     per = blocks_needed(span, sc.block_size)
-    tp = None
+    tp = dp = None
     if sc.mesh is not None:
         data = mesh_shape(sc.mesh).get("data", 1)
         d = mesh_coordinate(sc.mesh).get("data", 0)
         rows = (d * B // data, (d + 1) * B // data)
         tp = model_group(sc.mesh)
+        dp = data_group(sc.mesh)
     if rows is not None:
         reqs = reqs[rows[0]:rows[1]]
     b = len(reqs)
@@ -452,21 +464,23 @@ def first_chunk_logits(eng, reqs, sc, rows=None):
         eng.params_for(sc), cache, to_device(tokens, dev), lens,
         to_device(n_new, dev), adapters=eng.bank_for(sc),
         lora_scale=eng.scale, adapter_ids=ids, block_tables=bt,
-        paged_backend=sc.paged_backend, tp=tp)
+        paged_backend=sc.paged_backend, tp=tp, dp=dp)
     return logits, torch.from_numpy(n_new)
 
 
-def serve_runs(eng, job: ServeJob) -> Dict[str, Dict]:
+def serve_runs(eng, job: ServeJob, meshes=None) -> Dict[str, Dict]:
     """``job``'s runs on ``eng`` in this process, each after a short
     warm-up on its mesh's first use (cuBLAS handles, the allocator, the
     kernels' first launches, the collectives' groups): per run its
     streams, TTFT, decode seconds and tokens, stats, collectives, kernel
     launches and tiles, peak memory and, where asked, its first chunk's
-    logits (:func:`first_chunk_logits`)."""
+    logits (:func:`first_chunk_logits`) with its routing (each MoE
+    layer's router logits, ids and dropped copies, ``moe.RoutingLog``).
+    ``meshes``: meshes already made, by shape."""
     from repro_torch import kernels
     from repro_torch.launch import mesh as mesh_lib
     dev = eng.device
-    meshes: Dict[tuple, Any] = {}
+    meshes = dict(meshes or {})
     out = {}
     for i, (name, shape, kw) in enumerate(job.runs):
         mesh = None
@@ -509,9 +523,12 @@ def serve_runs(eng, job: ServeJob) -> Dict[str, Dict]:
                               if dev.type == "cuda" else 0),
                "coord": {} if mesh is None else mesh_coordinate(mesh)}
         if name in job.first_chunk:
-            with torch.no_grad():
+            with torch.no_grad(), moe.RoutingLog() as rec:
                 res["first_chunk"] = first_chunk_logits(eng, job.requests,
                                                         sc)
+            res["first_chunk_routing"] = {"logits": rec.logits,
+                                          "ids": rec.ids,
+                                          "dropped": rec.dropped}
         out[name] = res
     return out
 
@@ -519,9 +536,19 @@ def serve_runs(eng, job: ServeJob) -> Dict[str, Dict]:
 def mesh_serve(job: ServeJob) -> Dict[str, Dict]:
     """The rank program of :class:`ServeJob` (``launch/mesh.spawn``
     runs it on every rank; at world size 1 in the caller's process):
-    build the engine from ``job.seed`` and :func:`serve_runs`."""
-    eng = build_engine(job.cfg, job.tenants, job.device, job.seed)
-    out = serve_runs(eng, job)
+    build the engine from ``job.seed`` (where every run is on one mesh of
+    "model" > 1, this rank's shard of the base only) and
+    :func:`serve_runs`."""
+    from repro_torch.launch import mesh as mesh_lib
+    shapes = {s for _, s, _ in job.runs}
+    shard, meshes = None, {}
+    if len(shapes) == 1 and None not in shapes and max(shapes)[2] > 1:
+        shape = max(shapes)
+        meshes[shape] = mesh_lib.make_mesh(*shape, device=job.device)
+        shard = (shape[2], mesh_coordinate(meshes[shape])["model"])
+    eng = build_engine(job.cfg, job.tenants, job.device, job.seed,
+                       shard=shard)
+    out = serve_runs(eng, job, meshes)
     del eng
     gc.collect()
     if torch.device(job.device).type == "cuda":

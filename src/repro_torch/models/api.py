@@ -31,10 +31,14 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
 
-    def init(self, seed: int = 0) -> Params:
+    def init(self, seed: int = 0, shard=None) -> Params:
+        """Random weights from ``seed``; ``shard`` (size, rank): that
+        rank's shard of a ``size``-way model axis, cut as it is drawn
+        (``model.init_params``)."""
         if self.cfg.is_encdec:
+            _no_model_axis(shard)
             return encdec.init_params(self.cfg, seed, self.device)
-        return dec.init_params(self.cfg, seed, self.device)
+        return dec.init_params(self.cfg, seed, self.device, shard=shard)
 
     def param_specs(self) -> Params:
         """Partition specs (``core/partition.P``) of :meth:`init`'s tree."""
@@ -46,12 +50,16 @@ class Model:
                 adapters: Optional[Params] = None, lora_scale: float = 1.0,
                 last_only: bool = False,
                 adapter_ids: Optional[torch.Tensor] = None,
-                paged_backend: Optional[str] = None, tp=None):
+                paged_backend: Optional[str] = None, tp=None, dp=None,
+                need_aux: bool = True):
         """batch -> (logits (B, S, V) fp32, the MoE aux loss: an fp32
         scalar, 0 for a model without MoE layers).  A VLM's logits cover
         its P patch positions, then the S text positions.  ``tp``: a
         model group (``models/tensor_parallel.py``), the params and
-        adapters this rank's shards, the logits its vocabulary block."""
+        adapters this rank's shards, the logits its vocabulary block.
+        ``dp``: a data group, the batch this rank's rows (``need_aux``:
+        ``model.forward``); the encoder-decoder, which has no MoE layer,
+        reads neither."""
         cfg = self.cfg
         if cfg.is_encdec:
             _no_model_axis(tp)
@@ -66,7 +74,7 @@ class Model:
                            lora_scale, last_only=last_only,
                            adapter_ids=adapter_ids,
                            paged_backend=paged_backend, extra_embeds=extra,
-                           tp=tp)
+                           tp=tp, dp=dp, need_aux=need_aux)
 
     def init_decode_cache(self, batch: int, cache_len: int,
                           tp=None) -> Params:
@@ -106,22 +114,24 @@ class Model:
                      lora_scale: float = 1.0,
                      adapter_ids: Optional[torch.Tensor] = None,
                      block_tables: Optional[torch.Tensor] = None,
-                     paged_backend: Optional[str] = None, tp=None):
+                     paged_backend: Optional[str] = None, tp=None,
+                     dp=None):
         """Chunked paged prefill; returns (logits (B, T, V), cache).
-        ``tp``: this rank's shards, its block of the vocabulary."""
+        ``tp``: this rank's shards, its block of the vocabulary; ``dp``:
+        the rows this rank's block of the slots."""
         if self.cfg.is_encdec:
             raise NotImplementedError("paged prefill is decoder-family only")
         return dec.prefill_step(params, cache, tokens, pos, n_new, self.cfg,
                                 adapters, lora_scale, adapter_ids=adapter_ids,
                                 block_tables=block_tables,
-                                paged_backend=paged_backend, tp=tp)
+                                paged_backend=paged_backend, tp=tp, dp=dp)
 
     def verify_step(self, params: Params, cache: Params, tokens, pos, n_new,
                     adapters: Optional[Params] = None,
                     lora_scale: float = 1.0,
                     adapter_ids: Optional[torch.Tensor] = None,
                     block_tables: Optional[torch.Tensor] = None,
-                    paged_backend: Optional[str] = None, tp=None):
+                    paged_backend: Optional[str] = None, tp=None, dp=None):
         """Speculative verification: the same dataflow as
         :meth:`prefill_step`, whose logits the caller reads at every chunk
         position."""
@@ -129,18 +139,19 @@ class Model:
                                  adapters=adapters, lora_scale=lora_scale,
                                  adapter_ids=adapter_ids,
                                  block_tables=block_tables,
-                                 paged_backend=paged_backend, tp=tp)
+                                 paged_backend=paged_backend, tp=tp, dp=dp)
 
     def decode_step(self, params: Params, cache: Params, tokens, pos,
                     adapters: Optional[Params] = None, lora_scale: float = 1.0,
                     adapter_ids: Optional[torch.Tensor] = None,
                     block_tables: Optional[torch.Tensor] = None,
-                    paged_backend: Optional[str] = None, tp=None):
+                    paged_backend: Optional[str] = None, tp=None, dp=None):
         """One decode step, paged (``block_tables``, per-row ``pos``) or
         contiguous (int ``pos``); returns (logits (B, 1, V), cache).  The
         encoder-decoder steps its contiguous cache only, its cross K/V
         filled by ``encdec.prefill_cross``.  ``tp``: this rank's shards
-        (dense configs), the logits its block of the vocabulary."""
+        (dense and MoE configs), the logits its block of the vocabulary;
+        ``dp``: the rows this rank's block of the slots."""
         if self.cfg.is_encdec:
             _no_model_axis(tp)
             if adapter_ids is not None or block_tables is not None:
@@ -153,7 +164,7 @@ class Model:
         return dec.decode_step(params, cache, tokens, pos, self.cfg, adapters,
                                lora_scale, adapter_ids=adapter_ids,
                                block_tables=block_tables,
-                               paged_backend=paged_backend, tp=tp)
+                               paged_backend=paged_backend, tp=tp, dp=dp)
 
 
 def _no_model_axis(tp) -> None:

@@ -31,7 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.paged_prefill import (paged_scatter,
+from repro_torch.kernels.paged_prefill import (_scatter_coords,
+                                               paged_prefill_attention,
+                                               paged_scatter,
                                                paged_scatter_quant)
 from repro_torch.core.partition import P
 from repro_torch.models.tensor_parallel import reduce_from_group
@@ -237,12 +239,57 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
     return out.to(out_dtype).reshape(B, Sq, H * hd)
 
 
+_SCRATCH_PARTS = ("k_pool", "v_pool", "k_scale", "v_scale")
+
+
+def sync_scratch(kv_cache: Params, block_tables: torch.Tensor,
+                 lengths: torch.Tensor, n_new: Optional[torch.Tensor],
+                 S: int, dp) -> None:
+    """Scratch block 0 of a data rank's pools as the whole batch's serial
+    scatter leaves it.  Ragged tails and idle rows write there, each rank
+    only its own rows', and the tails' queries read it: their hidden
+    states differ from the whole batch's, which an MoE layer routes and
+    counts against capacity.  Each rank marks the offsets of block 0
+    this dispatch's scatter wrote and one gather over the data group
+    (``dp``) gives every rank every rank's block 0, exact in fp32; per
+    offset the highest rank that wrote it wins, as the last write in
+    (row, position) order wins in the whole batch's scatter (rows follow
+    rank order).  In place; on meta tensors the gather is logged only."""
+    kp = kv_cache["k_pool"]
+    bs = kp.shape[1]
+    parts = [n for n in _SCRATCH_PARTS if n in kv_cache]
+    wrote = torch.zeros((bs, 1), dtype=torch.float32, device=kp.device)
+    if not kp.is_meta:
+        blk, off = _scatter_coords(block_tables.shape[0], S, bs,
+                                   block_tables, lengths, n_new)
+        wrote[off[blk == 0]] = 1.0
+    buf = torch.cat([wrote] + [kv_cache[n][0].reshape(bs, -1).float()
+                               for n in parts], 1)
+    every = dp.gather(buf[None].contiguous())          # (D, bs, width)
+    if kp.is_meta:
+        return
+    rank = torch.arange(1, every.shape[0] + 1, device=kp.device)
+    last = (every[:, :, 0] * rank[:, None]).amax(0).long()   # 0: none
+    won = every[(last - 1).clamp(min=0), torch.arange(bs, device=kp.device)]
+    new = torch.where((last > 0)[:, None], won, buf)
+    col = 1
+    for n in parts:
+        t = kv_cache[n][0]
+        w = t[0].numel()
+        t.copy_(new[:, col:col + w].reshape(t.shape).to(t.dtype))
+        col += w
+
+
 def _paged_attention_cuda(q, k, v, x, cfg, kv_cache, block_tables,
-                          lengths, n_new, out_proj):
-    """The paged branch through the CUDA kernels: decode steps (2-tuple
-    ``paged``, S == 1) scatter then attend with exclusive ``lengths + 1``;
-    prefill chunks go through ``paged_prefill_gqa_attention``, which owns
-    the scatter.  Both kernels take ``cfg.sliding_window``."""
+                          lengths, n_new, out_proj, scratch=None):
+    """The paged branch through the CUDA kernels: the chunk's K/V
+    scattered into the pools (ragged tails to scratch block 0), then
+    decode steps (2-tuple ``paged``, S == 1) attend with exclusive
+    ``lengths + 1`` and prefill chunks through the prefill kernel, as
+    ``kernels/ops.paged_prefill_gqa_attention`` runs them.  Both kernels
+    take ``cfg.sliding_window``.  ``scratch``: a data group whose ranks'
+    scratch blocks are synced between the scatter and the kernel
+    (:func:`sync_scratch`)."""
     B, S, H, hd = q.shape
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError(
@@ -250,21 +297,25 @@ def _paged_attention_cuda(q, k, v, x, cfg, kv_cache, block_tables,
             "attention kernels; use paged_backend='torch'")
     kp, vp = kv_cache["k_pool"], kv_cache["v_pool"]
     ks, vs = kv_cache.get("k_scale"), kv_cache.get("v_scale")
-    if n_new is None and S == 1:
-        if ks is not None:
-            paged_scatter_quant(kp, vp, ks, vs, k, v, block_tables, lengths,
-                                None)
-        else:
-            paged_scatter(kp, vp, k, v, block_tables, lengths, None)
+    decode = n_new is None and S == 1
+    if not decode and n_new is None:
+        n_new = torch.full((B,), S, dtype=torch.int32, device=q.device)
+    bt = block_tables.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    if ks is not None:
+        paged_scatter_quant(kp, vp, ks, vs, k, v, bt, lens, n_new)
+    else:
+        paged_scatter(kp, vp, k, v, bt, lens, n_new)
+    if scratch is not None:
+        sync_scratch(kv_cache, block_tables, lengths, n_new, S, scratch)
+    if decode:
         o = kernel_ops.paged_gqa_attention(
             q, kp, vp, block_tables, lengths + 1, k_scale=ks, v_scale=vs,
             sliding_window=cfg.sliding_window)
     else:
-        nn = (n_new if n_new is not None
-              else torch.full((B,), S, dtype=torch.int32, device=q.device))
-        o, *_ = kernel_ops.paged_prefill_gqa_attention(
-            q, k, v, kp, vp, block_tables, lengths, nn, k_scale=ks,
-            v_scale=vs, sliding_window=cfg.sliding_window)
+        o = paged_prefill_attention(
+            q.contiguous(), kp, vp, bt, lens, k_scale=ks, v_scale=vs,
+            sliding_window=cfg.sliding_window)
     return out_proj(o.to(x.dtype).reshape(B, S, H * hd)), kv_cache
 
 
@@ -277,7 +328,7 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
                         paged: Optional[Tuple] = None,
                         causal: bool = True,
                         kv_override: Optional[Tuple] = None,
-                        tp=None):
+                        tp=None, scratch=None):
     """Attention over x (B, S, d).
 
     * no cache (training, evaluation): causal (+ window) attention over
@@ -309,7 +360,10 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
     ``wo``'s partial summed over the group.  A cache then holds the
     rank's kv heads only (``kv_cache_specs``, ``paged_kv_cache_specs``:
     heads on "model"; an int8 pool's scales on the same heads), and every
-    branch attends them with the rank's query heads.
+    branch attends them with the rank's query heads.  ``scratch`` (a data
+    group; paged only): the rows are a data rank's, and the pools'
+    scratch block is synced over the group after each scatter
+    (:func:`sync_scratch`).
 
     Returns (out (B, S, d), new cache or None)."""
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -364,7 +418,8 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
         (block_tables, lengths), n_new = paged, None
     if backend == "cuda":
         return _paged_attention_cuda(q, k, v, x, cfg, kv_cache,
-                                     block_tables, lengths, n_new, out_proj)
+                                     block_tables, lengths, n_new, out_proj,
+                                     scratch)
     kp, vp = kv_cache["k_pool"], kv_cache["v_pool"]
     bs_blk = kp.shape[1]
     pos = (lengths.long()[:, None]
@@ -375,6 +430,8 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
         ks, vs = kv_cache["k_scale"], kv_cache["v_scale"]
         paged_scatter_quant(kp, vp, ks, vs, k, v, block_tables, lengths,
                             n_new)
+        if scratch is not None:
+            sync_scratch(kv_cache, block_tables, lengths, n_new, S, scratch)
         # the reference's order: fp32 values times fp32 scales, then one
         # cast to the working type
         kg = (kp[bt].reshape(B, L, Kv, hd).float()
@@ -383,6 +440,8 @@ def multihead_attention(params: Params, x: torch.Tensor, cfg,
               * vs[bt].reshape(B, L, Kv)[..., None]).to(x.dtype)
     else:
         paged_scatter(kp, vp, k, v, block_tables, lengths, n_new)
+        if scratch is not None:
+            sync_scratch(kv_cache, block_tables, lengths, n_new, S, scratch)
         kg = kp[bt].reshape(B, L, Kv, hd).to(x.dtype)
         vg = vp[bt].reshape(B, L, Kv, hd).to(x.dtype)
     k_pos = torch.arange(L, device=x.device)

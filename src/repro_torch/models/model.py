@@ -25,7 +25,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import PAGED_BACKENDS, torch_dtype
-from repro_torch.core.partition import P
+from repro_torch.core.partition import P, spec_map
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_lib
@@ -34,13 +34,21 @@ from repro_torch.models import tensor_parallel as tpl
 Params = Dict[str, Any]
 
 
-def init_params(cfg, seed: int = 0, device="cuda") -> Params:
+def init_params(cfg, seed: int = 0, device="cuda",
+                shard: Optional[Tuple[int, int]] = None) -> Params:
     """Random weights from ``seed``: the reference's init scales (normal ×
     d^-0.5 for projections and the fp32 router, × d_ff^-0.5 for w_out,
     × 0.02 for embeddings; a mamba layer's as ``mamba2.init_mamba`` says),
     drawn by a ``torch.Generator`` on ``device`` (the card unless the
     caller asks for the CPU).  On the meta device the tree has the same
-    shapes and dtypes and no values (``launch/dryrun.py``)."""
+    shapes and dtypes and no values (``launch/dryrun.py``).
+
+    ``shard`` (size, rank): rank ``rank``'s shard of a ``size``-way model
+    axis under :func:`param_specs`, the same values as the whole tree's
+    block, with no whole copy held: each leaf is cut as it is drawn, an
+    expert stack an expert at a time."""
+    if shard is not None:
+        tpl.check_model_axis(cfg, shard[0])
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
@@ -55,9 +63,20 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
             p["bias"] = torch.zeros(d, device=dev)
         return p
 
+    def cut(tree, specs):
+        if shard is None:
+            return tree
+        return spec_map(lambda s, t: tpl.shard_leaf(t, s, *shard), specs,
+                        tree)
+
+    experts = None
+    if shard is not None and cfg.has_moe():
+        n = cfg.n_experts // shard[0]
+        experts = range(shard[1] * n, (shard[1] + 1) * n)
     layers = []
     for i in range(cfg.n_layers):
         mixer, mlp_kind = _parse(cfg.layer_entry(i))
+        specs = _layer_specs(cfg, i)
         layer = {"norm1": norm()}
         if mixer == "attn":
             layer["mixer"] = {"wq": normal((d, H * hd), d ** -0.5),
@@ -66,21 +85,23 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
                               "wo": normal((H * hd, d), d ** -0.5)}
         else:
             layer["mixer"] = mamba2.init_mamba(normal, cfg, dev)
+        layer["mixer"] = cut(layer["mixer"], specs["mixer"])
         if mlp_kind == "moe":
             mlp = moe_lib.init_moe(normal, d, cfg.resolved_d_ff_moe,
-                                   cfg.n_experts, cfg.mlp_type)
+                                   cfg.n_experts, cfg.mlp_type, experts)
         elif mlp_kind == "mlp":
             mlp = {"w_up": normal((d, ff), d ** -0.5),
                    "w_out": normal((ff, d), ff ** -0.5)}
             if cfg.mlp_type in ("swiglu", "geglu"):
                 mlp["w_gate"] = normal((d, ff), d ** -0.5)
+            mlp = cut(mlp, specs["mlp"])
         if mlp_kind != "none":
             layer["norm2"], layer["mlp"] = norm(), mlp
         layers.append(layer)
-    params = {"embed": normal((V, d), 0.02), "final_norm": norm(),
-              "layers": layers}
+    params = {"embed": cut(normal((V, d), 0.02), L.embed_specs()),
+              "final_norm": norm(), "layers": layers}
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, V), 0.02)
+        params["lm_head"] = cut(normal((d, V), 0.02), P(None, L.MODEL))
     return params
 
 
@@ -172,15 +193,20 @@ def _unembed(params, x, cfg, tp=None):
 
 
 def _apply_layer(i, lp, x, cfg, positions, adapters, lora_scale, cache=None,
-                 adapter_ids=None, paged=None, n_new=None, tp=None):
+                 adapter_ids=None, paged=None, n_new=None, tp=None, dp=None,
+                 need_aux=True):
     """Layer ``i``: its mixer (attention, or a mamba block, which reads
     ``n_new``, the valid leading tokens of each row of a ragged prefill
     chunk), then the dense MLP or the MoE layer its pattern entry names,
-    or none.  With ``tp`` (attention and the dense MLP only) each block's
-    input enters the model group through ``copy_to_group``.  Returns (x,
-    new cache, aux loss or None where the layer has no MoE)."""
+    or none.  With ``tp`` (attention, the dense MLP and the experts) each
+    block's input enters the model group through ``copy_to_group``;
+    ``dp`` (a data group) and ``need_aux`` reach the MoE layer
+    (``moe.apply_moe``); in a model with MoE layers ``dp`` also syncs a
+    paged pool's scratch block over the group (``layers.sync_scratch``),
+    since the positions that read it are routed too.  Returns (x, new
+    cache, aux loss or None where the layer has no MoE)."""
     mixer, mlp = _parse(cfg.layer_entry(i))
-    if tp is not None and (mixer != "attn" or mlp == "moe"):
+    if tp is not None and mixer != "attn":
         raise ValueError(f"{cfg.name}: layer {i} ({cfg.layer_entry(i)}) "
                          "has no tensor-parallel port")
     ad = adapters or {}
@@ -190,7 +216,8 @@ def _apply_layer(i, lp, x, cfg, positions, adapters, lora_scale, cache=None,
     if mixer == "attn":
         out, new_cache = L.multihead_attention(
             lp["mixer"], h, cfg, positions, ad.get("mixer"), lora_scale,
-            kv_cache=cache, adapter_ids=adapter_ids, paged=paged, tp=tp)
+            kv_cache=cache, adapter_ids=adapter_ids, paged=paged, tp=tp,
+            scratch=dp if cfg.has_moe() else None)
     else:
         out, new_cache = mamba2.apply_mamba(
             lp["mixer"], h, cfg, ad.get("mixer"), lora_scale,
@@ -203,7 +230,8 @@ def _apply_layer(i, lp, x, cfg, positions, adapters, lora_scale, cache=None,
             h = tpl.copy_to_group(h, tp)
         if mlp == "moe":
             out, aux = moe_lib.apply_moe(lp["mlp"], h, cfg, ad.get("mlp"),
-                                         lora_scale, adapter_ids)
+                                         lora_scale, adapter_ids, tp=tp,
+                                         dp=dp, need_aux=need_aux)
         else:
             out = L.apply_mlp(lp["mlp"], h, cfg.mlp_type, ad.get("mlp"),
                               lora_scale, adapter_ids, cfg.paged_backend,
@@ -221,8 +249,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
             last_only: bool = False,
             adapter_ids: Optional[torch.Tensor] = None,
             paged_backend: Optional[str] = None,
-            extra_embeds: Optional[torch.Tensor] = None, tp=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            extra_embeds: Optional[torch.Tensor] = None, tp=None, dp=None,
+            need_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V) fp32 (B, 1, V with
     ``last_only``), the MoE layers' aux losses summed: an fp32 scalar, 0
     for a model without MoE layers).  ``adapter_ids`` (B,) routes rows into a banked
@@ -231,10 +259,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
     prepended to the embedded text: the logits then cover P + S positions,
     the patches at RoPE positions 0..P-1.
 
-    ``tp`` (``models/tensor_parallel.ModelGroup``; dense configs): the
-    params and adapters are this rank's shards under ``param_specs`` and
-    ``core/lora.adapter_specs``, and the logits (B, S, V / size) its
-    block of the vocabulary."""
+    ``tp`` (``models/tensor_parallel.ModelGroup``; dense and MoE
+    configs): the params and adapters are this rank's shards under
+    ``param_specs`` and ``core/lora.adapter_specs``, and the logits (B,
+    S, V / size) its block of the vocabulary.  ``dp``
+    (``tensor_parallel.DataGroup``): ``tokens`` are this rank's rows of a
+    batch the group splits, which an MoE layer's capacity and aux loss
+    span; ``need_aux=False`` skips the aux loss's sum over it (the aux
+    loss then comes back 0 there)."""
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
     if tp is not None and extra_embeds is not None:
         raise ValueError("the VLM's patch embeddings over the \"model\" "
@@ -247,7 +279,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
     for i, lp in enumerate(params["layers"]):
         x, _, a = _apply_layer(i, lp, x, cfg, positions,
                                _layer_adapters(adapters, i), lora_scale,
-                               adapter_ids=adapter_ids, tp=tp)
+                               adapter_ids=adapter_ids, tp=tp, dp=dp,
+                               need_aux=need_aux)
         if a is not None:
             aux = aux + a
     if last_only:
@@ -314,11 +347,12 @@ def init_paged_decode_cache(cfg, num_blocks: int, block_size: int,
 
 
 def _cached_scan(params, cache, tokens, positions, cfg, adapters, lora_scale,
-                 adapter_ids, paged, n_new=None, tp=None
+                 adapter_ids, paged, n_new=None, tp=None, dp=None
                  ) -> Tuple[torch.Tensor, Params]:
     """Embed, every layer against its cache, final norm, unembed (the MoE
-    aux loss is dropped, as in the reference).  With ``tp`` the logits are
-    the rank's block of the vocabulary."""
+    aux loss is dropped, as in the reference, so a data group never sums
+    it).  With ``tp`` the logits are the rank's block of the
+    vocabulary."""
     x = _embed(params, tokens, cfg, tp)
     new_layers = []
     for i, lp in enumerate(params["layers"]):
@@ -326,7 +360,7 @@ def _cached_scan(params, cache, tokens, positions, cfg, adapters, lora_scale,
                                 _layer_adapters(adapters, i), lora_scale,
                                 cache=cache["layers"][i],
                                 adapter_ids=adapter_ids, paged=paged,
-                                n_new=n_new, tp=tp)
+                                n_new=n_new, tp=tp, dp=dp, need_aux=False)
         new_layers.append(nc)
     return _unembed(params, x, cfg, tp), {"layers": new_layers}
 
@@ -336,25 +370,28 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
                 lora_scale: float = 1.0,
                 adapter_ids: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                paged_backend: Optional[str] = None, tp=None
+                paged_backend: Optional[str] = None, tp=None, dp=None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step, tokens (B, 1).  Paged (continuous batching): pass
     ``block_tables`` (B, MB) and per-row context lengths ``pos`` (B,) over
     a cache from :func:`init_paged_decode_cache`.  Contiguous (the fixed
     path): ``block_tables`` None, ``pos`` an int, the tokens already in a
     cache from :func:`init_decode_cache`.  Returns (logits (B, 1, V),
-    cache).  ``tp`` (``models/tensor_parallel.ModelGroup``; dense
-    configs): params, adapters and cache are this rank's shards, the
-    logits (B, 1, V / size) its block of the vocabulary."""
+    cache).  ``tp`` (``models/tensor_parallel.ModelGroup``; dense and
+    MoE configs): params, adapters and cache are this rank's shards, the
+    logits (B, 1, V / size) its block of the vocabulary.  ``dp``
+    (``tensor_parallel.DataGroup``): the rows are this rank's block of
+    the serving slots, which an MoE layer's capacity spans."""
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
     if block_tables is None:
         positions = torch.full((1,), int(pos), device=tokens.device)
         return _cached_scan(params, cache, tokens, positions, cfg, adapters,
-                            lora_scale, adapter_ids, paged=None, tp=tp)
+                            lora_scale, adapter_ids, paged=None, tp=tp,
+                            dp=dp)
     pos = pos.to(torch.int32)
     return _cached_scan(params, cache, tokens, pos[:, None].long(), cfg,
                         adapters, lora_scale, adapter_ids,
-                        paged=(block_tables, pos), tp=tp)
+                        paged=(block_tables, pos), tp=tp, dp=dp)
 
 
 def prefill_step(params: Params, cache: Params, tokens: torch.Tensor,
@@ -362,12 +399,13 @@ def prefill_step(params: Params, cache: Params, tokens: torch.Tensor,
                  adapters: Optional[Params] = None, lora_scale: float = 1.0,
                  adapter_ids: Optional[torch.Tensor] = None,
                  block_tables: Optional[torch.Tensor] = None,
-                 paged_backend: Optional[str] = None, tp=None
+                 paged_backend: Optional[str] = None, tp=None, dp=None
                  ) -> Tuple[torch.Tensor, Params]:
     """Chunked paged prefill: tokens (B, T), ``n_new[b]`` valid per row,
     written at positions ``pos[b] .. pos[b] + n_new[b] - 1`` (a mamba
     layer steps each row's state through its valid tokens only).  Returns
-    (logits (B, T, V), cache); with ``tp`` as :func:`decode_step`."""
+    (logits (B, T, V), cache); with ``tp`` and ``dp`` as
+    :func:`decode_step`."""
     if block_tables is None:
         raise ValueError("prefill_step requires block_tables (paged cache)")
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
@@ -379,5 +417,5 @@ def prefill_step(params: Params, cache: Params, tokens: torch.Tensor,
     return _cached_scan(params, cache, tokens, positions, cfg, adapters,
                         lora_scale, adapter_ids,
                         paged=(block_tables, pos, n_new), n_new=n_new,
-                        tp=tp)
+                        tp=tp, dp=dp)
 

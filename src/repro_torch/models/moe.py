@@ -21,6 +21,22 @@ round trip.  The routing, dispatch and expert products are plain torch on
 both backends (plain jnp outside any kernel in the reference); the
 router's LoRA goes through the plain ``layers.lora_delta``, as the
 reference's does.
+
+Over a mesh (``apply_moe(tp=, dp=)``) the layer is the reference's
+meshless layer over the whole batch, as GSPMD runs it:
+
+* ``tp``, a ``"model"`` group: the experts split in contiguous blocks
+  (expert parallelism; ``moe_specs``).  The router is replicated and its
+  input whole on every rank, so every rank routes every token alike and
+  plans the same dispatch over all E experts; it fills and multiplies
+  only its own experts' rows of the buffer, and its combine, a partial of
+  the fp32 output, is summed over the group in fp32, then cast once.
+* ``dp``, the ranks that split the batch's rows: each rank routes its
+  rows, then gathers every rank's (T_local, k) ids, so the dispatch, and
+  with it each copy's slot, the keep mask and the capacity (of the
+  global T), are the reference's; the rank runs its own rows' copies.
+  The aux loss is the global batch's: one sum of a (2, E) buffer over
+  the group (``need_aux=False`` skips it where the aux loss is dropped).
 """
 from __future__ import annotations
 
@@ -30,25 +46,31 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.partition import P
+from repro_torch.models import tensor_parallel as tpl
 from repro_torch.models.layers import (MODEL, DualPair, lora_delta, lora_pair,
                                        matmul)
 
 Params = Dict[str, Any]
 
 
-def init_moe(normal, d: int, ff: int, n_experts: int, mlp_type: str
-             ) -> Params:
+def init_moe(normal, d: int, ff: int, n_experts: int, mlp_type: str,
+             experts: Optional[range] = None) -> Params:
     """One MoE layer's weights with the reference's scales: ``normal(shape,
     std, out_dtype=None)`` draws (``out_dtype`` None: the parameter
     dtype).  The router stays fp32.  Expert stacks are drawn an expert at
     a time, so the fp32 draw of a stack (22.5 GB for one of kimi-k2's) is
-    never held whole."""
+    never held whole; ``experts`` (a range of ids) keeps only those, every
+    expert still drawn in turn, so they are the whole stack's rows."""
+    keep = range(n_experts) if experts is None else experts
+
     def stack(shape, std):
-        first = normal(shape, std)
-        out = first.new_empty((n_experts,) + shape)
-        out[0] = first
-        for e in range(1, n_experts):
-            out[e] = normal(shape, std)
+        out = None
+        for e in range(n_experts):
+            w = normal(shape, std)
+            if e in keep:
+                if out is None:
+                    out = w.new_empty((len(keep),) + shape)
+                out[e - keep.start] = w
         return out
 
     p = {"router": normal((d, n_experts), d ** -0.5, torch.float32),
@@ -115,6 +137,54 @@ def dispatch(ids: torch.Tensor, E: int, cap: int
     return dest, keep
 
 
+class RoutingLog:
+    """Every routing and dispatch :func:`apply_moe` makes in this process
+    while it is open (a context manager, for checks that hold routing
+    equal across backends, ranks or meshes): ``logits`` and ``ids``, each
+    routing call's router logits (fp32) and own top-k ids; ``dispatched``
+    and ``keep``, each dispatch's ids (at ``"data"`` > 1 every rank's,
+    gathered) and keep mask; all in call (layer) order.  With ``pinned``
+    (one ids tensor per routing call) each call routes to those ids
+    instead, weighted by its own probabilities there, renormalised as
+    top-k weights are.  It swaps this module's ``_top_k_routing`` and
+    ``dispatch`` while open and restores them on exit."""
+
+    def __init__(self, pinned=None):
+        self.pinned = pinned
+        self.logits, self.ids, self.dispatched, self.keep = [], [], [], []
+
+    @property
+    def dropped(self):
+        """Each dispatch's count of dropped copies."""
+        return [int((~k).sum()) for k in self.keep]
+
+    def __enter__(self):
+        global _top_k_routing, dispatch
+        self._saved = _top_k_routing, dispatch
+        _top_k_routing, dispatch = self._route, self._dispatch
+        return self
+
+    def __exit__(self, *exc):
+        global _top_k_routing, dispatch
+        _top_k_routing, dispatch = self._saved
+
+    def _route(self, logits, k):
+        w, ids, aux = self._saved[0](logits, k)
+        self.logits.append(logits.detach().float().clone())
+        self.ids.append(ids.clone())
+        if self.pinned is not None:
+            ids = self.pinned[len(self.ids) - 1]
+            w = torch.softmax(logits.float(), dim=-1).gather(1, ids)
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return w, ids, aux
+
+    def _dispatch(self, ids, E, cap):
+        dest, keep = self._saved[1](ids, E, cap)
+        self.dispatched.append(ids.clone())
+        self.keep.append(keep.clone())
+        return dest, keep
+
+
 class _BmmF32(torch.autograd.Function):
     """``aten::bmm.dtype`` (bf16 operands, fp32 result) with a backward,
     which autograd lacks for that overload: each operand's gradient is a
@@ -167,15 +237,28 @@ def _router_delta(adapters, x, adapter_ids):
 
 def apply_moe(params: Params, x: torch.Tensor, cfg,
               adapters: Optional[Params] = None, lora_scale: float = 1.0,
-              adapter_ids: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              adapter_ids: Optional[torch.Tensor] = None, tp=None, dp=None,
+              need_aux: bool = True
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x (B, S, d) -> (out (B, S, d) in x's dtype, aux loss fp32 scalar).
     ``adapters`` may hold a ``"router"`` LoRA (the only MoE target; a
-    bank with ``adapter_ids`` routes each row to its client's)."""
+    bank with ``adapter_ids`` routes each row to its client's).
+
+    ``tp`` (``tensor_parallel.ModelGroup``): the expert stacks are this
+    rank's block of ``n_experts / size`` experts and ``x`` is whole; the
+    output is the whole layer's on every rank, and so is the aux loss,
+    whose gradient is scaled by ``1 / size`` on each rank, so that the
+    group's sums of the input's and the router pair's gradients count it
+    once, as every other contribution there is a rank's own experts'
+    share.  ``dp`` (``tensor_parallel.DataGroup``): ``x`` is this rank's
+    rows of a batch whose rows the group splits; the aux loss is the
+    global batch's (the gradient of each rank's rows its own), or None
+    with ``need_aux=False``."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.n_experts_per_tok
     T = B * S
-    cap = capacity(T, k, E, cfg.moe_capacity_factor)
+    cap = capacity(T * (1 if dp is None else dp.size), k, E,
+                   cfg.moe_capacity_factor)
 
     xf = x.reshape(T, d)
     # the fp32 router cast to x's dtype, the product in fp32
@@ -185,11 +268,25 @@ def apply_moe(params: Params, x: torch.Tensor, cfg,
         logits = logits + lora_scale * delta.reshape(T, E)
     weights, ids, aux = _top_k_routing(logits, k)
 
-    dest, keep = dispatch(ids, E, cap)
+    if dp is None:
+        dest, keep = dispatch(ids, E, cap)
+    else:   # every rank's ids in flat order: the reference's dispatch
+        every = dp.gather(ids.to(torch.int32).contiguous()).long()
+        dest, keep = dispatch(every, E, cap)
+        own = slice(dp.rank * T * k, (dp.rank + 1) * T * k)
+        dest, keep = dest[own], keep[own]
+        aux = _global_aux(logits, ids, E, T * dp.size, dp) if need_aux \
+            else None
+    n = E
+    if tp is not None:  # this rank's experts: buffer rows [lo, lo + n·cap)
+        n = params["w_up"].shape[0]
+        lo = tp.rank * n * cap
+        keep = keep & (dest >= lo) & (dest < lo + n * cap)
+        dest = torch.where(keep, dest - lo, torch.full_like(dest, n * cap))
     token_idx = torch.arange(T, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((n * cap + 1, d), dtype=x.dtype, device=x.device)
     buf[dest] = xf[token_idx]         # dropped copies all land in the last row
-    buf = buf[:E * cap].reshape(E, cap, d)
+    buf = buf[:n * cap].reshape(n, cap, d)
 
     w_up = params["w_up"].to(x.dtype)
     if "w_gate" in params:
@@ -202,7 +299,7 @@ def apply_moe(params: Params, x: torch.Tensor, cfg,
         h = F.gelu(_bmm_f32(buf, w_up), approximate="tanh").to(x.dtype)
     y_buf = _bmm_f32(h, params["w_out"].to(x.dtype)).to(x.dtype)
 
-    y_flat = torch.cat([y_buf.reshape(E * cap, d),
+    y_flat = torch.cat([y_buf.reshape(n * cap, d),
                         torch.zeros((1, d), dtype=x.dtype, device=x.device)])
     # every token owns rows t·k .. t·k+k-1: sum its k copies in a fixed
     # order (no atomics), from 0 as the reference's scatter-add does
@@ -212,4 +309,21 @@ def apply_moe(params: Params, x: torch.Tensor, cfg,
     out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
     for j in range(k):
         out = out + y_copies[:, j]
+    if tp is not None:      # the ranks' experts' partials, summed in fp32
+        out = tpl.reduce_from_group(out, tp)
+        if aux is not None:
+            aux = tpl.grad_scaled(aux, 1.0 / tp.size)
     return out.reshape(B, S, d).to(x.dtype), aux
+
+
+def _global_aux(logits: torch.Tensor, ids: torch.Tensor, E: int,
+                T_global: int, dp) -> torch.Tensor:
+    """The Switch aux loss of the whole batch from this rank's rows:
+    the rows' counts of first choices and sums of router probabilities,
+    one (2, E) fp32 sum over the group, each over the global T (the sum's
+    gradient passes whole, so each rank's rows get their own)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    sums = torch.stack([F.one_hot(ids[:, 0], E).float().sum(0),
+                        probs.sum(0)])
+    sums = tpl.reduce_from_group(sums, dp) / T_global
+    return torch.sum(sums[0] * sums[1]) * E

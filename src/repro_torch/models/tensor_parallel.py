@@ -16,16 +16,22 @@ those trees and the model says where the sums go:
   :func:`reduce_from_group` sums the partials (identity backward);
 * the embedding and the cross entropy over a vocabulary split in
   contiguous blocks (:func:`vocab_parallel_embed`,
-  :func:`vocab_parallel_nll`, :func:`vocab_parallel_argmax`).
+  :func:`vocab_parallel_nll`, :func:`vocab_parallel_argmax`);
+* the experts of an MoE layer (expert parallelism): each rank holds
+  ``n_experts / size`` whole experts and runs their copies of the
+  dispatch every rank plans alike, its combine a partial of the layer's
+  output (``models/moe.apply_moe``).
 
 ``wq``'s columns are head-major, so a rank's block is whole heads: the
 rank attends its ``n_heads / size`` query heads over its ``n_kv_heads /
 size`` kv heads, which is GQA's grouping when both counts divide.  Every
 rank runs the same kernels on its shard; there is no new kernel.
 
-Collectives arrive as a callable (:class:`ModelGroup`), so nothing here
-imports ``launch/``: ``launch/mesh.model_group`` builds the group of a
-mesh, and the dry run's walk logs them on the meta device.
+Collectives arrive as callables (:class:`ModelGroup`, and
+:class:`DataGroup` for the ranks that split a batch's rows, which an MoE
+layer's capacity and aux loss span), so nothing here imports
+``launch/``: ``launch/mesh.model_group`` and ``data_group`` build the
+groups of a mesh, and the dry run's walk logs them on the meta device.
 """
 from __future__ import annotations
 
@@ -49,38 +55,69 @@ class ModelGroup:
     reduce: Callable
 
 
+@dataclasses.dataclass(frozen=True)
+class DataGroup:
+    """A rank's data group, the ranks that split a batch's rows: ``size``
+    ranks, this one at ``rank``; ``gather(t)`` concatenates every rank's
+    ``t`` along dim 0 in rank order, ``reduce(t, op="sum")`` reduces
+    ``t`` in place over the group and returns it.  A rank's rows follow
+    the lower ranks' rows, so a gather restores the batch's flat order."""
+    size: int
+    rank: int
+    gather: Callable
+    reduce: Callable
+
+
 def local_config(cfg, size: int):
     """``cfg`` at one rank's shard of a ``size``-way model axis: heads, kv
-    heads, ff columns and vocabulary divided by ``size`` (the head dim
-    pinned).  Refused, naming the dim, where one does not divide."""
-    for name in SPLIT_DIMS:
+    heads, ff columns and vocabulary divided by ``size`` (the head dim and
+    the experts' width pinned); ``n_experts`` stays global, since every
+    rank's router ranks all the experts, and must divide too.  Refused,
+    naming the dim, where one does not divide."""
+    moe = {"d_ff_moe": cfg.resolved_d_ff_moe} if cfg.has_moe() else {}
+    for name in SPLIT_DIMS + tuple(("n_experts",) if moe else ()):
         n = getattr(cfg, name)
         if n % size:
             raise ValueError(f"{cfg.name}: {name} {n} does not divide over "
                              f"a \"model\" axis of {size}")
-    return cfg.with_overrides(head_dim=cfg.resolved_head_dim,
+    return cfg.with_overrides(head_dim=cfg.resolved_head_dim, **moe,
                               **{n: getattr(cfg, n) // size
                                  for n in SPLIT_DIMS})
 
 
 def check_model_axis(cfg, size: int):
     """The local config of ``cfg`` at a ``size``-way model axis, or a
-    ``ValueError`` naming what is not ported: only the dense family is
-    split (attention and the dense MLP), with every split dim dividing."""
+    ``ValueError`` naming what is not ported: the dense and MoE families
+    are split (attention, the dense MLP, the experts), with every split
+    count dividing."""
     if size == 1:
         return cfg
-    family = {"moe": "experts (the reference shards them on it, "
-                     "src/repro/models/moe.py)",
-              "ssm": "mamba layers (the reference splits SSM heads on it, "
+    family = {"ssm": "mamba layers (the reference splits SSM heads on it, "
                      "src/repro/models/mamba2.py)",
               "vlm": "the VLM's patch embeddings",
               "encdec": "the encoder-decoder"}
-    kind = ("ssm" if cfg.has_mixer("mamba") else "moe" if cfg.has_moe()
-            else cfg.family)
+    kind = "ssm" if cfg.has_mixer("mamba") else cfg.family
     if kind in family:
         raise ValueError(f"{cfg.name}: not ported over a \"model\" axis > 1:"
-                         f" {family[kind]}; it runs dense configs only")
+                         f" {family[kind]}; it runs the dense and MoE "
+                         "families only")
     return local_config(cfg, size)
+
+
+def shard_leaf(t: torch.Tensor, spec, size: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s block of ``t`` along the dim its spec splits over
+    ``"model"`` (a copy, so the whole leaf can go), or ``t`` itself."""
+    for d, e in enumerate(spec):
+        if "model" in entry_axes(e):
+            w = t.shape[d] // size
+            return t.narrow(d, rank * w, w).clone()
+    return t
+
+
+def grad_scaled(t: torch.Tensor, s: float) -> torch.Tensor:
+    """``t`` forward (bit for bit); its gradient times ``s`` backward."""
+    d = t.detach()
+    return d + (t - d) * s
 
 
 def replicated(spec_tree):

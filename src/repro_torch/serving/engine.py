@@ -40,20 +40,26 @@ attention-only model, as in the reference), overlapped dispatch
 split into placement domains, still one dispatch per round).
 
 ``ServeConfig.mesh`` (a ``("pod", "data", "model")`` ``DeviceMesh`` from
-``launch/mesh.make_mesh``; dense configs) serves one stream on every rank
-of the mesh, each rank's process running this same code: every rank
-plans every slot (scheduler, pool, prefix index, drafts), and dispatches
-its part.  Slots lie on "data" (rank r of D serves its shard-contiguous
-block of slots, with a device pool of scratch block 0 and its shards'
-blocks), heads, ff columns and the vocabulary on "model" (each rank
-holds its shard of the base, of the bank and of the pools' kv heads;
-``models/tensor_parallel.py``), and "pod" replicates, as the reference's
-``P("data")`` on the fused batch does.  Every rank samples the same
-tokens: greedy through the vocabulary-parallel argmax, sampling from the
-rows' whole logits and the meshless stream's (K, V) draws; one all-gather
-over "data" then gives each rank the whole batch's tokens, so the host
-planning stays identical on every rank and the streams are the meshless
-ones (bitwise where the ranks' products round as one card's do).
+``launch/mesh.make_mesh``; dense and MoE configs) serves one stream on
+every rank of the mesh, each rank's process running this same code:
+every rank plans every slot (scheduler, pool, prefix index, drafts), and
+dispatches its part.  Slots lie on "data" (rank r of D serves its
+shard-contiguous block of slots, with a device pool of scratch block 0
+and its shards' blocks), heads, ff columns and the vocabulary on
+"model" (each rank holds its shard of the base, of the bank and of the
+pools' kv heads, and its block of an MoE layer's experts;
+``models/tensor_parallel.py``), and "pod" replicates, as the
+reference's ``P("data")`` on the fused batch does.  Every rank samples
+the same tokens: greedy through the vocabulary-parallel argmax, sampling
+from the rows' whole logits and the meshless stream's (K, V) draws; one
+all-gather over "data" then gives each rank the whole batch's tokens, so
+the host planning stays identical on every rank and the streams are the
+meshless ones (bitwise where the ranks' products round as one card's
+do).  An MoE layer over "data" gathers every rank's routing ids (one
+all-gather a layer and dispatch), so each expert's capacity and slots
+are the whole fused batch's, as the meshless dispatch's, and each
+attention layer syncs the pools' scratch block, whose contents the
+ragged tails that MoE routes read (``layers.sync_scratch``).
 """
 from __future__ import annotations
 
@@ -171,20 +177,13 @@ def _check_supported(sc: ServeConfig) -> None:
 
 def check_serve_mesh(cfg, mesh) -> None:
     """Refuse, naming why, a config ``ServeConfig.mesh`` cannot serve:
-    at "model" > 1 anything but the dense family
-    (``tensor_parallel.check_model_axis``: experts, mamba layers, the
-    VLM, the encoder-decoder, or a split dim that does not divide); at
-    "data" > 1 expert layers, whose capacity counts the whole fused
-    batch's tokens, and mamba layers, whose per-slot state is not split
-    over data ranks."""
+    at "model" > 1 anything but the dense and MoE families
+    (``tensor_parallel.check_model_axis``: mamba layers, the VLM, the
+    encoder-decoder, or a split count that does not divide); at "data" >
+    1 mamba layers, whose per-slot state is not split over data ranks."""
     sizes = mesh_shape(mesh)
     tpl.check_model_axis(cfg, sizes.get("model", 1))
     if sizes.get("data", 1) > 1:
-        if cfg.has_moe():
-            raise ValueError(
-                f"{cfg.name}: not served over a \"data\" axis > 1: an "
-                "expert's capacity counts the whole fused batch's tokens, "
-                "which a data rank's rows do not hold")
         if cfg.has_mixer("mamba"):
             raise ValueError(
                 f"{cfg.name}: not served over a \"data\" axis > 1: mamba "
@@ -195,8 +194,8 @@ def check_serve_mesh(cfg, mesh) -> None:
 class _MeshRank:
     """One rank's part of a stream over ``ServeConfig.mesh``: its rows
     (slots ``[lo, hi)``, shard-contiguous), its shards of the pool and its
-    device pool's size, its model group, and the sampling every rank
-    agrees on."""
+    device pool's size, its model group, its data group (which an MoE
+    layer's dispatch spans), and the sampling every rank agrees on."""
 
     def __init__(self, mesh, num_slots: int, num_blocks: int,
                  num_shards: int):
@@ -211,6 +210,7 @@ class _MeshRank:
         self.shards = range(d * per, (d + 1) * per)
         self.num_blocks = 1 + per * ((num_blocks - 1) // num_shards)
         self.tp = mesh_lib.model_group(mesh)
+        self.dp = mesh_lib.data_group(mesh)
         self.key = (tuple(sizes.items()), tuple(coord.items()))
         self.params = None            # the engine's params_for(mesh)
 
@@ -449,15 +449,29 @@ class MultiTenantEngine(_EngineBase):
                                                  tp.rank))
         return self._bank_shard[1]
 
+    def hold_shard(self, size: int, rank: int, params: Params) -> None:
+        """Serve ``params``, the base's shard at rank ``rank`` of a
+        ``size``-way "model" axis (``Model.init(shard=)``: drawn so, with
+        no whole base ever held), and drop the whole base."""
+        self.params = None
+        self._params_shard = ((size, rank), params)
+
     def params_for(self, sc: ServeConfig) -> Params:
         """The base as the stream's ranks hold it: whole, or over a mesh
         whose "model" axis is > 1 this rank's ``local_shard`` under
-        ``param_specs`` (taken once per mesh)."""
+        ``param_specs`` (taken once per mesh, or held from the start:
+        :meth:`hold_shard`)."""
         tp = None if sc.mesh is None else mesh_lib.model_group(sc.mesh)
         if tp is None:
+            if self.params is None:
+                raise ValueError("the engine holds a model shard only; "
+                                 "serve it over its mesh")
             return self.params
         key = (tp.size, tp.rank)
         if self._params_shard is None or self._params_shard[0] != key:
+            if self.params is None:
+                raise ValueError(f"the engine holds no whole base to cut "
+                                 f"the shard {key} from")
             self._params_shard = None
             self._params_shard = (key, local_shard(
                 self.params, param_specs(self.cfg), sc.mesh))
@@ -471,7 +485,8 @@ class MultiTenantEngine(_EngineBase):
         return {"adapters": bank, "lora_scale": self.scale,
                 "adapter_ids": ids, "block_tables": block_tables,
                 "paged_backend": backend,
-                "tp": None if rk is None else rk.tp}
+                "tp": None if rk is None else rk.tp,
+                "dp": None if rk is None else rk.dp}
 
     def _params(self, rk):
         return self.params if rk is None else rk.params

@@ -21,7 +21,9 @@ loss skips its patch positions; an encoder-decoder's batch carries
   and every attention runs the flash-attention kernel.
 * ``data_parallel_value_and_grad`` and ``global_token_counts``: the
   LoRA step's gradient over the ``"data"`` group of a mesh, each rank on
-  its own rows, keeping the reference's global token mean (below).
+  its own rows, keeping the reference's global token mean (below) and,
+  for an MoE model, the global batch's expert capacity and aux loss
+  (``models/moe.apply_moe`` over the data group).
 * ``model_group_grads``: the LoRA step over a mesh's ``"model"`` group
   (``models/tensor_parallel.py``), each rank on its shard of the base
   and adapters: the adapter leaves that every rank holds whole (A of
@@ -118,18 +120,28 @@ def cross_entropy(cfg, logits: torch.Tensor, batch,
 
 
 def make_lora_loss_fn(model, cfg, paged_backend: Optional[str] = None,
-                      tp=None) -> Callable:
+                      tp=None, dp=None) -> Callable:
     """``loss_fn(adapters, params, batch, denom=None) -> (loss,
-    metrics)``; with a model group ``tp`` the trees are this rank's
-    shards and the cross entropy is vocabulary-parallel."""
+    metrics)``: the cross entropy plus ``router_aux_loss_coef`` times the
+    MoE aux loss (``metrics["aux_loss"]``).  With a model group ``tp``
+    the trees are this rank's shards and the cross entropy is
+    vocabulary-parallel.  With a data group ``dp`` the batch is this
+    rank's rows and the aux loss the whole batch's, the same on every
+    rank: it enters the loss at ``1 / dp.size`` of its value, so the
+    ranks' losses are shares of the whole batch's as their cross
+    entropies are, with its whole gradient, each rank's rows' own
+    (``moe.apply_moe``), so the gradients' sum counts it once."""
     scale = _lora_scale(cfg)
 
     def loss_fn(adapters: Params, params: Params, batch, denom=None):
         logits, aux = model.forward(params, batch, adapters=adapters,
                                     lora_scale=scale,
-                                    paged_backend=paged_backend, tp=tp)
+                                    paged_backend=paged_backend, tp=tp,
+                                    dp=dp)
         loss, metrics = cross_entropy(cfg, logits, batch, denom, tp)
-        return (loss + cfg.router_aux_loss_coef * aux,
+        share = aux if dp is None else tpl.grad_scaled(aux / dp.size,
+                                                       dp.size)
+        return (loss + cfg.router_aux_loss_coef * share,
                 dict(metrics, aux_loss=aux))
 
     return loss_fn
@@ -181,8 +193,8 @@ def global_token_counts(batches, reduce: Callable) -> torch.Tensor:
 
 
 def data_parallel_value_and_grad(model, cfg, reduce: Callable, tp=None,
-                                 paged_backend: Optional[str] = None
-                                 ) -> Callable:
+                                 paged_backend: Optional[str] = None,
+                                 dp=None) -> Callable:
     """``fn(params, adapters, batches, denoms) -> (metrics, grads)``, one
     entry per (adapter tree, batch, denominator) of this rank (the
     clients it runs, each on its own rows of its batch): the gradient of
@@ -192,21 +204,25 @@ def data_parallel_value_and_grad(model, cfg, reduce: Callable, tp=None,
     ``reduce`` (an in-place sum over the group) adds every tree's
     gradients with its loss and accuracy folded in, so each rank gets the
     global loss's gradient and metrics (with a model group ``tp``, each
-    rank's shard of them: :func:`model_group_grads` follows).  Configs
-    with experts are refused: the reference computes expert capacity and
-    the aux loss over the global batch."""
-    if cfg.has_moe():
-        raise ValueError(f"{cfg.name}: experts over a data axis > 1 are not "
-                         "ported (the reference computes expert capacity "
-                         "and the router's aux loss over the global batch)")
-    vg = value_and_grad(make_lora_loss_fn(model, cfg, paged_backend, tp))
+    rank's shard of them: :func:`model_group_grads` follows).  A config
+    with experts needs ``dp``, the data group (``launch/mesh.
+    data_group``), over which its MoE layers size capacity and take the
+    aux loss as the reference does, over the global batch;
+    ``metrics["aux_loss"]`` is that, the same on every rank."""
+    if cfg.has_moe() and dp is None:
+        raise ValueError(f"{cfg.name}: experts over a data axis > 1 need "
+                         "its data group (launch.mesh.data_group): expert "
+                         "capacity and the router's aux loss span the "
+                         "global batch")
+    vg = value_and_grad(make_lora_loss_fn(model, cfg, paged_backend, tp, dp))
 
     def fn(params, adapters, batches, denoms):
-        grads, nums = [], []
+        grads, nums, auxes = [], [], []
         for ad, batch, denom in zip(adapters, batches, denoms):
             _, m, g = vg(ad, params, batch, denom)
             grads.append(g)
             nums += [m["loss"], m["accuracy"]]
+            auxes.append(m["aux_loss"])
         flat = [tree_flatten(g) for g in grads]
         buf = reduce(torch.cat(flat + [torch.stack(nums).to(flat[0].dtype)]))
         out, off = [], 0
@@ -215,7 +231,8 @@ def data_parallel_value_and_grad(model, cfg, reduce: Callable, tp=None,
             off += f.numel()
         tail = buf[off:]
         metrics = [{"loss": tail[2 * i], "accuracy": tail[2 * i + 1],
-                    "tokens": denoms[i]} for i in range(len(grads))]
+                    "tokens": denoms[i], "aux_loss": auxes[i]}
+                   for i in range(len(grads))]
         return metrics, out
 
     return fn
@@ -257,26 +274,31 @@ def model_group_grads(grads, replicated, tp):
 
 def make_lora_train_step(model, cfg, opt: Optimizer, clip_norm: float = 1.0,
                          paged_backend: Optional[str] = None, tp=None,
-                         reduce_data: Optional[Callable] = None) -> Callable:
+                         reduce_data: Optional[Callable] = None,
+                         dp=None) -> Callable:
     """step(params, adapters, opt_state, batch) -> (adapters, opt_state,
     metrics).  Over a mesh: ``reduce_data`` (an in-place sum over the
-    ranks that split the batch's rows) takes the gradient of the whole
-    batch's loss (:func:`data_parallel_value_and_grad`); ``tp`` (a model
-    group) runs each rank on its shards, its replicated leaves summed and
-    the clip by the global norm (:func:`model_group_grads`)."""
+    ranks that split the batch's rows; ``dp.reduce`` by default), with
+    the data group ``dp`` (which an MoE model needs), takes the gradient
+    of the whole batch's loss (:func:`data_parallel_value_and_grad`);
+    ``tp`` (a model group) runs each rank on its shards, its replicated
+    leaves summed and the clip by the global norm
+    (:func:`model_group_grads`)."""
     if tp is not None:
         tpl.check_model_axis(cfg, tp.size)
         replicated = tpl.replicated(adapter_specs(cfg))
+    if reduce_data is None and dp is not None:
+        reduce_data = dp.reduce
     if reduce_data is not None:
-        dp = data_parallel_value_and_grad(model, cfg, reduce_data, tp,
-                                          paged_backend)
+        dpvg = data_parallel_value_and_grad(model, cfg, reduce_data, tp,
+                                            paged_backend, dp)
     else:
         vg = value_and_grad(make_lora_loss_fn(model, cfg, paged_backend, tp))
 
     def step(params, adapters, opt_state, batch):
         if reduce_data is not None:
             denom = global_token_counts([batch], reduce_data)
-            (metrics,), (grads,) = dp(params, [adapters], [batch], denom)
+            (metrics,), (grads,) = dpvg(params, [adapters], [batch], denom)
         else:
             _, metrics, grads = vg(adapters, params, batch)
         norm = None

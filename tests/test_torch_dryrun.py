@@ -11,7 +11,7 @@ bytes on meta reproduce the depth cuts the card runs; a prefill walk
 launches flash attention and holds no (B, H, S, S) scores; every
 supported arch × {decode_32k, train_4k} writes a JSON with the stated
 keys (smoke widths), whisper-small × long_500k is skipped, and the CLI's
-refusals; ``--multi-pod`` on one rank of (2, 16, 16) at llama2-7b's full
+refusals; ``--mesh 2,16,16`` (the reference's multi-pod mesh) at llama2-7b's full
 width; the torch examples on the CPU.
 """
 import importlib.util
@@ -429,7 +429,7 @@ def test_cli_runs_skips_and_refuses(tmp_path, capsys):
                          "--out-dir", out] + bad)
     # serving over the production mesh walks one rank's decode step
     assert dryrun.main(["--arch", "olmo-1b", "--shape", "decode_32k",
-                        "--multi-pod", "--step", "decode",
+                        "--mesh", "2,16,16", "--step", "decode",
                         "--out-dir", out]) == 0
     r = json.loads((tmp_path / "olmo-1b__decode_32k__2x16x16__decode.json")
                    .read_text())
@@ -448,7 +448,7 @@ def test_cli_multi_pod_walks_one_rank_of_the_production_mesh(tmp_path,
     naming its head count."""
     out = str(tmp_path)
     assert dryrun.main(["--arch", "llama2-7b", "--shape", "train_4k",
-                        "--multi-pod", "--step", "train",
+                        "--mesh", "2,16,16", "--step", "train",
                         "--out-dir", out]) == 0
     r = json.loads((tmp_path / "llama2-7b__train_4k__2x16x16__train.json")
                    .read_text())
@@ -464,7 +464,7 @@ def test_cli_multi_pod_walks_one_rank_of_the_production_mesh(tmp_path,
     assert r["roofline"]["collective_s"] > 0
     assert "OK llama2-7b train_4k 2x16x16 train" in capsys.readouterr().out
     assert dryrun.main(["--arch", "gemma-2b", "--shape", "train_4k",
-                        "--multi-pod", "--out-dir", out]) == 0
+                        "--mesh", "2,16,16", "--out-dir", out]) == 0
     assert "n_heads 8 does not divide" in capsys.readouterr().out
 
 

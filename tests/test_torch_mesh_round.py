@@ -25,10 +25,10 @@ a rank), every case of that world inside it (``federated/mesh_job.run``):
   data 2 (none at data 1).
 
 World 1 runs in this process (a one-rank gloo group over a HashStore).
-The refusals (experts or a kv-head count that does not divide at a
-"model" axis > 1; experts at data > 1) come at the round step's
-construction and need no ranks.  Last, the torch multipod example
-on 2 CPU ranks.
+The refusals (an expert or kv-head count that does not divide at a
+"model" axis > 1; an MoE model's data-parallel gradient without its data
+group) come at construction and need no ranks.  Last, the torch
+multipod example on 2 CPU ranks.
 """
 import importlib.util
 from pathlib import Path
@@ -341,26 +341,30 @@ def test_refusals():
     with pytest.raises(ValueError, match='"pod" axis'):
         distributed.make_fdlora_round_step(
             model, pcfg, inner, outer, K, mesh={"data": 1, "model": 1})
-    # the "model" axis splits dense configs whose counts divide: experts
-    # and a kv-head count that does not divide stay refused
-    moe = bridge.config_from_jax(tiny_moe())
-    with pytest.raises(ValueError, match="experts"):
+    # the "model" axis splits dense and MoE configs whose counts divide:
+    # an expert count and a kv-head count that do not divide stay refused
+    moe3 = bridge.config_from_jax(tiny_moe()).with_overrides(n_experts=3)
+    with pytest.raises(ValueError, match="n_experts 3 does not divide"):
         distributed.make_fdlora_round_step(
-            Model(moe, device="cpu"), moe, inner, outer, K,
+            Model(moe3, device="cpu"), moe3, inner, outer, K,
             mesh={"pod": 1, "data": 1, "model": 2})
     mqa = bridge.config_from_jax(tiny_dense(n_kv_heads=1))
     with pytest.raises(ValueError, match="n_kv_heads 1 does not divide"):
         distributed.make_fdlora_round_step(
             Model(mqa, device="cpu"), mqa, inner, outer, K,
             mesh={"pod": 1, "data": 1, "model": 2})
-    with pytest.raises(ValueError, match="experts over a data axis"):
+    # the data-parallel gradient of an MoE model needs the data group
+    from repro_torch.training.train_step import data_parallel_value_and_grad
+    moe = bridge.config_from_jax(tiny_moe())
+    with pytest.raises(ValueError, match="need its data group"):
+        data_parallel_value_and_grad(Model(moe, device="cpu"), moe,
+                                     lambda t: t)
+    # experts at data 1, data 2 and model 2 are fine: the round's
+    # construction goes through
+    from repro_torch.launch.dryrun import RankMesh
+    for mesh in ({"pod": 2, "data": 1, "model": 1}, RankMesh((1, 2, 2))):
         distributed.make_fdlora_round_step(
-            Model(moe, device="cpu"), moe, inner, outer, K,
-            mesh={"pod": 1, "data": 2, "model": 1})
-    # experts at data 1 are fine: the round's construction goes through
-    distributed.make_fdlora_round_step(
-        Model(moe, device="cpu"), moe, inner, outer, K,
-        mesh={"pod": 2, "data": 1, "model": 1})
+            Model(moe, device="cpu"), moe, inner, outer, K, mesh=mesh)
 
 
 def test_torch_multipod_example_runs_on_the_cpu():

@@ -3,10 +3,10 @@
 unsplit paths, on ``tiny_dense`` in fp32 (4 heads, 2 kv heads, d_ff 128
 and vocabulary 300, each divisible by 2).
 
-* ``local_config`` and the refusals of what is not split (experts,
-  mamba layers, the VLM, the encoder-decoder, counts that do not
-  divide; full fine-tuning), and the dry run's serving steps at the
-  model axis;
+* ``local_config`` and the refusals of what is not split (mamba
+  layers, the VLM, the encoder-decoder, counts that do not divide, the
+  expert count included; full fine-tuning), and the dry run's serving
+  steps at the model axis;
 * the vocabulary-parallel embedding, cross entropy and argmax on 2, 3
   and 4 ranks simulated by threads, against the plain ones, with ties in
   the argmax across the vocabulary blocks;
@@ -105,14 +105,15 @@ def test_local_config_is_the_local_shard():
     ("yi-6b", 16, "n_kv_heads 4 does not divide"),
     ("starcoder2-15b", 16, "n_kv_heads 4 does not divide"),
     ("llama2-7b", 3, "n_heads 32 does not divide"),
-    ("dbrx-132b", 2, "experts"),
+    ("dbrx-132b-3-experts", 2, "n_experts 3 does not divide"),
     ("mamba2-2.7b", 2, "mamba layers"),
     ("jamba-v0.1-52b", 2, "mamba layers"),
     ("internvl2-26b", 2, "VLM"),
     ("whisper-small", 2, "encoder-decoder"),
 ])
 def test_what_is_not_split_is_refused(arch, size, match):
-    cfg = get_config(arch)
+    cfg = (get_config("dbrx-132b").with_overrides(n_experts=3)
+           if arch == "dbrx-132b-3-experts" else get_config(arch))
     with pytest.raises(ValueError, match=match):
         tpl.check_model_axis(cfg, size)
     with pytest.raises(ValueError, match=match):
@@ -134,7 +135,7 @@ def test_full_training_and_serving_over_the_model_axis_are_refused():
                              2, 16, mesh=(1, 1, 2))
         assert [(c["axis"], c["group"]) for c in res["collectives"]] == (
             [("model", 2)] * (2 * cfg.n_layers + 2))
-    for arch in ("llama2-7b", "olmo-1b"):     # --multi-pod's archs
+    for arch in ("llama2-7b", "olmo-1b"):     # --mesh 2,16,16's archs
         tpl.check_model_axis(get_config(arch), 16)
 
 
