@@ -37,7 +37,8 @@ Phases (each prints one JSON line per result):
                port never calls; for decode also its device time); at the
                prefill shape, the LoRA shrink's
                and epilogue's share of the call's device time;
-  3. serve   — llama2-7b at full width, 32 layers, bf16, random weights from
+  3. serve   — llama2-7b at full width, 16 of 32 layers (LLAMA_LAYERS, the
+               script's time limit), bf16, random weights from
                --seed, 8 tenants with non-zero rank-16 adapters: 8 ragged
                requests (prompts 128-1024 tokens, 32 new tokens) through
                MultiTenantEngine.generate with paged_backend="cuda", counting
@@ -55,7 +56,7 @@ Phases (each prints one JSON line per result):
                TTFT from the scheduled arrival, TPOT, goodput and
                wall-clock queue waits, streams held to the logical ones by
                the margin rule; one traced realtime run;
-  4. serve_options — the same llama2-7b weights, 32 layers: a ragged int8
+  4. serve_options — the same llama2-7b weights, 16 layers: a ragged int8
                adapter bank (buckets 4, 8, 16; 6 tenants by register_dual),
                12 requests of byte-tokenized log text sharing a 512-token
                prefix per tenant, int8 K/V, prefix caching over a pool
@@ -65,7 +66,7 @@ Phases (each prints one JSON line per result):
                after a prefix hit against the same positions prefilled
                cold, and the streams held to stated tolerances; one traced
                warm run;
-  4b. sharded — the same weights cut to 16 of their 32 layers (the
+  4b. sharded — the same weights cut to 8 of their 16 layers (the
                script's time limit), the serve cell's 8 requests and 8
                tenants' rank-16 fused adapters in a ShardedAdapterRegistry,
                8 slots, "cuda", overlap on: num_shards 1, 2 and 4 (streams
@@ -86,7 +87,7 @@ Phases (each prints one JSON line per result):
                last prompt position's logits "cuda" vs "torch", the
                streams against the continuous engine's by the margin rule,
                ms per step and tok/s;
-  5. train   — FDLoRA Algorithm 1 on the same llama2-7b weights (32 layers,
+  5. train   — FDLoRA Algorithm 1 on the same llama2-7b weights (16 layers,
                full width, bf16), rank-16 adapters on all 7 targets, 2
                clients of 8 x 256-token SFT batches: one train step and one
                fused evaluation through "cuda" and "torch" held to stated
@@ -107,9 +108,29 @@ Phases (each prints one JSON line per result):
                stacked, K 2) with the pseudo-gradient in fp32 and in bf16,
                the bf16 one held to a derived bound; one traced FedRoD
                step;
+  5c. remat — activation recomputation (ModelConfig.remat and
+               remat_policy; every train step of the other phases runs at
+               the configs' default, remat "full") on the same llama2-7b
+               weights, 16 layers, bf16, rank-16 adapters on all 7
+               targets, 4,096-token SFT rows: (a) one row at remat off,
+               "full" and "dots": the loss and every adapter gradient of
+               "full" and "dots" bitwise off's when two off runs are
+               bitwise equal (else within twice their distance), a warmed,
+               timed step per setting with its mfu and its peak beside the
+               dry run's (within 25%), lora_matmul and flash launches
+               ("full": both twice a forward; "dots": flash twice,
+               lora_matmul once, its outputs saved: a hard check); (b) the
+               dry run (its walks in host processes beside the card) picks
+               the most rows of 8, 4, 2 at which "full" fits 60% of the
+               card (the walk leaves out about 1.14 GB a row and the
+               allocator's fragmentation) and off passes 90% of it, and
+               the most at which "dots" fits 60%:
+               one step each there, its peak beside the walk's and off's
+               predicted peak, the flash backward's fp32 probabilities'
+               bytes beside the predicted temp;
   6. dense_family — with llama2-7b's weights freed, gemma-2b, olmo-1b,
                yi-6b and starcoder2-15b in turn at their published width
-               and at most 12 layers (the script's time limit), bf16,
+               and at most 8 layers (the script's time limit), bf16,
                random weights from --seed, 4 tenants with
                rank-16 fused adapters: 4 requests (prompts 128-1024 tokens;
                starcoder2-15b one more of 4,608 tokens, past its window),
@@ -159,14 +180,15 @@ Phases (each prints one JSON line per result):
                its kernel lines (kernels phase) hold batched LoRA at both
                archs' in_proj (N tails of 80 and 160 columns past a
                multiple of 256) and out_proj shapes;
-  9. vlm_encdec — internvl2-26b at all 48 layers, published width, bf16,
+  9. vlm_encdec — internvl2-26b at 24 of its 48 layers (the script's time
+               limit), published width, bf16,
                random weights from --seed, 4 tenants with rank-16 fused
                adapters: phase dense_family's 4 text-only requests through
                "cuda" with overlap on and off (streams bitwise equal, every
                serving kernel launched on its tensor-core tiles), the first
                chunk held to "torch" (bf16 and fp32 activations); then one
                LoRA train step of 2 rows, each 256 seeded stub patch
-               embeddings and 256 SFT tokens, held to "torch" (bf16 at 48
+               embeddings and 256 SFT tokens, held to "torch" (bf16 at 24
                layers, fp32 at the first 8), with each step's peak memory;
                whisper-small in full (12 + 12 layers, 1,500 stub frames):
                one train step of 8 x 256 SFT tokens through lora_matmul and
@@ -217,7 +239,7 @@ Phases (each prints one JSON line per result):
                plain merge;
  12. mesh_round — FDLoRA's round over a torch.distributed mesh
                (launch/mesh.py, federated/mesh_job.py) on llama2-7b at
-               full width, 8 of 32 layers (the script's time limit),
+               full width, 4 of 32 layers (the script's time limit),
                bf16, random weights from
                --seed, rank-16 adapters on all 7 targets, 2 clients, K 2,
                8 x 256 SFT rows: (a) world size 1 on NCCL in this process,
@@ -245,7 +267,7 @@ Phases (each prints one JSON line per result):
                op and group, the peak memory per rank;
  12b. mesh_serve — serving over a torch.distributed mesh
                (ServeConfig.mesh; launch/serve.ServeJob the rank program):
-               llama2-7b at full width, 8 of 32 layers (the script's
+               llama2-7b at full width, 4 of 32 layers (the script's
                time limit), bf16, random weights from --seed, 8 tenants' rank-16 adapters, 8
                requests (prompts 128-512 tokens, 16 new tokens) through
                MultiTenantEngine.generate on "cuda"; the meshless runs at
@@ -265,8 +287,8 @@ Phases (each prints one JSON line per result):
                at the rank's shapes (those shapes are held in the kernels
                phase); decode tok/s and TTFT beside the meshless runs';
  12c. mesh_moe — experts over a torch.distributed mesh: dbrx-132b at full
-               width, 4 of 40 layers (2 where two ranks' dry-run peaks at
-               data 2 pass 90% of the card), bf16, random weights from
+               width, 2 of 40 layers (the script's time limit), bf16,
+               random weights from
                --seed, 4 tenants' rank-16 fused adapters (the router's
                pair included), 8 requests (prompts 128-512 tokens, 16 new
                tokens); the meshless engine (1 and 2 shards) and rounds
@@ -318,6 +340,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ARCH = "llama2-7b"
+# llama2-7b's layers (of 32) in the serve, serve_options, train, baselines
+# and remat cells: the script's time limit (the card's host paces them)
+LLAMA_LAYERS = 16
 
 
 def emit(obj) -> None:
@@ -1735,7 +1760,7 @@ def _trace_line(rep, **extra):
 # llama2-7b's layers the serve_trace phase serves (of 32): the phase is
 # host-paced, so its time follows the depth, and the script must stay
 # inside its time limit
-SERVE_TRACE_LAYERS = 16
+SERVE_TRACE_LAYERS = 8
 
 
 def serve_trace_phase(device, seed: int, n_requests: int = 16,
@@ -2006,8 +2031,9 @@ def tenant_text(rng, tenant: int, n_tokens: int):
 
 def serve_options_phase(device, seed: int, params, cfg, T: int = 256,
                         prefix_len: int = 512, new_tokens: int = 32):
-    """llama2-7b, 32 layers, bf16: int8 K/V, a ragged int8 bank, prefix
-    caching on a pool pinned below residency, then speculative decoding.
+    """llama2-7b, the serve cell's layers, bf16: int8 K/V, a ragged int8
+    bank, prefix caching on a pool pinned below residency, then
+    speculative decoding.
     Returns the cold run's launch counts."""
     import dataclasses
 
@@ -2229,12 +2255,12 @@ def sharded_engine(device, params, cfg, shards, trees, capacity=8,
             (time.perf_counter() - t0) * 1e3)
 
 
-SHARDED_LAYERS = 16
+SHARDED_LAYERS = 8
 
 
 def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
                   new_tokens: int = 32, depth: int = SHARDED_LAYERS):
-    """llama2-7b cut to ``depth`` of its 32 layers (the script's time
+    """llama2-7b cut to ``depth`` of its layers (the script's time
     limit), bf16: the serve cell's 8 requests and 8
     tenants' rank-16 fused adapters in a ShardedAdapterRegistry of
     capacity 8, 8 slots, through "cuda" with overlap on: num_shards 1, 2
@@ -2437,8 +2463,8 @@ def sharded_phase(device, seed: int, params, cfg, prompt_lens, T: int = 256,
 
 def fixed_phase(eng, seed: int, prompt_len: int = 64, new_tokens: int = 16,
                 cache_len: int = 128):
-    """llama2-7b at the sharded phase's 16 of its 32 layers (the script's
-    time limit), bf16: one seeded 64-token prompt, 16 new
+    """llama2-7b at the sharded phase's layers (the script's time limit),
+    bf16: one seeded 64-token prompt, 16 new
     tokens, cache_len 128, greedy.  ``generate_fixed`` serves 8 requests,
     one per tenant, over the fp32 bank (batched LoRA at M = 8 per step);
     ``Engine.generate`` serves 8 rows with one Eq. 7-merged adapter
@@ -2734,7 +2760,7 @@ def train_phase(device, seed: int, params, cfg):
     # 1-2: "cuda" against "torch" from the same adapters (B non-zero) and
     # the same batch.  bf16: the paths round at other places (the LoRA
     # kernels round once where the plain dense rounds twice, the attention
-    # tile rounds unnormalised probabilities) through 32 layers, forward and
+    # tile rounds unnormalised probabilities) through every layer, forward and
     # backward; the serve phase's logits differ by 3.7% of their largest
     # value for that reason alone.  A lost LoRA term, a wrong mask or a
     # wrong backward term moves a gradient by O(its size), so the bounds
@@ -3206,7 +3232,7 @@ def baselines_phase(device, seed: int, params, cfg, fdlora_accuracy):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the rest of the dense family at full width, 12 layers at most
+# phase 6: the rest of the dense family at full width, 8 layers at most
 # ---------------------------------------------------------------------------
 
 # why each arch is here: gemma-2b runs head dim 256 (one kv head, a 256,000
@@ -3215,9 +3241,9 @@ def baselines_phase(device, seed: int, params, cfg, fdlora_accuracy):
 # gate-less GELU MLP (6 LoRA targets), LayerNorm with bias and a 4,096
 # token sliding window
 DENSE_FAMILY = ("gemma-2b", "olmo-1b", "yi-6b", "starcoder2-15b")
-DENSE_LAYERS = 12           # the script's time limit: yi-6b 12 of 32,
-                            # starcoder2-15b 12 of 40, gemma-2b 12 of 18,
-                            # olmo-1b 12 of 16
+DENSE_LAYERS = 8            # the script's time limit: yi-6b 8 of 32,
+                            # starcoder2-15b 8 of 40, gemma-2b 8 of 18,
+                            # olmo-1b 8 of 16
 DENSE_TENANTS = 4
 DENSE_REQUESTS = 4          # and one of LONG_PROMPT tokens under a window
 LONG_PROMPT = 4608
@@ -4057,6 +4083,7 @@ VLM_ARCH = "internvl2-26b"
 VLM_TENANTS = 4
 VLM_REQUESTS = 4
 VLM_TRAIN_ROWS = 2          # each 256 patch embeddings, then 256 SFT tokens
+VLM_LAYERS = 24             # of internvl2-26b's 48: the script's time limit
 # the fp32 train step reads an fp32 copy of every weight it multiplies on
 # the plain path (79 GB at all 48 layers): it runs on the first 8
 VLM_FP32_LAYERS = 8
@@ -4125,7 +4152,8 @@ def sft_batch(seed: int, rows: int, T: int, vocab: int, device):
 
 
 def vlm_phase(device, seed: int, T: int, new_tokens: int, rank: int):
-    """internvl2-26b at all 48 layers: serve (as phase dense_family), then
+    """internvl2-26b at ``VLM_LAYERS`` of its 48 layers: serve (as phase
+    dense_family), then
     a train step with stub patch embeddings.  Returns {"serve", "train":
     launch counts}."""
     import dataclasses
@@ -4138,7 +4166,8 @@ def vlm_phase(device, seed: int, T: int, new_tokens: int, rank: int):
     from repro_torch.launch.serve import build_engine, ragged_requests
     from repro_torch.models.api import Model
     from repro_torch.serving.engine import MultiTenantEngine, ServeConfig
-    cfg = get_config(VLM_ARCH).with_overrides(lora_rank=rank)
+    cfg = get_config(VLM_ARCH).with_overrides(lora_rank=rank,
+                                              n_layers=VLM_LAYERS)
     t0 = time.perf_counter()
     eng = build_engine(cfg, VLM_TENANTS, device, seed, rank=rank)
     torch.cuda.synchronize()
@@ -4599,11 +4628,17 @@ def train_families_phase(device, seed: int, T: int = 256):
               "of": base.n_layers, "d_model": cfg.d_model, "rows":
               TRAIN_ARCH_ROWS, "seq": T, "rank": cfg.lora_rank, **fields,
               "ssd_scan_calls": scan.calls, "mamba_layers": n_mamba,
+              "remat": cfg.remat, "remat_policy": cfg.remat_policy,
               "launches": {n: counts[n] for n in kernels.TRAINING},
               "tile_launches": {n: tiles[n] for n in
                                 ("lora_matmul", "flash_attention")}})
-        require(scan.calls == n_mamba, f"{arch}: {scan.calls} SSD scans, "
-                f"not one per mamba layer ({n_mamba})")
+        # one a mamba layer, and one more where recomputation runs the
+        # period's forward again in backward (either policy: the scan's
+        # products have batch dims)
+        require(scan.calls == n_mamba * forwards(cfg),
+                f"{arch}: {scan.calls} SSD scans, not {forwards(cfg)} per "
+                f"mamba layer ({n_mamba}; remat {cfg.remat}, "
+                f"{cfg.remat_policy})")
         for name in needs:
             require(counts[name] > 0, f"{arch}: the train step did not "
                     f"launch {name}")
@@ -4881,9 +4916,9 @@ def full_train_phase(device, seed: int, T: int = 256):
             f"full step: measured peak {fields['measured_peak_bytes']} is "
             f"{fields['peak_rel_err']:+.2%} off the dry run's "
             f"{fields['dry_peak_bytes']}")
-    require(counts["flash_attention"] == depth,
-            f"full step: {counts['flash_attention']} flash launches, not one "
-            f"per layer ({depth})")
+    require(counts["flash_attention"] == depth * forwards(cfg),
+            f"full step: {counts['flash_attention']} flash launches, not "
+            f"{forwards(cfg)} per layer ({depth}; remat {cfg.remat})")
     require_mma_tile(tiles, "flash_attention", "full step")
     require(all(counts[n] == 0 for n in LORA_KERNELS),
             f"full step launched a LoRA kernel: {counts}")
@@ -4921,10 +4956,234 @@ def full_train_phase(device, seed: int, T: int = 256):
             "fused_forward": {n: fused[n] for n in kernels.WRAPPERS}}
 
 
-MESH_LAYERS = 8              # of llama2-7b's 32: the script's time limit
+# ---------------------------------------------------------------------------
+# phase 13: activation recomputation (ModelConfig.remat, remat_policy)
+# ---------------------------------------------------------------------------
+
+REMAT_SETTINGS = {"off": {"remat": False},
+                  "full": {"remat": True, "remat_policy": "full"},
+                  "dots": {"remat": True, "remat_policy": "dots"}}
+REMAT_SEQ = 4096             # SFT tokens a row
+REMAT_ROWS = (8, 4, 2)       # (b): the row counts the dry run picks from
+# (b): the share of the card a picked step's predicted peak may take.  The
+# walk leaves out about 1.14 GB a 4,096-token row (the card's peak sat that
+# far above it at each setting) and the allocator's fragmentation: "full" at
+# 8 rows, predicted at 88% of the card, ran out of memory on it with 11.4 GB
+# reserved and unallocated
+REMAT_FIT = 0.6
+REMAT_WALKERS = 6            # host processes walking the dry runs
+
+
+def forwards(cfg, saved: bool = False) -> int:
+    """Forwards a train step runs of each period: 2 under recomputation
+    (the recomputed one in backward), else 1.  ``saved``: for an op the
+    "dots" policy saves (the LoRA kernel's ``repro_torch::lora_matmul``),
+    which "dots" does not run again."""
+    if not cfg.remat or (saved and cfg.remat_policy == "dots"):
+        return 1
+    return 2
+
+
+def model_sums_per_layer(cfg) -> int:
+    """A train step's activation sums over "model" a layer: the
+    attention's and the MLP's forward, two of gradients backward, and
+    under recomputation the attention's again (the recomputed forward
+    stops before the MLP's sum, whose output no backward reads)."""
+    return 4 + (1 if cfg.remat else 0)
+
+
+def walk_in_parallel(jobs):
+    """``{key: dry_train_step(cfg, rows, seq)}`` for ``jobs`` ``{key:
+    (cfg, rows, seq)}``, walked in ``REMAT_WALKERS`` spawned host
+    processes (each walk is single-threaded Python over meta tensors);
+    returns a future per key, so the card can work meanwhile."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(REMAT_WALKERS, len(jobs)),
+        mp_context=multiprocessing.get_context("spawn"))
+    return pool, {k: pool.submit(dry_train_step, *job)
+                  for k, job in jobs.items()}
+
+
+def remat_phase(device, seed: int, params, base):
+    """llama2-7b's LoRA train step (full width, the serve cell's layers,
+    bf16, rank 16 on all 7 targets, 4,096-token SFT rows) at remat
+    off, "full" and "dots": (a) one row: loss and every gradient of "full"
+    and "dots" bitwise off's (when two off runs agree bitwise; else within
+    twice their distance), a timed step per setting beside the dry run's
+    peak, its launches ("dots" must launch ``lora_matmul`` as often as
+    off: the kernel's outputs are saved, not recomputed); (b) the most
+    rows in ``REMAT_ROWS`` at which "full" fits ``REMAT_FIT`` of the card
+    and off passes 90% of it, one "full" step there, and "dots" at the
+    most rows at which it fits ``REMAT_FIT``.  Returns the launches of
+    each timed step."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.lora import init_adapters, tree_leaves
+    from repro_torch.models.api import Model
+    from repro_torch.training.optimizers import adamw
+    from repro_torch.training.train_step import (lora_value_and_grad,
+                                                 make_lora_train_step)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = torch.cuda.get_device_properties(device).total_memory
+    fit, off_fit = REMAT_FIT * card, PEAK_FIT * card
+    cfgs = {s: base.with_overrides(lora_rank=16, **kw)
+            for s, kw in REMAT_SETTINGS.items()}
+    T = REMAT_SEQ
+    jobs = {(s, 1): (c, 1, T) for s, c in cfgs.items()}
+    jobs.update({(s, rows): (cfgs[s], rows, T) for s in cfgs
+                 for rows in REMAT_ROWS})
+    pool, walks = walk_in_parallel(jobs)
+    heads = base.n_heads
+    try:
+        ad = init_adapters(cfgs["off"], seed=seed + 100, device=device,
+                           b_std=0.02)
+        batch = sft_batch(seed, 1, T, base.vocab_size, device)
+        # (a) the gradients at each setting (off twice: the card's own
+        # repeatability), then a warmed, timed step per setting
+        grads, losses = {}, {}
+        for s, c in (("off", cfgs["off"]), ("full", cfgs["full"]),
+                     ("dots", cfgs["dots"]), ("off2", cfgs["off"])):
+            loss, _, g = lora_value_and_grad(Model(c, device), c, "cuda")(
+                params, ad, batch)
+            torch.cuda.synchronize()
+            losses[s], grads[s] = loss, dict(tree_leaves(g))
+            del g
+        repeat = (torch.equal(losses["off"], losses["off2"])
+                  and all(torch.equal(grads["off"][p], grads["off2"][p])
+                          for p in grads["off"]))
+
+        def dist(s, ref="off"):
+            return max([abs(float(losses[s]) - float(losses[ref]))]
+                       + [float((grads[s][p] - grads[ref][p]).abs().max())
+                          for p in grads[ref]])
+        noise = dist("off2")
+        match = {s: dist(s) for s in ("full", "dots")}
+        del grads
+        steps = {}
+        for s in ("off", "full", "dots"):
+            c = cfgs[s]
+            model = Model(c, device)
+            opt = adamw()
+            st = opt.init(ad)
+            step = make_lora_train_step(model, c, opt, paged_backend="cuda")
+            step(params, ad, st, batch)                 # warm-up
+            dry = walks[s, 1].result()
+            kernels.reset_launch_counts()
+            _, fields = predicted_step(c, step, (params, ad, st, batch), 1,
+                                       T, dry)
+            counts = kernels.launch_counts()
+            steps[s] = {"launches": {n: counts[n] for n in
+                                     ("lora_matmul", "flash_attention")},
+                        **fields}
+            del st, step, model
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit({"phase": "remat", "run": "a", "arch": base.name,
+              "n_layers": base.n_layers, "d_model": base.d_model,
+              "rows": 1, "seq": T, "rank": 16,
+              "off_repeats_bitwise": repeat, "off_off_max_abs_diff": noise,
+              "max_abs_diff_from_off": match,
+              "losses": {k: float(v) for k, v in losses.items()},
+              "steps": steps,
+              "step_s_over_off": {s: steps[s]["step_s"]
+                                  / steps["off"]["step_s"]
+                                  for s in steps},
+              "peak_over_off": {s: steps[s]["measured_peak_bytes"]
+                                / steps["off"]["measured_peak_bytes"]
+                                for s in steps}})
+        for s in ("full", "dots"):
+            if repeat:
+                require(match[s] == 0, f"remat (a): {s} is {match[s]} off "
+                        "the off step's loss and gradients (two off runs "
+                        "agree bitwise)")
+            else:
+                require(match[s] <= 2 * noise, f"remat (a): {s} is "
+                        f"{match[s]} off the off step, over twice two off "
+                        f"runs' distance {noise}")
+        per = {n: steps["off"]["launches"][n] for n in
+               ("lora_matmul", "flash_attention")}
+        for s, c in cfgs.items():
+            got = steps[s]["launches"]
+            require(got["lora_matmul"] == per["lora_matmul"]
+                    * forwards(c, saved=True)
+                    and got["flash_attention"] == per["flash_attention"]
+                    * forwards(c), f"remat (a): {s} launches {got}, off's "
+                    f"{per}")
+        require(steps["dots"]["launches"]["lora_matmul"]
+                == per["lora_matmul"], "remat (a): \"dots\" relaunched "
+                "lora_matmul: its outputs were not saved")
+        del ad, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the most rows at which "full" fits and off does not, and the
+        # most at which "dots" fits
+        peaks = {k: w.result()["memory"]["peak_bytes"]
+                 for k, w in walks.items() if k[1] != 1}
+        full_rows = next((r for r in REMAT_ROWS if peaks["full", r] <= fit
+                          and peaks["off", r] > off_fit), None)
+        dots_rows = next((r for r in REMAT_ROWS if peaks["dots", r] <= fit),
+                         None)
+        emit({"phase": "remat_rows", "card_bytes": card, "fit_bytes": fit,
+              "off_fit_bytes": off_fit,
+              "dry_peak_bytes": {f"{s} {r}": v for (s, r), v in
+                                 sorted(peaks.items())},
+              "full_rows": full_rows, "dots_rows": dots_rows,
+              "why": f"the most rows of {list(REMAT_ROWS)} whose dry-run "
+                     f"peak fits in {REMAT_FIT:.0%} of the card (\"full\": "
+                     f"where off's passes {PEAK_FIT:.0%} of it)"})
+        require(full_rows is not None, "remat (b): no row count where "
+                "\"full\" fits and off does not")
+        for s, rows in (("full", full_rows), ("dots", dots_rows)):
+            if rows is None:
+                continue
+            c = cfgs[s]
+            model = Model(c, device)
+            ad = init_adapters(c, seed=seed + 100, device=device,
+                               b_std=0.02)
+            opt = adamw()
+            st = opt.init(ad)
+            batch = sft_batch(seed, rows, T, base.vocab_size, device)
+            step = make_lora_train_step(model, c, opt, paged_backend="cuda")
+            kernels.reset_launch_counts()
+            out, fields = predicted_step(c, step, (params, ad, st, batch),
+                                         rows, T, walks[s, rows].result())
+            counts = kernels.launch_counts()
+            metrics = out[2]
+            probs = rows * heads * T * T * 4
+            emit({"phase": "remat", "run": "b", "setting": s,
+                  "rows": rows, "seq": T, **fields,
+                  "loss": float(metrics["loss"]),
+                  "off_dry_peak_bytes": peaks["off", rows],
+                  "launches": {n: counts[n] for n in
+                               ("lora_matmul", "flash_attention")},
+                  "flash_backward_probs_bytes": probs,
+                  "flash_backward_probs_over_dry_temp":
+                      probs / fields["dry_temp_bytes"]})
+            require(bool(torch.isfinite(metrics["loss"])),
+                    f"remat (b): {s} loss is not finite")
+            del out, metrics, st, ad, batch, step, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        pool.shutdown(cancel_futures=True)
+    emit({"phase": "remat_seconds", "seconds": time.perf_counter() - t_phase,
+          "walks": len(walks), "walkers": REMAT_WALKERS,
+          "walks_s": {f"{s} {r}": w.result()["walk_s"]
+                      for (s, r), w in sorted(walks.items())}})
+    return {s: steps[s]["launches"] for s in steps}
+
+
+MESH_LAYERS = 4              # of llama2-7b's 32: the script's time limit
 MESH_CLIENTS, MESH_K, MESH_ROWS = 2, 2, 8
 MESH_ROUNDS = 2              # the first warms cuBLAS and the kernels
-MESH_LORA = 9_994_240        # rank-16 adapter parameters at 8 layers
+MESH_LORA = 4_997_120        # rank-16 adapter parameters at 4 layers
 MESH_TRAVEL_TOL = 1e-3       # (c): a leaf's difference over its travel
 MESH_LOSS_ULPS = 4           # (c): the loss's distance in fp32 ulps
 MESH_TP_LOSS_ULPS = 16       # (e): the loss's distance in fp32 ulps
@@ -4933,7 +5192,7 @@ MESH_TP_LEAF_TOL = 0.25      # (d): a θ_s' leaf's distance over its travel
 MESH_TP_SPREAD = 2.0         # (d): either, over the plain path's spread
 MESH_TP_PEAK_TOL = 0.25      # (d): the peak against the dry run's
 MESH_TP_ACT = 16_777_216     # (d): one (8, 256, 4096) bf16 activation sum
-MESH_TP_REPLICATED = 3_670_016   # (d): a client's adapter values every
+MESH_TP_REPLICATED = 1_835_008   # (d): a client's adapter values every
                                  # rank holds (458,752 a layer)
 GLOO_NOTE = ("gloo through the host on one shared card: a host copy, a "
              "loopback ring and a copy back, not a link rate")
@@ -5319,11 +5578,13 @@ def mesh_round_phase(device, seed: int, T: int = 256):
     sheet = rl.analyze(0.0, 0.0, chips=2, collectives=[
         rl.Collective(**c) for c in model_logs[0][-1]])
     # a round's model all-reduces: per client and step 4 a layer less the
-    # first layer's attention input (no gradient flows there), the
+    # first layer's attention input (no gradient flows there), and under
+    # recomputation the attention's sum again (model_sums_per_layer), the
     # embedding's and the unembedding's, each one activation; 3 of the
     # cross entropy; per step one of both clients' replicated leaves and
     # their squared norms
-    acts = (4 * MESH_LAYERS + 1) * MESH_CLIENTS * MESH_K
+    acts = ((model_sums_per_layer(cfg) * MESH_LAYERS + 1) * MESH_CLIENTS
+            * MESH_K)
     grad_bytes = 4 * MESH_CLIENTS * (MESH_TP_REPLICATED + 1)
     emit({**info, "run": "d", "world": 2, "backend": "gloo",
           "mesh": {"pod": 1, "data": 1, "model": 2},
@@ -5444,7 +5705,7 @@ def mesh_round_phase(device, seed: int, T: int = 256):
     return counts
 
 
-MESH_SERVE_LAYERS = 8        # of llama2-7b's 32: the script's time limit
+MESH_SERVE_LAYERS = 4        # of llama2-7b's 32: the script's time limit
 #                              (32 took 108.7 s alone, 16 took 40-65 s)
 MESH_SERVE_REQUESTS = 8      # 8 slots, 8 tenants
 MESH_SERVE_NEW = 16          # new tokens a request
@@ -5736,8 +5997,7 @@ def mesh_serve_phase(device, seed: int, T: int = 256):
 # ---------------------------------------------------------------------------
 
 MESH_MOE_ARCH = "dbrx-132b"
-MESH_MOE_LAYERS = 4         # of 40; 2 where two ranks' dry-run peaks at data
-#                             2 pass 90% of the card
+MESH_MOE_LAYERS = 2         # of 40: the script's time limit
 MESH_MOE_TENANTS = 4
 MESH_MOE_REQUESTS = 8       # 8 slots
 MESH_MOE_PROMPTS = (128, 512)
@@ -5753,21 +6013,15 @@ MESH_MOE_LOSS_ULPS = 16     # fp32, one layer
 MESH_MOE_AUX_ULPS = 4
 
 
-def mesh_moe_depth(cfg, span: int, T: int, card_bytes: int):
-    """``MESH_MOE_LAYERS``, or 2 where two ranks' dry-run peaks at data 2
-    (a decode step of every slot, a prefill chunk, the round) pass 90% of
-    the card: (depth, the peaks walked at that depth)."""
+def mesh_moe_peaks(cfg, span: int, T: int):
+    """A rank's dry-run peaks at data 2 (a decode step of every slot, a
+    prefill chunk, the round) at ``cfg``'s depth."""
     from repro_torch.launch.dryrun import dry_run
-    for layers in (MESH_MOE_LAYERS, 2):
-        c = cfg.with_overrides(n_layers=layers, paged_backend="cuda")
-        peaks = {s: dry_run(c, s, MESH_MOE_REQUESTS, n, mesh=(1, 2, 1),
-                            **kw)["memory"]["peak_bytes"]
-                 for s, n, kw in (("decode", span, {}), ("prefill", T, {}),
-                                  ("fdlora_round", T,
-                                   {"n_clients": 2, "K": 1}))}
-        if 2 * max(peaks.values()) <= 0.9 * card_bytes:
-            break
-    return layers, peaks
+    c = cfg.with_overrides(paged_backend="cuda")
+    return {s: dry_run(c, s, MESH_MOE_REQUESTS, n, mesh=(1, 2, 1),
+                       **kw)["memory"]["peak_bytes"]
+            for s, n, kw in (("decode", span, {}), ("prefill", T, {}),
+                             ("fdlora_round", T, {"n_clients": 2, "K": 1}))}
 
 
 def mesh_moe_chunk(eng, reqs, sc, recs, got, what):
@@ -5822,8 +6076,8 @@ def _ulps(got: float, want: float) -> float:
 
 def mesh_moe_phase(device, seed: int, T: int = 256):
     """Experts over a torch.distributed mesh: dbrx-132b at full width,
-    ``MESH_MOE_LAYERS`` of 40 layers (the deepest at which two ranks'
-    dry-run peaks at data 2 fit in 90% of the card, else 2), bf16, random
+    ``MESH_MOE_LAYERS`` of 40 layers (two ranks' dry-run peaks at data 2
+    must fit in 90% of the card), bf16, random
     weights from ``seed``, ``MESH_MOE_TENANTS`` tenants' rank-16 fused
     adapters (the router's pair included), 8 requests (prompts 128-512
     tokens, 16 new tokens, prefill chunk T) through
@@ -5897,8 +6151,12 @@ def mesh_moe_phase(device, seed: int, T: int = 256):
     span = max(len(r.prompt) for r in reqs) + MESH_MOE_NEW
     width = min(T, span - 1)
     card = torch.cuda.get_device_properties(device).total_memory
-    layers, dry_peaks = mesh_moe_depth(base_cfg, span, T, card)
+    layers = MESH_MOE_LAYERS
     cfg = base_cfg.with_overrides(n_layers=layers)
+    dry_peaks = mesh_moe_peaks(cfg, span, T)
+    require(2 * max(dry_peaks.values()) <= PEAK_FIT * card,
+            f"mesh_moe: two ranks' dry-run peaks {dry_peaks} pass "
+            f"{PEAK_FIT:.0%} of the card")
     kw = dict(batch_size=MESH_MOE_REQUESTS, max_new_tokens=MESH_MOE_NEW,
               prefill_chunk=T, block_size=16, paged_backend="cuda")
     info = {"phase": "mesh_moe", "arch": MESH_MOE_ARCH, "n_layers": layers,
@@ -6362,28 +6620,30 @@ def main(argv=None) -> int:
         device, args.seed, args.reps,
         {k: v["registers"] for k, v in ptxas.get("lora_matmul", {}).items()}))
     seconds["kernels"] = time.perf_counter() - t_kernels
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    llama = get_config(ARCH).with_overrides(n_layers=LLAMA_LAYERS)
     serve_counts, eng = timed("serve", serve_phase, device, args.seed,
-                              n_requests, 32, 128, 1024, T)
+                              n_requests, 32, 128, 1024, T, llama)
     torch.cuda.empty_cache()            # the serving pools are gone
     timed("serve_trace", serve_trace_phase, device, args.seed)
     params = eng.params
     del eng
     torch.cuda.empty_cache()
-    from repro_torch import kernels
-    from repro_torch.configs import get_config
     timed("serve_options", serve_options_phase, device, args.seed, params,
-          get_config(ARCH), T)
+          llama, T)
     torch.cuda.empty_cache()
     sharded_counts, eng1 = timed("sharded", sharded_phase, device,
-                                 args.seed, params, get_config(ARCH),
-                                 prompt_lens, T)
+                                 args.seed, params, llama, prompt_lens, T)
     fixed_launches = timed("fixed", fixed_phase, eng1, args.seed)
     del eng1
     torch.cuda.empty_cache()
     train_counts, fdlora_accuracy = timed("train", train_phase, device,
-                                          args.seed, params, get_config(ARCH))
-    timed("baselines", baselines_phase, device, args.seed, params,
-          get_config(ARCH), fdlora_accuracy)
+                                          args.seed, params, llama)
+    timed("baselines", baselines_phase, device, args.seed, params, llama,
+          fdlora_accuracy)
+    remat_counts = timed("remat", remat_phase, device, args.seed, params,
+                         llama)
     del params                          # llama2-7b's weights
     torch.cuda.empty_cache()
     timed("dense_family", dense_family_phase, device, args.seed, T)
@@ -6418,7 +6678,8 @@ def main(argv=None) -> int:
         "full_train": full_train_counts,
         "mesh_round": mesh_counts,
         "mesh_serve": mesh_serve_counts,
-        "mesh_moe": mesh_moe_counts})
+        "mesh_moe": mesh_moe_counts,
+        "remat": remat_counts})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})
 

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 PAGED_BACKENDS = ("torch", "cuda")
+REMAT_POLICIES = ("full", "dots")
 VALID_MIXERS = ("attn", "mamba")
 VALID_MLPS = ("mlp", "moe", "none")
 # family -> the layer patterns the port serves for it (None: any pattern
@@ -96,6 +97,15 @@ class ModelConfig:
     dtype: str = "bfloat16"          # activations
     param_dtype: str = "bfloat16"    # frozen base weights
 
+    # rematerialisation of each period of layers in a train step's forward
+    # (``models/model.py::forward``): only the period boundaries are kept,
+    # and each period's activations are recomputed in its backward
+    remat: bool = True
+    # "full" recomputes everything (least memory; a model group's sums are
+    # issued again in backward); "dots" saves the outputs of the products
+    # without batch dims (the projections) and recomputes the rest
+    remat_policy: str = "full"
+
     citation: str = ""
 
     def __post_init__(self):
@@ -120,6 +130,10 @@ class ModelConfig:
         if self.paged_backend not in (None,) + PAGED_BACKENDS:
             raise ValueError(
                 f"{self.name}: unknown paged_backend {self.paged_backend!r}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"{self.name}: unknown remat_policy "
+                             f"{self.remat_policy!r}; one of "
+                             f"{REMAT_POLICIES}")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: n_heads must be a multiple of "
                              "n_kv_heads")

@@ -3,16 +3,22 @@
 Port of the Pallas kernel ``repro/kernels/lora_matmul.py::lora_matmul``:
 ``y = x·W + α·(x·A)·B`` with fp32 accumulation and one rounding to x's
 dtype.  It carries every LoRA projection of a training forward, so it is
-differentiable: :class:`LoRAMatmul` runs the kernel forward and a plain
-PyTorch backward, :func:`lora_matmul_backward` (the reference has no
-backward kernel either; its gradients come from autodiff outside the
-Pallas call).  ``W`` is frozen and gets no gradient.
+differentiable: the launch is the operator ``repro_torch::lora_matmul``
+(a ``torch.library.custom_op``), whose backward is plain PyTorch,
+:func:`lora_matmul_backward` (the reference has no backward kernel
+either; its gradients come from autodiff outside the Pallas call).
+``W`` is frozen and gets no gradient.  Being an operator of its own, the
+launch is one op to a ``TorchDispatchMode``: the ``"dots"`` recomputation
+policy (``models/model.py``) saves its outputs, as the reference's
+``dots_with_no_batch_dims_saveable`` saves a projection's, instead of
+launching the kernel again in backward.
 
 CPU tensors run the plain version (:func:`lora_matmul_ref`, differentiated
 by autograd); CUDA tensors launch the kernel or raise; meta tensors take
-the meta route (``kernels/meta.py``: empty outputs, the launch's cost
-recorded), and their backward is :func:`lora_matmul_backward` on meta
-tensors, plain ops like any other.  The kernel has two
+the operator's fake implementation (``kernels/meta.py``: empty outputs,
+the launch's cost recorded), and their backward is
+:func:`lora_matmul_backward` on meta tensors, plain ops like any other.
+The kernel has two
 tiles, picked by dtype (``kernels/lora_tile.py``): bf16 x with bf16 W runs
 the tensor-core tile (``csrc/lora_mma.cuh``, K and N multiples of 8,
 16-byte aligned x and W) under a launch plan chosen from the shape,
@@ -23,6 +29,7 @@ anything else the fp32 CUDA-core tile.  Both keep z = x·A in fp32.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -31,7 +38,7 @@ from repro_torch.kernels.batched_lora import MAX_RANK, _check, tile_scratch
 from repro_torch.kernels.ref import lora_matmul_ref
 
 __all__ = ["lora_matmul", "lora_matmul_ref", "lora_matmul_backward",
-           "LoRAMatmul"]
+           "lora_matmul_op"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -45,9 +52,8 @@ def _lib():
     return fn
 
 
-def _launch(x, w, a, b, scale: float):
-    """One launch on the card: returns (y (M, N) in x's dtype, z = x·A
-    (M, r) fp32)."""
+def _checked(x, w, a, b) -> str:
+    """The launch's checks; returns its tile."""
     M, K = x.shape
     N, r = w.shape[1], a.shape[1]
     dev = x.device
@@ -61,10 +67,16 @@ def _launch(x, w, a, b, scale: float):
     tile = lora_tile.lora_tile(x.dtype, w.dtype)
     if tile == "mma":
         lora_tile.check_mma_tile(x, w)
-    if dev.type == "meta":
-        meta.record("lora_matmul", meta.lora_cost(M, K, N, r, x.dtype,
-                                                  w.dtype))
-        return meta.empty((M, N), x.dtype), meta.empty((M, r), torch.float32)
+    return tile
+
+
+def _launch(x, w, a, b, scale: float):
+    """One launch on the card: returns (y (M, N) in x's dtype, z = x·A
+    (M, r) fp32)."""
+    tile = _checked(x, w, a, b)
+    M, K = x.shape
+    N, r = w.shape[1], a.shape[1]
+    dev = x.device
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     z = torch.empty((M, r), dtype=torch.float32, device=dev)
     if M == 0:
@@ -86,6 +98,16 @@ def _launch(x, w, a, b, scale: float):
     return y, z
 
 
+@torch.library.custom_op("repro_torch::lora_matmul", mutates_args=(),
+                         device_types="cuda")
+def lora_matmul_op(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_launch` as an operator: (y, z), differentiable in x, a and
+    b through :func:`lora_matmul_backward`."""
+    return _launch(x, w, a, b, scale)
+
+
 def lora_matmul_backward(x, w, a, b, z, dy, scale: float,
                          needs=(True, True, True)):
     """Gradients (dx, dA, dB) of ``y = x·W + s·z·B`` with ``z = x·A``, for
@@ -105,26 +127,37 @@ def lora_matmul_backward(x, w, a, b, z, dy, scale: float,
     return dx, da, db
 
 
-class LoRAMatmul(torch.autograd.Function):
-    """The kernel forward, :func:`lora_matmul_backward` backward."""
+@lora_matmul_op.register_fake
+def _lora_matmul_fake(x, w, a, b, scale):
+    """The launch's outputs, empty, after its checks; on the meta device
+    (the dry run) its cost is recorded (``kernels/meta.py``)."""
+    _checked(x, w, a, b)
+    (M, K), N, r = x.shape, w.shape[1], a.shape[1]
+    if x.device.type == "meta":
+        meta.record("lora_matmul", meta.lora_cost(M, K, N, r, x.dtype,
+                                                  w.dtype))
+    return x.new_empty((M, N)), x.new_empty((M, r), dtype=torch.float32)
 
-    @staticmethod
-    def forward(ctx, x, w, a, b, scale):
-        y, z = _launch(x, w, a, b, scale)
-        ctx.save_for_backward(x, w, a, b, z)
-        ctx.scale = scale
-        return y
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, w, a, b, z = ctx.saved_tensors
-        if ctx.needs_input_grad[1]:
-            raise RuntimeError("lora_matmul: the base weight W is frozen "
-                               "and gets no gradient")
-        need = ctx.needs_input_grad
-        dx, da, db = lora_matmul_backward(x, w, a, b, z, dy, ctx.scale,
-                                          (need[0], need[2], need[3]))
-        return dx, None, da, db, None
+def _setup_context(ctx, inputs, output):
+    x, w, a, b, scale = inputs
+    ctx.save_for_backward(x, w, a, b, output[1])
+    ctx.mark_non_differentiable(output[1])
+    ctx.scale = scale
+
+
+def _backward(ctx, dy, _dz):
+    x, w, a, b, z = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    if need[1]:
+        raise RuntimeError("lora_matmul: the base weight W is frozen and "
+                           "gets no gradient")
+    dx, da, db = lora_matmul_backward(x, w, a, b, z, dy, ctx.scale,
+                                      (need[0], need[2], need[3]))
+    return dx, None, da, db, None
+
+
+lora_matmul_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -142,7 +175,7 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         return lora_matmul_ref(x, w, a, b, scale)
     if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no lora_matmul kernel for {x.device}")
-    return LoRAMatmul.apply(x, w, a, b, float(scale))
+    return lora_matmul_op(x, w, a, b, float(scale))[0]
 
 
 lora_matmul.launches = 0

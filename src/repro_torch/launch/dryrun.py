@@ -85,6 +85,7 @@ from repro_torch.configs.registry import (ALL_ARCHS, config_for_shape,
 from repro_torch.core.lora import init_adapters, lora_scale
 from repro_torch.core.partition import AXES
 from repro_torch.kernels import meta
+from repro_torch.kernels.lora_matmul import lora_matmul_op
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import specs as sp
 from repro_torch.models.api import Model
@@ -98,10 +99,14 @@ META = torch.device("meta")
 MESH = "1xh100"
 CARD_BYTES = 80 * 2 ** 30            # the data sheet's 80 GB of HBM3
 
-# ops that move no bytes: their outputs are allocated, not written
+# ops whose bytes the tally does not count: allocations (their outputs
+# are allocated, not written), and kernel launches that are operators of
+# their own (their fake implementation records the launch's bytes
+# through ``kernels/meta.py``)
 _NO_BYTES = {torch.ops.aten.empty.memory_format,
              torch.ops.aten.empty_like.default,
-             torch.ops.aten.empty_strided.default}
+             torch.ops.aten.empty_strided.default,
+             lora_matmul_op._opoverload}
 
 
 def iter_tensors(obj):
@@ -444,10 +449,14 @@ BUILDERS = {"train": build_train, "prefill": build_prefill,
             "decode": build_decode, "fdlora_round": build_fdlora_round}
 
 # the reference's variants: those that change a field the port reads
-VARIANTS = {"baseline": {}, "moe_cap1": {"moe_capacity_factor": 1.0}}
+VARIANTS = {"baseline": {},
+            "no_remat": {"remat": False},
+            "remat_dots": {"remat_policy": "dots"},
+            "moe_cap1": {"moe_capacity_factor": 1.0},
+            "opt_moe": {"moe_capacity_factor": 1.0, "remat_policy": "dots"}}
 # those that only steer the reference's XLA lowering
-XLA_ONLY_VARIANTS = ("gqa_grouped", "sm_bf16", "opt_attn", "no_remat",
-                     "remat_dots", "serve2d", "bf16_outer", "opt_moe")
+XLA_ONLY_VARIANTS = ("gqa_grouped", "sm_bf16", "opt_attn", "serve2d",
+                     "bf16_outer")
 
 
 def device_entry() -> Dict:
@@ -479,7 +488,8 @@ def dry_run(cfg, step: str, B: int, S: int, mesh=None, **opts) -> Dict:
     res = measure(fn, args, model_flops, chips)
     return {"params": cfg.count_params(),
             "active_params": cfg.count_active_params(),
-            "lora_params": cfg.count_lora_params(), **res}
+            "lora_params": cfg.count_lora_params(), "remat": cfg.remat,
+            "remat_policy": cfg.remat_policy, **res}
 
 
 def check_variant(variant: str) -> None:

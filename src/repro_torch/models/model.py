@@ -19,13 +19,18 @@ layer: the reference's spec of a stacked leaf without its period entry.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import PAGED_BACKENDS, torch_dtype
 from repro_torch.core.partition import P, spec_map
+from repro_torch.kernels.lora_matmul import lora_matmul_op
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_lib
@@ -240,6 +245,26 @@ def _apply_layer(i, lp, x, cfg, positions, adapters, lora_scale, cache=None,
     return x, new_cache, aux
 
 
+# the "dots" policy's saved ops: products without batch dims, as the
+# reference's ``dots_with_no_batch_dims_saveable`` saves them (the LoRA
+# kernel's operator computes x·W + s·(x·A)·B over the rows)
+_DOTS_SAVED = (torch.ops.aten.mm, torch.ops.aten.addmm,
+               lora_matmul_op._opoverload._overloadpacket)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if getattr(op, "_overloadpacket", None) in _DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# remat_policy -> the checkpoint's context_fn
+_REMAT_CONTEXTS = {
+    "full": noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _dots_policy)}
+
+
 def _layer_adapters(adapters, i):
     return adapters["layers"][i] if adapters is not None else None
 
@@ -266,7 +291,21 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
     (``tensor_parallel.DataGroup``): ``tokens`` are this rank's rows of a
     batch the group splits, which an MoE layer's capacity and aux loss
     span; ``need_aux=False`` skips the aux loss's sum over it (the aux
-    loss then comes back 0 there)."""
+    loss then comes back 0 there).
+
+    With ``cfg.remat`` and grad enabled (a train step), each period of
+    ``len(cfg.layer_pattern)`` layers runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference's
+    ``jax.checkpoint`` wraps its period body: the period keeps only its
+    input ``(x, aux)`` and recomputes its activations in its backward.
+    ``cfg.remat_policy`` "full" recomputes every op; "dots" saves the
+    products without batch dims (``aten.mm``/``addmm``, the LoRA kernel's
+    ``repro_torch::lora_matmul``) and recomputes the rest (attention, the
+    expert bmm, the SSD scan, norms, activations, the collectives).  A
+    recomputed period issues its forward's collectives again, and an
+    open ``moe.RoutingLog`` replays the routing of the forward it
+    repeats.  Under ``torch.no_grad`` (evaluation, the dry run's serving
+    walks) nothing is checkpointed."""
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
     if tp is not None and extra_embeds is not None:
         raise ValueError("the VLM's patch embeddings over the \"model\" "
@@ -276,13 +315,27 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=tokens.device)
     aux = torch.zeros((), device=tokens.device)
-    for i, lp in enumerate(params["layers"]):
-        x, _, a = _apply_layer(i, lp, x, cfg, positions,
-                               _layer_adapters(adapters, i), lora_scale,
-                               adapter_ids=adapter_ids, tp=tp, dp=dp,
-                               need_aux=need_aux)
-        if a is not None:
-            aux = aux + a
+    n, period = len(params["layers"]), len(cfg.layer_pattern)
+
+    def period_body(i0, x, aux):
+        for i in range(i0, min(i0 + period, n)):
+            x, _, a = _apply_layer(i, params["layers"][i], x, cfg, positions,
+                                   _layer_adapters(adapters, i), lora_scale,
+                                   adapter_ids=adapter_ids, tp=tp, dp=dp,
+                                   need_aux=need_aux)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i0 in range(0, n, period):
+        body = functools.partial(period_body, i0)
+        if remat:
+            x, aux = checkpoint(moe_lib.replays_routing(body), x, aux,
+                                use_reentrant=False, preserve_rng_state=False,
+                                context_fn=_REMAT_CONTEXTS[cfg.remat_policy])
+        else:
+            x, aux = body(x, aux)
     if last_only:
         x = x[:, -1:]
     return _unembed(params, x, cfg, tp), aux

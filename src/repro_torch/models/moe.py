@@ -40,7 +40,7 @@ meshless layer over the whole batch, as GSPMD runs it:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -137,6 +137,10 @@ def dispatch(ids: torch.Tensor, E: int, cap: int
     return dest, keep
 
 
+# the RoutingLogs open in this process, outermost first
+_OPEN_LOGS: List["RoutingLog"] = []
+
+
 class RoutingLog:
     """Every routing and dispatch :func:`apply_moe` makes in this process
     while it is open (a context manager, for checks that hold routing
@@ -147,11 +151,18 @@ class RoutingLog:
     (one ids tensor per routing call) each call routes to those ids
     instead, weighted by its own probabilities there, renormalised as
     top-k weights are.  It swaps this module's ``_top_k_routing`` and
-    ``dispatch`` while open and restores them on exit."""
+    ``dispatch`` while open and restores them on exit.
+
+    A period that activation recomputation runs again in backward
+    (:func:`replays_routing`) repeats its forward's calls: they log
+    nothing and route to the pins of the calls they repeat."""
 
     def __init__(self, pinned=None):
         self.pinned = pinned
         self.logits, self.ids, self.dispatched, self.keep = [], [], [], []
+        # while a period is recomputed: the index of the next routing call
+        # it repeats
+        self._replay = None
 
     @property
     def dropped(self):
@@ -162,27 +173,63 @@ class RoutingLog:
         global _top_k_routing, dispatch
         self._saved = _top_k_routing, dispatch
         _top_k_routing, dispatch = self._route, self._dispatch
+        _OPEN_LOGS.append(self)
         return self
 
     def __exit__(self, *exc):
         global _top_k_routing, dispatch
         _top_k_routing, dispatch = self._saved
+        _OPEN_LOGS.remove(self)
 
     def _route(self, logits, k):
         w, ids, aux = self._saved[0](logits, k)
-        self.logits.append(logits.detach().float().clone())
-        self.ids.append(ids.clone())
+        if self._replay is None:
+            self.logits.append(logits.detach().float().clone())
+            self.ids.append(ids.clone())
+            i = len(self.ids) - 1
+        else:
+            i, self._replay = self._replay, self._replay + 1
         if self.pinned is not None:
-            ids = self.pinned[len(self.ids) - 1]
+            ids = self.pinned[i]
             w = torch.softmax(logits.float(), dim=-1).gather(1, ids)
             w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
         return w, ids, aux
 
     def _dispatch(self, ids, E, cap):
         dest, keep = self._saved[1](ids, E, cap)
-        self.dispatched.append(ids.clone())
-        self.keep.append(keep.clone())
+        if self._replay is None:
+            self.dispatched.append(ids.clone())
+            self.keep.append(keep.clone())
         return dest, keep
+
+
+def replays_routing(fn: Callable) -> Callable:
+    """``fn`` (a period of layers) as ``torch.utils.checkpoint`` calls it:
+    the first call is the forward, and each later one recomputes it in a
+    backward.  A recomputation replays every open :class:`RoutingLog`
+    from where that log stood when the forward began: its routing calls
+    take the pins of the calls they repeat, and nothing is logged again.
+    A pinning log closed before that backward raises: the period would
+    route by its own logits there, not as its forward did."""
+    marks = None
+
+    def run(*args):
+        nonlocal marks
+        if marks is None:
+            marks = [(log, len(log.ids)) for log in _OPEN_LOGS]
+            return fn(*args)
+        for log, _ in marks:
+            if log.pinned is not None and log not in _OPEN_LOGS:
+                raise RuntimeError("a pinning RoutingLog was closed before "
+                                   "the backward of a period it pinned")
+        for log, at in marks:
+            log._replay = at
+        try:
+            return fn(*args)
+        finally:
+            for log, _ in marks:
+                log._replay = None
+    return run
 
 
 class _BmmF32(torch.autograd.Function):

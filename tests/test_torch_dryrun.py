@@ -435,34 +435,43 @@ def test_cli_runs_skips_and_refuses(tmp_path, capsys):
                    .read_text())
     assert r["chips"] == 512 and r["per_rank"] and r["collectives"]
     with pytest.raises(ValueError, match="XLA"):
-        dryrun.run_one("olmo-1b", "decode_32k", variant="no_remat",
+        dryrun.run_one("olmo-1b", "decode_32k", variant="sm_bf16",
                        out_dir=out)
 
 
 def test_cli_multi_pod_walks_one_rank_of_the_production_mesh(tmp_path,
                                                              capsys):
     """llama2-7b's train step at full width on one rank of (2, 16, 16):
-    per-rank memory, the roofline over 512 cards and the collective log
-    (per layer two sums forward and two backward over "model", one
-    gradient all-reduce over "data" then "pod"); gemma-2b is skipped,
-    naming its head count."""
+    per-rank memory, the roofline over 512 cards and the collective log.
+    Without recomputation (``no_remat``) per layer two sums forward and
+    two backward over "model"; at the default (``remat`` "full") the
+    recomputed forward issues the attention's sum again, and stops before
+    the MLP's, whose output no backward reads; one gradient all-reduce
+    over "data" then "pod".  gemma-2b is skipped, naming its head
+    count."""
     out = str(tmp_path)
-    assert dryrun.main(["--arch", "llama2-7b", "--shape", "train_4k",
-                        "--mesh", "2,16,16", "--step", "train",
-                        "--out-dir", out]) == 0
-    r = json.loads((tmp_path / "llama2-7b__train_4k__2x16x16__train.json")
-                   .read_text())
-    assert r["mesh_shape"] == {"pod": 2, "data": 16, "model": 16}
-    assert r["chips"] == r["roofline"]["chips"] == 512
-    assert 0 < r["memory"]["argument_bytes"] < r["memory"]["peak_bytes"]
-    by = {}
-    for c in r["collectives"]:
-        by.setdefault((c["axis"], c["group"]), []).append(c["bytes"])
     act = 8 * 4096 * 4096 * 2        # 8 rows a rank, bf16 activations
-    assert by[("model", 16)].count(act) == 4 * 32 + 1
-    assert len(by[("data", 16)]) == len(by[("pod", 2)]) == 2
-    assert r["roofline"]["collective_s"] > 0
-    assert "OK llama2-7b train_4k 2x16x16 train" in capsys.readouterr().out
+    peaks = {}
+    for variant, sums in (("no_remat", 4 * 32 + 1), ("baseline", 5 * 32 + 1)):
+        assert dryrun.main(["--arch", "llama2-7b", "--shape", "train_4k",
+                            "--mesh", "2,16,16", "--step", "train",
+                            "--variant", variant, "--out-dir", out]) == 0
+        tag = "" if variant == "baseline" else f"__{variant}"
+        r = json.loads((tmp_path / f"llama2-7b__train_4k__2x16x16__train"
+                                   f"{tag}.json").read_text())
+        assert r["remat"] == (variant == "baseline")
+        assert r["mesh_shape"] == {"pod": 2, "data": 16, "model": 16}
+        assert r["chips"] == r["roofline"]["chips"] == 512
+        assert 0 < r["memory"]["argument_bytes"] < r["memory"]["peak_bytes"]
+        by = {}
+        for c in r["collectives"]:
+            by.setdefault((c["axis"], c["group"]), []).append(c["bytes"])
+        assert by[("model", 16)].count(act) == sums
+        assert len(by[("data", 16)]) == len(by[("pod", 2)]) == 2
+        assert r["roofline"]["collective_s"] > 0
+        assert "OK llama2-7b train_4k 2x16x16 train" in capsys.readouterr().out
+        peaks[variant] = r["memory"]["peak_bytes"]
+    assert peaks["baseline"] < peaks["no_remat"]
     assert dryrun.main(["--arch", "gemma-2b", "--shape", "train_4k",
                         "--mesh", "2,16,16", "--out-dir", out]) == 0
     assert "n_heads 8 does not divide" in capsys.readouterr().out

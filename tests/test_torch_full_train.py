@@ -235,8 +235,9 @@ def test_pretraining_steps_match_reference():
 
 def test_full_step_walks_flash_attention_and_no_lora_kernel_on_meta():
     """llama2-7b at full width, 2 layers, 8 x 256 tokens, on the meta
-    device under ``dryrun.measure``: one flash launch per layer and no
-    other kernel; the arguments are the bf16 weights, the fp32 moments
+    device under ``dryrun.measure``: one flash launch per layer, and one
+    more in the forward that recomputation (the config's ``remat``) runs
+    again in backward, and no other kernel; the arguments are the bf16 weights, the fp32 moments
     and the batch, exactly; at the peak the gradients, the new moments
     and the fp32 updates are live beside them."""
     cfg = get_config("llama2-7b").with_overrides(n_layers=2,
@@ -244,8 +245,9 @@ def test_full_step_walks_flash_attention_and_no_lora_kernel_on_meta():
     fn, args, model_flops = dryrun.build_full_train(
         Model(cfg, dryrun.META), cfg, 8, 256)
     res = dryrun.measure(fn, args, model_flops)
+    assert cfg.remat
     assert {k: v["launches"] for k, v in res["kernels"].items()} == {
-        "flash_attention": 2}
+        "flash_attention": 2 * 2}
     assert not set(res["kernels"]) & (set(WRAPPERS) - {"flash_attention"})
     n = sum(t.numel() for t in dryrun.iter_tensors(args["params"]))
     mem = res["memory"]
