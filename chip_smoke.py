@@ -318,6 +318,28 @@ Phases (each prints one JSON line per result):
                batched LoRA at each rank's wq, wk/wv and wo shards at 2,048
                and 8 rows, lora_matmul at the round's 1,024 rows and flash
                attention at B 4, H 24, Kv 4, S 256;
+ 12d. mesh_ssm — mamba layers over a torch.distributed mesh: mamba2-2.7b
+               (8 of 64 layers) and jamba-v0.1-52b (8 of 32, one period)
+               at full width, bf16, random weights from --seed, 4
+               tenants' rank-16 fused adapters, 8 requests (prompts
+               128-512 tokens, 16 new tokens); the meshless engines and
+               rounds here, then one spawn of two ranks on this card
+               (gloo): (a) mesh (1, 1, 2), both archs, each rank half the
+               SSM heads and its heads' columns of every in_proj and conv
+               segment: the first chunk within 10% of the largest logit
+               (jamba's expert ids pinned to the ranks'), streams by the
+               margin rule, collectives equal to the dry run's walks,
+               peaks beside the dry run's, decode tok/s beside meshless;
+               (b) mesh (1, 2, 1), num_shards 2, mamba2-2.7b: the same
+               first-chunk and stream rules, every slot reset reading zero
+               state on the rank that owns it; (c) one FDLoRA round (2
+               clients, K 1, 4 x 256 rows) at model 2: jamba and mamba2 in
+               bf16 by mesh_moe (c)'s rules, mamba2 in fp32 at one layer,
+               in_proj's B and C columns bitwise equal on the ranks; its
+               kernel lines (kernels phase) hold batched LoRA at both
+               archs' in_proj shards (2560 -> 5416, 4096 -> 8288) at 2,048
+               and 8 rows, lora_matmul there at 1,024 rows, and jamba's
+               decode, prefill and flash attention at H 16 over Kv 4;
  13. the card's name and power limit, the kernel summary line, and last the
      result line.
 
@@ -1357,6 +1379,7 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
     vlm_encdec_kernels(gen, device, reps, T, seen)
     mesh_serve_kernels(gen, device, reps, dec_lengths, pre_lengths, T)
     mesh_moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T)
+    mesh_ssm_kernels(gen, device, reps, dec_lengths, pre_lengths, T)
     return main
 
 
@@ -5263,17 +5286,26 @@ def _against_single_rank(personalized, theta, loss, ref, theta_s):
 
 def _gather_model(spec_tree, shards):
     """A whole tree from its two model shards (model coordinates 0, 1):
-    each leaf split over "model" concatenated on that dim; a replicated
-    leaf taken from rank 0.  Also returns the paths of the replicated
-    leaves that differ between the ranks."""
+    each leaf split over "model" joined on that dim
+    (``tensor_parallel.join_leaf``: a mamba layer's segmented columns by
+    heads within each segment); a replicated leaf taken from rank 0.
+    Also returns the shapes of the replicated leaves, and of the leaves
+    whose columns every rank holds whole (``in_proj``'s B and C), that
+    differ between the ranks."""
     import torch
     from repro_torch.core.partition import entry_axes, spec_map
+    from repro_torch.models import tensor_parallel as tpl
     differ = []
 
     def join(spec, *leaves):
-        for d, e in enumerate(spec):
-            if "model" in entry_axes(e):
-                return torch.cat(leaves, d)
+        whole = tpl.replicated(spec, len(leaves))
+        if isinstance(whole, torch.Tensor):
+            whole = whole.to(leaves[0].device)
+            if not all(torch.equal(x[..., whole], leaves[0][..., whole])
+                       for x in leaves[1:]):
+                differ.append(tuple(leaves[0].shape))
+        if any("model" in entry_axes(e) for e in spec):
+            return tpl.join_leaf(spec, list(leaves))
         if not all(torch.equal(x, leaves[0]) for x in leaves[1:]):
             differ.append(tuple(leaves[0].shape))
         return leaves[0]
@@ -6461,6 +6493,477 @@ def mesh_moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T):
                         reps), **path, "step": "round"})
 
 
+MESH_SSM_FAMILY = (("mamba2-2.7b", 8), ("jamba-v0.1-52b", 8))  # 8 of 64;
+#                             8 of 32, one period (its pattern's least)
+MESH_SSM_TENANTS = 4
+MESH_SSM_REQUESTS = 8       # 8 slots
+MESH_SSM_PROMPTS = (128, 512)
+MESH_SSM_NEW = 16
+MESH_SSM_REL = 0.1          # first chunk, of the largest logit (bf16)
+MESH_SSM_ROWS = 4           # a client's rows a step in the round
+MESH_SSM_WALKERS = 4        # host processes walking the dry runs
+
+
+def mesh_ssm_kernels(gen, device, reps, dec_lengths, pre_lengths, T):
+    """Phase mesh_ssm's per-rank shapes at "model" 2: batched LoRA at
+    each rank's in_proj shard (mamba2-2.7b 2560 -> 5416: 2560 z + 2560 x
+    + 128 B + 128 C + 40 dt; jamba 4096 -> 8288: 4096 + 4096 + 16 + 16 +
+    64) at a prefill chunk's 8 x T rows and a decode step's 8 over the
+    phase's 4 tenants, lora_matmul at both at a round client's 4 x T
+    rows; jamba's 16 of 32 query heads over 4 of 8 kv heads (G 4) in
+    decode and prefill at the serve cell's lengths under its 4,096-token
+    window, and flash attention at B 4, H 16, Kv 4, S T."""
+    path = {"path": "mesh_ssm", "model_axis": 2}
+    shapes = (("mamba2-2.7b", 2560, 5416), ("jamba-v0.1-52b", 4096, 8288))
+    for arch, K, N in shapes:
+        for M in (MESH_SSM_REQUESTS * T, MESH_SSM_REQUESTS):
+            emit({**check_lora(gen, device, M, K, N, MESH_SSM_TENANTS, 16,
+                               "f32_bank", reps, tail=N % 256 != 0),
+                  **path, "arch": arch})
+        emit({**check_single_lora(gen, device, MESH_SSM_ROWS * T, K, N, 16,
+                                  reps), **path, "arch": arch,
+              "step": "round"})
+    jamba = {**path, "arch": "jamba-v0.1-52b"}
+    emit({**check_decode(gen, device, dec_lengths, 4, False, reps, H=16,
+                         window=4096), **jamba})
+    emit({**check_prefill(gen, device, pre_lengths, T, 4, False, reps,
+                          H=16, window=4096), **jamba})
+    emit({**check_flash(gen, device, MESH_SSM_ROWS, 16, 4, T, T, 128, 4096,
+                        reps), **jamba, "step": "round"})
+
+
+def _dry_walk(cfg, step, B, S, mesh, kw):
+    """One dry-run walk of ``cfg`` on the card's path at ``mesh``: its
+    peak bytes and collectives (run in a spawned host process)."""
+    from repro_torch.launch.dryrun import dry_run
+    res = dry_run(cfg.with_overrides(paged_backend="cuda"), step, B, S,
+                  mesh=mesh, **kw)
+    return {"peak_bytes": res["memory"]["peak_bytes"],
+            "collectives": res["collectives"]}
+
+
+def mesh_ssm_walks(cfgs, span, width, T):
+    """The phase's dry-run walks, in ``MESH_SSM_WALKERS`` spawned host
+    processes while the card works: per arch at (1, 1, 2) a prefill
+    chunk (8 x ``width``), a decode step (8 slots, ``span``) and the
+    round (2 clients, K 1, 4 x T rows each); mamba2-2.7b's prefill and
+    decode at (1, 2, 1) too.  Returns (pool, {(arch, mesh, step):
+    future})."""
+    import concurrent.futures
+    import multiprocessing
+    jobs = {}
+    for arch, cfg in cfgs.items():
+        meshes = [(1, 1, 2)] + ([(1, 2, 1)] if arch == MESH_SSM_FAMILY[0][0]
+                                else [])
+        for mesh in meshes:
+            jobs[arch, mesh, "prefill"] = (cfg, "prefill", MESH_SSM_REQUESTS,
+                                           width, mesh, {})
+            jobs[arch, mesh, "decode"] = (cfg, "decode", MESH_SSM_REQUESTS,
+                                          span, mesh, {})
+        jobs[arch, (1, 1, 2), "fdlora_round"] = (
+            cfg, "fdlora_round", 2 * MESH_SSM_ROWS, T, (1, 1, 2),
+            {"n_clients": 2, "K": 1})
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=MESH_SSM_WALKERS,
+        mp_context=multiprocessing.get_context("spawn"))
+    return pool, {k: pool.submit(_dry_walk, *job) for k, job in jobs.items()}
+
+
+def mesh_ssm_serve(job):
+    """``launch/serve.mesh_serve`` under a :class:`ResetLog`: each run's
+    result also holds every slot reset this rank made (its local rows,
+    the warm-up's included) and whether each read zero state after it."""
+    from repro_torch.launch.serve import mesh_serve
+    with ResetLog() as log:
+        out = mesh_serve(job)
+    for res in out.values():
+        res["resets"] = {"rows": list(log.slots), "zero": log.zeroed()}
+    return out
+
+
+def _walked(dry, st):
+    """A stream's collectives as the walks of one prefill dispatch and one
+    decode step price them ({(axis, bytes): count})."""
+    want = {}
+    for walk, n in ((dry["prefill"], st["prefill_dispatches"]),
+                    (dry["decode"], st["decode_steps"])):
+        for k, v in _by_axis(walk["collectives"]).items():
+            want[k] = want.get(k, 0) + n * v
+    return want
+
+
+def mesh_ssm_phase(device, seed: int, T: int = 256):
+    """Mamba layers over a torch.distributed mesh: mamba2-2.7b (8 of 64
+    layers) and jamba-v0.1-52b (8 of 32, one period) at full width,
+    bf16, random weights from ``seed``, ``MESH_SSM_TENANTS`` tenants'
+    rank-16 fused adapters (the in_proj/out_proj pairs and jamba's router
+    pair), 8 requests (prompts 128-512 tokens, 16 new, chunk T) through
+    ``MultiTenantEngine.generate`` on "cuda".  Both ranks' dry-run peaks
+    at each mesh must fit in 90% of the card.  The meshless engines and
+    rounds run here and are freed; then one spawn of two ranks on this
+    card (gloo; ``launch/mesh.run_each``):
+
+    (a) mesh (1, 1, 2), both archs: each rank half the SSM heads (40 of
+        80; jamba 64 of 128, and 16 of 32 attention heads over 4 of 8 kv
+        heads, 8 of 16 experts), its heads' columns of every in_proj and
+        conv segment (B and C whole at one group), half the vocabulary
+        and the bank's sharded factors, the shard drawn as it is cut:
+        the first chunk's logits, gathered, against the meshless chunk
+        within ``MESH_SSM_REL`` of the largest logit (jamba with each
+        layer's expert ids pinned to the ranks', ``mesh_moe_chunk``), the
+        streams by the margin rule, the collectives equal to the dry
+        run's prefill and decode walks at (1, 1, 2), each rank's peak
+        beside the dry run's, decode tok/s beside the meshless run's;
+    (b) mesh (1, 2, 1), ``num_shards`` 2, mamba2-2.7b: each rank the
+        whole base and the state of its 4 slots: the first chunk by
+        (a)'s rule, the streams against the meshless 2-shard run's by
+        the margin rule, and every slot reset on a rank reading zero
+        state there right after it, its row one of the rank's own;
+    (c) one FDLoRA round (2 clients, K 1, 4 x T SFT rows a client) at
+        model 2 against the meshless round: jamba and mamba2-2.7b in bf16
+        at the phase's depth by ``mesh_moe_phase`` (c)'s rules (loss, aux
+        and objective within 2%, each θ_s' leaf within 25% of its travel
+        or twice the plain path's distance, at most 75%, the collectives
+        equal to the walk), mamba2-2.7b in fp32 at one layer (the loss
+        within 16 ulps, each leaf within 1e-3 of its travel); in_proj's
+        B columns every rank holds (B and C) bitwise equal on the ranks.
+
+    Returns the launches of each case on rank 0."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import (adapter_specs, init_adapters,
+                                       tree_leaves)
+    from repro_torch.federated.mesh_job import Case, RoundJob, run, run_jobs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import (ServeJob, build_engine,
+                                          ragged_requests, serve_runs)
+    from repro_torch.models import tensor_parallel as tpl
+    from repro_torch.serving.engine import ServeConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    mamba, jamba = (a for a, _ in MESH_SSM_FAMILY)
+    cfgs = {a: get_config(a).with_overrides(n_layers=n, lora_rank=16)
+            for a, n in MESH_SSM_FAMILY}
+    reqs = {a: ragged_requests(MESH_SSM_REQUESTS, MESH_SSM_TENANTS,
+                               c.vocab_size, *MESH_SSM_PROMPTS, seed)
+            for a, c in cfgs.items()}
+    span = max(len(r.prompt) for r in reqs[mamba]) + MESH_SSM_NEW
+    width = min(T, span - 1)
+    card = torch.cuda.get_device_properties(device).total_memory
+    pool, walks = mesh_ssm_walks(cfgs, span, width, T)
+    kw = dict(batch_size=MESH_SSM_REQUESTS, max_new_tokens=MESH_SSM_NEW,
+              prefill_chunk=T, block_size=16, paged_backend="cuda")
+    sc = ServeConfig(**kw)
+    info = {"phase": "mesh_ssm", "requests": MESH_SSM_REQUESTS,
+            "prompt_lens": [len(r.prompt) for r in reqs[mamba]],
+            "new_tokens": MESH_SSM_NEW, "prefill_chunk": width,
+            "tenants": MESH_SSM_TENANTS, "lora_rank": 16}
+    # -- the meshless engines and rounds, here, then freed -------------------
+    t_ref = time.perf_counter()
+    ref = {}
+    for arch, cfg in cfgs.items():
+        runs = [("ref1", None, kw)] + ([("ref2", None,
+                                         dict(kw, num_shards=2))]
+                                       if arch == mamba else [])
+        eng = build_engine(cfg, MESH_SSM_TENANTS, device, seed)
+        ref[arch] = mesh_lib.to_cpu(serve_runs(eng, ServeJob(
+            cfg, reqs[arch], runs, tenants=MESH_SSM_TENANTS, seed=seed,
+            device=str(device))))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    rbase = dict(clients=2, inner_steps=1, rows=MESH_SSM_ROWS, seq=T,
+                 rounds=1, seed=seed, device=str(device))
+    rounds = {("bf16", jamba): cfgs[jamba], ("bf16", mamba): cfgs[mamba],
+              ("fp32", mamba): cfgs[mamba].with_overrides(
+                  n_layers=1, dtype="float32", param_dtype="float32")}
+    plain = {("plain", a): cfgs[a].with_overrides(paged_backend="torch")
+             for a in cfgs}
+    round_ref = {}
+    for key, c in {**rounds, **plain}.items():
+        r = run(RoundJob(c, [Case(None, sync=True)], **rbase))[0]
+        round_ref[key] = mesh_lib.to_cpu(
+            {k: r.get(k) for k in ("theta", "loss", "aux_loss", "objective",
+                                   "seconds", "launches")})
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    meshless_s = time.perf_counter() - t_ref
+    dry = {k: f.result() for k, f in walks.items()}
+    pool.shutdown()
+    peaks = {f"{a} {'x'.join(map(str, m))} {s}": v["peak_bytes"]
+             for (a, m, s), v in dry.items()}
+    emit({**info, "run": "depth", "card_bytes": card,
+          "n_layers": {a: c.n_layers for a, c in cfgs.items()},
+          "dry_run_peak_bytes_per_rank": peaks,
+          "two_ranks_over_card": 2 * max(peaks.values()) / card})
+    require(2 * max(peaks.values()) <= PEAK_FIT * card,
+            f"mesh_ssm: two ranks' dry-run peaks {peaks} pass "
+            f"{PEAK_FIT:.0%} of the card")
+    # -- (a)-(c): two ranks on this card --------------------------------------
+    t0 = time.perf_counter()
+    job = dict(tenants=MESH_SSM_TENANTS, seed=seed, device=str(device))
+    tasks = [(mesh_ssm_serve, (ServeJob(cfgs[a], reqs[a],
+                                        [("a", (1, 1, 2), kw)],
+                                        first_chunk=("a",), **job),))
+             for a in (mamba, jamba)]
+    tasks.append((mesh_ssm_serve, (ServeJob(
+        cfgs[mamba], reqs[mamba], [("b", (1, 2, 1), dict(kw, num_shards=2))],
+        first_chunk=("b",), **job),)))
+    tasks.append((run_jobs, ([RoundJob(c, [Case(1, model=2, sync=True)],
+                                       **rbase)
+                              for c in rounds.values()],)))
+    ranks = mesh_lib.spawn(mesh_lib.run_each, 2, tasks, device=device)
+    spawn_s = time.perf_counter() - t0
+    counts = {}
+    # -- (a) --------------------------------------------------------------------
+    for i, arch in enumerate((mamba, jamba)):
+        cfg, what = cfgs[arch], f"mesh ssm (a, {arch})"
+        ra = sorted((rk[i]["a"] for rk in ranks),
+                    key=lambda r: r["coord"]["model"])
+        needs = (("batched_lora_matmul",) if arch == mamba
+                 else ("paged_attention", "paged_prefill_attention",
+                       "batched_lora_matmul"))
+        for r in ra:
+            for name in needs:
+                require(r["launches"][name] > 0,
+                        f"{what} rank {r['coord']}: {name} never launched")
+            for name in needs:
+                if name != "paged_attention":
+                    require_mma_tile(r["tiles"], name, f"{what} rank "
+                                     f"{r['coord']}")
+            require(all(r["resets"]["zero"]), f"{what} rank {r['coord']}: "
+                    "a reset slot's state is not zero")
+        require(ra[0]["streams"] == ra[1]["streams"],
+                f"{what}: the two ranks' streams differ")
+        got = torch.cat([r["first_chunk"][0] for r in ra], -1)
+        eng = build_engine(cfg, MESH_SSM_TENANTS, device, seed)
+        extra = {}
+        if cfg.has_moe():
+            recs = [r["first_chunk_routing"] for r in ra]
+            require(all(torch.equal(x, y) for x, y in
+                        zip(recs[0]["ids"], recs[1]["ids"])),
+                    f"{what}: the two ranks route differently")
+            err, top, flips, dropped, gap, free = mesh_moe_chunk(
+                eng, reqs[arch], sc, recs[:1], got, what)
+            extra = {"routing_bitwise_equal_across_ranks": True,
+                     "flips_by_layer": flips, "flip_worst_gap_by_layer": gap,
+                     "dropped_copies_by_layer": dropped,
+                     "unpinned_first_chunk_max_abs_err": free}
+        else:
+            want, n_new = first_chunk_logits(eng, reqs[arch], sc, "cuda")
+            err, top = _first_chunk_err(got.float(), want.float().cpu(),
+                                        n_new)
+            free = err
+            require(err <= MESH_SSM_REL * top, f"{what}: first-chunk error "
+                    f"{err} over {MESH_SSM_REL} x the largest logit {top}")
+        matched = streams_by_margin(eng, reqs[arch], sc, ra[0]["streams"],
+                                    ref[arch]["ref1"]["streams"], free, what)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        walk = {s: dry[arch, (1, 1, 2), s] for s in ("prefill", "decode")}
+        want_c = _walked(walk, ra[0]["stats"])
+        for r in ra:
+            require(_by_axis(r["collectives"]) == want_c,
+                    f"{what} rank {r['coord']}: collectives "
+                    f"{_by_axis(r['collectives'])}, the dry run's {want_c}")
+        emit({**info, **extra, "run": "a", "arch": arch,
+              "n_layers": cfg.n_layers, "world": 2, "backend": "gloo",
+              "mesh": {"pod": 1, "data": 1, "model": 2},
+              "ssm_heads_per_rank": cfg.ssm_n_heads // 2,
+              "in_proj_columns_per_rank": (
+                  cfg.ssm_d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_d_state
+                  + cfg.ssm_n_heads // 2),
+              **({"heads_per_rank": cfg.n_heads // 2,
+                  "kv_heads_per_rank": cfg.n_kv_heads // 2,
+                  "experts_per_rank": cfg.n_experts // 2}
+                 if arch == jamba else {}),
+              "vocab_columns_per_rank": cfg.vocab_size // 2,
+              "first_chunk_max_abs_err": err, "max_abs_logit": top,
+              "first_chunk_rel_err": err / top, "rel_bound": MESH_SSM_REL,
+              "streams_bitwise_meshless": ra[0]["streams"]
+              == ref[arch]["ref1"]["streams"],
+              "stream_prefix_matched": matched,
+              **_serve_summary(ra[0], ref[arch]["ref1"]),
+              "prefill_dispatches": ra[0]["stats"]["prefill_dispatches"],
+              "decode_steps": ra[0]["stats"]["decode_steps"],
+              "collectives": _collective_summary(ra[0]["collectives"]),
+              "host_ms_note": GLOO_NOTE,
+              "peak_bytes_per_rank": [r["peak_bytes"] for r in ra],
+              "dry_run_decode_peak_bytes": walk["decode"]["peak_bytes"],
+              "dry_run_prefill_peak_bytes": walk["prefill"]["peak_bytes"],
+              "slot_resets_per_rank": [len(r["resets"]["rows"]) for r in ra],
+              "launches": [{k: r["launches"][k] for k in kernels.SERVING}
+                           for r in ra],
+              "meshless_s": meshless_s, "spawn_s": spawn_s})
+        counts[f"a_{arch}"] = {n: ra[0]["launches"][n]
+                               for n in kernels.SERVING}
+    # -- (b) --------------------------------------------------------------------
+    what = f"mesh ssm (b, {mamba})"
+    rb = sorted((rk[2]["b"] for rk in ranks),
+                key=lambda r: r["coord"]["data"])
+    slots = MESH_SSM_REQUESTS // 2
+    for r in rb:
+        require(r["launches"]["batched_lora_matmul"] > 0,
+                f"{what} rank {r['coord']}: batched_lora_matmul never "
+                "launched")
+        require_mma_tile(r["tiles"], "batched_lora_matmul",
+                         f"{what} rank {r['coord']}")
+        res = r["resets"]
+        require(res["rows"] and all(res["zero"])
+                and all(0 <= s < slots for s in res["rows"]),
+                f"{what} rank {r['coord']}: slot resets {res} (rows of its "
+                f"{slots} slots, each zero after it)")
+    require(rb[0]["streams"] == rb[1]["streams"],
+            f"{what}: the two ranks' streams differ")
+    eng = build_engine(cfgs[mamba], MESH_SSM_TENANTS, device, seed)
+    got_b = torch.cat([r["first_chunk"][0] for r in rb], 0)
+    want_b, n_new = first_chunk_logits(eng, reqs[mamba], sc, "cuda")
+    err_b, top_b = _first_chunk_err(got_b.float(), want_b.float().cpu(),
+                                    n_new)
+    require(err_b <= MESH_SSM_REL * top_b, f"{what}: first-chunk error "
+            f"{err_b} over {MESH_SSM_REL} x the largest logit {top_b}")
+    want_s = ref[mamba]["ref2"]["streams"]
+    matched_b = streams_by_margin(eng, reqs[mamba], sc, rb[0]["streams"],
+                                  want_s, err_b, what)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    walk = {s: dry[mamba, (1, 2, 1), s] for s in ("prefill", "decode")}
+    want_c = _walked(walk, rb[0]["stats"])
+    for r in rb:
+        require(_by_axis(r["collectives"]) == want_c,
+                f"{what} rank {r['coord']}: collectives "
+                f"{_by_axis(r['collectives'])}, the dry run's {want_c}")
+    emit({**info, "run": "b", "arch": mamba,
+          "n_layers": cfgs[mamba].n_layers, "world": 2, "backend": "gloo",
+          "mesh": {"pod": 1, "data": 2, "model": 1}, "num_shards": 2,
+          "slots_per_rank": slots,
+          "first_chunk_max_abs_err": err_b, "max_abs_logit": top_b,
+          "first_chunk_rel_err": err_b / top_b,
+          "streams_bitwise_meshless": rb[0]["streams"] == want_s,
+          "stream_prefix_matched": matched_b,
+          "slot_resets_per_rank": [len(r["resets"]["rows"]) for r in rb],
+          "slot_resets_zero": True,
+          **_serve_summary(rb[0], ref[mamba]["ref2"]),
+          "prefill_dispatches": rb[0]["stats"]["prefill_dispatches"],
+          "decode_steps": rb[0]["stats"]["decode_steps"],
+          "collectives": _collective_summary(rb[0]["collectives"]),
+          "host_ms_note": GLOO_NOTE,
+          "peak_bytes_per_rank": [r["peak_bytes"] for r in rb],
+          "dry_run_decode_peak_bytes": walk["decode"]["peak_bytes"],
+          "launches": [{k: r["launches"][k] for k in kernels.SERVING}
+                       for r in rb]})
+    counts["b"] = {n: rb[0]["launches"][n] for n in kernels.SERVING}
+    # -- (c) --------------------------------------------------------------------
+    def off(theta, want, start):
+        """Each leaf's distance from ``want`` over its travel."""
+        return {k: float(torch.linalg.vector_norm(g - want[k])
+                         / torch.linalg.vector_norm(want[k] - start[k]))
+                for k, g in tree_leaves(theta)}
+
+    for i, ((tag, arch), c) in enumerate(rounds.items()):
+        what = f"mesh ssm (c, {tag}, {arch})"
+        rs = sorted((rk[3][i][0] for rk in ranks),
+                    key=lambda r: r["coord"]["model"])
+        want = round_ref[tag, arch]
+        specs = adapter_specs(c)
+        theta, differ = _gather_model(specs, [r["theta"] for r in rs])
+        require(not differ, f"{what}: leaves or columns every rank holds "
+                f"differ across the ranks: {differ}")
+        start = dict(tree_leaves(init_adapters(c, seed=seed + 120,
+                                               device="cpu", b_std=0.02)))
+        travel = off(theta, dict(tree_leaves(want["theta"])), start)
+        worst = max(travel, key=travel.get)
+        loss = rs[0]["loss"][0]
+        require(all(r["loss"] == rs[0]["loss"]
+                    and r.get("aux_loss") == rs[0].get("aux_loss")
+                    and r.get("objective") == rs[0].get("objective")
+                    for r in rs),
+                f"{what}: the ranks' losses differ")
+        line = {**info, "run": "c", "arch": arch, "world": 2,
+                "backend": "gloo",
+                "activations": "bfloat16" if tag == "bf16" else "float32",
+                "n_layers": c.n_layers,
+                "mesh": {"pod": 1, "data": 1, "model": 2}, "clients": 2,
+                "inner_steps": 1, "rows": MESH_SSM_ROWS, "seq": T,
+                "loss": loss, "meshless_loss": want["loss"][0],
+                "in_proj_b_leaves_with_whole_columns": sum(
+                    isinstance(m, torch.Tensor) for _, m in tree_leaves(
+                        tpl.replicated(specs, 2))),
+                "max_leaf_diff_over_travel": travel[worst],
+                "worst_leaf": worst,
+                "s_per_round": [r["seconds"] for r in rs],
+                "meshless_s_per_round": want["seconds"],
+                "collectives": _collective_summary(rs[0]["collectives"][0]),
+                "host_ms_note": GLOO_NOTE,
+                "peak_bytes_per_rank": [r["peak_bytes"] for r in rs],
+                "launches": [{k: r["launches"][k]
+                              for k in ("lora_matmul", "flash_attention")}
+                             for r in rs]}
+        if c.has_moe():
+            line.update(aux_loss=rs[0]["aux_loss"],
+                        meshless_aux_loss=want["aux_loss"],
+                        objective=rs[0]["objective"],
+                        meshless_objective=want["objective"])
+        if tag == "bf16":
+            spread = off(round_ref["plain", arch]["theta"],
+                         dict(tree_leaves(want["theta"])), start)
+            bound = {k: min(MESH_MOE_LEAF_CAP,
+                            max(MESH_MOE_LEAF_TOL, MESH_MOE_SPREAD * v))
+                     for k, v in spread.items()}
+            rel = {"loss_rel": abs(loss - want["loss"][0])
+                   / abs(want["loss"][0])}
+            if c.has_moe():
+                rel.update(aux_rel=abs(rs[0]["aux_loss"] - want["aux_loss"])
+                           / abs(want["aux_loss"]),
+                           objective_rel=abs(rs[0]["objective"]
+                                             - want["objective"])
+                           / abs(want["objective"]))
+            walk = dry[arch, (1, 1, 2), "fdlora_round"]
+            line.update(rel, plain_path_max_leaf_diff_over_travel=max(
+                spread.values()), worst_leaf_over_bound=max(
+                travel[k] / bound[k] for k in travel),
+                dry_run_peak_bytes=walk["peak_bytes"])
+            emit(line)
+            require(max(rel.values()) <= MESH_MOE_LOSS_REL,
+                    f"{what}: {rel} over {MESH_MOE_LOSS_REL}")
+            for k, v in travel.items():
+                require(v <= bound[k], f"{what}: {k} is {v} of its travel "
+                        f"off, over {bound[k]}")
+            for r in rs:
+                require(_by_axis(r["collectives"][0])
+                        == _by_axis(walk["collectives"]),
+                        f"{what} rank {r['coord']}: collectives differ from "
+                        "the dry run's walk")
+                require(r["launches"]["lora_matmul"] > 0,
+                        f"{what} rank {r['coord']}: lora_matmul never "
+                        "launched")
+                require_mma_tile(r["tiles"], "lora_matmul",
+                                 f"{what} rank {r['coord']}")
+                if arch == jamba:
+                    require_mma_tile(r["tiles"], "flash_attention",
+                                     f"{what} rank {r['coord']}")
+        else:
+            line.update(loss_ulps=_ulps(loss, want["loss"][0]))
+            emit(line)
+            require(line["loss_ulps"] <= MESH_MOE_LOSS_ULPS,
+                    f"{what}: loss {line['loss_ulps']} ulps off")
+            require(travel[worst] <= MESH_MOE_FP32_LEAF,
+                    f"{what}: {worst} is {travel[worst]} of its travel off")
+        counts[f"c_{tag}_{arch}"] = rs[0]["launches"]
+    emit({**info, "run": "seconds", "phase_s": time.perf_counter() - t_phase,
+          "meshless_s": meshless_s, "spawn_s": spawn_s})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def vlm_encdec_phase(device, seed: int, T: int = 256, new_tokens: int = 16,
                      rank: int = 16):
     """internvl2-26b, then whisper-small (``vlm_phase``,
@@ -6660,6 +7163,8 @@ def main(argv=None) -> int:
                               args.seed, T)
     mesh_moe_counts = timed("mesh_moe", mesh_moe_phase, device, args.seed,
                             T)
+    mesh_ssm_counts = timed("mesh_ssm", mesh_ssm_phase, device, args.seed,
+                            T)
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
@@ -6679,6 +7184,7 @@ def main(argv=None) -> int:
         "mesh_round": mesh_counts,
         "mesh_serve": mesh_serve_counts,
         "mesh_moe": mesh_moe_counts,
+        "mesh_ssm": mesh_ssm_counts,
         "remat": remat_counts})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})

@@ -131,10 +131,14 @@ def adapter_specs(cfg, base_specs: Optional[Params] = None) -> Params:
     B its output-dim sharding; the rank dim is never split.  The base
     keeps d_model replicated and splits head and ff dims on ``"model"``,
     so B's output dim is on ``"model"`` for wq/wk/wv/w_up/w_gate/in_proj
-    and A's input dim for wo/w_out/out_proj; everything else is
-    replicated.  A stacked (encoder-decoder) leaf has a replicated depth
-    entry first.  ``base_specs`` is accepted and unused, as in the
+    and A's input dim for wo/w_out/out_proj (``in_proj``'s B by heads
+    within each segment of its columns, ``tensor_parallel.Segments``;
+    ``tensor_parallel.replicated`` names the columns every rank holds
+    whole); everything else is replicated.  A stacked (encoder-decoder)
+    leaf has a replicated depth entry first.  ``base_specs`` is accepted and unused, as in the
     reference."""
+    from repro_torch.models import tensor_parallel as tpl
+    from repro_torch.models.mamba2 import in_proj_segments
     sharded_out = {"wq", "wk", "wv", "w_up", "w_gate", "in_proj"}
     sharded_in = {"wo", "w_out", "out_proj"}
 
@@ -143,10 +147,12 @@ def adapter_specs(cfg, base_specs: Optional[Params] = None) -> Params:
             return [walk(v) for v in tree]
         if set(tree) == {"a", "b"}:
             lead = (None,) * (tree["a"].dim() - 2)
+            out = "model" if name in sharded_out else None
+            if name == "in_proj":       # its columns cut by heads a segment
+                out = tpl.Segments("model", in_proj_segments(cfg))
             return {"a": P(*lead, "model" if name in sharded_in else None,
                            None),
-                    "b": P(*lead, None,
-                           "model" if name in sharded_out else None)}
+                    "b": P(*lead, None, out)}
         return {k: walk(v, k) for k, v in tree.items()}
 
     return walk(init_adapters(cfg, device="meta"))

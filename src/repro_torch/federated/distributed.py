@@ -32,10 +32,11 @@ mean, so θ_s' is identical on all ranks.  At one client a rank the
 shares are exact halves at pod 2, so their sum, rounded once, is the
 meshless round's mean bit for bit.
 
-With a ``"model"`` axis > 1 (dense and MoE configs; ``models/
-tensor_parallel.py``) each rank holds its shard of the base, of θ_s and
-of the state (heads, ff columns, vocabulary and experts split over the
-model group, ``local_shard`` under ``param_specs`` and
+With a ``"model"`` axis > 1 (dense, MoE, SSM and hybrid configs;
+``models/tensor_parallel.py``) each rank holds its shard of the base, of
+θ_s and of the state (heads, ff columns, vocabulary, experts and SSM
+heads split over the model group, a mamba layer's ``in_proj`` columns
+by heads within each segment, ``local_shard`` under ``param_specs`` and
 :func:`state_specs`):
 the forward and backward sum activations over the group, and each step
 ONE model all-reduce (after the data one) sums the adapter leaves every
@@ -129,7 +130,8 @@ def local_shard(tree, spec_tree, mesh):
     pass whole) under ``spec_tree``: along every dim whose spec names
     mesh axes of size > 1, the block of this rank's coordinate in them
     (the first axis major), contiguous (a view where the block already
-    is).  Axes the mesh lacks
+    is; a ``tensor_parallel.Segments`` dim by heads within each
+    segment, ``tensor_parallel.segment_cut``).  Axes the mesh lacks
     are dropped (``launch/specs.sharding_tree``); unlike ``sharding_tree``
     an axis that does not divide its dim is refused, since a rank's rows
     must be its own."""
@@ -143,6 +145,9 @@ def local_shard(tree, spec_tree, mesh):
             for a in entry_axes(e):
                 n, c = n * sizes[a], c * sizes[a] + coord[a]
             if n == 1:
+                continue
+            if isinstance(e, tpl.Segments):
+                leaf = tpl.segment_cut(leaf, d, e.segments, n, c)
                 continue
             if leaf.shape[d] % n:
                 raise ValueError(f"local_shard: dim {d} of {tuple(leaf.shape)}"
@@ -182,8 +187,9 @@ def make_fdlora_round_step(model, cfg, inner_opt: Optimizer,
     state.  At ``"model"`` > 1 the base, θ_s and the outer state are this
     rank's shards too (``local_shard`` under ``param_specs`` and
     ``core/lora.adapter_specs``); refused there, naming what is not
-    ported: mamba layers, the VLM, the encoder-decoder, and head,
-    kv-head, ff, vocabulary or expert counts that do not divide.
+    ported: the VLM, the encoder-decoder, and head, kv-head, ff,
+    vocabulary, expert or SSM-head counts that do not divide (or SSM
+    groups that neither divide nor are 1).
     ``mesh=None`` is one pod holding every client, with no collective.
     """
     if compress_outer not in ("none", "bf16"):
@@ -195,7 +201,7 @@ def make_fdlora_round_step(model, cfg, inner_opt: Optimizer,
     tpl.check_model_axis(cfg, sizes.get("model", 1))
     tp = None if mesh is None else model_group(mesh)
     if tp is not None:
-        replicated = tpl.replicated(adapter_specs(cfg))
+        replicated = tpl.replicated(adapter_specs(cfg), tp.size)
     data_parallel = sizes.get("data", 1) > 1
     if data_parallel:
         dp = data_group(mesh)

@@ -36,12 +36,15 @@ heads, ff columns and vocabulary over "model"; batch rows over "pod" and
 "data"): ``memory`` is per rank, every collective the step issues is
 logged by ``launch/mesh.all_reduce`` instead of issued (``collectives``:
 each one's axis, group and bytes), and the roofline takes ``chips`` and
-that log.  All four steps walk there, for the dense and MoE families
-(an MoE layer's experts split over "model", its routing ids gathered
-over the axes that split the rows, and in training its aux loss summed
-there, as ``models/moe.apply_moe`` runs over a mesh): ``prefill`` and
-``decode`` on the rank's shards of params and adapters, the decode
-cache at its kv heads over "model", rows over the ``launch/specs.
+that log.  All four steps walk there, for the dense, MoE, SSM and
+hybrid families (an MoE layer's experts split over "model", its routing
+ids gathered over the axes that split the rows, and in training its aux
+loss summed there, as ``models/moe.apply_moe`` runs over a mesh; a
+mamba layer's SSM heads over "model", its gated norm's sum of squares
+and ``out_proj``'s partials summed there, each sum's backward too, as
+``models/mamba2.apply_mamba`` runs): ``prefill`` and ``decode`` on the
+rank's shards of params and adapters, the decode cache at its kv heads
+and SSM heads over "model", rows over the ``launch/specs.
 batch_axes`` prefix of ("pod", "data"), then the greedy sample every
 rank agrees on (one reduce over "model") and every row's token gathered
 over the rows' axes, as ``ServeConfig.mesh`` serves.
@@ -82,14 +85,15 @@ from repro_torch.analysis import roofline as rl
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.configs.registry import (ALL_ARCHS, config_for_shape,
                                           shape_supported)
-from repro_torch.core.lora import init_adapters, lora_scale
-from repro_torch.core.partition import AXES
+from repro_torch.core.lora import adapter_specs, init_adapters, lora_scale
+from repro_torch.core.partition import AXES, spec_map
 from repro_torch.kernels import meta
 from repro_torch.kernels.lora_matmul import lora_matmul_op
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import specs as sp
 from repro_torch.models.api import Model
 from repro_torch.models.tensor_parallel import (check_model_axis,
+                                                shard_leaf,
                                                 vocab_parallel_greedy)
 from repro_torch.training.optimizers import adamw
 from repro_torch.training.train_step import (make_full_train_step,
@@ -255,12 +259,15 @@ class RankMesh:
 
 def _params_adapters(model, cfg, mesh=None):
     """Meta params and adapters, at one rank's shard shapes on a mesh
-    (its block of the experts too)."""
+    (its block of the experts and its SSM heads' columns too), each
+    adapter leaf cut as ``tensor_parallel.shard_leaf`` cuts it."""
     if mesh is None or mesh.shape[2] == 1:
         return model.init(), init_adapters(cfg, device=META)
-    local = check_model_axis(cfg, mesh.shape[2])
-    return (model.init(shard=(mesh.shape[2], 0)),
-            init_adapters(local, device=META))
+    size = mesh.shape[2]
+    check_model_axis(cfg, size)
+    adapters = spec_map(lambda s, t: shard_leaf(t, s, size, 0),
+                        adapter_specs(cfg), init_adapters(cfg, device=META))
+    return model.init(shard=(size, 0)), adapters
 
 
 def _rows(B: int, ranks: int) -> int:
@@ -474,10 +481,10 @@ def dry_run(cfg, step: str, B: int, S: int, mesh=None, **opts) -> Dict:
     """One step of ``cfg`` at B rows of S tokens on the meta device; the
     result's ``params``, ``memory``, ``roofline``, ``counts``,
     ``kernels`` and ``collectives`` entries.  ``mesh`` (pod, data,
-    model): one rank's step there (the model axis for dense and MoE
-    configs whose split counts divide, refused otherwise naming the
-    count).  ``opts`` go to
-    the step's ``build_*`` (``n_clients``, ``K`` of the round)."""
+    model): one rank's step there (the model axis for dense, MoE, SSM
+    and hybrid configs whose split counts divide, refused otherwise
+    naming the count).  ``opts`` go to the step's ``build_*``
+    (``n_clients``, ``K`` of the round)."""
     model = Model(cfg, META)
     chips = 1
     if mesh is not None:
@@ -565,7 +572,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", type=lambda v: tuple(map(int, v.split(","))),
                     help="POD,DATA,MODEL: one rank of that (pod, data, "
                          "model) mesh, 2,16,16 the reference's multi-pod "
-                         "one; every step, dense and MoE archs whose counts "
+                         "one; every step, dense, MoE, SSM and hybrid archs "
+                         "whose counts "
                          "divide"),
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
     ap.add_argument("--smoke", action="store_true")

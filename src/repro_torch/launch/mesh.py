@@ -9,9 +9,10 @@ names:
     "pod"    FDLoRA clients (a client is a pod slice, or one card);
     "data"   batch rows inside a client;
     "model"  tensor parallelism inside a client (Megatron-style: heads,
-             ff columns and the vocabulary split across its ranks, and
-             an MoE layer's experts; ``models/tensor_parallel.py``),
-             dense and MoE configs.
+             ff columns and the vocabulary split across its ranks, an
+             MoE layer's experts and a mamba layer's SSM heads;
+             ``models/tensor_parallel.py``), dense, MoE, SSM and hybrid
+             configs.
 
 Single pod: ``("data", "model")`` = (16, 16), 256 ranks.  Multi-pod:
 ``("pod", "data", "model")`` = (2, 16, 16), 512 ranks.

@@ -150,7 +150,8 @@ class Model:
         contiguous (int ``pos``); returns (logits (B, 1, V), cache).  The
         encoder-decoder steps its contiguous cache only, its cross K/V
         filled by ``encdec.prefill_cross``.  ``tp``: this rank's shards
-        (dense and MoE configs), the logits its block of the vocabulary;
+        (dense, MoE, SSM and hybrid configs), the logits its block of
+        the vocabulary;
         ``dp``: the rows this rank's block of the slots."""
         if self.cfg.is_encdec:
             _no_model_axis(tp)

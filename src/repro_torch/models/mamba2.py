@@ -19,6 +19,16 @@ backends, as the reference computes it in plain jnp:
 Decode state per row: ``h`` (H, P, N) fp32 and ``conv`` (K-1, conv_dim),
 the last K-1 conv inputs, in the activations' dtype once a step has run
 (the cache starts in bf16, as the reference's does).
+
+Over a ``"model"`` group (``tp``, ``models/tensor_parallel.py``) a rank
+runs its ``H / size`` heads: its columns of every segment of ``in_proj``
+(``[z | x | B | C | dt]``) and of the conv (``[x | B | C]``), ``B`` and
+``C`` whole where ``ssm_n_groups`` is 1 (``tensor_parallel.Segments``,
+:func:`in_proj_segments`), its heads' rows of ``out_proj`` (row-parallel)
+and its slice of the per-head ``a_log``, ``dt_bias`` and ``d_skip``,
+which every rank holds whole.  The gated norm's mean of squares over
+``d_inner`` is one fp32 sum over the group.  Its decode state is its
+heads of ``h`` and its ``[x | B | C]`` conv columns.
 """
 from __future__ import annotations
 
@@ -28,19 +38,39 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.partition import P
+from repro_torch.models import tensor_parallel as tpl
 from repro_torch.models.layers import DATA, MODEL, dense, lora_pair
 
 Params = Dict[str, Any]
 
 
-def _dims(cfg):
-    d_in = cfg.ssm_d_inner
-    n_h = cfg.ssm_n_heads
+def _dims(cfg, size: int = 1):
+    """(d_inner, heads, d_state, groups, conv columns, in_proj columns)
+    of one rank of a ``size``-way model axis: heads and ``d_inner`` its
+    share, the groups too where they divide (at 1 group, the whole)."""
+    d_in = cfg.ssm_d_inner // size
+    n_h = cfg.ssm_n_heads // size
     d_st = cfg.ssm_d_state
     n_g = cfg.ssm_n_groups
+    if n_g % size == 0:
+        n_g //= size
     conv_dim = d_in + 2 * n_g * d_st
     proj_dim = 2 * d_in + 2 * n_g * d_st + n_h
     return d_in, n_h, d_st, n_g, conv_dim, proj_dim
+
+
+def conv_segments(cfg):
+    """The conv's (and the conv state's) columns ``[x | B | C]`` as
+    ``tensor_parallel.Segments`` takes them: (width, heads or groups)."""
+    d_in, n_h, d_st, n_g, _, _ = _dims(cfg)
+    return ((d_in, n_h), (n_g * d_st, n_g), (n_g * d_st, n_g))
+
+
+def in_proj_segments(cfg):
+    """``in_proj``'s columns ``[z | x | B | C | dt]`` (its LoRA B's too)
+    as ``tensor_parallel.Segments`` takes them."""
+    d_in, n_h, _, _, _, _ = _dims(cfg)
+    return ((d_in, n_h),) + conv_segments(cfg) + ((n_h, n_h),)
 
 
 def init_mamba(normal, cfg, device) -> Params:
@@ -65,9 +95,12 @@ def init_mamba(normal, cfg, device) -> Params:
 
 
 def mamba_specs(cfg) -> Params:
+    """The reference's specs (``in_proj`` and conv columns, the norm's
+    scale and ``out_proj``'s rows on ``"model"``), the segmented columns
+    cut by heads within each segment (``tensor_parallel.Segments``)."""
     return {
-        "in_proj": P(None, MODEL),
-        "conv_w": P(None, MODEL),
+        "in_proj": P(None, tpl.Segments(MODEL, in_proj_segments(cfg))),
+        "conv_w": P(None, tpl.Segments(MODEL, conv_segments(cfg))),
         "a_log": P(None),
         "dt_bias": P(None),
         "d_skip": P(None),
@@ -76,8 +109,8 @@ def mamba_specs(cfg) -> Params:
     }
 
 
-def _split_proj(cfg, zxbcdt):
-    d_in, n_h, d_st, n_g, _, _ = _dims(cfg)
+def _split_proj(cfg, zxbcdt, size: int = 1):
+    d_in, n_h, d_st, n_g, _, _ = _dims(cfg, size)
     return torch.split(zxbcdt, [d_in, d_in + 2 * n_g * d_st, n_h], dim=-1)
 
 
@@ -112,9 +145,17 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     return F.silu(out).to(xbc.dtype), new_state
 
 
-def _gated_norm(x, z, scale, eps: float = 1e-6):
+def _gated_norm(x, z, scale, eps: float = 1e-6, tp=None,
+                d_inner: int = 0):
+    """RMSNorm of ``x · silu(z)`` over ``d_inner``; with ``tp`` each rank
+    holds its columns, and the sum of squares is summed over the group
+    (its gradient too) before the division by the global ``d_inner``."""
     xf = x.float() * F.silu(z.float())
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if tp is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        var = tpl.sum_over_group(torch.sum(xf * xf, dim=-1, keepdim=True),
+                                 tp) / d_inner
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
@@ -215,7 +256,7 @@ def apply_mamba(params: Params, x: torch.Tensor, cfg,
                 adapters: Optional[Params] = None, lora_scale: float = 1.0,
                 ssm_cache: Optional[Params] = None,
                 adapter_ids: Optional[torch.Tensor] = None,
-                n_new: Optional[torch.Tensor] = None):
+                n_new: Optional[torch.Tensor] = None, tp=None):
     """x (B, S, d) -> (out, new cache).
 
     ``ssm_cache`` = {"h": (B, H, P, N), "conv": (B, K-1, conv_dim)} for
@@ -223,16 +264,29 @@ def apply_mamba(params: Params, x: torch.Tensor, cfg,
     ``n_new`` (B,) int32 marks each row's valid leading tokens (ragged
     chunks): tokens past a row's fill get dt = 0, so its recurrent and
     conv state pass through untouched.  Without a cache the SSD chunked
-    form runs (training) and the new cache is its final state."""
+    form runs (training) and the new cache is its final state.
+
+    ``tp`` (``tensor_parallel.ModelGroup``): params, adapters and cache
+    are this rank's shards (``mamba_specs``, ``core/lora.adapter_specs``,
+    :func:`init_ssm_cache`), ``x`` already through ``copy_to_group``; the
+    rank runs its ``H / size`` heads, the scan and recurrence unchanged
+    on them (a local head's group is its global head's, since the rank's
+    heads and groups are blocks of the same order), and ``out`` is the
+    group's sum."""
     B, S, _ = x.shape
-    d_in, n_h, d_st, n_g, _, _ = _dims(cfg)
+    size = 1 if tp is None else tp.size
+    d_in, n_h, d_st, n_g, _, _ = _dims(cfg, size)
+    first = 0 if tp is None else tp.rank * n_h
+
+    def heads(name):    # per-head leaves every rank holds whole
+        return params[name][first:first + n_h]
 
     def dn(inp, name):
         return dense(inp, params[name], lora_pair(adapters, name),
                      lora_scale, adapter_ids, cfg.paged_backend)
 
-    z, xbc, dt_raw = _split_proj(cfg, dn(x, "in_proj"))
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    z, xbc, dt_raw = _split_proj(cfg, dn(x, "in_proj"), size)
+    dt = F.softplus(dt_raw.float() + heads("dt_bias"))
 
     conv_state = ssm_cache["conv"] if ssm_cache is not None else None
     xbc, new_conv = _causal_conv(
@@ -242,7 +296,7 @@ def apply_mamba(params: Params, x: torch.Tensor, cfg,
     xs = xs.reshape(B, S, n_h, cfg.ssm_head_dim)
     Bm = Bm.reshape(B, S, n_g, d_st)
     Cm = Cm.reshape(B, S, n_g, d_st)
-    A = -torch.exp(params["a_log"].float())                  # (H,) negative
+    A = -torch.exp(heads("a_log").float())                   # (H,) negative
 
     if ssm_cache is None:
         y, h = ssd_chunked(xs, dt, A, Bm, Cm, min(cfg.ssm_chunk, S))
@@ -253,23 +307,30 @@ def apply_mamba(params: Params, x: torch.Tensor, cfg,
             dt = torch.where(valid[:, :, None], dt, torch.zeros_like(dt))
         y, h = ssm_recurrence(ssm_cache["h"], xs, dt, A, Bm, Cm)
 
-    y = y + xs.float() * params["d_skip"][None, None, :, None]
+    y = y + xs.float() * heads("d_skip")[None, None, :, None]
     y = y.reshape(B, S, d_in).to(x.dtype)
-    y = _gated_norm(y, z, params["norm_scale"])
+    y = _gated_norm(y, z, params["norm_scale"], tp=tp,
+                    d_inner=cfg.ssm_d_inner)
     out = dn(y, "out_proj")
+    if tp is not None:
+        out = tpl.reduce_from_group(out, tp)
     return out, {"h": h.float(), "conv": new_conv}
 
 
-def init_ssm_cache(cfg, batch: int, device) -> Params:
+def init_ssm_cache(cfg, batch: int, device, tp=None) -> Params:
     """Zero decode state for ``batch`` rows: ``h`` fp32, ``conv`` bf16 (it
     takes the activations' dtype at the first step, as in the
-    reference)."""
-    _, n_h, d_st, _, conv_dim, _ = _dims(cfg)
+    reference).  With ``tp`` the rank's heads of ``h`` and its ``[x | B
+    | C]`` conv columns (:func:`ssm_cache_specs`)."""
+    _, n_h, d_st, _, conv_dim, _ = _dims(cfg, 1 if tp is None else tp.size)
     return {"h": torch.zeros((batch, n_h, cfg.ssm_head_dim, d_st),
                              dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cfg.ssm_d_conv - 1, conv_dim),
                                 dtype=torch.bfloat16, device=device)}
 
 
-def ssm_cache_specs() -> Params:
-    return {"h": P(DATA, MODEL, None, None), "conv": P(DATA, None, MODEL)}
+def ssm_cache_specs(cfg) -> Params:
+    """Slots on "data"; heads of ``h`` and the conv state's ``[x | B |
+    C]`` columns, cut by heads within each segment, on "model"."""
+    return {"h": P(DATA, MODEL, None, None),
+            "conv": P(DATA, None, tpl.Segments(MODEL, conv_segments(cfg)))}

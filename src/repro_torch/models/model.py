@@ -203,17 +203,15 @@ def _apply_layer(i, lp, x, cfg, positions, adapters, lora_scale, cache=None,
     """Layer ``i``: its mixer (attention, or a mamba block, which reads
     ``n_new``, the valid leading tokens of each row of a ragged prefill
     chunk), then the dense MLP or the MoE layer its pattern entry names,
-    or none.  With ``tp`` (attention, the dense MLP and the experts) each
-    block's input enters the model group through ``copy_to_group``;
+    or none.  With ``tp`` (attention, a mamba block, the dense MLP and
+    the experts) each block's input enters the model group through
+    ``copy_to_group``;
     ``dp`` (a data group) and ``need_aux`` reach the MoE layer
     (``moe.apply_moe``); in a model with MoE layers ``dp`` also syncs a
     paged pool's scratch block over the group (``layers.sync_scratch``),
     since the positions that read it are routed too.  Returns (x, new
     cache, aux loss or None where the layer has no MoE)."""
     mixer, mlp = _parse(cfg.layer_entry(i))
-    if tp is not None and mixer != "attn":
-        raise ValueError(f"{cfg.name}: layer {i} ({cfg.layer_entry(i)}) "
-                         "has no tensor-parallel port")
     ad = adapters or {}
     h = L.apply_norm(lp["norm1"], x, cfg.norm_type)
     if tp is not None:
@@ -226,7 +224,7 @@ def _apply_layer(i, lp, x, cfg, positions, adapters, lora_scale, cache=None,
     else:
         out, new_cache = mamba2.apply_mamba(
             lp["mixer"], h, cfg, ad.get("mixer"), lora_scale,
-            ssm_cache=cache, adapter_ids=adapter_ids, n_new=n_new)
+            ssm_cache=cache, adapter_ids=adapter_ids, n_new=n_new, tp=tp)
     x = x + out
     aux = None
     if mlp != "none":
@@ -284,8 +282,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
     prepended to the embedded text: the logits then cover P + S positions,
     the patches at RoPE positions 0..P-1.
 
-    ``tp`` (``models/tensor_parallel.ModelGroup``; dense and MoE
-    configs): the params and adapters are this rank's shards under
+    ``tp`` (``models/tensor_parallel.ModelGroup``; dense, MoE, SSM and
+    hybrid configs): the params and adapters are this rank's shards under
     ``param_specs`` and ``core/lora.adapter_specs``, and the logits (B,
     S, V / size) its block of the vocabulary.  ``dp``
     (``tensor_parallel.DataGroup``): ``tokens`` are this rank's rows of a
@@ -351,26 +349,26 @@ def init_decode_cache(cfg, batch: int, cache_len: int,
     per attention layer one bf16 ring buffer ``cache_len`` long (the full
     context for dense attention; the window for sliding-window archs,
     where it wraps), per mamba layer ``batch`` rows of recurrent state.
-    With ``tp`` the ring buffers hold the rank's kv heads
-    (``decode_cache_specs``)."""
+    With ``tp`` the ring buffers hold the rank's kv heads and the
+    recurrent state its SSM heads (``decode_cache_specs``)."""
     dev = resolve_device(device)
     eff = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
            else cache_len)
     return {"layers": [
-        mamba2.init_ssm_cache(cfg, batch, dev) if _is_mamba(cfg, i)
+        mamba2.init_ssm_cache(cfg, batch, dev, tp) if _is_mamba(cfg, i)
         else L.init_kv_cache(cfg, batch, eff, torch.bfloat16, dev, tp=tp)
         for i in range(cfg.n_layers)]}
 
 
 def decode_cache_specs(cfg) -> Params:
     """Partition specs of :func:`init_decode_cache`'s tree."""
-    return {"layers": [mamba2.ssm_cache_specs() if _is_mamba(cfg, i)
+    return {"layers": [mamba2.ssm_cache_specs(cfg) if _is_mamba(cfg, i)
                        else L.kv_cache_specs() for i in range(cfg.n_layers)]}
 
 
 def paged_decode_cache_specs(cfg, kv_dtype: str = "f32") -> Params:
     """Partition specs of :func:`init_paged_decode_cache`'s tree."""
-    return {"layers": [mamba2.ssm_cache_specs() if _is_mamba(cfg, i)
+    return {"layers": [mamba2.ssm_cache_specs(cfg) if _is_mamba(cfg, i)
                        else L.paged_kv_cache_specs(kv_dtype)
                        for i in range(cfg.n_layers)]}
 
@@ -386,13 +384,14 @@ def init_paged_decode_cache(cfg, num_blocks: int, block_size: int,
     each of ``num_slots`` slots (required when the model has mamba
     layers; row i is slot i, reset on admission by
     ``serving/kv_cache.reset_slot``).  With ``tp`` the pools (and an int8
-    pool's scales) hold the rank's kv heads (``paged_decode_cache_specs``)."""
+    pool's scales) hold the rank's kv heads and the recurrent state its
+    SSM heads (``paged_decode_cache_specs``)."""
     dev = resolve_device(device)
     if num_slots is None and cfg.has_mixer("mamba"):
         raise ValueError(f"{cfg.name}: a model with mamba layers keeps "
                          "recurrent state per serving slot; pass num_slots")
     return {"layers": [
-        mamba2.init_ssm_cache(cfg, num_slots, dev) if _is_mamba(cfg, i)
+        mamba2.init_ssm_cache(cfg, num_slots, dev, tp) if _is_mamba(cfg, i)
         else L.init_paged_kv_cache(cfg, num_blocks, block_size,
                                    torch.bfloat16, dev, kv_dtype=kv_dtype,
                                    tp=tp)
@@ -430,8 +429,9 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     a cache from :func:`init_paged_decode_cache`.  Contiguous (the fixed
     path): ``block_tables`` None, ``pos`` an int, the tokens already in a
     cache from :func:`init_decode_cache`.  Returns (logits (B, 1, V),
-    cache).  ``tp`` (``models/tensor_parallel.ModelGroup``; dense and
-    MoE configs): params, adapters and cache are this rank's shards, the
+    cache).  ``tp`` (``models/tensor_parallel.ModelGroup``; dense, MoE,
+    SSM and hybrid configs): params, adapters and cache are this rank's
+    shards, the
     logits (B, 1, V / size) its block of the vocabulary.  ``dp``
     (``tensor_parallel.DataGroup``): the rows are this rank's block of
     the serving slots, which an MoE layer's capacity spans."""

@@ -20,7 +20,15 @@ those trees and the model says where the sums go:
 * the experts of an MoE layer (expert parallelism): each rank holds
   ``n_experts / size`` whole experts and runs their copies of the
   dispatch every rank plans alike, its combine a partial of the layer's
-  output (``models/moe.apply_moe``).
+  output (``models/moe.apply_moe``);
+* a mamba layer's SSM heads (``models/mamba2.apply_mamba``): ``in_proj``
+  and the depthwise conv are column-parallel, but their columns are
+  segments (``[z | x | B | C | dt]``, the conv's ``[x | B | C]``), so a
+  rank's block is its heads' columns of each segment, and ``B``/``C``
+  whole where ``ssm_n_groups`` is 1 (:class:`Segments`,
+  :func:`segment_cut`); the gated norm's mean of squares over the whole
+  ``d_inner`` is one sum over the group (:func:`sum_over_group`) and
+  ``out_proj`` is row-parallel.
 
 ``wq``'s columns are head-major, so a rank's block is whole heads: the
 rank attends its ``n_heads / size`` query heads over its ``n_kv_heads /
@@ -42,7 +50,7 @@ import torch
 
 from repro_torch.core.partition import entry_axes, spec_map
 
-SPLIT_DIMS = ("n_heads", "n_kv_heads", "d_ff", "vocab_size")
+HEAD_DIMS = ("n_heads", "n_kv_heads", "d_ff")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,50 +76,160 @@ class DataGroup:
     reduce: Callable
 
 
+def _split_dims(cfg):
+    """The counts a model axis divides: attention's heads and kv heads
+    and ``d_ff`` where the config has an attention layer or a dense MLP
+    (mamba2 has neither; its ``n_heads`` and ``d_ff`` are placeholders),
+    the vocabulary always; then the checked-only counts: the experts
+    (every rank's router ranks all of them) and the SSM heads (a mamba
+    layer sizes its share from the global config and the group)."""
+    split = (HEAD_DIMS if any(e.startswith("attn") or e.endswith("+mlp")
+                              for e in cfg.layer_pattern) else ())
+    checked = (("n_experts",) if cfg.has_moe() else ()) + (
+        ("ssm_n_heads",) if cfg.has_mixer("mamba") else ())
+    return split + ("vocab_size",), checked
+
+
 def local_config(cfg, size: int):
     """``cfg`` at one rank's shard of a ``size``-way model axis: heads, kv
-    heads, ff columns and vocabulary divided by ``size`` (the head dim and
-    the experts' width pinned); ``n_experts`` stays global, since every
-    rank's router ranks all the experts, and must divide too.  Refused,
-    naming the dim, where one does not divide."""
+    heads, ff columns and vocabulary divided by ``size`` where the config
+    has what reads them (the head dim and the experts' width pinned);
+    ``n_experts`` and a mamba layer's counts stay global (every rank's
+    router ranks all the experts; ``ssm_d_inner`` is ``ssm_expand ·
+    d_model``, so ``apply_mamba`` sizes its share from ``tp.size``) and
+    must divide too (``ssm_n_groups`` may be 1 instead: whole on every
+    rank).  Refused, naming the count, where one does not divide."""
     moe = {"d_ff_moe": cfg.resolved_d_ff_moe} if cfg.has_moe() else {}
-    for name in SPLIT_DIMS + tuple(("n_experts",) if moe else ()):
+    split, checked = _split_dims(cfg)
+    for name in split + checked:
         n = getattr(cfg, name)
         if n % size:
             raise ValueError(f"{cfg.name}: {name} {n} does not divide over "
                              f"a \"model\" axis of {size}")
+    g = cfg.ssm_n_groups
+    if cfg.has_mixer("mamba") and g % size and g != 1:
+        raise ValueError(f"{cfg.name}: ssm_n_groups {g} neither divides "
+                         f"over a \"model\" axis of {size} nor is 1 (whole "
+                         "on every rank)")
     return cfg.with_overrides(head_dim=cfg.resolved_head_dim, **moe,
-                              **{n: getattr(cfg, n) // size
-                                 for n in SPLIT_DIMS})
+                              **{n: getattr(cfg, n) // size for n in split})
 
 
 def check_model_axis(cfg, size: int):
     """The local config of ``cfg`` at a ``size``-way model axis, or a
-    ``ValueError`` naming what is not ported: the dense and MoE families
-    are split (attention, the dense MLP, the experts), with every split
-    count dividing."""
+    ``ValueError`` naming what is not ported: the dense, MoE, SSM and
+    hybrid families are split (attention, the dense MLP, the experts,
+    the SSM heads), with every split count dividing."""
     if size == 1:
         return cfg
-    family = {"ssm": "mamba layers (the reference splits SSM heads on it, "
-                     "src/repro/models/mamba2.py)",
-              "vlm": "the VLM's patch embeddings",
+    family = {"vlm": "the VLM's patch embeddings",
               "encdec": "the encoder-decoder"}
-    kind = "ssm" if cfg.has_mixer("mamba") else cfg.family
-    if kind in family:
+    if cfg.family in family:
         raise ValueError(f"{cfg.name}: not ported over a \"model\" axis > 1:"
-                         f" {family[kind]}; it runs the dense and MoE "
-                         "families only")
+                         f" {family[cfg.family]}; it runs the dense, MoE, "
+                         "SSM and hybrid families only")
     return local_config(cfg, size)
+
+
+class Segments(str):
+    """A spec entry naming the ``"model"`` axis (it equals the name, as
+    the reference's spec names it) over a dim laid out in segments:
+    ``segments`` ((width, units), ...) in order, each ``units`` heads or
+    groups wide.  A ``size``-way axis gives each rank its block of every
+    segment whose units divide (whole heads or groups) and the whole of
+    a segment of one unit: the port's head-aligned cut of a mamba
+    layer's ``in_proj`` and conv columns, where the reference's GSPMD
+    layout would cut the concatenation contiguously.  :func:`shard_leaf`,
+    :func:`join_leaf`, ``federated/distributed.local_shard`` and
+    ``serving/registry.model_shard`` cut such a dim with
+    :func:`segment_cut`."""
+
+    def __new__(cls, axis: str, segments):
+        out = super().__new__(cls, axis)
+        out.segments = tuple((int(w), int(u)) for w, u in segments)
+        return out
+
+    def __reduce__(self):
+        return (Segments, (str(self), self.segments))
+
+    def __repr__(self) -> str:
+        return f"Segments({str(self)!r}, {self.segments!r})"
+
+
+def _layout(segments, size: int):
+    """Per segment at a ``size``-way axis: (global start, local start,
+    width on a rank, split).  Refused where a segment's units neither
+    divide nor are 1."""
+    out, g, l = [], 0, 0
+    for width, units in segments:
+        if units % size == 0:
+            w, split = width // size, True
+        elif units == 1:
+            w, split = width, False
+        else:
+            raise ValueError(f"a segment of {units} units does not divide "
+                             f"over a \"model\" axis of {size}")
+        out.append((g, l, w, split))
+        g, l = g + width, l + w
+    return out
+
+
+def segment_cut(t: torch.Tensor, dim: int, segments, size: int,
+                rank: int) -> torch.Tensor:
+    """Rank ``rank``'s columns of ``t`` along ``dim``, laid out in
+    ``segments``: per segment its block of whole heads or groups, or the
+    whole segment where it is one unit, in order (a new tensor)."""
+    return torch.cat([t.narrow(dim, g + (rank * w if split else 0), w)
+                      for g, _, w, split in _layout(segments, size)], dim)
+
+
+def segment_join(parts, dim: int, segments) -> torch.Tensor:
+    """The inverse of :func:`segment_cut`: the whole dim from every
+    rank's cut (``parts`` in rank order), a segment whole on every rank
+    taken from rank 0's."""
+    out = []
+    for _, l, w, split in _layout(segments, len(parts)):
+        out += [p.narrow(dim, l, w) for p in (parts if split
+                                               else parts[:1])]
+    return torch.cat(out, dim)
+
+
+def replicated_columns(segments, size: int) -> torch.Tensor:
+    """(local width,) bool: True at a rank's columns of a segmented dim
+    that every rank holds whole (``B`` and ``C`` of ``in_proj`` at
+    ``ssm_n_groups`` 1)."""
+    lay = _layout(segments, size)
+    mask = torch.zeros(lay[-1][1] + lay[-1][2], dtype=torch.bool)
+    for _, l, w, split in lay:
+        if not split:
+            mask[l:l + w] = True
+    return mask
 
 
 def shard_leaf(t: torch.Tensor, spec, size: int, rank: int) -> torch.Tensor:
     """Rank ``rank``'s block of ``t`` along the dim its spec splits over
-    ``"model"`` (a copy, so the whole leaf can go), or ``t`` itself."""
+    ``"model"`` (a copy, so the whole leaf can go; a :class:`Segments`
+    dim by :func:`segment_cut`), or ``t`` itself."""
     for d, e in enumerate(spec):
         if "model" in entry_axes(e):
+            if isinstance(e, Segments):
+                return segment_cut(t, d, e.segments, size, rank)
             w = t.shape[d] // size
             return t.narrow(d, rank * w, w).clone()
     return t
+
+
+def join_leaf(spec, leaves):
+    """The inverse of :func:`shard_leaf` over every rank's shard
+    (``leaves`` in model-coordinate order): concatenated along the dim
+    the spec splits over ``"model"`` (a :class:`Segments` dim by
+    :func:`segment_join`), or rank 0's where the spec splits none."""
+    for d, e in enumerate(spec):
+        if "model" in entry_axes(e):
+            if isinstance(e, Segments):
+                return segment_join(leaves, d, e.segments)
+            return torch.cat(leaves, d)
+    return leaves[0]
 
 
 def grad_scaled(t: torch.Tensor, s: float) -> torch.Tensor:
@@ -120,11 +238,23 @@ def grad_scaled(t: torch.Tensor, s: float) -> torch.Tensor:
     return d + (t - d) * s
 
 
-def replicated(spec_tree):
+def replicated(spec_tree, size: int = 1):
     """Per leaf of a spec tree: True where no dim names ``"model"`` (the
-    leaf is whole on every rank of the group)."""
-    return spec_map(lambda s: not any("model" in entry_axes(e) for e in s),
-                    spec_tree)
+    leaf is whole on every rank of the group), else False.  Given the
+    axis' ``size``, a leaf whose last dim is :class:`Segments` with
+    segments whole on every rank at that size (``in_proj``'s LoRA B at
+    ``ssm_n_groups`` 1) gets the (local width,) bool mask of those
+    columns instead (:func:`replicated_columns`)."""
+    def one(spec):
+        if not any("model" in entry_axes(e) for e in spec):
+            return True
+        last = spec[len(spec) - 1]
+        if size > 1 and isinstance(last, Segments):
+            mask = replicated_columns(last.segments, size)
+            if bool(mask.any()):
+                return mask
+        return False
+    return spec_map(one, spec_tree)
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -132,6 +262,19 @@ class _CopyToGroup(torch.autograd.Function):
     def forward(ctx, x, tp):
         ctx.tp = tp
         return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.reduce(g.clone(memory_format=torch.contiguous_format),
+                             "sum"), None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.reduce(x.clone(memory_format=torch.contiguous_format),
+                         "sum")
 
     @staticmethod
     def backward(ctx, g):
@@ -160,6 +303,14 @@ def reduce_from_group(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
     """The output of a row-parallel block: each rank's partial summed over
     the group (in ``x``'s dtype); the gradient passes whole."""
     return _ReduceFromGroup.apply(x, tp)
+
+
+def sum_over_group(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
+    """Each rank's partial summed over the group, where every rank then
+    uses the sum in its own way (a mamba layer's gated norm scales its
+    own columns by it): the gradient, a partial on each rank, is summed
+    over the group too."""
+    return _SumOverGroup.apply(x, tp)
 
 
 def vocab_parallel_embed(embed: torch.Tensor, tokens: torch.Tensor,

@@ -40,15 +40,17 @@ attention-only model, as in the reference), overlapped dispatch
 split into placement domains, still one dispatch per round).
 
 ``ServeConfig.mesh`` (a ``("pod", "data", "model")`` ``DeviceMesh`` from
-``launch/mesh.make_mesh``; dense and MoE configs) serves one stream on
-every rank of the mesh, each rank's process running this same code:
-every rank plans every slot (scheduler, pool, prefix index, drafts), and
-dispatches its part.  Slots lie on "data" (rank r of D serves its
-shard-contiguous block of slots, with a device pool of scratch block 0
-and its shards' blocks), heads, ff columns and the vocabulary on
-"model" (each rank holds its shard of the base, of the bank and of the
-pools' kv heads, and its block of an MoE layer's experts;
-``models/tensor_parallel.py``), and "pod" replicates, as the
+``launch/mesh.make_mesh``; dense, MoE, SSM and hybrid configs) serves
+one stream on every rank of the mesh, each rank's process running this
+same code: every rank plans every slot (scheduler, pool, prefix index,
+drafts), and dispatches its part.  Slots lie on "data" (rank r of D
+serves its shard-contiguous block of slots, with a device pool of
+scratch block 0 and its shards' blocks, and its slots' rows of a mamba
+layer's recurrent state, zeroed on admission at ``slot - lo``), heads,
+ff columns and the vocabulary on "model" (each rank holds its shard of
+the base, of the bank and of the pools' kv heads, its block of an MoE
+layer's experts, and its SSM heads of a mamba layer's weights and
+state; ``models/tensor_parallel.py``), and "pod" replicates, as the
 reference's ``P("data")`` on the fused batch does.  Every rank samples
 the same tokens: greedy through the vocabulary-parallel argmax, sampling
 from the rows' whole logits and the meshless stream's (K, V) draws; one
@@ -177,18 +179,11 @@ def _check_supported(sc: ServeConfig) -> None:
 
 def check_serve_mesh(cfg, mesh) -> None:
     """Refuse, naming why, a config ``ServeConfig.mesh`` cannot serve:
-    at "model" > 1 anything but the dense and MoE families
-    (``tensor_parallel.check_model_axis``: mamba layers, the VLM, the
-    encoder-decoder, or a split count that does not divide); at "data" >
-    1 mamba layers, whose per-slot state is not split over data ranks."""
-    sizes = mesh_shape(mesh)
-    tpl.check_model_axis(cfg, sizes.get("model", 1))
-    if sizes.get("data", 1) > 1:
-        if cfg.has_mixer("mamba"):
-            raise ValueError(
-                f"{cfg.name}: not served over a \"data\" axis > 1: mamba "
-                "layers' per-slot recurrent state is not split over data "
-                "ranks")
+    at "model" > 1 the VLM, the encoder-decoder or a split count that
+    does not divide (``tensor_parallel.check_model_axis``).  At "data" >
+    1 every family serves: a mamba layer's recurrent state is per slot,
+    so each data rank holds its slots' rows."""
+    tpl.check_model_axis(cfg, mesh_shape(mesh).get("model", 1))
 
 
 class _MeshRank:

@@ -38,8 +38,10 @@ from repro_torch import resolve_device
 from repro_torch.core.dual_lora import check_rank_agreement, merge
 from repro_torch.core.lora import (adapter_specs, block_target_shapes,
                                    tree_leaves)
+from repro_torch.core.partition import P
 from repro_torch.kernels.ops import concat_buckets
 from repro_torch.kernels.quant import quantize_int8
+from repro_torch.models import tensor_parallel as tpl
 from repro_torch.serving.scheduler import PRIORITY_CLASSES
 
 Params = Any
@@ -71,9 +73,11 @@ def _zip_banks(banks: Sequence[Params]) -> Params:
 def model_shard(bank: Params, cfg, size: int, rank: int) -> Params:
     """Rank ``rank``'s shard of a bank over a ``size``-way ``"model"``
     axis: per target, the factor dim ``core/lora.adapter_specs`` splits
-    (B's output columns for wq/wk/wv/w_up/w_gate, A's input rows for
-    wo/w_out), after the client axis, in every bucket of a ragged bank's
-    lists and in its kernel view alike; int8 scales (one per (layer,
+    (B's output columns for wq/wk/wv/w_up/w_gate, by heads within each
+    segment for in_proj, A's input rows for wo/w_out/out_proj;
+    ``tensor_parallel.shard_leaf``), after the client axis, in every
+    bucket of a ragged bank's lists and in its kernel view alike; int8
+    scales (one per (layer,
     client) and factor) and the kernel view's ``ranks`` stay whole, so a
     quantized shard dequantizes as the whole factor does.  Copies: the
     shard of a bank epoch stays as it was when the bank is written in
@@ -83,11 +87,7 @@ def model_shard(bank: Params, cfg, size: int, rank: int) -> Params:
     def take(spec, leaf):
         if isinstance(leaf, (list, tuple)):
             return [take(spec, t) for t in leaf]
-        for d, e in enumerate(spec):
-            if e == "model":
-                w = leaf.shape[d + 1] // size
-                return leaf.narrow(d + 1, rank * w, w).contiguous()
-        return leaf
+        return tpl.shard_leaf(leaf, P(None, *spec), size, rank)
 
     return {"layers": [
         {part: {t: {k: take(specs["layers"][i][part][t][k], v)

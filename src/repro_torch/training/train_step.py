@@ -27,8 +27,9 @@ loss skips its patch positions; an encoder-decoder's batch carries
 * ``model_group_grads``: the LoRA step over a mesh's ``"model"`` group
   (``models/tensor_parallel.py``), each rank on its shard of the base
   and adapters: the adapter leaves that every rank holds whole (A of
-  the column-parallel targets, B of the row-parallel ones) get a partial
-  gradient on each rank, summed in ONE all-reduce a step, which also
+  the column-parallel targets, B of the row-parallel ones, and the ``B``
+  and ``C`` columns of a mamba layer's ``in_proj`` B at one group) get a
+  partial gradient on each rank, summed in ONE all-reduce a step, which also
   carries the sharded leaves' squared norms, so the clip reads the
   global norm.
 * ``make_eval_fn``: next-token cross entropy and accuracy.
@@ -54,6 +55,7 @@ squared norms it carries are those of the whole batch's gradient.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -241,15 +243,30 @@ def data_parallel_value_and_grad(model, cfg, reduce: Callable, tp=None,
 def model_group_grads(grads, replicated, tp):
     """Gradient trees of a model group's ranks (this rank's shards, one
     tree per client) -> (the trees with every leaf that ``replicated``
-    marks (``tensor_parallel.replicated`` of the adapter specs) summed
-    over the group, each tree's global L2 norm (n,) fp32).  The replicated
-    leaves hold a partial gradient on each rank; the sharded ones are
-    whole, and their squared norms ride in slots of the same buffer, so
-    ONE reduce serves both, and the replicated leaves count once."""
+    marks (``tensor_parallel.replicated`` of the adapter specs at the
+    group's size) summed over the group, each tree's global L2 norm (n,)
+    fp32).  The replicated leaves hold a partial gradient on each rank;
+    the sharded ones are whole, and their squared norms ride in slots of
+    the same buffer, so ONE reduce serves both, and the replicated leaves
+    count once.  A leaf marked by a column mask (``in_proj``'s LoRA B,
+    whose ``B`` and ``C`` columns every rank holds at ``ssm_n_groups`` 1)
+    is both: those columns summed and counted once, the rest its own."""
+    def cols(r, t):     # a mask's (whole, own) column indices on t's device
+        return tuple(c.nonzero()[:, 0].to(t.device) for c in (r, ~r))
+
     rep, sq = [], []
     for g in grads:
         own = []
-        tree_map(lambda r, t: (rep if r else own).append(t), replicated, g)
+
+        def sort(r, t):
+            if isinstance(r, torch.Tensor):
+                whole, mine = cols(r, t)
+                rep.append(t.index_select(-1, whole))
+                own.append(t.index_select(-1, mine))
+            else:
+                (rep if r else own).append(t)
+
+        tree_map(sort, replicated, g)
         sq.append(sum(torch.sum(torch.square(t.float())) for t in own))
     buf = tp.reduce(torch.cat([t.reshape(-1).float() for t in rep]
                               + [torch.stack(sq)]), "sum")
@@ -260,12 +277,17 @@ def model_group_grads(grads, replicated, tp):
 
         def put(r, t):
             nonlocal off
-            if not r:
+            if r is False:
                 return t
-            v = buf[off:off + t.numel()].view(t.shape)
-            off += t.numel()
+            whole = cols(r, t)[0] if isinstance(r, torch.Tensor) else None
+            shape = (t.shape if whole is None
+                     else (*t.shape[:-1], whole.numel()))
+            v = buf[off:off + math.prod(shape)].view(shape)
+            off += v.numel()
             rep_sq.append(torch.sum(torch.square(v)))
-            return v
+            if whole is None:
+                return v
+            return t.index_copy(-1, whole, v.to(t.dtype))
 
         out.append(tree_map(put, replicated, g))
         norms.append(torch.sqrt(tail[i] + sum(rep_sq)))
@@ -286,7 +308,7 @@ def make_lora_train_step(model, cfg, opt: Optimizer, clip_norm: float = 1.0,
     (:func:`model_group_grads`)."""
     if tp is not None:
         tpl.check_model_axis(cfg, tp.size)
-        replicated = tpl.replicated(adapter_specs(cfg))
+        replicated = tpl.replicated(adapter_specs(cfg), tp.size)
     if reduce_data is None and dp is not None:
         reduce_data = dp.reduce
     if reduce_data is not None:

@@ -23,11 +23,10 @@ one spawn of 2 ranks and one of 4, each rank on one torch thread).
   run's per-rank argument bytes are the local shards';
 * the bank's model shard (ragged, int8, kernel view), a data rank's block
   tables, the one-reduce vocabulary-parallel argmax with ties across
-  blocks, and the refusals: mamba layers, the VLM, the encoder-decoder
-  and an expert count that does not divide at "model" > 1, mamba layers
-  at "data" > 1,
-  ``num_shards`` not a multiple of "data", the open-loop front ends and the
-  fixed-batch path.
+  blocks, and the refusals: the VLM, the encoder-decoder and an expert
+  count that does not divide at "model" > 1 (the SSM and hybrid archs
+  accepted there and at "data" > 1), ``num_shards`` not a multiple of
+  "data", the open-loop front ends and the fixed-batch path.
 """
 import dataclasses
 
@@ -426,27 +425,31 @@ def test_vocab_parallel_greedy_is_the_argmax_in_one_reduce(size):
 
 @pytest.mark.parametrize("arch,match", [
     ("dbrx-132b-3-experts", "n_experts 3 does not divide"),
-    ("mamba2-2.7b", "mamba layers"),
-    ("jamba-v0.1-52b", "mamba layers"), ("internvl2-26b", "VLM"),
+    ("mamba2-2.7b", None),
+    ("jamba-v0.1-52b", None), ("internvl2-26b", "VLM"),
     ("whisper-small", "encoder-decoder")])
 def test_families_are_refused_over_the_model_axis(arch, match):
+    """The VLM, the encoder-decoder and a count that does not divide are
+    refused; the SSM and hybrid archs (``match`` None) are served at
+    model 2 since their SSM heads split over it."""
     cfg = (get_config("dbrx-132b", smoke=True).with_overrides(n_experts=3)
            if arch == "dbrx-132b-3-experts" else get_config(arch, smoke=True))
+    if match is None:
+        check_serve_mesh(cfg, {"pod": 1, "data": 1, "model": 2})
+        return
     with pytest.raises(ValueError, match=match):
         check_serve_mesh(cfg, {"pod": 1, "data": 1, "model": 2})
 
 
-@pytest.mark.parametrize("arch,match", [("jamba-v0.1-52b", "recurrent"),
-                                        ("mamba2-2.7b", "recurrent")])
-def test_experts_and_mamba_layers_are_refused_over_the_data_axis(arch,
-                                                                 match):
-    """Mamba layers' per-slot state is not split over data ranks (jamba's
-    experts alone would be served there)."""
-    with pytest.raises(ValueError, match=match):
-        check_serve_mesh(get_config(arch, smoke=True),
-                         {"pod": 1, "data": 2, "model": 1})
-    check_serve_mesh(get_config("dbrx-132b", smoke=True),
-                     {"pod": 1, "data": 2, "model": 2})
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "mamba2-2.7b"])
+def test_mamba_layers_are_served_over_the_data_axis(arch):
+    """A mamba layer's per-slot state is each data rank's slots' rows, so
+    the SSM and hybrid archs serve at data 2 (and at data 2 × model 2),
+    as the experts do."""
+    for cfg in (get_config(arch, smoke=True),
+                get_config("dbrx-132b", smoke=True)):
+        check_serve_mesh(cfg, {"pod": 1, "data": 2, "model": 1})
+        check_serve_mesh(cfg, {"pod": 1, "data": 2, "model": 2})
 
 
 def test_engine_refuses_what_the_mesh_does_not_serve(base):

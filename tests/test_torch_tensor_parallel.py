@@ -3,10 +3,10 @@
 unsplit paths, on ``tiny_dense`` in fp32 (4 heads, 2 kv heads, d_ff 128
 and vocabulary 300, each divisible by 2).
 
-* ``local_config`` and the refusals of what is not split (mamba
-  layers, the VLM, the encoder-decoder, counts that do not divide, the
-  expert count included; full fine-tuning), and the dry run's serving
-  steps at the model axis;
+* ``local_config`` and the refusals of what is not split (the VLM, the
+  encoder-decoder, counts that do not divide, the expert and SSM-head
+  counts included; full fine-tuning), and the dry run's serving steps at
+  the model axis;
 * the vocabulary-parallel embedding, cross entropy and argmax on 2, 3
   and 4 ranks simulated by threads, against the plain ones, with ties in
   the argmax across the vocabulary blocks;
@@ -106,14 +106,18 @@ def test_local_config_is_the_local_shard():
     ("starcoder2-15b", 16, "n_kv_heads 4 does not divide"),
     ("llama2-7b", 3, "n_heads 32 does not divide"),
     ("dbrx-132b-3-experts", 2, "n_experts 3 does not divide"),
-    ("mamba2-2.7b", 2, "mamba layers"),
-    ("jamba-v0.1-52b", 2, "mamba layers"),
+    ("mamba2-2.7b", 16, "vocab_size 50280 does not divide"),
+    ("jamba-v0.1-52b", 16, "n_kv_heads 8 does not divide"),
+    ("mamba2-smoke-4-heads", 8, "ssm_n_heads 4 does not divide"),
     ("internvl2-26b", 2, "VLM"),
     ("whisper-small", 2, "encoder-decoder"),
 ])
 def test_what_is_not_split_is_refused(arch, size, match):
-    cfg = (get_config("dbrx-132b").with_overrides(n_experts=3)
-           if arch == "dbrx-132b-3-experts" else get_config(arch))
+    cfg = {"dbrx-132b-3-experts": lambda: get_config(
+        "dbrx-132b").with_overrides(n_experts=3),
+        "mamba2-smoke-4-heads": lambda: get_config(
+            "mamba2-2.7b", smoke=True).with_overrides(ssm_head_dim=64),
+    }.get(arch, lambda: get_config(arch))()
     with pytest.raises(ValueError, match=match):
         tpl.check_model_axis(cfg, size)
     with pytest.raises(ValueError, match=match):
@@ -302,12 +306,11 @@ def world4(setup, step_inputs, step4_batch):
 
 def _gather(spec_tree, shards):
     """The whole tree from its model shards (in model-coordinate order):
-    a leaf split over "model" concatenated, a replicated one held bitwise
-    equal on every rank."""
+    a leaf split over "model" joined (``tensor_parallel.join_leaf``), a
+    replicated one held bitwise equal on every rank."""
     def join(spec, *leaves):
-        for d, e in enumerate(spec):
-            if "model" in entry_axes(e):
-                return torch.cat(leaves, d)
+        if any("model" in entry_axes(e) for e in spec):
+            return tpl.join_leaf(spec, list(leaves))
         for x in leaves[1:]:
             assert torch.equal(x, leaves[0])
         return leaves[0]

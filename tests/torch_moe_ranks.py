@@ -112,8 +112,8 @@ def step_job(job, mesh):
             (metrics,), (grads,) = data_parallel_value_and_grad(
                 model, cfg, dp.reduce, tp, dp=dp)(pl, [al], [mine], denom)
         if tp is not None:
-            (grads,), _ = model_group_grads([grads], tpl.replicated(specs),
-                                            tp)
+            (grads,), _ = model_group_grads(
+                [grads], tpl.replicated(specs, tp.size), tp)
         colls = _colls()
         if dp is not None:  # this rank's own loss: its share of the whole
             with torch.no_grad():
