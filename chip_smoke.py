@@ -340,6 +340,31 @@ Phases (each prints one JSON line per result):
                archs' in_proj shards (2560 -> 5416, 4096 -> 8288) at 2,048
                and 8 rows, lora_matmul there at 1,024 rows, and jamba's
                decode, prefill and flash attention at H 16 over Kv 4;
+ 12e. mesh_vlm_encdec — the VLM and the encoder-decoder over a
+               torch.distributed mesh: internvl2-26b (4 of 48 layers) and
+               whisper-small (12 + 12 layers) at full width, bf16, random
+               weights from --seed, at mesh (1, 1, 2): each rank half the
+               heads, kv heads and ff columns and the whole vocabulary
+               (92,553 and 51,865 entries, which 2 does not divide);
+               the meshless runs here, then one spawn of two ranks on
+               this card (gloo): (a) internvl2 serving 8 text-only
+               requests (prompts 128-512 tokens, 16 new) over 4 tenants'
+               rank-16 fused adapters: the first chunk within 10% of the
+               largest logit and bitwise equal on the ranks, streams by
+               the margin rule, collectives equal to the dry run's walks;
+               (b) internvl2 rounds (2 clients, K 1, 2 rows of 256 stub
+               patches + 256 tokens): bf16 by mesh_moe (c)'s rules, fp32
+               at one layer; (c) whisper-small: a train step of 8 x
+               (1,500 frames + 256 tokens) against meshless, cross_attn
+               wv's gradient exactly 0 on both ranks, rounds (bf16, fp32
+               at 1 + 1 layers), prefill_cross and 32 greedy decode steps
+               of 8 rows (first step by the first-chunk rule, streams by
+               the margin rule, each rank's cross K/V half the meshless
+               bytes); its kernel lines (kernels phase) hold batched LoRA
+               at internvl2's w_gate/w_up and w_out shards at 2,048 and 8
+               rows, lora_matmul there at 1,024 rows and at whisper's
+               encoder shards at 12,000 rows, and non-causal flash
+               attention at whisper's 6 heads over 1,500 frames;
  13. the card's name and power limit, the kernel summary line, and last the
      result line.
 
@@ -1380,6 +1405,7 @@ def kernel_phase(device, seed: int, reps: int, main_lengths, T: int):
     mesh_serve_kernels(gen, device, reps, dec_lengths, pre_lengths, T)
     mesh_moe_kernels(gen, device, reps, dec_lengths, pre_lengths, T)
     mesh_ssm_kernels(gen, device, reps, dec_lengths, pre_lengths, T)
+    mesh_vlm_encdec_kernels(gen, device, reps, T)
     return main
 
 
@@ -4264,24 +4290,31 @@ def vlm_phase(device, seed: int, T: int, new_tokens: int, rank: int):
 
 
 def whisper_decode(model, cfg, params, adapters, enc, first, backend,
-                   forced=None):
+                   forced=None, mesh=None):
     """``prefill_cross`` then ``ENCDEC_STEPS`` greedy ``decode_step`` calls
     from ``first`` (B, 1), through ``backend`` (``forced`` (B, steps):
-    teacher forcing, step t fed ``forced[:, t]``).  Returns (tokens (B,
-    steps + 1), logits (B, steps, V) fp32, prefill s, decode s, launch
-    counts)."""
+    teacher forcing, step t fed ``forced[:, t]``).  ``mesh``: on this
+    rank's shards of its model group, the caches at its kv heads, each
+    step's token as every rank takes it (``dryrun.greedy_tokens``).
+    Returns (tokens (B, steps + 1), logits (B, steps, V) fp32 (the rank's
+    block of the vocabulary where the group splits it), prefill s, decode
+    s, launch counts)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.lora import lora_scale
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.dryrun import greedy_tokens
     from repro_torch.models import encdec
     scale = lora_scale(cfg)
+    tp = None if mesh is None else mesh_lib.model_group(mesh)
     with torch.no_grad():
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cache = model.init_decode_cache(first.shape[0], 2 * ENCDEC_STEPS)
+        cache = model.init_decode_cache(first.shape[0], 2 * ENCDEC_STEPS,
+                                        tp=tp)
         cache["cross_k"], cache["cross_v"] = encdec.prefill_cross(
-            params, enc, cfg, adapters, scale, paged_backend=backend)
+            params, enc, cfg, adapters, scale, paged_backend=backend, tp=tp)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         tok, toks, logits = first, [first], []
@@ -4291,9 +4324,12 @@ def whisper_decode(model, cfg, params, adapters, enc, first, backend,
             lg, cache = model.decode_step(params, cache, tok, t,
                                           adapters=adapters,
                                           lora_scale=scale,
-                                          paged_backend=backend)
+                                          paged_backend=backend, tp=tp)
             logits.append(lg[:, 0])
-            tok = lg[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+            if mesh is None:
+                tok = lg[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+            else:
+                tok = greedy_tokens(cfg, lg, mesh, tp, ())[:, None]
             toks.append(tok)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -6964,6 +7000,609 @@ def mesh_ssm_phase(device, seed: int, T: int = 256):
     return counts
 
 
+MESH_VLM_LAYERS = 4         # of internvl2-26b's 48: the script's time limit
+MESH_VLM_TENANTS = 4
+MESH_VLM_ROWS = 2           # a round client's rows: 256 patches + T tokens
+MESH_WHISPER_TRAIN_ROWS = 8  # the train step's rows: 1,500 frames + T tokens
+MESH_WHISPER_ROUND_ROWS = 2  # a round client's rows
+MESH_VLM_WALKERS = 4        # host processes walking the dry runs
+
+
+def mesh_vlm_encdec_kernels(gen, device, reps, T):
+    """Phase mesh_vlm_encdec's per-rank shapes at "model" 2 that no
+    earlier line holds: batched LoRA at internvl2-26b's w_gate/w_up shard
+    (6144 -> 8192) and w_out shard (8192 -> 6144) at a prefill chunk's 8 x
+    T rows and a decode step's 8 over the phase's 4 tenants, lora_matmul
+    there at a round client's 2 x (256 + T) rows; lora_matmul at
+    whisper-small's encoder shards (w_up 768 -> 1536, w_out 1536 -> 768,
+    wq/wv 768 -> 384) at the train step's 8 x 1,500 rows, and non-causal
+    flash attention at its 6 of 12 heads over the 1,500 frames: the
+    encoder's 1500 x 1500 and the training cross-attention's T x 1500.
+    internvl2-26b's attention at model 2 (24 query heads over 4 kv heads,
+    head dim 128) is dbrx-132b's at model 2, held in mesh_moe_kernels."""
+    from repro_torch.configs import get_config
+    path = {"path": "mesh_vlm_encdec", "model_axis": 2}
+    vlm = {**path, "arch": VLM_ARCH}
+    P = get_config(VLM_ARCH).n_patch_tokens
+    for K, N in ((6144, 8192), (8192, 6144)):
+        for M in (MESH_SSM_REQUESTS * T, MESH_SSM_REQUESTS):
+            emit({**check_lora(gen, device, M, K, N, MESH_VLM_TENANTS, 16,
+                               "f32_bank", reps), **vlm})
+        emit({**check_single_lora(gen, device, MESH_VLM_ROWS * (P + T), K,
+                                  N, 16, reps), **vlm, "step": "round"})
+    enc_cfg = get_config(ENCDEC_ARCH)
+    enc = {**path, "arch": ENCDEC_ARCH, "step": "train"}
+    F, hd = enc_cfg.encoder_seq_len, enc_cfg.resolved_head_dim
+    H = enc_cfg.n_heads // 2
+    for K, N in ((768, 1536), (1536, 768), (768, 384)):
+        emit({**check_single_lora(gen, device, MESH_WHISPER_TRAIN_ROWS * F,
+                                  K, N, enc_cfg.lora_rank, reps), **enc})
+    for Sq in (F, T):
+        emit({**check_flash(gen, device, MESH_WHISPER_TRAIN_ROWS, H, H, Sq,
+                            F, hd, 0, reps, causal=False), **enc})
+
+
+def whisper_mesh_inputs(cfg, seed: int, T: int, device):
+    """whisper-small's inputs, the same on every rank and in the meshless
+    run (seeded generators on the card): the train batch (SFT rows of T
+    tokens and 1,500 unit-scale stub frames a row), its adapters, an Eq.
+    7-fused rank-16 adapter, 8 rows of decode frames and first tokens."""
+    import torch
+    from repro_torch.core.dual_lora import merge
+    from repro_torch.core.lora import init_adapters
+    g = torch.Generator(device=device).manual_seed(seed + 11)
+    F, d, V = cfg.encoder_seq_len, cfg.d_model, cfg.vocab_size
+    batch = sft_batch(seed, MESH_WHISPER_TRAIN_ROWS, T, V, device)
+    batch["enc_embeds"] = torch.randn((MESH_WHISPER_TRAIN_ROWS, F, d),
+                                      generator=g, device=device)
+    ad = init_adapters(cfg, seed=seed + 100, device=device, b_std=0.02)
+    fused = merge(*(init_adapters(cfg, seed=seed + 20 + j, device=device,
+                                  b_std=0.02) for j in (0, 1)), [0.6, 0.6])
+    enc = torch.randn((ENCDEC_ROWS, F, d), generator=g, device=device)
+    first = torch.randint(0, V, (ENCDEC_ROWS, 1), generator=g,
+                          device=device, dtype=torch.int32)
+    return batch, ad, fused, enc, first
+
+
+def mesh_whisper(cfg, seed: int, T: int, device: str):
+    """One rank's whisper-small at mesh (1, 1, 2) (a spawned rank runs
+    it): its shard of the base, drawn as it is cut, and of the adapters;
+    one train step's loss and gradient (the model group's sums as the
+    train step takes them); then ``prefill_cross`` and ``ENCDEC_STEPS``
+    greedy decode steps of the fused adapter (``whisper_decode``), each
+    with its launches, tiles, collectives and peak memory.  Rank 1 keeps
+    a digest of its decode logits, rank 0 the logits."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.lora import adapter_specs
+    from repro_torch.federated.distributed import local_shard
+    from repro_torch.federated.mesh_job import digest
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import tensor_parallel as tpl
+    from repro_torch.models.api import Model
+    from repro_torch.training.train_step import (make_lora_loss_fn,
+                                                 model_group_grads,
+                                                 value_and_grad)
+    dev = torch.device(device)
+    mesh = mesh_lib.make_mesh(1, 1, 2, device=dev)
+    tp = mesh_lib.model_group(mesh)
+    model = Model(cfg, dev)
+    params = model.init(seed, shard=(2, tp.rank))
+    batch, ad, fused, enc, first = whisper_mesh_inputs(cfg, seed, T, dev)
+    specs = adapter_specs(cfg)
+    ad, fused = (local_shard(t, specs, mesh) for t in (ad, fused))
+
+    def counters():
+        torch.cuda.synchronize(dev)
+        return {"launches": kernels.launch_counts(),
+                "tiles": kernels.tile_counts(),
+                "collectives": [dataclasses.asdict(c)
+                                for c in mesh_lib.collectives()],
+                "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+    def reset():
+        torch.cuda.synchronize(dev)
+        kernels.reset_launch_counts()
+        mesh_lib.reset_collectives()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    reset()
+    loss, _, grads = value_and_grad(make_lora_loss_fn(model, cfg, tp=tp))(
+        ad, params, batch)
+    (grads,), _ = model_group_grads([grads], tpl.replicated(specs, 2), tp)
+    train = {"loss": float(loss), "grads": mesh_lib.to_cpu(grads),
+             **counters()}
+    del grads, batch
+    reset()
+    toks, logits, pre_s, dec_s, _ = whisper_decode(
+        model, cfg, params, fused, enc, first, "cuda", mesh=mesh)
+    cache = model.init_decode_cache(ENCDEC_ROWS, 1, tp=tp)
+    decode = {"tokens": toks.cpu(), "prefill_s": pre_s, "decode_s": dec_s,
+              "logits_digest": digest({"l": logits}),
+              "cross_bytes": sum(cache[k].numel() * cache[k].element_size()
+                                 for k in ("cross_k", "cross_v")),
+              **counters()}
+    if tp.rank == 0:
+        decode["logits"] = logits.cpu()
+    return {"coord": {"model": tp.rank}, "train": train, "decode": decode}
+
+
+def mesh_vlm_walks(cfgs, span, width, T):
+    """The phase's dry-run walks at (1, 1, 2), in ``MESH_VLM_WALKERS``
+    spawned host processes while the card works: internvl2-26b's
+    text-only prefill chunk (8 x ``width``; a VLM forward with no patch
+    tokens, as the engine serves the VLM) and decode step (8 slots,
+    ``span``), its round (2 clients, K 1, 2 rows of 256 patches + T
+    tokens); whisper-small's train step (8 x (1,500 frames + T tokens)),
+    decode step (8 rows, its ring of 2 x ``ENCDEC_STEPS``) and round (2
+    clients, K 1, 2 rows).  Returns (pool, {(arch, step): future})."""
+    import concurrent.futures
+    import multiprocessing
+    vlm, enc = cfgs[VLM_ARCH], cfgs[ENCDEC_ARCH]
+    m = (1, 1, 2)
+    rnd = {"n_clients": 2, "K": 1}
+    jobs = {
+        (VLM_ARCH, "prefill"): (vlm.with_overrides(n_patch_tokens=0),
+                                "prefill", MESH_SSM_REQUESTS, width, m, {}),
+        (VLM_ARCH, "decode"): (vlm, "decode", MESH_SSM_REQUESTS, span, m,
+                               {}),
+        (VLM_ARCH, "fdlora_round"): (vlm, "fdlora_round", 2 * MESH_VLM_ROWS,
+                                     T, m, rnd),
+        (ENCDEC_ARCH, "train"): (enc, "train", MESH_WHISPER_TRAIN_ROWS, T, m,
+                                 {}),
+        (ENCDEC_ARCH, "decode"): (enc, "decode", ENCDEC_ROWS,
+                                  2 * ENCDEC_STEPS, m, {}),
+        (ENCDEC_ARCH, "fdlora_round"): (enc, "fdlora_round",
+                                        2 * MESH_WHISPER_ROUND_ROWS, T, m,
+                                        rnd)}
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=MESH_VLM_WALKERS,
+        mp_context=multiprocessing.get_context("spawn"))
+    return pool, {k: pool.submit(_dry_walk, *job) for k, job in jobs.items()}
+
+
+def mesh_vlm_serve(job):
+    """``launch/serve.mesh_serve`` keeping the first chunk's whole logits
+    on rank 0 only: every rank's digest of them."""
+    from repro_torch.federated.mesh_job import digest
+    from repro_torch.launch.serve import mesh_serve
+    out = mesh_serve(job)
+    for res in out.values():
+        if "first_chunk" in res:
+            logits, n_new = res["first_chunk"]
+            res["first_chunk_digest"] = digest({"l": logits})
+            if res["coord"]["model"] > 0:
+                res["first_chunk"] = (None, n_new)
+    return out
+
+
+def mesh_round_check(what, rs, want, plain, cfg, seed, walk, info, T,
+                     rows):
+    """(b)'s and (c)'s rules for a round at model 2 (``rs``: each rank's
+    result, ``want``: the meshless round's, ``plain``: the meshless
+    round's on "torch", bf16 only): θ_s' gathered, each leaf every rank
+    holds bitwise equal on the ranks; bf16 by mesh_moe (c)'s rules (the
+    loss within 2%, each leaf within 25% of its travel or twice the plain
+    path's distance, at most 75%; the collectives equal to the dry run's
+    walk; lora_matmul and flash attention on their tensor-core tiles);
+    fp32 the loss within 16 ulps and each leaf within 1e-3 of its
+    travel.  Returns rank 0's launches."""
+    import torch
+    from repro_torch.core.lora import adapter_specs, init_adapters
+    from repro_torch.core.lora import tree_leaves
+    theta, differ = _gather_model(adapter_specs(cfg),
+                                  [r["theta"] for r in rs])
+    require(not differ, f"{what}: leaves every rank holds differ across the "
+            f"ranks: {differ}")
+    require(all(r["loss"] == rs[0]["loss"] for r in rs),
+            f"{what}: the ranks' losses differ")
+    start = dict(tree_leaves(init_adapters(cfg, seed=seed + 120,
+                                           device="cpu", b_std=0.02)))
+    ref = dict(tree_leaves(want["theta"]))
+
+    def off(tree):
+        out = {}
+        for k, g in tree_leaves(tree):
+            moved = torch.linalg.vector_norm(ref[k] - start[k])
+            out[k] = (float(torch.linalg.vector_norm(g - ref[k]) / moved)
+                      if moved > 0 else float((g - ref[k]).abs().max()))
+        return out
+    travel = off(theta)
+    worst = max(travel, key=travel.get)
+    loss = rs[0]["loss"][0]
+    bf16 = plain is not None
+    line = {**info, "arch": cfg.name, "world": 2, "backend": "gloo",
+            "activations": "bfloat16" if bf16 else "float32",
+            "n_layers": cfg.n_layers, "mesh": {"pod": 1, "data": 1,
+                                               "model": 2},
+            "clients": 2, "inner_steps": 1, "rows": rows, "seq": T,
+            "loss": loss, "meshless_loss": want["loss"][0],
+            "max_leaf_diff_over_travel": travel[worst], "worst_leaf": worst,
+            "s_per_round": [r["seconds"] for r in rs],
+            "meshless_s_per_round": want["seconds"],
+            "collectives": _collective_summary(rs[0]["collectives"][0]),
+            "host_ms_note": GLOO_NOTE,
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in rs],
+            "launches": [{k: r["launches"][k]
+                          for k in ("lora_matmul", "flash_attention")}
+                         for r in rs]}
+    if bf16:
+        spread = off(plain["theta"])
+        bound = {k: min(MESH_MOE_LEAF_CAP,
+                        max(MESH_MOE_LEAF_TOL, MESH_MOE_SPREAD * v))
+                 for k, v in spread.items()}
+        rel = abs(loss - want["loss"][0]) / abs(want["loss"][0])
+        line.update(loss_rel=rel, plain_path_max_leaf_diff_over_travel=max(
+            spread.values()), worst_leaf_over_bound=max(
+            travel[k] / bound[k] for k in travel),
+            dry_run_peak_bytes=walk["peak_bytes"])
+        emit(line)
+        require(rel <= MESH_MOE_LOSS_REL, f"{what}: loss {rel} off")
+        for k, v in travel.items():
+            require(v <= bound[k], f"{what}: {k} is {v} of its travel off, "
+                    f"over {bound[k]}")
+        for r in rs:
+            require(_by_axis(r["collectives"][0])
+                    == _by_axis(walk["collectives"]),
+                    f"{what} rank {r['coord']}: collectives differ from the "
+                    "dry run's walk")
+            for name in ("lora_matmul", "flash_attention"):
+                require(r["launches"][name] > 0, f"{what} rank "
+                        f"{r['coord']}: {name} never launched")
+                require_mma_tile(r["tiles"], name, f"{what} rank "
+                                 f"{r['coord']}")
+    else:
+        line.update(loss_ulps=_ulps(loss, want["loss"][0]))
+        emit(line)
+        require(line["loss_ulps"] <= MESH_MOE_LOSS_ULPS,
+                f"{what}: loss {line['loss_ulps']} ulps off")
+        require(travel[worst] <= MESH_MOE_FP32_LEAF,
+                f"{what}: {worst} is {travel[worst]} of its travel off")
+    return rs[0]["launches"]
+
+
+def mesh_vlm_encdec_phase(device, seed: int, T: int = 256):
+    """The VLM and the encoder-decoder over a torch.distributed mesh:
+    internvl2-26b (``MESH_VLM_LAYERS`` of its 48 layers) and
+    whisper-small (12 + 12 layers) at full width, bf16, random weights
+    from ``seed``.  At mesh (1, 1, 2) each rank holds half the heads, kv
+    heads and ff columns (internvl2: 24 of 48 heads over 4 of 8 kv heads,
+    8,192 of 16,384 ff columns; whisper: 6 of 12 heads, 1,536 of 3,072)
+    and the whole vocabulary, which 2 does not divide (92,553 and 51,865
+    entries: ``embed`` and internvl2's ``lm_head`` whole on every rank,
+    the logits whole, no collective over the vocabulary).  Both ranks'
+    dry-run peaks must fit in 90% of the card.  The meshless runs go
+    first, here, and are freed; then one spawn of two ranks on this card
+    (gloo; ``launch/mesh.run_each``):
+
+    (a) internvl2 serving at model 2: ``MESH_VLM_TENANTS`` tenants'
+        rank-16 fused adapters, 8 text-only requests (prompts 128-512
+        tokens, 16 new, chunk T): the first chunk's logits (bitwise equal
+        on the ranks) within ``MESH_SSM_REL`` of the largest meshless
+        logit, the streams by the margin rule, the collectives equal to
+        the dry run's prefill and decode walks, each rank's peak beside
+        the walks', decode tok/s beside meshless;
+    (b) internvl2 rounds at model 2 (2 clients, K 1, 2 rows of 256 stub
+        patches + T tokens a client): bf16 at the phase's depth, fp32 at
+        one layer (``mesh_round_check``);
+    (c) whisper-small at model 2: one train step of 8 x (1,500 frames + T
+        tokens) against the meshless step (the loss within 2%, each
+        gradient leaf within 25% of its norm: the ``train`` bounds of
+        phase vlm_encdec), ``cross_attn.wv``'s gradient exactly 0 on both
+        ranks, the collectives equal to the walk; rounds (bf16 at full
+        depth, fp32 at 1 + 1 layers); ``prefill_cross`` and 32 greedy
+        decode steps of 8 rows: the first step by the first-chunk rule,
+        the streams by the margin rule (``decode_margin_rule``), ms a step
+        beside meshless, each rank's cross K/V bytes half the meshless
+        cache's, the collectives the encoder's sums and each step's the
+        decode walk's.
+
+    Returns the launches of each case on rank 0."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import adapter_specs, tree_leaves
+    from repro_torch.federated.mesh_job import Case, RoundJob, run, run_jobs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import (ServeJob, build_engine,
+                                          ragged_requests, serve_runs)
+    from repro_torch.models import tensor_parallel as tpl
+    from repro_torch.models.api import Model
+    from repro_torch.serving.engine import ServeConfig
+    from repro_torch.training.train_step import lora_value_and_grad
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfgs = {VLM_ARCH: get_config(VLM_ARCH).with_overrides(
+        n_layers=MESH_VLM_LAYERS, lora_rank=16),
+        ENCDEC_ARCH: get_config(ENCDEC_ARCH)}
+    vcfg, wcfg = cfgs[VLM_ARCH], cfgs[ENCDEC_ARCH]
+    for c in cfgs.values():
+        require(not tpl.vocab_split(c, 2), f"{c.name}: vocabulary "
+                f"{c.vocab_size} splits over 2; the phase holds it whole")
+    reqs = ragged_requests(MESH_SSM_REQUESTS, MESH_VLM_TENANTS,
+                           vcfg.vocab_size, *MESH_SSM_PROMPTS, seed)
+    span = max(len(r.prompt) for r in reqs) + MESH_SSM_NEW
+    width = min(T, span - 1)
+    card = torch.cuda.get_device_properties(device).total_memory
+    pool, walks = mesh_vlm_walks(cfgs, span, width, T)
+    kw = dict(batch_size=MESH_SSM_REQUESTS, max_new_tokens=MESH_SSM_NEW,
+              prefill_chunk=T, block_size=16, paged_backend="cuda")
+    sc = ServeConfig(**kw)
+    info = {"phase": "mesh_vlm_encdec"}
+    # -- the meshless runs, here, then freed -----------------------------------
+    t_ref = time.perf_counter()
+    eng = build_engine(vcfg, MESH_VLM_TENANTS, device, seed)
+    serve_ref = mesh_lib.to_cpu(serve_runs(eng, ServeJob(
+        vcfg, reqs, [("ref", None, kw)], tenants=MESH_VLM_TENANTS, seed=seed,
+        device=str(device))))["ref"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    rbase = {VLM_ARCH: dict(clients=2, inner_steps=1, rows=MESH_VLM_ROWS,
+                            seq=T, rounds=1, seed=seed, device=str(device)),
+             ENCDEC_ARCH: dict(clients=2, inner_steps=1,
+                               rows=MESH_WHISPER_ROUND_ROWS, seq=T, rounds=1,
+                               seed=seed, device=str(device))}
+    fp32 = dict(dtype="float32", param_dtype="float32")
+    rounds = {("bf16", VLM_ARCH): vcfg,
+              ("fp32", VLM_ARCH): vcfg.with_overrides(n_layers=1, **fp32),
+              ("bf16", ENCDEC_ARCH): wcfg,
+              ("fp32", ENCDEC_ARCH): wcfg.with_overrides(
+                  n_layers=1, n_encoder_layers=1, **fp32)}
+    plain = {("plain", a): c.with_overrides(paged_backend="torch")
+             for a, c in cfgs.items()}
+    round_ref = {}
+    for key, c in {**rounds, **plain}.items():
+        r = run(RoundJob(c, [Case(None, sync=True)], **rbase[key[1]]))[0]
+        round_ref[key] = mesh_lib.to_cpu(
+            {k: r.get(k) for k in ("theta", "loss", "seconds", "launches")})
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    wmodel = Model(wcfg, device)
+    wparams = wmodel.init(seed)
+    batch, ad, fused, enc, first = whisper_mesh_inputs(wcfg, seed, T, device)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    wloss, _, wgrads = lora_value_and_grad(wmodel, wcfg, "cuda")(
+        wparams, ad, batch)
+    torch.cuda.synchronize(device)
+    train_ref = {"loss": float(wloss), "grads": mesh_lib.to_cpu(wgrads),
+                 "launches": kernels.launch_counts(),
+                 "peak_bytes": torch.cuda.max_memory_allocated(device)}
+    del wgrads, batch, ad
+    tt, lt, pre_t, dec_t, _ = whisper_decode(wmodel, wcfg, wparams, fused,
+                                             enc, first, "cuda")
+    tt, lt = tt.cpu(), lt.cpu()
+    cache = wmodel.init_decode_cache(ENCDEC_ROWS, 1)
+    cross_bytes = sum(cache[k].numel() * cache[k].element_size()
+                      for k in ("cross_k", "cross_v"))
+    del wmodel, wparams, fused, enc, first, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshless_s = time.perf_counter() - t_ref
+    dry = {k: f.result() for k, f in walks.items()}
+    pool.shutdown()
+    peaks = {f"{a} {s}": v["peak_bytes"] for (a, s), v in dry.items()}
+    emit({**info, "run": "depth", "card_bytes": card,
+          "n_layers": {a: c.n_layers for a, c in cfgs.items()},
+          "dry_run_peak_bytes_per_rank": peaks,
+          "two_ranks_over_card": 2 * max(peaks.values()) / card})
+    require(2 * max(peaks.values()) <= PEAK_FIT * card,
+            f"mesh_vlm_encdec: two ranks' dry-run peaks {peaks} pass "
+            f"{PEAK_FIT:.0%} of the card")
+    # -- (a)-(c): two ranks on this card --------------------------------------
+    t0 = time.perf_counter()
+    tasks = [(mesh_vlm_serve, (ServeJob(vcfg, reqs, [("a", (1, 1, 2), kw)],
+                                        tenants=MESH_VLM_TENANTS, seed=seed,
+                                        device=str(device),
+                                        first_chunk=("a",)),)),
+             (run_jobs, ([RoundJob(c, [Case(1, model=2, sync=True)],
+                                   **rbase[a]) for (_, a), c
+                          in rounds.items()],)),
+             (mesh_whisper, (wcfg, seed, T, str(device)))]
+    ranks = mesh_lib.spawn(mesh_lib.run_each, 2, tasks, device=device)
+    spawn_s = time.perf_counter() - t0
+    counts = {}
+    # -- (a) --------------------------------------------------------------------
+    what = f"mesh vlm_encdec (a, {VLM_ARCH})"
+    ra = sorted((rk[0]["a"] for rk in ranks),
+                key=lambda r: r["coord"]["model"])
+    for r in ra:
+        for name in ("paged_attention", "paged_prefill_attention",
+                     "batched_lora_matmul"):
+            require(r["launches"][name] > 0,
+                    f"{what} rank {r['coord']}: {name} never launched")
+            if name != "paged_attention":
+                require_mma_tile(r["tiles"], name,
+                                 f"{what} rank {r['coord']}")
+    require(ra[0]["streams"] == ra[1]["streams"],
+            f"{what}: the two ranks' streams differ")
+    require(ra[0]["first_chunk_digest"] == ra[1]["first_chunk_digest"],
+            f"{what}: the ranks' whole first-chunk logits differ")
+    got, _ = ra[0]["first_chunk"]
+    require(got.shape[-1] == vcfg.vocab_size,
+            f"{what}: first-chunk logits {tuple(got.shape)}, not the whole "
+            "vocabulary")
+    eng = build_engine(vcfg, MESH_VLM_TENANTS, device, seed)
+    want, n_new = first_chunk_logits(eng, reqs, sc, "cuda")
+    err, top = _first_chunk_err(got.float(), want.float().cpu(), n_new)
+    del want
+    require(err <= MESH_SSM_REL * top, f"{what}: first-chunk error {err} "
+            f"over {MESH_SSM_REL} x the largest logit {top}")
+    matched = streams_by_margin(eng, reqs, sc, ra[0]["streams"],
+                                serve_ref["streams"], err, what)
+    del eng, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    walk = {s: dry[VLM_ARCH, s] for s in ("prefill", "decode")}
+    want_c = _walked(walk, ra[0]["stats"])
+    for r in ra:
+        require(_by_axis(r["collectives"]) == want_c,
+                f"{what} rank {r['coord']}: collectives "
+                f"{_by_axis(r['collectives'])}, the dry run's {want_c}")
+    emit({**info, "run": "a", "arch": VLM_ARCH, "n_layers": vcfg.n_layers,
+          "world": 2, "backend": "gloo",
+          "mesh": {"pod": 1, "data": 1, "model": 2},
+          "requests": MESH_SSM_REQUESTS,
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "new_tokens": MESH_SSM_NEW, "prefill_chunk": width,
+          "tenants": MESH_VLM_TENANTS, "lora_rank": 16, "text_only": True,
+          "heads_per_rank": vcfg.n_heads // 2,
+          "kv_heads_per_rank": vcfg.n_kv_heads // 2,
+          "ff_columns_per_rank": vcfg.d_ff // 2,
+          "vocab_columns_per_rank": vcfg.vocab_size,
+          "first_chunk_max_abs_err": err, "max_abs_logit": top,
+          "first_chunk_rel_err": err / top, "rel_bound": MESH_SSM_REL,
+          "first_chunk_bitwise_across_ranks": True,
+          "streams_bitwise_meshless": ra[0]["streams"]
+          == serve_ref["streams"],
+          "stream_prefix_matched": matched,
+          **_serve_summary(ra[0], serve_ref),
+          "prefill_dispatches": ra[0]["stats"]["prefill_dispatches"],
+          "decode_steps": ra[0]["stats"]["decode_steps"],
+          "collectives": _collective_summary(ra[0]["collectives"]),
+          "host_ms_note": GLOO_NOTE,
+          "peak_bytes_per_rank": [r["peak_bytes"] for r in ra],
+          "meshless_peak_bytes": serve_ref["peak_bytes"],
+          "dry_run_decode_peak_bytes": walk["decode"]["peak_bytes"],
+          "dry_run_prefill_peak_bytes": walk["prefill"]["peak_bytes"],
+          "launches": [{k: r["launches"][k] for k in kernels.SERVING}
+                       for r in ra],
+          "meshless_s": meshless_s, "spawn_s": spawn_s})
+    counts["a_serve"] = {n: ra[0]["launches"][n] for n in kernels.SERVING}
+    # -- (b) and (c)'s rounds ---------------------------------------------------
+    for i, ((tag, arch), c) in enumerate(rounds.items()):
+        rs = sorted((rk[1][i][0] for rk in ranks),
+                    key=lambda r: r["coord"]["model"])
+        counts[f"round_{tag}_{arch}"] = mesh_round_check(
+            f"mesh vlm_encdec ({'b' if arch == VLM_ARCH else 'c'}, round "
+            f"{tag}, {arch})", rs, round_ref[tag, arch],
+            round_ref.get(("plain", arch)) if tag == "bf16" else None, c,
+            seed, dry[arch, "fdlora_round"], {**info, "run": (
+                "b" if arch == VLM_ARCH else "c_round")}, T,
+            rbase[arch]["rows"])
+    # -- (c) whisper's train step and decode ----------------------------------
+    rw = sorted((rk[2] for rk in ranks), key=lambda r: r["coord"]["model"])
+    what = f"mesh vlm_encdec (c, {ENCDEC_ARCH})"
+    specs = adapter_specs(wcfg)
+    grads, differ = _gather_model(specs, [r["train"]["grads"] for r in rw])
+    require(not differ, f"{what}: gradient leaves every rank holds differ "
+            f"across the ranks: {differ}")
+    want_g = dict(tree_leaves(train_ref["grads"]))
+    zero = sorted(p for p in want_g if "['cross_attn']['wv']" in p)
+    nonzero = [f"rank {r['coord']['model']} {p}" for r in rw
+               for p, g in tree_leaves(r["train"]["grads"])
+               if p in zero and bool(g.any())]
+    errs = {p: _rel(g, want_g[p]) for p, g in tree_leaves(grads)
+            if p not in zero}
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(rw[0]["train"]["loss"] - train_ref["loss"]) / abs(
+        train_ref["loss"])
+    walk_t = dry[ENCDEC_ARCH, "train"]
+    emit({**info, "run": "c_train", "arch": ENCDEC_ARCH, "world": 2,
+          "backend": "gloo", "mesh": {"pod": 1, "data": 1, "model": 2},
+          "rows": MESH_WHISPER_TRAIN_ROWS, "frames": wcfg.encoder_seq_len,
+          "text_tokens": T, "heads_per_rank": wcfg.n_heads // 2,
+          "ff_columns_per_rank": wcfg.d_ff // 2,
+          "vocab_columns_per_rank": wcfg.vocab_size,
+          "loss": rw[0]["train"]["loss"], "meshless_loss": train_ref["loss"],
+          "loss_rel": loss_rel, "max_grad_rel_err": errs[worst],
+          "worst_leaf": worst, "median_grad_rel_err": sorted(
+              errs.values())[len(errs) // 2],
+          "zero_grad_leaves": zero, "nonzero": nonzero,
+          "collectives": _collective_summary(rw[0]["train"]["collectives"]),
+          "host_ms_note": GLOO_NOTE,
+          "peak_bytes_per_rank": [r["train"]["peak_bytes"] for r in rw],
+          "meshless_peak_bytes": train_ref["peak_bytes"],
+          "dry_run_peak_bytes": walk_t["peak_bytes"],
+          "launches": [{k: r["train"]["launches"][k]
+                        for k in kernels.TRAINING} for r in rw]})
+    require(len(zero) == 2 and not nonzero, f"{what}: gradients that must "
+            f"be 0: {zero}, non-zero: {nonzero}")
+    require(rw[0]["train"]["loss"] == rw[1]["train"]["loss"],
+            f"{what}: the ranks' losses differ")
+    require(loss_rel <= 2e-2, f"{what}: loss rel err {loss_rel} > 2e-2")
+    require(errs[worst] <= 0.25, f"{what}: gradient {worst} rel err "
+            f"{errs[worst]} > 0.25")
+    for r in rw:
+        require(_by_axis(r["train"]["collectives"])
+                == _by_axis(walk_t["collectives"]),
+                f"{what} rank {r['coord']}: train collectives differ from "
+                "the dry run's walk")
+        for name in ("lora_matmul", "flash_attention"):
+            require(r["train"]["launches"][name] > 0,
+                    f"{what} rank {r['coord']}: {name} never launched")
+            require_mma_tile(r["train"]["tiles"], name,
+                             f"{what} rank {r['coord']}")
+    counts["c_train"] = {n: rw[0]["train"]["launches"][n]
+                         for n in kernels.TRAINING}
+    dec = [r["decode"] for r in rw]
+    require(torch.equal(dec[0]["tokens"], dec[1]["tokens"])
+            and dec[0]["logits_digest"] == dec[1]["logits_digest"],
+            f"{what}: the ranks' decode streams or logits differ")
+    tc, lc = dec[0]["tokens"], dec[0]["logits"]
+    err0 = float((lc[:, 0] - lt[:, 0]).abs().max())
+    top0 = float(lt[:, 0].abs().max())
+    top2 = torch.topk(lt[:, 0], 2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 2 * err0
+    agree = lc[:, 0].argmax(-1) == lt[:, 0].argmax(-1)
+    require(err0 <= 0.1 * top0, f"{what}: first decode step's error {err0} "
+            f"over 0.1 x the largest logit {top0}")
+    require(bool(agree[decisive].all()), f"{what}: a first greedy token "
+            "differs where the margin exceeds twice the error")
+    matched_d, worst_d = decode_margin_rule(tc, lc, tt, lt, 0.1,
+                                            f"{what} decode")
+    walk_d = dry[ENCDEC_ARCH, "decode"]
+    enc_sum = ENCDEC_ROWS * wcfg.encoder_seq_len * wcfg.d_model * 2
+    want_d = {("model", enc_sum): 2 * wcfg.n_encoder_layers}
+    for k, v in _by_axis(walk_d["collectives"]).items():
+        want_d[k] = want_d.get(k, 0) + ENCDEC_STEPS * v
+    for r, d in zip(rw, dec):
+        require(_by_axis(d["collectives"]) == want_d,
+                f"{what} rank {r['coord']}: decode collectives "
+                f"{_by_axis(d['collectives'])}, the walks' {want_d}")
+        require(2 * d["cross_bytes"] == cross_bytes,
+                f"{what} rank {r['coord']}: cross K/V {d['cross_bytes']} "
+                f"bytes, not half of {cross_bytes}")
+        require(d["launches"]["lora_matmul"] > 0
+                and d["launches"]["flash_attention"] > 0,
+                f"{what} rank {r['coord']}: decode launched "
+                f"{d['launches']}")
+    emit({**info, "run": "c_decode", "arch": ENCDEC_ARCH, "world": 2,
+          "backend": "gloo", "mesh": {"pod": 1, "data": 1, "model": 2},
+          "rows": ENCDEC_ROWS, "steps": ENCDEC_STEPS,
+          "adapter": "eq7_fused_rank16",
+          "prefill_cross_ms": dec[0]["prefill_s"] * 1e3,
+          "meshless_prefill_cross_ms": pre_t * 1e3,
+          "ms_per_step": dec[0]["decode_s"] / ENCDEC_STEPS * 1e3,
+          "meshless_ms_per_step": dec_t / ENCDEC_STEPS * 1e3,
+          "first_step_max_abs_logit_err": err0, "max_abs_logit": top0,
+          "first_token_agree": int(agree.sum()),
+          "decisive_rows": int(decisive.sum()),
+          "matched_tokens": matched_d, "max_abs_logit_err": worst_d,
+          "streams_bitwise_meshless": bool(torch.equal(tc, tt)),
+          "cross_kv_bytes_per_rank": [d["cross_bytes"] for d in dec],
+          "meshless_cross_kv_bytes": cross_bytes,
+          "collectives": _collective_summary(dec[0]["collectives"]),
+          "host_ms_note": GLOO_NOTE,
+          "peak_bytes_per_rank": [d["peak_bytes"] for d in dec],
+          "dry_run_decode_peak_bytes": walk_d["peak_bytes"],
+          "launches": [{k: d["launches"][k] for k in kernels.TRAINING}
+                       for d in dec]})
+    counts["c_decode"] = {n: dec[0]["launches"][n] for n in kernels.TRAINING}
+    emit({**info, "run": "seconds", "phase_s": time.perf_counter() - t_phase,
+          "meshless_s": meshless_s, "spawn_s": spawn_s})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def vlm_encdec_phase(device, seed: int, T: int = 256, new_tokens: int = 16,
                      rank: int = 16):
     """internvl2-26b, then whisper-small (``vlm_phase``,
@@ -7165,6 +7804,8 @@ def main(argv=None) -> int:
                             T)
     mesh_ssm_counts = timed("mesh_ssm", mesh_ssm_phase, device, args.seed,
                             T)
+    mesh_vlm_encdec_counts = timed("mesh_vlm_encdec", mesh_vlm_encdec_phase,
+                                   device, args.seed, T)
     # each kernel's launches on its own path's run; the standalone kernel's
     # at its entry point
     counts = {**{n: serve_counts[n] for n in kernels.SERVING},
@@ -7185,6 +7826,7 @@ def main(argv=None) -> int:
         "mesh_serve": mesh_serve_counts,
         "mesh_moe": mesh_moe_counts,
         "mesh_ssm": mesh_ssm_counts,
+        "mesh_vlm_encdec": mesh_vlm_encdec_counts,
         "remat": remat_counts})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "by_phase": seconds})

@@ -32,12 +32,14 @@ mean, so θ_s' is identical on all ranks.  At one client a rank the
 shares are exact halves at pod 2, so their sum, rounded once, is the
 meshless round's mean bit for bit.
 
-With a ``"model"`` axis > 1 (dense, MoE, SSM and hybrid configs;
-``models/tensor_parallel.py``) each rank holds its shard of the base, of
-θ_s and of the state (heads, ff columns, vocabulary, experts and SSM
-heads split over the model group, a mamba layer's ``in_proj`` columns
-by heads within each segment, ``local_shard`` under ``param_specs`` and
-:func:`state_specs`):
+With a ``"model"`` axis > 1 (every family; ``models/
+tensor_parallel.py``) each rank holds its shard of the base, of θ_s and
+of the state (heads, ff columns, experts and SSM heads split over the
+model group, the vocabulary where the axis divides it and whole on every
+rank where it does not, a mamba layer's ``in_proj`` columns by heads
+within each segment, ``local_shard`` under ``param_specs`` and
+:func:`state_specs`; a VLM's patch embeddings and an encoder-decoder's
+frames are batch inputs, their rows over "data" as the tokens'):
 the forward and backward sum activations over the group, and each step
 ONE model all-reduce (after the data one) sums the adapter leaves every
 rank holds whole and carries the clip's squared norms
@@ -131,10 +133,12 @@ def local_shard(tree, spec_tree, mesh):
     mesh axes of size > 1, the block of this rank's coordinate in them
     (the first axis major), contiguous (a view where the block already
     is; a ``tensor_parallel.Segments`` dim by heads within each
-    segment, ``tensor_parallel.segment_cut``).  Axes the mesh lacks
-    are dropped (``launch/specs.sharding_tree``); unlike ``sharding_tree``
-    an axis that does not divide its dim is refused, since a rank's rows
-    must be its own."""
+    segment, ``tensor_parallel.segment_cut``; a ``tensor_parallel.Vocab``
+    dim the axis does not divide stays whole, as the reference lays the
+    vocabulary out).  Axes the mesh lacks are dropped (``launch/specs.
+    sharding_tree``); unlike ``sharding_tree`` any other axis that does
+    not divide its dim is refused, since a rank's rows must be its
+    own."""
     sizes, coord = mesh_shape(mesh), mesh_coordinate(mesh)
 
     def take(spec, leaf):
@@ -148,6 +152,8 @@ def local_shard(tree, spec_tree, mesh):
                 continue
             if isinstance(e, tpl.Segments):
                 leaf = tpl.segment_cut(leaf, d, e.segments, n, c)
+                continue
+            if tpl.whole_at(e, n):
                 continue
             if leaf.shape[d] % n:
                 raise ValueError(f"local_shard: dim {d} of {tuple(leaf.shape)}"
@@ -185,11 +191,11 @@ def make_fdlora_round_step(model, cfg, inner_opt: Optimizer,
     "pod" and "data", and the round returns θ_s' and the loss (the same
     on every rank of a model coordinate) and this rank's shard of the new
     state.  At ``"model"`` > 1 the base, θ_s and the outer state are this
-    rank's shards too (``local_shard`` under ``param_specs`` and
-    ``core/lora.adapter_specs``); refused there, naming what is not
-    ported: the VLM, the encoder-decoder, and head, kv-head, ff,
-    vocabulary, expert or SSM-head counts that do not divide (or SSM
-    groups that neither divide nor are 1).
+    rank's shards too (``local_shard`` under the model's ``param_specs``
+    and ``core/lora.adapter_specs``), for every family, a vocabulary the
+    axis does not divide whole on every rank; refused there, naming the
+    count, where a head, kv-head, ff, expert or SSM-head count does not
+    divide (or SSM groups neither divide nor are 1).
     ``mesh=None`` is one pod holding every client, with no collective.
     """
     if compress_outer not in ("none", "bf16"):

@@ -34,7 +34,6 @@ from repro_torch.federated.distributed import (batch_specs, client_slice,
                                                local_shard,
                                                make_fdlora_round_step,
                                                stack_clients, state_specs)
-from repro_torch.models.model import param_specs
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.api import Model
 from repro_torch.training.optimizers import adamw
@@ -77,7 +76,12 @@ class RoundJob:
 def sft_batches(job: RoundJob) -> List[Dict[str, np.ndarray]]:
     """Per round, ``tokens`` and ``loss_mask`` (N, K, B, S) int32: SFT
     rows of synthetic log text (a dataset per client from ``job.seed``),
-    the prompt masked out of the loss, so masks differ row to row."""
+    the prompt masked out of the loss, so masks differ row to row; a
+    VLM's ``patch_embeds`` (N, K, B, n_patch_tokens, d) and an
+    encoder-decoder's ``enc_embeds`` (N, K, B, encoder_seq_len, d), fp32
+    stubs of the modality frontend drawn from ``job.seed + 1`` (patches
+    at the embedding table's scale 0.02, frames at unit scale, as a conv
+    frontend's output)."""
     from repro_torch.data.pipeline import SFTBatcher
     from repro_torch.data.synthetic import gen_log_dataset
     from repro_torch.data.tokenizer import ByteTokenizer
@@ -93,6 +97,16 @@ def sft_batches(job: RoundJob) -> List[Dict[str, np.ndarray]]:
                                  for row in raw]).astype(np.int32)
                     for k in ("tokens", "loss_mask")})
         out[-1]["tokens"] %= job.cfg.vocab_size
+    cfg = job.cfg
+    stub = {"vlm": ("patch_embeds", cfg.n_patch_tokens, 0.02),
+            "encdec": ("enc_embeds", cfg.encoder_seq_len, 1.0)}
+    if cfg.family in stub:
+        key, n, scale = stub[cfg.family]
+        frontend = np.random.default_rng(job.seed + 1)
+        for b in out:
+            b[key] = (frontend.standard_normal(
+                (job.clients, job.inner_steps, job.rows, n, cfg.d_model),
+                dtype=np.float32) * scale)
     return out
 
 
@@ -186,7 +200,7 @@ def run(job: RoundJob) -> List[Dict]:
             if shape[2] > 1:          # copies: a row block is a view
                 bases[shape] = tree_map(
                     lambda t: t.clone(),
-                    local_shard(params, param_specs(cfg), mesh))
+                    local_shard(params, model.param_specs(), mesh))
     if sharded:
         params = None
         gc.collect()

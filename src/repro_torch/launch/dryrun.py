@@ -32,12 +32,16 @@ Over a mesh (``dry_run(..., mesh=(pod, data, model))``, the CLI's
 ``--mesh P,D,M``; ``--mesh 2,16,16`` is the reference's multi-pod mesh)
 the walk is one rank's
 step at its local shard shapes (``models/tensor_parallel.local_config``:
-heads, ff columns and vocabulary over "model"; batch rows over "pod" and
-"data"): ``memory`` is per rank, every collective the step issues is
-logged by ``launch/mesh.all_reduce`` instead of issued (``collectives``:
-each one's axis, group and bytes), and the roofline takes ``chips`` and
-that log.  All four steps walk there, for the dense, MoE, SSM and
-hybrid families (an MoE layer's experts split over "model", its routing
+heads, ff columns and the vocabulary over "model", a vocabulary the axis
+does not divide whole on every rank, as the reference's ``_shardings``
+lays it out; batch rows over "pod" and "data"): ``memory`` is per rank,
+every collective the step issues is logged by ``launch/mesh.all_reduce``
+instead of issued (``collectives``: each one's axis, group and bytes),
+and the roofline takes ``chips`` and that log.  All four steps walk
+there, for every family (the VLM's patch embeddings whole on every rank;
+the encoder-decoder's encoder, decoder and cross K/V on the rank's heads,
+its encoder output entering the group once; an MoE layer's experts split
+over "model", its routing
 ids gathered over the axes that split the rows, and in training its aux
 loss summed there, as ``models/moe.apply_moe`` runs over a mesh; a
 mamba layer's SSM heads over "model", its gated norm's sum of squares
@@ -46,8 +50,11 @@ and ``out_proj``'s partials summed there, each sum's backward too, as
 rank's shards of params and adapters, the decode cache at its kv heads
 and SSM heads over "model", rows over the ``launch/specs.
 batch_axes`` prefix of ("pod", "data"), then the greedy sample every
-rank agrees on (one reduce over "model") and every row's token gathered
-over the rows' axes, as ``ServeConfig.mesh`` serves.
+rank agrees on (one reduce over "model", none where the vocabulary is
+whole) and every row's token gathered over the rows' axes, as
+``ServeConfig.mesh`` serves.  Where the vocabulary is whole no
+collective touches it: the embedding's sum, the loss's three and the
+sample's reduce are not issued.
 
 Usage (on the CPU; no card needed):
 
@@ -94,7 +101,8 @@ from repro_torch.launch import specs as sp
 from repro_torch.models.api import Model
 from repro_torch.models.tensor_parallel import (check_model_axis,
                                                 shard_leaf,
-                                                vocab_parallel_greedy)
+                                                vocab_parallel_greedy,
+                                                vocab_split)
 from repro_torch.training.optimizers import adamw
 from repro_torch.training.train_step import (make_full_train_step,
                                              make_lora_train_step)
@@ -335,14 +343,16 @@ def _serve_rank(B: int, mesh):
             mesh_lib.data_group(mesh, split[::-1]))
 
 
-def _greedy_tokens(logits, mesh, tp, split):
+def greedy_tokens(cfg, logits, mesh, tp, split):
     """The step's greedy sample as every rank takes it (``ServeConfig.
     mesh``): the vocabulary-parallel argmax of the last position (one
-    reduce over "model"), then every row's token gathered over the axes
-    the rows are split over."""
+    reduce over "model"; the plain argmax where the vocabulary is whole),
+    then every row's token gathered over the axes the rows are split
+    over."""
     last = logits[:, -1]
-    tok = (torch.argmax(last, -1) if tp is None
-           else vocab_parallel_greedy(last, tp)).to(torch.int32)
+    tok = (vocab_parallel_greedy(last, tp)
+           if tp is not None and vocab_split(cfg, tp.size)
+           else torch.argmax(last, -1)).to(torch.int32)
     for a in split:
         tok = mesh_lib.all_gather(tok, mesh, a).reshape(-1)
     return tok
@@ -386,7 +396,7 @@ def build_prefill(model, cfg, B: int, S: int, mesh=None,
             if mesh is None:
                 return logits
             _scratch_syncs(cfg, tp, dp, block_size, kv_dtype)
-            return logits, _greedy_tokens(logits, mesh, tp, split)
+            return logits, greedy_tokens(cfg, logits, mesh, tp, split)
     return (fn, {"params": params, "adapters": adapters, "inputs": batch},
             rl.model_flops_decode(cfg, B * S))
 
@@ -414,7 +424,7 @@ def build_decode(model, cfg, B: int, S: int, mesh=None,
             if mesh is None:
                 return out
             _scratch_syncs(cfg, tp, dp, block_size, kv_dtype)
-            return out, _greedy_tokens(out[0], mesh, tp, split)
+            return out, greedy_tokens(cfg, out[0], mesh, tp, split)
     return (fn, {"params": params, "adapters": adapters, "cache": cache,
                  "inputs": dec}, rl.model_flops_decode(cfg, B))
 
@@ -481,10 +491,10 @@ def dry_run(cfg, step: str, B: int, S: int, mesh=None, **opts) -> Dict:
     """One step of ``cfg`` at B rows of S tokens on the meta device; the
     result's ``params``, ``memory``, ``roofline``, ``counts``,
     ``kernels`` and ``collectives`` entries.  ``mesh`` (pod, data,
-    model): one rank's step there (the model axis for dense, MoE, SSM
-    and hybrid configs whose split counts divide, refused otherwise
-    naming the count).  ``opts`` go to the step's ``build_*``
-    (``n_clients``, ``K`` of the round)."""
+    model): one rank's step there (the model axis for every family
+    whose split counts divide, refused otherwise naming the count).
+    ``opts`` go to the step's ``build_*`` (``n_clients``, ``K`` of the
+    round)."""
     model = Model(cfg, META)
     chips = 1
     if mesh is not None:
@@ -572,9 +582,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", type=lambda v: tuple(map(int, v.split(","))),
                     help="POD,DATA,MODEL: one rank of that (pod, data, "
                          "model) mesh, 2,16,16 the reference's multi-pod "
-                         "one; every step, dense, MoE, SSM and hybrid archs "
-                         "whose counts "
-                         "divide"),
+                         "one; every step, every arch whose head, ff, "
+                         "expert and SSM-head counts divide"),
     ap.add_argument("--out-dir", default="experiments/dryrun_torch")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--skip-existing", action="store_true",

@@ -278,10 +278,13 @@ def build_engine(cfg, tenants: int, device, seed: int = 0, rank=None,
     its capacity rounded up to whole shards of at least one slot per
     bucket.  ``shard`` (size, rank): the engine holds that rank's shard of
     a ``size``-way "model" axis, drawn as it is cut (``Model.init``), and
-    serves over such a mesh only."""
+    serves over such a mesh only.  The encoder-decoder is refused, as the
+    engine's paged pools refuse it (``Model.check_paged``), with a mesh
+    or without."""
     if rank:
         cfg = cfg.with_overrides(lora_rank=rank)
     model = Model(cfg, device=device)
+    model.check_paged()              # the engine's pools refuse encdec
     params = model.init(seed, shard=shard)
     cap = 2 * tenants if ranks else tenants
     cap = max(cap, shards * max(1, len(set(ranks or ()))))

@@ -36,8 +36,8 @@ class Model:
         rank's shard of a ``size``-way model axis, cut as it is drawn
         (``model.init_params``)."""
         if self.cfg.is_encdec:
-            _no_model_axis(shard)
-            return encdec.init_params(self.cfg, seed, self.device)
+            return encdec.init_params(self.cfg, seed, self.device,
+                                      shard=shard)
         return dec.init_params(self.cfg, seed, self.device, shard=shard)
 
     def param_specs(self) -> Params:
@@ -56,19 +56,19 @@ class Model:
         scalar, 0 for a model without MoE layers).  A VLM's logits cover
         its P patch positions, then the S text positions.  ``tp``: a
         model group (``models/tensor_parallel.py``), the params and
-        adapters this rank's shards, the logits its vocabulary block.
+        adapters this rank's shards, the logits its vocabulary block (or
+        whole: ``tensor_parallel.vocab_split``).
         ``dp``: a data group, the batch this rank's rows (``need_aux``:
         ``model.forward``); the encoder-decoder, which has no MoE layer,
-        reads neither."""
+        reads no ``dp``."""
         cfg = self.cfg
         if cfg.is_encdec:
-            _no_model_axis(tp)
             if adapter_ids is not None:
                 raise NotImplementedError("multi-tenant banked adapters are "
                                           "decoder-family only")
             return encdec.forward(params, batch["enc_embeds"],
                                   batch["tokens"], cfg, adapters, lora_scale,
-                                  paged_backend=paged_backend)
+                                  paged_backend=paged_backend, tp=tp)
         extra = batch.get("patch_embeds") if cfg.family == "vlm" else None
         return dec.forward(params, batch["tokens"], cfg, adapters,
                            lora_scale, last_only=last_only,
@@ -80,9 +80,8 @@ class Model:
                           tp=None) -> Params:
         """The fixed path's cache; ``tp``: the rank's kv heads."""
         if self.cfg.is_encdec:
-            _no_model_axis(tp)
             return encdec.init_decode_cache(self.cfg, batch, cache_len,
-                                            self.device)
+                                            self.device, tp=tp)
         return dec.init_decode_cache(self.cfg, batch, cache_len, self.device,
                                      tp=tp)
 
@@ -98,15 +97,20 @@ class Model:
         """K/V pools of ``num_blocks`` blocks; a model with mamba layers
         also needs ``num_slots``, its rows of recurrent state.  ``tp``:
         the pools hold the rank's kv heads."""
-        if self.cfg.is_encdec:
-            raise NotImplementedError("paged decoding is decoder-family only")
+        self.check_paged()
         return dec.init_paged_decode_cache(self.cfg, num_blocks, block_size,
                                            self.device, kv_dtype=kv_dtype,
                                            num_slots=num_slots, tp=tp)
 
-    def paged_decode_cache_specs(self, kv_dtype: str = "f32") -> Params:
+    def check_paged(self) -> None:
+        """Refuse paged serving of the encoder-decoder, which decodes on
+        the fixed path only, as in the reference (with or without a
+        mesh)."""
         if self.cfg.is_encdec:
             raise NotImplementedError("paged decoding is decoder-family only")
+
+    def paged_decode_cache_specs(self, kv_dtype: str = "f32") -> Params:
+        self.check_paged()
         return dec.paged_decode_cache_specs(self.cfg, kv_dtype)
 
     def prefill_step(self, params: Params, cache: Params, tokens, pos, n_new,
@@ -149,29 +153,21 @@ class Model:
         """One decode step, paged (``block_tables``, per-row ``pos``) or
         contiguous (int ``pos``); returns (logits (B, 1, V), cache).  The
         encoder-decoder steps its contiguous cache only, its cross K/V
-        filled by ``encdec.prefill_cross``.  ``tp``: this rank's shards
-        (dense, MoE, SSM and hybrid configs), the logits its block of
-        the vocabulary;
-        ``dp``: the rows this rank's block of the slots."""
+        filled by ``encdec.prefill_cross``.  ``tp``: this rank's shards,
+        the logits its block of the vocabulary (whole where the group does
+        not split it); ``dp``: the rows this rank's block of the slots."""
         if self.cfg.is_encdec:
-            _no_model_axis(tp)
             if adapter_ids is not None or block_tables is not None:
                 raise NotImplementedError("multi-tenant banked adapters and "
                                           "paged decoding are decoder-family "
                                           "only")
             return encdec.decode_step(params, cache, tokens, pos, self.cfg,
                                       adapters, lora_scale,
-                                      paged_backend=paged_backend)
+                                      paged_backend=paged_backend, tp=tp)
         return dec.decode_step(params, cache, tokens, pos, self.cfg, adapters,
                                lora_scale, adapter_ids=adapter_ids,
                                block_tables=block_tables,
                                paged_backend=paged_backend, tp=tp, dp=dp)
-
-
-def _no_model_axis(tp) -> None:
-    if tp is not None:
-        raise ValueError("the encoder-decoder over the \"model\" axis is "
-                         "not ported")
 
 
 def get_model(cfg, device="cuda") -> Model:

@@ -36,7 +36,7 @@ from repro_torch.kernels.paged_prefill import (_scatter_coords,
                                                paged_scatter,
                                                paged_scatter_quant)
 from repro_torch.core.partition import P
-from repro_torch.models.tensor_parallel import reduce_from_group
+from repro_torch.models.tensor_parallel import Vocab, reduce_from_group
 
 Params = Dict[str, Any]
 
@@ -500,8 +500,16 @@ def mlp_specs(mlp_type: str) -> Params:
     return p
 
 
-def embed_specs() -> P:
-    return P(MODEL, None)
+def embed_specs(vocab_size: int) -> P:
+    """The vocabulary on the model axis, split where the axis divides it
+    and whole on every rank where it does not (``tensor_parallel.Vocab``,
+    ``vocab_split``)."""
+    return P(Vocab(MODEL, vocab_size), None)
+
+
+def lm_head_specs(vocab_size: int) -> P:
+    """An untied head's (d, V): its vocabulary as :func:`embed_specs`'."""
+    return P(None, Vocab(MODEL, vocab_size))
 
 
 def kv_cache_specs() -> Params:

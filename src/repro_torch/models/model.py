@@ -29,7 +29,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import PAGED_BACKENDS, torch_dtype
-from repro_torch.core.partition import P, spec_map
+from repro_torch.core.partition import spec_map
 from repro_torch.kernels.lora_matmul import lora_matmul_op
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
@@ -103,10 +103,10 @@ def init_params(cfg, seed: int = 0, device="cuda",
         if mlp_kind != "none":
             layer["norm2"], layer["mlp"] = norm(), mlp
         layers.append(layer)
-    params = {"embed": cut(normal((V, d), 0.02), L.embed_specs()),
+    params = {"embed": cut(normal((V, d), 0.02), L.embed_specs(V)),
               "final_norm": norm(), "layers": layers}
     if not cfg.tie_embeddings:
-        params["lm_head"] = cut(normal((d, V), 0.02), P(None, L.MODEL))
+        params["lm_head"] = cut(normal((d, V), 0.02), L.lm_head_specs(V))
     return params
 
 
@@ -124,12 +124,12 @@ def _layer_specs(cfg, i: int) -> Params:
 
 def param_specs(cfg) -> Params:
     """Partition specs of :func:`init_params`'s tree."""
-    specs: Params = {"embed": L.embed_specs(),
+    specs: Params = {"embed": L.embed_specs(cfg.vocab_size),
                      "final_norm": L.norm_specs(cfg.norm_type),
                      "layers": [_layer_specs(cfg, i)
                                 for i in range(cfg.n_layers)]}
     if not cfg.tie_embeddings:
-        specs["lm_head"] = P(None, L.MODEL)
+        specs["lm_head"] = L.lm_head_specs(cfg.vocab_size)
     return specs
 
 
@@ -177,24 +177,40 @@ def resolve_backend(cfg, paged_backend: Optional[str], device):
     return cfg.with_overrides(paged_backend=backend)
 
 
+def embed_tokens(embed, tokens, cfg, tp=None) -> torch.Tensor:
+    """Rows of ``embed`` for ``tokens`` in the activations' dtype: the
+    vocabulary-parallel lookup (one sum over the group) where ``tp``
+    splits the vocabulary, else a plain lookup of the whole table."""
+    if tp is not None and tpl.vocab_split(cfg, tp.size):
+        return tpl.vocab_parallel_embed(embed, tokens, tp).to(
+            torch_dtype(cfg.dtype))
+    return embed[tokens.long()].to(torch_dtype(cfg.dtype))
+
+
+def logits_of(x, head, cfg, tp=None) -> torch.Tensor:
+    """fp32 logits of the final-normed ``x`` through ``head`` (d, V):
+    where ``tp`` splits the vocabulary the rank's block (its input enters
+    the group: each rank's gradient of ``x`` is a partial); else the whole
+    logits, and ``x`` does not enter the group, since every rank already
+    holds its whole gradient."""
+    if tp is not None and tpl.vocab_split(cfg, tp.size):
+        x = tpl.copy_to_group(x, tp)
+    return L.matmul(x, head, out_dtype=torch.float32)
+
+
 def _embed(params, tokens, cfg, tp=None):
-    dtype = torch_dtype(cfg.dtype)
-    if tp is None:
-        x = params["embed"][tokens.long()].to(dtype)
-    else:
-        x = tpl.vocab_parallel_embed(params["embed"], tokens, tp).to(dtype)
+    x = embed_tokens(params["embed"], tokens, cfg, tp)
     if cfg.family == "dense" and cfg.tie_embeddings:   # gemma-style scaling
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
 def _unembed(params, x, cfg, tp=None):
-    """Logits (fp32); with ``tp`` this rank's block of the vocabulary."""
+    """Logits (fp32); with ``tp`` this rank's block of the vocabulary, or
+    the whole logits where the group does not split it."""
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type)
-    if tp is not None:
-        x = tpl.copy_to_group(x, tp)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return L.matmul(x, head, out_dtype=torch.float32)
+    return logits_of(x, head, cfg, tp)
 
 
 def _apply_layer(i, lp, x, cfg, positions, adapters, lora_scale, cache=None,
@@ -282,10 +298,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
     prepended to the embedded text: the logits then cover P + S positions,
     the patches at RoPE positions 0..P-1.
 
-    ``tp`` (``models/tensor_parallel.ModelGroup``; dense, MoE, SSM and
-    hybrid configs): the params and adapters are this rank's shards under
-    ``param_specs`` and ``core/lora.adapter_specs``, and the logits (B,
-    S, V / size) its block of the vocabulary.  ``dp``
+    ``tp`` (``models/tensor_parallel.ModelGroup``): the params and
+    adapters are this rank's shards under ``param_specs`` and
+    ``core/lora.adapter_specs``, and the logits (B, S, V / size) its
+    block of the vocabulary, or (B, S, V) where the group does not split
+    it (``tensor_parallel.vocab_split``); a VLM's patch embeddings are
+    whole on every rank.  ``dp``
     (``tensor_parallel.DataGroup``): ``tokens`` are this rank's rows of a
     batch the group splits, which an MoE layer's capacity and aux loss
     span; ``need_aux=False`` skips the aux loss's sum over it (the aux
@@ -305,9 +323,6 @@ def forward(params: Params, tokens: torch.Tensor, cfg,
     repeats.  Under ``torch.no_grad`` (evaluation, the dry run's serving
     walks) nothing is checkpointed."""
     cfg = resolve_backend(cfg, paged_backend, tokens.device)
-    if tp is not None and extra_embeds is not None:
-        raise ValueError("the VLM's patch embeddings over the \"model\" "
-                         "axis are not ported")
     x = _embed(params, tokens, cfg, tp)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
@@ -404,7 +419,7 @@ def _cached_scan(params, cache, tokens, positions, cfg, adapters, lora_scale,
     """Embed, every layer against its cache, final norm, unembed (the MoE
     aux loss is dropped, as in the reference, so a data group never sums
     it).  With ``tp`` the logits are the rank's block of the
-    vocabulary."""
+    vocabulary (whole where the group does not split it)."""
     x = _embed(params, tokens, cfg, tp)
     new_layers = []
     for i, lp in enumerate(params["layers"]):
@@ -429,10 +444,10 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor,
     a cache from :func:`init_paged_decode_cache`.  Contiguous (the fixed
     path): ``block_tables`` None, ``pos`` an int, the tokens already in a
     cache from :func:`init_decode_cache`.  Returns (logits (B, 1, V),
-    cache).  ``tp`` (``models/tensor_parallel.ModelGroup``; dense, MoE,
-    SSM and hybrid configs): params, adapters and cache are this rank's
-    shards, the
-    logits (B, 1, V / size) its block of the vocabulary.  ``dp``
+    cache).  ``tp`` (``models/tensor_parallel.ModelGroup``): params,
+    adapters and cache are this rank's shards, the logits (B, 1, V /
+    size) its block of the vocabulary (whole where the group does not
+    split it).  ``dp``
     (``tensor_parallel.DataGroup``): the rows are this rank's block of
     the serving slots, which an MoE layer's capacity spans."""
     cfg = resolve_backend(cfg, paged_backend, tokens.device)

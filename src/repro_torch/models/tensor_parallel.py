@@ -16,7 +16,11 @@ those trees and the model says where the sums go:
   :func:`reduce_from_group` sums the partials (identity backward);
 * the embedding and the cross entropy over a vocabulary split in
   contiguous blocks (:func:`vocab_parallel_embed`,
-  :func:`vocab_parallel_nll`, :func:`vocab_parallel_argmax`);
+  :func:`vocab_parallel_nll`, :func:`vocab_parallel_argmax`), where the
+  axis divides it (:func:`vocab_split`); a vocabulary it does not divide
+  stays whole on every rank, as the reference's dry run drops such an
+  axis (``_shardings``), and no collective touches it: a plain lookup,
+  whole logits, the plain cross entropy;
 * the experts of an MoE layer (expert parallelism): each rank holds
   ``n_experts / size`` whole experts and runs their copies of the
   dispatch every rank plans alike, its combine a partial of the layer's
@@ -76,24 +80,66 @@ class DataGroup:
     reduce: Callable
 
 
+def vocab_split(cfg, size: int) -> bool:
+    """Whether a ``size``-way model axis splits the vocabulary of ``cfg``
+    (a config, or a :class:`Vocab` spec entry): where ``vocab_size``
+    divides.  Where it does not, ``embed`` and ``lm_head`` stay whole on
+    every rank, as the reference's dry run lays them out (its
+    ``_shardings`` drops an axis that does not divide a dim), and no
+    collective touches the vocabulary: the lookup is plain, the logits
+    whole on every rank, the loss the plain cross entropy and a greedy
+    or sampled token read the whole logits.  The one rule every caller
+    reads."""
+    return cfg.vocab_size % size == 0
+
+
+class Vocab(str):
+    """A spec entry naming the ``"model"`` axis (it equals the name, as
+    the reference's spec names it) over a vocabulary of ``vocab_size``
+    entries: :func:`shard_leaf`, :func:`join_leaf` and
+    ``federated/distributed.local_shard`` split such a dim in contiguous
+    blocks where :func:`vocab_split` says the axis divides it, and keep
+    it whole on every rank where it does not."""
+
+    def __new__(cls, axis: str, vocab_size: int):
+        out = super().__new__(cls, axis)
+        out.vocab_size = int(vocab_size)
+        return out
+
+    def __reduce__(self):
+        return (Vocab, (str(self), self.vocab_size))
+
+    def __repr__(self) -> str:
+        return f"Vocab({str(self)!r}, {self.vocab_size})"
+
+
+def whole_at(entry, size: int) -> bool:
+    """True where a spec entry's dim stays whole at a ``size``-way model
+    axis though the entry names it: a :class:`Vocab` the axis does not
+    divide."""
+    return isinstance(entry, Vocab) and not vocab_split(entry, size)
+
+
 def _split_dims(cfg):
     """The counts a model axis divides: attention's heads and kv heads
     and ``d_ff`` where the config has an attention layer or a dense MLP
-    (mamba2 has neither; its ``n_heads`` and ``d_ff`` are placeholders),
-    the vocabulary always; then the checked-only counts: the experts
-    (every rank's router ranks all of them) and the SSM heads (a mamba
-    layer sizes its share from the global config and the group)."""
+    (mamba2 has neither; its ``n_heads`` and ``d_ff`` are placeholders);
+    then the checked-only counts: the experts (every rank's router ranks
+    all of them) and the SSM heads (a mamba layer sizes its share from
+    the global config and the group).  The vocabulary is split where it
+    divides and whole otherwise (:func:`vocab_split`)."""
     split = (HEAD_DIMS if any(e.startswith("attn") or e.endswith("+mlp")
                               for e in cfg.layer_pattern) else ())
     checked = (("n_experts",) if cfg.has_moe() else ()) + (
         ("ssm_n_heads",) if cfg.has_mixer("mamba") else ())
-    return split + ("vocab_size",), checked
+    return split, checked
 
 
 def local_config(cfg, size: int):
     """``cfg`` at one rank's shard of a ``size``-way model axis: heads, kv
-    heads, ff columns and vocabulary divided by ``size`` where the config
-    has what reads them (the head dim and the experts' width pinned);
+    heads and ff columns divided by ``size`` where the config has what
+    reads them (the head dim and the experts' width pinned), the
+    vocabulary where :func:`vocab_split` says so (else whole);
     ``n_experts`` and a mamba layer's counts stay global (every rank's
     router ranks all the experts; ``ssm_d_inner`` is ``ssm_expand ·
     d_model``, so ``apply_mamba`` sizes its share from ``tp.size``) and
@@ -111,23 +157,20 @@ def local_config(cfg, size: int):
         raise ValueError(f"{cfg.name}: ssm_n_groups {g} neither divides "
                          f"over a \"model\" axis of {size} nor is 1 (whole "
                          "on every rank)")
+    if vocab_split(cfg, size):
+        split += ("vocab_size",)
     return cfg.with_overrides(head_dim=cfg.resolved_head_dim, **moe,
                               **{n: getattr(cfg, n) // size for n in split})
 
 
 def check_model_axis(cfg, size: int):
     """The local config of ``cfg`` at a ``size``-way model axis, or a
-    ``ValueError`` naming what is not ported: the dense, MoE, SSM and
-    hybrid families are split (attention, the dense MLP, the experts,
-    the SSM heads), with every split count dividing."""
+    ``ValueError`` naming the count that does not divide: every family
+    is split (attention, the dense and GELU MLPs, the experts, the SSM
+    heads; the VLM's patch embeddings whole on every rank, the
+    encoder-decoder's encoder, decoder and cross-attention alike)."""
     if size == 1:
         return cfg
-    family = {"vlm": "the VLM's patch embeddings",
-              "encdec": "the encoder-decoder"}
-    if cfg.family in family:
-        raise ValueError(f"{cfg.name}: not ported over a \"model\" axis > 1:"
-                         f" {family[cfg.family]}; it runs the dense, MoE, "
-                         "SSM and hybrid families only")
     return local_config(cfg, size)
 
 
@@ -209,11 +252,14 @@ def replicated_columns(segments, size: int) -> torch.Tensor:
 def shard_leaf(t: torch.Tensor, spec, size: int, rank: int) -> torch.Tensor:
     """Rank ``rank``'s block of ``t`` along the dim its spec splits over
     ``"model"`` (a copy, so the whole leaf can go; a :class:`Segments`
-    dim by :func:`segment_cut`), or ``t`` itself."""
+    dim by :func:`segment_cut`), or ``t`` itself (a :class:`Vocab` dim
+    the axis does not divide, too)."""
     for d, e in enumerate(spec):
         if "model" in entry_axes(e):
             if isinstance(e, Segments):
                 return segment_cut(t, d, e.segments, size, rank)
+            if whole_at(e, size):
+                return t
             w = t.shape[d] // size
             return t.narrow(d, rank * w, w).clone()
     return t
@@ -223,11 +269,14 @@ def join_leaf(spec, leaves):
     """The inverse of :func:`shard_leaf` over every rank's shard
     (``leaves`` in model-coordinate order): concatenated along the dim
     the spec splits over ``"model"`` (a :class:`Segments` dim by
-    :func:`segment_join`), or rank 0's where the spec splits none."""
+    :func:`segment_join`), or rank 0's where the spec splits none (or a
+    :class:`Vocab` dim the axis does not divide)."""
     for d, e in enumerate(spec):
         if "model" in entry_axes(e):
             if isinstance(e, Segments):
                 return segment_join(leaves, d, e.segments)
+            if whole_at(e, len(leaves)):
+                return leaves[0]
             return torch.cat(leaves, d)
     return leaves[0]
 

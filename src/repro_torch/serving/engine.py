@@ -76,7 +76,7 @@ from repro_torch.core.partition import mesh_coordinate, mesh_shape
 from repro_torch.federated.distributed import local_shard
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import tensor_parallel as tpl
-from repro_torch.models.model import param_specs, resolve_backend
+from repro_torch.models.model import resolve_backend
 from repro_torch.serving.kv_cache import (PagedKVCache, blocks_needed,
                                           reset_slot, to_device)
 from repro_torch.serving.registry import AdapterRegistry, model_shard
@@ -179,10 +179,14 @@ def _check_supported(sc: ServeConfig) -> None:
 
 def check_serve_mesh(cfg, mesh) -> None:
     """Refuse, naming why, a config ``ServeConfig.mesh`` cannot serve:
-    at "model" > 1 the VLM, the encoder-decoder or a split count that
-    does not divide (``tensor_parallel.check_model_axis``).  At "data" >
-    1 every family serves: a mamba layer's recurrent state is per slot,
-    so each data rank holds its slots' rows."""
+    at "model" > 1 a split count that does not divide
+    (``tensor_parallel.check_model_axis``; a vocabulary the axis does not
+    divide is whole on every rank, not refused).  At "data" > 1 every
+    family serves: a mamba layer's recurrent state is per slot, so each
+    data rank holds its slots' rows.  The VLM serves text-only requests,
+    as it does meshless; the encoder-decoder stays outside the paged
+    engine, refused by the meshless engine's own check, as the
+    reference's is."""
     tpl.check_model_axis(cfg, mesh_shape(mesh).get("model", 1))
 
 
@@ -190,9 +194,12 @@ class _MeshRank:
     """One rank's part of a stream over ``ServeConfig.mesh``: its rows
     (slots ``[lo, hi)``, shard-contiguous), its shards of the pool and its
     device pool's size, its model group, its data group (which an MoE
-    layer's dispatch spans), and the sampling every rank agrees on."""
+    layer's dispatch spans), and the sampling every rank agrees on, over
+    the vocabulary's blocks where the model group splits ``cfg``'s
+    vocabulary and over the whole logits where it does not
+    (``tensor_parallel.vocab_split``)."""
 
-    def __init__(self, mesh, num_slots: int, num_blocks: int,
+    def __init__(self, cfg, mesh, num_slots: int, num_blocks: int,
                  num_shards: int):
         sizes, coord = mesh_shape(mesh), mesh_coordinate(mesh)
         self.mesh = mesh
@@ -206,6 +213,8 @@ class _MeshRank:
         self.num_blocks = 1 + per * ((num_blocks - 1) // num_shards)
         self.tp = mesh_lib.model_group(mesh)
         self.dp = mesh_lib.data_group(mesh)
+        self.split = (self.tp is not None
+                      and tpl.vocab_split(cfg, self.tp.size))
         self.key = (tuple(sizes.items()), tuple(coord.items()))
         self.params = None            # the engine's params_for(mesh)
 
@@ -222,21 +231,24 @@ class _MeshRank:
         return g.reshape(-1, *t.shape[1:])
 
     def greedy(self, logits: torch.Tensor) -> torch.Tensor:
-        """int32 argmax of this rank's rows' logits (..., V / size)."""
-        if self.tp is None:
+        """int32 argmax of this rank's rows' logits (..., V / size), or
+        of the whole logits (..., V) where the vocabulary is whole."""
+        if not self.split:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         return tpl.vocab_parallel_greedy(logits, self.tp).to(torch.int32)
 
     def sample(self, logits: torch.Tensor, gen: torch.Generator,
                temperature: float) -> torch.Tensor:
-        """(K_rank, V / size) fp32 logits -> every slot's (K,) int32
-        sample, the same on every rank and the meshless stream's: greedy
-        as :meth:`greedy`; else the rows' whole logits (gathered over
-        "model") and their rows of the meshless (K, V) Exp(1) draws
-        (every rank draws them all, so the generators stay in step)."""
+        """(K_rank, V / size) fp32 logits (or (K_rank, V) where the
+        vocabulary is whole) -> every slot's (K,) int32 sample, the same
+        on every rank and the meshless stream's: greedy as
+        :meth:`greedy`; else the rows' whole logits (gathered over
+        "model" where it splits them) and their rows of the meshless (K,
+        V) Exp(1) draws (every rank draws them all, so the generators
+        stay in step)."""
         if temperature <= 0:
             return self.gather(self.greedy(logits))
-        if self.tp is not None:
+        if self.split:
             g = mesh_lib.all_gather(logits.contiguous(), self.mesh, "model")
             logits = g.permute(1, 0, 2).reshape(logits.shape[0], -1)
         probs = torch.softmax(logits / max(temperature, 1e-6), dim=-1)
@@ -469,7 +481,7 @@ class MultiTenantEngine(_EngineBase):
                                  f"the shard {key} from")
             self._params_shard = None
             self._params_shard = (key, local_shard(
-                self.params, param_specs(self.cfg), sc.mesh))
+                self.params, self.model.param_specs(), sc.mesh))
         return self._params_shard[1]
 
     # -- device steps --------------------------------------------------------
@@ -708,7 +720,8 @@ class StreamSession:
         dev = engine.device
         self.rk: Optional[_MeshRank] = None
         if sc.mesh is not None:
-            self.rk = _MeshRank(sc.mesh, num_slots, num_blocks, sc.num_shards)
+            self.rk = _MeshRank(engine.cfg, sc.mesh, num_slots, num_blocks,
+                                sc.num_shards)
             self.rk.params = engine.params_for(sc)
         self._geom_key = (num_slots, sc.block_size, num_blocks, blocks_per,
                           sc.num_shards, sc.kv_dtype,

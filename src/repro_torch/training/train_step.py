@@ -104,10 +104,12 @@ def cross_entropy(cfg, logits: torch.Tensor, batch,
     scalars.  ``denom``: divide by it (a data group's global token count)
     instead of this batch's own ``max(mask.sum(), 1)``.  ``tp``: the
     logits are this rank's vocabulary block of a model group
-    (``tensor_parallel.vocab_parallel_nll``); loss and accuracy come out
-    the same on every rank of the group."""
+    (``tensor_parallel.vocab_parallel_nll``), or the whole logits where
+    the group does not split the vocabulary (``tensor_parallel.
+    vocab_split``: the plain loss, no collective); loss and accuracy come
+    out the same on every rank of the group."""
     lg, tg, mask = _shift_for_family(cfg, logits, batch)
-    if tp is None:
+    if tp is None or not tpl.vocab_split(cfg, tp.size):
         logp = torch.log_softmax(lg.float(), dim=-1)
         nll = -torch.gather(logp, -1, tg[..., None])[..., 0]
         top = torch.argmax(lg, -1)
@@ -127,7 +129,7 @@ def make_lora_loss_fn(model, cfg, paged_backend: Optional[str] = None,
     metrics)``: the cross entropy plus ``router_aux_loss_coef`` times the
     MoE aux loss (``metrics["aux_loss"]``).  With a model group ``tp``
     the trees are this rank's shards and the cross entropy is
-    vocabulary-parallel.  With a data group ``dp`` the batch is this
+    vocabulary-parallel where the group splits the vocabulary.  With a data group ``dp`` the batch is this
     rank's rows and the aux loss the whole batch's, the same on every
     rank: it enters the loss at ``1 / dp.size`` of its value, so the
     ranks' losses are shares of the whole batch's as their cross

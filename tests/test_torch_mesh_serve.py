@@ -23,10 +23,11 @@ one spawn of 2 ranks and one of 4, each rank on one torch thread).
   run's per-rank argument bytes are the local shards';
 * the bank's model shard (ragged, int8, kernel view), a data rank's block
   tables, the one-reduce vocabulary-parallel argmax with ties across
-  blocks, and the refusals: the VLM, the encoder-decoder and an expert
-  count that does not divide at "model" > 1 (the SSM and hybrid archs
-  accepted there and at "data" > 1), ``num_shards`` not a multiple of
-  "data", the open-loop front ends and the fixed-batch path.
+  blocks, and the refusals: an expert count that does not divide at
+  "model" > 1 (the SSM and hybrid archs and the VLM accepted there and at
+  "data" > 1; the encoder-decoder refused by the meshless engine's own
+  check, not by the mesh), ``num_shards`` not a multiple of "data", the
+  open-loop front ends and the fixed-batch path.
 """
 import dataclasses
 
@@ -49,7 +50,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.lora import init_adapters, tree_leaves
 from repro_torch.federated.distributed import local_shard
 from repro_torch.kernels.ops import concat_buckets
-from repro_torch.launch import dryrun
+from repro_torch.launch import dryrun, serve
 from repro_torch.launch.mesh import spawn
 from repro_torch.models import tensor_parallel as tpl
 from repro_torch.models.api import Model
@@ -426,16 +427,25 @@ def test_vocab_parallel_greedy_is_the_argmax_in_one_reduce(size):
 @pytest.mark.parametrize("arch,match", [
     ("dbrx-132b-3-experts", "n_experts 3 does not divide"),
     ("mamba2-2.7b", None),
-    ("jamba-v0.1-52b", None), ("internvl2-26b", "VLM"),
-    ("whisper-small", "encoder-decoder")])
+    ("jamba-v0.1-52b", None), ("internvl2-26b", None),
+    ("whisper-small", "decoder-family only")])
 def test_families_are_refused_over_the_model_axis(arch, match):
-    """The VLM, the encoder-decoder and a count that does not divide are
-    refused; the SSM and hybrid archs (``match`` None) are served at
-    model 2 since their SSM heads split over it."""
+    """A count that does not divide is refused; the SSM and hybrid archs
+    and the VLM (``match`` None) are served at model 2 and data 2, the
+    VLM text-only as meshless; the encoder-decoder passes the mesh's
+    check and is refused by the meshless engine's own, as the reference
+    refuses paged decoding of it."""
     cfg = (get_config("dbrx-132b", smoke=True).with_overrides(n_experts=3)
            if arch == "dbrx-132b-3-experts" else get_config(arch, smoke=True))
     if match is None:
         check_serve_mesh(cfg, {"pod": 1, "data": 1, "model": 2})
+        check_serve_mesh(cfg, {"pod": 1, "data": 2, "model": 1})
+        return
+    if cfg.is_encdec:
+        check_serve_mesh(cfg, {"pod": 1, "data": 1, "model": 2})
+        for shard in (None, (2, 0)):
+            with pytest.raises(NotImplementedError, match=match):
+                serve.build_engine(cfg, 2, "cpu", shard=shard)
         return
     with pytest.raises(ValueError, match=match):
         check_serve_mesh(cfg, {"pod": 1, "data": 1, "model": 2})

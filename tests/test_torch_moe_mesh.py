@@ -729,8 +729,8 @@ def test_local_config_keeps_the_experts_and_pins_their_width():
     with pytest.raises(ValueError, match="n_experts 3 does not divide"):
         tpl.check_model_axis(get_config("dbrx-132b", smoke=True)
                              .with_overrides(n_experts=3), 2)
-    with pytest.raises(ValueError, match="VLM"):
-        tpl.check_model_axis(get_config("internvl2-26b"), 2)
+    with pytest.raises(ValueError, match="n_kv_heads 8"):
+        tpl.check_model_axis(get_config("internvl2-26b"), 16)
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])

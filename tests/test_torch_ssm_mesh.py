@@ -28,8 +28,9 @@ the CPU for the (1, 1, 2) and (1, 2, 1) meshes (rank program
   reference's ``prefill_step``;
 * (e) each rank's collective log equal to the dry run's ``train``,
   ``prefill`` and ``decode`` walks at the same mesh, and the reference's
-  multi-pod mesh still skipping both full archs by the count that does
-  not divide.
+  multi-pod mesh still skipping jamba by the count that does not divide,
+  and mamba2-2.7b past its whole vocabulary to the LoRA tile's refusal
+  of its 901-column in_proj shard.
 """
 import threading
 
@@ -663,11 +664,27 @@ def test_serve_and_round_collectives_equal_the_dry_run(ranks, mname, name):
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("mamba2-2.7b", "vocab_size 50280 does not divide"),
+    ("mamba2-2.7b", "N = 901 must be multiples of 8"),
     ("jamba-v0.1-52b", "n_kv_heads 8 does not divide")])
 def test_the_multi_pod_mesh_skips_the_full_archs_by_their_counts(
         arch, match, tmp_path):
-    res = dryrun.run_one(arch, "train_4k", mesh=(2, 16, 16),
-                         out_dir=str(tmp_path))
-    assert res["skipped"] and match in res["reason"]
-    tpl.check_model_axis(get_config(arch), 2)
+    """jamba is skipped by its kv heads.  mamba2-2.7b's vocabulary of
+    50,280, which 16 does not divide, is whole on every rank (the walk's
+    meta shard holds the whole 50,280 x 2,560 embedding), so it passes
+    the model axis's check; its in_proj shard of 901 columns (320 z, 320
+    x, 128 B, 128 C, 5 dt) then meets the bf16 LoRA tile, whose 16-byte
+    row copies refuse a width that is not a multiple of 8."""
+    cfg = get_config(arch)
+    if arch == "mamba2-2.7b":
+        assert tpl.check_model_axis(cfg, 16).vocab_size == 50280
+        params, _ = dryrun._params_adapters(Model(cfg, "meta"), cfg,
+                                            dryrun.RankMesh((2, 16, 16)))
+        assert params["embed"].shape == (50280, 2560)
+        with pytest.raises(ValueError, match=match):
+            dryrun.run_one(arch, "train_4k", mesh=(2, 16, 16),
+                           out_dir=str(tmp_path))
+    else:
+        res = dryrun.run_one(arch, "train_4k", mesh=(2, 16, 16),
+                             out_dir=str(tmp_path))
+        assert res["skipped"] and match in res["reason"]
+    tpl.check_model_axis(cfg, 2)

@@ -3,10 +3,9 @@
 unsplit paths, on ``tiny_dense`` in fp32 (4 heads, 2 kv heads, d_ff 128
 and vocabulary 300, each divisible by 2).
 
-* ``local_config`` and the refusals of what is not split (the VLM, the
-  encoder-decoder, counts that do not divide, the expert and SSM-head
-  counts included; full fine-tuning), and the dry run's serving steps at
-  the model axis;
+* ``local_config`` and the refusals of what is not split (counts that do
+  not divide, the expert and SSM-head counts included; full
+  fine-tuning), and the dry run's serving steps at the model axis;
 * the vocabulary-parallel embedding, cross entropy and argmax on 2, 3
   and 4 ranks simulated by threads, against the plain ones, with ties in
   the argmax across the vocabulary blocks;
@@ -106,11 +105,11 @@ def test_local_config_is_the_local_shard():
     ("starcoder2-15b", 16, "n_kv_heads 4 does not divide"),
     ("llama2-7b", 3, "n_heads 32 does not divide"),
     ("dbrx-132b-3-experts", 2, "n_experts 3 does not divide"),
-    ("mamba2-2.7b", 16, "vocab_size 50280 does not divide"),
+    ("mamba2-2.7b", 32, "ssm_n_heads 80 does not divide"),
     ("jamba-v0.1-52b", 16, "n_kv_heads 8 does not divide"),
     ("mamba2-smoke-4-heads", 8, "ssm_n_heads 4 does not divide"),
-    ("internvl2-26b", 2, "VLM"),
-    ("whisper-small", 2, "encoder-decoder"),
+    ("internvl2-26b", 16, "n_kv_heads 8 does not divide"),
+    ("whisper-small", 8, "n_heads 12 does not divide"),
 ])
 def test_what_is_not_split_is_refused(arch, size, match):
     cfg = {"dbrx-132b-3-experts": lambda: get_config(

@@ -38,7 +38,6 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import moe
 from repro_torch.models import tensor_parallel as tpl
 from repro_torch.models.api import Model
-from repro_torch.models.model import param_specs
 from repro_torch.serving.engine import ServeConfig
 from repro_torch.training.optimizers import sgd
 from repro_torch.training.train_step import (data_parallel_value_and_grad,
@@ -98,7 +97,7 @@ def step_job(job, mesh):
     cfg, model = job["cfg"], Model(job["cfg"], "cpu")
     tp, dp = mesh_lib.model_group(mesh), mesh_lib.data_group(mesh)
     specs = adapter_specs(cfg)
-    pl = local_shard(job["params"], param_specs(cfg), mesh)
+    pl = local_shard(job["params"], model.param_specs(), mesh)
     al = local_shard(job["adapters"], specs, mesh)
     mine = {k: _rows(v, mesh) for k, v in job["batch"].items()}
     with recording(mesh_shape(mesh)["data"],
